@@ -1,0 +1,138 @@
+"""Static solver configuration and the explicit warm-start state.
+
+Counterpart of ``mppi_playground_tpu/core/config.py``.  :class:`MPPIConfig`
+has the same fields, validation and derived properties, with ``dtype`` a
+``torch.dtype``.  :class:`MPPIState` holds plain tensors plus a host-side
+``(seed, tick)`` pair in place of the JAX PRNG key: the per-tick kernel seed
+is hashed from it on the host (:func:`tick_seed`), so drawing it never waits
+on the device.  The MPO fields come with the auto-lambda slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import torch
+
+AUTO_LAMBDA_MODES = ("MPO", "LBPS", "ESSPS")
+
+
+@dataclasses.dataclass(frozen=True)
+class MPPIConfig:
+    """Configuration of the MPPI solver (names and defaults of the reference)."""
+
+    horizon: int
+    num_samples: int
+    dim_state: int
+    dim_control: int
+    u_min: Tuple[float, ...]
+    u_max: Tuple[float, ...]
+    sigmas: Tuple[float, ...]
+    lambda_: Union[float, str]
+    lbps_delta: float = 0.01
+    essps_target_ess: Optional[float] = None
+    lambda_min: float = 0.01
+    lambda_max: float = 10.0
+    exploration: float = 0.0
+    use_sg_filter: bool = False
+    sg_window_size: int = 5
+    sg_poly_order: int = 3
+    dtype: torch.dtype = torch.float32
+    seed: int = 42
+    store_rollouts: bool = True
+    essps_iters: int = 40
+    lbps_iters: int = 32
+    kernel_backend: str = "auto"
+
+    def __post_init__(self):
+        if self.horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {self.horizon}")
+        if self.num_samples < 1:
+            raise ValueError(f"num_samples must be >= 1, got {self.num_samples}")
+        for name in ("u_min", "u_max", "sigmas"):
+            if len(getattr(self, name)) != self.dim_control:
+                raise ValueError(
+                    f"{name} must have length dim_control={self.dim_control}"
+                )
+        if isinstance(self.lambda_, str):
+            if self.lambda_ not in AUTO_LAMBDA_MODES:
+                raise ValueError(
+                    "lambda_ takes a fixed float temperature or one of the "
+                    "auto-tuning modes 'MPO' / 'LBPS' / 'ESSPS'"
+                )
+        elif not isinstance(self.lambda_, (float, int)):
+            raise ValueError(
+                "lambda_ takes a fixed float temperature or one of the "
+                "auto-tuning modes 'MPO' / 'LBPS' / 'ESSPS'"
+            )
+        if self.use_sg_filter:
+            if self.sg_window_size % 2 == 0 or self.sg_window_size <= self.sg_poly_order:
+                raise ValueError(
+                    "the SG filter needs an odd sg_window_size larger than "
+                    "sg_poly_order"
+                )
+            if self.sg_window_size // 2 > 2 * self.horizon - 2:
+                raise ValueError(
+                    "sg_window_size too large for this horizon: the mirror "
+                    "pad exceeds the prolonged action signal."
+                )
+        if not 0.0 <= self.exploration <= 1.0:
+            raise ValueError("exploration must be in [0, 1].")
+        if self.kernel_backend not in ("auto", "xla", "pallas"):
+            raise ValueError("kernel_backend must be 'auto', 'xla' or 'pallas'.")
+
+    @property
+    def auto_lambda(self) -> Optional[str]:
+        return self.lambda_ if isinstance(self.lambda_, str) else None
+
+    @property
+    def initial_lambda(self) -> float:
+        """Fixed configs start at their value, auto modes at 1.0."""
+        if isinstance(self.lambda_, str):
+            return 1.0
+        return float(self.lambda_)
+
+    @property
+    def target_ess(self) -> float:
+        """ESSPS target effective sample size."""
+        if self.essps_target_ess is not None:
+            return float(self.essps_target_ess)
+        return self.num_samples / 10.0
+
+    @property
+    def inherited_samples(self) -> int:
+        """Samples that inherit the previous solution."""
+        return int(self.num_samples * (1.0 - self.exploration))
+
+
+@dataclasses.dataclass(frozen=True)
+class MPPIState:
+    """Cross-tick solver state.
+
+    Attributes:
+        previous_action_seq: ``[horizon, dim_control]`` warm start.
+        sg_history: ``[horizon-1, dim_control]`` previously applied actions.
+        lam: current temperature, a 0-dim tensor on the solver's device.
+        seed: host integer; with ``tick`` it names this tick's noise stream.
+        tick: host integer, advanced by one every solve.
+    """
+
+    previous_action_seq: torch.Tensor
+    sg_history: torch.Tensor
+    lam: torch.Tensor
+    seed: int
+    tick: int = 0
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def tick_seed(seed: int, tick: int) -> int:
+    """31-bit kernel seed for one tick: splitmix64 of ``(seed, tick)``, on the host."""
+    z = ((int(seed) & 0xFFFFFFFF) << 32 | (int(tick) & 0xFFFFFFFF)) & _MASK64
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    z ^= z >> 31
+    return int(z & 0x7FFFFFFF)

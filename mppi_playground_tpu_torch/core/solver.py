@@ -1,0 +1,242 @@
+"""The unfused MPPI solver on tensors, one control tick per ``solve``.
+
+Counterpart of ``mppi_playground_tpu/core/solver.py`` at a fixed
+temperature: sample around the warm start, roll out and cost every sample
+step by step, softmin-weight, average, re-roll the nominal trajectory and
+advance the warm start.  It is written in plain PyTorch and is the second,
+independent route that the fused CUDA solver (``core/fused_solver.py``) is
+held against.  Behaviours kept from the reference:
+
+* ``info['prev_*']`` at t=0 aliases t=0 itself;
+* the terminal cost uses a zero action, ``prev_state`` = the second-to-last
+  state, and keeps ``t``/``prev_action`` at their last stage-loop values;
+* the quadratic action cost is left out of the trajectory totals.
+
+Noise: ``solve(noise=...)`` takes ``[K, T, m]`` perturbations already
+scaled by sigma.  Without it, the noise is drawn from a ``torch.Generator``
+seeded with the state's ``(seed, tick)``.  Auto-lambda and the
+Savitzky–Golay filter come with later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, tick_seed
+from mppi_playground_tpu_torch.ops.weighted_update import weighted_update
+from mppi_playground_tpu_torch.utils.device import resolve_device
+
+Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+CostFn = Callable[[torch.Tensor, torch.Tensor, Dict[str, Any]], torch.Tensor]
+
+
+class SolveAux(NamedTuple):
+    """Diagnostics from one solve."""
+
+    costs: torch.Tensor
+    weights: torch.Tensor
+    lam: torch.Tensor
+    ess: torch.Tensor
+    state_seq_batch: Optional[torch.Tensor]
+
+
+class SolveResult(NamedTuple):
+    action_seq: torch.Tensor  # [T, m]
+    state_seq: torch.Tensor  # [T+1, n]
+    state: MPPIState
+    aux: SolveAux
+
+
+@dataclasses.dataclass(frozen=True)
+class MPPISolver:
+    """Bundle of solver functions specialized to one config and model."""
+
+    config: MPPIConfig
+    init: Callable[..., MPPIState]
+    solve: Callable[..., SolveResult]
+    states_prediction: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    device: torch.device = torch.device("cpu")
+
+
+def check_slice_support(config: MPPIConfig) -> None:
+    """Raise for what this slice of the port does not run yet."""
+    if config.auto_lambda is not None:
+        raise NotImplementedError(
+            f"auto-lambda ({config.auto_lambda}) is not ported yet; use a fixed lambda_"
+        )
+    if config.use_sg_filter:
+        raise NotImplementedError("the Savitzky-Golay filter is not ported yet")
+
+
+def _rollout_and_costs(
+    dynamics: Dynamics,
+    cost_fn: CostFn,
+    x0_batch: torch.Tensor,
+    action_seqs: torch.Tensor,
+    user_info: Dict[str, Any],
+    store_rollouts: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Rollout with stage and terminal cost -> (costs [K], states [K, T+1, n] or None)."""
+    horizon = action_seqs.shape[1]
+    x = x0_batch
+    x_prev = x0_batch
+    total = torch.zeros(x0_batch.shape[0], dtype=x0_batch.dtype, device=x0_batch.device)
+    states = [x0_batch] if store_rollouts else None
+    for t in range(horizon):
+        info = dict(user_info)
+        info.update(
+            prev_state=x_prev,
+            prev_action=action_seqs[:, max(t - 1, 0)],
+            initial_state=x0_batch,
+            t=t,
+        )
+        total = total + cost_fn(x, action_seqs[:, t], info)
+        x_prev = x
+        x = dynamics(x, action_seqs[:, t])
+        if store_rollouts:
+            states.append(x)
+
+    terminal_info = dict(user_info)
+    terminal_info.update(
+        prev_state=x_prev,
+        prev_action=action_seqs[:, max(horizon - 2, 0)],
+        initial_state=x0_batch,
+        t=horizon - 1,
+    )
+    total = total + cost_fn(x, torch.zeros_like(action_seqs[:, 0]), terminal_info)
+    return total, (torch.stack(states, dim=1) if store_rollouts else None)
+
+
+def make_init(config: MPPIConfig, device: torch.device):
+    """Fresh-state factory: zero warm start."""
+    dtype = config.dtype
+
+    def init(seed: Optional[int] = None) -> MPPIState:
+        return MPPIState(
+            previous_action_seq=torch.zeros(
+                config.horizon, config.dim_control, dtype=dtype, device=device
+            ),
+            sg_history=torch.zeros(
+                max(config.horizon - 1, 0), config.dim_control, dtype=dtype, device=device
+            ),
+            lam=torch.tensor(config.initial_lambda, dtype=dtype, device=device),
+            seed=config.seed if seed is None else int(seed),
+            tick=0,
+        )
+
+    return init
+
+
+def make_states_prediction(config: MPPIConfig, dynamics: Dynamics):
+    """Nominal-trajectory re-roll of ``action_seqs [B, T, m]`` from ``x0 [n]``."""
+
+    def states_prediction(x0: torch.Tensor, action_seqs: torch.Tensor) -> torch.Tensor:
+        x = x0.to(config.dtype).expand(action_seqs.shape[0], config.dim_state)
+        states = [x]
+        for t in range(action_seqs.shape[1]):
+            x = dynamics(x, action_seqs[:, t])
+            states.append(x)
+        return torch.stack(states, dim=1)
+
+    return states_prediction
+
+
+def smooth_predict_advance(
+    config: MPPIConfig,
+    states_prediction,
+    state: MPPIState,
+    x0: torch.Tensor,
+    optimal_action_seq: torch.Tensor,
+):
+    """Shared solve epilogue: nominal re-roll and SG-history shift.
+
+    Returns (action_seq, state_seq, new_sg_history).
+    """
+    optimal_state_seq = states_prediction(x0, optimal_action_seq[None])[0]
+    if config.horizon > 1:
+        new_sg_history = torch.cat([state.sg_history[1:], optimal_action_seq[:1]], dim=0)
+    else:
+        new_sg_history = state.sg_history
+    return optimal_action_seq, optimal_state_seq, new_sg_history
+
+
+def make_solver(
+    config: MPPIConfig,
+    dynamics: Dynamics,
+    cost_fn: CostFn,
+    device: Optional[Union[str, torch.device]] = None,
+) -> MPPISolver:
+    """Build the unfused solver for one (config, dynamics, cost) on ``device``."""
+    check_slice_support(config)
+    device = resolve_device(device)
+    dtype = config.dtype
+    num_samples, horizon = config.num_samples, config.horizon
+    dim_control, dim_state = config.dim_control, config.dim_state
+    u_min = torch.tensor(config.u_min, dtype=dtype, device=device)
+    u_max = torch.tensor(config.u_max, dtype=dtype, device=device)
+    sigmas = torch.tensor(config.sigmas, dtype=dtype, device=device)
+    threshold = config.inherited_samples
+
+    init = make_init(config, device)
+    states_prediction = make_states_prediction(config, dynamics)
+
+    def solve(
+        state: MPPIState,
+        x0: torch.Tensor,
+        info: Optional[Dict[str, Any]] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> SolveResult:
+        """One MPPI solve; ``noise`` optional ``[K, T, m]``, already scaled."""
+        user_info = {} if info is None else dict(info)
+        x0 = torch.as_tensor(x0, dtype=dtype, device=device)
+        if noise is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(tick_seed(state.seed, state.tick))
+            noise = torch.randn(
+                num_samples, horizon, dim_control, generator=gen, dtype=dtype, device=device
+            ) * sigmas
+        else:
+            noise = torch.as_tensor(noise, dtype=dtype, device=device)
+
+        mean_action_seq = state.previous_action_seq
+        if threshold >= num_samples:
+            perturbed = mean_action_seq[None] + noise
+        elif threshold <= 0:
+            perturbed = noise
+        else:
+            perturbed = torch.cat(
+                [mean_action_seq[None] + noise[:threshold], noise[threshold:]], dim=0
+            )
+        perturbed = torch.clamp(perturbed, u_min, u_max)
+
+        x0_batch = x0.expand(num_samples, dim_state)
+        costs, state_seq_batch = _rollout_and_costs(
+            dynamics, cost_fn, x0_batch, perturbed, user_info, config.store_rollouts
+        )
+        lam = state.lam
+        update, weights, ess = weighted_update(costs, perturbed, lam)
+        action_seq, state_seq, new_sg_history = smooth_predict_advance(
+            config, states_prediction, state, x0, update
+        )
+        new_state = MPPIState(
+            previous_action_seq=action_seq,
+            sg_history=new_sg_history,
+            lam=lam,
+            seed=state.seed,
+            tick=state.tick + 1,
+        )
+        aux = SolveAux(
+            costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=state_seq_batch
+        )
+        return SolveResult(action_seq, state_seq, new_state, aux)
+
+    return MPPISolver(
+        config=config,
+        init=init,
+        solve=solve,
+        states_prediction=states_prediction,
+        device=device,
+    )

@@ -1,0 +1,237 @@
+// Fused racing MPPI solve: one launch per control tick.
+//
+// Replaces: mppi_playground_tpu/ops/fused_solve.py, make_fused_solve.kernel in
+// its single-pass fixed-lambda mode, launched by run_kernel (a Pallas TPU
+// kernel over 1024-sample (8, 128) tiles).  Per sample it perturbs and clamps
+// the warm start with Gaussian noise, rolls out T bicycle steps with the MPCC
+// stage cost and the terminal cost, and reduces the softmin partials of its
+// block: max of -c/lambda, sum e, sum e^2 and the numerator sum e * pert over
+// the T*m action slots.  combine_partials (ops/fused_solve.py) merges the
+// blocks in torch.
+//
+// What bounds it on the H100.  At the flagship (T=50, m=2, K=100,000) a tick
+// must move about 1.84 MB: the two 800x800 uint8 grids (1.28 MB), the
+// reference and warm start (1.4 KB), and its outputs, costs (400 KB), stats
+// (391 x 12 B) and numer (391 x 400 B).  That is 0.55 us at 3.35 TB/s.  The
+// float work is about 7.3e3 operations a sample (50 steps of dynamics, stage
+// cost with its map index, 100 normals, and 100 weighted slots), 7.3e8 a
+// tick, about 11 us at the 67 TFLOP/s float32 peak (chip_smoke.py counts
+// it).  Operations bound it; nothing of size [K, T, m] needs to touch memory.
+//
+// What this simple design does about it.  One thread per sample, blocks of
+// 256.  The rollout lives in registers; the perturbations are never stored:
+// the seeded mode draws them from a counter-based Philox4x32-10 keyed on
+// (seed, global sample index) with counter (pair index / 2), so the
+// numerator pass regenerates the very same values after the softmin max is
+// known (noise mode re-reads them, slot-major, coalesced).  The two grids
+// are read directly (__ldg) and stay resident in the 50 MB L2.  The
+// reference rows and warm start sit in shared memory.  Padded threads past
+// K cost 1e30 and weigh 0.  Compiled with -fmad=false and no fast math so
+// that it computes the plain twin's arithmetic operation for operation.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "racing_model.cuh"
+
+namespace {
+
+constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(0xFFFFFFFFu, v, o));
+  return v;
+}
+
+// Block-wide reduction; the result is valid in every thread.
+template <bool kMax>
+__device__ float block_reduce(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = kMax ? warp_max(v) : warp_sum(v);
+  __syncthreads();  // scratch may still be read by a previous reduction
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float r = scratch[0];
+  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, scratch[w]) : r + scratch[w];
+  return r;
+}
+
+struct Params {
+  const float* x0;     // [4]
+  const float* prev;   // [T, 2] warm start
+  const float* lam;    // [1]
+  const float* xref;   // [T+1, 5] (x, y, sin, cos, v)
+  const uint8_t* grid_a;  // obstacle grid [W, H]
+  const uint8_t* grid_b;  // lane grid [W, H]
+  const float* noise;  // [2T, K] slot-major, already scaled by sigma; null = seeded
+  racing::Geometry geo;
+  float sigma0, sigma1, u_min0, u_min1, u_max0, u_max1;
+  uint32_t seed;
+  int horizon, num_samples, threshold;
+  float* costs;  // [K]
+  float* stats;  // [blocks, 3]: max(-c/lam), sum e, sum e^2
+  float* numer;  // [blocks, 2T]
+};
+
+// The clamped perturbed actions of one sample, step by step (t ascending).
+struct Perturbation {
+  const Params& p;
+  const float* prev;  // shared copy of the warm start
+  int k;
+  bool inherit;
+  float z2a, z2b;  // the second pair of the last Philox draw
+
+  __device__ Perturbation(const Params& p_, const float* prev_, int k_)
+      : p(p_), prev(prev_), k(k_), inherit(k_ < p_.threshold), z2a(0.0f), z2b(0.0f) {}
+
+  __device__ __forceinline__ void at(int t, float* u0, float* u1) {
+    float z0, z1;
+    if (p.noise != nullptr) {
+      z0 = p.noise[static_cast<size_t>(2 * t) * p.num_samples + k];
+      z1 = p.noise[static_cast<size_t>(2 * t + 1) * p.num_samples + k];
+    } else {
+      if ((t & 1) == 0) {
+        uint4 w = racing::philox4x32_10(make_uint4(static_cast<uint32_t>(t >> 1), 0u, 0u, 0u),
+                                        p.seed, static_cast<uint32_t>(k));
+        float n0, n1;
+        racing::normal_pair_from_bits(w.x, w.y, &n0, &n1);
+        racing::normal_pair_from_bits(w.z, w.w, &z2a, &z2b);
+        z0 = n0;
+        z1 = n1;
+      } else {
+        z0 = z2a;
+        z1 = z2b;
+      }
+      z0 = z0 * p.sigma0;
+      z1 = z1 * p.sigma1;
+    }
+    float v0 = inherit ? prev[2 * t] + z0 : z0;
+    float v1 = inherit ? prev[2 * t + 1] + z1 : z1;
+    *u0 = racing::clampf(v0, p.u_min0, p.u_max0);
+    *u1 = racing::clampf(v1, p.u_min1, p.u_max1);
+  }
+};
+
+__global__ void __launch_bounds__(kBlock) racing_solve_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int T = p.horizon;
+  float* s_xref = smem;                   // (T+1) * 5
+  float* s_prev = s_xref + (T + 1) * 5;   // 2T
+  float* s_red = s_prev + 2 * T;          // kWarps
+  float* s_numer = s_red + kWarps;        // kWarps * 2T
+
+  for (int i = threadIdx.x; i < (T + 1) * 5; i += kBlock) s_xref[i] = p.xref[i];
+  for (int i = threadIdx.x; i < 2 * T; i += kBlock) s_prev[i] = p.prev[i];
+  __syncthreads();
+
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const bool valid = k < p.num_samples;
+  float cost = 1e30f;  // padding never wins the softmin
+  if (valid) {
+    Perturbation pert(p, s_prev, k);
+    float x = p.x0[0], y = p.x0[1], th = p.x0[2], v = p.x0[3];
+    float acc = 0.0f;
+    float u0 = 0.0f, u1 = 0.0f, pu0 = 0.0f, pu1 = 0.0f;
+    for (int t = 0; t < T; ++t) {
+      float pv0 = u0, pv1 = u1;
+      pert.at(t, &u0, &u1);
+      // prev_action at t is the action at max(t - 1, 0)
+      pu0 = t == 0 ? u0 : pv0;
+      pu1 = t == 0 ? u1 : pv1;
+      acc = acc + racing::mpcc_stage_cost(x, y, v, u0, u1, pu0, pu1, s_xref + 5 * t,
+                                          p.grid_a, p.grid_b, p.geo);
+      racing::bicycle_step(x, y, th, v, u0, u1, p.geo);
+    }
+    // terminal cost: zero action; t and prev_action keep their last values
+    acc = acc + racing::mpcc_stage_cost(x, y, v, 0.0f, 0.0f, pu0, pu1, s_xref + 5 * (T - 1),
+                                        p.grid_a, p.grid_b, p.geo);
+    cost = acc;
+    p.costs[k] = cost;
+  }
+
+  const float lam = *p.lam;
+  const float s = -cost / lam;
+  const float mx = block_reduce<true>(s, s_red);
+  const float e = expf(s - mx);
+  const float z_sum = block_reduce<false>(e, s_red);
+  const float sq_sum = block_reduce<false>(e * e, s_red);
+  if (threadIdx.x == 0) {
+    p.stats[blockIdx.x * 3 + 0] = mx;
+    p.stats[blockIdx.x * 3 + 1] = z_sum;
+    p.stats[blockIdx.x * 3 + 2] = sq_sum;
+  }
+
+  // numerator: regenerate each perturbation, weigh it, reduce per warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Perturbation pert(p, s_prev, valid ? k : 0);
+  for (int t = 0; t < T; ++t) {
+    float u0 = 0.0f, u1 = 0.0f;
+    if (valid) pert.at(t, &u0, &u1);
+    float w0 = warp_sum(e * u0);
+    float w1 = warp_sum(e * u1);
+    if (lane == 0) {
+      s_numer[warp * 2 * T + 2 * t] = w0;
+      s_numer[warp * 2 * T + 2 * t + 1] = w1;
+    }
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < 2 * T; f += kBlock) {
+    float acc = s_numer[f];
+    for (int w = 1; w < kWarps; ++w) acc += s_numer[w * 2 * T + f];
+    p.numer[static_cast<size_t>(blockIdx.x) * 2 * T + f] = acc;
+  }
+}
+
+}  // namespace
+
+extern "C" int racing_fused_solve(const float* x0, const float* prev, const float* lam,
+                                  const float* xref, const uint8_t* grid_a,
+                                  const uint8_t* grid_b, const float* noise, int width,
+                                  int height, float origin_x, float origin_y, float cell_size,
+                                  float x_lo, float x_hi, float y_lo, float y_hi, float sigma0,
+                                  float sigma1, float u_min0, float u_min1, float u_max0,
+                                  float u_max1, uint32_t seed, int horizon, int num_samples,
+                                  int threshold, float* costs, float* stats, float* numer,
+                                  void* stream) {
+  Params p;
+  p.x0 = x0;
+  p.prev = prev;
+  p.lam = lam;
+  p.xref = xref;
+  p.grid_a = grid_a;
+  p.grid_b = grid_b;
+  p.noise = noise;
+  p.geo = racing::Geometry{x_lo, x_hi, y_lo, y_hi, origin_x, origin_y, cell_size, width, height};
+  p.sigma0 = sigma0;
+  p.sigma1 = sigma1;
+  p.u_min0 = u_min0;
+  p.u_min1 = u_min1;
+  p.u_max0 = u_max0;
+  p.u_max1 = u_max1;
+  p.seed = seed;
+  p.horizon = horizon;
+  p.num_samples = num_samples;
+  p.threshold = threshold;
+  p.costs = costs;
+  p.stats = stats;
+  p.numer = numer;
+  const int blocks = (num_samples + kBlock - 1) / kBlock;
+  const size_t shmem =
+      sizeof(float) * (static_cast<size_t>(horizon + 1) * 5 + 2 * horizon + kWarps +
+                       static_cast<size_t>(kWarps) * 2 * horizon);
+  if (shmem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        racing_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  racing_solve_kernel<<<blocks, kBlock, shmem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,3 @@
+from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
+
+__all__ = ["RacingEnv"]

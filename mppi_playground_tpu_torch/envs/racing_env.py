@@ -1,0 +1,134 @@
+"""Racing environment: kinematic bicycle on a circuit with obstacles.
+
+Counterpart of ``mppi_playground_tpu/envs/racing_env.py`` without rendering:
+80x80 m maps at 0.1 m cells, a lane corridor of width ``6.5 * 0.8`` around
+the circuit centerline, 50 random circle obstacles with r in [0.9, 1.2]
+inside +-35 m (seed 42), start and goal at the path ends, and the bicycle
+dynamics.  The maps are built on the host with numpy and uploaded once.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from mppi_playground_tpu_torch.maps.circuit import (
+    default_circuit_paths,
+    make_csv_paths,
+    make_side_lane,
+)
+from mppi_playground_tpu_torch.maps.lane_map import LaneMap
+from mppi_playground_tpu_torch.maps.obstacle_map import ObstacleMap, generate_random_obstacles
+from mppi_playground_tpu_torch.models import bicycle
+from mppi_playground_tpu_torch.utils.angles import angle_normalize
+from mppi_playground_tpu_torch.utils.device import resolve_device
+
+
+class RacingEnv:
+    GOAL_THRESHOLD = 1.0
+
+    def __init__(
+        self,
+        dtype: torch.dtype = torch.float32,
+        seed: int = 42,
+        csv_path: Optional[str] = None,
+        circuit_seed: int = 7,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> None:
+        self._dtype = dtype
+        self._seed = seed
+        self.device = resolve_device(device)
+        dev = self.device
+
+        self.u_min = torch.tensor(bicycle.U_MIN, dtype=dtype, device=dev)
+        self.u_max = torch.tensor(bicycle.U_MAX, dtype=dtype, device=dev)
+
+        self.dl = 0.1
+        self.line_width = 6.5
+        if csv_path is not None:
+            center, _, _ = make_csv_paths(csv_path, DL=self.dl)
+        else:
+            center, _, _ = default_circuit_paths(DL=self.dl, seed=circuit_seed)
+        self.right_lane, self.left_lane = make_side_lane(center, lane_width=self.line_width)
+        self.racing_center_path = torch.as_tensor(center, dtype=dtype, device=dev)
+
+        self.map_size = (80, 80)
+        self.cell_size = 0.1
+        self._lane_map = LaneMap(
+            lane=center,
+            lane_width=self.line_width * 0.8,
+            map_size=self.map_size,
+            cell_size=self.cell_size,
+            dtype=dtype,
+            device=dev,
+        )
+        self._obstacle_map = ObstacleMap(
+            map_size=self.map_size, cell_size=self.cell_size, dtype=dtype, device=dev
+        )
+        generate_random_obstacles(
+            obstacle_map=self._obstacle_map,
+            random_x_range=(-35, 35),
+            random_y_range=(-35, 35),
+            num_circle_obs=50,
+            radius_range=(0.9, 1.2),
+            num_rectangle_obs=0,
+            width_range=(1.5, 2.0),
+            height_range=(1.5, 2.0),
+            max_iteration=1000,
+            seed=seed,
+        )
+
+        self._start_pos = self.racing_center_path[0, :2]
+        self._goal_pos = self.racing_center_path[-1, :2]
+        self.dynamics = bicycle.make_dynamics(
+            x_lim=tuple(self._obstacle_map.x_lim),
+            y_lim=tuple(self._obstacle_map.y_lim),
+        )
+        self._robot_state = self._initial_state()
+
+    def _initial_state(self) -> torch.Tensor:
+        """Start at path[0] heading toward path[1], v=0."""
+        heading = angle_normalize(
+            torch.atan2(
+                self.racing_center_path[1, 1] - self._start_pos[1],
+                self.racing_center_path[1, 0] - self._start_pos[0],
+            )
+        )
+        return torch.cat(
+            [self._start_pos, heading[None], torch.zeros(1, dtype=self._dtype, device=self.device)]
+        )
+
+    @property
+    def obstacle_map(self) -> ObstacleMap:
+        return self._obstacle_map
+
+    @property
+    def lane_map(self) -> LaneMap:
+        return self._lane_map
+
+    @property
+    def obstacle_cost_map(self):
+        return self._obstacle_map.device_map
+
+    @property
+    def lane_cost_map(self):
+        return self._lane_map.device_map
+
+    def reset(self) -> torch.Tensor:
+        self._robot_state = self._initial_state()
+        return self._robot_state
+
+    def step(self, u: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+        """One simulation step and the goal check (reads one flag back to the host)."""
+        u = torch.clamp(torch.as_tensor(u, dtype=self._dtype, device=self.device),
+                        self.u_min, self.u_max)
+        self._robot_state = self.dynamics(self._robot_state[None], u[None])[0]
+        is_goal_reached = bool(
+            torch.linalg.norm(self._robot_state[:2] - self._goal_pos) < self.GOAL_THRESHOLD
+        )
+        return self._robot_state, is_goal_reached
+
+    def collision_check(self, state: torch.Tensor) -> torch.Tensor:
+        """Occupancy along trajectories ``[B, T+1, 4]``."""
+        return self._obstacle_map.compute_cost(state[:, :, :2])

@@ -1,0 +1,112 @@
+"""Build the CUDA kernels of ``csrc/`` with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
+root of the checkout, at first use.  The hash covers the sources and the
+flags, so an edited kernel is rebuilt and an unchanged one is loaded as it
+is.  The flags target Hopper (``sm_90a``), keep IEEE float arithmetic (no
+``--use_fast_math``) and turn off FMA contraction (``-fmad=false``), so a
+kernel rounds as its plain PyTorch twin does.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+SOURCES = ("fused_solve", "reroll")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], object] = {}
+# ptxas reports (registers, spills) of the builds this process ran
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            digest.update(path.name.encode())
+            digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Tuple[subprocess.Popen, Path, Path]:
+    target = _target(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def build(names: Iterable[str] = SOURCES) -> float:
+    """Compile the named sources that are not built yet, all at once.
+
+    One ``nvcc`` per source, started together.  Returns the wall seconds;
+    raises with the compiler's output if any build fails.
+    """
+    t0 = time.perf_counter()
+    procs: List[Tuple[str, subprocess.Popen, Path, Path]] = []
+    try:
+        for name in names:
+            if not _target(name).exists():
+                procs.append((name, *_start(name)))
+        for name, proc, tmp, target in procs:
+            out, _ = proc.communicate()
+            build_logs[name] = out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, target)
+    finally:
+        for _, proc, tmp, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    return time.perf_counter() - t0
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """C function ``symbol`` of ``csrc/<name>.cu``, built and loaded on first use.
+
+    Every pointer and the stream are ``c_void_p``; the function returns a
+    ``cudaError_t`` as ``int``.
+    """
+    with _lock:
+        fn = _functions.get((name, symbol))
+        if fn is None:
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(_target(name)))
+                _loaded[name] = lib
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _functions[(name, symbol)] = fn
+        return fn
