@@ -14,9 +14,19 @@ Phases, each of which fails the run if it fails:
    flagship's shapes (T=50, K=100,000): the fused solve with injected noise
    and with its seeded Philox stream, and the re-roll; then time each
    kernel and twin with CUDA events;
-4. drive the flagship, ``build_flagship(device="cuda")``, for 50 closed-loop
-   ticks of ``RacingEnv.step`` with every launch counter set to 0 just
-   before; check the actions and that both kernels ran on that path.
+4. the auto-lambda kernels against their twins at the same shapes: phase 1
+   (costs and perturbation dump, both noise modes), the ESSPS and LBPS
+   searches (on the flagship's costs and on vectors that reach each ESSPS
+   clamp and the interior), phase 2 at lambda* and, at lambda=1, against
+   the fixed solve's partials; each timed with CUDA events;
+5. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
+   lambda and under ESSPS, LBPS and MPO for 50 closed-loop ticks of
+   ``RacingEnv.step`` each, all six launch counters set to 0 just before
+   each mode and read just after: each kernel of the mode's path launched
+   once a tick and every other kernel never, lambda in bounds, actions in
+   bounds, progress, and one solve per mode with no host sync
+   (``torch.cuda.set_sync_debug_mode("error")``); then a profile and the
+   four modes' ticks timed in turns.
 
 It prints a ``kernels`` JSON line before the last, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the package
@@ -25,6 +35,7 @@ beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -52,6 +63,11 @@ OPS_STAGE_COST = 33 + OPS_MAP_PAIR + 1  # + the accumulation
 OPS_NORMAL_PAIR = 10 + OPS_SINCOS
 OPS_PERTURB = 6  # mean + z and the clamp, per step (2 slots)
 OPS_SCALE = 2  # z * sigma, per step, seeded mode only
+# Per cost and evaluation of csrc/lambda_search.cu: ESSPS d * inv, exp, two
+# adds, e * e; LBPS c * a, - shift, exp, three adds, e * e, e * c.  Plus the
+# min (and max) pass and, for ESSPS, d = min - c once.
+OPS_ESSPS_EVAL, OPS_LBPS_EVAL = 5, 8
+AUTO_MODES = ("ESSPS", "LBPS", "MPO")
 
 
 def fail(msg: str) -> int:
@@ -87,6 +103,41 @@ def solve_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S
     t_ops = num_samples * per_sample / PEAK_F32_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bound(in_bytes: float, out_bytes: float, ops: float) -> tuple:
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase1_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int) -> tuple:
+    """Least time of auto-lambda phase 1: the rollout and costs, and the dump written."""
+    in_bytes = 4 * (4 + 2 * horizon + 5 * (horizon + 1)) + grid_bytes
+    if not seeded:
+        in_bytes += 4 * num_samples * horizon * 2
+    out_bytes = 4 * num_samples * (1 + 2 * horizon)
+    per_step = OPS_PERTURB + OPS_STAGE_COST + OPS_BICYCLE
+    if seeded:
+        per_step += OPS_NORMAL_PAIR + OPS_SCALE
+    return _bound(in_bytes, out_bytes, num_samples * (horizon * per_step + OPS_STAGE_COST))
+
+
+def phase2_bound_ms(num_samples: int, horizon: int) -> tuple:
+    """Least time of auto-lambda phase 2: costs and dump read, the partials written.
+
+    Operations per sample: -c / lambda, the max, the shift, exp, e * e and
+    two sums, and e * pert summed into each of the 2T slots.
+    """
+    blocks = -(-num_samples // 256)
+    in_bytes = 4 * (num_samples * (1 + 2 * horizon) + 1)
+    out_bytes = 4 * blocks * (3 + 2 * horizon)
+    return _bound(in_bytes, out_bytes, num_samples * (7 + 2 * 2 * horizon))
+
+
+def search_bound_ms(num_samples: int, iters: int, per_eval: int, per_cost: int) -> tuple:
+    """Least time of one lambda search: the costs read once, 2 + iters evaluations."""
+    return _bound(4 * num_samples, 4, num_samples * (per_cost + per_eval * (2 + iters)))
 
 
 def reroll_bound_ms(horizon: int) -> tuple:
@@ -143,6 +194,280 @@ def profile_ticks(torch, tick, env, state, cind, x, ticks: int) -> str:
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / ticks:.1f} us x{e.count / ticks:g}"
                     for e in ops)
     )
+
+
+def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min,
+                       u_max, grid_bytes, card):
+    """Phase 5: hold phase 1, the searches and phase 2 against their twins; time them.
+
+    Returns ``{"kernels": [...]}`` for the kernels line, or None after a failure.
+    """
+    from mppi_playground_tpu_torch.ops import lambda_search
+
+    def phase1(fn, mode_noise):
+        return fn(x0, prev, seed, xref5, task, sig, u_min, u_max, K, K, mode_noise)
+
+    p1_err = 0.0
+    for mode, nz in (("noise", noise), ("seeded", None)):
+        costs, dump = phase1(fused_solve.fused_racing_costs_dump, nz)
+        w_costs, w_dump = phase1(fused_solve.fused_racing_costs_dump_plain, nz)
+        torch.cuda.synchronize()
+        rel = ((costs - w_costs).abs() / w_costs.abs()).max().item()
+        res = dict(cost_max_abs_err=(costs - w_costs).abs().max().item(), cost_max_rel_err=rel,
+                   costs_bitwise_equal=bool(torch.equal(costs, w_costs)),
+                   dump_max_abs_err=(dump - w_dump).abs().max().item(),
+                   dump_bitwise_equal=bool(torch.equal(dump, w_dump)))
+        print(f"phase 1 vs twin ({mode}, T={T}, K={K}): {json.dumps(res)}", flush=True)
+        p1_err = max(p1_err, res["cost_max_abs_err"], res["dump_max_abs_err"])
+        if not (rel <= 1e-5 and res["dump_bitwise_equal"]):
+            fail(f"phase 1 ({mode}) off the bar: costs rtol 1e-5, dump bitwise")
+            return None
+    # phase 1's seeded outputs feed the searches and phase 2
+    target, lam_min, lam_max, delta = K / 10.0, 0.01, 10.0, 0.01
+    rng = torch.Generator(device="cuda").manual_seed(SEED)
+    spike = torch.full((K,), 1e6, device="cuda")
+    spike[0] = 0.0
+    vectors = {
+        "flagship": costs,
+        "to_min": torch.arange(K, device="cuda", dtype=torch.float32) * 1e-9,
+        "to_max": spike,
+        "interior": torch.rand(K, generator=rng, device="cuda") * 20.0,
+    }
+    search_err = {"essps": 0.0, "lbps": 0.0}
+    lam_star = None
+    for name, c in vectors.items():
+        ge = lambda_search.essps_lambda_fused(c, target, lam_min, lam_max)
+        we = lambda_search.essps_lambda_plain(c, target, lam_min, lam_max)
+        gl = lambda_search.lbps_lambda_fused(c, delta, lam_min, lam_max)
+        wl = lambda_search.lbps_lambda_plain(c, delta, lam_min, lam_max)
+        pen = lambda_search.lbps_range_penalty(c, delta)
+        f_g = lambda_search.lbps_objective_plain(c, gl, pen).item()
+        f_w = lambda_search.lbps_objective_plain(c, wl, pen).item()
+        ge, we, gl, wl = ge.item(), we.item(), gl.item(), wl.item()
+        search_err["essps"] = max(search_err["essps"], abs(ge - we))
+        search_err["lbps"] = max(search_err["lbps"], abs(gl - wl))
+        print(f"lambda search vs twin ({name}, K={K}): ESSPS {ge!r} vs {we!r}; LBPS {gl!r} vs "
+              f"{wl!r}, objective {f_g!r} vs {f_w!r}", flush=True)
+        if not (abs(ge - we) <= 1e-6 + 1e-4 * abs(we) and abs(gl - wl) <= 1e-4 + 1e-3 * abs(wl)
+                and abs(f_g - f_w) <= 1e-5 * abs(f_w)):
+            fail(f"lambda search ({name}) off the bar: ESSPS rtol 1e-4 atol 1e-6, LBPS rtol "
+                 "1e-3 atol 1e-4, LBPS objective rtol 1e-5")
+            return None
+        clamp = {"to_min": lam_min, "to_max": lam_max}.get(name)
+        if clamp is not None and ge != torch.tensor(clamp).item():
+            fail(f"ESSPS on {name} returned {ge!r}, not the clamp {clamp}")
+            return None
+        if name == "flagship":
+            lam_star = lambda_search.essps_lambda_fused(c, target, lam_min, lam_max).reshape(1)
+
+    got = fused_solve.racing_weighted(costs, dump, lam_star)
+    want = fused_solve.racing_weighted_plain(costs, dump, lam_star)
+    g = fused_solve.combine_partials(costs, *got, lam_star, T, 2)
+    w = fused_solve.combine_partials(costs, *want, lam_star, T, 2)
+    p2_err = max((got[0] - want[0]).abs().max().item(), (got[1] - want[1]).abs().max().item())
+    res = dict(partials_max_abs_err=p2_err, weights_max_abs_err=(g[1] - w[1]).abs().max().item(),
+               update_max_abs_err=(g[0] - w[0]).abs().max().item(), ess=(g[2].item(), w[2].item()),
+               lam_star=lam_star.item())
+    print(f"phase 2 vs twin at lambda* (T={T}, K={K}): {json.dumps(res)}", flush=True)
+    if not (res["weights_max_abs_err"] <= 1e-5 and res["update_max_abs_err"] <= 5e-3
+            and abs(res["ess"][0] - res["ess"][1]) <= 1e-3 * abs(res["ess"][1])):
+        fail("phase 2 off the bar: weights atol 1e-5, update atol 5e-3, ESS rtol 1e-3")
+        return None
+    one = torch.ones(1, device="cuda")
+    fixed = fused_solve.fused_racing_solve(x0, prev, one, seed, xref5, task, sig, u_min, u_max,
+                                           K, K, None)
+    stats, numer = fused_solve.racing_weighted(costs, dump, one)
+    same = all(torch.equal(a, b) for a, b in ((fixed[0], costs), (fixed[1], stats),
+                                               (fixed[2], numer)))
+    print(f"phase 1 + phase 2 at lambda=1 vs the fixed solve: bitwise={same}", flush=True)
+    if not same:
+        fail("phase 1 + phase 2 at lambda=1 differ from the fixed solve's costs and partials")
+        return None
+
+    # timings: kernel and twin, on this card
+    flag = vectors["flagship"]
+    t_p1 = cuda_ms(torch, lambda: phase1(fused_solve.fused_racing_costs_dump, None), 20)
+    t_p1_noise = cuda_ms(torch, lambda: phase1(fused_solve.fused_racing_costs_dump, noise), 20)
+    t_p1_plain = cuda_ms(torch, lambda: phase1(fused_solve.fused_racing_costs_dump_plain, None),
+                         3, warmup=1)
+    t_es = cuda_ms(torch, lambda: lambda_search.essps_lambda_fused(flag, target, lam_min,
+                                                                   lam_max), 50)
+    t_es_plain = cuda_ms(torch, lambda: lambda_search.essps_lambda_plain(flag, target, lam_min,
+                                                                         lam_max), 3, warmup=1)
+    t_lb = cuda_ms(torch, lambda: lambda_search.lbps_lambda_fused(flag, delta, lam_min,
+                                                                  lam_max), 50)
+    t_lb_plain = cuda_ms(torch, lambda: lambda_search.lbps_lambda_plain(flag, delta, lam_min,
+                                                                        lam_max), 3, warmup=1)
+    t_p2 = cuda_ms(torch, lambda: fused_solve.racing_weighted(costs, dump, lam_star), 50)
+    t_p2_plain = cuda_ms(torch, lambda: fused_solve.racing_weighted_plain(costs, dump, lam_star),
+                         5, warmup=1)
+    b_p1, by_p1 = phase1_bound_ms(K, T, True, grid_bytes)
+    b_p1_noise, _ = phase1_bound_ms(K, T, False, grid_bytes)
+    b_es, by_es = search_bound_ms(K, 40, OPS_ESSPS_EVAL, 2)
+    b_lb, by_lb = search_bound_ms(K, 32, OPS_LBPS_EVAL, 2)
+    b_p2, by_p2 = phase2_bound_ms(K, T)
+    print(f"times on {card}: phase 1 {t_p1:.4f} ms (noise mode {t_p1_noise:.4f} ms, bound "
+          f"{b_p1:.5f} / {b_p1_noise:.5f} ms), twin {t_p1_plain:.3f} ms; ESSPS search "
+          f"{t_es:.4f} ms (bound {b_es:.5f} ms), twin {t_es_plain:.3f} ms; LBPS search "
+          f"{t_lb:.4f} ms (bound {b_lb:.5f} ms), twin {t_lb_plain:.3f} ms; phase 2 {t_p2:.4f} ms "
+          f"(bound {b_p2:.5f} ms), twin {t_p2_plain:.3f} ms", flush=True)
+
+    def row(name, source, replaces, err, ms, plain, bound, by, **extra):
+        return dict(name=name, route="cuda", source=f"mppi_playground_tpu_torch/csrc/{source}",
+                    replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=by, library_ms=None, **extra)
+
+    return {"kernels": [
+        row("fused_racing_costs_dump", "fused_solve.cu",
+            "mppi_playground_tpu/ops/fused_solve.py:783", p1_err, t_p1, t_p1_plain, b_p1, by_p1,
+            noise_mode_ms=t_p1_noise, noise_mode_bound_ms=b_p1_noise),
+        row("essps_lambda_fused", "lambda_search.cu",
+            "mppi_playground_tpu/ops/lambda_search.py:354", search_err["essps"], t_es,
+            t_es_plain, b_es, by_es),
+        row("lbps_lambda_fused", "lambda_search.cu",
+            "mppi_playground_tpu/ops/lambda_search.py:394", search_err["lbps"], t_lb,
+            t_lb_plain, b_lb, by_lb),
+        row("racing_weighted", "fused_solve.cu", "mppi_playground_tpu/ops/fused_solve.py:887",
+            p2_err, t_p2, t_p2_plain, b_p2, by_p2),
+    ]}
+
+
+def mode_solvers(env, task, flagship_solver, flagship_tick) -> dict:
+    """``{mode: (solver, tick)}``: the flagship as built, and under each auto-lambda mode.
+
+    The auto-lambda solvers are built as ``benchmarks/autolambda_flagship.py``
+    builds them: the flagship's config with ``lambda_`` replaced.
+    """
+    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
+    from mppi_playground_tpu_torch.models.racing_mpcc import calc_ref_trajectory
+
+    path = env.racing_center_path
+    solvers = {"fixed": (flagship_solver, flagship_tick)}
+    for mode in AUTO_MODES:
+        cfg = dataclasses.replace(flagship_solver.config, lambda_=mode)
+        solver = make_fused_solver(cfg, task, env.dynamics, device="cuda")
+
+        def tick(state, cind, x, solver=solver, horizon=cfg.horizon):
+            xref, new_cind = calc_ref_trajectory(x, path, cind, horizon)
+            result = solver.solve(state, x, info={"reference_path": xref})
+            return result.action_seq, result.state_seq, result.state, new_cind
+
+        solvers[mode] = (solver, tick)
+    return solvers
+
+
+def drive_modes(torch, fused_solve, env, solvers, card):
+    """Phase 5: 50 closed-loop flagship ticks under each mode, every kernel counted.
+
+    ``solvers`` is :func:`mode_solvers`'s.  Before each mode all six launch
+    counters are set to 0, and they are read after its last tick.  Returns
+    ``{mode: {"launches", "median_ms", "tick", "init", "state", "cind", "x"}}``
+    or None after a failure.
+    """
+    from mppi_playground_tpu_torch.models.racing_mpcc import calc_ref_trajectory
+    from mppi_playground_tpu_torch.ops import lambda_search
+
+    counted = {
+        "fused_racing_solve": fused_solve.fused_racing_solve,
+        "racing_reroll": fused_solve.racing_reroll,
+        "fused_racing_costs_dump": fused_solve.fused_racing_costs_dump,
+        "racing_weighted": fused_solve.racing_weighted,
+        "essps_lambda_fused": lambda_search.essps_lambda_fused,
+        "lbps_lambda_fused": lambda_search.lbps_lambda_fused,
+    }
+    path = env.racing_center_path
+    out = {}
+    for mode, (solver, tick) in solvers.items():
+        cfg = solver.config
+        # one solve with any host sync made an error
+        state = solver.init()
+        x = env.reset()
+        xref, _ = calc_ref_trajectory(x, path, torch.tensor(0, device=x.device), cfg.horizon)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            solver.solve(state, x, info={"reference_path": xref})
+        except RuntimeError as err:
+            fail(f"{mode}: a solve synchronized with the host: {err}")
+            return None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+        for fn in counted.values():
+            fn.launches = 0
+        state = solver.init()
+        x = env.reset()
+        cind = torch.tensor(0, device=x.device)
+        tick_ms, lams = [], []
+        for _ in range(TICKS):
+            t0 = time.perf_counter()
+            action_seq, state_seq, state, cind = tick(state, cind, x)
+            torch.cuda.synchronize()
+            tick_ms.append(1e3 * (time.perf_counter() - t0))
+            lam = state.lam.item()
+            lams.append(lam)
+            if mode == "fixed":
+                in_range = lam == torch.tensor(cfg.lambda_).item()
+            elif mode == "MPO":
+                in_range = lam > 0
+            else:
+                in_range = cfg.lambda_min <= lam <= cfg.lambda_max
+            if not (torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()
+                    and lam == lam and abs(lam) != float("inf") and in_range):
+                fail(f"{mode}: a tick returned non-finite actions or states, or lambda {lam!r}")
+                return None
+            excess = torch.maximum(env.u_min - action_seq, action_seq - env.u_max).max().item()
+            if excess > 1e-5:
+                fail(f"{mode}: actions outside [u_min, u_max] by {excess!r}")
+                return None
+            x, _ = env.step(action_seq[0])
+        launches = {name: fn.launches for name, fn in counted.items()}
+        once = ({"fused_racing_solve", "racing_reroll"} if mode in ("fixed", "MPO") else
+                {"fused_racing_costs_dump", "racing_weighted", "racing_reroll",
+                 f"{mode.lower()}_lambda_fused"})
+        want = {name: (TICKS if name in once else 0) for name in counted}
+        if launches != want:
+            fail(f"{mode}: launches {launches}, expected {want}")
+            return None
+        progress = int(cind)
+        if progress <= 0 or not torch.isfinite(x).all():
+            fail(f"{mode}: the car made no progress along the track (index {progress})")
+            return None
+        median = statistics.median(tick_ms)
+        print(f"flagship {mode}: {TICKS} ticks at T={T}, K={K} on {card}: median tick "
+              f"{median:.3f} ms (host clock, synchronized), min {min(tick_ms):.3f} ms; "
+              f"lambda first/last {lams[0]!r}/{lams[-1]!r}, range "
+              f"[{min(lams)!r}, {max(lams)!r}]; track index {progress}; launches {launches}",
+              flush=True)
+        out[mode] = dict(launches=launches, median_ms=median, tick=tick, init=solver.init,
+                         state=state, cind=cind, x=x)
+    return out
+
+
+def ticks_in_turns(torch, env, runners, windows: int = 10, per_window: int = 10) -> dict:
+    """Median host-clock tick per mode, the modes timed in turns.
+
+    ``runners`` maps a mode to ``(tick, init)``.  Each mode keeps its own
+    state and car (advanced by the dynamics, without ``env.step``'s goal
+    check); window after window every mode runs ``per_window`` ticks, so all
+    of them meet the same drift of the host.
+    """
+    x0 = env.reset()
+    runs = {m: [init(), torch.tensor(0, device=x0.device), x0]
+            for m, (_, init) in runners.items()}
+    times = {m: [] for m in runners}
+    for _ in range(windows):
+        for mode, (tick, _) in runners.items():
+            state, cind, x = runs[mode]
+            for _ in range(per_window):
+                t0 = time.perf_counter()
+                action_seq, _, state, cind = tick(state, cind, x)
+                torch.cuda.synchronize()
+                times[mode].append(1e3 * (time.perf_counter() - t0))
+                x = env.dynamics(x[None], action_seq[:1])[0]
+            runs[mode] = [state, cind, x]
+    return {m: statistics.median(t) for m, t in times.items()}
 
 
 def main() -> int:
@@ -260,50 +585,39 @@ def main() -> int:
           f"bound {b_noise:.5f} ms), twin {t_solve_plain:.3f} ms; re-roll {t_reroll:.4f} ms, "
           f"twin {t_reroll_plain:.3f} ms", flush=True)
 
-    # --- phase 4: the main path, counted -----------------------------------
+    # --- phase 4: the auto-lambda kernels against their twins -----------------
+    auto = check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig,
+                              u_min, u_max, grid_bytes, card)
+    if auto is None:
+        return 1
+
+    # --- phase 5: the main path under each mode, counted ----------------------
     env, solver, tick = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
-    fused_solve.fused_racing_solve.launches = 0
-    fused_solve.racing_reroll.launches = 0
-    state = solver.init()
-    x = env.reset()
-    cind = torch.tensor(0, device=dev)
-    tick_ms = []
-    for _ in range(TICKS):
-        t0 = time.perf_counter()
-        action_seq, state_seq, state, cind = tick(state, cind, x)
-        torch.cuda.synchronize()
-        tick_ms.append(1e3 * (time.perf_counter() - t0))
-        a = action_seq[0]
-        if not (torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()):
-            return fail("a tick returned non-finite actions or states")
-        # a weighted mean of clamped samples, rounded in float32: a few ulp over
-        excess = torch.maximum(env.u_min - action_seq, action_seq - env.u_max).max().item()
-        if excess > 1e-5:
-            return fail(f"a tick returned actions outside [u_min, u_max] by {excess!r}")
-        x, _ = env.step(a)
-    launches = {
-        "fused_racing_solve": fused_solve.fused_racing_solve.launches,
-        "racing_reroll": fused_solve.racing_reroll.launches,
-    }
-    progress = int(cind)
-    if launches["fused_racing_solve"] != TICKS or launches["racing_reroll"] != TICKS:
-        return fail(f"the main path did not launch each kernel once a tick: {launches}")
-    if progress <= 0 or not torch.isfinite(x).all():
-        return fail(f"the car made no progress along the track (index {progress})")
-    median_tick = statistics.median(tick_ms)
-    print(f"flagship: {TICKS} ticks at T={T}, K={K} on {card}: median tick "
-          f"{median_tick:.3f} ms (host clock, synchronized), min {min(tick_ms):.3f} ms; "
-          f"fused solve {t_solve:.4f} ms, re-roll {t_reroll:.4f} ms (CUDA events); "
-          f"track index {progress}; launches {launches}", flush=True)
-    print(profile_ticks(torch, tick, env, state, cind, x, 10), flush=True)
+    modes = drive_modes(torch, fused_solve, env, mode_solvers(env, task, solver, tick), card)
+    if modes is None:
+        return 1
+    for m in ("fixed", "ESSPS"):
+        run = modes[m]
+        print(f"{m}: " + profile_ticks(torch, run["tick"], env, run["state"], run["cind"],
+                                       run["x"], 10), flush=True)
+    turns = ticks_in_turns(torch, env, {m: (run["tick"], run["init"])
+                                        for m, run in modes.items()})
+    print(f"median ticks in turns (10 windows x 10 ticks a mode) on {card}: fixed "
+          f"{turns['fixed']:.3f} ms; " + "; ".join(
+              f"{m} {turns[m]:.3f} ms "
+              f"({100.0 * (turns[m] - turns['fixed']) / turns['fixed']:+.1f}%)"
+              for m in AUTO_MODES), flush=True)
+
+    def launches_of(name):
+        by_path = {m: run["launches"][name] for m, run in modes.items()}
+        return sum(by_path.values()), by_path
 
     kernels = [
         {
             "name": "fused_racing_solve",
             "route": "cuda",
             "source": "mppi_playground_tpu_torch/csrc/fused_solve.cu",
-            "replaces": "mppi_playground_tpu/ops/fused_solve.py:373",
-            "launches": launches["fused_racing_solve"],
+            "replaces": "mppi_playground_tpu/ops/fused_solve.py:783",
             "max_abs_err": max(checks["seeded"]["cost_max_abs_err"],
                                checks["noise"]["cost_max_abs_err"]),
             "ms": t_solve,
@@ -318,8 +632,7 @@ def main() -> int:
             "name": "racing_reroll",
             "route": "cuda",
             "source": "mppi_playground_tpu_torch/csrc/reroll.cu",
-            "replaces": "mppi_playground_tpu/ops/fused_solve.py:249",
-            "launches": launches["racing_reroll"],
+            "replaces": "mppi_playground_tpu/ops/fused_solve.py:272",
             "max_abs_err": reroll_err,
             "ms": t_reroll,
             "plain_ms": t_reroll_plain,
@@ -327,9 +640,12 @@ def main() -> int:
             "bound_by": by_reroll,
             "library_ms": None,
         },
-    ]
-    print(json.dumps({"kernels": kernels, "card": card, "median_tick_ms": median_tick}),
-          flush=True)
+    ] + auto["kernels"]
+    for k in kernels:
+        k["launches"], k["launches_by_path"] = launches_of(k["name"])
+    print(json.dumps({"kernels": kernels, "card": card,
+                      "median_tick_ms": modes["fixed"]["median_ms"],
+                      "median_tick_ms_in_turns": turns}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -5,13 +5,14 @@ has the same fields, validation and derived properties, with ``dtype`` a
 ``torch.dtype``.  :class:`MPPIState` holds plain tensors plus a host-side
 ``(seed, tick)`` pair in place of the JAX PRNG key: the per-tick kernel seed
 is hashed from it on the host (:func:`tick_seed`), so drawing it never waits
-on the device.  The MPO fields come with the auto-lambda slice.
+on the device.  The MPO temperature and its Adam moments are tensors on the
+solver's device (:class:`AdamState`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -106,6 +107,18 @@ class MPPIConfig:
         return int(self.num_samples * (1.0 - self.exploration))
 
 
+class AdamState(NamedTuple):
+    """Adam's state for the MPO temperature, as ``optax.adam`` keeps it.
+
+    ``count`` is a 0-dim int32 tensor, ``mu`` and ``nu`` 0-dim tensors of the
+    solver's dtype, all on the solver's device.
+    """
+
+    count: torch.Tensor
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
 class MPPIState:
     """Cross-tick solver state.
@@ -116,6 +129,10 @@ class MPPIState:
         lam: current temperature, a 0-dim tensor on the solver's device.
         seed: host integer; with ``tick`` it names this tick's noise stream.
         tick: host integer, advanced by one every solve.
+        mpo_log_temperature: 0-dim tensor; ``init`` sets it to
+            ``log(initial_lambda)`` in MPO mode, else 0.
+        mpo_opt_state: the MPO temperature's :class:`AdamState` in MPO mode,
+            else ``None``.  An MPO solve needs both.
     """
 
     previous_action_seq: torch.Tensor
@@ -123,6 +140,8 @@ class MPPIState:
     lam: torch.Tensor
     seed: int
     tick: int = 0
+    mpo_log_temperature: Optional[torch.Tensor] = None
+    mpo_opt_state: Optional[AdamState] = None
 
 
 _MASK64 = (1 << 64) - 1

@@ -1,17 +1,24 @@
-"""Solver facade over the fused racing CUDA kernel (``ops/fused_solve.py``).
+"""Solver facade over the fused racing CUDA kernels (``ops/fused_solve.py``).
 
-Counterpart of the fixed-lambda branch of
-``mppi_playground_tpu/core/fused_solver.py``: the same ``MPPISolver``
-bundle, state and ``SolveResult`` as ``core/solver.make_solver``, with the
-sample, rollout, cost and weighting body run by one launch of the fused
-kernel, ``combine_partials`` in torch, and the nominal re-roll by the
-re-roll kernel.  A tick draws its kernel seed on the host from the state's
-``(seed, tick)``, so nothing in it waits on the device.
+Counterpart of ``mppi_playground_tpu/core/fused_solver.py``: the same
+``MPPISolver`` bundle, state and ``SolveResult`` as
+``core/solver.make_solver``, with the sample, rollout, cost and weighting
+body run by the kernels, ``combine_partials`` in torch, and the nominal
+re-roll by the re-roll kernel.
 
-The port's envelope: the racing model (n=4, m=2), float32, no stored
-rollouts, ``horizon * dim_control <= 1024``; ``ValueError`` outside it.
-Auto-lambda (MPO, LBPS, ESSPS) and the SG filter raise
-``NotImplementedError`` until their slices land.
+* Fixed lambda and MPO: one launch of the fused solve at the state's
+  lambda; MPO then takes its Adam step on the costs (``core/autolambda``).
+* LBPS and ESSPS, the JAX package's standalone two-phase route: phase 1
+  (costs and the clamped perturbations dumped), the search kernel of
+  ``ops/lambda_search.py`` on the costs, phase 2 (the block partials at
+  lambda* from the dump).  lambda* stays on the device: phase 2 reads it
+  through a pointer.
+
+A tick draws its kernel seed on the host from the state's ``(seed, tick)``,
+so nothing in it waits on the device.  The port's envelope: the racing
+model (n=4, m=2), float32, no stored rollouts, ``horizon * dim_control <=
+1024``; ``ValueError`` outside it.  The SG filter and the in-kernel lambda
+epilogue raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from mppi_playground_tpu_torch.core.solver import (
     MPPISolver,
     SolveAux,
     SolveResult,
+    advance_state,
     check_slice_support,
     make_init,
     make_states_prediction,
@@ -36,9 +44,12 @@ from mppi_playground_tpu_torch.ops.fused_solve import (
     MAX_SLOTS,
     RacingFusedTask,
     combine_partials,
+    fused_racing_costs_dump,
     fused_racing_solve,
     racing_reroll,
+    racing_weighted,
 )
+from mppi_playground_tpu_torch.ops.lambda_search import essps_lambda_fused, lbps_lambda_fused
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
 
@@ -59,15 +70,24 @@ def make_fused_solver(
     task: RacingFusedTask,
     dynamics: Dynamics,
     device: Optional[Union[str, torch.device]] = None,
+    lambda_epilogue: Optional[bool] = None,
 ) -> MPPISolver:
     """Build the fused-kernel solver for the racing model.
 
     Args:
-        config: solver config at a fixed lambda.
+        config: solver config, fixed lambda or ``"MPO"``/``"LBPS"``/``"ESSPS"``.
         task: the racing maps and bounds, on ``device``.
         dynamics: array-of-structs dynamics for ``states_prediction``.
         device: ``None`` means ``cuda``; ``"cpu"`` runs the kernels' twins.
+        lambda_epilogue: the JAX package's switch for the in-kernel LBPS/ESSPS
+            search.  ``None`` and ``False`` take the standalone two-phase
+            route; ``True`` raises: that kernel mode is not ported.
     """
+    if lambda_epilogue:
+        raise NotImplementedError(
+            "the in-kernel lambda epilogue (run_kernel with lambda_mode) is not ported "
+            "(PERF.md, TPU kernel table, row 4); use lambda_epilogue=None or False"
+        )
     check_slice_support(config)
     check_fused_envelope(config)
     device = resolve_device(device)
@@ -80,6 +100,20 @@ def make_fused_solver(
     u_min = tuple(float(v) for v in config.u_min)
     u_max = tuple(float(v) for v in config.u_max)
     threshold = config.inherited_samples
+    num_samples = config.num_samples
+    auto = config.auto_lambda
+
+    def search(costs):
+        """lambda* of LBPS or ESSPS from its search kernel."""
+        if auto == "LBPS":
+            return lbps_lambda_fused(
+                costs, config.lbps_delta, config.lambda_min, config.lambda_max,
+                iters=config.lbps_iters,
+            )
+        return essps_lambda_fused(
+            costs, config.target_ess, config.lambda_min, config.lambda_max,
+            iters=config.essps_iters,
+        )
 
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)
@@ -99,24 +133,26 @@ def make_fused_solver(
         xref = extend_reference_path(info["reference_path"]).contiguous()
         if noise is not None:
             noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
-        lam = state.lam
-        costs, stats, numer = fused_racing_solve(
-            x0, state.previous_action_seq, lam.reshape(1), seed, xref, task,
-            sigmas, u_min, u_max, config.num_samples, threshold, noise,
-        )
+        prev = state.previous_action_seq
+        if auto in ("LBPS", "ESSPS"):
+            costs, dump = fused_racing_costs_dump(
+                x0, prev, seed, xref, task, sigmas, u_min, u_max, num_samples, threshold, noise,
+            )
+            lam = search(costs)
+            stats, numer = racing_weighted(costs, dump, lam.reshape(1))
+        else:  # fixed and MPO weight at the state's lambda
+            lam = state.lam
+            costs, stats, numer = fused_racing_solve(
+                x0, prev, lam.reshape(1), seed, xref, task, sigmas, u_min, u_max,
+                num_samples, threshold, noise,
+            )
         update, weights, ess = combine_partials(
             costs, stats, numer, lam, config.horizon, config.dim_control
         )
         action_seq, state_seq, new_sg_history = smooth_predict_advance(
             config, epilogue_prediction, state, x0, update
         )
-        new_state = MPPIState(
-            previous_action_seq=action_seq,
-            sg_history=new_sg_history,
-            lam=lam,
-            seed=state.seed,
-            tick=state.tick + 1,
-        )
+        new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history)
         aux = SolveAux(costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=None)
         return SolveResult(action_seq, state_seq, new_state, aux)
 

@@ -1,11 +1,12 @@
 """The unfused MPPI solver on tensors, one control tick per ``solve``.
 
-Counterpart of ``mppi_playground_tpu/core/solver.py`` at a fixed
-temperature: sample around the warm start, roll out and cost every sample
-step by step, softmin-weight, average, re-roll the nominal trajectory and
-advance the warm start.  It is written in plain PyTorch and is the second,
-independent route that the fused CUDA solver (``core/fused_solver.py``) is
-held against.  Behaviours kept from the reference:
+Counterpart of ``mppi_playground_tpu/core/solver.py``: sample around the
+warm start, roll out and cost every sample step by step, pick the
+temperature (fixed, or ESSPS/LBPS from the costs before weighting),
+softmin-weight, average, take MPO's step after weighting, re-roll the
+nominal trajectory and advance the warm start.  It is written in plain
+PyTorch and is the second, independent route that the fused CUDA solver
+(``core/fused_solver.py``) is held against.  Behaviours kept from the reference:
 
 * ``info['prev_*']`` at t=0 aliases t=0 itself;
 * the terminal cost uses a zero action, ``prev_state`` = the second-to-last
@@ -14,8 +15,8 @@ held against.  Behaviours kept from the reference:
 
 Noise: ``solve(noise=...)`` takes ``[K, T, m]`` perturbations already
 scaled by sigma.  Without it, the noise is drawn from a ``torch.Generator``
-seeded with the state's ``(seed, tick)``.  Auto-lambda and the
-Savitzky–Golay filter come with later slices and raise here.
+seeded with the state's ``(seed, tick)``.  The Savitzky–Golay filter
+comes with a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from mppi_playground_tpu_torch.core import autolambda
 from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, tick_seed
 from mppi_playground_tpu_torch.ops.weighted_update import weighted_update
 from mppi_playground_tpu_torch.utils.device import resolve_device
@@ -62,11 +64,7 @@ class MPPISolver:
 
 
 def check_slice_support(config: MPPIConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    if config.auto_lambda is not None:
-        raise NotImplementedError(
-            f"auto-lambda ({config.auto_lambda}) is not ported yet; use a fixed lambda_"
-        )
+    """Raise for what the port does not run yet."""
     if config.use_sg_filter:
         raise NotImplementedError("the Savitzky-Golay filter is not ported yet")
 
@@ -111,10 +109,15 @@ def _rollout_and_costs(
 
 
 def make_init(config: MPPIConfig, device: torch.device):
-    """Fresh-state factory: zero warm start."""
+    """Fresh-state factory: zero warm start; MPO's ``log(initial_lambda)`` and Adam at 0."""
     dtype = config.dtype
 
     def init(seed: Optional[int] = None) -> MPPIState:
+        lam = torch.full((), config.initial_lambda, dtype=dtype, device=device)
+        if config.auto_lambda == "MPO":
+            log_t, opt_state = autolambda.mpo_init(config.initial_lambda, lam)
+        else:
+            log_t, opt_state = torch.zeros_like(lam), None
         return MPPIState(
             previous_action_seq=torch.zeros(
                 config.horizon, config.dim_control, dtype=dtype, device=device
@@ -122,9 +125,11 @@ def make_init(config: MPPIConfig, device: torch.device):
             sg_history=torch.zeros(
                 max(config.horizon - 1, 0), config.dim_control, dtype=dtype, device=device
             ),
-            lam=torch.tensor(config.initial_lambda, dtype=dtype, device=device),
+            lam=lam,
             seed=config.seed if seed is None else int(seed),
             tick=0,
+            mpo_log_temperature=log_t,
+            mpo_opt_state=opt_state,
         )
 
     return init
@@ -142,6 +147,44 @@ def make_states_prediction(config: MPPIConfig, dynamics: Dynamics):
         return torch.stack(states, dim=1)
 
     return states_prediction
+
+
+def search_lambda(config: MPPIConfig, costs: torch.Tensor) -> torch.Tensor:
+    """LBPS or ESSPS temperature from the costs by the loops of ``core/autolambda.py``."""
+    if config.auto_lambda == "LBPS":
+        return autolambda.lbps_lambda(
+            costs, config.lbps_delta, config.lambda_min, config.lambda_max,
+            iters=config.lbps_iters,
+        )
+    return autolambda.essps_lambda(
+        costs, config.target_ess, config.lambda_min, config.lambda_max,
+        iters=config.essps_iters,
+    )
+
+
+def advance_state(
+    config: MPPIConfig,
+    state: MPPIState,
+    costs: torch.Tensor,
+    lam: torch.Tensor,
+    action_seq: torch.Tensor,
+    sg_history: torch.Tensor,
+) -> MPPIState:
+    """The next tick's state; MPO steps its temperature on this tick's costs."""
+    log_t, opt_state = state.mpo_log_temperature, state.mpo_opt_state
+    if config.auto_lambda == "MPO":
+        if opt_state is None:
+            raise ValueError("an MPO solve needs the state's mpo_opt_state: start from init()")
+        lam, log_t, opt_state = autolambda.mpo_step(costs, log_t, opt_state)
+    return MPPIState(
+        previous_action_seq=action_seq,
+        sg_history=sg_history,
+        lam=lam.to(config.dtype),
+        seed=state.seed,
+        tick=state.tick + 1,
+        mpo_log_temperature=log_t,
+        mpo_opt_state=opt_state,
+    )
 
 
 def smooth_predict_advance(
@@ -216,18 +259,17 @@ def make_solver(
         costs, state_seq_batch = _rollout_and_costs(
             dynamics, cost_fn, x0_batch, perturbed, user_info, config.store_rollouts
         )
-        lam = state.lam
+        # LBPS and ESSPS pick the temperature before weighting; fixed and MPO
+        # weight at the state's (MPO steps it afterwards, in advance_state)
+        if config.auto_lambda in ("LBPS", "ESSPS"):
+            lam = search_lambda(config, costs)
+        else:
+            lam = state.lam
         update, weights, ess = weighted_update(costs, perturbed, lam)
         action_seq, state_seq, new_sg_history = smooth_predict_advance(
             config, states_prediction, state, x0, update
         )
-        new_state = MPPIState(
-            previous_action_seq=action_seq,
-            sg_history=new_sg_history,
-            lam=lam,
-            seed=state.seed,
-            tick=state.tick + 1,
-        )
+        new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history)
         aux = SolveAux(
             costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=state_seq_batch
         )

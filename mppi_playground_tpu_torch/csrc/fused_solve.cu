@@ -1,33 +1,49 @@
-// Fused racing MPPI solve: one launch per control tick.
+// Fused racing MPPI solve, and the two phases of the auto-lambda solve.
 //
-// Replaces: mppi_playground_tpu/ops/fused_solve.py, make_fused_solve.kernel in
-// its single-pass fixed-lambda mode, launched by run_kernel (a Pallas TPU
-// kernel over 1024-sample (8, 128) tiles).  Per sample it perturbs and clamps
-// the warm start with Gaussian noise, rolls out T bicycle steps with the MPCC
-// stage cost and the terminal cost, and reduces the softmin partials of its
-// block: max of -c/lambda, sum e, sum e^2 and the numerator sum e * pert over
-// the T*m action slots.  combine_partials (ops/fused_solve.py) merges the
+// Replaces: mppi_playground_tpu/ops/fused_solve.py, make_fused_solve.kernel,
+// a Pallas TPU kernel over 1024-sample (8, 128) tiles, in three of its modes:
+//
+// * racing_fused_solve (run_kernel, single-pass fixed-lambda mode).  Per
+//   sample it perturbs and clamps the warm start with Gaussian noise, rolls
+//   out T bicycle steps with the MPCC stage cost and the terminal cost, and
+//   reduces the softmin partials of its block: max of -c/lambda, sum e, sum
+//   e^2 and the numerator sum e * pert over the T*m action slots.
+// * racing_costs_dump (run_kernel with costs_only and dump_pert, auto-lambda
+//   phase 1).  The same rollout and costs; each sample also writes its
+//   clamped perturbations to a dump [2T, K] (slot-major, k fastest, the
+//   layout of the noise input), and no partials are reduced.
+// * racing_weighted (run_weighted with pert, auto-lambda phase 2).  No
+//   rollout: per sample the cost and the dumped perturbations are read back
+//   and the block partials are reduced at the searched lambda (a device
+//   pointer).
+//
+// The fixed kernel and phase 2 share block_partials, as the TPU kernel's
+// modes share one body; combine_partials (ops/fused_solve.py) merges the
 // blocks in torch.
 //
-// What bounds it on the H100.  At the flagship (T=50, m=2, K=100,000) a tick
-// must move about 1.84 MB: the two 800x800 uint8 grids (1.28 MB), the
-// reference and warm start (1.4 KB), and its outputs, costs (400 KB), stats
-// (391 x 12 B) and numer (391 x 400 B).  That is 0.55 us at 3.35 TB/s.  The
-// float work is about 7.3e3 operations a sample (50 steps of dynamics, stage
-// cost with its map index, 100 normals, and 100 weighted slots), 7.3e8 a
-// tick, about 11 us at the 67 TFLOP/s float32 peak (chip_smoke.py counts
-// it).  Operations bound it; nothing of size [K, T, m] needs to touch memory.
+// What bounds them on the H100.  At the flagship (T=50, m=2, K=100,000) the
+// fixed solve must move about 1.84 MB: the two 800x800 uint8 grids (1.28 MB),
+// the reference and warm start (1.4 KB), and its outputs, costs (400 KB),
+// stats (391 x 12 B) and numer (391 x 400 B).  That is 0.55 us at 3.35 TB/s.
+// The float work is about 7.3e3 operations a sample (50 steps of dynamics,
+// stage cost with its map index, 100 normals, and 100 weighted slots), 7.3e8
+// a tick, about 11 us at the 67 TFLOP/s float32 peak (chip_smoke.py counts
+// it): operations bound it.  Phase 1 writes the 40 MB dump besides, 12 us of
+// bytes, about as long as its operations take.  Phase 2 reads the dump and
+// the costs (40.4 MB) and does 4 operations a slot: bytes bound it, 12 us.
 //
 // What this simple design does about it.  One thread per sample, blocks of
-// 256.  The rollout lives in registers; the perturbations are never stored:
-// the seeded mode draws them from a counter-based Philox4x32-10 keyed on
-// (seed, global sample index) with counter (pair index / 2), so the
-// numerator pass regenerates the very same values after the softmin max is
-// known (noise mode re-reads them, slot-major, coalesced).  The two grids
-// are read directly (__ldg) and stay resident in the 50 MB L2.  The
-// reference rows and warm start sit in shared memory.  Padded threads past
-// K cost 1e30 and weigh 0.  Compiled with -fmad=false and no fast math so
-// that it computes the plain twin's arithmetic operation for operation.
+// 256.  The rollout lives in registers; in the fixed solve the
+// perturbations are never stored: the seeded mode draws them from a
+// counter-based Philox4x32-10 keyed on (seed, global sample index) with
+// counter (pair index / 2), so the numerator pass regenerates the very same
+// values after the softmin max is known (noise mode re-reads them,
+// slot-major, coalesced).  The dump's writes and reads are coalesced the same
+// way.  The two grids are read directly (__ldg) and stay resident in the
+// 50 MB L2.  The reference rows and warm start sit in shared memory.  Padded
+// threads past K cost 1e30 and weigh 0.  Compiled with -fmad=false and no
+// fast math so that it computes the plain twins' arithmetic operation for
+// operation.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -77,8 +93,9 @@ struct Params {
   uint32_t seed;
   int horizon, num_samples, threshold;
   float* costs;  // [K]
-  float* stats;  // [blocks, 3]: max(-c/lam), sum e, sum e^2
-  float* numer;  // [blocks, 2T]
+  float* stats;  // [blocks, 3]: max(-c/lam), sum e, sum e^2 (fixed solve)
+  float* numer;  // [blocks, 2T] (fixed solve)
+  float* dump;   // [2T, K] clamped perturbations, slot-major (phase 1)
 };
 
 // The clamped perturbed actions of one sample, step by step (t ascending).
@@ -120,61 +137,78 @@ struct Perturbation {
   }
 };
 
-__global__ void __launch_bounds__(kBlock) racing_solve_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int T = p.horizon;
-  float* s_xref = smem;                   // (T+1) * 5
-  float* s_prev = s_xref + (T + 1) * 5;   // 2T
-  float* s_red = s_prev + 2 * T;          // kWarps
-  float* s_numer = s_red + kWarps;        // kWarps * 2T
+// The perturbations dumped by phase 1, read back by phase 2.
+struct DumpedPerturbation {
+  const float* dump;  // [2T, K]
+  int num_samples, k;
 
+  __device__ __forceinline__ void at(int t, float* u0, float* u1) const {
+    *u0 = dump[static_cast<size_t>(2 * t) * num_samples + k];
+    *u1 = dump[static_cast<size_t>(2 * t + 1) * num_samples + k];
+  }
+};
+
+// The reference rows and the warm start, copied to shared memory.
+__device__ __forceinline__ void load_reference(const Params& p, float* s_xref, float* s_prev) {
+  const int T = p.horizon;
   for (int i = threadIdx.x; i < (T + 1) * 5; i += kBlock) s_xref[i] = p.xref[i];
   for (int i = threadIdx.x; i < 2 * T; i += kBlock) s_prev[i] = p.prev[i];
   __syncthreads();
+}
 
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < p.num_samples;
-  float cost = 1e30f;  // padding never wins the softmin
-  if (valid) {
-    Perturbation pert(p, s_prev, k);
-    float x = p.x0[0], y = p.x0[1], th = p.x0[2], v = p.x0[3];
-    float acc = 0.0f;
-    float u0 = 0.0f, u1 = 0.0f, pu0 = 0.0f, pu1 = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      float pv0 = u0, pv1 = u1;
-      pert.at(t, &u0, &u1);
-      // prev_action at t is the action at max(t - 1, 0)
-      pu0 = t == 0 ? u0 : pv0;
-      pu1 = t == 0 ? u1 : pv1;
-      acc = acc + racing::mpcc_stage_cost(x, y, v, u0, u1, pu0, pu1, s_xref + 5 * t,
-                                          p.grid_a, p.grid_b, p.geo);
-      racing::bicycle_step(x, y, th, v, u0, u1, p.geo);
+// Rollout of sample k with its stage and terminal costs; with kDump, each
+// clamped perturbation is also written to p.dump.
+template <bool kDump>
+__device__ __forceinline__ float rollout_cost(const Params& p, const float* s_xref,
+                                              const float* s_prev, int k) {
+  const int T = p.horizon;
+  Perturbation pert(p, s_prev, k);
+  float x = p.x0[0], y = p.x0[1], th = p.x0[2], v = p.x0[3];
+  float acc = 0.0f;
+  float u0 = 0.0f, u1 = 0.0f, pu0 = 0.0f, pu1 = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    float pv0 = u0, pv1 = u1;
+    pert.at(t, &u0, &u1);
+    if (kDump) {
+      p.dump[static_cast<size_t>(2 * t) * p.num_samples + k] = u0;
+      p.dump[static_cast<size_t>(2 * t + 1) * p.num_samples + k] = u1;
     }
-    // terminal cost: zero action; t and prev_action keep their last values
-    acc = acc + racing::mpcc_stage_cost(x, y, v, 0.0f, 0.0f, pu0, pu1, s_xref + 5 * (T - 1),
+    // prev_action at t is the action at max(t - 1, 0)
+    pu0 = t == 0 ? u0 : pv0;
+    pu1 = t == 0 ? u1 : pv1;
+    acc = acc + racing::mpcc_stage_cost(x, y, v, u0, u1, pu0, pu1, s_xref + 5 * t,
                                         p.grid_a, p.grid_b, p.geo);
-    cost = acc;
-    p.costs[k] = cost;
+    racing::bicycle_step(x, y, th, v, u0, u1, p.geo);
   }
+  // terminal cost: zero action; t and prev_action keep their last values
+  return acc + racing::mpcc_stage_cost(x, y, v, 0.0f, 0.0f, pu0, pu1, s_xref + 5 * (T - 1),
+                                       p.grid_a, p.grid_b, p.geo);
+}
 
-  const float lam = *p.lam;
+// Softmin partials of one block: stats (max of s = -c/lam, sum e, sum e^2)
+// and the numerator sum e * pert per slot.  Every thread of the block calls
+// it; invalid threads carry cost 1e30 and weigh 0.  src.at(t, ...) gives a
+// valid sample's clamped perturbation at step t.
+template <class Source>
+__device__ __forceinline__ void block_partials(float cost, float lam, bool valid, Source& src,
+                                               int T, float* s_red, float* s_numer,
+                                               float* stats, float* numer) {
   const float s = -cost / lam;
   const float mx = block_reduce<true>(s, s_red);
   const float e = expf(s - mx);
   const float z_sum = block_reduce<false>(e, s_red);
   const float sq_sum = block_reduce<false>(e * e, s_red);
   if (threadIdx.x == 0) {
-    p.stats[blockIdx.x * 3 + 0] = mx;
-    p.stats[blockIdx.x * 3 + 1] = z_sum;
-    p.stats[blockIdx.x * 3 + 2] = sq_sum;
+    stats[blockIdx.x * 3 + 0] = mx;
+    stats[blockIdx.x * 3 + 1] = z_sum;
+    stats[blockIdx.x * 3 + 2] = sq_sum;
   }
 
-  // numerator: regenerate each perturbation, weigh it, reduce per warp
+  // numerator: weigh each perturbation, reduce per warp, then across warps
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  Perturbation pert(p, s_prev, valid ? k : 0);
   for (int t = 0; t < T; ++t) {
     float u0 = 0.0f, u1 = 0.0f;
-    if (valid) pert.at(t, &u0, &u1);
+    if (valid) src.at(t, &u0, &u1);
     float w0 = warp_sum(e * u0);
     float w1 = warp_sum(e * u1);
     if (lane == 0) {
@@ -186,22 +220,75 @@ __global__ void __launch_bounds__(kBlock) racing_solve_kernel(Params p) {
   for (int f = threadIdx.x; f < 2 * T; f += kBlock) {
     float acc = s_numer[f];
     for (int w = 1; w < kWarps; ++w) acc += s_numer[w * 2 * T + f];
-    p.numer[static_cast<size_t>(blockIdx.x) * 2 * T + f] = acc;
+    numer[static_cast<size_t>(blockIdx.x) * 2 * T + f] = acc;
   }
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kBlock) racing_solve_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int T = p.horizon;
+  float* s_xref = smem;                   // (T+1) * 5
+  float* s_prev = s_xref + (T + 1) * 5;   // 2T
+  float* s_red = s_prev + 2 * T;          // kWarps
+  float* s_numer = s_red + kWarps;        // kWarps * 2T
+  load_reference(p, s_xref, s_prev);
 
-extern "C" int racing_fused_solve(const float* x0, const float* prev, const float* lam,
-                                  const float* xref, const uint8_t* grid_a,
-                                  const uint8_t* grid_b, const float* noise, int width,
-                                  int height, float origin_x, float origin_y, float cell_size,
-                                  float x_lo, float x_hi, float y_lo, float y_hi, float sigma0,
-                                  float sigma1, float u_min0, float u_min1, float u_max0,
-                                  float u_max1, uint32_t seed, int horizon, int num_samples,
-                                  int threshold, float* costs, float* stats, float* numer,
-                                  void* stream) {
-  Params p;
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const bool valid = k < p.num_samples;
+  float cost = 1e30f;  // padding never wins the softmin
+  if (valid) {
+    cost = rollout_cost<false>(p, s_xref, s_prev, k);
+    p.costs[k] = cost;
+  }
+  // the numerator pass regenerates (or re-reads) each perturbation
+  Perturbation pert(p, s_prev, valid ? k : 0);
+  block_partials(cost, *p.lam, valid, pert, T, s_red, s_numer, p.stats, p.numer);
+}
+
+__global__ void __launch_bounds__(kBlock) racing_costs_dump_kernel(Params p) {
+  extern __shared__ float smem[];
+  float* s_xref = smem;                           // (T+1) * 5
+  float* s_prev = s_xref + (p.horizon + 1) * 5;   // 2T
+  load_reference(p, s_xref, s_prev);
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  if (k < p.num_samples) p.costs[k] = rollout_cost<true>(p, s_xref, s_prev, k);
+}
+
+__global__ void __launch_bounds__(kBlock) racing_weighted_kernel(
+    const float* costs, const float* dump, const float* lam, int horizon, int num_samples,
+    float* stats, float* numer) {
+  extern __shared__ float smem[];
+  float* s_red = smem;              // kWarps
+  float* s_numer = s_red + kWarps;  // kWarps * 2T
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const bool valid = k < num_samples;
+  const float cost = valid ? costs[k] : 1e30f;  // padding never wins the softmin
+  DumpedPerturbation src{dump, num_samples, valid ? k : 0};
+  block_partials(cost, *lam, valid, src, horizon, s_red, s_numer, stats, numer);
+}
+
+// Raise a kernel's dynamic shared-memory limit where it needs more than 48 KB.
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The arguments the three entry points share, in the order the wrappers pass them.
+#define RACING_PARAMS_ARGS                                                                  \
+  const float *x0, const float *prev, const float *lam, const float *xref,                  \
+      const uint8_t *grid_a, const uint8_t *grid_b, const float *noise, int width,          \
+      int height, float origin_x, float origin_y, float cell_size, float x_lo, float x_hi,  \
+      float y_lo, float y_hi, float sigma0, float sigma1, float u_min0, float u_min1,       \
+      float u_max0, float u_max1, uint32_t seed, int horizon, int num_samples, int threshold
+#define RACING_PARAMS_NAMES                                                                 \
+  x0, prev, lam, xref, grid_a, grid_b, noise, width, height, origin_x, origin_y, cell_size, \
+      x_lo, x_hi, y_lo, y_hi, sigma0, sigma1, u_min0, u_min1, u_max0, u_max1, seed, horizon, \
+      num_samples, threshold
+
+Params make_params(RACING_PARAMS_ARGS) {
+  Params p{};
   p.x0 = x0;
   p.prev = prev;
   p.lam = lam;
@@ -220,18 +307,55 @@ extern "C" int racing_fused_solve(const float* x0, const float* prev, const floa
   p.horizon = horizon;
   p.num_samples = num_samples;
   p.threshold = threshold;
+  return p;
+}
+
+int blocks_for(int num_samples) { return (num_samples + kBlock - 1) / kBlock; }
+
+size_t partials_shared_bytes(int horizon) {
+  return sizeof(float) * (kWarps + static_cast<size_t>(kWarps) * 2 * horizon);
+}
+
+size_t reference_shared_bytes(int horizon) {
+  return sizeof(float) * (static_cast<size_t>(horizon + 1) * 5 + 2 * horizon);
+}
+
+}  // namespace
+
+extern "C" int racing_fused_solve(RACING_PARAMS_ARGS, float* costs, float* stats, float* numer,
+                                  void* stream) {
+  Params p = make_params(RACING_PARAMS_NAMES);
   p.costs = costs;
   p.stats = stats;
   p.numer = numer;
-  const int blocks = (num_samples + kBlock - 1) / kBlock;
-  const size_t shmem =
-      sizeof(float) * (static_cast<size_t>(horizon + 1) * 5 + 2 * horizon + kWarps +
-                       static_cast<size_t>(kWarps) * 2 * horizon);
-  if (shmem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        racing_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  racing_solve_kernel<<<blocks, kBlock, shmem, static_cast<cudaStream_t>(stream)>>>(p);
+  const size_t shmem = reference_shared_bytes(horizon) + partials_shared_bytes(horizon);
+  cudaError_t err = allow_shared(racing_solve_kernel, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  racing_solve_kernel<<<blocks_for(num_samples), kBlock, shmem,
+                        static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int racing_costs_dump(RACING_PARAMS_ARGS, float* costs, float* dump, void* stream) {
+  Params p = make_params(RACING_PARAMS_NAMES);
+  p.costs = costs;
+  p.dump = dump;
+  const size_t shmem = reference_shared_bytes(horizon);
+  cudaError_t err = allow_shared(racing_costs_dump_kernel, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  racing_costs_dump_kernel<<<blocks_for(num_samples), kBlock, shmem,
+                             static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int racing_weighted(const float* costs, const float* dump, const float* lam,
+                               int horizon, int num_samples, float* stats, float* numer,
+                               void* stream) {
+  const size_t shmem = partials_shared_bytes(horizon);
+  cudaError_t err = allow_shared(racing_weighted_kernel, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  racing_weighted_kernel<<<blocks_for(num_samples), kBlock, shmem,
+                           static_cast<cudaStream_t>(stream)>>>(costs, dump, lam, horizon,
+                                                                 num_samples, stats, numer);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,7 @@ import torch
 from scipy.ndimage import distance_transform_edt
 
 from mppi_playground_tpu_torch.maps.grid_cost import GridMapData, grid_cost
+from mppi_playground_tpu_torch.utils.device import resolve_device
 
 
 class LaneMap:
@@ -27,7 +28,7 @@ class LaneMap:
         map_size: Tuple[int, int] = (20, 20),
         cell_size: float = 0.01,
         dtype: torch.dtype = torch.float32,
-        device: Union[str, torch.device] = "cpu",
+        device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         """
         Args:
@@ -35,6 +36,7 @@ class LaneMap:
             lane_width: drivable width in meters.
             map_size: (width, height) in meters, origin at the center.
             cell_size: meters per cell.
+            device: where :attr:`device_map` lives; ``None`` means ``cuda``.
         """
         if lane_width <= 0:
             raise ValueError(f"lane_width must be positive, got {lane_width}")
@@ -47,7 +49,7 @@ class LaneMap:
             [cell_map_dim[0] // 2, cell_map_dim[1] // 2]
         )
         self._dtype = dtype
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self.x_lim = [-map_size[0] / 2, map_size[0] / 2]
         self.y_lim = [-map_size[1] / 2, map_size[1] / 2]
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from mppi_playground_tpu_torch.maps.grid_cost import GridMapData, grid_cost
+from mppi_playground_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -46,8 +47,9 @@ class ObstacleMap:
         map_size: Tuple[int, int] = (20, 20),
         cell_size: float = 0.01,
         dtype: torch.dtype = torch.float32,
-        device: Union[str, torch.device] = "cpu",
+        device: Optional[Union[str, torch.device]] = None,
     ) -> None:
+        """``device``: where :attr:`device_map` lives; ``None`` means ``cuda``."""
         if len(map_size) != 2:
             raise ValueError("map_size must be (width, height) in meters")
         if cell_size <= 0:
@@ -64,7 +66,7 @@ class ObstacleMap:
             [cell_map_dim[0] / 2, cell_map_dim[1] / 2]
         ).astype(int)
         self._dtype = dtype
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
 
         x_range = cell_size * cell_map_dim[0]
         y_range = cell_size * cell_map_dim[1]

@@ -1,4 +1,4 @@
-"""Build the CUDA kernels of ``csrc/`` with ``nvcc`` and load them with ``ctypes``.
+"""Build the CUDA kernels of ``csrc/`` with ``nvcc``, load them with ``ctypes``, launch them.
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
 root of the checkout, at first use.  The hash covers the sources and the
@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -27,7 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fused_solve", "reroll")
+SOURCES = ("fused_solve", "reroll", "lambda_search")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -110,3 +112,17 @@ def function(name: str, symbol: str, argtypes: list):
             fn.restype = ctypes.c_int
             _functions[(name, symbol)] = fn
         return fn
+
+
+def launch(name: str, symbol: str, argtypes: list, device, *args) -> None:
+    """Call ``symbol`` of ``csrc/<name>.cu`` with ``args`` and ``device``'s current stream.
+
+    The C function enqueues its kernel and returns ``cudaGetLastError()``;
+    a refused launch raises here.
+    """
+    fn = function(name, symbol, argtypes)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")

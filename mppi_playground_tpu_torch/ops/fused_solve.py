@@ -1,13 +1,20 @@
-"""Fused racing MPPI solve and nominal re-roll: CUDA kernels and their twins.
+"""Fused racing MPPI solve, its auto-lambda phases and the re-roll: CUDA kernels and twins.
 
 Counterpart of ``mppi_playground_tpu/ops/fused_solve.py`` for the racing
-model at a fixed temperature.  Two kernels, written by hand for Hopper in
-``csrc/``:
+model.  Four kernels, written by hand for Hopper in ``csrc/``:
 
 * :func:`fused_racing_solve` (``csrc/fused_solve.cu``) — per sample: the
   perturbed, clamped warm start, T bicycle steps with the MPCC stage and
   terminal cost and two occupancy reads per point; per block of 256
   samples the softmin partials.  :func:`combine_partials` merges the blocks.
+* :func:`fused_racing_costs_dump` (same source) — auto-lambda phase 1: the
+  same rollout and costs, and the clamped perturbations dumped as
+  ``[2T, K]`` (slot-major, sample fastest); no partials.
+* :func:`racing_weighted` (same source) — auto-lambda phase 2: the block
+  partials of the fixed solve, from the costs and the dump at a lambda
+  searched in between, without a rollout.  Its partials and the fixed
+  solve's come from one device function, and here from one twin
+  (:func:`block_partials_plain`).
 * :func:`racing_reroll` (``csrc/reroll.cu``) — the nominal re-roll.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in its
@@ -138,13 +145,9 @@ def _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_m
     return torch.clamp(v, lo, hi)
 
 
-def fused_racing_solve_plain(
-    x0, prev, lam, seed, xref, task: RacingFusedTask, sigmas, u_min, u_max,
-    num_samples: int, threshold: int, noise: Optional[torch.Tensor] = None,
-):
-    """The fused kernel's plain twin: ``(costs [K], stats [B, 3], numer [B, 2T])``."""
-    horizon = prev.shape[0]
-    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
+def _rollout_costs_plain(x0, pert, xref, task: RacingFusedTask):
+    """Costs ``[K]`` of the clamped perturbations ``[K, T, 2]``: rollout, stage, terminal."""
+    num_samples, horizon = pert.shape[0], pert.shape[1]
     dynamics = make_dynamics_soa(x_lim=task.x_lim, y_lim=task.y_lim)
     stage_cost = make_mpcc_cost_soa()
     maps = (task.obstacle_grid, task.lane_grid, task.origin, task.cell_size)
@@ -158,20 +161,55 @@ def fused_racing_solve_plain(
         xs = dynamics(xs, us)
     zeros = torch.zeros_like(acc)
     prev_us = (pert[:, max(horizon - 2, 0), 0], pert[:, max(horizon - 2, 0), 1])
-    acc = acc + stage_cost(
+    return acc + stage_cost(
         xs, (zeros, zeros), dict(t=horizon - 1, prev_us=prev_us, xref=xref, maps=maps)
     )
 
+
+def block_partials_plain(costs, flat_pert, lam):
+    """Softmin partials per block of 256: ``(stats [B, 3], numer [B, 2T])``.
+
+    ``flat_pert [K, 2T]`` holds each sample's clamped perturbations; padded
+    samples cost 1e30 and weigh 0.  The twin of the kernels' shared
+    ``block_partials``.
+    """
+    num_samples, slots = flat_pert.shape
     blocks = -(-num_samples // BLOCK)
     pad = blocks * BLOCK - num_samples
-    c = torch.cat([acc, acc.new_full((pad,), 1e30)]).view(blocks, BLOCK)
+    c = torch.cat([costs, costs.new_full((pad,), 1e30)]).view(blocks, BLOCK)
     s = -c / lam.reshape(())
     mx = s.max(dim=1).values
     e = torch.exp(s - mx[:, None])
     stats = torch.stack([mx, e.sum(dim=1), (e * e).sum(dim=1)], dim=1)
-    flat = torch.cat([pert.reshape(num_samples, -1), pert.new_zeros(pad, 2 * horizon)])
-    numer = (e[:, :, None] * flat.view(blocks, BLOCK, 2 * horizon)).sum(dim=1)
-    return acc, stats, numer
+    flat = torch.cat([flat_pert, flat_pert.new_zeros(pad, slots)])
+    numer = (e[:, :, None] * flat.view(blocks, BLOCK, slots)).sum(dim=1)
+    return stats, numer
+
+
+def fused_racing_solve_plain(
+    x0, prev, lam, seed, xref, task: RacingFusedTask, sigmas, u_min, u_max,
+    num_samples: int, threshold: int, noise: Optional[torch.Tensor] = None,
+):
+    """The fused kernel's plain twin: ``(costs [K], stats [B, 3], numer [B, 2T])``."""
+    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
+    costs = _rollout_costs_plain(x0, pert, xref, task)
+    stats, numer = block_partials_plain(costs, pert.reshape(num_samples, -1), lam)
+    return costs, stats, numer
+
+
+def fused_racing_costs_dump_plain(
+    x0, prev, seed, xref, task: RacingFusedTask, sigmas, u_min, u_max,
+    num_samples: int, threshold: int, noise: Optional[torch.Tensor] = None,
+):
+    """The phase-1 kernel's plain twin: ``(costs [K], dump [2T, K])``."""
+    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
+    costs = _rollout_costs_plain(x0, pert, xref, task)
+    return costs, pert.reshape(num_samples, -1).t().contiguous()
+
+
+def racing_weighted_plain(costs, dump, lam):
+    """The phase-2 kernel's plain twin: ``(stats [B, 3], numer [B, 2T])``."""
+    return block_partials_plain(costs, dump.t(), lam)
 
 
 def _check(name, t, shape, dtype, device):
@@ -198,6 +236,60 @@ _SOLVE_ARGTYPES = (
 )
 
 
+def _racing_args(x0, prev, lam, seed, xref, task, sigmas, u_min, u_max, num_samples,
+                 threshold, noise):
+    """Check the racing kernels' inputs on the card -> ``(args, noise)``.
+
+    ``args`` are the leading arguments the two rollout entry points of
+    ``csrc/fused_solve.cu`` share (``lam`` None: a null pointer, for phase 1,
+    which reads none); ``noise`` is transposed to the kernels' ``[2T, K]``
+    layout (kept alive by the caller until the launch).
+    """
+    dev = x0.device
+    horizon = prev.shape[0]
+    if not 1 <= horizon or 2 * horizon > MAX_SLOTS:
+        raise ValueError(f"fused racing kernel needs 1 <= 2 * horizon <= {MAX_SLOTS}")
+    if num_samples < 1 or num_samples >= 2**31 - BLOCK:
+        raise ValueError(f"num_samples out of range: {num_samples}")
+    f32 = torch.float32
+    _check("x0", x0, (4,), f32, dev)
+    _check("prev", prev, (horizon, 2), f32, dev)
+    if lam is not None:
+        _check("lam", lam, tuple(lam.shape), f32, dev)
+        if lam.numel() != 1:
+            raise ValueError("lam must hold one element")
+    _check("xref", xref, (horizon + 1, 5), f32, dev)
+    grid_shape = tuple(task.obstacle_grid.shape)
+    if len(grid_shape) != 2:
+        raise ValueError("the occupancy grids must be 2-D")
+    _check("obstacle_grid", task.obstacle_grid, grid_shape, torch.uint8, dev)
+    _check("lane_grid", task.lane_grid, grid_shape, torch.uint8, dev)
+    noise_ptr = None
+    if noise is not None:
+        _check("noise", noise, (num_samples, horizon, 2), f32, dev)
+        noise = noise.reshape(num_samples, 2 * horizon).t().contiguous()
+        noise_ptr = noise.data_ptr()
+    args = (
+        x0.data_ptr(), prev.data_ptr(), None if lam is None else lam.data_ptr(),
+        xref.data_ptr(),
+        task.obstacle_grid.data_ptr(), task.lane_grid.data_ptr(), noise_ptr,
+        grid_shape[0], grid_shape[1],
+        _f(task.origin[0]), _f(task.origin[1]), _f(task.cell_size),
+        _f(task.x_lim[0]), _f(task.x_lim[1]), _f(task.y_lim[0]), _f(task.y_lim[1]),
+        _f(sigmas[0]), _f(sigmas[1]), _f(u_min[0]), _f(u_min[1]),
+        _f(u_max[0]), _f(u_max[1]),
+        int(seed) & _MASK32, horizon, num_samples, max(0, min(threshold, num_samples)),
+    )
+    return args, noise
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other device."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    return t.device.type == "cuda"
+
+
 def fused_racing_solve(
     x0: torch.Tensor,
     prev: torch.Tensor,
@@ -219,62 +311,102 @@ def fused_racing_solve(
     integer; ``noise`` optional ``[K, T, 2]`` already scaled by sigma.
     ``B = ceil(K / 256)``.  CPU tensors take :func:`fused_racing_solve_plain`.
     """
-    if x0.device.type == "cpu":
+    if not _on_card("fused_racing_solve", x0):
         return fused_racing_solve_plain(
             x0, prev, lam, seed, xref, task, sigmas, u_min, u_max,
             num_samples, threshold, noise,
         )
-    if x0.device.type != "cuda":
-        raise ValueError(f"fused_racing_solve runs on cuda or cpu, not {x0.device}")
-    dev = x0.device
-    horizon = prev.shape[0]
-    if not 1 <= horizon or 2 * horizon > MAX_SLOTS:
-        raise ValueError(f"fused racing kernel needs 1 <= 2 * horizon <= {MAX_SLOTS}")
-    if num_samples < 1 or num_samples >= 2**31 - BLOCK:
-        raise ValueError(f"num_samples out of range: {num_samples}")
-    f32 = torch.float32
-    _check("x0", x0, (4,), f32, dev)
-    _check("prev", prev, (horizon, 2), f32, dev)
-    _check("lam", lam, tuple(lam.shape), f32, dev)
-    if lam.numel() != 1:
-        raise ValueError("lam must hold one element")
-    _check("xref", xref, (horizon + 1, 5), f32, dev)
-    grid_shape = tuple(task.obstacle_grid.shape)
-    if len(grid_shape) != 2:
-        raise ValueError("the occupancy grids must be 2-D")
-    _check("obstacle_grid", task.obstacle_grid, grid_shape, torch.uint8, dev)
-    _check("lane_grid", task.lane_grid, grid_shape, torch.uint8, dev)
-    noise_ptr = None
-    if noise is not None:
-        _check("noise", noise, (num_samples, horizon, 2), f32, dev)
-        noise = noise.reshape(num_samples, 2 * horizon).t().contiguous()
-        noise_ptr = noise.data_ptr()
-
+    args, noise = _racing_args(x0, prev, lam, seed, xref, task, sigmas, u_min, u_max,
+                               num_samples, threshold, noise)
+    horizon, dev = prev.shape[0], x0.device
     blocks = -(-num_samples // BLOCK)
-    costs = torch.empty(num_samples, dtype=f32, device=dev)
-    stats = torch.empty(blocks, 3, dtype=f32, device=dev)
-    numer = torch.empty(blocks, 2 * horizon, dtype=f32, device=dev)
-    fn = cuda_build.function("fused_solve", "racing_fused_solve", _SOLVE_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(
-            x0.data_ptr(), prev.data_ptr(), lam.data_ptr(), xref.data_ptr(),
-            task.obstacle_grid.data_ptr(), task.lane_grid.data_ptr(), noise_ptr,
-            grid_shape[0], grid_shape[1],
-            _f(task.origin[0]), _f(task.origin[1]), _f(task.cell_size),
-            _f(task.x_lim[0]), _f(task.x_lim[1]), _f(task.y_lim[0]), _f(task.y_lim[1]),
-            _f(sigmas[0]), _f(sigmas[1]), _f(u_min[0]), _f(u_min[1]),
-            _f(u_max[0]), _f(u_max[1]),
-            int(seed) & _MASK32, horizon, num_samples, max(0, min(threshold, num_samples)),
-            costs.data_ptr(), stats.data_ptr(), numer.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"racing_fused_solve launch failed: cudaError_t {err}")
+    costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
+    stats = torch.empty(blocks, 3, dtype=torch.float32, device=dev)
+    numer = torch.empty(blocks, 2 * horizon, dtype=torch.float32, device=dev)
+    cuda_build.launch("fused_solve", "racing_fused_solve", _SOLVE_ARGTYPES, dev, *args,
+                      costs.data_ptr(), stats.data_ptr(), numer.data_ptr())
     fused_racing_solve.launches += 1
     return costs, stats, numer
 
 
 fused_racing_solve.launches = 0
+
+_DUMP_ARGTYPES = _SOLVE_ARGTYPES[:-4] + [ctypes.c_void_p] * 3
+
+
+def fused_racing_costs_dump(
+    x0: torch.Tensor,
+    prev: torch.Tensor,
+    seed: int,
+    xref: torch.Tensor,
+    task: RacingFusedTask,
+    sigmas: Tuple[float, float],
+    u_min: Tuple[float, float],
+    u_max: Tuple[float, float],
+    num_samples: int,
+    threshold: int,
+    noise: Optional[torch.Tensor] = None,
+):
+    """Auto-lambda phase 1 -> ``(costs [K], dump [2T, K])``.
+
+    The rollout and costs of :func:`fused_racing_solve` (same arguments,
+    no lambda), and each sample's clamped perturbations, slot-major.  CPU
+    tensors take :func:`fused_racing_costs_dump_plain`.
+    """
+    if not _on_card("fused_racing_costs_dump", x0):
+        return fused_racing_costs_dump_plain(
+            x0, prev, seed, xref, task, sigmas, u_min, u_max, num_samples, threshold, noise,
+        )
+    dev = x0.device
+    args, noise = _racing_args(x0, prev, None, seed, xref, task, sigmas, u_min, u_max,
+                               num_samples, threshold, noise)
+    costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
+    dump = torch.empty(2 * prev.shape[0], num_samples, dtype=torch.float32, device=dev)
+    cuda_build.launch("fused_solve", "racing_costs_dump", _DUMP_ARGTYPES, dev, *args,
+                      costs.data_ptr(), dump.data_ptr())
+    fused_racing_costs_dump.launches += 1
+    return costs, dump
+
+
+fused_racing_costs_dump.launches = 0
+
+_WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+
+
+def racing_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
+    """Auto-lambda phase 2 -> ``(stats [B, 3], numer [B, 2T])`` at ``lam``.
+
+    ``costs [K]`` and ``dump [2T, K]`` from :func:`fused_racing_costs_dump`,
+    ``lam`` one element on the same device (read by the kernel, never by the
+    host).  The same partials :func:`fused_racing_solve` gives at ``lam``.
+    CPU tensors take :func:`racing_weighted_plain`.
+    """
+    if not _on_card("racing_weighted", costs):
+        return racing_weighted_plain(costs, dump, lam)
+    dev = costs.device
+    num_samples = costs.shape[0]
+    slots = dump.shape[0]
+    if slots % 2 or not 2 <= slots <= MAX_SLOTS:
+        raise ValueError(f"dump must be [2T, K] with 2 <= 2T <= {MAX_SLOTS}")
+    if not 1 <= num_samples < 2**31 - BLOCK:
+        raise ValueError(f"num_samples out of range: {num_samples}")
+    f32 = torch.float32
+    _check("costs", costs, (num_samples,), f32, dev)
+    _check("dump", dump, (slots, num_samples), f32, dev)
+    _check("lam", lam, tuple(lam.shape), f32, dev)
+    if lam.numel() != 1:
+        raise ValueError("lam must hold one element")
+    blocks = -(-num_samples // BLOCK)
+    stats = torch.empty(blocks, 3, dtype=f32, device=dev)
+    numer = torch.empty(blocks, slots, dtype=f32, device=dev)
+    cuda_build.launch("fused_solve", "racing_weighted", _WEIGHTED_ARGTYPES, dev,
+                      costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots // 2,
+                      num_samples, stats.data_ptr(), numer.data_ptr())
+    racing_weighted.launches += 1
+    return stats, numer
+
+
+racing_weighted.launches = 0
 
 
 def combine_partials(costs, stats, numer, lam, horizon: int, dim_control: int):
@@ -325,25 +457,16 @@ def racing_reroll(
     y_lim: Tuple[float, float],
 ) -> torch.Tensor:
     """``(x0 [4], action_seq [T, 2]) -> state_seq [T+1, 4]`` of the bicycle."""
-    if x0.device.type == "cpu":
+    if not _on_card("racing_reroll", x0):
         return racing_reroll_plain(x0, action_seq, x_lim, y_lim)
-    if x0.device.type != "cuda":
-        raise ValueError(f"racing_reroll runs on cuda or cpu, not {x0.device}")
     dev = x0.device
     horizon = action_seq.shape[0]
     _check("x0", x0, (4,), torch.float32, dev)
     _check("action_seq", action_seq, (horizon, 2), torch.float32, dev)
     out = torch.empty(horizon + 1, 4, dtype=torch.float32, device=dev)
-    fn = cuda_build.function("reroll", "racing_reroll", _REROLL_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(
-            x0.data_ptr(), action_seq.data_ptr(), horizon,
-            _f(x_lim[0]), _f(x_lim[1]), _f(y_lim[0]), _f(y_lim[1]),
-            out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"racing_reroll launch failed: cudaError_t {err}")
+    cuda_build.launch("reroll", "racing_reroll", _REROLL_ARGTYPES, dev, x0.data_ptr(),
+                      action_seq.data_ptr(), horizon, _f(x_lim[0]), _f(x_lim[1]),
+                      _f(y_lim[0]), _f(y_lim[1]), out.data_ptr())
     racing_reroll.launches += 1
     return out
 

@@ -1,0 +1,212 @@
+"""ESSPS and LBPS temperature searches in one launch: CUDA kernels and their twins.
+
+Counterpart of ``mppi_playground_tpu/ops/lambda_search.py``.  Each search
+reads the cost vector ``[K]`` once and runs every iteration on it, written
+by hand for Hopper in ``csrc/lambda_search.cu``:
+
+* :func:`essps_lambda_fused` — bisection on ``ESS(lambda) = target`` with
+  ``d = min(c) - c`` hoisted and ``ESS = (sum e)^2 / sum e^2``,
+  ``e = exp(d * (1 / lambda))``; the reference's bracket clamps.
+* :func:`lbps_lambda_fused` — golden section on ``(sum e*c + range_pen *
+  sqrt(sum e^2)) / sum e`` with ``a = -1/lambda``, ``e = exp(c*a -
+  min(c)*a)`` (the exact hoist), carrying the surviving value;
+  ``range_pen = (max - min) * sqrt(f32((1 - delta) / delta))``.
+
+These differ from the loops of ``core/autolambda.py`` only in rounding: the
+same searches on another form of the same sums.  Each wrapper launches its
+kernel for CUDA tensors, counts the launch in its ``launches`` attribute,
+and raises on what the kernel does not take.  For CPU tensors it runs the
+plain twin beside it (``*_plain``), which does the kernel's arithmetic
+operation for operation, its sums included (:func:`kernel_order_sum`): the
+LBPS objective is so flat near its minimum that two summation orders can
+stop golden section ~0.1% apart.  The result is a 0-dim tensor on the
+costs' device; nothing is read back to the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from mppi_playground_tpu_torch.ops import cuda_build
+
+_INVPHI = (math.sqrt(5.0) - 1.0) / 2.0
+# the kernels' launch geometry (csrc/lambda_search.cu kCluster, kThreads)
+CLUSTER = 8
+THREADS = 1024
+# The kernels index the costs with 32-bit ints (the slice size is rounded up
+# from K + CLUSTER - 1).  Unlike the JAX package's VMEM gate of 1M, there is
+# no size limit below that: each CTA keeps the first 200 KB of its slice in
+# shared memory and reads the rest from global memory (from L2 while the
+# costs fit there, up to about 12M samples on the H100's 50 MB).
+MAX_SAMPLES = 2**31 - CLUSTER
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def kernel_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x [K]`` in the search kernels' order, as a 0-dim tensor.
+
+    CTA r of the cluster holds the r-th slice of ``ceil(K / 8)`` values;
+    thread t adds its slice's values t, t + 1024, ... in turn; a warp folds
+    its 32 lanes by halves (the xor-shuffle butterfly, lane 0's result),
+    warp 0 folds the 32 warp sums the same way, and the 8 CTA sums are added
+    in rank order.  The padding adds exact zeros.
+    """
+    k = x.shape[0]
+    chunk = -(-k // CLUSTER)
+    per_thread = -(-chunk // THREADS)
+    slices = torch.cat([x, x.new_zeros(CLUSTER * chunk - k)]).view(CLUSTER, chunk)
+    slices = torch.cat([slices, x.new_zeros(CLUSTER, per_thread * THREADS - chunk)], dim=1)
+    strided = slices.view(CLUSTER, per_thread, THREADS)
+    acc = strided[:, 0]
+    for j in range(1, per_thread):
+        acc = acc + strided[:, j]
+    for _ in range(2):  # lanes of each warp, then the warps of the CTA
+        acc = acc.reshape(CLUSTER, -1, 32)
+        while acc.shape[-1] > 1:
+            half = acc.shape[-1] // 2
+            acc = acc[..., :half] + acc[..., half:]
+    acc = acc.reshape(CLUSTER)
+    total = acc[0]
+    for r in range(1, CLUSTER):
+        total = total + acc[r]
+    return total
+
+
+def essps_lambda_plain(costs, target_ess, lambda_min, lambda_max, iters: int = 40):
+    """The ESSPS kernel's plain twin: 0-dim ``lambda*``."""
+    lam_min = _scalar(lambda_min, costs)
+    lam_max = _scalar(lambda_max, costs)
+    target = _scalar(target_ess, costs)
+    d = torch.min(costs) - costs
+
+    def ess(lam):
+        e = torch.exp(d * (1.0 / lam))
+        z = kernel_order_sum(e)
+        return z * z / kernel_order_sum(e * e)
+
+    ess_at_min = ess(lam_min)
+    ess_at_max = ess(lam_max)
+    a, b = lam_min, lam_max
+    for _ in range(iters):
+        mid = 0.5 * (a + b)
+        below = ess(mid) < target  # the root lies above mid
+        a, b = torch.where(below, mid, a), torch.where(below, b, mid)
+    root = 0.5 * (a + b)
+    return torch.where(
+        target <= ess_at_min, lam_min, torch.where(target >= ess_at_max, lam_max, root)
+    )
+
+
+def lbps_range_penalty(costs: torch.Tensor, delta: float) -> torch.Tensor:
+    """``(max - min) * sqrt(f32((1 - delta) / delta))`` over the costs."""
+    return (torch.max(costs) - torch.min(costs)) * torch.sqrt(
+        _scalar((1.0 - delta) / delta, costs)
+    )
+
+
+def lbps_objective_plain(costs, lam, range_pen):
+    """The LBPS kernel's objective: ``(sum e*c + range_pen * sqrt(sum e^2)) / sum e``."""
+    cmin = torch.min(costs)
+    a = -1.0 / lam
+    e = torch.exp(costs * a - cmin * a)
+    z, sq, wc = (kernel_order_sum(v) for v in (e, e * e, e * costs))
+    return (wc + range_pen * torch.sqrt(sq)) / z
+
+
+def lbps_lambda_plain(costs, delta, lambda_min, lambda_max, iters: int = 32):
+    """The LBPS kernel's plain twin: 0-dim ``lambda*``."""
+    range_pen = lbps_range_penalty(costs, delta)
+
+    def objective(lam):
+        return lbps_objective_plain(costs, lam, range_pen)
+
+    invphi = _scalar(_INVPHI, costs)
+    a = _scalar(lambda_min, costs)
+    b = _scalar(lambda_max, costs)
+    c = b - (b - a) * invphi
+    d = a + (b - a) * invphi
+    fc = objective(c)
+    fd = objective(d)
+    for _ in range(iters):
+        shrink_right = fc < fd  # the minimum lies in [a, d]
+        new_a = torch.where(shrink_right, a, c)
+        new_b = torch.where(shrink_right, d, b)
+        fresh_lo = new_b - (new_b - new_a) * invphi
+        fresh_hi = new_a + (new_b - new_a) * invphi
+        x = torch.where(shrink_right, fresh_lo, fresh_hi)
+        fx = objective(x)
+        # the surviving interior point keeps its value
+        c, fc, d, fd = (
+            torch.where(shrink_right, x, d),
+            torch.where(shrink_right, fx, fd),
+            torch.where(shrink_right, c, x),
+            torch.where(shrink_right, fc, fx),
+        )
+        a, b = new_a, new_b
+    return 0.5 * (a + b)
+
+
+_SEARCH_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 3
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+)
+
+
+def _launch(symbol: str, costs: torch.Tensor, lambda_min, lambda_max, param, iters: int):
+    out = torch.empty(1, dtype=torch.float32, device=costs.device)
+    cuda_build.launch("lambda_search", symbol, _SEARCH_ARGTYPES, costs.device, costs.data_ptr(),
+                      costs.shape[0], ctypes.c_float(lambda_min), ctypes.c_float(lambda_max),
+                      ctypes.c_float(param), int(iters), out.data_ptr())
+    return out.reshape(())
+
+
+def _check_costs(name: str, costs: torch.Tensor, iters: int) -> bool:
+    """Validate the costs; True where the kernel runs (a CUDA tensor)."""
+    if costs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {costs.device}")
+    if costs.dim() != 1 or not 1 <= costs.shape[0] <= MAX_SAMPLES:
+        raise ValueError(
+            f"{name} takes costs [K] with 1 <= K <= {MAX_SAMPLES}, got {tuple(costs.shape)}"
+        )
+    if costs.dtype != torch.float32:
+        raise ValueError(f"costs has dtype {costs.dtype}, expected torch.float32")
+    if not costs.is_contiguous():
+        raise ValueError("costs must be contiguous")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    return costs.device.type == "cuda"
+
+
+def essps_lambda_fused(
+    costs: torch.Tensor, target_ess: float, lambda_min: float, lambda_max: float,
+    iters: int = 40,
+) -> torch.Tensor:
+    """ESSPS ``lambda*`` of ``costs [K]`` float32, a 0-dim tensor on its device."""
+    if not _check_costs("essps_lambda_fused", costs, iters):
+        return essps_lambda_plain(costs, target_ess, lambda_min, lambda_max, iters)
+    lam = _launch("essps_search", costs, lambda_min, lambda_max, target_ess, iters)
+    essps_lambda_fused.launches += 1
+    return lam
+
+
+essps_lambda_fused.launches = 0
+
+
+def lbps_lambda_fused(
+    costs: torch.Tensor, delta: float, lambda_min: float, lambda_max: float, iters: int = 32,
+) -> torch.Tensor:
+    """LBPS ``lambda*`` of ``costs [K]`` float32, a 0-dim tensor on its device."""
+    if not _check_costs("lbps_lambda_fused", costs, iters):
+        return lbps_lambda_plain(costs, delta, lambda_min, lambda_max, iters)
+    lam = _launch("lbps_search", costs, lambda_min, lambda_max, (1.0 - delta) / delta, iters)
+    lbps_lambda_fused.launches += 1
+    return lam
+
+
+lbps_lambda_fused.launches = 0

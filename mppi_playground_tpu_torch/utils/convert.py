@@ -1,21 +1,22 @@
 """Carry state and maps from the JAX package, as numpy arrays, into the port.
 
 The tests hand the same inputs to both packages through these functions:
-the solver state's warm start, SG history and temperature; an occupancy
-grid with its origin and cell size; the circuit's center path.  Nothing
-here imports the JAX package: callers pass ``np.asarray(...)`` of its
-arrays.
+the solver state's warm start, SG history, temperature and MPO state; an
+occupancy grid with its origin and cell size; the circuit's center path.
+Nothing here imports the JAX package: callers pass ``np.asarray(...)`` of
+its arrays.  ``device=None`` means ``cuda``, as everywhere in the port.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from mppi_playground_tpu_torch.core.config import MPPIState
+from mppi_playground_tpu_torch.core.config import AdamState, MPPIState
 from mppi_playground_tpu_torch.maps.grid_cost import GridMapData
+from mppi_playground_tpu_torch.utils.device import resolve_device
 
 Device = Optional[Union[str, torch.device]]
 
@@ -26,18 +27,34 @@ def mppi_state(
     lam,
     seed: int = 0,
     tick: int = 0,
-    device: Device = "cpu",
+    device: Device = None,
     dtype: torch.dtype = torch.float32,
+    mpo_log_temperature=0.0,
+    mpo_opt_state: Optional[Sequence[np.ndarray]] = None,
 ) -> MPPIState:
-    """An :class:`MPPIState` from the JAX state's arrays (its key is not carried)."""
+    """An :class:`MPPIState` from the JAX state's arrays (its key is not carried).
+
+    ``mpo_opt_state`` is ``(count, mu, nu)`` of the JAX state's Adam state
+    (``state.mpo_opt_state[0]``), or ``None`` outside MPO mode.
+    """
+    device = resolve_device(device)
+
+    def tensor(a, dt=dtype):
+        return torch.as_tensor(np.array(a), dtype=dt, device=device)
+
+    opt_state = None
+    if mpo_opt_state is not None:
+        count, mu, nu = mpo_opt_state
+        opt_state = AdamState(count=tensor(count, torch.int32).reshape(()),
+                              mu=tensor(mu).reshape(()), nu=tensor(nu).reshape(()))
     return MPPIState(
-        previous_action_seq=torch.as_tensor(
-            np.array(previous_action_seq), dtype=dtype, device=device
-        ).contiguous(),
-        sg_history=torch.as_tensor(np.array(sg_history), dtype=dtype, device=device),
-        lam=torch.as_tensor(np.array(lam), dtype=dtype, device=device).reshape(()),
+        previous_action_seq=tensor(previous_action_seq).contiguous(),
+        sg_history=tensor(sg_history),
+        lam=tensor(lam).reshape(()),
         seed=int(seed),
         tick=int(tick),
+        mpo_log_temperature=tensor(mpo_log_temperature).reshape(()),
+        mpo_opt_state=opt_state,
     )
 
 
@@ -45,10 +62,11 @@ def grid_map(
     grid: np.ndarray,
     origin: np.ndarray,
     cell_size: float,
-    device: Device = "cpu",
+    device: Device = None,
     dtype: torch.dtype = torch.float32,
 ) -> GridMapData:
     """A :class:`GridMapData` from an occupancy grid ``[W, H]``, origin and cell size."""
+    device = resolve_device(device)
     return GridMapData(
         grid=torch.as_tensor(np.array(grid), dtype=dtype, device=device),
         origin=torch.as_tensor(np.array(origin), dtype=dtype, device=device),
@@ -57,7 +75,8 @@ def grid_map(
 
 
 def center_path(
-    path: np.ndarray, device: Device = "cpu", dtype: torch.dtype = torch.float32
+    path: np.ndarray, device: Device = None, dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
     """The circuit's center path ``[N, 3]`` (x, y, heading) as a tensor."""
+    device = resolve_device(device)
     return torch.as_tensor(np.array(path), dtype=dtype, device=device).contiguous()

@@ -15,6 +15,11 @@ for fused against XLA (tests/test_fused_solve.py): weights atol 1e-5,
 update and states atol 5e-3, ESS rtol 1e-3; exp and the sums are taken in
 another order.  The seeded stream (Philox) cannot replay the TPU's
 hardware bits, so it is checked by its statistics.
+
+The auto-lambda phases run at the flagship's horizon (T=50) with a padded
+last tile (K=1500): phase 1's costs and perturbation dump against
+``run_kernel(costs_only=True, dump_pert=True)``, phase 2 at the JAX ESSPS
+lambda* against ``run_weighted(pert=...)``, with the same bars.
 """
 
 import os
@@ -39,6 +44,39 @@ U_MIN = (-2.0, -0.25)
 U_MAX = (2.0, 0.25)
 SOLVE_CASES = ((2048, 0.0), (1500, 0.3))
 REROLL_HORIZON = 50
+PHASE_T, PHASE_K, PHASE_EXPLORATION = 50, 1500, 0.3
+
+
+def run_jax_references(module: str, functions, out_dir: Path) -> dict:
+    """Run each ``module.function(out_path)`` in its own subprocess, all at once.
+
+    XLA's FMA contraction is off and JAX is pinned to the CPU in each.
+    Returns the arrays they saved, keyed by function name.
+    """
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX").strip()
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
+    procs = {}
+    for function in functions:
+        out_path = out_dir / f"{function}.npz"
+        code = f"import {module} as m; m.{function}({str(out_path)!r})"
+        procs[function] = (out_path, subprocess.Popen(
+            [sys.executable, "-c", code], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    results = {}
+    try:
+        for function, (out_path, proc) in procs.items():
+            log, _ = proc.communicate(timeout=600)
+            assert proc.returncode == 0, f"{function}:\n{log[-8000:]}"
+            with np.load(out_path) as data:
+                results[function] = dict(data)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
 
 
 def run_jax_reference(module: str, function: str, out_dir: Path) -> dict:
@@ -46,17 +84,7 @@ def run_jax_reference(module: str, function: str, out_dir: Path) -> dict:
 
     Returns the arrays it saved.  The subprocess pins JAX to the CPU.
     """
-    out_path = out_dir / f"{function}.npz"
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX").strip()
-    env["JAX_PLATFORMS"] = "cpu"
-    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
-    code = f"import {module} as m; m.{function}({str(out_path)!r})"
-    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
-    with np.load(out_path) as data:
-        return dict(data)
+    return run_jax_references(module, [function], out_dir)[function]
 
 
 def _jax_cpu():
@@ -119,10 +147,54 @@ def jax_fused_reference(out_path: str) -> None:
     np.savez(out_path, **out)
 
 
+def jax_phase_reference(out_path: str) -> None:
+    """Subprocess body: auto-lambda phase 1, the ESSPS search and phase 2 in interpret mode."""
+    jax = _jax_cpu()
+    import jax.numpy as jnp
+
+    from mppi_playground_tpu.core.config import MPPIConfig
+    from mppi_playground_tpu.envs.racing_env import RacingEnv as JaxRacingEnv
+    from mppi_playground_tpu.models import racing_mpcc
+    from mppi_playground_tpu.ops.fused_solve import make_fused_solve
+    from mppi_playground_tpu.ops.lambda_search import essps_lambda_fused
+
+    assert jax.default_backend() == "cpu"
+    env = JaxRacingEnv()
+    task = racing_mpcc.make_racing_fused_task_from_env(env)
+    cfg = MPPIConfig(horizon=PHASE_T, num_samples=PHASE_K, dim_state=4, dim_control=2,
+                     u_min=U_MIN, u_max=U_MAX, sigmas=SIGMAS, lambda_=1.0,
+                     store_rollouts=False, exploration=PHASE_EXPLORATION)
+    out = {}
+    rng = np.random.default_rng(PHASE_K + PHASE_T)
+    x0 = (np.asarray(env.reset()) + np.array([0.2, -0.1, 0.05, 6.0])).astype(np.float32)
+    prev = (rng.standard_normal((PHASE_T, 2)) * SIGMAS).astype(np.float32)
+    noise = (rng.standard_normal((PHASE_K, PHASE_T, 2)) * SIGMAS).astype(np.float32)
+    xref, _ = racing_mpcc.calc_ref_trajectory(
+        jnp.asarray(x0), env.racing_center_path, jnp.asarray(0, jnp.int32), PHASE_T
+    )
+    xref5 = np.asarray(racing_mpcc.extend_reference_path(xref))
+    core = make_fused_solve(cfg, task, interpret=True)
+    costs, pert = core.run_kernel(
+        jnp.asarray(x0), jnp.asarray(prev), jnp.float32(1.0), jnp.int32(0),
+        {"xref": jnp.asarray(xref5)}, jnp.asarray(noise), dump_pert=True, costs_only=True,
+    )
+    lam = essps_lambda_fused(costs, PHASE_K / 10.0, 0.01, 10.0, interpret=True)
+    stats, numer = core.run_weighted(jnp.asarray(prev), lam, jnp.int32(0), costs, pert=pert)
+    update, weights, ess = core.combine_partials(costs, stats, numer, lam)
+    # the dump's kernel layout [T*m, K_pad/128, 128] -> [K, T, m]
+    pert = np.asarray(pert).reshape(2 * PHASE_T, -1).T[:PHASE_K].reshape(PHASE_K, PHASE_T, 2)
+    for name, value in dict(x0=x0, prev=prev, noise=noise, xref5=xref5, costs=costs, pert=pert,
+                            lam=lam, update=update, weights=weights, ess=ess).items():
+        out[f"phase_{name}"] = np.asarray(value)
+    np.savez(out_path, **out)
+
+
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    return run_jax_reference("tests.test_torch_fused_solve", "jax_fused_reference",
-                             tmp_path_factory.mktemp("jax_fused"))
+    refs = run_jax_references("tests.test_torch_fused_solve",
+                              ["jax_fused_reference", "jax_phase_reference"],
+                              tmp_path_factory.mktemp("jax_fused"))
+    return {**refs["jax_fused_reference"], **refs["jax_phase_reference"]}
 
 
 @pytest.fixture(scope="module")
@@ -161,6 +233,51 @@ def test_reroll_twin_matches_jax_interpret(jax_ref, task):
         assert got.shape == (REROLL_HORIZON + 1, 4)
         np.testing.assert_allclose(got, want, atol=5e-3)
         np.testing.assert_array_equal(got, want)  # op for op: tolerance 0
+
+
+def _phase_inputs(ref, task):
+    threshold = int(PHASE_K * (1.0 - PHASE_EXPLORATION))
+    return (_t(ref["phase_x0"]), _t(ref["phase_prev"]), 0, _t(ref["phase_xref5"]), task,
+            SIGMAS, U_MIN, U_MAX, PHASE_K, threshold, _t(ref["phase_noise"]))
+
+
+def test_phase1_twin_matches_jax_costs_and_dump(jax_ref, task):
+    costs, dump = fused_solve.fused_racing_costs_dump(*_phase_inputs(jax_ref, task))
+    assert costs.shape == (PHASE_K,) and dump.shape == (2 * PHASE_T, PHASE_K)
+    np.testing.assert_allclose(costs.numpy(), jax_ref["phase_costs"], rtol=1e-5)
+    np.testing.assert_array_equal(costs.numpy(), jax_ref["phase_costs"])  # bitwise under AVX
+    # slot-major [2T, K] against the JAX dump, both as [K, T, m]: the same clamped values
+    np.testing.assert_array_equal(dump.t().reshape(PHASE_K, PHASE_T, 2).numpy(),
+                                  jax_ref["phase_pert"])
+
+
+def test_phase2_twin_matches_jax_run_weighted(jax_ref, task):
+    costs, dump = fused_solve.fused_racing_costs_dump(*_phase_inputs(jax_ref, task))
+    lam = _t(jax_ref["phase_lam"]).reshape(1)
+    stats, numer = fused_solve.racing_weighted(costs, dump, lam)
+    update, weights, ess = fused_solve.combine_partials(costs, stats, numer, lam, PHASE_T, 2)
+    np.testing.assert_allclose(weights.numpy(), jax_ref["phase_weights"], atol=1e-5)
+    np.testing.assert_allclose(update.numpy(), jax_ref["phase_update"], atol=5e-3)
+    np.testing.assert_allclose(float(ess), float(jax_ref["phase_ess"]), rtol=1e-3)
+
+
+def test_phase2_at_lambda_one_equals_the_fixed_solve(jax_ref, task):
+    """Phase 2 on phase 1's outputs gives the fixed-lambda solve's partials, bit for bit."""
+    args = _phase_inputs(jax_ref, task)
+    costs, dump = fused_solve.fused_racing_costs_dump(*args)
+    lam = torch.ones(1)
+    stats, numer = fused_solve.racing_weighted(costs, dump, lam)
+    want_costs, want_stats, want_numer = fused_solve.fused_racing_solve(
+        args[0], args[1], lam, *args[2:])
+    torch.testing.assert_close(costs, want_costs, rtol=0, atol=0)
+    torch.testing.assert_close(stats, want_stats, rtol=0, atol=0)
+    torch.testing.assert_close(numer, want_numer, rtol=0, atol=0)
+
+
+def test_phase_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_solve.racing_weighted(torch.zeros(8, device="meta"), torch.zeros(4, 8, device="meta"),
+                                    torch.ones(1, device="meta"))
 
 
 def test_seeded_normals_have_standard_moments():

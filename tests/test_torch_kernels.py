@@ -10,7 +10,12 @@ with the JAX package's bar (rtol 1e-5) and, in noise mode, must be bitwise
 equal: the kernels are built with ``-fmad=false`` and no fast math, so they
 round each operation as the twin's separate tensor operations do.  The
 partials are sums in another order: weights atol 1e-5, update atol 5e-3,
-ESS rtol 1e-3.
+ESS rtol 1e-3.  The auto-lambda phases: phase 1's costs and dump, and phase
+2 at lambda=1 against the fixed solve's partials, bitwise (the same device
+functions).  The search kernels: ESSPS lambda rtol 1e-4, atol 1e-6; LBPS
+lambda rtol 1e-3, atol 1e-4 and its objective at both lambdas rtol 1e-5
+(the JAX package's bars); the twins sum in the kernels' order, so these
+are expected to hold bit for bit where the card's exp equals torch's.
 """
 
 import numpy as np
@@ -18,7 +23,7 @@ import pytest
 import torch
 
 from mppi_playground_tpu_torch.core.config import tick_seed
-from mppi_playground_tpu_torch.ops import fused_solve
+from mppi_playground_tpu_torch.ops import fused_solve, lambda_search
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +114,80 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
         fused_solve.fused_racing_solve(x0, prev, lam, 0, xref5[:-1].contiguous(), *base[5:])
     with pytest.raises(ValueError, match="horizon"):
         fused_solve.fused_racing_solve(x0, torch.zeros(513, 2, device="cuda"), *base[2:])
+
+
+@pytest.mark.parametrize("mode", ["noise", "seeded"])
+@pytest.mark.parametrize("horizon,num_samples,exploration", [(50, 100_000, 0.0),
+                                                             (8, 1500, 0.3)])
+def test_auto_lambda_phases_match_twins(card, mode, horizon, num_samples, exploration):
+    env, task = card
+    x0, prev, xref5, noise = _inputs(env, horizon, num_samples, seed=horizon + 1)
+    threshold = int(num_samples * (1.0 - exploration))
+    args = (x0, prev, tick_seed(3, 4), xref5, task, SIGMAS, U_MIN, U_MAX,
+            num_samples, threshold, noise if mode == "noise" else None)
+    launches = fused_solve.fused_racing_costs_dump.launches
+    costs, dump = fused_solve.fused_racing_costs_dump(*args)
+    assert fused_solve.fused_racing_costs_dump.launches == launches + 1
+    want_costs, want_dump = fused_solve.fused_racing_costs_dump_plain(*args)
+    torch.cuda.synchronize()
+    assert dump.shape == (2 * horizon, num_samples)
+    torch.testing.assert_close(costs, want_costs, rtol=1e-5, atol=0)
+    torch.testing.assert_close(dump, want_dump, rtol=0, atol=0)  # clamped draws: exact
+    if mode == "noise":
+        torch.testing.assert_close(costs, want_costs, rtol=0, atol=0)
+
+    # phase 2 at lambda = 1 gives the fixed solve's partials, bit for bit
+    lam = torch.ones(1, device="cuda")
+    fixed = fused_solve.fused_racing_solve(x0, prev, lam, *args[2:])
+    stats, numer = fused_solve.racing_weighted(costs, dump, lam)
+    torch.testing.assert_close(fixed[0], costs, rtol=0, atol=0)
+    torch.testing.assert_close(stats, fixed[1], rtol=0, atol=0)
+    torch.testing.assert_close(numer, fixed[2], rtol=0, atol=0)
+
+    # phase 2 at another lambda against its twin: the fixed solve's bar
+    lam = torch.full((1,), 37.5, device="cuda")
+    got = fused_solve.racing_weighted(costs, dump, lam)
+    want = fused_solve.racing_weighted_plain(costs, dump, lam)
+    g = fused_solve.combine_partials(costs, *got, lam, horizon, 2)
+    w = fused_solve.combine_partials(costs, *want, lam, horizon, 2)
+    torch.testing.assert_close(g[1], w[1], rtol=0, atol=1e-5)  # weights
+    torch.testing.assert_close(g[0], w[0], rtol=0, atol=5e-3)  # update
+    torch.testing.assert_close(g[2], w[2], rtol=1e-3, atol=0)  # ESS
+
+
+def _search_cases(num_samples):
+    rng = np.random.default_rng(num_samples)
+    yield "uniform", torch.tensor(rng.uniform(0.0, 20.0, num_samples), dtype=torch.float32)
+    yield "to_min", torch.arange(num_samples, dtype=torch.float32) * 1e-9
+    spike = torch.full((num_samples,), 1e6)
+    spike[0] = 0.0
+    yield "to_max", spike
+
+
+# 2M: past the JAX package's 1M gate, each CTA reads part of its slice from L2
+@pytest.mark.parametrize("num_samples", [5, 1500, 100_000, 1024 * 1024, 2 * 1024 * 1024])
+def test_search_kernels_match_twins(card, num_samples):
+    for name, costs in _search_cases(num_samples):
+        costs = costs.cuda()
+        target = num_samples / 10.0
+        got = lambda_search.essps_lambda_fused(costs, target, 0.01, 10.0)
+        want = lambda_search.essps_lambda_plain(costs, target, 0.01, 10.0)
+        got_l = lambda_search.lbps_lambda_fused(costs, 0.01, 0.01, 10.0)
+        want_l = lambda_search.lbps_lambda_plain(costs, 0.01, 0.01, 10.0)
+        torch.cuda.synchronize()
+        assert got.shape == () and got.device.type == "cuda", name
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6, msg=name)
+        torch.testing.assert_close(got_l, want_l, rtol=1e-3, atol=1e-4, msg=name)
+        pen = lambda_search.lbps_range_penalty(costs, 0.01)
+        torch.testing.assert_close(lambda_search.lbps_objective_plain(costs, got_l, pen),
+                                   lambda_search.lbps_objective_plain(costs, want_l, pen),
+                                   rtol=1e-5, atol=0, msg=name)
+        if name != "uniform" and num_samples > 5:
+            bound = 0.01 if name == "to_min" else 10.0
+            assert float(got) == np.float32(bound), name
+
+
+def test_search_wrapper_raises_above_the_gate(card):
+    too_many = torch.zeros(1, device="cuda").expand(lambda_search.MAX_SAMPLES + 1)
+    with pytest.raises(ValueError, match="1 <= K"):
+        lambda_search.essps_lambda_fused(too_many, 1.0, 0.01, 10.0)

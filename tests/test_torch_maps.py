@@ -76,7 +76,7 @@ def test_random_obstacles_with_rectangles_are_byte_identical(seed):
     kw = dict(random_x_range=(-8, 8), random_y_range=(-8, 8), num_circle_obs=6,
               radius_range=(0.3, 0.8), num_rectangle_obs=4, width_range=(0.5, 1.5),
               height_range=(0.5, 1.5), max_iteration=1000, seed=seed)
-    m = ObstacleMap(map_size=(20, 20), cell_size=0.1)
+    m = ObstacleMap(map_size=(20, 20), cell_size=0.1, device="cpu")
     jm = JaxObstacleMap(map_size=(20, 20), cell_size=0.1)
     generate_random_obstacles(m, **kw)
     jax_generate(jm, **kw)

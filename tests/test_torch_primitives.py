@@ -121,8 +121,8 @@ def test_mpcc_costs_match_jax(jax_env):
     )
     om = env.obstacle_map.device_map
     lm = env.lane_map.device_map
-    t_om = convert.grid_map(_np(om.grid), _np(om.origin), om.cell_size)
-    t_lm = convert.grid_map(_np(lm.grid), _np(lm.origin), lm.cell_size)
+    t_om = convert.grid_map(_np(om.grid), _np(om.origin), om.cell_size, device="cpu")
+    t_lm = convert.grid_map(_np(lm.grid), _np(lm.origin), lm.cell_size, device="cpu")
     for t in (0, 4, 10):
         info = {"reference_path": xref, "t": t, "prev_action": jnp.asarray(prev)}
         want = _np(jax_mpcc.make_mpcc_cost(om, lm)(jnp.asarray(states), jnp.asarray(actions), info))
@@ -173,7 +173,7 @@ def test_calc_ref_trajectory_matches_jax(jax_env, where):
             jnp.asarray(state), jnp.asarray(path), jnp.asarray(cind, jnp.int32), horizon
         )
         got, gind = racing_mpcc.calc_ref_trajectory(
-            _t(state), convert.center_path(path), torch.tensor(cind), horizon
+            _t(state), convert.center_path(path, device="cpu"), torch.tensor(cind), horizon
         )
         np.testing.assert_array_equal(got.numpy(), _np(want))  # tolerance 0
         assert int(gind) == int(wind)
@@ -213,6 +213,23 @@ def test_entry_points_raise_without_a_card():
                      u_min=(-2.0, -0.25), u_max=(2.0, 0.25), sigmas=(0.5, 0.1), lambda_=1.0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_solver(cfg, lambda x, u: x, lambda x, u, i: x[:, 0])
+    from mppi_playground_tpu_torch.maps.lane_map import LaneMap
+    from mppi_playground_tpu_torch.maps.obstacle_map import ObstacleMap
+
+    lane = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]])
+    for build in (
+        lambda: ObstacleMap(map_size=(2, 2), cell_size=0.1),
+        lambda: LaneMap(lane, lane_width=1.0, map_size=(2, 2), cell_size=0.1),
+        lambda: convert.mppi_state(np.zeros((4, 2)), np.zeros((3, 2)), 1.0),
+        lambda: convert.grid_map(np.zeros((4, 4)), np.array([2, 2]), 0.1),
+        lambda: convert.center_path(lane),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    # asked for the CPU, each of them builds
+    cpu_map = ObstacleMap(map_size=(2, 2), cell_size=0.1, device="cpu")
+    assert cpu_map.device_map.grid.device.type == "cpu"
+    assert convert.center_path(lane, device="cpu").device.type == "cpu"
 
 
 _BASE = dict(horizon=10, num_samples=64, dim_state=4, dim_control=2,
