@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's flagship racing tick on one NVIDIA GPU and check its CUDA kernels.
+"""Drive the port's racing paths on one NVIDIA GPU and check its eight CUDA kernels.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
@@ -19,14 +19,33 @@ Phases, each of which fails the run if it fails:
    searches (on the flagship's costs and on vectors that reach each ESSPS
    clamp and the interior), phase 2 at lambda* and, at lambda=1, against
    the fixed solve's partials; each timed with CUDA events;
-5. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
+5. the weighted update (D=100 at lambda 1 and 10 on the unfused route's
+   perturbations and costs, D=100 and D=2,000 under spread costs) against
+   its twin, the block partials and the combined output each held to a bar,
+   and against phase 2 on the
+   same perturbations (one reduction body: bitwise); regeneration of all K
+   rows, seeded and in noise mode, against phase 1's dump (bitwise) and of
+   the top 300 rows against those rows; each timed, the weighted update
+   beside ``torch.softmax`` then ``torch.mv``;
+6. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
    lambda and under ESSPS, LBPS and MPO for 50 closed-loop ticks of
-   ``RacingEnv.step`` each, all six launch counters set to 0 just before
+   ``RacingEnv.step`` each, all eight launch counters set to 0 just before
    each mode and read just after: each kernel of the mode's path launched
    once a tick and every other kernel never, lambda in bounds, actions in
    bounds, progress, and one solve per mode with no host sync
    (``torch.cuda.set_sync_debug_mode("error")``); then a profile and the
-   four modes' ticks timed in turns.
+   four modes' ticks timed in turns;
+7. drive ``RacingController(env)`` on its unfused route (the default) and
+   its fused route (``store_rollouts=False``) at T=25, K=4,000 and at T=50,
+   K=100,000: 50 ticks each of ``update``, ``env.step`` and
+   ``get_top_samples(300)``, counted as in phase 6 (unfused: the weighted
+   update once a tick; fused: the solve, the re-roll and regeneration once
+   a tick), one tick with no host sync, the median update and
+   ``get_top_samples`` times and a profile;
+8. drive ``MPPI`` on both routes at a fixed lambda and under ESSPS with the
+   SG filter: 10
+   ``forward`` calls with the racing dynamics and the MPCC cost, then
+   ``get_top_samples(50)`` and ``get_samples_from_posterior``, counted.
 
 It prints a ``kernels`` JSON line before the last, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the package
@@ -161,11 +180,12 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_ticks(torch, tick, env, state, cind, x, ticks: int) -> str:
+def profile_ticks(torch, run_tick, ticks: int, what: str = "with env.step") -> str:
     """Where a tick's time goes: device busy share and kernels by device time.
 
-    ``torch.profiler`` over ``ticks`` closed-loop ticks; the device time is the
-    sum of the kernels' durations on the one stream.
+    ``torch.profiler`` over ``ticks`` calls of ``run_tick()``, one closed-loop
+    tick each; the device time is the sum of the kernels' durations on the
+    one stream.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -173,8 +193,7 @@ def profile_ticks(torch, tick, env, state, cind, x, ticks: int) -> str:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
-            action_seq, _, state, cind = tick(state, cind, x)
-            x, _ = env.step(action_seq[0])
+            run_tick()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     activities = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -188,7 +207,7 @@ def profile_ticks(torch, tick, env, state, cind, x, ticks: int) -> str:
         key=lambda e: -e.self_device_time_total,
     )[:8]
     return (
-        f"profile ({ticks} ticks with env.step): wall {wall_us / ticks:.1f} us/tick, device "
+        f"profile ({ticks} ticks {what}): wall {wall_us / ticks:.1f} us/tick, device "
         f"busy {busy_us / ticks:.1f} us/tick ({100 * busy_us / wall_us:.1f}%), "
         f"{len(activities) / ticks:.1f} device activities/tick; by self device time: "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / ticks:.1f} us x{e.count / ticks:g}"
@@ -198,11 +217,12 @@ def profile_ticks(torch, tick, env, state, cind, x, ticks: int) -> str:
 
 def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min,
                        u_max, grid_bytes, card):
-    """Phase 5: hold phase 1, the searches and phase 2 against their twins; time them.
+    """Phase 4: hold phase 1, the searches and phase 2 against their twins; time them.
 
     Returns ``{"kernels": [...]}`` for the kernels line, or None after a failure.
     """
     from mppi_playground_tpu_torch.ops import lambda_search
+    from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
 
     def phase1(fn, mode_noise):
         return fn(x0, prev, seed, xref5, task, sig, u_min, u_max, K, K, mode_noise)
@@ -262,16 +282,20 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
 
     got = fused_solve.racing_weighted(costs, dump, lam_star)
     want = fused_solve.racing_weighted_plain(costs, dump, lam_star)
-    g = fused_solve.combine_partials(costs, *got, lam_star, T, 2)
-    w = fused_solve.combine_partials(costs, *want, lam_star, T, 2)
+    g = combine_partials(costs, *got, lam_star, T, 2)
+    w = combine_partials(costs, *want, lam_star, T, 2)
     p2_err = max((got[0] - want[0]).abs().max().item(), (got[1] - want[1]).abs().max().item())
-    res = dict(partials_max_abs_err=p2_err, weights_max_abs_err=(g[1] - w[1]).abs().max().item(),
+    res = dict(partials_max_abs_err=p2_err,
+               partials=partials_errors(torch, got, want, costs, dump.t(), lam_star),
+               weights_max_abs_err=(g[1] - w[1]).abs().max().item(),
                update_max_abs_err=(g[0] - w[0]).abs().max().item(), ess=(g[2].item(), w[2].item()),
                lam_star=lam_star.item())
     print(f"phase 2 vs twin at lambda* (T={T}, K={K}): {json.dumps(res)}", flush=True)
-    if not (res["weights_max_abs_err"] <= 1e-5 and res["update_max_abs_err"] <= 5e-3
+    if not (res["partials"]["ok"] and res["weights_max_abs_err"] <= 1e-5
+            and res["update_max_abs_err"] <= 5e-3
             and abs(res["ess"][0] - res["ess"][1]) <= 1e-3 * abs(res["ess"][1])):
-        fail("phase 2 off the bar: weights atol 1e-5, update atol 5e-3, ESS rtol 1e-3")
+        fail(f"phase 2 off the bar: partials {PARTIALS_BAR}; weights atol 1e-5, update atol "
+             "5e-3, ESS rtol 1e-3")
         return None
     one = torch.ones(1, device="cuda")
     fixed = fused_solve.fused_racing_solve(x0, prev, one, seed, xref5, task, sig, u_min, u_max,
@@ -356,25 +380,40 @@ def mode_solvers(env, task, flagship_solver, flagship_tick) -> dict:
     return solvers
 
 
-def drive_modes(torch, fused_solve, env, solvers, card):
-    """Phase 5: 50 closed-loop flagship ticks under each mode, every kernel counted.
+def launch_counters() -> dict:
+    """The eight kernel wrappers, by name: each counts its launches in ``launches``."""
+    from mppi_playground_tpu_torch.ops import fused_solve, lambda_search, weighted_update
 
-    ``solvers`` is :func:`mode_solvers`'s.  Before each mode all six launch
-    counters are set to 0, and they are read after its last tick.  Returns
-    ``{mode: {"launches", "median_ms", "tick", "init", "state", "cind", "x"}}``
-    or None after a failure.
-    """
-    from mppi_playground_tpu_torch.models.racing_mpcc import calc_ref_trajectory
-    from mppi_playground_tpu_torch.ops import lambda_search
-
-    counted = {
+    return {
         "fused_racing_solve": fused_solve.fused_racing_solve,
         "racing_reroll": fused_solve.racing_reroll,
         "fused_racing_costs_dump": fused_solve.fused_racing_costs_dump,
         "racing_weighted": fused_solve.racing_weighted,
         "essps_lambda_fused": lambda_search.essps_lambda_fused,
         "lbps_lambda_fused": lambda_search.lbps_lambda_fused,
+        "racing_regen": fused_solve.racing_regen,
+        "weighted_update_partials": weighted_update.weighted_update_partials,
     }
+
+
+def zero_counters() -> dict:
+    counted = launch_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    return counted
+
+
+def drive_modes(torch, fused_solve, env, solvers, card):
+    """Phase 6: 50 closed-loop flagship ticks under each mode, every kernel counted.
+
+    ``solvers`` is :func:`mode_solvers`'s.  Before each mode all eight launch
+    counters are set to 0, and they are read after its last tick.  Returns
+    ``{mode: {"launches", "median_ms", "tick", "init", "state", "cind", "x"}}``
+    or None after a failure.
+    """
+    from mppi_playground_tpu_torch.models.racing_mpcc import calc_ref_trajectory
+
+    counted = launch_counters()
     path = env.racing_center_path
     out = {}
     for mode, (solver, tick) in solvers.items():
@@ -394,8 +433,7 @@ def drive_modes(torch, fused_solve, env, solvers, card):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
 
-        for fn in counted.values():
-            fn.launches = 0
+        zero_counters()
         state = solver.init()
         x = env.reset()
         cind = torch.tensor(0, device=x.device)
@@ -470,7 +508,345 @@ def ticks_in_turns(torch, env, runners, windows: int = 10, per_window: int = 10)
     return {m: statistics.median(t) for m, t in times.items()}
 
 
+def weighted_update_bound_ms(num_samples: int, slots: int) -> tuple:
+    """Least time of the weighted update: costs and samples read, partials written.
+
+    Operations per sample: -c / lambda, the max, the shift, exp, e * e and
+    two sums, and e * sample summed into each of the D slots.
+    """
+    blocks = -(-num_samples // 256)
+    in_bytes = 4 * (num_samples * (slots + 1) + 1)
+    out_bytes = 4 * blocks * (3 + slots)
+    return _bound(in_bytes, out_bytes, num_samples * (7 + 2 * slots))
+
+
+def regen_bound_ms(rows: int, horizon: int, seeded: bool) -> tuple:
+    """Least time of regenerating ``rows`` samples: [rows, T, 2] written.
+
+    Reads the warm start and the row indices, and in noise mode those rows'
+    noise; per step one normal pair (seeded), the scale and the perturb.
+    """
+    in_bytes = 4 * 2 * horizon + 8 * rows + (0 if seeded else 4 * rows * 2 * horizon)
+    per_step = OPS_PERTURB + (OPS_NORMAL_PAIR + OPS_SCALE if seeded else 0)
+    return _bound(in_bytes, 4 * rows * 2 * horizon, rows * horizon * per_step)
+
+
+PARTIALS_BAR = ("block maxima bitwise, sums of e and e^2 rtol 1e-6, each numerator within "
+                "1e-5 of its sum of |e * sample|")
+
+
+def partials_errors(torch, got, want, costs, samples, lam) -> dict:
+    """Block partials against the twin's, each error over its own scale.
+
+    The block maxima of ``-c / lambda`` are one IEEE division and a max, so
+    they must be equal.  The sums of e and e^2 hold the block maximum's
+    e = 1, so they are at least 1 and are compared relatively.  A numerator
+    sums e * sample over 256 rows: its rounding is bounded by its sum of
+    ``|e * sample|`` (the twin's partials of ``|samples|``), which keeps a
+    dropped row visible wherever it carries weight.  ``samples`` is ``[K, D]``.
+    """
+    from mppi_playground_tpu_torch.ops.weighted_update import block_partials_plain
+
+    scale = block_partials_plain(costs, samples.abs(), lam)[1]
+    (g_stats, g_numer), (w_stats, w_numer) = got, want
+    res = dict(
+        maxima_bitwise=bool(torch.equal(g_stats[:, 0], w_stats[:, 0])),
+        sums_max_rel_err=((g_stats[:, 1:] - w_stats[:, 1:]).abs() / w_stats[:, 1:]).max().item(),
+        numer_max_err_over_scale=((g_numer - w_numer).abs() / (scale + 1e-30)).max().item(),
+    )
+    res["ok"] = (res["maxima_bitwise"] and res["sums_max_rel_err"] <= 1e-6
+                 and res["numer_max_err_over_scale"] <= 1e-5)
+    return res
+
+
+def check_weighted_update(torch, fused_solve, pert, costs, dump_costs, dump, card):
+    """Row 9 at the flagship's shapes: the kernel against its twin, phase 2's shared body.
+
+    ``pert [K, T, 2]`` are the unfused route's clamped perturbations and
+    ``costs`` theirs; ``dump_costs``/``dump`` phase 1's seeded outputs.
+    The flagship's costs (about 1e5) leave a few rows with weight, so the
+    perturbations also run under spread costs (uniform in [0, 100)), where
+    many rows carry weight.  Returns the kernels-line row, or None after a
+    failure.
+    """
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    dev = costs.device
+    flat = pert.reshape(K, 2 * T).contiguous()
+    rng = torch.Generator(device=dev).manual_seed(SEED + 9)
+    wide = torch.randn(K, 2000, generator=rng, device=dev)
+    spread = torch.rand(K, generator=rng, device=dev) * 100.0
+    err, bitwise = 0.0, True
+    for name, c, samples, lam in (("D=100, lambda=1", costs, flat, 1.0),
+                                  ("D=100, lambda=10", costs, flat, 10.0),
+                                  ("D=100, spread costs, lambda=1", spread, flat, 1.0),
+                                  ("D=2000, spread costs, lambda=1", spread, wide, 1.0)):
+        lam_t = torch.full((1,), lam, device=dev)
+        got = wu.weighted_update_partials(c, samples, lam_t)
+        want = wu.block_partials_plain(c, samples, lam_t)
+        slots = samples.shape[1]
+        g = wu.combine_partials(c, *got, lam_t, slots // 2, 2)
+        w = wu.combine_partials(c, *want, lam_t, slots // 2, 2)
+        torch.cuda.synchronize()
+        res = dict(partials_max_abs_err=max((got[0] - want[0]).abs().max().item(),
+                                            (got[1] - want[1]).abs().max().item()),
+                   partials_bitwise_equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+                   partials=partials_errors(torch, got, want, c, samples, lam_t),
+                   weights_max_abs_err=(g[1] - w[1]).abs().max().item(),
+                   update_max_abs_err=(g[0] - w[0]).abs().max().item(),
+                   ess=(g[2].item(), w[2].item()))
+        print(f"weighted update vs twin ({name}, K={K}): {json.dumps(res)}", flush=True)
+        err = max(err, res["partials_max_abs_err"])
+        bitwise = bitwise and res["partials_bitwise_equal"]
+        if not (res["partials"]["ok"] and res["weights_max_abs_err"] <= 1e-5
+                and res["update_max_abs_err"] <= 5e-3
+                and abs(res["ess"][0] - res["ess"][1]) <= 1e-3 * abs(res["ess"][1])):
+            fail(f"weighted update ({name}) off the bar: partials {PARTIALS_BAR}; weights atol "
+                 "1e-5, update atol 5e-3, ESS rtol 1e-3")
+            return None
+    # phase 2 and row 9 share one reduction body: the same partials, bit for bit
+    for lam in (1.0, 10.0):
+        lam_t = torch.full((1,), lam, device=dev)
+        p2 = fused_solve.racing_weighted(dump_costs, dump, lam_t)
+        r9 = wu.weighted_update_partials(dump_costs, dump.t().contiguous(), lam_t)
+        same = all(torch.equal(a, b) for a, b in zip(p2, r9))
+        print(f"phase 2 vs the weighted update on the transposed dump (lambda={lam}): "
+              f"bitwise={same}", flush=True)
+        if not same:
+            fail("phase 2 and the weighted update differ on the same perturbations")
+            return None
+
+    one = torch.ones(1, device=dev)
+    t_k = cuda_ms(torch, lambda: wu.weighted_update_partials(costs, flat, one), 50)
+    t_plain = cuda_ms(torch, lambda: wu.block_partials_plain(costs, flat, one), 5, warmup=1)
+    t_lib = cuda_ms(torch, lambda: torch.mv(flat.t(), torch.softmax(-costs / one, dim=0)), 50)
+    t_wide = cuda_ms(torch, lambda: wu.weighted_update_partials(spread, wide, one), 20)
+    t_wide_plain = cuda_ms(torch, lambda: wu.block_partials_plain(spread, wide, one), 3,
+                           warmup=1)
+    t_wide_lib = cuda_ms(torch, lambda: torch.mv(wide.t(), torch.softmax(-spread / one, dim=0)),
+                         20)
+    bound, by = weighted_update_bound_ms(K, 2 * T)
+    b_wide, _ = weighted_update_bound_ms(K, 2000)
+    print(f"times on {card}: weighted update D=100 {t_k:.4f} ms (bound {bound:.5f} ms), twin "
+          f"{t_plain:.3f} ms, softmax + mv (two calls) {t_lib:.4f} ms; D=2000 {t_wide:.4f} ms "
+          f"(bound {b_wide:.5f} ms), twin {t_wide_plain:.3f} ms, softmax + mv {t_wide_lib:.4f} "
+          "ms", flush=True)
+    return dict(name="weighted_update_partials", route="cuda",
+                source="mppi_playground_tpu_torch/csrc/weighted_update.cu",
+                replaces="mppi_playground_tpu/ops/pallas_kernels.py:142", max_abs_err=err,
+                bitwise_equal_to_twin=bitwise, ms=t_k, plain_ms=t_plain, bound_ms=bound,
+                bound_by=by, library_ms=t_lib, library_calls="torch.softmax then torch.mv (2)",
+                d2000_ms=t_wide, d2000_plain_ms=t_wide_plain, d2000_bound_ms=b_wide,
+                d2000_library_ms=t_wide_lib)
+
+
+def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min, u_max,
+                weights, card):
+    """Row 6 at T=50, K=100,000: all K rows against phase 1's dump, the top 300 against them.
+
+    Returns the kernels-line row, or None after a failure.
+    """
+    from mppi_playground_tpu_torch.core.diagnostics import top_indices
+
+    dev = x0.device
+    threshold = int(0.8 * K)  # both sides of the inherit split
+    rows = torch.arange(K, device=dev)
+    top = top_indices(weights, 300)[1]
+    err = 0.0
+    for mode, nz in (("seeded", None), ("noise", noise)):
+        args = (sig, u_min, u_max, K, threshold, nz)
+        _, dump = fused_solve.fused_racing_costs_dump(x0, prev, seed, xref5, task, *args)
+        full = fused_solve.racing_regen(prev, seed, rows, *args)
+        twin = fused_solve.racing_regen_plain(prev, seed, rows, *args)
+        sub = fused_solve.racing_regen(prev, seed, top, *args)
+        torch.cuda.synchronize()
+        res = dict(all_rows_vs_phase1_dump=bool(torch.equal(full, dump.t().reshape(K, T, 2))),
+                   all_rows_vs_twin=bool(torch.equal(full, twin)),
+                   max_abs_err=(full - twin).abs().max().item(),
+                   top300_vs_all_rows=bool(torch.equal(sub, full[top])))
+        print(f"regeneration ({mode}, T={T}, K={K}): {json.dumps(res)}", flush=True)
+        err = max(err, res["max_abs_err"])
+        if not all(v for k, v in res.items() if k != "max_abs_err"):
+            fail(f"regeneration ({mode}) is not bit for bit the solve's perturbations")
+            return None
+    args = (sig, u_min, u_max, K, threshold)
+    t_all = cuda_ms(torch, lambda: fused_solve.racing_regen(prev, seed, rows, *args), 20)
+    t_top = cuda_ms(torch, lambda: fused_solve.racing_regen(prev, seed, top, *args), 50)
+    t_noise = cuda_ms(torch, lambda: fused_solve.racing_regen(prev, seed, rows, *args, noise), 20)
+    t_plain = cuda_ms(torch, lambda: fused_solve.racing_regen_plain(prev, seed, rows, *args), 3,
+                      warmup=1)
+    t_top_plain = cuda_ms(torch, lambda: fused_solve.racing_regen_plain(prev, seed, top, *args),
+                          3, warmup=1)
+    b_all, by_all = regen_bound_ms(K, T, True)
+    b_top, by_top = regen_bound_ms(300, T, True)
+    b_noise, _ = regen_bound_ms(K, T, False)
+    print(f"times on {card}: regeneration of all {K} rows {t_all:.4f} ms (bound {b_all:.5f} ms, "
+          f"{by_all}; noise mode {t_noise:.4f} ms, bound {b_noise:.5f} ms), twin {t_plain:.3f} "
+          f"ms; of the top 300 {t_top:.4f} ms (bound {b_top:.6f} ms, {by_top}), twin "
+          f"{t_top_plain:.3f} ms", flush=True)
+    return dict(name="racing_regen", route="cuda",
+                source="mppi_playground_tpu_torch/csrc/fused_solve.cu",
+                replaces="mppi_playground_tpu/ops/fused_solve.py:937", max_abs_err=err,
+                ms=t_top, plain_ms=t_top_plain, bound_ms=b_top, bound_by=by_top,
+                library_ms=None, rows=300, all_rows_ms=t_all, all_rows_plain_ms=t_plain,
+                all_rows_bound_ms=b_all, all_rows_noise_mode_ms=t_noise,
+                all_rows_noise_mode_bound_ms=b_noise)
+
+
+FACADE_ROUTES = (
+    ("T=25 K=4000 unfused", dict()),
+    ("T=25 K=4000 fused", dict(store_rollouts=False)),
+    ("T=50 K=100000 unfused", dict(horizon=50, num_samples=100_000)),
+    ("T=50 K=100000 fused", dict(horizon=50, num_samples=100_000, store_rollouts=False)),
+)
+
+
+def drive_facades(torch, env, card):
+    """Phase 7: ``RacingController`` on both routes at two widths, 50 ticks each.
+
+    Each tick is ``update``, ``env.step`` and ``get_top_samples(300)``, as
+    the racing example runs them.  One tick of each route (without
+    ``env.step``) runs under ``set_sync_debug_mode("error")``; all eight
+    counters are set to 0 before a route's ticks and read after.  Returns
+    ``{route: {"launches", "tick_ms", "top_ms", "profile"}}`` or None.
+    """
+    from mppi_playground_tpu_torch.envs import RacingController
+
+    out = {}
+    for route, kw in FACADE_ROUTES:
+        ctrl = RacingController(env, **kw)
+        fused = "store_rollouts" in kw
+        if ctrl.solver_backend != ("fused" if fused else "xla"):
+            fail(f"{route}: RacingController took the {ctrl.solver_backend} route")
+            return None
+        x = env.reset()
+        ctrl.update(x)  # builds the kernels' libraries and the lookahead table
+        ctrl.get_top_samples(300)
+        ctrl.reset()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ctrl.update(x)
+            ctrl.get_top_samples(300)
+        except RuntimeError as err:
+            fail(f"{route}: a tick synchronized with the host: {err}")
+            return None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+        ctrl.reset()
+        counted = zero_counters()
+        x = env.reset()
+        tick_ms, top_ms = [], []
+        for _ in range(TICKS):
+            t0 = time.perf_counter()
+            action_seq, state_seq = ctrl.update(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x, _ = env.step(action_seq[0])
+            t2 = time.perf_counter()
+            seqs, weights = ctrl.get_top_samples(300)
+            torch.cuda.synchronize()
+            tick_ms.append(1e3 * (t1 - t0))
+            top_ms.append(1e3 * (time.perf_counter() - t2))
+            excess = torch.maximum(env.u_min - action_seq, action_seq - env.u_max).max().item()
+            if not (torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()
+                    and torch.isfinite(seqs).all() and excess <= 1e-5
+                    and seqs.shape == (300, ctrl.config.horizon + 1, 4)
+                    and bool((weights[:-1] >= weights[1:]).all())):
+                fail(f"{route}: non-finite output, actions out of bounds by {excess!r}, or top "
+                     "samples not in descending weight order")
+                return None
+        launches = {name: fn.launches for name, fn in counted.items()}
+        once = ({"fused_racing_solve", "racing_reroll", "racing_regen"} if fused
+                else {"weighted_update_partials"})
+        want = {name: (TICKS if name in once else 0) for name in counted}
+        progress = int(ctrl.current_path_index)
+        if launches != want or progress <= 0:
+            fail(f"{route}: launches {launches}, expected {want}; track index {progress}")
+            return None
+
+        def facade_tick(ctrl=ctrl):
+            nonlocal x
+            action_seq, _ = ctrl.update(x)
+            x, _ = env.step(action_seq[0])
+            ctrl.get_top_samples(300)
+
+        prof = profile_ticks(torch, facade_tick, 5, "with env.step and get_top_samples(300)")
+        res = dict(launches=launches, tick_ms=statistics.median(tick_ms),
+                   top_ms=statistics.median(top_ms), profile=prof)
+        print(f"RacingController {route} ({ctrl.solver_backend}): {TICKS} ticks on {card}: "
+              f"median update {res['tick_ms']:.3f} ms, median get_top_samples(300) "
+              f"{res['top_ms']:.3f} ms (host clock, synchronized); track index {progress}; "
+              f"launches {launches}; {prof}", flush=True)
+        out[route] = res
+    return out
+
+
+def drive_mppi(torch, env, task, card):
+    """Phase 8: ``MPPI`` on both routes, fixed lambda and ESSPS, 10 ``forward`` calls each.
+
+    Racing dynamics and the MPCC cost through ``info``, T=25, K=4,000, the
+    ESSPS runs with the SG filter on; then
+    ``get_top_samples(50)`` and ``get_samples_from_posterior``.  Counters set
+    to 0 before each run and read after.  Returns ``{run: launches}`` or None.
+    """
+    from mppi_playground_tpu_torch import MPPI
+    from mppi_playground_tpu_torch.models.racing_mpcc import calc_ref_trajectory, make_mpcc_cost
+
+    cost = make_mpcc_cost(env.obstacle_cost_map, env.lane_cost_map)
+    calls, horizon = 10, 25
+    out = {}
+    for route in ("xla", "fused"):
+        for mode in (1.0, "ESSPS"):
+            kw = dict(horizon=horizon, num_samples=4000, dim_state=4, dim_control=2,
+                      dynamics=env.dynamics, cost_func=cost, u_min=env.u_min, u_max=env.u_max,
+                      sigmas=(0.5, 0.1), lambda_=mode, use_sg_filter=mode == "ESSPS",
+                      device=env.device)
+            if route == "fused":
+                kw.update(fused_task=task, store_rollouts=False)
+            c = MPPI(**kw)
+            run = f"MPPI {route} {'fixed' if mode == 1.0 else 'ESSPS+SG'}"
+            if c.solver_backend != route:
+                fail(f"{run}: took the {c.solver_backend} route")
+                return None
+            counted = zero_counters()
+            x = env.reset()
+            cind = torch.tensor(0, device=x.device)
+            for _ in range(calls):
+                xref, cind = calc_ref_trajectory(x, env.racing_center_path, cind, horizon)
+                action_seq, state_seq = c.forward(x, info={"reference_path": xref})
+                x = env.dynamics(x[None], action_seq[:1])[0]
+            seqs, weights = c.get_top_samples(50)
+            samples, states = c.get_samples_from_posterior(action_seq, x, 100)
+            launches = {name: fn.launches for name, fn in counted.items()}
+            if route == "xla":
+                want_once = {"weighted_update_partials": calls}
+            elif mode == 1.0:
+                want_once = {"fused_racing_solve": calls, "racing_reroll": calls,
+                             "racing_regen": 1}
+            else:
+                want_once = {"fused_racing_costs_dump": calls, "essps_lambda_fused": calls,
+                             "racing_weighted": calls, "racing_reroll": calls, "racing_regen": 1}
+            want = {name: want_once.get(name, 0) for name in counted}
+            lam = c.lambda_
+            ok = (torch.isfinite(action_seq).all() and torch.isfinite(seqs).all()
+                  and seqs.shape == (50, horizon + 1, 4) and bool((weights[:-1] >= weights[1:]).all())
+                  and samples.shape == (100, horizon, 2) and states.shape == (100, horizon + 1, 4)
+                  and torch.isfinite(states).all() and 0.01 <= lam <= 10.0)
+            print(f"{run}: {calls} forward calls, get_top_samples(50), posterior of 100 on "
+                  f"{card}: lambda {lam!r}; launches {launches}", flush=True)
+            if not ok or launches != want:
+                fail(f"{run}: bad outputs or launches {launches}, expected {want}")
+                return None
+            out[run] = launches
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) > 1:
+        return fail(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
     import torch
 
     if not torch.cuda.is_available():
@@ -490,6 +866,7 @@ def main() -> int:
         make_racing_fused_task_from_env,
     )
     from mppi_playground_tpu_torch.ops import cuda_build, fused_solve
+    from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
     from mppi_playground_tpu_torch.workloads import build_flagship
 
     if any(m == "jax" or m.startswith(("jax.", "mppi_playground_tpu.")) for m in sys.modules):
@@ -532,7 +909,7 @@ def main() -> int:
     def solve(fn, mode_noise):
         return fn(x0, prev, lam, seed, xref5, task, sig, u_min, u_max, K, K, mode_noise)
 
-    checks = {}
+    checks, solved = {}, {}
     for mode, nz in (("noise", noise), ("seeded", None)):
         got = solve(fused_solve.fused_racing_solve, nz)
         want = solve(fused_solve.fused_racing_solve_plain, nz)
@@ -540,8 +917,8 @@ def main() -> int:
         gc, wc = got[0], want[0]
         if not torch.isfinite(gc).all():
             return fail(f"fused solve ({mode}): non-finite costs")
-        g_upd, g_w, g_ess = fused_solve.combine_partials(*got, lam, T, 2)
-        w_upd, w_w, w_ess = fused_solve.combine_partials(*want, lam, T, 2)
+        g_upd, g_w, g_ess = combine_partials(*got, lam, T, 2)
+        w_upd, w_w, w_ess = combine_partials(*want, lam, T, 2)
         rel = ((gc - wc).abs() / wc.abs()).max().item()
         res = dict(
             cost_max_abs_err=(gc - wc).abs().max().item(),
@@ -552,6 +929,7 @@ def main() -> int:
             ess=(g_ess.item(), w_ess.item()),
         )
         checks[mode] = res
+        solved[mode] = (gc, g_w)
         print(f"fused solve vs twin ({mode}, T={T}, K={K}): {json.dumps(res)}", flush=True)
         if not (rel <= 1e-5 and res["weights_max_abs_err"] <= 1e-5
                 and res["update_max_abs_err"] <= 5e-3
@@ -591,15 +969,35 @@ def main() -> int:
     if auto is None:
         return 1
 
-    # --- phase 5: the main path under each mode, counted ----------------------
+    # --- phase 5: the weighted update (row 9) and regeneration (row 6) ---------
+    noise_costs, noise_weights = solved["noise"]
+    pert = fused_solve.racing_regen_plain(prev, seed, torch.arange(K, device=dev), sig, u_min,
+                                          u_max, K, K, noise)
+    dump_costs, dump = fused_solve.fused_racing_costs_dump(x0, prev, seed, xref5, task, sig,
+                                                           u_min, u_max, K, K, None)
+    row9 = check_weighted_update(torch, fused_solve, pert, noise_costs, dump_costs, dump, card)
+    if row9 is None:
+        return 1
+    row6 = check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min, u_max,
+                       noise_weights, card)
+    if row6 is None:
+        return 1
+    del pert, dump
+
+    # --- phase 6: the flagship under each mode, counted ----------------------
     env, solver, tick = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
     modes = drive_modes(torch, fused_solve, env, mode_solvers(env, task, solver, tick), card)
     if modes is None:
         return 1
     for m in ("fixed", "ESSPS"):
         run = modes[m]
-        print(f"{m}: " + profile_ticks(torch, run["tick"], env, run["state"], run["cind"],
-                                       run["x"], 10), flush=True)
+
+        def flagship_tick(run=run):
+            action_seq, _, run["state"], run["cind"] = run["tick"](run["state"], run["cind"],
+                                                                   run["x"])
+            run["x"], _ = env.step(action_seq[0])
+
+        print(f"{m}: " + profile_ticks(torch, flagship_tick, 10), flush=True)
     turns = ticks_in_turns(torch, env, {m: (run["tick"], run["init"])
                                         for m, run in modes.items()})
     print(f"median ticks in turns (10 windows x 10 ticks a mode) on {card}: fixed "
@@ -608,8 +1006,21 @@ def main() -> int:
               f"({100.0 * (turns[m] - turns['fixed']) / turns['fixed']:+.1f}%)"
               for m in AUTO_MODES), flush=True)
 
+    # --- phase 7: the RacingController facade on both routes, counted -------
+    facades = drive_facades(torch, env, card)
+    if facades is None:
+        return 1
+    # --- phase 8: the MPPI facade on both routes, counted ---------------------
+    mppi_runs = drive_mppi(torch, env, task, card)
+    if mppi_runs is None:
+        return 1
+
+    paths = {f"flagship {m}": run["launches"] for m, run in modes.items()}
+    paths.update({f"RacingController {r}": run["launches"] for r, run in facades.items()})
+    paths.update(mppi_runs)
+
     def launches_of(name):
-        by_path = {m: run["launches"][name] for m, run in modes.items()}
+        by_path = {p: counts[name] for p, counts in paths.items()}
         return sum(by_path.values()), by_path
 
     kernels = [
@@ -640,12 +1051,15 @@ def main() -> int:
             "bound_by": by_reroll,
             "library_ms": None,
         },
-    ] + auto["kernels"]
+    ] + auto["kernels"] + [row6, row9]
     for k in kernels:
         k["launches"], k["launches_by_path"] = launches_of(k["name"])
     print(json.dumps({"kernels": kernels, "card": card,
                       "median_tick_ms": modes["fixed"]["median_ms"],
-                      "median_tick_ms_in_turns": turns}), flush=True)
+                      "median_tick_ms_in_turns": turns,
+                      "facade_median_ms": {r: {"update": run["tick_ms"],
+                                               "get_top_samples": run["top_ms"]}
+                                           for r, run in facades.items()}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

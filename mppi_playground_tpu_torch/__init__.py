@@ -14,6 +14,7 @@ This package imports neither ``jax`` nor anything of ``mppi_playground_tpu``.
 """
 
 from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState
+from mppi_playground_tpu_torch.core.controller import MPPI
 from mppi_playground_tpu_torch.core.solver import (
     MPPISolver,
     SolveAux,
@@ -22,6 +23,7 @@ from mppi_playground_tpu_torch.core.solver import (
 )
 
 __all__ = [
+    "MPPI",
     "MPPIConfig",
     "MPPIState",
     "MPPISolver",

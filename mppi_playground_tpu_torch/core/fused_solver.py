@@ -17,24 +17,31 @@ re-roll by the re-roll kernel.
 A tick draws its kernel seed on the host from the state's ``(seed, tick)``,
 so nothing in it waits on the device.  The port's envelope: the racing
 model (n=4, m=2), float32, no stored rollouts, ``horizon * dim_control <=
-1024``; ``ValueError`` outside it.  The SG filter and the in-kernel lambda
-epilogue raise ``NotImplementedError``.
+1024``; ``ValueError`` outside it.  The in-kernel lambda epilogue raises
+``NotImplementedError``.
+
+Rollouts never reach memory.  ``solver.top_samples(aux, n, noise=None)``
+takes the top n samples by weight (as ``jax.lax.top_k`` orders them),
+regenerates only their perturbations from the solve's seed and warm start
+(or the noise passed back) with the regeneration kernel, and re-rolls them
+with ``states_prediction``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, tick_seed
+from mppi_playground_tpu_torch.core.diagnostics import top_indices
+from mppi_playground_tpu_torch.core.sg_filter import config_sg_coeffs
 from mppi_playground_tpu_torch.core.solver import (
     Dynamics,
     MPPISolver,
     SolveAux,
     SolveResult,
     advance_state,
-    check_slice_support,
     make_init,
     make_states_prediction,
     smooth_predict_advance,
@@ -43,13 +50,14 @@ from mppi_playground_tpu_torch.models.racing_mpcc import extend_reference_path
 from mppi_playground_tpu_torch.ops.fused_solve import (
     MAX_SLOTS,
     RacingFusedTask,
-    combine_partials,
     fused_racing_costs_dump,
     fused_racing_solve,
+    racing_regen,
     racing_reroll,
     racing_weighted,
 )
 from mppi_playground_tpu_torch.ops.lambda_search import essps_lambda_fused, lbps_lambda_fused
+from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
 
@@ -63,6 +71,15 @@ def check_fused_envelope(config: MPPIConfig) -> None:
         raise ValueError("the fused kernel is float32")
     if config.store_rollouts:
         raise ValueError("the fused kernel does not store rollouts (store_rollouts=False)")
+
+
+def fused_envelope(config: MPPIConfig) -> bool:
+    """Whether :func:`check_fused_envelope` accepts ``config``: the facades' routing test."""
+    try:
+        check_fused_envelope(config)
+    except ValueError:
+        return False
+    return True
 
 
 def make_fused_solver(
@@ -88,7 +105,6 @@ def make_fused_solver(
             "the in-kernel lambda epilogue (run_kernel with lambda_mode) is not ported "
             "(PERF.md, TPU kernel table, row 4); use lambda_epilogue=None or False"
         )
-    check_slice_support(config)
     check_fused_envelope(config)
     device = resolve_device(device)
     for name in ("obstacle_grid", "lane_grid"):
@@ -102,6 +118,7 @@ def make_fused_solver(
     threshold = config.inherited_samples
     num_samples = config.num_samples
     auto = config.auto_lambda
+    sg_coeffs = config_sg_coeffs(config, dtype, device)
 
     def search(costs):
         """lambda* of LBPS or ESSPS from its search kernel."""
@@ -150,11 +167,42 @@ def make_fused_solver(
             costs, stats, numer, lam, config.horizon, config.dim_control
         )
         action_seq, state_seq, new_sg_history = smooth_predict_advance(
-            config, epilogue_prediction, state, x0, update
+            config, sg_coeffs, epilogue_prediction, state, x0, update
         )
         new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history)
-        aux = SolveAux(costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=None)
+        aux = SolveAux(
+            costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=None,
+            # replay handles for top_samples
+            seed=seed, x0=x0, prev_action_seq=prev, noise_injected=noise is not None,
+        )
         return SolveResult(action_seq, state_seq, new_state, aux)
+
+    def top_samples(
+        aux: SolveAux, n: int, noise: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(state_seqs [n, T+1, 4], weights [n])`` of the top n samples, weight-descending.
+
+        Pass the solve's ``noise`` back when it ran on injected noise.
+        """
+        if aux.seed is None:
+            raise ValueError("aux must come from a fused solve (aux.seed is unset)")
+        if n > num_samples:
+            raise ValueError(
+                f"requested top {n} samples, but the solver was built with "
+                f"num_samples={num_samples}"
+            )
+        if noise is None and aux.noise_injected:
+            # the seeds would regenerate a stream unrelated to the solve's
+            raise ValueError(
+                "this solve ran with injected noise; pass the same noise array to "
+                "top_samples (seed regeneration cannot replay it)"
+            )
+        if noise is not None:
+            noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
+        top_w, rows = top_indices(aux.weights, n)
+        pert = racing_regen(aux.prev_action_seq, aux.seed, rows, sigmas, u_min, u_max,
+                            num_samples, threshold, noise)
+        return states_prediction(aux.x0, pert), top_w
 
     return MPPISolver(
         config=config,
@@ -162,4 +210,5 @@ def make_fused_solver(
         solve=solve,
         states_prediction=states_prediction,
         device=device,
+        top_samples=top_samples,
     )

@@ -15,8 +15,15 @@ PyTorch and is the second, independent route that the fused CUDA solver
 
 Noise: ``solve(noise=...)`` takes ``[K, T, m]`` perturbations already
 scaled by sigma.  Without it, the noise is drawn from a ``torch.Generator``
-seeded with the state's ``(seed, tick)``.  The Savitzky–Golay filter
-comes with a later slice and raises here.
+seeded with the state's ``(seed, tick)``.
+
+The softmin tail follows ``config.kernel_backend``, decided once when the
+solver is built: ``"auto"`` and ``"pallas"`` run the streaming weighted
+update kernel (``ops/weighted_update.py``; its twin for CPU tensors),
+``"xla"`` the plain softmax and einsum.  The kernel takes float32: on the
+card a float64 config must ask for ``"xla"``, and ``make_solver`` raises
+otherwise.  ``store_rollouts=True`` keeps the
+``[K, T+1, n]`` rollouts for ``core/diagnostics.top_samples``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from mppi_playground_tpu_torch.core import autolambda
 from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, tick_seed
+from mppi_playground_tpu_torch.core.sg_filter import apply_sg_filter, config_sg_coeffs
 from mppi_playground_tpu_torch.ops.weighted_update import weighted_update
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
@@ -36,13 +44,25 @@ CostFn = Callable[[torch.Tensor, torch.Tensor, Dict[str, Any]], torch.Tensor]
 
 
 class SolveAux(NamedTuple):
-    """Diagnostics from one solve."""
+    """Diagnostics from one solve.
+
+    ``seed``, ``x0``, ``prev_action_seq`` and ``noise_injected`` are the
+    fused solver's replay handles (``None`` on the unfused route): the
+    host kernel seed of the tick, the initial state and warm start the
+    samples were drawn around, and whether the solve ran on injected noise
+    (a host bool), so that ``top_samples`` can regenerate the winning
+    perturbations without storing rollouts.  Reading them never syncs.
+    """
 
     costs: torch.Tensor
     weights: torch.Tensor
     lam: torch.Tensor
     ess: torch.Tensor
     state_seq_batch: Optional[torch.Tensor]
+    seed: Optional[int] = None
+    x0: Optional[torch.Tensor] = None
+    prev_action_seq: Optional[torch.Tensor] = None
+    noise_injected: Optional[bool] = None
 
 
 class SolveResult(NamedTuple):
@@ -61,12 +81,28 @@ class MPPISolver:
     solve: Callable[..., SolveResult]
     states_prediction: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     device: torch.device = torch.device("cpu")
+    # fused solvers only: ``top_samples(aux, n, noise=None) -> (state_seqs
+    # [n, T+1, n_x], weights [n])``, which regenerates the winning
+    # perturbations; the unfused route reads ``aux.state_seq_batch`` instead
+    top_samples: Optional[Callable] = None
 
 
-def check_slice_support(config: MPPIConfig) -> None:
-    """Raise for what the port does not run yet."""
-    if config.use_sg_filter:
-        raise NotImplementedError("the Savitzky-Golay filter is not ported yet")
+def warm_reset(solver: MPPISolver, state: MPPIState) -> MPPIState:
+    """Zero the warm start and the SG history, keeping the adapted temperature.
+
+    Like the reference's ``reset``: lambda and the MPO state persist across
+    episodes, and so does the noise stream (``seed`` and ``tick``, as the
+    JAX package keeps its key).  Shared by the ``MPPI`` and
+    ``RacingController`` facades.
+    """
+    fresh = solver.init(seed=state.seed)
+    return dataclasses.replace(
+        fresh,
+        lam=state.lam,
+        tick=state.tick,
+        mpo_log_temperature=state.mpo_log_temperature,
+        mpo_opt_state=state.mpo_opt_state,
+    )
 
 
 def _rollout_and_costs(
@@ -189,15 +225,18 @@ def advance_state(
 
 def smooth_predict_advance(
     config: MPPIConfig,
+    sg_coeffs: Optional[torch.Tensor],
     states_prediction,
     state: MPPIState,
     x0: torch.Tensor,
     optimal_action_seq: torch.Tensor,
 ):
-    """Shared solve epilogue: nominal re-roll and SG-history shift.
+    """Shared solve epilogue: SG filter, nominal re-roll and SG-history shift.
 
     Returns (action_seq, state_seq, new_sg_history).
     """
+    if config.use_sg_filter:
+        optimal_action_seq = apply_sg_filter(optimal_action_seq, state.sg_history, sg_coeffs)
     optimal_state_seq = states_prediction(x0, optimal_action_seq[None])[0]
     if config.horizon > 1:
         new_sg_history = torch.cat([state.sg_history[1:], optimal_action_seq[:1]], dim=0)
@@ -213,15 +252,20 @@ def make_solver(
     device: Optional[Union[str, torch.device]] = None,
 ) -> MPPISolver:
     """Build the unfused solver for one (config, dynamics, cost) on ``device``."""
-    check_slice_support(config)
     device = resolve_device(device)
     dtype = config.dtype
+    if device.type == "cuda" and dtype != torch.float32 and config.kernel_backend != "xla":
+        raise ValueError(
+            f"the weighted-update kernel takes float32; a {dtype} config on {device} "
+            "needs kernel_backend='xla'"
+        )
     num_samples, horizon = config.num_samples, config.horizon
     dim_control, dim_state = config.dim_control, config.dim_state
     u_min = torch.tensor(config.u_min, dtype=dtype, device=device)
     u_max = torch.tensor(config.u_max, dtype=dtype, device=device)
     sigmas = torch.tensor(config.sigmas, dtype=dtype, device=device)
     threshold = config.inherited_samples
+    sg_coeffs = config_sg_coeffs(config, dtype, device)
 
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)
@@ -265,9 +309,11 @@ def make_solver(
             lam = search_lambda(config, costs)
         else:
             lam = state.lam
-        update, weights, ess = weighted_update(costs, perturbed, lam)
+        update, weights, ess = weighted_update(
+            costs, perturbed, lam, backend=config.kernel_backend
+        )
         action_seq, state_seq, new_sg_history = smooth_predict_advance(
-            config, states_prediction, state, x0, update
+            config, sg_coeffs, states_prediction, state, x0, update
         )
         new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history)
         aux = SolveAux(

@@ -1,7 +1,8 @@
-// Fused racing MPPI solve, and the two phases of the auto-lambda solve.
+// Fused racing MPPI solve, the two phases of the auto-lambda solve, and seed
+// regeneration.
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py, make_fused_solve.kernel,
-// a Pallas TPU kernel over 1024-sample (8, 128) tiles, in three of its modes:
+// a Pallas TPU kernel over 1024-sample (8, 128) tiles, in four of its modes:
 //
 // * racing_fused_solve (run_kernel, single-pass fixed-lambda mode).  Per
 //   sample it perturbs and clamps the warm start with Gaussian noise, rolls
@@ -16,10 +17,17 @@
 //   rollout: per sample the cost and the dumped perturbations are read back
 //   and the block partials are reduced at the searched lambda (a device
 //   pointer).
+// * racing_regen (run_regen, regen_dump_only mode).  No rollout: the clamped
+//   perturbations [n, T, 2] of a list of n sample indices, from the solve's
+//   seed and warm start (or its injected noise), for get_top_samples.  The
+//   TPU kernel replays all K tiles; Philox keyed on the sample index lets
+//   this one regenerate only the rows asked for.
 //
-// The fixed kernel and phase 2 share block_partials, as the TPU kernel's
-// modes share one body; combine_partials (ops/fused_solve.py) merges the
-// blocks in torch.
+// The fixed kernel and phase 2 share block_partials (softmin_partials.cuh,
+// also the body of csrc/weighted_update.cu), as the TPU kernel's modes share
+// one body; combine_partials (ops/weighted_update.py) merges the blocks in
+// torch.  All four modes draw through one Perturbation, so the regenerated
+// rows equal phase 1's dump bit for bit.
 //
 // What bounds them on the H100.  At the flagship (T=50, m=2, K=100,000) the
 // fixed solve must move about 1.84 MB: the two 800x800 uint8 grids (1.28 MB),
@@ -31,6 +39,8 @@
 // it): operations bound it.  Phase 1 writes the 40 MB dump besides, 12 us of
 // bytes, about as long as its operations take.  Phase 2 reads the dump and
 // the costs (40.4 MB) and does 4 operations a slot: bytes bound it, 12 us.
+// Regeneration writes 8T bytes a row (40 MB for all K, 12 us; 300 rows are
+// 120 KB, far below the cost of a launch).
 //
 // What this simple design does about it.  One thread per sample, blocks of
 // 256.  The rollout lives in registers; in the fixed solve the
@@ -43,42 +53,20 @@
 // 50 MB L2.  The reference rows and warm start sit in shared memory.  Padded
 // threads past K cost 1e30 and weigh 0.  Compiled with -fmad=false and no
 // fast math so that it computes the plain twins' arithmetic operation for
-// operation.
+// operation.  Regeneration runs one thread a requested row, which walks its
+// horizon in order (odd steps reuse the even step's second Philox pair) and
+// writes the row's 2T floats.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "racing_model.cuh"
+#include "softmin_partials.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kWarps = kBlock / 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(0xFFFFFFFFu, v, o));
-  return v;
-}
-
-// Block-wide reduction; the result is valid in every thread.
-template <bool kMax>
-__device__ float block_reduce(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // scratch may still be read by a previous reduction
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, scratch[w]) : r + scratch[w];
-  return r;
-}
+using softmin::block_partials;
+using softmin::kBlock;
 
 struct Params {
   const float* x0;     // [4]
@@ -98,16 +86,22 @@ struct Params {
   float* dump;   // [2T, K] clamped perturbations, slot-major (phase 1)
 };
 
-// The clamped perturbed actions of one sample, step by step (t ascending).
+// The clamped perturbed actions of one sample, step by step (t ascending);
+// next() walks them for block_partials, two slots a step.
 struct Perturbation {
+  static constexpr int kWidth = 2;
   const Params& p;
   const float* prev;  // shared copy of the warm start
   int k;
   bool inherit;
   float z2a, z2b;  // the second pair of the last Philox draw
+  int step;        // next() position
 
   __device__ Perturbation(const Params& p_, const float* prev_, int k_)
-      : p(p_), prev(prev_), k(k_), inherit(k_ < p_.threshold), z2a(0.0f), z2b(0.0f) {}
+      : p(p_), prev(prev_), k(k_), inherit(k_ < p_.threshold), z2a(0.0f), z2b(0.0f),
+        step(0) {}
+
+  __device__ __forceinline__ void next(float* v) { at(step++, &v[0], &v[1]); }
 
   __device__ __forceinline__ void at(int t, float* u0, float* u1) {
     float z0, z1;
@@ -137,14 +131,17 @@ struct Perturbation {
   }
 };
 
-// The perturbations dumped by phase 1, read back by phase 2.
+// The perturbations dumped by phase 1, read back by phase 2, a step at a time.
 struct DumpedPerturbation {
+  static constexpr int kWidth = 2;
   const float* dump;  // [2T, K]
   int num_samples, k;
+  int step;
 
-  __device__ __forceinline__ void at(int t, float* u0, float* u1) const {
-    *u0 = dump[static_cast<size_t>(2 * t) * num_samples + k];
-    *u1 = dump[static_cast<size_t>(2 * t + 1) * num_samples + k];
+  __device__ __forceinline__ void next(float* v) {
+    v[0] = dump[static_cast<size_t>(2 * step) * num_samples + k];
+    v[1] = dump[static_cast<size_t>(2 * step + 1) * num_samples + k];
+    ++step;
   }
 };
 
@@ -185,52 +182,13 @@ __device__ __forceinline__ float rollout_cost(const Params& p, const float* s_xr
                                        p.grid_a, p.grid_b, p.geo);
 }
 
-// Softmin partials of one block: stats (max of s = -c/lam, sum e, sum e^2)
-// and the numerator sum e * pert per slot.  Every thread of the block calls
-// it; invalid threads carry cost 1e30 and weigh 0.  src.at(t, ...) gives a
-// valid sample's clamped perturbation at step t.
-template <class Source>
-__device__ __forceinline__ void block_partials(float cost, float lam, bool valid, Source& src,
-                                               int T, float* s_red, float* s_numer,
-                                               float* stats, float* numer) {
-  const float s = -cost / lam;
-  const float mx = block_reduce<true>(s, s_red);
-  const float e = expf(s - mx);
-  const float z_sum = block_reduce<false>(e, s_red);
-  const float sq_sum = block_reduce<false>(e * e, s_red);
-  if (threadIdx.x == 0) {
-    stats[blockIdx.x * 3 + 0] = mx;
-    stats[blockIdx.x * 3 + 1] = z_sum;
-    stats[blockIdx.x * 3 + 2] = sq_sum;
-  }
-
-  // numerator: weigh each perturbation, reduce per warp, then across warps
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = 0; t < T; ++t) {
-    float u0 = 0.0f, u1 = 0.0f;
-    if (valid) src.at(t, &u0, &u1);
-    float w0 = warp_sum(e * u0);
-    float w1 = warp_sum(e * u1);
-    if (lane == 0) {
-      s_numer[warp * 2 * T + 2 * t] = w0;
-      s_numer[warp * 2 * T + 2 * t + 1] = w1;
-    }
-  }
-  __syncthreads();
-  for (int f = threadIdx.x; f < 2 * T; f += kBlock) {
-    float acc = s_numer[f];
-    for (int w = 1; w < kWarps; ++w) acc += s_numer[w * 2 * T + f];
-    numer[static_cast<size_t>(blockIdx.x) * 2 * T + f] = acc;
-  }
-}
-
 __global__ void __launch_bounds__(kBlock) racing_solve_kernel(Params p) {
   extern __shared__ float smem[];
   const int T = p.horizon;
   float* s_xref = smem;                   // (T+1) * 5
   float* s_prev = s_xref + (T + 1) * 5;   // 2T
   float* s_red = s_prev + 2 * T;          // kWarps
-  float* s_numer = s_red + kWarps;        // kWarps * 2T
+  float* s_numer = s_red + softmin::kWarps;  // kWarps * min(2T, kChunk)
   load_reference(p, s_xref, s_prev);
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
@@ -242,7 +200,7 @@ __global__ void __launch_bounds__(kBlock) racing_solve_kernel(Params p) {
   }
   // the numerator pass regenerates (or re-reads) each perturbation
   Perturbation pert(p, s_prev, valid ? k : 0);
-  block_partials(cost, *p.lam, valid, pert, T, s_red, s_numer, p.stats, p.numer);
+  block_partials(cost, *p.lam, valid, pert, 2 * T, s_red, s_numer, p.stats, p.numer);
 }
 
 __global__ void __launch_bounds__(kBlock) racing_costs_dump_kernel(Params p) {
@@ -258,13 +216,32 @@ __global__ void __launch_bounds__(kBlock) racing_weighted_kernel(
     const float* costs, const float* dump, const float* lam, int horizon, int num_samples,
     float* stats, float* numer) {
   extern __shared__ float smem[];
-  float* s_red = smem;              // kWarps
-  float* s_numer = s_red + kWarps;  // kWarps * 2T
+  float* s_red = smem;                       // kWarps
+  float* s_numer = s_red + softmin::kWarps;  // kWarps * min(2T, kChunk)
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < num_samples;
   const float cost = valid ? costs[k] : 1e30f;  // padding never wins the softmin
-  DumpedPerturbation src{dump, num_samples, valid ? k : 0};
-  block_partials(cost, *lam, valid, src, horizon, s_red, s_numer, stats, numer);
+  DumpedPerturbation src{dump, num_samples, valid ? k : 0, 0};
+  block_partials(cost, *lam, valid, src, 2 * horizon, s_red, s_numer, stats, numer);
+}
+
+__global__ void __launch_bounds__(kBlock) racing_regen_kernel(Params p, const int64_t* rows,
+                                                              int num_rows, float* out) {
+  extern __shared__ float smem[];
+  float* s_prev = smem;  // 2T
+  const int T = p.horizon;
+  for (int i = threadIdx.x; i < 2 * T; i += kBlock) s_prev[i] = p.prev[i];
+  __syncthreads();
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= num_rows) return;
+  const int64_t k = rows[i];
+  float* dst = out + static_cast<size_t>(i) * 2 * T;
+  if (k < 0 || k >= p.num_samples) {  // no such sample: a row of NaN, never a stray read
+    for (int f = 0; f < 2 * T; ++f) dst[f] = __int_as_float(0x7fc00000);
+    return;
+  }
+  Perturbation pert(p, s_prev, static_cast<int>(k));
+  for (int t = 0; t < T; ++t) pert.at(t, &dst[2 * t], &dst[2 * t + 1]);
 }
 
 // Raise a kernel's dynamic shared-memory limit where it needs more than 48 KB.
@@ -312,9 +289,7 @@ Params make_params(RACING_PARAMS_ARGS) {
 
 int blocks_for(int num_samples) { return (num_samples + kBlock - 1) / kBlock; }
 
-size_t partials_shared_bytes(int horizon) {
-  return sizeof(float) * (kWarps + static_cast<size_t>(kWarps) * 2 * horizon);
-}
+size_t partials_shared_bytes(int horizon) { return softmin::shared_bytes(2 * horizon); }
 
 size_t reference_shared_bytes(int horizon) {
   return sizeof(float) * (static_cast<size_t>(horizon + 1) * 5 + 2 * horizon);
@@ -357,5 +332,28 @@ extern "C" int racing_weighted(const float* costs, const float* dump, const floa
   racing_weighted_kernel<<<blocks_for(num_samples), kBlock, shmem,
                            static_cast<cudaStream_t>(stream)>>>(costs, dump, lam, horizon,
                                                                  num_samples, stats, numer);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int racing_regen(const float* prev, const float* noise, const int64_t* rows,
+                            float sigma0, float sigma1, float u_min0, float u_min1, float u_max0,
+                            float u_max1, uint32_t seed, int horizon, int num_samples,
+                            int threshold, int num_rows, float* out, void* stream) {
+  Params p{};
+  p.prev = prev;
+  p.noise = noise;
+  p.sigma0 = sigma0;
+  p.sigma1 = sigma1;
+  p.u_min0 = u_min0;
+  p.u_min1 = u_min1;
+  p.u_max0 = u_max0;
+  p.u_max1 = u_max1;
+  p.seed = seed;
+  p.horizon = horizon;
+  p.num_samples = num_samples;
+  p.threshold = threshold;
+  const size_t shmem = sizeof(float) * 2 * static_cast<size_t>(horizon);
+  racing_regen_kernel<<<blocks_for(num_rows), kBlock, shmem, static_cast<cudaStream_t>(stream)>>>(
+      p, rows, num_rows, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,7 @@ class RacingEnv:
 
         self.u_min = torch.tensor(bicycle.U_MIN, dtype=dtype, device=dev)
         self.u_max = torch.tensor(bicycle.U_MAX, dtype=dtype, device=dev)
+        self.V_MAX = bicycle.V_MAX
 
         self.dl = 0.1
         self.line_width = 6.5

@@ -76,6 +76,7 @@ class ObstacleMap:
         self.circle_obs_list: List[CircleObstacle] = []
         self.rectangle_obs_list: List[RectangleObstacle] = []
         self._device_map: Optional[GridMapData] = None
+        self._version = 0
 
     def add_circle_obstacle(self, center: np.ndarray, radius: float) -> None:
         """Rasterize a disk around its rounded center."""
@@ -96,6 +97,7 @@ class ObstacleMap:
 
         self.circle_obs_list.append(CircleObstacle(np.asarray(center, float), radius))
         self._device_map = None
+        self._version += 1
 
     def add_rectangle_obstacle(
         self, center: np.ndarray, width: float, height: float
@@ -120,6 +122,17 @@ class ObstacleMap:
             RectangleObstacle(np.asarray(center, float), width, height)
         )
         self._device_map = None
+        self._version += 1
+
+    @property
+    def version(self) -> int:
+        """Mutation counter, bumped by every ``add_*_obstacle`` call.
+
+        Consumers that build on the map's device data once (the
+        ``RacingController``'s solver) compare it to see that the map moved
+        and rebuild.
+        """
+        return self._version
 
     @property
     def grid(self) -> np.ndarray:

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fused_solve", "reroll", "lambda_search")
+SOURCES = ("fused_solve", "reroll", "lambda_search", "weighted_update")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,12 +1,13 @@
-"""Fused racing MPPI solve, its auto-lambda phases and the re-roll: CUDA kernels and twins.
+"""Fused racing MPPI solve, its auto-lambda phases, seed regeneration and the re-roll.
 
 Counterpart of ``mppi_playground_tpu/ops/fused_solve.py`` for the racing
-model.  Four kernels, written by hand for Hopper in ``csrc/``:
+model.  Five kernels, written by hand for Hopper in ``csrc/``:
 
 * :func:`fused_racing_solve` (``csrc/fused_solve.cu``) — per sample: the
   perturbed, clamped warm start, T bicycle steps with the MPCC stage and
   terminal cost and two occupancy reads per point; per block of 256
-  samples the softmin partials.  :func:`combine_partials` merges the blocks.
+  samples the softmin partials.  ``ops/weighted_update.combine_partials``
+  merges the blocks.
 * :func:`fused_racing_costs_dump` (same source) — auto-lambda phase 1: the
   same rollout and costs, and the clamped perturbations dumped as
   ``[2T, K]`` (slot-major, sample fastest); no partials.
@@ -14,7 +15,10 @@ model.  Four kernels, written by hand for Hopper in ``csrc/``:
   partials of the fixed solve, from the costs and the dump at a lambda
   searched in between, without a rollout.  Its partials and the fixed
   solve's come from one device function, and here from one twin
-  (:func:`block_partials_plain`).
+  (:func:`block_partials_plain`, in ``ops/weighted_update.py``).
+* :func:`racing_regen` (same source) — the clamped perturbations of chosen
+  sample indices, replayed from a solve's seed and warm start (or its
+  injected noise): the rows ``get_top_samples`` re-rolls on the fused route.
 * :func:`racing_reroll` (``csrc/reroll.cu``) — the nominal re-roll.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in its
@@ -44,9 +48,9 @@ import torch
 from mppi_playground_tpu_torch.models.bicycle import make_dynamics_soa
 from mppi_playground_tpu_torch.models.racing_mpcc import make_mpcc_cost_soa
 from mppi_playground_tpu_torch.ops import cuda_build
+from mppi_playground_tpu_torch.ops.weighted_update import BLOCK, block_partials_plain
 from mppi_playground_tpu_torch.utils.fastmath import sincos_2pi
 
-BLOCK = 256  # samples per block of partials, the kernel's block size
 MAX_SLOTS = 1024  # the port's envelope: horizon * dim_control
 
 _MASK32 = 0xFFFFFFFF
@@ -164,26 +168,6 @@ def _rollout_costs_plain(x0, pert, xref, task: RacingFusedTask):
     return acc + stage_cost(
         xs, (zeros, zeros), dict(t=horizon - 1, prev_us=prev_us, xref=xref, maps=maps)
     )
-
-
-def block_partials_plain(costs, flat_pert, lam):
-    """Softmin partials per block of 256: ``(stats [B, 3], numer [B, 2T])``.
-
-    ``flat_pert [K, 2T]`` holds each sample's clamped perturbations; padded
-    samples cost 1e30 and weigh 0.  The twin of the kernels' shared
-    ``block_partials``.
-    """
-    num_samples, slots = flat_pert.shape
-    blocks = -(-num_samples // BLOCK)
-    pad = blocks * BLOCK - num_samples
-    c = torch.cat([costs, costs.new_full((pad,), 1e30)]).view(blocks, BLOCK)
-    s = -c / lam.reshape(())
-    mx = s.max(dim=1).values
-    e = torch.exp(s - mx[:, None])
-    stats = torch.stack([mx, e.sum(dim=1), (e * e).sum(dim=1)], dim=1)
-    flat = torch.cat([flat_pert, flat_pert.new_zeros(pad, slots)])
-    numer = (e[:, :, None] * flat.view(blocks, BLOCK, slots)).sum(dim=1)
-    return stats, numer
 
 
 def fused_racing_solve_plain(
@@ -409,24 +393,70 @@ def racing_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
 racing_weighted.launches = 0
 
 
-def combine_partials(costs, stats, numer, lam, horizon: int, dim_control: int):
-    """Merge block partials into ``(update [T, m], weights [K], ess)``.
+def racing_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples: int,
+                       threshold: int, noise: Optional[torch.Tensor] = None):
+    """The regeneration kernel's plain twin: all K perturbations, gathered at ``rows``."""
+    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
+    return pert[rows]
 
-    Flash-attention-style rescaling of each block's ``sum e`` and numerator
-    by ``exp(block max - global max)``; plain tensor ops, as the JAX
-    package leaves this epilogue to XLA.
+
+_REGEN_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_float] * 6
+    + [ctypes.c_uint32] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+)
+
+
+def racing_regen(
+    prev: torch.Tensor,
+    seed: int,
+    rows: torch.Tensor,
+    sigmas: Tuple[float, float],
+    u_min: Tuple[float, float],
+    u_max: Tuple[float, float],
+    num_samples: int,
+    threshold: int,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Replay a solve's clamped perturbations at ``rows`` -> ``[n, T, 2]``.
+
+    ``prev [T, 2]`` is the warm start the solve sampled around and ``seed``
+    its host kernel seed; ``noise`` the ``[K, T, 2]`` noise it was given,
+    if any.  ``rows [n]`` (int64, each in ``[0, K)``) picks the samples;
+    row ``i`` of the result is sample ``rows[i]``'s perturbation, bit for
+    bit the one the solve drew (and phase 1 dumped).  CPU tensors take
+    :func:`racing_regen_plain`.
     """
-    lam = lam.reshape(())
-    tile_max = stats[:, 0]
-    mx = torch.max(tile_max)
-    alpha = torch.exp(tile_max - mx)
-    z = torch.sum(alpha * stats[:, 1])
-    sumsq = torch.sum(alpha * alpha * stats[:, 2])
-    numer_g = torch.sum(alpha[:, None] * numer, dim=0)
-    update = (numer_g / z).reshape(horizon, dim_control)
-    weights = torch.exp(-costs / lam - mx) / z
-    ess = (z * z) / sumsq
-    return update, weights, ess
+    if not _on_card("racing_regen", prev):
+        return racing_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples,
+                                  threshold, noise)
+    dev = prev.device
+    horizon = prev.shape[0]
+    if not 1 <= horizon or 2 * horizon > MAX_SLOTS:
+        raise ValueError(f"racing_regen needs 1 <= 2 * horizon <= {MAX_SLOTS}")
+    if not 1 <= num_samples < 2**31 - BLOCK:
+        raise ValueError(f"num_samples out of range: {num_samples}")
+    _check("prev", prev, (horizon, 2), torch.float32, dev)
+    num_rows = rows.shape[0]
+    _check("rows", rows, (num_rows,), torch.int64, dev)
+    out = torch.empty(num_rows, horizon, 2, dtype=torch.float32, device=dev)
+    if num_rows == 0:
+        return out
+    noise_ptr = None
+    if noise is not None:
+        _check("noise", noise, (num_samples, horizon, 2), torch.float32, dev)
+        noise = noise.reshape(num_samples, 2 * horizon).t().contiguous()  # [2T, K]
+        noise_ptr = noise.data_ptr()
+    cuda_build.launch(
+        "fused_solve", "racing_regen", _REGEN_ARGTYPES, dev, prev.data_ptr(), noise_ptr,
+        rows.data_ptr(), _f(sigmas[0]), _f(sigmas[1]), _f(u_min[0]), _f(u_min[1]),
+        _f(u_max[0]), _f(u_max[1]), int(seed) & _MASK32, horizon, num_samples,
+        max(0, min(threshold, num_samples)), num_rows, out.data_ptr(),
+    )
+    racing_regen.launches += 1
+    return out
+
+
+racing_regen.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,149 @@
-"""Softmin weighting and weighted-average update of the unfused solver.
+"""Softmin weighting and weighted-average update: the CUDA kernel, its twin and the plain route.
 
-Counterpart of ``_xla_weighted_update`` in
-``mppi_playground_tpu/ops/weighted_update.py``:
-``weights = softmax(-costs / lambda)``, ``update = sum_k weights[k] *
-samples[k]`` and the effective sample size ``1 / sum(w^2)``.  The streaming
-Pallas kernel of that module serves the JAX package's unfused path on a
-TPU only; its port is queued.
+Counterpart of ``mppi_playground_tpu/ops/weighted_update.py`` (the
+dispatcher and ``_xla_weighted_update``) and of
+``mppi_playground_tpu/ops/pallas_kernels.py`` (the streaming Pallas
+kernel): ``weights = softmax(-costs / lambda)``, ``update = sum_k
+weights[k] * samples[k]`` and the effective sample size ``1 / sum(w^2)``.
+
+* :func:`weighted_update_partials` (``csrc/weighted_update.cu``) — per
+  block of 256 samples the softmin partials of ``[K, D]`` samples: the max
+  of ``-c / lambda``, ``sum e``, ``sum e^2`` and the numerator ``sum e *
+  sample``.  Its block body is the one the fused solve and auto-lambda
+  phase 2 share (``csrc/softmin_partials.cuh``).  It launches its kernel
+  for CUDA tensors, counts the launch in its ``launches`` attribute, and
+  raises on what the kernel does not take; CPU tensors take
+  :func:`block_partials_plain`, the twin of that shared body.
+* :func:`combine_partials` merges block partials into ``(update, weights,
+  ess)`` in torch, for this kernel and the fused ones.
+* :func:`weighted_update` dispatches on the JAX package's backend names:
+  ``"auto"`` and ``"pallas"`` take the kernel (its twin on the CPU),
+  ``"xla"`` the plain softmax and einsum (:func:`xla_weighted_update`).
+  Unlike the JAX package there is no gate on ``D = T * m``: that gate is a
+  TPU VMEM limit, and the kernel takes any ``D``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
+from mppi_playground_tpu_torch.ops import cuda_build
 
-def weighted_update(
+BLOCK = 256  # samples per block of partials, the kernels' block size
+BACKENDS = ("auto", "xla", "pallas")
+
+
+def block_partials_plain(costs, flat, lam):
+    """Softmin partials per block of 256: ``(stats [B, 3], numer [B, D])``.
+
+    ``flat [K, D]`` holds each sample's slots; padded samples cost 1e30 and
+    weigh 0.  ``lam`` holds one element; ``-c / lam`` divides by a tensor
+    (IEEE division, as the kernels do).  The twin of the kernels' shared
+    ``block_partials``.
+    """
+    num_samples, slots = flat.shape
+    blocks = -(-num_samples // BLOCK)
+    pad = blocks * BLOCK - num_samples
+    c = torch.cat([costs, costs.new_full((pad,), 1e30)]).view(blocks, BLOCK)
+    s = -c / lam.reshape(())
+    mx = s.max(dim=1).values
+    e = torch.exp(s - mx[:, None])
+    stats = torch.stack([mx, e.sum(dim=1), (e * e).sum(dim=1)], dim=1)
+    flat = torch.cat([flat, flat.new_zeros(pad, slots)])
+    numer = (e[:, :, None] * flat.view(blocks, BLOCK, slots)).sum(dim=1)
+    return stats, numer
+
+
+def combine_partials(costs, stats, numer, lam, horizon: int, dim_control: int):
+    """Merge block partials into ``(update [T, m], weights [K], ess)``.
+
+    Flash-attention-style rescaling of each block's ``sum e`` and numerator
+    by ``exp(block max - global max)``; plain tensor ops, as the JAX
+    package leaves this epilogue to XLA.
+    """
+    lam = lam.reshape(())
+    tile_max = stats[:, 0]
+    mx = torch.max(tile_max)
+    alpha = torch.exp(tile_max - mx)
+    z = torch.sum(alpha * stats[:, 1])
+    sumsq = torch.sum(alpha * alpha * stats[:, 2])
+    numer_g = torch.sum(alpha[:, None] * numer, dim=0)
+    update = (numer_g / z).reshape(horizon, dim_control)
+    weights = torch.exp(-costs / lam - mx) / z
+    ess = (z * z) / sumsq
+    return update, weights, ess
+
+
+def xla_weighted_update(
     costs: torch.Tensor, samples: torch.Tensor, lam: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(update [T, m], weights [K], ess)`` from costs ``[K]`` and samples ``[K, T, m]``."""
+    """The plain route, ``_xla_weighted_update``'s counterpart: softmax and einsum."""
     weights = torch.softmax(-costs / lam, dim=0)
     update = torch.einsum("k,ktm->tm", weights, samples)
     ess = 1.0 / torch.sum(weights * weights)
     return update, weights, ess
+
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+
+
+def weighted_update_partials(costs: torch.Tensor, samples: torch.Tensor, lam: torch.Tensor):
+    """Block partials ``(stats [B, 3], numer [B, D])`` of ``samples [K, D]`` at ``lam``.
+
+    ``costs [K]``, ``samples [K, D]`` (contiguous) and ``lam`` (one element,
+    read by the kernel, never by the host), all float32 on one device;
+    ``B = ceil(K / 256)``.  CPU tensors take :func:`block_partials_plain`.
+    """
+    if costs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"weighted_update_partials runs on cuda or cpu, not {costs.device}")
+    if costs.device.type == "cpu":
+        return block_partials_plain(costs, samples, lam)
+    dev = costs.device
+    if costs.dim() != 1 or samples.dim() != 2 or samples.shape[0] != costs.shape[0]:
+        raise ValueError(
+            f"costs must be [K] and samples [K, D], got {tuple(costs.shape)} and "
+            f"{tuple(samples.shape)}"
+        )
+    num_samples, slots = samples.shape
+    if not 1 <= num_samples < 2**31 - BLOCK or not 1 <= slots < 2**31:
+        raise ValueError(f"K and D out of range: K={num_samples}, D={slots}")
+    for name, t in (("costs", costs), ("samples", samples), ("lam", lam)):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {dev}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if lam.numel() != 1:
+        raise ValueError("lam must hold one element")
+    blocks = -(-num_samples // BLOCK)
+    stats = torch.empty(blocks, 3, dtype=torch.float32, device=dev)
+    numer = torch.empty(blocks, slots, dtype=torch.float32, device=dev)
+    cuda_build.launch("weighted_update", "weighted_update", _ARGTYPES, dev,
+                      costs.data_ptr(), samples.data_ptr(), lam.data_ptr(), slots, num_samples,
+                      stats.data_ptr(), numer.data_ptr())
+    weighted_update_partials.launches += 1
+    return stats, numer
+
+
+weighted_update_partials.launches = 0
+
+
+def weighted_update(
+    costs: torch.Tensor, samples: torch.Tensor, lam: torch.Tensor, backend: str = "auto"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(update [T, m], weights [K], ess)`` from costs ``[K]`` and samples ``[K, T, m]``.
+
+    ``backend``: ``"auto"`` or ``"pallas"`` (the kernel; its twin for CPU
+    tensors), ``"xla"`` (softmax and einsum).
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "xla":
+        return xla_weighted_update(costs, samples, lam)
+    num_samples, horizon, dim_control = samples.shape
+    stats, numer = weighted_update_partials(
+        costs, samples.reshape(num_samples, horizon * dim_control).contiguous(), lam.reshape(1)
+    )
+    return combine_partials(costs, stats, numer, lam, horizon, dim_control)

@@ -305,7 +305,7 @@ def test_auto_lambda_ticks_match_jax(jax_refs, env, mode):
     ({"lambda_": "MPO"}, None),
     ({"lambda_": "LBPS"}, None),
     ({"lambda_": "ESSPS"}, None),
-    ({"use_sg_filter": True}, NotImplementedError),
+    ({"use_sg_filter": True}, None),
     ({"store_rollouts": True}, ValueError),
     ({"horizon": 513}, ValueError),
     ({"dim_state": 3}, ValueError),

@@ -35,7 +35,7 @@ from mppi_playground_tpu_torch.core.config import tick_seed
 from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
 from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
 from mppi_playground_tpu_torch.ops import fused_solve
-from mppi_playground_tpu_torch.ops.weighted_update import weighted_update
+from mppi_playground_tpu_torch.ops.weighted_update import combine_partials, weighted_update
 
 ROOT = Path(__file__).resolve().parent.parent
 HORIZON = 8
@@ -218,7 +218,7 @@ def test_fused_solve_twin_matches_jax_interpret(jax_ref, task, num_samples, expl
     blocks = -(-num_samples // fused_solve.BLOCK)
     assert costs.shape == (num_samples,)
     assert stats.shape == (blocks, 3) and numer.shape == (blocks, 2 * HORIZON)
-    update, weights, ess = fused_solve.combine_partials(costs, stats, numer, lam, HORIZON, 2)
+    update, weights, ess = combine_partials(costs, stats, numer, lam, HORIZON, 2)
 
     np.testing.assert_array_equal(costs.numpy(), ref["costs"])  # tolerance 0
     np.testing.assert_allclose(weights.numpy(), ref["weights"], atol=1e-5)
@@ -255,7 +255,7 @@ def test_phase2_twin_matches_jax_run_weighted(jax_ref, task):
     costs, dump = fused_solve.fused_racing_costs_dump(*_phase_inputs(jax_ref, task))
     lam = _t(jax_ref["phase_lam"]).reshape(1)
     stats, numer = fused_solve.racing_weighted(costs, dump, lam)
-    update, weights, ess = fused_solve.combine_partials(costs, stats, numer, lam, PHASE_T, 2)
+    update, weights, ess = combine_partials(costs, stats, numer, lam, PHASE_T, 2)
     np.testing.assert_allclose(weights.numpy(), jax_ref["phase_weights"], atol=1e-5)
     np.testing.assert_allclose(update.numpy(), jax_ref["phase_update"], atol=5e-3)
     np.testing.assert_allclose(float(ess), float(jax_ref["phase_ess"]), rtol=1e-3)
@@ -339,9 +339,9 @@ def test_combine_partials_equals_plain_softmin(task):
     costs, stats, numer = fused_solve.fused_racing_solve(
         x0, prev, lam, 0, xref5, task, SIGMAS, U_MIN, U_MAX, num_samples, num_samples, noise,
     )
-    update, weights, ess = fused_solve.combine_partials(costs, stats, numer, lam, HORIZON, 2)
+    update, weights, ess = combine_partials(costs, stats, numer, lam, HORIZON, 2)
     pert = torch.clamp(prev[None] + noise, torch.tensor(U_MIN), torch.tensor(U_MAX))
-    w_update, w_weights, w_ess = weighted_update(costs, pert, lam.reshape(()))
+    w_update, w_weights, w_ess = weighted_update(costs, pert, lam.reshape(()), backend="xla")
     # the same exponentials summed in another order
     torch.testing.assert_close(weights, w_weights, rtol=0, atol=1e-6)
     torch.testing.assert_close(update, w_update, rtol=0, atol=1e-6)

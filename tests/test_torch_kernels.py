@@ -24,6 +24,7 @@ import torch
 
 from mppi_playground_tpu_torch.core.config import tick_seed
 from mppi_playground_tpu_torch.ops import fused_solve, lambda_search
+from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
 
 pytestmark = pytest.mark.cuda
 
@@ -79,8 +80,8 @@ def test_fused_solve_kernel_matches_twin(card, mode, horizon, num_samples, explo
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
     if mode == "noise":
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
-    g = fused_solve.combine_partials(*got, lam, horizon, 2)
-    w = fused_solve.combine_partials(*want, lam, horizon, 2)
+    g = combine_partials(*got, lam, horizon, 2)
+    w = combine_partials(*want, lam, horizon, 2)
     torch.testing.assert_close(g[1], w[1], rtol=0, atol=1e-5)  # weights
     torch.testing.assert_close(g[0], w[0], rtol=0, atol=5e-3)  # update
     torch.testing.assert_close(g[2], w[2], rtol=1e-3, atol=0)  # ESS
@@ -148,8 +149,8 @@ def test_auto_lambda_phases_match_twins(card, mode, horizon, num_samples, explor
     lam = torch.full((1,), 37.5, device="cuda")
     got = fused_solve.racing_weighted(costs, dump, lam)
     want = fused_solve.racing_weighted_plain(costs, dump, lam)
-    g = fused_solve.combine_partials(costs, *got, lam, horizon, 2)
-    w = fused_solve.combine_partials(costs, *want, lam, horizon, 2)
+    g = combine_partials(costs, *got, lam, horizon, 2)
+    w = combine_partials(costs, *want, lam, horizon, 2)
     torch.testing.assert_close(g[1], w[1], rtol=0, atol=1e-5)  # weights
     torch.testing.assert_close(g[0], w[0], rtol=0, atol=5e-3)  # update
     torch.testing.assert_close(g[2], w[2], rtol=1e-3, atol=0)  # ESS
@@ -191,3 +192,100 @@ def test_search_wrapper_raises_above_the_gate(card):
     too_many = torch.zeros(1, device="cuda").expand(lambda_search.MAX_SAMPLES + 1)
     with pytest.raises(ValueError, match="1 <= K"):
         lambda_search.essps_lambda_fused(too_many, 1.0, 0.01, 10.0)
+
+
+@pytest.mark.parametrize("num_samples,slots", [(100_000, 100), (1500, 16), (3000, 2000), (7, 3)])
+@pytest.mark.parametrize("lam", [0.01, 1.0, 10.0])
+def test_weighted_update_kernel_matches_twin(card, num_samples, slots, lam):
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    gen = torch.Generator(device="cuda").manual_seed(slots)
+    costs = torch.rand(num_samples, generator=gen, device="cuda") * 100.0
+    samples = torch.randn(num_samples, slots, generator=gen, device="cuda")
+    lam_t = torch.full((1,), lam, device="cuda")
+    launches = wu.weighted_update_partials.launches
+    got = wu.weighted_update_partials(costs, samples, lam_t)
+    assert wu.weighted_update_partials.launches == launches + 1
+    want = wu.block_partials_plain(costs, samples, lam_t)
+    scale = wu.block_partials_plain(costs, samples.abs(), lam_t)[1]  # sum e |sample|
+    torch.cuda.synchronize()
+    # the partials themselves: block maxima exact, sums of e and e^2 (each >= 1) within 1e-6
+    # relative, each numerator within 1e-5 of its sum of |terms|
+    assert torch.equal(got[0][:, 0], want[0][:, 0])
+    assert ((got[0][:, 1:] - want[0][:, 1:]).abs() / want[0][:, 1:]).max().item() <= 1e-6
+    assert ((got[1] - want[1]).abs() / (scale + 1e-30)).max().item() <= 1e-5
+    g = wu.combine_partials(costs, *got, lam_t, slots, 1)
+    w = wu.combine_partials(costs, *want, lam_t, slots, 1)
+    torch.testing.assert_close(g[1], w[1], rtol=0, atol=1e-5)  # weights
+    torch.testing.assert_close(g[0], w[0], rtol=0, atol=5e-3)  # update
+    torch.testing.assert_close(g[2], w[2], rtol=1e-3, atol=0)  # ESS
+
+
+def test_phase2_shares_the_weighted_update_body(card):
+    """Phase 2 and the weighted update on the same perturbations: the same partials, bitwise."""
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    env, task = card
+    x0, prev, xref5, _ = _inputs(env, 50, 20_000, seed=4)
+    costs, dump = fused_solve.fused_racing_costs_dump(x0, prev, tick_seed(5, 6), xref5, task,
+                                                      SIGMAS, U_MIN, U_MAX, 20_000, 20_000)
+    for lam in (0.5, 10.0):
+        lam_t = torch.full((1,), lam, device="cuda")
+        p2 = fused_solve.racing_weighted(costs, dump, lam_t)
+        r9 = wu.weighted_update_partials(costs, dump.t().contiguous(), lam_t)
+        torch.testing.assert_close(p2[0], r9[0], rtol=0, atol=0)
+        torch.testing.assert_close(p2[1], r9[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["noise", "seeded"])
+@pytest.mark.parametrize("horizon,num_samples,exploration", [(50, 100_000, 0.0),
+                                                             (8, 1500, 0.3)])
+def test_regen_kernel_equals_phase1_dump(card, mode, horizon, num_samples, exploration):
+    from mppi_playground_tpu_torch.core.diagnostics import top_indices
+
+    env, task = card
+    x0, prev, xref5, noise = _inputs(env, horizon, num_samples, seed=horizon + 2)
+    threshold = int(num_samples * (1.0 - exploration))
+    nz = noise if mode == "noise" else None
+    seed = tick_seed(7, 8)
+    costs, dump = fused_solve.fused_racing_costs_dump(x0, prev, seed, xref5, task, SIGMAS, U_MIN,
+                                                      U_MAX, num_samples, threshold, nz)
+    args = (SIGMAS, U_MIN, U_MAX, num_samples, threshold, nz)
+    launches = fused_solve.racing_regen.launches
+    full = fused_solve.racing_regen(prev, seed, torch.arange(num_samples, device="cuda"), *args)
+    assert fused_solve.racing_regen.launches == launches + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(full, dump.t().reshape(num_samples, horizon, 2), rtol=0, atol=0)
+    torch.testing.assert_close(
+        full, fused_solve.racing_regen_plain(prev, seed, torch.arange(num_samples, device="cuda"),
+                                             *args), rtol=0, atol=0)
+    rows = top_indices(-costs, min(300, num_samples))[1]
+    torch.testing.assert_close(fused_solve.racing_regen(prev, seed, rows, *args), full[rows],
+                               rtol=0, atol=0)
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    costs = torch.zeros(300, device="cuda")
+    samples = torch.zeros(300, 10, device="cuda")
+    one = torch.ones(1, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        wu.weighted_update_partials(costs.double(), samples, one)
+    with pytest.raises(ValueError, match="contiguous"):
+        wu.weighted_update_partials(costs, samples.t().contiguous().t(), one)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_solve.racing_regen(torch.zeros(5, 2, device="cuda"), 0,
+                                 torch.zeros(3, dtype=torch.int32, device="cuda"), SIGMAS, U_MIN,
+                                 U_MAX, 16, 16)
+
+
+def test_float64_controller_on_the_card_asks_for_the_plain_route(card):
+    """A float64 unfused controller on the card raises unless it asks for ``"xla"``."""
+    from mppi_playground_tpu_torch.envs import RacingController
+
+    env, _ = card
+    with pytest.raises(ValueError, match="kernel_backend='xla'"):
+        RacingController(env, dtype=torch.float64)
+    ctrl = RacingController(env, dtype=torch.float64, kernel_backend="xla")
+    assert ctrl.solver_backend == "xla"
