@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's racing paths on one NVIDIA GPU and check its eight CUDA kernels.
+"""Drive the port's paths on one NVIDIA GPU and check every CUDA kernel against its twin.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
@@ -10,9 +10,9 @@ Phases, each of which fails the run if it fails:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of ``mppi_playground_tpu_torch/csrc`` with ``nvcc``
    (one process per source, started together);
-3. hold each kernel against its plain PyTorch twin on the card, at the
-   flagship's shapes (T=50, K=100,000): the fused solve with injected noise
-   and with its seeded Philox stream, and the re-roll; then time each
+3. hold racing's kernels against their plain PyTorch twins on the card, at
+   the flagship's shapes (T=50, K=100,000): the fused solve with injected
+   noise and with its seeded Philox stream, and the re-roll; then time each
    kernel and twin with CUDA events;
 4. the auto-lambda kernels against their twins at the same shapes: phase 1
    (costs and perturbation dump, both noise modes), the ESSPS and LBPS
@@ -22,32 +22,45 @@ Phases, each of which fails the run if it fails:
 5. the weighted update (D=100 at lambda 1 and 10 on the unfused route's
    perturbations and costs, D=100 and D=2,000 under spread costs) against
    its twin, the block partials and the combined output each held to a bar,
-   and against phase 2 on the
-   same perturbations (one reduction body: bitwise); regeneration of all K
-   rows, seeded and in noise mode, against phase 1's dump (bitwise) and of
-   the top 300 rows against those rows; each timed, the weighted update
-   beside ``torch.softmax`` then ``torch.mv``;
+   and against phase 2 on the same perturbations (one reduction body:
+   bitwise); regeneration of all K rows, seeded and in noise mode, against
+   phase 1's dump (bitwise) and of the top 300 rows against those rows;
+   each timed, the weighted update beside ``torch.softmax`` then
+   ``torch.mv``;
 6. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
-   lambda and under ESSPS, LBPS and MPO for 50 closed-loop ticks of
-   ``RacingEnv.step`` each, all eight launch counters set to 0 just before
-   each mode and read just after: each kernel of the mode's path launched
-   once a tick and every other kernel never, lambda in bounds, actions in
-   bounds, progress, and one solve per mode with no host sync
-   (``torch.cuda.set_sync_debug_mode("error")``); then a profile and the
-   four modes' ticks timed in turns;
+   lambda and under ESSPS, LBPS and MPO, and ESSPS and LBPS with the lambda
+   epilogue, for 50 closed-loop ticks of ``RacingEnv.step`` each, every
+   launch counter set to 0 just before each mode and read just after: each
+   kernel of the mode's path launched once a tick and every other kernel
+   never, lambda in bounds, actions in bounds, progress, and one solve per
+   mode with no host sync (``torch.cuda.set_sync_debug_mode("error")``);
+   then a profile and the modes' ticks timed in turns;
 7. drive ``RacingController(env)`` on its unfused route (the default) and
    its fused route (``store_rollouts=False``) at T=25, K=4,000 and at T=50,
    K=100,000: 50 ticks each of ``update``, ``env.step`` and
-   ``get_top_samples(300)``, counted as in phase 6 (unfused: the weighted
-   update once a tick; fused: the solve, the re-roll and regeneration once
-   a tick), one tick with no host sync, the median update and
-   ``get_top_samples`` times and a profile;
+   ``get_top_samples(300)``, counted as in phase 6, one tick with no host
+   sync, the median update and ``get_top_samples`` times and a profile;
 8. drive ``MPPI`` on both routes at a fixed lambda and under ESSPS with the
-   SG filter: 10
-   ``forward`` calls with the racing dynamics and the MPCC cost, then
-   ``get_top_samples(50)`` and ``get_samples_from_posterior``, counted.
+   SG filter: 10 ``forward`` calls with the racing dynamics and the MPCC
+   cost, then ``get_top_samples(50)`` and ``get_samples_from_posterior``,
+   counted;
+9. every other model family's kernels against their twins at its example's
+   configuration (Navigation2D also at K=100,000): the fused solve, phase 1,
+   phase 1 with the lambda epilogue, phase 2, regeneration and the re-roll,
+   seeded and in noise mode, each timed;
+10. the lambda epilogue (phase 1 and the search in one launch) against
+    phase 1 then the search kernel, costs, dump and lambda* bitwise, at the
+    flagship under ESSPS and LBPS and at Navigation2D, the two routes timed
+    in turns;
+11. every model family's closed loops through ``MPPI`` (``MODEL_PATHS``):
+    Navigation2D to its goal on both lambda routes and unfused (and at
+    K=100,000), the danger zone's 100-step episode, the pendulum upright
+    after 200 steps, the classic models fused and unfused; counted, one
+    fused tick with no host sync, medians of ``forward`` and
+    ``get_top_samples``, a profile of the Navigation2D tick.
 
-It prints a ``kernels`` JSON line before the last, and as its last line
+It prints a ``kernels`` JSON line before the last (every kernel, each
+launched on some path, or the run fails), and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -87,6 +100,18 @@ OPS_SCALE = 2  # z * sigma, per step, seeded mode only
 # min (and max) pass and, for ESSPS, d = min - c once.
 OPS_ESSPS_EVAL, OPS_LBPS_EVAL = 5, 8
 AUTO_MODES = ("ESSPS", "LBPS", "MPO")
+EPILOGUE_MODES = ("ESSPS epilogue", "LBPS epilogue")  # lambda_epilogue=True
+
+
+FUSED_SOLVE_PY = "mppi_playground_tpu/ops/fused_solve.py"
+LAMBDA_SEARCH_PY = "mppi_playground_tpu/ops/lambda_search.py"
+
+
+def kernel_row(name, source, replaces, err, ms, plain, bound, by, **extra) -> dict:
+    """A kernel's entry of the kernels line (``library_ms`` None: no library call computes it)."""
+    return dict(name=name, route="cuda", source=f"mppi_playground_tpu_torch/csrc/{source}",
+                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=None, **extra)
 
 
 def fail(msg: str) -> int:
@@ -102,7 +127,50 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def solve_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int) -> tuple:
+@dataclasses.dataclass(frozen=True)
+class ModelOps:
+    """A model's shapes and float operations for the bounds.
+
+    ``step`` and ``cost`` count one call of its device ``step`` and of its
+    stage cost with the accumulation, from its csrc/*_model.cuh as above;
+    ``ref`` the floats of its per-tick reference row.
+    """
+
+    n: int
+    m: int
+    ref: int
+    step: int
+    cost: int
+
+
+# Counted from csrc/unicycle_model.cuh, danger_zone_model.cuh and
+# classic_models.cuh as racing's from racing_model.cuh (libm sinf, cosf and
+# sqrtf one operation each).
+MODEL_OPS = {
+    "racing": ModelOps(4, 2, 5, OPS_BICYCLE, OPS_STAGE_COST),
+    "navigation": ModelOps(3, 2, 0, 44, 19),
+    "danger_zone": ModelOps(7, 2, 0, 26, 11),
+    "pendulum": ModelOps(2, 1, 0, 13, 9),
+    "cartpole": ModelOps(4, 1, 0, 32, 12),
+    "mountain_car": ModelOps(2, 1, 0, 13, 3),
+    "integrator": ModelOps(2, 2, 0, 2, 6),
+}
+RACING = MODEL_OPS["racing"]
+
+
+def _per_step(ops: ModelOps, seeded: bool) -> int:
+    """Float operations of one rollout step: perturb and clamp, stage cost, step, draws."""
+    per_slot = OPS_PERTURB // 2 + ((OPS_NORMAL_PAIR + OPS_SCALE) // 2 if seeded else 0)
+    return ops.m * per_slot + ops.cost + ops.step
+
+
+def _rollout_in_bytes(ops: ModelOps, num_samples, horizon, seeded, grid_bytes) -> int:
+    in_bytes = 4 * (ops.n + ops.m * horizon + ops.ref * (horizon + 1)) + grid_bytes
+    return in_bytes + (0 if seeded else 4 * num_samples * horizon * ops.m)
+
+
+def solve_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int,
+                   ops: ModelOps = RACING) -> tuple:
     """Least time of one fused solve: (ms, 'bytes' | 'operations').
 
     Bytes: each input read once, each output written once.  Operations: the
@@ -111,17 +179,11 @@ def solve_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int
     second time; that is its design, not the function's work).
     """
     blocks = -(-num_samples // 256)
-    in_bytes = 4 * (4 + 2 * horizon + 1 + 5 * (horizon + 1)) + grid_bytes
-    if not seeded:
-        in_bytes += 4 * num_samples * horizon * 2
-    out_bytes = 4 * (num_samples + 3 * blocks + 2 * horizon * blocks)
-    per_step = OPS_PERTURB + OPS_STAGE_COST + OPS_BICYCLE
-    if seeded:
-        per_step += OPS_NORMAL_PAIR + OPS_SCALE
-    per_sample = horizon * per_step + OPS_STAGE_COST + 4 + 2 * 2 * horizon
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S
-    t_ops = num_samples * per_sample / PEAK_F32_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    slots = ops.m * horizon
+    in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes) + 4
+    out_bytes = 4 * (num_samples + 3 * blocks + slots * blocks)
+    per_sample = horizon * _per_step(ops, seeded) + ops.cost + 4 + 2 * slots
+    return _bound(in_bytes, out_bytes, num_samples * per_sample)
 
 
 def _bound(in_bytes: float, out_bytes: float, ops: float) -> tuple:
@@ -130,39 +192,44 @@ def _bound(in_bytes: float, out_bytes: float, ops: float) -> tuple:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase1_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int) -> tuple:
-    """Least time of auto-lambda phase 1: the rollout and costs, and the dump written."""
-    in_bytes = 4 * (4 + 2 * horizon + 5 * (horizon + 1)) + grid_bytes
-    if not seeded:
-        in_bytes += 4 * num_samples * horizon * 2
-    out_bytes = 4 * num_samples * (1 + 2 * horizon)
-    per_step = OPS_PERTURB + OPS_STAGE_COST + OPS_BICYCLE
-    if seeded:
-        per_step += OPS_NORMAL_PAIR + OPS_SCALE
-    return _bound(in_bytes, out_bytes, num_samples * (horizon * per_step + OPS_STAGE_COST))
+def phase1_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int,
+                    ops: ModelOps = RACING, search_ops: float = 0.0) -> tuple:
+    """Least time of auto-lambda phase 1: the rollout and costs, and the dump written.
+
+    ``search_ops`` adds a lambda search's operations (and its one output
+    float) for the lambda epilogue.
+    """
+    in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes)
+    out_bytes = 4 * num_samples * (1 + ops.m * horizon) + (4 if search_ops else 0)
+    rollout = num_samples * (horizon * _per_step(ops, seeded) + ops.cost)
+    return _bound(in_bytes, out_bytes, rollout + search_ops)
 
 
-def phase2_bound_ms(num_samples: int, horizon: int) -> tuple:
+def phase2_bound_ms(num_samples: int, horizon: int, m: int = 2) -> tuple:
     """Least time of auto-lambda phase 2: costs and dump read, the partials written.
 
     Operations per sample: -c / lambda, the max, the shift, exp, e * e and
-    two sums, and e * pert summed into each of the 2T slots.
+    two sums, and e * pert summed into each of the T*m slots.
     """
     blocks = -(-num_samples // 256)
-    in_bytes = 4 * (num_samples * (1 + 2 * horizon) + 1)
-    out_bytes = 4 * blocks * (3 + 2 * horizon)
-    return _bound(in_bytes, out_bytes, num_samples * (7 + 2 * 2 * horizon))
+    in_bytes = 4 * (num_samples * (1 + m * horizon) + 1)
+    out_bytes = 4 * blocks * (3 + m * horizon)
+    return _bound(in_bytes, out_bytes, num_samples * (7 + 2 * m * horizon))
+
+
+def search_ops(num_samples: int, iters: int, per_eval: int, per_cost: int) -> float:
+    """Float operations of one lambda search: per-cost hoists and 2 + iters evaluations."""
+    return num_samples * (per_cost + per_eval * (2 + iters))
 
 
 def search_bound_ms(num_samples: int, iters: int, per_eval: int, per_cost: int) -> tuple:
     """Least time of one lambda search: the costs read once, 2 + iters evaluations."""
-    return _bound(4 * num_samples, 4, num_samples * (per_cost + per_eval * (2 + iters)))
+    return _bound(4 * num_samples, 4, search_ops(num_samples, iters, per_eval, per_cost))
 
 
-def reroll_bound_ms(horizon: int) -> tuple:
-    t_bytes = 4 * (4 + 2 * horizon + 4 * (horizon + 1)) / PEAK_BYTES_PER_S
-    t_ops = horizon * OPS_BICYCLE / PEAK_F32_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def reroll_bound_ms(horizon: int, ops: ModelOps = RACING) -> tuple:
+    in_bytes = 4 * (ops.n + ops.m * horizon + ops.n * (horizon + 1))
+    return _bound(in_bytes, 0, horizon * ops.step)
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -229,8 +296,8 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
 
     p1_err = 0.0
     for mode, nz in (("noise", noise), ("seeded", None)):
-        costs, dump = phase1(fused_solve.fused_racing_costs_dump, nz)
-        w_costs, w_dump = phase1(fused_solve.fused_racing_costs_dump_plain, nz)
+        costs, dump = phase1(fused_solve.fused_costs_dump, nz)
+        w_costs, w_dump = phase1(fused_solve.fused_costs_dump_plain, nz)
         torch.cuda.synchronize()
         rel = ((costs - w_costs).abs() / w_costs.abs()).max().item()
         res = dict(cost_max_abs_err=(costs - w_costs).abs().max().item(), cost_max_rel_err=rel,
@@ -280,8 +347,8 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
         if name == "flagship":
             lam_star = lambda_search.essps_lambda_fused(c, target, lam_min, lam_max).reshape(1)
 
-    got = fused_solve.racing_weighted(costs, dump, lam_star)
-    want = fused_solve.racing_weighted_plain(costs, dump, lam_star)
+    got = fused_solve.fused_weighted(costs, dump, lam_star)
+    want = fused_solve.fused_weighted_plain(costs, dump, lam_star)
     g = combine_partials(costs, *got, lam_star, T, 2)
     w = combine_partials(costs, *want, lam_star, T, 2)
     p2_err = max((got[0] - want[0]).abs().max().item(), (got[1] - want[1]).abs().max().item())
@@ -298,9 +365,9 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
              "5e-3, ESS rtol 1e-3")
         return None
     one = torch.ones(1, device="cuda")
-    fixed = fused_solve.fused_racing_solve(x0, prev, one, seed, xref5, task, sig, u_min, u_max,
+    fixed = fused_solve.fused_solve(x0, prev, one, seed, xref5, task, sig, u_min, u_max,
                                            K, K, None)
-    stats, numer = fused_solve.racing_weighted(costs, dump, one)
+    stats, numer = fused_solve.fused_weighted(costs, dump, one)
     same = all(torch.equal(a, b) for a, b in ((fixed[0], costs), (fixed[1], stats),
                                                (fixed[2], numer)))
     print(f"phase 1 + phase 2 at lambda=1 vs the fixed solve: bitwise={same}", flush=True)
@@ -310,9 +377,9 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
 
     # timings: kernel and twin, on this card
     flag = vectors["flagship"]
-    t_p1 = cuda_ms(torch, lambda: phase1(fused_solve.fused_racing_costs_dump, None), 20)
-    t_p1_noise = cuda_ms(torch, lambda: phase1(fused_solve.fused_racing_costs_dump, noise), 20)
-    t_p1_plain = cuda_ms(torch, lambda: phase1(fused_solve.fused_racing_costs_dump_plain, None),
+    t_p1 = cuda_ms(torch, lambda: phase1(fused_solve.fused_costs_dump, None), 20)
+    t_p1_noise = cuda_ms(torch, lambda: phase1(fused_solve.fused_costs_dump, noise), 20)
+    t_p1_plain = cuda_ms(torch, lambda: phase1(fused_solve.fused_costs_dump_plain, None),
                          3, warmup=1)
     t_es = cuda_ms(torch, lambda: lambda_search.essps_lambda_fused(flag, target, lam_min,
                                                                    lam_max), 50)
@@ -322,8 +389,8 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
                                                                   lam_max), 50)
     t_lb_plain = cuda_ms(torch, lambda: lambda_search.lbps_lambda_plain(flag, delta, lam_min,
                                                                         lam_max), 3, warmup=1)
-    t_p2 = cuda_ms(torch, lambda: fused_solve.racing_weighted(costs, dump, lam_star), 50)
-    t_p2_plain = cuda_ms(torch, lambda: fused_solve.racing_weighted_plain(costs, dump, lam_star),
+    t_p2 = cuda_ms(torch, lambda: fused_solve.fused_weighted(costs, dump, lam_star), 50)
+    t_p2_plain = cuda_ms(torch, lambda: fused_solve.fused_weighted_plain(costs, dump, lam_star),
                          5, warmup=1)
     b_p1, by_p1 = phase1_bound_ms(K, T, True, grid_bytes)
     b_p1_noise, _ = phase1_bound_ms(K, T, False, grid_bytes)
@@ -336,23 +403,16 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
           f"{t_lb:.4f} ms (bound {b_lb:.5f} ms), twin {t_lb_plain:.3f} ms; phase 2 {t_p2:.4f} ms "
           f"(bound {b_p2:.5f} ms), twin {t_p2_plain:.3f} ms", flush=True)
 
-    def row(name, source, replaces, err, ms, plain, bound, by, **extra):
-        return dict(name=name, route="cuda", source=f"mppi_playground_tpu_torch/csrc/{source}",
-                    replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                    bound_by=by, library_ms=None, **extra)
-
     return {"kernels": [
-        row("fused_racing_costs_dump", "fused_solve.cu",
-            "mppi_playground_tpu/ops/fused_solve.py:783", p1_err, t_p1, t_p1_plain, b_p1, by_p1,
-            noise_mode_ms=t_p1_noise, noise_mode_bound_ms=b_p1_noise),
-        row("essps_lambda_fused", "lambda_search.cu",
-            "mppi_playground_tpu/ops/lambda_search.py:354", search_err["essps"], t_es,
-            t_es_plain, b_es, by_es),
-        row("lbps_lambda_fused", "lambda_search.cu",
-            "mppi_playground_tpu/ops/lambda_search.py:394", search_err["lbps"], t_lb,
-            t_lb_plain, b_lb, by_lb),
-        row("racing_weighted", "fused_solve.cu", "mppi_playground_tpu/ops/fused_solve.py:887",
-            p2_err, t_p2, t_p2_plain, b_p2, by_p2),
+        kernel_row("racing_costs_dump", "fused_racing.cu", f"{FUSED_SOLVE_PY}:783", p1_err, t_p1,
+                   t_p1_plain, b_p1, by_p1, noise_mode_ms=t_p1_noise,
+                   noise_mode_bound_ms=b_p1_noise),
+        kernel_row("essps_lambda_fused", "lambda_search.cu", f"{LAMBDA_SEARCH_PY}:354",
+                   search_err["essps"], t_es, t_es_plain, b_es, by_es),
+        kernel_row("lbps_lambda_fused", "lambda_search.cu", f"{LAMBDA_SEARCH_PY}:394",
+                   search_err["lbps"], t_lb, t_lb_plain, b_lb, by_lb),
+        kernel_row("fused_weighted", "fused_solve.cu", f"{FUSED_SOLVE_PY}:887", p2_err, t_p2,
+                   t_p2_plain, b_p2, by_p2),
     ]}
 
 
@@ -367,9 +427,10 @@ def mode_solvers(env, task, flagship_solver, flagship_tick) -> dict:
 
     path = env.racing_center_path
     solvers = {"fixed": (flagship_solver, flagship_tick)}
-    for mode in AUTO_MODES:
-        cfg = dataclasses.replace(flagship_solver.config, lambda_=mode)
-        solver = make_fused_solver(cfg, task, env.dynamics, device="cuda")
+    for mode in AUTO_MODES + EPILOGUE_MODES:
+        cfg = dataclasses.replace(flagship_solver.config, lambda_=mode.split()[0])
+        solver = make_fused_solver(cfg, task, env.dynamics, device="cuda",
+                                   lambda_epilogue=mode in EPILOGUE_MODES)
 
         def tick(state, cind, x, solver=solver, horizon=cfg.horizon):
             xref, new_cind = calc_ref_trajectory(x, path, cind, horizon)
@@ -381,25 +442,37 @@ def mode_solvers(env, task, flagship_solver, flagship_tick) -> dict:
 
 
 def launch_counters() -> dict:
-    """The eight kernel wrappers, by name: each counts its launches in ``launches``."""
+    """Every kernel, by name: ``{name: (wrapper, key)}``.
+
+    The fused-solve wrappers count their launches in a Counter under each
+    kernel's name (``key``); the search and weighted-update wrappers, one
+    kernel each, in an int (``key`` None).
+    """
     from mppi_playground_tpu_torch.ops import fused_solve, lambda_search, weighted_update
 
-    return {
-        "fused_racing_solve": fused_solve.fused_racing_solve,
-        "racing_reroll": fused_solve.racing_reroll,
-        "fused_racing_costs_dump": fused_solve.fused_racing_costs_dump,
-        "racing_weighted": fused_solve.racing_weighted,
-        "essps_lambda_fused": lambda_search.essps_lambda_fused,
-        "lbps_lambda_fused": lambda_search.lbps_lambda_fused,
-        "racing_regen": fused_solve.racing_regen,
-        "weighted_update_partials": weighted_update.weighted_update_partials,
-    }
+    counted = {}
+    for wrapper in fused_solve.WRAPPERS:
+        for name in fused_solve.kernel_names(wrapper):
+            counted[name] = (wrapper, name)
+    counted["essps_lambda_fused"] = (lambda_search.essps_lambda_fused, None)
+    counted["lbps_lambda_fused"] = (lambda_search.lbps_lambda_fused, None)
+    counted["weighted_update_partials"] = (weighted_update.weighted_update_partials, None)
+    return counted
+
+
+def read_counters(counted: dict) -> dict:
+    """``{kernel: launches}`` now."""
+    return {name: (fn.launches[key] if key else fn.launches) for name, (fn, key) in counted.items()}
 
 
 def zero_counters() -> dict:
+    """Set every launch count to 0; returns :func:`launch_counters`."""
     counted = launch_counters()
-    for fn in counted.values():
-        fn.launches = 0
+    for fn, key in counted.values():
+        if key is None:
+            fn.launches = 0
+        else:
+            fn.launches.clear()
     return counted
 
 
@@ -460,10 +533,14 @@ def drive_modes(torch, fused_solve, env, solvers, card):
                 fail(f"{mode}: actions outside [u_min, u_max] by {excess!r}")
                 return None
             x, _ = env.step(action_seq[0])
-        launches = {name: fn.launches for name, fn in counted.items()}
-        once = ({"fused_racing_solve", "racing_reroll"} if mode in ("fixed", "MPO") else
-                {"fused_racing_costs_dump", "racing_weighted", "racing_reroll",
-                 f"{mode.lower()}_lambda_fused"})
+        launches = read_counters(counted)
+        if mode in ("fixed", "MPO"):
+            once = {"racing_fused_solve", "racing_reroll"}
+        elif mode in EPILOGUE_MODES:
+            once = {"racing_costs_dump_lambda", "fused_weighted", "racing_reroll"}
+        else:
+            once = {"racing_costs_dump", "fused_weighted", "racing_reroll",
+                    f"{mode.lower()}_lambda_fused"}
         want = {name: (TICKS if name in once else 0) for name in counted}
         if launches != want:
             fail(f"{mode}: launches {launches}, expected {want}")
@@ -520,15 +597,17 @@ def weighted_update_bound_ms(num_samples: int, slots: int) -> tuple:
     return _bound(in_bytes, out_bytes, num_samples * (7 + 2 * slots))
 
 
-def regen_bound_ms(rows: int, horizon: int, seeded: bool) -> tuple:
-    """Least time of regenerating ``rows`` samples: [rows, T, 2] written.
+def regen_bound_ms(rows: int, horizon: int, seeded: bool, m: int = 2) -> tuple:
+    """Least time of regenerating ``rows`` samples: [rows, T, m] written.
 
     Reads the warm start and the row indices, and in noise mode those rows'
-    noise; per step one normal pair (seeded), the scale and the perturb.
+    noise; per slot its share of a normal pair (seeded), the scale and the
+    perturb.
     """
-    in_bytes = 4 * 2 * horizon + 8 * rows + (0 if seeded else 4 * rows * 2 * horizon)
-    per_step = OPS_PERTURB + (OPS_NORMAL_PAIR + OPS_SCALE if seeded else 0)
-    return _bound(in_bytes, 4 * rows * 2 * horizon, rows * horizon * per_step)
+    slots = m * horizon
+    in_bytes = 4 * slots + 8 * rows + (0 if seeded else 4 * rows * slots)
+    per_slot = OPS_PERTURB // 2 + ((OPS_NORMAL_PAIR + OPS_SCALE) // 2 if seeded else 0)
+    return _bound(in_bytes, 4 * rows * slots, rows * slots * per_slot)
 
 
 PARTIALS_BAR = ("block maxima bitwise, sums of e and e^2 rtol 1e-6, each numerator within "
@@ -607,7 +686,7 @@ def check_weighted_update(torch, fused_solve, pert, costs, dump_costs, dump, car
     # phase 2 and row 9 share one reduction body: the same partials, bit for bit
     for lam in (1.0, 10.0):
         lam_t = torch.full((1,), lam, device=dev)
-        p2 = fused_solve.racing_weighted(dump_costs, dump, lam_t)
+        p2 = fused_solve.fused_weighted(dump_costs, dump, lam_t)
         r9 = wu.weighted_update_partials(dump_costs, dump.t().contiguous(), lam_t)
         same = all(torch.equal(a, b) for a, b in zip(p2, r9))
         print(f"phase 2 vs the weighted update on the transposed dump (lambda={lam}): "
@@ -655,10 +734,10 @@ def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_m
     err = 0.0
     for mode, nz in (("seeded", None), ("noise", noise)):
         args = (sig, u_min, u_max, K, threshold, nz)
-        _, dump = fused_solve.fused_racing_costs_dump(x0, prev, seed, xref5, task, *args)
-        full = fused_solve.racing_regen(prev, seed, rows, *args)
-        twin = fused_solve.racing_regen_plain(prev, seed, rows, *args)
-        sub = fused_solve.racing_regen(prev, seed, top, *args)
+        _, dump = fused_solve.fused_costs_dump(x0, prev, seed, xref5, task, *args)
+        full = fused_solve.fused_regen(prev, seed, rows, *args)
+        twin = fused_solve.fused_regen_plain(prev, seed, rows, *args)
+        sub = fused_solve.fused_regen(prev, seed, top, *args)
         torch.cuda.synchronize()
         res = dict(all_rows_vs_phase1_dump=bool(torch.equal(full, dump.t().reshape(K, T, 2))),
                    all_rows_vs_twin=bool(torch.equal(full, twin)),
@@ -670,12 +749,12 @@ def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_m
             fail(f"regeneration ({mode}) is not bit for bit the solve's perturbations")
             return None
     args = (sig, u_min, u_max, K, threshold)
-    t_all = cuda_ms(torch, lambda: fused_solve.racing_regen(prev, seed, rows, *args), 20)
-    t_top = cuda_ms(torch, lambda: fused_solve.racing_regen(prev, seed, top, *args), 50)
-    t_noise = cuda_ms(torch, lambda: fused_solve.racing_regen(prev, seed, rows, *args, noise), 20)
-    t_plain = cuda_ms(torch, lambda: fused_solve.racing_regen_plain(prev, seed, rows, *args), 3,
+    t_all = cuda_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args), 20)
+    t_top = cuda_ms(torch, lambda: fused_solve.fused_regen(prev, seed, top, *args), 50)
+    t_noise = cuda_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args, noise), 20)
+    t_plain = cuda_ms(torch, lambda: fused_solve.fused_regen_plain(prev, seed, rows, *args), 3,
                       warmup=1)
-    t_top_plain = cuda_ms(torch, lambda: fused_solve.racing_regen_plain(prev, seed, top, *args),
+    t_top_plain = cuda_ms(torch, lambda: fused_solve.fused_regen_plain(prev, seed, top, *args),
                           3, warmup=1)
     b_all, by_all = regen_bound_ms(K, T, True)
     b_top, by_top = regen_bound_ms(300, T, True)
@@ -684,7 +763,7 @@ def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_m
           f"{by_all}; noise mode {t_noise:.4f} ms, bound {b_noise:.5f} ms), twin {t_plain:.3f} "
           f"ms; of the top 300 {t_top:.4f} ms (bound {b_top:.6f} ms, {by_top}), twin "
           f"{t_top_plain:.3f} ms", flush=True)
-    return dict(name="racing_regen", route="cuda",
+    return dict(name="fused_regen_m2", route="cuda",
                 source="mppi_playground_tpu_torch/csrc/fused_solve.cu",
                 replaces="mppi_playground_tpu/ops/fused_solve.py:937", max_abs_err=err,
                 ms=t_top, plain_ms=t_top_plain, bound_ms=b_top, bound_by=by_top,
@@ -758,8 +837,8 @@ def drive_facades(torch, env, card):
                 fail(f"{route}: non-finite output, actions out of bounds by {excess!r}, or top "
                      "samples not in descending weight order")
                 return None
-        launches = {name: fn.launches for name, fn in counted.items()}
-        once = ({"fused_racing_solve", "racing_reroll", "racing_regen"} if fused
+        launches = read_counters(counted)
+        once = ({"racing_fused_solve", "racing_reroll", "fused_regen_m2"} if fused
                 else {"weighted_update_partials"})
         want = {name: (TICKS if name in once else 0) for name in counted}
         progress = int(ctrl.current_path_index)
@@ -820,15 +899,15 @@ def drive_mppi(torch, env, task, card):
                 x = env.dynamics(x[None], action_seq[:1])[0]
             seqs, weights = c.get_top_samples(50)
             samples, states = c.get_samples_from_posterior(action_seq, x, 100)
-            launches = {name: fn.launches for name, fn in counted.items()}
+            launches = read_counters(counted)
             if route == "xla":
                 want_once = {"weighted_update_partials": calls}
             elif mode == 1.0:
-                want_once = {"fused_racing_solve": calls, "racing_reroll": calls,
-                             "racing_regen": 1}
+                want_once = {"racing_fused_solve": calls, "racing_reroll": calls,
+                             "fused_regen_m2": 1}
             else:
-                want_once = {"fused_racing_costs_dump": calls, "essps_lambda_fused": calls,
-                             "racing_weighted": calls, "racing_reroll": calls, "racing_regen": 1}
+                want_once = {"racing_costs_dump": calls, "essps_lambda_fused": calls,
+                             "fused_weighted": calls, "racing_reroll": calls, "fused_regen_m2": 1}
             want = {name: want_once.get(name, 0) for name in counted}
             lam = c.lambda_
             ok = (torch.isfinite(action_seq).all() and torch.isfinite(seqs).all()
@@ -841,6 +920,435 @@ def drive_mppi(torch, env, task, card):
                 fail(f"{run}: bad outputs or launches {launches}, expected {want}")
                 return None
             out[run] = launches
+    return out
+
+
+NEW_MODELS = ("navigation", "danger_zone", "pendulum", "cartpole", "mountain_car", "integrator")
+# step with libm sinf/cosf: held to the JAX package's fused-vs-XLA cost bar,
+# rtol 2e-5 and atol 1e-5, where their costs are not bitwise the twin's
+LIBM_MODELS = ("danger_zone", "pendulum", "cartpole", "mountain_car")
+
+
+def model_inputs(torch, np, name, num_samples=None):
+    """A model's workload and seeded warm start and noise at its configuration."""
+    from mppi_playground_tpu_torch.workloads import build_model_workload
+
+    w = build_model_workload(name, device="cuda", num_samples=num_samples)
+    kw = w.mppi_kwargs
+    horizon, m, k = kw["horizon"], kw["dim_control"], kw["num_samples"]
+    rng = np.random.default_rng(SEED + len(name))
+    sig = tuple(float(v) for v in kw["sigmas"])
+    prev = torch.tensor(rng.standard_normal((horizon, m)) * sig, dtype=torch.float32,
+                        device="cuda")
+    noise = torch.tensor(rng.standard_normal((k, horizon, m)) * sig, dtype=torch.float32,
+                         device="cuda")
+    bounds = (sig, tuple(float(v) for v in torch.as_tensor(kw["u_min"]).tolist()),
+              tuple(float(v) for v in torch.as_tensor(kw["u_max"]).tolist()))
+    return w, prev, noise, bounds
+
+
+def lambda_vs_plain(search, costs, lam) -> tuple:
+    """``lam`` against the plain search on ``costs``: ``(abs error, within the bar)``.
+
+    The bar of the search kernels' own check: ESSPS rtol 1e-4 atol 1e-6;
+    LBPS rtol 1e-3 atol 1e-4 and its objective within rtol 1e-5.
+    """
+    from mppi_playground_tpu_torch.ops import lambda_search
+
+    got, want = lam.reshape(()), search.plain(costs)
+    err = abs(got.item() - want.item())
+    if search.mode == "ESSPS":
+        return err, err <= 1e-6 + 1e-4 * abs(want.item())
+    pen = lambda_search.lbps_range_penalty(costs, search.param)
+    f_got = lambda_search.lbps_objective_plain(costs, got, pen).item()
+    f_want = lambda_search.lbps_objective_plain(costs, want, pen).item()
+    return err, (err <= 1e-4 + 1e-3 * abs(want.item())
+                 and abs(f_got - f_want) <= 1e-5 * abs(f_want))
+
+
+def check_model_kernels(torch, np, name, card, num_samples=None):
+    """Phase 9: one model's fused kernels against their twins at its configuration.
+
+    The fused solve, phase 1, phase 1 with the ESSPS epilogue, phase 2 at
+    lambda=1, regeneration of all K rows and the re-roll, seeded and in
+    noise mode.  Gates: costs bitwise (the libm models: bitwise or the bar
+    above, reported), the partials by ``partials_errors``, the dump and the
+    regenerated rows bitwise, phase 1 + 2 at lambda=1 bitwise the fixed
+    solve, the epilogue's costs, dump and lambda* bitwise the standalone
+    route's.  Returns ``{kernel: row}`` (``m{m}_regen`` for the
+    regeneration of this model's m) or None after a failure.  The
+    epilogue's lambda* is also held against the plain search on the twin's
+    costs (``lambda_vs_plain``); its row's error is the largest gap of its
+    costs, dump and lambda* to its twin's.
+    """
+    from mppi_playground_tpu_torch.core.config import tick_seed
+    from mppi_playground_tpu_torch.core.diagnostics import top_indices
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+    from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
+
+    w, prev, noise, (sig, lo, hi) = model_inputs(torch, np, name, num_samples)
+    task, x0 = w.task, w.x0
+    horizon, m = prev.shape
+    k = w.mppi_kwargs["num_samples"]
+    ops = MODEL_OPS[name]
+    label = f"{name} (T={horizon}, K={k})"
+    threshold = int(0.8 * k)  # both sides of the inherit split
+    seed = tick_seed(42, 1)
+    lam = torch.ones(1, device="cuda")
+    grid_bytes = sum(g.numel() for g in task.grids)
+    search = LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)
+    ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rows = torch.arange(k, device="cuda")
+    err = dict(solve=0.0, dump=0.0, regen=0.0, reroll=0.0, epilogue=0.0)
+
+    def within_bar(got_costs, want_costs):  # the libm models' cost bar
+        return bool(((got_costs - want_costs).abs() <= 1e-5 + 2e-5 * want_costs.abs()).all())
+
+    bitwise = {}
+    for mode, nz in (("noise", noise), ("seeded", None)):
+        args = (x0, prev, lam, seed, None, task, sig, lo, hi, k, threshold, nz)
+        got = fs.fused_solve(*args)
+        want = fs.fused_solve_plain(*args)
+        p1 = fs.fused_costs_dump(x0, prev, *args[3:])
+        w_p1 = fs.fused_costs_dump_plain(x0, prev, *args[3:])
+        p2 = fs.fused_weighted(*p1, lam)
+        epi = fs.fused_costs_dump_lambda(x0, prev, *args[3:], search, ticket)
+        lam_standalone = search.run(p1[0])
+        regen = fs.fused_regen(prev, seed, rows, sig, lo, hi, k, threshold, nz)
+        w_regen = fs.fused_regen_plain(prev, seed, rows, sig, lo, hi, k, threshold, nz)
+        torch.cuda.synchronize()
+        lam_err, lam_ok = lambda_vs_plain(search, w_p1[0], epi[2])
+        costs_bitwise = bool(torch.equal(got[0], want[0]))
+        rel = ((got[0] - want[0]).abs() / (want[0].abs() + 1e-30)).max().item()
+        g = combine_partials(*got, lam, horizon, m)
+        v = combine_partials(*want, lam, horizon, m)
+        res = dict(
+            costs_bitwise_equal=costs_bitwise, cost_max_rel_err=rel,
+            cost_max_abs_err=(got[0] - want[0]).abs().max().item(),
+            partials=partials_errors(torch, got[1:], want[1:], want[0], p1[1].t(), lam),
+            weights_max_abs_err=(g[1] - v[1]).abs().max().item(),
+            update_max_abs_err=(g[0] - v[0]).abs().max().item(),
+            phase1_costs_equal_fixed=bool(torch.equal(p1[0], got[0])),
+            phase1_dump_vs_twin_bitwise=bool(torch.equal(p1[1], w_p1[1])),
+            phase2_at_1_equals_fixed=all(torch.equal(a, b) for a, b in zip(p2, got[1:])),
+            epilogue_equals_standalone=bool(torch.equal(epi[0], p1[0])
+                                            and torch.equal(epi[1], p1[1])
+                                            and epi[2].item() == lam_standalone.item()),
+            epilogue_lam=epi[2].item(),
+            epilogue_lam_vs_plain_abs_err=lam_err,
+            epilogue_lam_within_plain_bar=lam_ok,
+            regen_equals_dump=bool(torch.equal(regen, p1[1].t().reshape(k, horizon, m))),
+        )
+        bitwise[mode] = costs_bitwise
+        print(f"{label} kernels vs twins ({mode}): {json.dumps(res)}", flush=True)
+        err["solve"] = max(err["solve"], res["cost_max_abs_err"])
+        err["dump"] = max(err["dump"], (p1[1] - w_p1[1]).abs().max().item())
+        err["epilogue"] = max(err["epilogue"], (epi[0] - w_p1[0]).abs().max().item(),
+                              (epi[1] - w_p1[1]).abs().max().item(), lam_err)
+        err["regen"] = max(err["regen"], (regen - w_regen).abs().max().item())
+        costs_ok = costs_bitwise or (name in LIBM_MODELS and within_bar(got[0], want[0]))
+        partials_ok = res["partials"]["ok"] or (
+            not costs_bitwise and res["weights_max_abs_err"] <= 1e-5
+            and res["update_max_abs_err"] <= 5e-3)
+        if not (costs_ok and partials_ok and res["phase1_costs_equal_fixed"]
+                and res["phase1_dump_vs_twin_bitwise"] and res["phase2_at_1_equals_fixed"]
+                and res["epilogue_equals_standalone"] and lam_ok and res["regen_equals_dump"]):
+            fail(f"{label} kernels ({mode}) off the bar: costs bitwise (libm: rtol 2e-5, atol "
+                 f"1e-5), partials {PARTIALS_BAR}, dump, regeneration, phase 1 + 2 and the "
+                 "epilogue bitwise, the epilogue's lambda* within ESSPS rtol 1e-4 atol 1e-6 "
+                 "of the plain search")
+            return None
+    seq = g[0].contiguous()
+    got_r = fs.fused_reroll(x0, seq, task)
+    want_r = fs.fused_reroll_plain(x0, seq, task)
+    torch.cuda.synchronize()
+    err["reroll"] = (got_r - want_r).abs().max().item()
+    reroll_bitwise = bool(torch.equal(got_r, want_r))
+    print(f"{label} re-roll vs twin: max_abs_err={err['reroll']!r} bitwise={reroll_bitwise}",
+          flush=True)
+    if not (reroll_bitwise or (name in LIBM_MODELS and err["reroll"] <= 5e-3)):
+        fail(f"{label} re-roll off the bar: bitwise (libm models: states atol 5e-3)")
+        return None
+
+    args = (x0, prev, lam, seed, None, task, sig, lo, hi, k, threshold, None)
+    p1_args = (x0, prev) + args[3:]
+    top = top_indices(g[1], min(300, k))[1]  # the seeded solve's heaviest rows
+    t = dict(
+        solve=cuda_ms(torch, lambda: fs.fused_solve(*args), 20),
+        solve_plain=cuda_ms(torch, lambda: fs.fused_solve_plain(*args), 3, warmup=1),
+        dump=cuda_ms(torch, lambda: fs.fused_costs_dump(*p1_args), 20),
+        dump_plain=cuda_ms(torch, lambda: fs.fused_costs_dump_plain(*p1_args), 3, warmup=1),
+        epilogue=cuda_ms(torch, lambda: fs.fused_costs_dump_lambda(*p1_args, search, ticket), 20),
+        epilogue_plain=cuda_ms(torch, lambda: fs.fused_costs_dump_lambda_plain(*p1_args, search),
+                               3, warmup=1),
+        reroll=cuda_ms(torch, lambda: fs.fused_reroll(x0, seq, task), 50),
+        reroll_plain=cuda_ms(torch, lambda: fs.fused_reroll_plain(x0, seq, task), 5, warmup=1),
+        regen=cuda_ms(torch, lambda: fs.fused_regen(prev, seed, top, sig, lo, hi, k, threshold),
+                      50),
+        regen_plain=cuda_ms(torch, lambda: fs.fused_regen_plain(prev, seed, top, sig, lo, hi, k,
+                                                                threshold), 3, warmup=1),
+    )
+    b_solve = solve_bound_ms(k, horizon, True, grid_bytes, ops)
+    b_dump = phase1_bound_ms(k, horizon, True, grid_bytes, ops)
+    b_epi = phase1_bound_ms(k, horizon, True, grid_bytes, ops,
+                            search_ops(k, 40, OPS_ESSPS_EVAL, 2))
+    b_reroll = reroll_bound_ms(horizon, ops)
+    b_regen = regen_bound_ms(len(top), horizon, True, m)
+    print(f"times on {card}, {label}: " + "; ".join(f"{key} {value:.4f} ms" for key, value in
+                                                    t.items())
+          + f"; bounds solve {b_solve[0]:.6f}, phase 1 {b_dump[0]:.6f}, epilogue {b_epi[0]:.6f},"
+          f" re-roll {b_reroll[0]:.8f}, regeneration of {len(top)} rows {b_regen[0]:.7f} ms",
+          flush=True)
+    shape = dict(horizon=horizon, num_samples=k, costs_bitwise_equal_to_twin=bitwise)
+    rollout = (f"fused_{name}.cu", f"{FUSED_SOLVE_PY}:783")
+    return {
+        f"{name}_fused_solve": kernel_row(f"{name}_fused_solve", *rollout, err["solve"],
+                                          t["solve"], t["solve_plain"], *b_solve, **shape),
+        f"{name}_costs_dump": kernel_row(f"{name}_costs_dump", *rollout, err["dump"], t["dump"],
+                                         t["dump_plain"], *b_dump, **shape),
+        f"{name}_costs_dump_lambda": kernel_row(
+            f"{name}_costs_dump_lambda", *rollout, err["epilogue"], t["epilogue"],
+            t["epilogue_plain"], *b_epi, search="ESSPS", **shape),
+        f"{name}_reroll": kernel_row(f"{name}_reroll", "reroll.cu", f"{FUSED_SOLVE_PY}:272",
+                                     err["reroll"], t["reroll"], t["reroll_plain"], *b_reroll,
+                                     horizon=horizon),
+        f"m{m}_regen": kernel_row(f"fused_regen_m{m}", "fused_solve.cu", f"{FUSED_SOLVE_PY}:937",
+                                  err["regen"], t["regen"], t["regen_plain"], *b_regen,
+                                  rows=len(top), horizon=horizon, num_samples=k, model=name),
+    }
+
+
+def routes_in_turns(torch, standalone, epilogue, windows: int = 6, per_window: int = 10) -> dict:
+    """Median device ms per call of the two lambda routes, timed window by window in turns."""
+    times = {"standalone": [], "epilogue": []}
+    for fn in (standalone, epilogue):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        for route, fn in (("standalone", standalone), ("epilogue", epilogue)):
+            times[route].append(cuda_ms(torch, fn, per_window, warmup=0))
+    return {route: statistics.median(v) for route, v in times.items()}
+
+
+def check_epilogue(torch, fused_solve, cases, card):
+    """Row 4: phase 1 with the search against phase 1 then the search kernel; timed in turns.
+
+    ``cases`` are ``(label, mode, phase-1 args)``.  Costs, dump and lambda*
+    must be bitwise the standalone route's, and lambda* within the bar of
+    ``lambda_vs_plain`` of the plain search on the twin's costs; ``max_abs_err``
+    is the largest gap of costs, dump and lambda* to the epilogue's plain twin.
+    Returns ``{label mode: result}`` or None after a failure.
+    """
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+
+    out = {}
+    for label, mode, args in cases:
+        k = args[-3]
+        param = k / 10.0 if mode == "ESSPS" else 0.01
+        search = LambdaSearch(mode, 0.01, 10.0, param, 40 if mode == "ESSPS" else 32)
+        ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+        def standalone():
+            costs, dump = fused_solve.fused_costs_dump(*args)
+            return costs, dump, search.run(costs)
+
+        def epilogue():
+            return fused_solve.fused_costs_dump_lambda(*args, search, ticket)
+
+        got, want = epilogue(), standalone()
+        twin = fused_solve.fused_costs_dump_lambda_plain(*args, search)
+        torch.cuda.synchronize()
+        same = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and got[2].item() == want[2].item() and int(ticket.item()) == 0)
+        lam_err, lam_ok = lambda_vs_plain(search, twin[0], got[2])
+        err = max([(a - b).abs().max().item() for a, b in zip(got[:2], twin[:2])] + [lam_err])
+        del twin
+        turns = routes_in_turns(torch, standalone, epilogue)
+        res = dict(bitwise=bool(same), lam=got[2].item(), lam_vs_plain_abs_err=lam_err,
+                   lam_within_plain_bar=lam_ok, max_abs_err=err,
+                   standalone_ms=turns["standalone"], epilogue_ms=turns["epilogue"])
+        print(f"lambda epilogue vs standalone route ({label}, {mode}) on {card}: {json.dumps(res)}",
+              flush=True)
+        if not same:
+            fail(f"lambda epilogue ({label}, {mode}) differs from phase 1 + the search kernel")
+            return None
+        if not lam_ok:
+            fail(f"lambda epilogue ({label}, {mode}): lambda* off the plain search's bar (ESSPS "
+                 "rtol 1e-4 atol 1e-6; LBPS rtol 1e-3 atol 1e-4, objective rtol 1e-5)")
+            return None
+        out[f"{label} {mode}"] = res
+    return out
+
+
+# (model, path, MPPI overrides, ticks): the closed loops of the model families.
+# "fused"/"unfused" at the example's configuration; the auto-lambda variants
+# put each model's phase-1 and epilogue kernels on a path.
+MODEL_PATHS = (
+    ("navigation", "fused ESSPS", {}, 300),
+    ("navigation", "fused ESSPS epilogue", dict(lambda_epilogue=True), 300),
+    ("navigation", "unfused ESSPS", dict(unfused=True), 300),
+    ("navigation", "fused MPO", dict(lambda_="MPO"), 10),
+    ("navigation", "K=100000 fused ESSPS", dict(num_samples=100_000), 30),
+    ("navigation", "K=100000 fused ESSPS epilogue", dict(num_samples=100_000,
+                                                        lambda_epilogue=True), 30),
+    ("danger_zone", "fused", {}, 100),
+    ("danger_zone", "unfused", dict(unfused=True), 100),
+    ("danger_zone", "fused ESSPS", dict(lambda_="ESSPS"), 10),
+    ("danger_zone", "fused LBPS epilogue", dict(lambda_="LBPS", lambda_epilogue=True), 10),
+    ("pendulum", "fused ESSPS epilogue", dict(lambda_epilogue=True), 200),
+    ("pendulum", "fused ESSPS", {}, 30),
+    ("pendulum", "unfused", dict(unfused=True), 30),
+    ("pendulum", "fused fixed", dict(lambda_=1.0), 10),
+) + tuple(
+    (name, path, kw, ticks)
+    for name in ("cartpole", "mountain_car", "integrator")
+    for path, kw, ticks in (("fused", {}, 50), ("unfused", dict(unfused=True), 50),
+                            ("fused ESSPS", dict(lambda_="ESSPS"), 10),
+                            ("fused LBPS epilogue", dict(lambda_="LBPS", lambda_epilogue=True), 10))
+)
+
+
+def path_kernels(name, m, lam, epilogue, fused) -> set:
+    """The kernels a tick and its get_top_samples launch once each on a path."""
+    if not fused:
+        return {"weighted_update_partials"}
+    tail = {f"{name}_reroll", f"fused_regen_m{m}"}
+    if lam in ("ESSPS", "LBPS"):
+        if epilogue:
+            return tail | {f"{name}_costs_dump_lambda", "fused_weighted"}
+        return tail | {f"{name}_costs_dump", "fused_weighted", f"{lam.lower()}_lambda_fused"}
+    return tail | {f"{name}_fused_solve"}
+
+
+def drive_model_paths(torch, card):
+    """Phases 10 and 11: every model family's closed loops through ``MPPI``, counted.
+
+    Each path: ``forward``, ``get_top_samples`` and the plant, tick after
+    tick, all launch counters set to 0 before the path and read after; one
+    fused tick under ``set_sync_debug_mode("error")``; the median forward
+    and get_top_samples times.  Navigation stops at the goal (0.5 m); the
+    pendulum must stand upright after 200 steps; the danger zone sums its
+    episode's reward and cost.  Returns ``{path: result}`` or None.
+    """
+    from mppi_playground_tpu_torch import MPPI
+    from mppi_playground_tpu_torch.utils.angles import angle_normalize
+    from mppi_playground_tpu_torch.workloads import build_model_workload
+
+    envs, out = {}, {}
+    for name, path, kw, ticks in MODEL_PATHS:
+        kw = dict(kw)
+        fused = not kw.pop("unfused", False)
+        epilogue = kw.pop("lambda_epilogue", None)
+        w = build_model_workload(name, device="cuda", num_samples=kw.pop("num_samples", None),
+                                 env=envs.get(name))
+        envs[name] = w.env
+        args = dict(w.mppi_kwargs, **kw)
+        if fused:
+            args.update(store_rollouts=False, fused_task=w.task, lambda_epilogue=epilogue)
+        c = MPPI(**args)
+        label = f"{name} {path}"
+        if c.solver_backend != ("fused" if fused else "xla"):
+            fail(f"{label}: MPPI took the {c.solver_backend} route")
+            return None
+        top_n = {"navigation": 300, "danger_zone": 100}.get(name, 50)
+        top_n = min(top_n, args["num_samples"])
+        if fused:  # one tick, and its top samples, with any host sync made an error
+            c.forward(w.x0)
+            c.get_top_samples(top_n)
+            c.reset()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                c.forward(w.x0)
+                c.get_top_samples(top_n)
+            except RuntimeError as err:
+                fail(f"{label}: a tick synchronized with the host: {err}")
+                return None
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            c.reset()
+        if name == "danger_zone":
+            obs, _ = w.env.reset(seed=42)
+            x = torch.tensor(obs, device="cuda")
+        else:
+            x = w.env.reset() if name == "navigation" else w.x0
+        counted = zero_counters()
+        fwd_ms, top_ms, reward, cost, reached, dist_100 = [], [], 0.0, 0.0, None, None
+        lo = torch.as_tensor(args["u_min"], dtype=torch.float32, device="cuda")
+        hi = torch.as_tensor(args["u_max"], dtype=torch.float32, device="cuda")
+        done = 0
+        for i in range(ticks):
+            t0 = time.perf_counter()
+            action_seq, state_seq = c.forward(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            seqs, weights = c.get_top_samples(top_n)
+            torch.cuda.synchronize()
+            fwd_ms.append(1e3 * (t1 - t0))
+            top_ms.append(1e3 * (time.perf_counter() - t1))
+            done += 1
+            excess = torch.maximum(lo - action_seq, action_seq - hi).max().item()
+            if not (torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()
+                    and torch.isfinite(seqs).all() and excess <= 1e-5
+                    and bool((weights[:-1] >= weights[1:]).all())):
+                fail(f"{label}: non-finite output, actions out of bounds by {excess!r}, or top "
+                     "samples not in descending weight order")
+                return None
+            if name == "navigation":
+                x, at_goal = w.env.step(action_seq[0])
+                if i == 99:
+                    dist_100 = (x[:2] - w.env.goal_pos).norm().item()
+                if at_goal:
+                    reached = i + 1
+                    break
+            elif name == "danger_zone":
+                obs, r, _, _, info = w.env.step(action_seq[0].cpu().numpy())
+                reward, cost = reward + r, cost + info["cost"]
+                x = torch.tensor(obs, device="cuda")
+            else:
+                x = w.plant(x, action_seq[0])
+        launches = read_counters(counted)
+        once = path_kernels(name, args["dim_control"], args["lambda_"], epilogue, fused)
+        want = {kernel: (done if kernel in once else 0) for kernel in counted}
+        if launches != want:
+            fail(f"{label}: launches {launches}, expected {want}")
+            return None
+        res = dict(ticks=done, forward_ms=statistics.median(fwd_ms),
+                   top_samples_ms=statistics.median(top_ms), lambda_=c.lambda_,
+                   launches_per_tick={k: v / done for k, v in launches.items() if v},
+                   final_state=[float(v) for v in x.tolist()])
+        if name == "navigation":
+            res.update(goal_reached_at_tick=reached, distance_at_tick_100=dist_100,
+                       final_distance=(x[:2] - w.env.goal_pos).norm().item())
+            start = (w.env.reset()[:2] - w.env.goal_pos).norm().item()
+            if ticks >= 100 and not res["final_distance"] < start - 10.0:  # the example's loops
+                fail(f"{label}: no progress to the goal ({res['final_distance']!r} m left)")
+                return None
+        if name == "danger_zone":
+            res.update(episodic_reward=reward, episodic_cost=cost)
+        if name == "pendulum" and path == "fused ESSPS epilogue":
+            res["theta"] = float(angle_normalize(x[0]))
+            if abs(res["theta"]) >= 0.15:
+                fail(f"{label}: not upright after {ticks} steps (theta {res['theta']!r})")
+                return None
+        res["launches"] = launches
+        print(f"{label} ({c.solver_backend}, T={args['horizon']}, K={args['num_samples']}) on "
+              f"{card}: {json.dumps({k: v for k, v in res.items() if k != 'launches'})}",
+              flush=True)
+        out[label] = res
+        if name == "navigation" and path in ("fused ESSPS", "fused ESSPS epilogue"):
+            def nav_tick(c=c, env=w.env):
+                nonlocal x
+                a, _ = c.forward(x)
+                x, _ = env.step(a[0])
+                c.get_top_samples(top_n)
+
+            x = w.env.reset()
+            res["profile"] = profile_ticks(torch, nav_tick, 20,
+                                           "with env.step and get_top_samples(300)")
+            print(f"{label}: {res['profile']}", flush=True)
     return out
 
 
@@ -904,15 +1412,15 @@ def main() -> int:
     lam = torch.ones(1, device=dev)
     sig, u_min, u_max = (0.5, 0.1), (-2.0, -0.25), (2.0, 0.25)
     seed = tick_seed(42, 0)
-    grid_bytes = task.obstacle_grid.numel() + task.lane_grid.numel()
+    grid_bytes = sum(g.numel() for g in task.grids)
 
     def solve(fn, mode_noise):
         return fn(x0, prev, lam, seed, xref5, task, sig, u_min, u_max, K, K, mode_noise)
 
     checks, solved = {}, {}
     for mode, nz in (("noise", noise), ("seeded", None)):
-        got = solve(fused_solve.fused_racing_solve, nz)
-        want = solve(fused_solve.fused_racing_solve_plain, nz)
+        got = solve(fused_solve.fused_solve, nz)
+        want = solve(fused_solve.fused_solve_plain, nz)
         torch.cuda.synchronize()
         gc, wc = got[0], want[0]
         if not torch.isfinite(gc).all():
@@ -938,8 +1446,8 @@ def main() -> int:
                         "atol 1e-5, update atol 5e-3, ESS rtol 1e-3")
 
     seq = g_upd.contiguous()
-    got_r = fused_solve.racing_reroll(x0, seq, task.x_lim, task.y_lim)
-    want_r = fused_solve.racing_reroll_plain(x0, seq, task.x_lim, task.y_lim)
+    got_r = fused_solve.fused_reroll(x0, seq, task)
+    want_r = fused_solve.fused_reroll_plain(x0, seq, task)
     torch.cuda.synchronize()
     reroll_err = (got_r - want_r).abs().max().item()
     print(f"re-roll vs twin (T={T}): max_abs_err={reroll_err!r} "
@@ -948,14 +1456,13 @@ def main() -> int:
         return fail("re-roll off the bar: states atol 5e-3")
 
     # timings: kernel and twin, turn about, on this card
-    t_solve = cuda_ms(torch, lambda: solve(fused_solve.fused_racing_solve, None), 20)
-    t_solve_plain = cuda_ms(torch, lambda: solve(fused_solve.fused_racing_solve_plain, None), 3,
+    t_solve = cuda_ms(torch, lambda: solve(fused_solve.fused_solve, None), 20)
+    t_solve_plain = cuda_ms(torch, lambda: solve(fused_solve.fused_solve_plain, None), 3,
                             warmup=1)
-    t_solve_noise = cuda_ms(torch, lambda: solve(fused_solve.fused_racing_solve, noise), 20)
-    t_reroll = cuda_ms(torch, lambda: fused_solve.racing_reroll(x0, seq, task.x_lim,
-                                                                task.y_lim), 50)
-    t_reroll_plain = cuda_ms(torch, lambda: fused_solve.racing_reroll_plain(
-        x0, seq, task.x_lim, task.y_lim), 5, warmup=1)
+    t_solve_noise = cuda_ms(torch, lambda: solve(fused_solve.fused_solve, noise), 20)
+    t_reroll = cuda_ms(torch, lambda: fused_solve.fused_reroll(x0, seq, task), 50)
+    t_reroll_plain = cuda_ms(torch, lambda: fused_solve.fused_reroll_plain(x0, seq, task), 5,
+                             warmup=1)
     b_solve, by_solve = solve_bound_ms(K, T, True, grid_bytes)
     b_noise, _ = solve_bound_ms(K, T, False, grid_bytes)
     b_reroll, by_reroll = reroll_bound_ms(T)
@@ -971,9 +1478,9 @@ def main() -> int:
 
     # --- phase 5: the weighted update (row 9) and regeneration (row 6) ---------
     noise_costs, noise_weights = solved["noise"]
-    pert = fused_solve.racing_regen_plain(prev, seed, torch.arange(K, device=dev), sig, u_min,
+    pert = fused_solve.fused_regen_plain(prev, seed, torch.arange(K, device=dev), sig, u_min,
                                           u_max, K, K, noise)
-    dump_costs, dump = fused_solve.fused_racing_costs_dump(x0, prev, seed, xref5, task, sig,
+    dump_costs, dump = fused_solve.fused_costs_dump(x0, prev, seed, xref5, task, sig,
                                                            u_min, u_max, K, K, None)
     row9 = check_weighted_update(torch, fused_solve, pert, noise_costs, dump_costs, dump, card)
     if row9 is None:
@@ -1004,7 +1511,7 @@ def main() -> int:
           f"{turns['fixed']:.3f} ms; " + "; ".join(
               f"{m} {turns[m]:.3f} ms "
               f"({100.0 * (turns[m] - turns['fixed']) / turns['fixed']:+.1f}%)"
-              for m in AUTO_MODES), flush=True)
+              for m in AUTO_MODES + EPILOGUE_MODES), flush=True)
 
     # --- phase 7: the RacingController facade on both routes, counted -------
     facades = drive_facades(torch, env, card)
@@ -1015,9 +1522,68 @@ def main() -> int:
     if mppi_runs is None:
         return 1
 
+    # --- phase 9: every other model family's kernels against their twins ------
+    model_rows, regen_rows = {}, {}
+    for name in NEW_MODELS:
+        rows = check_model_kernels(torch, np, name, card)
+        if rows is None:
+            return 1
+        for key, row in rows.items():
+            if key.endswith("_regen"):
+                regen_rows.setdefault(key, row)  # the first model of each m: pendulum's m=1
+            else:
+                model_rows[key] = row
+    wide = check_model_kernels(torch, np, "navigation", card, num_samples=100_000)
+    if wide is None:
+        return 1
+    for key, row in wide.items():
+        if key in model_rows:
+            model_rows[key].update({f"k100000_{f}": row[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                                     "bound_by", "max_abs_err")})
+
+    # --- phase 10: row 4, the lambda epilogue against the standalone route ----
+    nav, nav_prev, _, nav_bounds = model_inputs(torch, np, "navigation")
+    nav_wide, wide_prev, _, _ = model_inputs(torch, np, "navigation", 100_000)
+    flag_args = (x0, prev, seed, xref5, task, sig, u_min, u_max, K, K, None)
+    cases = [(f"flagship T={T} K={K}", mode, flag_args) for mode in ("ESSPS", "LBPS")] + [
+        (f"navigation T=30 K={k}", mode, (w.x0, p, seed, None, w.task, *nav_bounds, k, k, None))
+        for w, p, k, modes in ((nav, nav_prev, 3000, ("ESSPS", "LBPS")),
+                               (nav_wide, wide_prev, 100_000, ("ESSPS",)))
+        for mode in modes
+    ]
+    epilogue = check_epilogue(torch, fused_solve, cases, card)
+    if epilogue is None:
+        return 1
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+
+    flag_search = LambdaSearch("ESSPS", 0.01, 10.0, K / 10.0, 40)
+    t_epi_plain = cuda_ms(torch, lambda: fused_solve.fused_costs_dump_lambda_plain(
+        *flag_args, flag_search), 2, warmup=1)
+    b_epi = phase1_bound_ms(K, T, True, grid_bytes, RACING, search_ops(K, 40, OPS_ESSPS_EVAL, 2))
+    flag_epi = epilogue[f"flagship T={T} K={K} ESSPS"]
+    racing_epilogue_row = kernel_row(
+        "racing_costs_dump_lambda", "fused_racing.cu", f"{FUSED_SOLVE_PY}:783",
+        flag_epi["max_abs_err"], flag_epi["epilogue_ms"], t_epi_plain, *b_epi, search="ESSPS",
+        horizon=T, num_samples=K, standalone_route_ms=flag_epi["standalone_ms"],
+        lbps_ms=epilogue[f"flagship T={T} K={K} LBPS"]["epilogue_ms"],
+        lbps_standalone_route_ms=epilogue[f"flagship T={T} K={K} LBPS"]["standalone_ms"],
+        lbps_max_abs_err=epilogue[f"flagship T={T} K={K} LBPS"]["max_abs_err"])
+    nav_row = model_rows["navigation_costs_dump_lambda"]
+    for k in (3000, 100_000):
+        routes = epilogue[f"navigation T=30 K={k} ESSPS"]
+        nav_row[f"k{k}_in_turns"] = {"epilogue_ms": routes["epilogue_ms"],
+                                     "standalone_route_ms": routes["standalone_ms"],
+                                     "max_abs_err": routes["max_abs_err"]}
+
+    # --- phase 11: the model families' closed loops through MPPI, counted -----
+    model_paths = drive_model_paths(torch, card)
+    if model_paths is None:
+        return 1
+
     paths = {f"flagship {m}": run["launches"] for m, run in modes.items()}
     paths.update({f"RacingController {r}": run["launches"] for r, run in facades.items()})
     paths.update(mppi_runs)
+    paths.update({label: run["launches"] for label, run in model_paths.items()})
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -1025,9 +1591,9 @@ def main() -> int:
 
     kernels = [
         {
-            "name": "fused_racing_solve",
+            "name": "racing_fused_solve",
             "route": "cuda",
-            "source": "mppi_playground_tpu_torch/csrc/fused_solve.cu",
+            "source": "mppi_playground_tpu_torch/csrc/fused_racing.cu",
             "replaces": "mppi_playground_tpu/ops/fused_solve.py:783",
             "max_abs_err": max(checks["seeded"]["cost_max_abs_err"],
                                checks["noise"]["cost_max_abs_err"]),
@@ -1051,15 +1617,25 @@ def main() -> int:
             "bound_by": by_reroll,
             "library_ms": None,
         },
-    ] + auto["kernels"] + [row6, row9]
+    ] + auto["kernels"] + [row6, row9, racing_epilogue_row] + list(model_rows.values()) + [
+        regen_rows["m1_regen"]]
     for k in kernels:
         k["launches"], k["launches_by_path"] = launches_of(k["name"])
+    listed = [k["name"] for k in kernels]
+    missing = sorted(set(launch_counters()) - set(listed))
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if missing or idle or len(set(listed)) != len(listed):
+        return fail(f"kernels line: not listed {missing}; never launched on a path {idle}")
     print(json.dumps({"kernels": kernels, "card": card,
                       "median_tick_ms": modes["fixed"]["median_ms"],
                       "median_tick_ms_in_turns": turns,
                       "facade_median_ms": {r: {"update": run["tick_ms"],
                                                "get_top_samples": run["top_ms"]}
-                                           for r, run in facades.items()}}), flush=True)
+                                           for r, run in facades.items()},
+                      "lambda_routes_in_turns": epilogue,
+                      "model_paths": {label: {k: v for k, v in run.items()
+                                              if k not in ("launches", "profile")}
+                                      for label, run in model_paths.items()}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -14,11 +14,14 @@ Routes, chosen once at construction from the config:
   dynamics and cost given.  ``store_rollouts=True`` (the default) keeps the
   rollouts for ``get_top_samples``; its softmin tail is the weighted-update
   kernel on the card.
-* ``"fused"``: with ``fused_task`` (a ``RacingFusedTask``, the port's only
-  fused task) and ``store_rollouts=False``, when the config fits the fused
-  kernel's envelope.  ``get_top_samples`` regenerates the winning
-  perturbations with the regeneration kernel.  A config outside the
-  envelope takes the unfused route, as in the JAX package.
+* ``"fused"``: with ``fused_task`` (a model's :class:`FusedTask`, e.g.
+  ``models.pendulum.fused_task()`` or ``Navigation2DEnv.fused_task()``) and
+  ``store_rollouts=False``, when the config fits the fused kernels'
+  envelope: the model's fused kernels run each solve, and
+  ``lambda_epilogue=True`` runs an LBPS/ESSPS search inside the phase-1
+  launch.  ``get_top_samples`` regenerates the winning perturbations with
+  the regeneration kernel.  A config outside the envelope takes the unfused
+  route, as in the JAX package.
 
 The route taken is :attr:`MPPI.solver_backend`.  ``run_episode`` (N ticks in
 one dispatched program) is not part of this port yet: it comes with
@@ -35,7 +38,7 @@ from mppi_playground_tpu_torch.core import diagnostics
 from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState
 from mppi_playground_tpu_torch.core.fused_solver import fused_envelope, make_fused_solver
 from mppi_playground_tpu_torch.core.solver import CostFn, Dynamics, SolveAux, make_solver, warm_reset
-from mppi_playground_tpu_torch.ops.fused_solve import RacingFusedTask
+from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
 
@@ -70,14 +73,18 @@ class MPPI:
         seed: int = 42,
         store_rollouts: bool = True,
         kernel_backend: str = "auto",
-        fused_task: Optional[RacingFusedTask] = None,
+        fused_task: Optional[FusedTask] = None,
         device: Optional[Union[str, torch.device]] = None,
+        lambda_epilogue: Optional[bool] = None,
     ) -> None:
         """
         Args:
-            fused_task: optional :class:`RacingFusedTask`; with
+            fused_task: optional :class:`FusedTask` of the model; with
                 ``store_rollouts=False`` and a config inside the fused
-                envelope, each solve runs the fused racing kernels.
+                envelope, each solve runs the model's fused kernels.
+            lambda_epilogue: on the fused route under LBPS/ESSPS, ``True``
+                searches lambda inside the phase-1 launch
+                (``core/fused_solver.make_fused_solver``).
             device: where the solver runs; ``None`` means ``cuda``, and
                 ``"cpu"`` runs the kernels' plain twins.
         """
@@ -111,14 +118,16 @@ class MPPI:
                     "fused_task requires store_rollouts=False (the fused kernel keeps "
                     "rollouts implicit; get_top_samples regenerates them from the seeds)"
                 )
-            if not isinstance(fused_task, RacingFusedTask):
+            if not isinstance(fused_task, FusedTask):
                 raise TypeError(
-                    f"fused_task must be a RacingFusedTask, got {type(fused_task).__name__}"
+                    "fused_task must be a FusedTask (a model's fused_task(), or "
+                    f"RacingFusedTask(...) for racing), got {type(fused_task).__name__}"
                 )
             fused = fused_envelope(self.config)
         self.solver_backend = "fused" if fused else "xla"
         if fused:
-            self._solver = make_fused_solver(self.config, fused_task, dynamics, device=self.device)
+            self._solver = make_fused_solver(self.config, fused_task, dynamics, device=self.device,
+                                             lambda_epilogue=lambda_epilogue)
         else:
             self._solver = make_solver(self.config, dynamics, cost_func, device=self.device)
         self._state = self._solver.init()

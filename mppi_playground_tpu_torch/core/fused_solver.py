@@ -1,24 +1,29 @@
-"""Solver facade over the fused racing CUDA kernels (``ops/fused_solve.py``).
+"""Solver facade over the fused CUDA kernels (``ops/fused_solve.py``), for any model's task.
 
 Counterpart of ``mppi_playground_tpu/core/fused_solver.py``: the same
 ``MPPISolver`` bundle, state and ``SolveResult`` as
 ``core/solver.make_solver``, with the sample, rollout, cost and weighting
-body run by the kernels, ``combine_partials`` in torch, and the nominal
-re-roll by the re-roll kernel.
+body run by the kernels of the task's model, ``combine_partials`` in torch,
+and the nominal re-roll by the re-roll kernel.
 
 * Fixed lambda and MPO: one launch of the fused solve at the state's
   lambda; MPO then takes its Adam step on the costs (``core/autolambda``).
-* LBPS and ESSPS, the JAX package's standalone two-phase route: phase 1
-  (costs and the clamped perturbations dumped), the search kernel of
-  ``ops/lambda_search.py`` on the costs, phase 2 (the block partials at
-  lambda* from the dump).  lambda* stays on the device: phase 2 reads it
-  through a pointer.
+* LBPS and ESSPS, the JAX package's two-phase route, in one of two forms:
+  - standalone (``lambda_epilogue`` None or False, the default): phase 1
+    (costs and the clamped perturbations dumped), the search kernel of
+    ``ops/lambda_search.py`` on the costs, phase 2 (the block partials at
+    lambda* from the dump);
+  - the lambda epilogue (``lambda_epilogue=True``, up to K = 524,288 as in
+    the JAX package): phase 1 and the search in one launch, then phase 2.
+    lambda* is bit for bit the standalone route's.
+  lambda* stays on the device: phase 2 reads it through a pointer.
 
 A tick draws its kernel seed on the host from the state's ``(seed, tick)``,
-so nothing in it waits on the device.  The port's envelope: the racing
-model (n=4, m=2), float32, no stored rollouts, ``horizon * dim_control <=
-1024``; ``ValueError`` outside it.  The in-kernel lambda epilogue raises
-``NotImplementedError``.
+so nothing in it waits on the device.  Only the racing task reads the
+tick's ``info`` (``info['reference_path']``).  The port's envelope: float32,
+no stored rollouts, ``horizon * dim_control <= 1024``, ``dim_state <= 128``
+and the config's dimensions those of the task's model; ``ValueError``
+outside it.
 
 Rollouts never reach memory.  ``solver.top_samples(aux, n, noise=None)``
 takes the top n samples by weight (as ``jax.lax.top_k`` orders them),
@@ -48,29 +53,32 @@ from mppi_playground_tpu_torch.core.solver import (
 )
 from mppi_playground_tpu_torch.models.racing_mpcc import extend_reference_path
 from mppi_playground_tpu_torch.ops.fused_solve import (
+    EPILOGUE_MAX_SAMPLES,
     MAX_SLOTS,
-    RacingFusedTask,
-    fused_racing_costs_dump,
-    fused_racing_solve,
-    racing_regen,
-    racing_reroll,
-    racing_weighted,
+    MAX_STATE,
+    FusedTask,
+    fused_costs_dump,
+    fused_costs_dump_lambda,
+    fused_regen,
+    fused_reroll,
+    fused_solve,
+    fused_weighted,
 )
-from mppi_playground_tpu_torch.ops.lambda_search import essps_lambda_fused, lbps_lambda_fused
+from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
 
 def check_fused_envelope(config: MPPIConfig) -> None:
-    """Raise ``ValueError`` for a config outside the fused kernel's envelope."""
-    if config.dim_state != 4 or config.dim_control != 2:
-        raise ValueError("the fused kernel runs the racing model only (dim_state=4, dim_control=2)")
+    """Raise ``ValueError`` for a config outside the fused kernels' envelope."""
     if config.horizon * config.dim_control > MAX_SLOTS:
-        raise ValueError(f"the fused kernel needs horizon * dim_control <= {MAX_SLOTS}")
+        raise ValueError(f"the fused kernels need horizon * dim_control <= {MAX_SLOTS}")
+    if config.dim_state > MAX_STATE:
+        raise ValueError(f"the fused kernels need dim_state <= {MAX_STATE}")
     if config.dtype != torch.float32:
-        raise ValueError("the fused kernel is float32")
+        raise ValueError("the fused kernels are float32")
     if config.store_rollouts:
-        raise ValueError("the fused kernel does not store rollouts (store_rollouts=False)")
+        raise ValueError("the fused kernels do not store rollouts (store_rollouts=False)")
 
 
 def fused_envelope(config: MPPIConfig) -> bool:
@@ -84,33 +92,33 @@ def fused_envelope(config: MPPIConfig) -> bool:
 
 def make_fused_solver(
     config: MPPIConfig,
-    task: RacingFusedTask,
+    task: FusedTask,
     dynamics: Dynamics,
     device: Optional[Union[str, torch.device]] = None,
     lambda_epilogue: Optional[bool] = None,
 ) -> MPPISolver:
-    """Build the fused-kernel solver for the racing model.
+    """Build the fused-kernel solver for ``task``'s model.
 
     Args:
         config: solver config, fixed lambda or ``"MPO"``/``"LBPS"``/``"ESSPS"``.
-        task: the racing maps and bounds, on ``device``.
+        task: the model's :class:`FusedTask` (its grids on ``device``).
         dynamics: array-of-structs dynamics for ``states_prediction``.
         device: ``None`` means ``cuda``; ``"cpu"`` runs the kernels' twins.
-        lambda_epilogue: the JAX package's switch for the in-kernel LBPS/ESSPS
-            search.  ``None`` and ``False`` take the standalone two-phase
-            route; ``True`` raises: that kernel mode is not ported.
+        lambda_epilogue: ``True`` runs the LBPS/ESSPS search inside the
+            phase-1 launch (for ``num_samples <= 524,288``); ``None`` and
+            ``False`` take the standalone search kernel.
     """
-    if lambda_epilogue:
-        raise NotImplementedError(
-            "the in-kernel lambda epilogue (run_kernel with lambda_mode) is not ported "
-            "(PERF.md, TPU kernel table, row 4); use lambda_epilogue=None or False"
-        )
     check_fused_envelope(config)
+    if (config.dim_state, config.dim_control) != (task.dim_state, task.dim_control):
+        raise ValueError(
+            f"the {task.model} task has dim_state={task.dim_state}, "
+            f"dim_control={task.dim_control}; the config {config.dim_state}, "
+            f"{config.dim_control}"
+        )
     device = resolve_device(device)
-    for name in ("obstacle_grid", "lane_grid"):
-        grid = getattr(task, name)
+    for i, grid in enumerate(task.grids):
         if grid.device.type != device.type:
-            raise ValueError(f"task.{name} is on {grid.device}, the solver on {device}")
+            raise ValueError(f"task grid {i} is on {grid.device}, the solver on {device}")
     dtype = config.dtype
     sigmas = tuple(float(s) for s in config.sigmas)
     u_min = tuple(float(v) for v in config.u_min)
@@ -119,24 +127,22 @@ def make_fused_solver(
     num_samples = config.num_samples
     auto = config.auto_lambda
     sg_coeffs = config_sg_coeffs(config, dtype, device)
-
-    def search(costs):
-        """lambda* of LBPS or ESSPS from its search kernel."""
-        if auto == "LBPS":
-            return lbps_lambda_fused(
-                costs, config.lbps_delta, config.lambda_min, config.lambda_max,
-                iters=config.lbps_iters,
-            )
-        return essps_lambda_fused(
-            costs, config.target_ess, config.lambda_min, config.lambda_max,
-            iters=config.essps_iters,
+    search = None
+    if auto in ("LBPS", "ESSPS"):
+        search = LambdaSearch(
+            auto, config.lambda_min, config.lambda_max,
+            config.lbps_delta if auto == "LBPS" else config.target_ess,
+            config.lbps_iters if auto == "LBPS" else config.essps_iters,
         )
+    use_epilogue = bool(search and lambda_epilogue and num_samples <= EPILOGUE_MAX_SAMPLES)
+    # the epilogue's count of finished blocks, zero between launches
+    ticket = torch.zeros(1, dtype=torch.int32, device=device) if use_epilogue else None
 
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)
 
     def epilogue_prediction(x0, action_seqs):
-        return racing_reroll(x0, action_seqs[0], task.x_lim, task.y_lim)[None]
+        return fused_reroll(x0, action_seqs[0], task)[None]
 
     def solve(
         state: MPPIState,
@@ -144,25 +150,29 @@ def make_fused_solver(
         info: Optional[Dict[str, Any]] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> SolveResult:
-        """One fused solve; ``info['reference_path']`` ``[T+1, 4]`` is required."""
+        """One fused solve; the racing task needs ``info['reference_path']`` ``[T+1, 4]``."""
         x0 = torch.as_tensor(x0, dtype=dtype, device=device).contiguous()
         seed = tick_seed(state.seed, state.tick)
-        xref = extend_reference_path(info["reference_path"]).contiguous()
+        ref = None
+        if task.reference_width:
+            ref = extend_reference_path(info["reference_path"]).contiguous()
         if noise is not None:
             noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
         prev = state.previous_action_seq
-        if auto in ("LBPS", "ESSPS"):
-            costs, dump = fused_racing_costs_dump(
-                x0, prev, seed, xref, task, sigmas, u_min, u_max, num_samples, threshold, noise,
-            )
-            lam = search(costs)
-            stats, numer = racing_weighted(costs, dump, lam.reshape(1))
+        sampling = (sigmas, u_min, u_max, num_samples, threshold, noise)
+        if use_epilogue:
+            costs, dump, lam = fused_costs_dump_lambda(x0, prev, seed, ref, task, *sampling,
+                                                       search, ticket)
+            lam = lam.reshape(())
+            stats, numer = fused_weighted(costs, dump, lam.reshape(1))
+        elif search is not None:
+            costs, dump = fused_costs_dump(x0, prev, seed, ref, task, *sampling)
+            lam = search.run(costs)
+            stats, numer = fused_weighted(costs, dump, lam.reshape(1))
         else:  # fixed and MPO weight at the state's lambda
             lam = state.lam
-            costs, stats, numer = fused_racing_solve(
-                x0, prev, lam.reshape(1), seed, xref, task, sigmas, u_min, u_max,
-                num_samples, threshold, noise,
-            )
+            costs, stats, numer = fused_solve(x0, prev, lam.reshape(1), seed, ref, task,
+                                              *sampling)
         update, weights, ess = combine_partials(
             costs, stats, numer, lam, config.horizon, config.dim_control
         )
@@ -180,7 +190,7 @@ def make_fused_solver(
     def top_samples(
         aux: SolveAux, n: int, noise: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(state_seqs [n, T+1, 4], weights [n])`` of the top n samples, weight-descending.
+        """``(state_seqs [n, T+1, n_x], weights [n])`` of the top n samples, weight-descending.
 
         Pass the solve's ``noise`` back when it ran on injected noise.
         """
@@ -200,8 +210,8 @@ def make_fused_solver(
         if noise is not None:
             noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
         top_w, rows = top_indices(aux.weights, n)
-        pert = racing_regen(aux.prev_action_seq, aux.seed, rows, sigmas, u_min, u_max,
-                            num_samples, threshold, noise)
+        pert = fused_regen(aux.prev_action_seq, aux.seed, rows, sigmas, u_min, u_max,
+                           num_samples, threshold, noise)
         return states_prediction(aux.x0, pert), top_w
 
     return MPPISolver(

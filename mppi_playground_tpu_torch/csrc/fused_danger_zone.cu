@@ -1,0 +1,12 @@
+// The goal-in-danger-zone observation model (n=7) on the fused kernels of
+// fused_solve.cuh: danger_zone_fused_solve (fixed lambda and MPO),
+// danger_zone_costs_dump (auto-lambda phase 1) and danger_zone_costs_dump_lambda
+// (phase 1 with the ESSPS or LBPS search in the same launch).
+//
+// Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel
+// (run_kernel) for this model's FusedTask.  What bounds each launch and what
+// the design does about it: fused_solve.cuh.
+#include "danger_zone_model.cuh"
+#include "fused_solve.cuh"
+
+FUSED_MODEL_ENTRY_POINTS(danger_zone, danger_zone::Model)

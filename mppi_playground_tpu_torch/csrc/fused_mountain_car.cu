@@ -1,0 +1,12 @@
+// The continuous mountain car on the fused kernels of
+// fused_solve.cuh: mountain_car_fused_solve (fixed lambda and MPO),
+// mountain_car_costs_dump (auto-lambda phase 1) and mountain_car_costs_dump_lambda
+// (phase 1 with the ESSPS or LBPS search in the same launch).
+//
+// Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel
+// (run_kernel) for this model's FusedTask.  What bounds each launch and what
+// the design does about it: fused_solve.cuh.
+#include "classic_models.cuh"
+#include "fused_solve.cuh"
+
+FUSED_MODEL_ENTRY_POINTS(mountain_car, classic::MountainCar)

@@ -1,0 +1,12 @@
+// The pendulum swing-up on the fused kernels of
+// fused_solve.cuh: pendulum_fused_solve (fixed lambda and MPO),
+// pendulum_costs_dump (auto-lambda phase 1) and pendulum_costs_dump_lambda
+// (phase 1 with the ESSPS or LBPS search in the same launch).
+//
+// Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel
+// (run_kernel) for this model's FusedTask.  What bounds each launch and what
+// the design does about it: fused_solve.cuh.
+#include "classic_models.cuh"
+#include "fused_solve.cuh"
+
+FUSED_MODEL_ENTRY_POINTS(pendulum, classic::Pendulum)

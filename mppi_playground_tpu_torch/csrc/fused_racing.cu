@@ -1,0 +1,12 @@
+// The racing MPCC tick (kinematic bicycle, MPCC stage cost, obstacle and lane grids) on the fused kernels of
+// fused_solve.cuh: racing_fused_solve (fixed lambda and MPO),
+// racing_costs_dump (auto-lambda phase 1) and racing_costs_dump_lambda
+// (phase 1 with the ESSPS or LBPS search in the same launch).
+//
+// Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel
+// (run_kernel) for this model's FusedTask.  What bounds each launch and what
+// the design does about it: fused_solve.cuh.
+#include "racing_model.cuh"
+#include "fused_solve.cuh"
+
+FUSED_MODEL_ENTRY_POINTS(racing, racing::Model)

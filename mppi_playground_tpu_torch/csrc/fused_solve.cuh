@@ -1,0 +1,474 @@
+// Fused MPPI solve, the two phases of the auto-lambda solve, the lambda
+// epilogue of phase 1, seed regeneration and the nominal re-roll, templated
+// on a model plug.
+//
+// Replaces: mppi_playground_tpu/ops/fused_solve.py, make_fused_solve.kernel,
+// a Pallas TPU kernel over 1024-sample (8, 128) tiles that every model
+// enters through a FusedTask, in its modes:
+//
+// * fused_solve_kernel (run_kernel, single-pass fixed-lambda mode).  Per
+//   sample it perturbs and clamps the warm start with Gaussian noise, rolls
+//   out T model steps with the stage and terminal cost, and reduces the
+//   softmin partials of its block: max of -c/lambda, sum e, sum e^2 and the
+//   numerator sum e * pert over the T*m action slots.
+// * costs_dump_kernel (run_kernel with costs_only and dump_pert, auto-lambda
+//   phase 1).  The same rollout and costs; each sample also writes its
+//   clamped perturbations to a dump [T*m, K] (slot-major, k fastest, the
+//   layout of the noise input), and no partials are reduced.
+// * costs_dump_lambda_kernel (run_kernel with lambda_mode, row 4 of
+//   PERF.md's table, and _block_min_max_valid).  Phase 1 plus the ESSPS or
+//   LBPS search in the same launch: the block that finishes last runs the
+//   search of lambda_search.cuh over the K costs and writes lambda*.
+// * weighted_kernel (fused_solve.cu; run_weighted with pert, phase 2).  No
+//   rollout: per sample the cost and the dumped perturbations are read back
+//   and the block partials are reduced at the searched lambda (a device
+//   pointer).  It depends on the model only through T*m.
+// * regen_kernel (run_regen, regen_dump_only mode).  No rollout: the clamped
+//   perturbations [n, T, m] of a list of n sample indices, from the solve's
+//   seed and warm start (or its injected noise), for get_top_samples.  It
+//   depends on the model only through m.
+// * reroll_kernel (make_fused_reroll): x0 [n], actions [T, m] -> [T+1, n].
+//
+// A model plug (racing_model.cuh, unicycle_model.cuh, danger_zone_model.cuh,
+// classic_models.cuh) gives kN, kM, kRefWidth (floats of its per-tick
+// reference row in shared memory, racing only), its per-launch Args built on
+// the host from the model floats, ints and grids the wrapper passes, step()
+// and stage_cost().  Each model's source (fused_<model>.cu) instantiates the
+// rollout kernels with FUSED_MODEL_ENTRY_POINTS; fused_solve.cu holds phase 2
+// and regeneration; reroll.cu the re-roll of every model.
+//
+// The noise.  With injected noise ([T*m, K], already scaled by sigma) every
+// mode reads it.  Seeded, action slot f = t*m + j of sample k takes normal
+// f mod 4 of Philox4x32-10 with counter (f div 4, 0, 0, 0) and key (seed, k),
+// Box–Muller on 24 bits of words (x, y) for normals 0 and 1 and (z, w) for 2
+// and 3, so the draws depend neither on the launch geometry nor on the mode:
+// the regenerated rows equal phase 1's dump bit for bit.
+//
+// What bounds them on the H100, at the flagship (racing, T=50, m=2,
+// K=100,000): the fixed solve must move about 1.84 MB (the two 800x800 uint8
+// grids, the reference and warm start, costs and partials), 0.55 us at
+// 3.35 TB/s, and does about 7.3e3 float operations a sample, 11 us at the
+// 67 TFLOP/s float32 peak: operations bound it.  Phase 1 writes the 40 MB
+// dump besides, 12 us of bytes.  Phase 2 reads the dump and the costs and
+// does 4 operations a slot: bytes bound it.  The lighter models (navigation
+// at T=30, K=3,000; the classic models) are far below a launch's cost at
+// their users' sizes; chip_smoke.py computes each bound from the shapes.
+//
+// What this simple design does about it.  One thread per sample, blocks of
+// 256.  The state lives in registers (kN floats; danger zone's 7 included);
+// in the fixed solve the perturbations are never stored: the numerator pass
+// regenerates the very same values after the softmin max is known (noise
+// mode re-reads them, slot-major, coalesced).  The dump's writes and reads
+// are coalesced the same way.  The grids are read directly (__ldg) and stay
+// resident in L2.  The reference rows and warm start sit in shared memory.
+// Padded threads past K cost 1e30 and weigh 0.  Compiled with -fmad=false and
+// no fast math so that it computes the plain twins' arithmetic operation for
+// operation.  The lambda epilogue is a last-block-done pattern: each block
+// writes its costs and dump, fences, and takes a ticket (one atomicAdd on an
+// int the solver allocates once); the block with the last ticket reads the K
+// costs from L2 and runs the search in the cluster kernels' summation order
+// (lambda_search.cuh), then resets the ticket for the next launch.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "device_math.cuh"
+#include "lambda_search.cuh"
+#include "softmin_partials.cuh"
+
+namespace fused {
+
+using softmin::block_partials;
+using softmin::kBlock;
+
+// What the sampling of perturbations reads: warm start, noise, bounds, seed.
+template <int kM>
+struct Sampling {
+  const float* prev;   // [T, kM] warm start
+  const float* noise;  // [T*kM, K] slot-major, already scaled by sigma; null = seeded
+  float sigma[kM], u_min[kM], u_max[kM];
+  uint32_t seed;
+  int horizon, num_samples, threshold;
+};
+
+// Sampling from the wrapper's bounds array (sigma, u_min, u_max; kM each).
+template <int kM>
+Sampling<kM> make_sampling(const float* prev, const float* noise, const float* bounds,
+                           uint32_t seed, int horizon, int num_samples, int threshold) {
+  Sampling<kM> s{};
+  s.prev = prev;
+  s.noise = noise;
+  for (int j = 0; j < kM; ++j) {
+    s.sigma[j] = bounds[j];
+    s.u_min[j] = bounds[kM + j];
+    s.u_max[j] = bounds[2 * kM + j];
+  }
+  s.seed = seed;
+  s.horizon = horizon;
+  s.num_samples = num_samples;
+  s.threshold = threshold;
+  return s;
+}
+
+template <class Model>
+struct Params {
+  Sampling<Model::kM> s;
+  const float* x0;   // [kN]
+  const float* lam;  // [1]
+  const float* ref;  // [T+1, kRefWidth], or null
+  typename Model::Args args;
+  float* costs;  // [K]
+  float* stats;  // [blocks, 3]: max(-c/lam), sum e, sum e^2 (fixed solve)
+  float* numer;  // [blocks, T*m] (fixed solve)
+  float* dump;   // [T*m, K] clamped perturbations, slot-major (phase 1)
+};
+
+__device__ __forceinline__ float pick(float z0, float z1, float z2, float z3, int r) {
+  return r == 0 ? z0 : (r == 1 ? z1 : (r == 2 ? z2 : z3));
+}
+
+// The clamped perturbed actions of one sample, step by step: every caller
+// walks t = 0, 1, 2, ... in order, so a step whose first slot opens a Philox
+// block draws it and the next steps of that block reuse its normals.  next()
+// walks them for block_partials, kM slots a step.
+template <int kM>
+struct Perturbation {
+  static constexpr int kWidth = kM;
+  const Sampling<kM>& s;
+  const float* prev;  // shared copy of the warm start
+  int k;
+  bool inherit;
+  float z0, z1, z2, z3;    // the normals of the current Philox block
+  int step;                // next() position
+
+  __device__ Perturbation(const Sampling<kM>& s_, const float* prev_, int k_)
+      : s(s_), prev(prev_), k(k_), inherit(k_ < s_.threshold), z0(0.0f), z1(0.0f), z2(0.0f),
+        z3(0.0f), step(0) {}
+
+  __device__ __forceinline__ void next(float* v) { at(step++, v); }
+
+  // One branch on the noise mode a step, so that the compiler does not
+  // predicate the noise loads into the seeded path; then the draw on a bit
+  // test of the step's first slot (no stored counter, so z0 and z1 of m=2
+  // live only in the even step that draws them).
+  __device__ __forceinline__ void at(int t, float* u) {
+    static_assert(4 % kM == 0, "a step's slots must lie in one Philox block");
+    const int f0 = t * kM;  // this step's first slot; all kM lie in block f0 / 4
+    float z[kM];
+    if (s.noise != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kM; ++j) z[j] = s.noise[static_cast<size_t>(f0 + j) * s.num_samples + k];
+    } else {
+      float n[kM];
+      if ((f0 & 3) == 0) {
+        const uint4 w = devmath::philox4x32_10(
+            make_uint4(static_cast<uint32_t>(f0 >> 2), 0u, 0u, 0u), s.seed,
+            static_cast<uint32_t>(k));
+        devmath::normal_pair_from_bits(w.x, w.y, &z0, &z1);
+        devmath::normal_pair_from_bits(w.z, w.w, &z2, &z3);
+        if constexpr (kM == 2) {  // an even step: the first pair
+          n[0] = z0;
+          n[1] = z1;
+        }
+      } else if constexpr (kM == 2) {  // an odd step: the pair drawn before
+        n[0] = z2;
+        n[1] = z3;
+      }
+      if constexpr (kM != 2) {
+#pragma unroll
+        for (int j = 0; j < kM; ++j) n[j] = pick(z0, z1, z2, z3, (f0 + j) & 3);
+      }
+#pragma unroll
+      for (int j = 0; j < kM; ++j) z[j] = n[j] * s.sigma[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kM; ++j) {
+      const float v = inherit ? prev[f0 + j] + z[j] : z[j];
+      u[j] = devmath::clampf(v, s.u_min[j], s.u_max[j]);
+    }
+  }
+};
+
+// The perturbations dumped by phase 1, read back by phase 2, a slot at a time.
+struct DumpedPerturbation {
+  static constexpr int kWidth = 1;
+  const float* dump;  // [slots, K]
+  int num_samples, k;
+  int slot;
+
+  __device__ __forceinline__ void next(float* v) {
+    v[0] = dump[static_cast<size_t>(slot) * num_samples + k];
+    ++slot;
+  }
+};
+
+// The reference rows and the warm start, copied to shared memory.
+template <class Model>
+__device__ __forceinline__ void load_reference(const Params<Model>& p, float* s_ref,
+                                               float* s_prev) {
+  const int T = p.s.horizon;
+  if (Model::kRefWidth > 0) {
+    for (int i = threadIdx.x; i < (T + 1) * Model::kRefWidth; i += kBlock) s_ref[i] = p.ref[i];
+  }
+  for (int i = threadIdx.x; i < Model::kM * T; i += kBlock) s_prev[i] = p.s.prev[i];
+  __syncthreads();
+}
+
+template <class Model>
+size_t reference_shared_bytes(int horizon) {
+  return sizeof(float) * (static_cast<size_t>(horizon + 1) * Model::kRefWidth +
+                          static_cast<size_t>(Model::kM) * horizon);
+}
+
+// Rollout of sample k with its stage and terminal costs; with kDump, each
+// clamped perturbation is also written to p.dump.
+template <class Model, bool kDump>
+__device__ __forceinline__ float rollout_cost(const Params<Model>& p, const float* s_ref,
+                                              const float* s_prev, int k) {
+  constexpr int kN = Model::kN, kM = Model::kM;
+  const int T = p.s.horizon;
+  Perturbation<kM> pert(p.s, s_prev, k);
+  float x[kN];
+#pragma unroll
+  for (int c = 0; c < kN; ++c) x[c] = p.x0[c];
+  float acc = 0.0f;
+  float u[kM], pu[kM];
+#pragma unroll
+  for (int j = 0; j < kM; ++j) u[j] = pu[j] = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    float pv[kM];
+#pragma unroll
+    for (int j = 0; j < kM; ++j) pv[j] = u[j];
+    pert.at(t, u);
+#pragma unroll
+    for (int j = 0; j < kM; ++j) {
+      if (kDump) p.dump[static_cast<size_t>(t * kM + j) * p.s.num_samples + k] = u[j];
+      // prev_action at t is the action at max(t - 1, 0)
+      pu[j] = t == 0 ? u[j] : pv[j];
+    }
+    acc = acc + Model::stage_cost(x, u, pu, s_ref + Model::kRefWidth * t, p.args);
+    Model::step(x, u, p.args);
+  }
+  // terminal cost: zero action; t and prev_action keep their last values
+  float zero[kM];
+#pragma unroll
+  for (int j = 0; j < kM; ++j) zero[j] = 0.0f;
+  return acc + Model::stage_cost(x, zero, pu, s_ref + Model::kRefWidth * (T - 1), p.args);
+}
+
+template <class Model>
+__global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> p) {
+  extern __shared__ float smem[];
+  const int T = p.s.horizon;
+  const int slots = Model::kM * T;
+  float* s_ref = smem;                                 // (T+1) * kRefWidth
+  float* s_prev = s_ref + (T + 1) * Model::kRefWidth;  // T * m
+  float* s_red = s_prev + slots;                       // kWarps
+  float* s_numer = s_red + softmin::kWarps;            // kWarps * min(T*m, kChunk)
+  load_reference(p, s_ref, s_prev);
+
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const bool valid = k < p.s.num_samples;
+  float cost = 1e30f;  // padding never wins the softmin
+  if (valid) {
+    cost = rollout_cost<Model, false>(p, s_ref, s_prev, k);
+    p.costs[k] = cost;
+  }
+  // the numerator pass regenerates (or re-reads) each perturbation
+  Perturbation<Model::kM> pert(p.s, s_prev, valid ? k : 0);
+  block_partials(cost, *p.lam, valid, pert, slots, s_red, s_numer, p.stats, p.numer);
+}
+
+template <class Model>
+__global__ void __launch_bounds__(kBlock) costs_dump_kernel(Params<Model> p) {
+  extern __shared__ float smem[];
+  float* s_ref = smem;
+  float* s_prev = s_ref + (p.s.horizon + 1) * Model::kRefWidth;
+  load_reference(p, s_ref, s_prev);
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  if (k < p.s.num_samples) p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k);
+}
+
+// What the lambda epilogue searches with: ESSPS (param = target ESS) or
+// LBPS (param = (1 - delta) / delta).
+struct Search {
+  float lam_min, lam_max, param;
+  int iters;
+};
+
+template <class Model, bool kLbps>
+__global__ void __launch_bounds__(kBlock) costs_dump_lambda_kernel(Params<Model> p, Search q,
+                                                                   int* ticket, float* lam_out) {
+  extern __shared__ float smem[];
+  __shared__ bool s_last;
+  float* s_ref = smem;
+  float* s_prev = s_ref + (p.s.horizon + 1) * Model::kRefWidth;
+  load_reference(p, s_ref, s_prev);
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  if (k < p.s.num_samples) p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k);
+
+  // last block done: this block's costs are visible before its ticket is
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float lam = lsearch::block_search<kLbps>(p.costs, p.s.num_samples, q.lam_min, q.lam_max,
+                                                 q.param, q.iters);
+  if (threadIdx.x == 0) {
+    *lam_out = lam;
+    atomicExch(ticket, 0);  // ready for the next launch (or graph replay)
+  }
+}
+
+template <int kM>
+__global__ void __launch_bounds__(kBlock) regen_kernel(Sampling<kM> s, const int64_t* rows,
+                                                       int num_rows, float* out) {
+  extern __shared__ float smem[];
+  float* s_prev = smem;  // T * m
+  const int slots = kM * s.horizon;
+  for (int i = threadIdx.x; i < slots; i += kBlock) s_prev[i] = s.prev[i];
+  __syncthreads();
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= num_rows) return;
+  const int64_t k = rows[i];
+  float* dst = out + static_cast<size_t>(i) * slots;
+  if (k < 0 || k >= s.num_samples) {  // no such sample: a row of NaN, never a stray read
+    for (int f = 0; f < slots; ++f) dst[f] = __int_as_float(0x7fc00000);
+    return;
+  }
+  Perturbation<kM> pert(s, s_prev, static_cast<int>(k));
+  for (int t = 0; t < s.horizon; ++t) pert.at(t, dst + kM * t);
+}
+
+// One thread rolls the horizon in registers through the model's step.
+template <class Model>
+__global__ void reroll_kernel(const float* x0, const float* seq, int horizon,
+                              typename Model::Args args, float* out) {
+  constexpr int kN = Model::kN, kM = Model::kM;
+  float x[kN];
+#pragma unroll
+  for (int c = 0; c < kN; ++c) {
+    x[c] = x0[c];
+    out[c] = x[c];
+  }
+  for (int t = 0; t < horizon; ++t) {
+    float u[kM];
+#pragma unroll
+    for (int j = 0; j < kM; ++j) u[j] = seq[kM * t + j];
+    Model::step(x, u, args);
+#pragma unroll
+    for (int c = 0; c < kN; ++c) out[kN * (t + 1) + c] = x[c];
+  }
+}
+
+// Raise a kernel's dynamic shared-memory limit where it needs more than 48 KB.
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+inline int blocks_for(int num_samples) { return (num_samples + kBlock - 1) / kBlock; }
+
+// Params of a rollout launch from the wrappers' flat arguments.
+template <class Model>
+Params<Model> make_params(const float* x0, const float* prev, const float* lam, const float* ref,
+                          const uint8_t* grid_a, const uint8_t* grid_b, const float* noise,
+                          const float* bounds, const float* model_f, const int* model_i,
+                          uint32_t seed, int horizon, int num_samples, int threshold) {
+  Params<Model> p{};
+  p.s = make_sampling<Model::kM>(prev, noise, bounds, seed, horizon, num_samples, threshold);
+  p.x0 = x0;
+  p.lam = lam;
+  p.ref = ref;
+  p.args = Model::make_args(model_f, model_i, grid_a, grid_b);
+  return p;
+}
+
+template <class Model>
+int launch_solve(Params<Model> p, float* costs, float* stats, float* numer, cudaStream_t stream) {
+  p.costs = costs;
+  p.stats = stats;
+  p.numer = numer;
+  const int horizon = p.s.horizon;
+  const size_t shmem =
+      reference_shared_bytes<Model>(horizon) + softmin::shared_bytes(Model::kM * horizon);
+  cudaError_t err = allow_shared(fused_solve_kernel<Model>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_solve_kernel<Model><<<blocks_for(p.s.num_samples), kBlock, shmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Model>
+int launch_costs_dump(Params<Model> p, float* costs, float* dump, cudaStream_t stream) {
+  p.costs = costs;
+  p.dump = dump;
+  const size_t shmem = reference_shared_bytes<Model>(p.s.horizon);
+  cudaError_t err = allow_shared(costs_dump_kernel<Model>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  costs_dump_kernel<Model><<<blocks_for(p.s.num_samples), kBlock, shmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Model, bool kLbps>
+int launch_costs_dump_lambda_as(Params<Model> p, Search q, int* ticket, float* lam_out,
+                                cudaStream_t stream) {
+  const size_t shmem = reference_shared_bytes<Model>(p.s.horizon);
+  cudaError_t err = allow_shared(costs_dump_lambda_kernel<Model, kLbps>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  costs_dump_lambda_kernel<Model, kLbps>
+      <<<blocks_for(p.s.num_samples), kBlock, shmem, stream>>>(p, q, ticket, lam_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Model>
+int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, float* costs,
+                             float* dump, float* lam_out, cudaStream_t stream) {
+  p.costs = costs;
+  p.dump = dump;
+  return lbps ? launch_costs_dump_lambda_as<Model, true>(p, q, ticket, lam_out, stream)
+              : launch_costs_dump_lambda_as<Model, false>(p, q, ticket, lam_out, stream);
+}
+
+}  // namespace fused
+
+// The flat C arguments the rollout entry points share, in the order the
+// wrappers (ops/fused_solve.py) pass them.  bounds: sigma, u_min, u_max (m
+// each); model_f / model_i: the model's floats and ints (its header says
+// which); ref: the per-tick reference rows (racing) or null.
+#define FUSED_ROLLOUT_ARGS                                                                    \
+  const float *x0, const float *prev, const float *lam, const float *ref,                    \
+      const uint8_t *grid_a, const uint8_t *grid_b, const float *noise, const float *bounds, \
+      const float *model_f, const int *model_i, uint32_t seed, int horizon, int num_samples,  \
+      int threshold
+#define FUSED_ROLLOUT_NAMES                                                                  \
+  x0, prev, lam, ref, grid_a, grid_b, noise, bounds, model_f, model_i, seed, horizon,       \
+      num_samples, threshold
+
+// The three rollout entry points of one model: <prefix>_fused_solve,
+// <prefix>_costs_dump and <prefix>_costs_dump_lambda.
+#define FUSED_MODEL_ENTRY_POINTS(prefix, Model)                                               \
+  extern "C" int prefix##_fused_solve(FUSED_ROLLOUT_ARGS, float* costs, float* stats,         \
+                                      float* numer, void* stream) {                           \
+    return fused::launch_solve(fused::make_params<Model>(FUSED_ROLLOUT_NAMES), costs, stats,  \
+                               numer, static_cast<cudaStream_t>(stream));                     \
+  }                                                                                           \
+  extern "C" int prefix##_costs_dump(FUSED_ROLLOUT_ARGS, float* costs, float* dump,           \
+                                     void* stream) {                                          \
+    return fused::launch_costs_dump(fused::make_params<Model>(FUSED_ROLLOUT_NAMES), costs,    \
+                                    dump, static_cast<cudaStream_t>(stream));                 \
+  }                                                                                           \
+  extern "C" int prefix##_costs_dump_lambda(FUSED_ROLLOUT_ARGS, int lbps, float lam_min,      \
+                                            float lam_max, float param, int iters,            \
+                                            int* ticket, float* costs, float* dump,           \
+                                            float* lam_out, void* stream) {                   \
+    return fused::launch_costs_dump_lambda(fused::make_params<Model>(FUSED_ROLLOUT_NAMES),    \
+                                           lbps, fused::Search{lam_min, lam_max, param, iters}, \
+                                           ticket, costs, dump, lam_out,                      \
+                                           static_cast<cudaStream_t>(stream));                \
+  }

@@ -14,6 +14,9 @@
 //   moves golden section to another plateau); range_pen = (max - min) *
 //   sqrt(ratio) over the costs.  Golden section carries the surviving value.
 //
+// The element bodies, hoists and search loops are lambda_search.cuh's, which
+// the lambda epilogue of auto-lambda phase 1 (fused_solve.cuh) shares.
+//
 // Each evaluation is a reduction over all K costs on which the next step
 // depends.  What bounds it on the H100: the function reads 4K bytes once
 // (0.12 us at K=100,000) and does about 5 (ESSPS) or 7 (LBPS) float
@@ -38,15 +41,17 @@
 
 #include <algorithm>
 
+#include "lambda_search.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+using lsearch::kCluster;
+using lsearch::kFull;
+using lsearch::kThreads;
+using lsearch::kWarps;
 constexpr int kMaxResident = 50 * 1024;  // floats of a slice held in shared memory (200 KB)
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Min {
   __device__ float operator()(float a, float b) const { return fminf(a, b); }
@@ -153,34 +158,23 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   float cmin, cmax;
   min_max(sl, ex, parity, cluster, &cmin, &cmax);
   // d = min(c) - c, hoisted out of the search
-  for (int i = threadIdx.x; i < sl.n_res; i += kThreads) smem[i] = cmin - costs[sl.begin + i];
+  for (int i = threadIdx.x; i < sl.n_res; i += kThreads) {
+    smem[i] = lsearch::essps_shift(cmin, costs[sl.begin + i]);
+  }
   __syncthreads();
 
   auto ess = [&](float lam) {
-    const float inv = 1.0f / lam;
+    const float inv = lsearch::essps_inv(lam);
     float v[2] = {0.0f, 0.0f};
     for (int i = threadIdx.x; i < sl.n; i += kThreads) {
-      const float d = i < sl.n_res ? sl.resident[i] : cmin - costs[sl.begin + i];
-      const float e = expf(d * inv);
-      v[0] += e;
-      v[1] += e * e;
+      const float d =
+          i < sl.n_res ? sl.resident[i] : lsearch::essps_shift(cmin, costs[sl.begin + i]);
+      lsearch::essps_add(d, inv, v);
     }
     cluster_reduce<2, Sum, Sum>(v, ex, parity, cluster);
-    return v[0] * v[0] / v[1];
+    return lsearch::essps_value(v);
   };
-
-  const float ess_at_min = ess(lam_min);
-  const float ess_at_max = ess(lam_max);
-  float a = lam_min, b = lam_max;
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (a + b);
-    const bool below = ess(mid) < target;  // the root lies above mid
-    a = below ? mid : a;
-    b = below ? b : mid;
-  }
-  const float root = 0.5f * (a + b);
-  // bracket clamps of the reference
-  const float lam = target <= ess_at_min ? lam_min : (target >= ess_at_max ? lam_max : root);
+  const float lam = lsearch::essps_bisect(ess, lam_min, lam_max, target, iters);
   if (cluster.block_rank() == 0 && threadIdx.x == 0) *out = lam;
   cluster.sync();  // no CTA leaves while another may still read its shared memory
 }
@@ -195,52 +189,23 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   const Slice sl = make_slice(costs, num_samples, smem, cluster);
   float cmin, cmax;
   min_max(sl, ex, parity, cluster, &cmin, &cmax);
-  const float range_pen = (cmax - cmin) * sqrtf(ratio);
+  const float range_pen = lsearch::lbps_range_penalty(cmin, cmax, ratio);
   for (int i = threadIdx.x; i < sl.n_res; i += kThreads) smem[i] = costs[sl.begin + i];
   __syncthreads();
 
   auto objective = [&](float lam) {
-    const float a = -1.0f / lam;
+    const float a = lsearch::lbps_coeff(lam);
     const float shift = cmin * a;
     float v[3] = {0.0f, 0.0f, 0.0f};
     for (int i = threadIdx.x; i < sl.n; i += kThreads) {
       const float c = i < sl.n_res ? sl.resident[i] : costs[sl.begin + i];
-      const float e = expf(c * a - shift);
-      v[0] += e;
-      v[1] += e * e;
-      v[2] += e * c;
+      lsearch::lbps_add(c, a, shift, v);
     }
     cluster_reduce<3, Sum, Sum, Sum>(v, ex, parity, cluster);
-    return (v[2] + range_pen * sqrtf(v[1])) / v[0];
+    return lsearch::lbps_value(v, range_pen);
   };
-
-  const float invphi = static_cast<float>(0.6180339887498949);  // (sqrt(5) - 1) / 2
-  float a = lam_min, b = lam_max;
-  float c = b - (b - a) * invphi;
-  float d = a + (b - a) * invphi;
-  float fc = objective(c);
-  float fd = objective(d);
-  for (int it = 0; it < iters; ++it) {
-    const bool shrink_right = fc < fd;  // the minimum lies in [a, d]
-    const float new_a = shrink_right ? a : c;
-    const float new_b = shrink_right ? d : b;
-    const float fresh_lo = new_b - (new_b - new_a) * invphi;
-    const float fresh_hi = new_a + (new_b - new_a) * invphi;
-    const float x = shrink_right ? fresh_lo : fresh_hi;
-    const float fx = objective(x);
-    // the surviving interior point keeps its value
-    const float new_c = shrink_right ? x : d;
-    const float new_fc = shrink_right ? fx : fd;
-    const float new_d = shrink_right ? c : x;
-    const float new_fd = shrink_right ? fc : fx;
-    a = new_a;
-    b = new_b;
-    c = new_c;
-    fc = new_fc;
-    d = new_d;
-    fd = new_fd;
-  }
-  if (cluster.block_rank() == 0 && threadIdx.x == 0) *out = 0.5f * (a + b);
+  const float lam = lsearch::lbps_golden(objective, lam_min, lam_max, iters);
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) *out = lam;
   cluster.sync();  // no CTA leaves while another may still read its shared memory
 }
 

@@ -1,45 +1,40 @@
-// Nominal-trajectory re-roll of the racing bicycle: x0 [4], seq [T, 2] -> [T+1, 4].
+// Nominal-trajectory re-roll of every model: x0 [n], seq [T, m] -> [T+1, n].
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py, make_fused_reroll.kernel
-// (a Pallas TPU kernel that rolls the sequence on broadcast vregs).
+// (a Pallas TPU kernel that rolls the sequence on broadcast vregs, for any
+// FusedTask).
 //
-// What bounds it on the H100.  It reads 16 + 8T bytes and writes 16(T+1):
-// 1.2 KB at T=50, 0.4 ns at 3.35 TB/s, and does about 45 float operations a
-// step, 2,250 in all.  Neither bound matters: the 50 steps form one chain of
-// dependent operations, so its time is that chain's latency on one thread
+// What bounds it on the H100.  It reads 4(n + Tm) bytes and writes 4n(T+1):
+// 1.2 KB for racing at T=50, 0.4 ns at 3.35 TB/s, and does a few tens of
+// float operations a step.  Neither bound matters: the T steps form one chain
+// of dependent operations, so its time is that chain's latency on one thread
 // plus the launch.
 //
-// What this simple design does about it.  One thread rolls the 50 steps in
-// registers through the same __device__ bicycle step as the fused solve
-// (racing_model.cuh) and writes each state as it goes.  The launch itself
-// is the cost; a later change may fold it into the solve's tail or a graph.
-#include <cuda_runtime.h>
-
+// What this simple design does about it.  One thread rolls the horizon in
+// registers through the same __device__ step as the model's fused solve
+// (fused_solve.cuh reroll_kernel) and writes each state as it goes.  The
+// launch itself is the cost; a later change may fold it into the solve's
+// tail or a graph.  Entry points <model>_reroll(x0, seq, model_f, model_i,
+// horizon, out, stream), the model floats and ints as the rollout kernels
+// take them.
+#include "classic_models.cuh"
+#include "danger_zone_model.cuh"
+#include "fused_solve.cuh"
 #include "racing_model.cuh"
+#include "unicycle_model.cuh"
 
-namespace {
-
-__global__ void reroll_kernel(const float* x0, const float* seq, int horizon,
-                              racing::Geometry geo, float* out) {
-  float x = x0[0], y = x0[1], th = x0[2], v = x0[3];
-  out[0] = x;
-  out[1] = y;
-  out[2] = th;
-  out[3] = v;
-  for (int t = 0; t < horizon; ++t) {
-    racing::bicycle_step(x, y, th, v, seq[2 * t], seq[2 * t + 1], geo);
-    out[4 * (t + 1) + 0] = x;
-    out[4 * (t + 1) + 1] = y;
-    out[4 * (t + 1) + 2] = th;
-    out[4 * (t + 1) + 3] = v;
+#define REROLL_ENTRY_POINT(prefix, Model)                                                    \
+  extern "C" int prefix##_reroll(const float* x0, const float* seq, const float* model_f,   \
+                                 const int* model_i, int horizon, float* out, void* stream) { \
+    fused::reroll_kernel<Model><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(             \
+        x0, seq, horizon, Model::make_args(model_f, model_i, nullptr, nullptr), out);        \
+    return static_cast<int>(cudaGetLastError());                                             \
   }
-}
 
-}  // namespace
-
-extern "C" int racing_reroll(const float* x0, const float* seq, int horizon, float x_lo,
-                             float x_hi, float y_lo, float y_hi, float* out, void* stream) {
-  racing::Geometry geo{x_lo, x_hi, y_lo, y_hi, 0.0f, 0.0f, 1.0f, 0, 0};
-  reroll_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(x0, seq, horizon, geo, out);
-  return static_cast<int>(cudaGetLastError());
-}
+REROLL_ENTRY_POINT(racing, racing::Model)
+REROLL_ENTRY_POINT(navigation, unicycle::NavigationModel)
+REROLL_ENTRY_POINT(danger_zone, danger_zone::Model)
+REROLL_ENTRY_POINT(pendulum, classic::Pendulum)
+REROLL_ENTRY_POINT(cartpole, classic::Cartpole)
+REROLL_ENTRY_POINT(mountain_car, classic::MountainCar)
+REROLL_ENTRY_POINT(integrator, classic::Integrator)

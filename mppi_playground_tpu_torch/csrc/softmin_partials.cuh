@@ -1,6 +1,7 @@
-// Softmin partials of one block of 256 samples, shared by three kernels:
-// the fused racing solve and auto-lambda phase 2 (csrc/fused_solve.cu), and
-// the streaming weighted update of the unfused solver (csrc/weighted_update.cu).
+// Softmin partials of one block of 256 samples, shared by three kernels: the
+// fused solve of every model (csrc/fused_solve.cuh), auto-lambda phase 2
+// (csrc/fused_solve.cu), and the streaming weighted update of the unfused
+// solver (csrc/weighted_update.cu).
 //
 // Per block: the max of s = -c/lambda, sum e and sum e^2 with e = exp(s - max),
 // and the numerator sum e * u for each of the sample's D action slots.

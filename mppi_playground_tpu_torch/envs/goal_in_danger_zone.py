@@ -1,0 +1,125 @@
+"""Goal-in-danger-zone CMDP environment.
+
+Counterpart of ``mppi_playground_tpu/envs/goal_in_danger_zone.py`` as a
+plain class, without gymnasium and without rendering: a circular danger
+zone (radius 10 at the origin), the goal drawn inside it and the start
+outside; a 7-dim observation; a host ``step`` in numpy returning the
+CMDP-style (reward, cost); and the batched ``parallel_step`` /
+``parallel_cost`` on tensors that the solver takes as dynamics and cost.
+
+``reset(seed=...)`` draws from ``np.random.default_rng(seed)``, the
+generator gymnasium's ``np_random`` builds from a seed, in the JAX env's
+order, so a seed gives the JAX env's start, heading and goal; without a
+seed the stream continues (a fresh unseeded one on the first reset).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from mppi_playground_tpu_torch.models import danger_zone as dz_model
+
+
+class DangerZone:
+    """Circular danger region."""
+
+    def __init__(self, shape: str = "circle", cfg: Optional[dict] = None):
+        cfg = cfg or {}
+        if shape != "circle":
+            raise ValueError(f"Invalid shape: {shape}")
+        self._shape = shape
+        self.radius = cfg["radius"]
+        self.center = np.asarray(cfg["center"], dtype=float)
+
+    def get_random_inside_point(self, rng=None) -> np.ndarray:
+        rng = np.random if rng is None else rng
+        angle = rng.uniform(0, 2 * np.pi)
+        radius = rng.uniform(0, self.radius)
+        return np.array([radius * np.cos(angle), radius * np.sin(angle)]) + self.center
+
+    def get_random_outside_point(self, rng=None) -> np.ndarray:
+        rng = np.random if rng is None else rng
+        angle = rng.uniform(0, 2 * np.pi)
+        radius = rng.uniform(self.radius, 2 * self.radius)
+        return np.array([radius * np.cos(angle), radius * np.sin(angle)]) + self.center
+
+    def is_inside(self, pos: np.ndarray) -> bool:
+        return bool(np.linalg.norm(pos - self.center) < self.radius)
+
+
+class GoalInDangerZoneEnv:
+    """CMDP navigation env: observation ``[x, y, theta, vec_to_goal, vec_to_center]``."""
+
+    def __init__(self, seed: int = 42, cfg: Optional[dict] = None):
+        cfg = cfg or {"shape": "circle", "radius": 10.0, "center": [0.0, 0.0]}
+        self._seed = seed
+        self._danger_zone = DangerZone(shape=cfg.get("shape", "circle"), cfg=cfg)
+        self._v_max, self._omega_max = 1.0, 1.0
+        self._v_min, self._omega_min = -1.0, -1.0
+        self._dt = 0.1
+        self.max_episode_steps = 100
+        self._rng: Optional[np.random.Generator] = None
+
+        # batched solver-facing callables (models/danger_zone.py)
+        self.parallel_step = dz_model.make_dynamics()
+        self._parallel_cost = dz_model.make_cost(radius=self._danger_zone.radius)
+        self._step = 0
+
+    @property
+    def danger_zone(self) -> DangerZone:
+        """The env's danger region (centre, radius, is_inside)."""
+        return self._danger_zone
+
+    def parallel_cost(self, obs: torch.Tensor, action: torch.Tensor, info) -> torch.Tensor:
+        """Batched CMDP cost on ``obs [K, 7]``."""
+        return self._parallel_cost(obs, action, info)
+
+    def fused_task(self):
+        """The danger-zone model's plug for the fused kernels (``core/fused_solver.py``)."""
+        return dz_model.make_fused_task(radius=float(self._danger_zone.radius))
+
+    def _observe(self) -> np.ndarray:
+        vec_to_goal = self._goal - self._pos
+        vec_to_center = self._danger_zone.center - self._pos
+        return np.concatenate([self._pos, [self._angle], vec_to_goal, vec_to_center]).astype(
+            np.float32
+        )
+
+    def reset(self, seed: Optional[int] = None, options: Optional[dict] = None
+              ) -> Tuple[np.ndarray, dict]:
+        """Draw a start outside the zone, a heading and a goal inside it."""
+        if seed is not None or self._rng is None:
+            self._rng = np.random.default_rng(seed)
+        rng = self._rng
+        self._pos = self._danger_zone.get_random_outside_point(rng)
+        self._angle = rng.uniform(-np.pi, np.pi)
+        self._goal = self._danger_zone.get_random_inside_point(rng)
+        self._step = 0
+        return self._observe(), {"cost": 0.0}
+
+    def step(self, action) -> Tuple[np.ndarray, float, bool, bool, dict]:
+        """Host sim step -> (obs, reward, terminated, truncated, {"cost"})."""
+        if isinstance(action, torch.Tensor):
+            action = action.detach().cpu().numpy()
+        action = np.asarray(action)
+        prev_pos = self._pos.copy()
+        v = np.clip(action[0], self._v_min, self._v_max)
+        omega = np.clip(action[1], self._omega_min, self._omega_max)
+
+        self._angle = float(((self._angle + omega * self._dt + np.pi) % (2 * np.pi)) - np.pi)
+        self._pos = self._pos + v * self._dt * np.array([np.cos(self._angle),
+                                                         np.sin(self._angle)])
+
+        prev_distance = np.linalg.norm(prev_pos - self._goal)
+        distance = np.linalg.norm(self._pos - self._goal)
+        is_collided = self._danger_zone.is_inside(self._pos)
+
+        reward = float(prev_distance - distance)
+        cost = float(is_collided)
+        terminated = False
+        truncated = self._step >= self.max_episode_steps
+        self._step += 1
+        return self._observe(), reward, terminated, truncated, {"cost": cost}

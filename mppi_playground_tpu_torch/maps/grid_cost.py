@@ -53,6 +53,30 @@ def grid_cost(map_data: GridMapData, x: torch.Tensor) -> torch.Tensor:
     return torch.where(out_of_bounds, torch.ones_like(values), values)
 
 
+def grid_occupancy(
+    grid: torch.Tensor,
+    origin: tuple,
+    cell_size: float,
+    px: torch.Tensor,
+    py: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`grid_cost` of one ``[W, H]`` grid (nonzero = blocked) at ``(px, py)``.
+
+    The fused CUDA kernel's single-grid read, the plain twin of
+    ``map_occupancy`` in ``csrc/device_math.cuh``: the cell index of
+    :func:`grid_cost_pair`, out of bounds 1.0.  ``origin`` is a pair of
+    floats.
+    """
+    w, h = grid.shape
+    cell = cell_divisor(cell_size, px)
+    ix = torch.round(px / cell + origin[0])
+    iy = torch.round(py / cell + origin[1])
+    oob = (ix < 0) | (ix >= w) | (iy < 0) | (iy >= h)
+    ixi = torch.clamp(ix, 0.0, float(w - 1)).to(torch.int64)
+    iyi = torch.clamp(iy, 0.0, float(h - 1)).to(torch.int64)
+    return (oob | (grid[ixi, iyi] != 0)).to(px.dtype)
+
+
 def grid_cost_pair(
     grid_a: torch.Tensor,
     grid_b: torch.Tensor,

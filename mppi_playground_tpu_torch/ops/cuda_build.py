@@ -29,7 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fused_solve", "reroll", "lambda_search", "weighted_update")
+# every csrc/<name>.cu, each its own library
+SOURCES = tuple(sorted(path.stem for path in CSRC.glob("*.cu")))
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,57 +1,81 @@
-"""Fused racing MPPI solve, its auto-lambda phases, seed regeneration and the re-roll.
+"""The fused MPPI kernels of every model: solve, auto-lambda phases, epilogue, regen, re-roll.
 
-Counterpart of ``mppi_playground_tpu/ops/fused_solve.py`` for the racing
-model.  Five kernels, written by hand for Hopper in ``csrc/``:
+Counterpart of ``mppi_playground_tpu/ops/fused_solve.py``.  Every model
+plugs into the same kernels, written by hand for Hopper in ``csrc/``, through
+a :class:`FusedTask`; the kernels are templated on a model plug
+(``csrc/fused_solve.cuh``) and each model is one explicit instantiation
+(``csrc/fused_<model>.cu``):
 
-* :func:`fused_racing_solve` (``csrc/fused_solve.cu``) — per sample: the
-  perturbed, clamped warm start, T bicycle steps with the MPCC stage and
-  terminal cost and two occupancy reads per point; per block of 256
-  samples the softmin partials.  ``ops/weighted_update.combine_partials``
-  merges the blocks.
-* :func:`fused_racing_costs_dump` (same source) — auto-lambda phase 1: the
-  same rollout and costs, and the clamped perturbations dumped as
-  ``[2T, K]`` (slot-major, sample fastest); no partials.
-* :func:`racing_weighted` (same source) — auto-lambda phase 2: the block
-  partials of the fixed solve, from the costs and the dump at a lambda
-  searched in between, without a rollout.  Its partials and the fixed
-  solve's come from one device function, and here from one twin
-  (:func:`block_partials_plain`, in ``ops/weighted_update.py``).
-* :func:`racing_regen` (same source) — the clamped perturbations of chosen
-  sample indices, replayed from a solve's seed and warm start (or its
-  injected noise): the rows ``get_top_samples`` re-rolls on the fused route.
-* :func:`racing_reroll` (``csrc/reroll.cu``) — the nominal re-roll.
+* :func:`fused_solve` (``<model>_fused_solve``) — per sample: the perturbed,
+  clamped warm start, T model steps with the stage and terminal cost; per
+  block of 256 samples the softmin partials.
+  ``ops/weighted_update.combine_partials`` merges the blocks.
+* :func:`fused_costs_dump` (``<model>_costs_dump``) — auto-lambda phase 1:
+  the same rollout and costs, and the clamped perturbations dumped as
+  ``[T*m, K]`` (slot-major, sample fastest); no partials.
+* :func:`fused_costs_dump_lambda` (``<model>_costs_dump_lambda``) — phase 1
+  with the ESSPS or LBPS search in the same launch: the block that finishes
+  last searches the K costs and writes lambda* to the device, bit for bit
+  the search kernels' (``ops/lambda_search.py``) on the same costs.
+* :func:`fused_weighted` (``fused_weighted``, ``csrc/fused_solve.cu``) —
+  auto-lambda phase 2: the block partials of the fixed solve, from the
+  costs and the dump at a lambda searched in between, without a rollout.
+* :func:`fused_regen` (``fused_regen_m1`` / ``fused_regen_m2``) — the
+  clamped perturbations of chosen sample indices, replayed from a solve's
+  seed and warm start (or its injected noise): the rows ``get_top_samples``
+  re-rolls on the fused route.
+* :func:`fused_reroll` (``<model>_reroll``, ``csrc/reroll.cu``) — the
+  nominal re-roll.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in its
-``launches`` attribute, and raises on what the kernel does not take.  For
-CPU tensors it runs the plain PyTorch twin beside it (``*_plain``), which
-does the kernel's arithmetic operation for operation.  The twins also run
-on CUDA tensors when called directly, which is how the kernels are held
-against them on the card.
+``launches`` counter under the kernel's name, and raises on what the kernel
+does not take.  For CPU tensors it runs the plain PyTorch twin beside it
+(``*_plain``), which does the kernel's arithmetic operation for operation
+through the task's own ``dynamics_soa`` and ``stage_cost_soa``.  The twins
+also run on CUDA tensors when called directly, which is how the kernels are
+held against them on the card.
 
-Noise: with ``noise=`` ([K, T, 2], already scaled by sigma, the seam the
-JAX solvers take) both sides consume the same numbers.  Without it, both
-draw from Philox4x32-10 keyed on (seed, global sample index), counter
-(pair index // 2, 0, 0, 0), and Box–Muller on 24 bits of each word: the
-draws do not depend on the launch geometry.  The TPU's hardware bits cannot
-be replayed, so the seeded stream is checked by its statistics.
+Noise: with ``noise=`` ([K, T, m], already scaled by sigma, the seam the
+JAX solvers take) both sides consume the same numbers.  Without it, action
+slot ``f = t*m + j`` of sample k takes normal ``f mod 4`` of Philox4x32-10
+keyed on (seed, k) with counter (f div 4, 0, 0, 0), and Box–Muller on 24
+bits of each word: the draws do not depend on the launch geometry.  The
+TPU's hardware bits cannot be replayed, so the seeded stream is checked by
+its statistics.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from mppi_playground_tpu_torch.models.bicycle import make_dynamics_soa
-from mppi_playground_tpu_torch.models.racing_mpcc import make_mpcc_cost_soa
 from mppi_playground_tpu_torch.ops import cuda_build
+from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 from mppi_playground_tpu_torch.ops.weighted_update import BLOCK, block_partials_plain
 from mppi_playground_tpu_torch.utils.fastmath import sincos_2pi
 
 MAX_SLOTS = 1024  # the port's envelope: horizon * dim_control
+MAX_STATE = 128  # the port's envelope: dim_state, as the JAX package's
+# The JAX package takes the lambda epilogue up to a 2 MiB padded cost block.
+EPILOGUE_MAX_SAMPLES = 524_288
+
+# model -> (dim_state, dim_control, floats of its per-tick reference row):
+# the instantiations of csrc/fused_solve.cuh, one csrc/fused_<model>.cu each
+MODELS = {
+    "racing": (4, 2, 5),
+    "navigation": (3, 2, 0),
+    "danger_zone": (7, 2, 0),
+    "pendulum": (2, 1, 0),
+    "cartpole": (4, 1, 0),
+    "mountain_car": (2, 1, 0),
+    "integrator": (2, 2, 0),
+}
+REGEN_WIDTHS = (1, 2)  # fused_regen_m1, fused_regen_m2
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -59,27 +83,77 @@ _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 
 
 @dataclasses.dataclass(frozen=True)
-class RacingFusedTask:
-    """The racing model's data for the fused kernel.
+class FusedTask:
+    """A model's plug for the fused kernels.
 
     Attributes:
-        obstacle_grid / lane_grid: ``[W, H]`` uint8 occupancy (1 = blocked)
-            on the solver's device, one raster.
-        origin: cell coordinates of the world origin, two floats.
-        cell_size: meters per cell.
-        x_lim / y_lim: position clamp of the bicycle dynamics.
+        model: one of :data:`MODELS`; names the model's kernels.
+        dynamics_soa: ``(xs, us) -> xs`` on tuples of same-shape tensors,
+            the twins' step (the kernels' ``Model::step``).
+        stage_cost_soa: ``(xs, us, ctx) -> cost``, the twins' stage cost;
+            ``ctx`` carries ``t``, ``prev_us`` and, for racing, ``xref``.
+        floats / ints: the model's per-launch constants, in the order its
+            header (``csrc/*_model.cuh``) reads them.
+        grids: its ``[W, H]`` uint8 occupancy grids on the solver's device
+            (racing: obstacle and lane; navigation: obstacle; else none).
     """
 
-    obstacle_grid: torch.Tensor
-    lane_grid: torch.Tensor
-    origin: Tuple[float, float]
-    cell_size: float
-    x_lim: Tuple[float, float]
-    y_lim: Tuple[float, float]
+    model: str
+    dynamics_soa: Callable
+    stage_cost_soa: Callable
+    floats: Tuple[float, ...] = ()
+    ints: Tuple[int, ...] = ()
+    grids: Tuple[torch.Tensor, ...] = ()
+
+    def __post_init__(self):
+        if self.model not in MODELS:
+            raise ValueError(f"no fused kernels for model {self.model!r}; have {sorted(MODELS)}")
+
+    @property
+    def dim_state(self) -> int:
+        return MODELS[self.model][0]
+
+    @property
+    def dim_control(self) -> int:
+        return MODELS[self.model][1]
+
+    @property
+    def reference_width(self) -> int:
+        """Floats of the per-tick reference row a solve reads (racing: 5), else 0."""
+        return MODELS[self.model][2]
+
+
+def RacingFusedTask(obstacle_grid, lane_grid, origin, cell_size, x_lim, y_lim) -> FusedTask:
+    """The racing model's :class:`FusedTask`: two uint8 grids on one raster and the bounds.
+
+    ``origin`` is the cell coordinates of the world origin (two floats),
+    ``cell_size`` meters per cell, ``x_lim``/``y_lim`` the position clamp
+    of the bicycle dynamics.
+    """
+    from mppi_playground_tpu_torch.models.bicycle import make_dynamics_soa
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_mpcc_cost_soa
+
+    origin = (float(origin[0]), float(origin[1]))
+    x_lim = (float(x_lim[0]), float(x_lim[1]))
+    y_lim = (float(y_lim[0]), float(y_lim[1]))
+    maps = (obstacle_grid, lane_grid, origin, float(cell_size))
+    mpcc = make_mpcc_cost_soa()
+
+    def stage_cost_soa(xs, us, ctx):
+        return mpcc(xs, us, dict(ctx, maps=maps))
+
+    return FusedTask(
+        model="racing",
+        dynamics_soa=make_dynamics_soa(x_lim=x_lim, y_lim=y_lim),
+        stage_cost_soa=stage_cost_soa,
+        floats=(*x_lim, *y_lim, *origin, float(cell_size)),
+        ints=tuple(int(v) for v in obstacle_grid.shape),
+        grids=(obstacle_grid, lane_grid),
+    )
 
 
 # ---------------------------------------------------------------------------
-# Philox4x32-10 and Box–Muller in int64 tensor arithmetic (the kernel's twin)
+# Philox4x32-10 and Box–Muller in int64 tensor arithmetic (the kernels' twin)
 # ---------------------------------------------------------------------------
 
 def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,9 +192,16 @@ def normal_pair_from_bits(b1: torch.Tensor, b2: torch.Tensor):
     return r * cos_t, r * sin_t
 
 
-def seeded_normals(seed: int, num_samples: int, horizon: int, device) -> torch.Tensor:
-    """``[K, T, 2]`` standard normals of the kernel's seeded stream."""
-    quads = (horizon + 1) // 2
+def seeded_normals(seed: int, num_samples: int, horizon: int, device,
+                   dim_control: int = 2) -> torch.Tensor:
+    """``[K, T, m]`` standard normals of the kernels' seeded stream.
+
+    Slot ``f = t*m + j`` of sample k is normal ``f mod 4`` of the Philox
+    block with counter ``f div 4`` and key ``(seed, k)``; for m=2 an even
+    step takes words (x, y), an odd one (z, w).
+    """
+    slots = horizon * dim_control
+    quads = -(-slots // 4)
     k = torch.arange(num_samples, dtype=torch.int64, device=device)[:, None]
     q = torch.arange(quads, dtype=torch.int64, device=device)[None, :].expand(num_samples, quads)
     zero = torch.zeros_like(q)
@@ -128,20 +209,20 @@ def seeded_normals(seed: int, num_samples: int, horizon: int, device) -> torch.T
     a0, a1 = normal_pair_from_bits(w0, w1)
     b0, b1 = normal_pair_from_bits(w2, w3)
     z = torch.stack([a0, a1, b0, b1], dim=-1).reshape(num_samples, 4 * quads)
-    return z[:, : 2 * horizon].reshape(num_samples, horizon, 2)
+    return z[:, :slots].reshape(num_samples, horizon, dim_control)
 
 
 # ---------------------------------------------------------------------------
-# Kernel 1: fused racing solve
+# The plain twins
 # ---------------------------------------------------------------------------
 
 def _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max):
-    """Clamped perturbed action sequences ``[K, T, 2]``."""
-    horizon = prev.shape[0]
+    """Clamped perturbed action sequences ``[K, T, m]``."""
+    horizon, dim_control = prev.shape
     dev = prev.device
     if noise is None:
         sig = torch.tensor(sigmas, dtype=torch.float32, device=dev)
-        noise = seeded_normals(seed, num_samples, horizon, dev) * sig
+        noise = seeded_normals(seed, num_samples, horizon, dev, dim_control) * sig
     inherit = (torch.arange(num_samples, device=dev) < threshold)[:, None, None]
     v = torch.where(inherit, prev[None] + noise, noise)
     lo = torch.tensor(u_min, dtype=torch.float32, device=dev)
@@ -149,52 +230,84 @@ def _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_m
     return torch.clamp(v, lo, hi)
 
 
-def _rollout_costs_plain(x0, pert, xref, task: RacingFusedTask):
-    """Costs ``[K]`` of the clamped perturbations ``[K, T, 2]``: rollout, stage, terminal."""
-    num_samples, horizon = pert.shape[0], pert.shape[1]
-    dynamics = make_dynamics_soa(x_lim=task.x_lim, y_lim=task.y_lim)
-    stage_cost = make_mpcc_cost_soa()
-    maps = (task.obstacle_grid, task.lane_grid, task.origin, task.cell_size)
+def _rollout_costs_plain(x0, pert, ref, task: FusedTask):
+    """Costs ``[K]`` of the clamped perturbations ``[K, T, m]``: rollout, stage, terminal."""
+    num_samples, horizon, m = pert.shape
 
-    xs = tuple(x0[c].expand(num_samples) for c in range(4))
+    def actions(t):
+        return tuple(pert[:, t, j] for j in range(m))
+
+    xs = tuple(x0[c].expand(num_samples) for c in range(task.dim_state))
     acc = torch.zeros(num_samples, dtype=torch.float32, device=x0.device)
     for t in range(horizon):
-        us = (pert[:, t, 0], pert[:, t, 1])
-        prev_us = (pert[:, max(t - 1, 0), 0], pert[:, max(t - 1, 0), 1])
-        acc = acc + stage_cost(xs, us, dict(t=t, prev_us=prev_us, xref=xref, maps=maps))
-        xs = dynamics(xs, us)
-    zeros = torch.zeros_like(acc)
-    prev_us = (pert[:, max(horizon - 2, 0), 0], pert[:, max(horizon - 2, 0), 1])
-    return acc + stage_cost(
-        xs, (zeros, zeros), dict(t=horizon - 1, prev_us=prev_us, xref=xref, maps=maps)
-    )
+        ctx = dict(t=t, prev_us=actions(max(t - 1, 0)), xref=ref)
+        acc = acc + task.stage_cost_soa(xs, actions(t), ctx)
+        xs = task.dynamics_soa(xs, actions(t))
+    # terminal cost: zero action; t and prev_action keep their last values
+    zeros = tuple(torch.zeros_like(acc) for _ in range(m))
+    ctx = dict(t=horizon - 1, prev_us=actions(max(horizon - 2, 0)), xref=ref)
+    return acc + task.stage_cost_soa(xs, zeros, ctx)
 
 
-def fused_racing_solve_plain(
-    x0, prev, lam, seed, xref, task: RacingFusedTask, sigmas, u_min, u_max,
+def fused_solve_plain(
+    x0, prev, lam, seed, ref, task: FusedTask, sigmas, u_min, u_max,
     num_samples: int, threshold: int, noise: Optional[torch.Tensor] = None,
 ):
-    """The fused kernel's plain twin: ``(costs [K], stats [B, 3], numer [B, 2T])``."""
+    """The fused kernel's plain twin: ``(costs [K], stats [B, 3], numer [B, T*m])``."""
     pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
-    costs = _rollout_costs_plain(x0, pert, xref, task)
+    costs = _rollout_costs_plain(x0, pert, ref, task)
     stats, numer = block_partials_plain(costs, pert.reshape(num_samples, -1), lam)
     return costs, stats, numer
 
 
-def fused_racing_costs_dump_plain(
-    x0, prev, seed, xref, task: RacingFusedTask, sigmas, u_min, u_max,
+def fused_costs_dump_plain(
+    x0, prev, seed, ref, task: FusedTask, sigmas, u_min, u_max,
     num_samples: int, threshold: int, noise: Optional[torch.Tensor] = None,
 ):
-    """The phase-1 kernel's plain twin: ``(costs [K], dump [2T, K])``."""
+    """The phase-1 kernel's plain twin: ``(costs [K], dump [T*m, K])``."""
     pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
-    costs = _rollout_costs_plain(x0, pert, xref, task)
+    costs = _rollout_costs_plain(x0, pert, ref, task)
     return costs, pert.reshape(num_samples, -1).t().contiguous()
 
 
-def racing_weighted_plain(costs, dump, lam):
-    """The phase-2 kernel's plain twin: ``(stats [B, 3], numer [B, 2T])``."""
+def fused_costs_dump_lambda_plain(
+    x0, prev, seed, ref, task: FusedTask, sigmas, u_min, u_max,
+    num_samples: int, threshold: int, noise: Optional[torch.Tensor], search: LambdaSearch,
+):
+    """The epilogue kernel's plain twin: ``(costs [K], dump [T*m, K], lam [1])``.
+
+    Phase 1's twin, then the search kernels' twin on its costs.
+    """
+    costs, dump = fused_costs_dump_plain(x0, prev, seed, ref, task, sigmas, u_min, u_max,
+                                         num_samples, threshold, noise)
+    return costs, dump, search.plain(costs).reshape(1)
+
+
+def fused_weighted_plain(costs, dump, lam):
+    """The phase-2 kernel's plain twin: ``(stats [B, 3], numer [B, T*m])``."""
     return block_partials_plain(costs, dump.t(), lam)
 
+
+def fused_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples: int,
+                      threshold: int, noise: Optional[torch.Tensor] = None):
+    """The regeneration kernel's plain twin: all K perturbations, gathered at ``rows``."""
+    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
+    return pert[rows]
+
+
+def fused_reroll_plain(x0, action_seq, task: FusedTask):
+    """The re-roll kernel's plain twin: ``[T+1, n]``."""
+    xs = tuple(x0[c] for c in range(task.dim_state))
+    rows = [torch.stack(xs)]
+    for t in range(action_seq.shape[0]):
+        xs = task.dynamics_soa(xs, tuple(action_seq[t, j] for j in range(task.dim_control)))
+        rows.append(torch.stack(xs))
+    return torch.stack(rows)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' wrappers
+# ---------------------------------------------------------------------------
 
 def _check(name, t, shape, dtype, device):
     if t.device != device:
@@ -207,66 +320,6 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _f(v) -> ctypes.c_float:
-    return ctypes.c_float(float(v))
-
-
-_SOLVE_ARGTYPES = (
-    [ctypes.c_void_p] * 7
-    + [ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_float] * 13
-    + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_void_p] * 4
-)
-
-
-def _racing_args(x0, prev, lam, seed, xref, task, sigmas, u_min, u_max, num_samples,
-                 threshold, noise):
-    """Check the racing kernels' inputs on the card -> ``(args, noise)``.
-
-    ``args`` are the leading arguments the two rollout entry points of
-    ``csrc/fused_solve.cu`` share (``lam`` None: a null pointer, for phase 1,
-    which reads none); ``noise`` is transposed to the kernels' ``[2T, K]``
-    layout (kept alive by the caller until the launch).
-    """
-    dev = x0.device
-    horizon = prev.shape[0]
-    if not 1 <= horizon or 2 * horizon > MAX_SLOTS:
-        raise ValueError(f"fused racing kernel needs 1 <= 2 * horizon <= {MAX_SLOTS}")
-    if num_samples < 1 or num_samples >= 2**31 - BLOCK:
-        raise ValueError(f"num_samples out of range: {num_samples}")
-    f32 = torch.float32
-    _check("x0", x0, (4,), f32, dev)
-    _check("prev", prev, (horizon, 2), f32, dev)
-    if lam is not None:
-        _check("lam", lam, tuple(lam.shape), f32, dev)
-        if lam.numel() != 1:
-            raise ValueError("lam must hold one element")
-    _check("xref", xref, (horizon + 1, 5), f32, dev)
-    grid_shape = tuple(task.obstacle_grid.shape)
-    if len(grid_shape) != 2:
-        raise ValueError("the occupancy grids must be 2-D")
-    _check("obstacle_grid", task.obstacle_grid, grid_shape, torch.uint8, dev)
-    _check("lane_grid", task.lane_grid, grid_shape, torch.uint8, dev)
-    noise_ptr = None
-    if noise is not None:
-        _check("noise", noise, (num_samples, horizon, 2), f32, dev)
-        noise = noise.reshape(num_samples, 2 * horizon).t().contiguous()
-        noise_ptr = noise.data_ptr()
-    args = (
-        x0.data_ptr(), prev.data_ptr(), None if lam is None else lam.data_ptr(),
-        xref.data_ptr(),
-        task.obstacle_grid.data_ptr(), task.lane_grid.data_ptr(), noise_ptr,
-        grid_shape[0], grid_shape[1],
-        _f(task.origin[0]), _f(task.origin[1]), _f(task.cell_size),
-        _f(task.x_lim[0]), _f(task.x_lim[1]), _f(task.y_lim[0]), _f(task.y_lim[1]),
-        _f(sigmas[0]), _f(sigmas[1]), _f(u_min[0]), _f(u_min[1]),
-        _f(u_max[0]), _f(u_max[1]),
-        int(seed) & _MASK32, horizon, num_samples, max(0, min(threshold, num_samples)),
-    )
-    return args, noise
-
-
 def _on_card(name: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises for any other device."""
     if t.device.type not in ("cuda", "cpu"):
@@ -274,104 +327,236 @@ def _on_card(name: str, t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def fused_racing_solve(
+def _floats(values) -> ctypes.Array:
+    """A host float32 array for the kernels (``c_float`` rounds each value)."""
+    values = [float(v) for v in values]
+    return (ctypes.c_float * max(1, len(values)))(*values)
+
+
+def _ints(values) -> ctypes.Array:
+    values = [int(v) for v in values]
+    return (ctypes.c_int * max(1, len(values)))(*values)
+
+
+def _check_sampling(prev, num_samples, sigmas, u_min, u_max):
+    horizon, m = prev.shape if prev.dim() == 2 else (0, 0)
+    if prev.dim() != 2 or not 1 <= horizon or horizon * m > MAX_SLOTS or m not in REGEN_WIDTHS:
+        raise ValueError(f"prev must be [horizon, m] with m in {REGEN_WIDTHS} and 1 <= "
+                         f"horizon * m <= {MAX_SLOTS}, got {tuple(prev.shape)}")
+    if not 1 <= num_samples < 2**31 - BLOCK:
+        raise ValueError(f"num_samples out of range: {num_samples}")
+    if not len(sigmas) == len(u_min) == len(u_max) == m:
+        raise ValueError(f"sigmas, u_min and u_max need {m} values each")
+    _check("prev", prev, (horizon, m), torch.float32, prev.device)
+    return _floats((*sigmas, *u_min, *u_max))
+
+
+def _slot_major(noise, num_samples, horizon, m):
+    """Injected noise ``[K, T, m]`` -> the kernels' ``[T*m, K]``, checked."""
+    _check("noise", noise, (num_samples, horizon, m), torch.float32, noise.device)
+    return noise.reshape(num_samples, horizon * m).t().contiguous()
+
+
+def _rollout_args(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max, num_samples,
+                  threshold, noise):
+    """Check a rollout kernel's inputs on the card -> ``(args, keep)``.
+
+    ``args`` are the leading arguments the rollout entry points of
+    ``csrc/fused_solve.cuh`` share (``lam`` None: a null pointer, for phase
+    1, which reads none); ``keep`` holds what must live until the launch
+    returns (the noise in the kernels' layout, the host arrays).
+    """
+    dev = x0.device
+    n, m = task.dim_state, task.dim_control
+    if prev.dim() != 2 or prev.shape[1] != m:
+        raise ValueError(f"the {task.model} model takes prev [T, {m}], got {tuple(prev.shape)}")
+    bounds = _check_sampling(prev, num_samples, sigmas, u_min, u_max)
+    horizon = prev.shape[0]
+    f32 = torch.float32
+    _check("x0", x0, (n,), f32, dev)
+    if prev.device != dev:
+        raise ValueError(f"prev is on {prev.device}, expected {dev}")
+    if lam is not None:
+        _check("lam", lam, tuple(lam.shape), f32, dev)
+        if lam.numel() != 1:
+            raise ValueError("lam must hold one element")
+    width = task.reference_width
+    if width:
+        if ref is None:
+            raise ValueError(f"the {task.model} model needs its reference rows [T+1, {width}]")
+        _check("ref", ref, (horizon + 1, width), f32, dev)
+    grids = list(task.grids)
+    for i, grid in enumerate(grids):
+        _check(f"grid {i}", grid, tuple(grids[0].shape), torch.uint8, dev)
+        if grid.dim() != 2:
+            raise ValueError("the occupancy grids must be 2-D")
+    grid_ptrs = [g.data_ptr() for g in grids] + [None] * (2 - len(grids))
+    noise_ptr = None
+    if noise is not None:
+        noise = _slot_major(noise, num_samples, horizon, m)
+        noise_ptr = noise.data_ptr()
+    model_f, model_i = _floats(task.floats), _ints(task.ints)
+    args = (
+        x0.data_ptr(), prev.data_ptr(), None if lam is None else lam.data_ptr(),
+        ref.data_ptr() if width else None, *grid_ptrs, noise_ptr, bounds, model_f, model_i,
+        int(seed) & _MASK32, horizon, num_samples, max(0, min(threshold, num_samples)),
+    )
+    return args, (noise, bounds, model_f, model_i)
+
+
+_ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_uint32] + [ctypes.c_int] * 3
+_SOLVE_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 4
+_DUMP_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 3
+_DUMP_LAMBDA_ARGTYPES = (_ROLLOUT_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3
+                         + [ctypes.c_int] + [ctypes.c_void_p] * 5)
+
+
+def fused_solve(
     x0: torch.Tensor,
     prev: torch.Tensor,
     lam: torch.Tensor,
     seed: int,
-    xref: torch.Tensor,
-    task: RacingFusedTask,
-    sigmas: Tuple[float, float],
-    u_min: Tuple[float, float],
-    u_max: Tuple[float, float],
+    ref: Optional[torch.Tensor],
+    task: FusedTask,
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
     num_samples: int,
     threshold: int,
     noise: Optional[torch.Tensor] = None,
 ):
-    """One fused racing solve -> ``(costs [K], stats [B, 3], numer [B, 2T])``.
+    """One fused solve -> ``(costs [K], stats [B, 3], numer [B, T*m])``.
 
-    ``x0 [4]``, ``prev [T, 2]``, ``lam`` (one element), ``xref [T+1, 5]``
-    rows ``(x, y, sin, cos, v)``, all float32 on one device; ``seed`` a host
-    integer; ``noise`` optional ``[K, T, 2]`` already scaled by sigma.
-    ``B = ceil(K / 256)``.  CPU tensors take :func:`fused_racing_solve_plain`.
+    ``x0 [n]``, ``prev [T, m]``, ``lam`` (one element), all float32 on one
+    device; ``ref`` the racing model's ``[T+1, 5]`` reference rows ``(x, y,
+    sin, cos, v)`` (None for the other models); ``seed`` a host integer;
+    ``noise`` optional ``[K, T, m]`` already scaled by sigma.  ``B =
+    ceil(K / 256)``.  CPU tensors take :func:`fused_solve_plain`.
     """
-    if not _on_card("fused_racing_solve", x0):
-        return fused_racing_solve_plain(
-            x0, prev, lam, seed, xref, task, sigmas, u_min, u_max,
-            num_samples, threshold, noise,
-        )
-    args, noise = _racing_args(x0, prev, lam, seed, xref, task, sigmas, u_min, u_max,
+    if not _on_card("fused_solve", x0):
+        return fused_solve_plain(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max,
+                                 num_samples, threshold, noise)
+    args, keep = _rollout_args(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max,
                                num_samples, threshold, noise)
-    horizon, dev = prev.shape[0], x0.device
+    dev = x0.device
     blocks = -(-num_samples // BLOCK)
     costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
     stats = torch.empty(blocks, 3, dtype=torch.float32, device=dev)
-    numer = torch.empty(blocks, 2 * horizon, dtype=torch.float32, device=dev)
-    cuda_build.launch("fused_solve", "racing_fused_solve", _SOLVE_ARGTYPES, dev, *args,
+    numer = torch.empty(blocks, prev.numel(), dtype=torch.float32, device=dev)
+    name = f"{task.model}_fused_solve"
+    cuda_build.launch(f"fused_{task.model}", name, _SOLVE_ARGTYPES, dev, *args,
                       costs.data_ptr(), stats.data_ptr(), numer.data_ptr())
-    fused_racing_solve.launches += 1
+    fused_solve.launches[name] += 1
     return costs, stats, numer
 
 
-fused_racing_solve.launches = 0
-
-_DUMP_ARGTYPES = _SOLVE_ARGTYPES[:-4] + [ctypes.c_void_p] * 3
+fused_solve.launches = collections.Counter()
 
 
-def fused_racing_costs_dump(
+def fused_costs_dump(
     x0: torch.Tensor,
     prev: torch.Tensor,
     seed: int,
-    xref: torch.Tensor,
-    task: RacingFusedTask,
-    sigmas: Tuple[float, float],
-    u_min: Tuple[float, float],
-    u_max: Tuple[float, float],
+    ref: Optional[torch.Tensor],
+    task: FusedTask,
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
     num_samples: int,
     threshold: int,
     noise: Optional[torch.Tensor] = None,
 ):
-    """Auto-lambda phase 1 -> ``(costs [K], dump [2T, K])``.
+    """Auto-lambda phase 1 -> ``(costs [K], dump [T*m, K])``.
 
-    The rollout and costs of :func:`fused_racing_solve` (same arguments,
-    no lambda), and each sample's clamped perturbations, slot-major.  CPU
-    tensors take :func:`fused_racing_costs_dump_plain`.
+    The rollout and costs of :func:`fused_solve` (same arguments, no
+    lambda), and each sample's clamped perturbations, slot-major.  CPU
+    tensors take :func:`fused_costs_dump_plain`.
     """
-    if not _on_card("fused_racing_costs_dump", x0):
-        return fused_racing_costs_dump_plain(
-            x0, prev, seed, xref, task, sigmas, u_min, u_max, num_samples, threshold, noise,
-        )
+    if not _on_card("fused_costs_dump", x0):
+        return fused_costs_dump_plain(x0, prev, seed, ref, task, sigmas, u_min, u_max,
+                                      num_samples, threshold, noise)
     dev = x0.device
-    args, noise = _racing_args(x0, prev, None, seed, xref, task, sigmas, u_min, u_max,
+    args, keep = _rollout_args(x0, prev, None, seed, ref, task, sigmas, u_min, u_max,
                                num_samples, threshold, noise)
     costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
-    dump = torch.empty(2 * prev.shape[0], num_samples, dtype=torch.float32, device=dev)
-    cuda_build.launch("fused_solve", "racing_costs_dump", _DUMP_ARGTYPES, dev, *args,
+    dump = torch.empty(prev.numel(), num_samples, dtype=torch.float32, device=dev)
+    name = f"{task.model}_costs_dump"
+    cuda_build.launch(f"fused_{task.model}", name, _DUMP_ARGTYPES, dev, *args,
                       costs.data_ptr(), dump.data_ptr())
-    fused_racing_costs_dump.launches += 1
+    fused_costs_dump.launches[name] += 1
     return costs, dump
 
 
-fused_racing_costs_dump.launches = 0
+fused_costs_dump.launches = collections.Counter()
+
+
+def fused_costs_dump_lambda(
+    x0: torch.Tensor,
+    prev: torch.Tensor,
+    seed: int,
+    ref: Optional[torch.Tensor],
+    task: FusedTask,
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
+    num_samples: int,
+    threshold: int,
+    noise: Optional[torch.Tensor],
+    search: LambdaSearch,
+    ticket: torch.Tensor,
+):
+    """Phase 1 with the lambda search in one launch -> ``(costs [K], dump [T*m, K], lam [1])``.
+
+    :func:`fused_costs_dump`'s outputs, and lambda* of ``search`` over the
+    K costs, bit for bit the search kernel's on the same costs.  ``ticket``
+    is the kernel's ``[1]`` int32 count of finished blocks, zero between
+    launches (the kernel resets it): a solver allocates one and passes it
+    every tick.  CPU tensors take :func:`fused_costs_dump_lambda_plain`.
+    """
+    if not _on_card("fused_costs_dump_lambda", x0):
+        return fused_costs_dump_lambda_plain(x0, prev, seed, ref, task, sigmas, u_min, u_max,
+                                             num_samples, threshold, noise, search)
+    dev = x0.device
+    args, keep = _rollout_args(x0, prev, None, seed, ref, task, sigmas, u_min, u_max,
+                               num_samples, threshold, noise)
+    _check("ticket", ticket, (1,), torch.int32, dev)
+    if search.iters < 0:
+        raise ValueError(f"iters must be >= 0, got {search.iters}")
+    costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
+    dump = torch.empty(prev.numel(), num_samples, dtype=torch.float32, device=dev)
+    lam = torch.empty(1, dtype=torch.float32, device=dev)
+    name = f"{task.model}_costs_dump_lambda"
+    cuda_build.launch(
+        f"fused_{task.model}", name, _DUMP_LAMBDA_ARGTYPES, dev, *args,
+        int(search.mode == "LBPS"), ctypes.c_float(search.lambda_min),
+        ctypes.c_float(search.lambda_max), ctypes.c_float(search.kernel_param),
+        int(search.iters), ticket.data_ptr(), costs.data_ptr(), dump.data_ptr(), lam.data_ptr(),
+    )
+    fused_costs_dump_lambda.launches[name] += 1
+    return costs, dump, lam
+
+
+fused_costs_dump_lambda.launches = collections.Counter()
 
 _WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 
 
-def racing_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
-    """Auto-lambda phase 2 -> ``(stats [B, 3], numer [B, 2T])`` at ``lam``.
+def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
+    """Auto-lambda phase 2 -> ``(stats [B, 3], numer [B, D])`` at ``lam``.
 
-    ``costs [K]`` and ``dump [2T, K]`` from :func:`fused_racing_costs_dump`,
-    ``lam`` one element on the same device (read by the kernel, never by the
-    host).  The same partials :func:`fused_racing_solve` gives at ``lam``.
-    CPU tensors take :func:`racing_weighted_plain`.
+    ``costs [K]`` and ``dump [D, K]`` (``D = T*m``) from
+    :func:`fused_costs_dump`, ``lam`` one element on the same device (read
+    by the kernel, never by the host).  The same partials
+    :func:`fused_solve` gives at ``lam``.  CPU tensors take
+    :func:`fused_weighted_plain`.
     """
-    if not _on_card("racing_weighted", costs):
-        return racing_weighted_plain(costs, dump, lam)
+    if not _on_card("fused_weighted", costs):
+        return fused_weighted_plain(costs, dump, lam)
     dev = costs.device
     num_samples = costs.shape[0]
     slots = dump.shape[0]
-    if slots % 2 or not 2 <= slots <= MAX_SLOTS:
-        raise ValueError(f"dump must be [2T, K] with 2 <= 2T <= {MAX_SLOTS}")
+    if not 1 <= slots <= MAX_SLOTS:
+        raise ValueError(f"dump must be [D, K] with 1 <= D <= {MAX_SLOTS}")
     if not 1 <= num_samples < 2**31 - BLOCK:
         raise ValueError(f"num_samples out of range: {num_samples}")
     f32 = torch.float32
@@ -383,122 +568,100 @@ def racing_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
     blocks = -(-num_samples // BLOCK)
     stats = torch.empty(blocks, 3, dtype=f32, device=dev)
     numer = torch.empty(blocks, slots, dtype=f32, device=dev)
-    cuda_build.launch("fused_solve", "racing_weighted", _WEIGHTED_ARGTYPES, dev,
-                      costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots // 2,
+    cuda_build.launch("fused_solve", "fused_weighted", _WEIGHTED_ARGTYPES, dev,
+                      costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots,
                       num_samples, stats.data_ptr(), numer.data_ptr())
-    racing_weighted.launches += 1
+    fused_weighted.launches["fused_weighted"] += 1
     return stats, numer
 
 
-racing_weighted.launches = 0
+fused_weighted.launches = collections.Counter()
+
+_REGEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
 
 
-def racing_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples: int,
-                       threshold: int, noise: Optional[torch.Tensor] = None):
-    """The regeneration kernel's plain twin: all K perturbations, gathered at ``rows``."""
-    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
-    return pert[rows]
-
-
-_REGEN_ARGTYPES = (
-    [ctypes.c_void_p] * 3 + [ctypes.c_float] * 6
-    + [ctypes.c_uint32] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-)
-
-
-def racing_regen(
+def fused_regen(
     prev: torch.Tensor,
     seed: int,
     rows: torch.Tensor,
-    sigmas: Tuple[float, float],
-    u_min: Tuple[float, float],
-    u_max: Tuple[float, float],
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
     num_samples: int,
     threshold: int,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Replay a solve's clamped perturbations at ``rows`` -> ``[n, T, 2]``.
+    """Replay a solve's clamped perturbations at ``rows`` -> ``[n, T, m]``.
 
-    ``prev [T, 2]`` is the warm start the solve sampled around and ``seed``
-    its host kernel seed; ``noise`` the ``[K, T, 2]`` noise it was given,
+    ``prev [T, m]`` is the warm start the solve sampled around and ``seed``
+    its host kernel seed; ``noise`` the ``[K, T, m]`` noise it was given,
     if any.  ``rows [n]`` (int64, each in ``[0, K)``) picks the samples;
     row ``i`` of the result is sample ``rows[i]``'s perturbation, bit for
-    bit the one the solve drew (and phase 1 dumped).  CPU tensors take
-    :func:`racing_regen_plain`.
+    bit the one the solve drew (and phase 1 dumped).  The kernel depends on
+    the model only through m.  CPU tensors take :func:`fused_regen_plain`.
     """
-    if not _on_card("racing_regen", prev):
-        return racing_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples,
-                                  threshold, noise)
+    if not _on_card("fused_regen", prev):
+        return fused_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples,
+                                 threshold, noise)
     dev = prev.device
-    horizon = prev.shape[0]
-    if not 1 <= horizon or 2 * horizon > MAX_SLOTS:
-        raise ValueError(f"racing_regen needs 1 <= 2 * horizon <= {MAX_SLOTS}")
-    if not 1 <= num_samples < 2**31 - BLOCK:
-        raise ValueError(f"num_samples out of range: {num_samples}")
-    _check("prev", prev, (horizon, 2), torch.float32, dev)
+    bounds = _check_sampling(prev, num_samples, sigmas, u_min, u_max)
+    horizon, m = prev.shape
     num_rows = rows.shape[0]
     _check("rows", rows, (num_rows,), torch.int64, dev)
-    out = torch.empty(num_rows, horizon, 2, dtype=torch.float32, device=dev)
+    out = torch.empty(num_rows, horizon, m, dtype=torch.float32, device=dev)
     if num_rows == 0:
         return out
     noise_ptr = None
     if noise is not None:
-        _check("noise", noise, (num_samples, horizon, 2), torch.float32, dev)
-        noise = noise.reshape(num_samples, 2 * horizon).t().contiguous()  # [2T, K]
+        noise = _slot_major(noise, num_samples, horizon, m)
         noise_ptr = noise.data_ptr()
+    name = f"fused_regen_m{m}"
     cuda_build.launch(
-        "fused_solve", "racing_regen", _REGEN_ARGTYPES, dev, prev.data_ptr(), noise_ptr,
-        rows.data_ptr(), _f(sigmas[0]), _f(sigmas[1]), _f(u_min[0]), _f(u_min[1]),
-        _f(u_max[0]), _f(u_max[1]), int(seed) & _MASK32, horizon, num_samples,
+        "fused_solve", name, _REGEN_ARGTYPES, dev, prev.data_ptr(), noise_ptr,
+        rows.data_ptr(), bounds, int(seed) & _MASK32, horizon, num_samples,
         max(0, min(threshold, num_samples)), num_rows, out.data_ptr(),
     )
-    racing_regen.launches += 1
+    fused_regen.launches[name] += 1
     return out
 
 
-racing_regen.launches = 0
+fused_regen.launches = collections.Counter()
+
+_REROLL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
 
 
-# ---------------------------------------------------------------------------
-# Kernel 2: nominal re-roll
-# ---------------------------------------------------------------------------
-
-def racing_reroll_plain(x0, action_seq, x_lim, y_lim):
-    """The re-roll kernel's plain twin: ``[T+1, 4]``."""
-    dynamics = make_dynamics_soa(x_lim=x_lim, y_lim=y_lim)
-    xs = tuple(x0[c] for c in range(4))
-    rows = [torch.stack(xs)]
-    for t in range(action_seq.shape[0]):
-        xs = dynamics(xs, (action_seq[t, 0], action_seq[t, 1]))
-        rows.append(torch.stack(xs))
-    return torch.stack(rows)
-
-
-_REROLL_ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 4
-    + [ctypes.c_void_p, ctypes.c_void_p]
-)
-
-
-def racing_reroll(
-    x0: torch.Tensor,
-    action_seq: torch.Tensor,
-    x_lim: Tuple[float, float],
-    y_lim: Tuple[float, float],
-) -> torch.Tensor:
-    """``(x0 [4], action_seq [T, 2]) -> state_seq [T+1, 4]`` of the bicycle."""
-    if not _on_card("racing_reroll", x0):
-        return racing_reroll_plain(x0, action_seq, x_lim, y_lim)
+def fused_reroll(x0: torch.Tensor, action_seq: torch.Tensor, task: FusedTask) -> torch.Tensor:
+    """``(x0 [n], action_seq [T, m]) -> state_seq [T+1, n]`` through the task's model."""
+    if not _on_card("fused_reroll", x0):
+        return fused_reroll_plain(x0, action_seq, task)
     dev = x0.device
     horizon = action_seq.shape[0]
-    _check("x0", x0, (4,), torch.float32, dev)
-    _check("action_seq", action_seq, (horizon, 2), torch.float32, dev)
-    out = torch.empty(horizon + 1, 4, dtype=torch.float32, device=dev)
-    cuda_build.launch("reroll", "racing_reroll", _REROLL_ARGTYPES, dev, x0.data_ptr(),
-                      action_seq.data_ptr(), horizon, _f(x_lim[0]), _f(x_lim[1]),
-                      _f(y_lim[0]), _f(y_lim[1]), out.data_ptr())
-    racing_reroll.launches += 1
+    n, m = task.dim_state, task.dim_control
+    _check("x0", x0, (n,), torch.float32, dev)
+    _check("action_seq", action_seq, (horizon, m), torch.float32, dev)
+    out = torch.empty(horizon + 1, n, dtype=torch.float32, device=dev)
+    model_f, model_i = _floats(task.floats), _ints(task.ints)
+    name = f"{task.model}_reroll"
+    cuda_build.launch("reroll", name, _REROLL_ARGTYPES, dev, x0.data_ptr(),
+                      action_seq.data_ptr(), model_f, model_i, horizon, out.data_ptr())
+    fused_reroll.launches[name] += 1
     return out
 
 
-racing_reroll.launches = 0
+fused_reroll.launches = collections.Counter()
+
+# every wrapper, and the kernel names each counts launches under
+WRAPPERS = (fused_solve, fused_costs_dump, fused_costs_dump_lambda, fused_weighted, fused_regen,
+            fused_reroll)
+
+
+def kernel_names(wrapper) -> Tuple[str, ...]:
+    """The kernels ``wrapper`` launches, by the names its ``launches`` counts."""
+    if wrapper is fused_weighted:
+        return ("fused_weighted",)
+    if wrapper is fused_regen:
+        return tuple(f"fused_regen_m{m}" for m in REGEN_WIDTHS)
+    suffix = {fused_solve: "fused_solve", fused_costs_dump: "costs_dump",
+              fused_costs_dump_lambda: "costs_dump_lambda", fused_reroll: "reroll"}[wrapper]
+    return tuple(f"{model}_{suffix}" for model in MODELS)

@@ -12,6 +12,11 @@ by hand for Hopper in ``csrc/lambda_search.cu``:
   min(c)*a)`` (the exact hoist), carrying the surviving value;
   ``range_pen = (max - min) * sqrt(f32((1 - delta) / delta))``.
 
+The λ epilogue of auto-lambda phase 1 (``ops/fused_solve.fused_costs_dump_lambda``)
+runs the same searches, with the same element bodies and summation order
+(``csrc/lambda_search.cuh``), so both routes give λ* bit for bit; its twin
+is :meth:`LambdaSearch.plain`.
+
 These differ from the loops of ``core/autolambda.py`` only in rounding: the
 same searches on another form of the same sums.  Each wrapper launches its
 kernel for CUDA tensors, counts the launch in its ``launches`` attribute,
@@ -26,6 +31,7 @@ costs' device; nothing is read back to the host.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -150,6 +156,44 @@ def lbps_lambda_plain(costs, delta, lambda_min, lambda_max, iters: int = 32):
         )
         a, b = new_a, new_b
     return 0.5 * (a + b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LambdaSearch:
+    """One LBPS or ESSPS search as a solver runs it, for the lambda epilogue.
+
+    ``param`` is the ESSPS target ESS or the LBPS delta.  :meth:`plain`
+    is the search kernels' twin; :attr:`kernel_param` what the kernels take
+    (the target, or LBPS's ratio ``(1 - delta) / delta``).
+    """
+
+    mode: str
+    lambda_min: float
+    lambda_max: float
+    param: float
+    iters: int
+
+    def __post_init__(self):
+        if self.mode not in ("ESSPS", "LBPS"):
+            raise ValueError(f"mode must be 'ESSPS' or 'LBPS', got {self.mode!r}")
+
+    @property
+    def kernel_param(self) -> float:
+        return self.param if self.mode == "ESSPS" else (1.0 - self.param) / self.param
+
+    def run(self, costs: torch.Tensor) -> torch.Tensor:
+        """lambda* of ``costs`` by its search kernel (its twin for CPU costs), 0-dim."""
+        if self.mode == "ESSPS":
+            return essps_lambda_fused(costs, self.param, self.lambda_min, self.lambda_max,
+                                      self.iters)
+        return lbps_lambda_fused(costs, self.param, self.lambda_min, self.lambda_max, self.iters)
+
+    def plain(self, costs: torch.Tensor) -> torch.Tensor:
+        """lambda* of ``costs`` by the search kernels' twin, a 0-dim tensor."""
+        if self.mode == "ESSPS":
+            return essps_lambda_plain(costs, self.param, self.lambda_min, self.lambda_max,
+                                      self.iters)
+        return lbps_lambda_plain(costs, self.param, self.lambda_min, self.lambda_max, self.iters)
 
 
 _SEARCH_ARGTYPES = (

@@ -3,7 +3,7 @@
 Counterpart of ``mppi_playground_tpu/utils/angles.py``: wrap an angle into
 ``[-pi, pi)`` with a floored remainder.  ``torch.remainder`` is
 ``fmod`` plus a sign fix, the same bits as JAX's ``%``; the CUDA kernels
-use ``fmodf`` with the same fix (``csrc/racing_model.cuh``).
+use ``fmodf`` with the same fix (``csrc/device_math.cuh``).
 """
 
 from __future__ import annotations

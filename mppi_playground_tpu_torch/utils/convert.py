@@ -2,7 +2,9 @@
 
 The tests hand the same inputs to both packages through these functions:
 the solver state's warm start, SG history, temperature and MPO state; an
-occupancy grid with its origin and cell size; the circuit's center path.
+occupancy grid with its origin and cell size, as a map or as the fused
+kernels' uint8 raster with the navigation task built on it; the circuit's
+center path; an environment's observation (the danger zone's 7 floats).
 Nothing here imports the JAX package: callers pass ``np.asarray(...)`` of
 its arrays.  ``device=None`` means ``cuda``, as everywhere in the port.
 """
@@ -16,6 +18,7 @@ import torch
 
 from mppi_playground_tpu_torch.core.config import AdamState, MPPIState
 from mppi_playground_tpu_torch.maps.grid_cost import GridMapData
+from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
 Device = Optional[Union[str, torch.device]]
@@ -80,3 +83,39 @@ def center_path(
     """The circuit's center path ``[N, 3]`` (x, y, heading) as a tensor."""
     device = resolve_device(device)
     return torch.as_tensor(np.array(path), dtype=dtype, device=device).contiguous()
+
+
+def occupancy(grid: np.ndarray, device: Device = None) -> torch.Tensor:
+    """The fused kernels' ``[W, H]`` uint8 raster (1 = blocked) of an occupancy grid."""
+    device = resolve_device(device)
+    return torch.as_tensor(np.array(grid) != 0, dtype=torch.uint8, device=device).contiguous()
+
+
+def navigation_task(
+    grid: np.ndarray,
+    origin: np.ndarray,
+    cell_size: float,
+    goal: np.ndarray,
+    x_lim: Sequence[float],
+    y_lim: Sequence[float],
+    device: Device = None,
+) -> FusedTask:
+    """The navigation model's :class:`FusedTask` from a JAX ``Navigation2DEnv``'s map and goal."""
+    from mppi_playground_tpu_torch.models.unicycle import make_navigation_fused_task
+
+    return make_navigation_fused_task(
+        occupancy(grid, device),
+        origin=tuple(float(v) for v in np.asarray(origin)),
+        cell_size=float(cell_size),
+        goal=tuple(float(v) for v in np.asarray(goal)),
+        x_lim=(float(x_lim[0]), float(x_lim[1])),
+        y_lim=(float(y_lim[0]), float(y_lim[1])),
+    )
+
+
+def observation(
+    obs: np.ndarray, device: Device = None, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """An environment's observation (e.g. the danger zone's ``[7]``) as a tensor."""
+    device = resolve_device(device)
+    return torch.as_tensor(np.array(obs), dtype=dtype, device=device).contiguous()

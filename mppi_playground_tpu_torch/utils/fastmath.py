@@ -3,7 +3,7 @@
 Counterpart of ``mppi_playground_tpu/utils/fastmath.py`` with the same
 branch-free quadrant and octant reduction, the same Horner order and the
 same constants (Python doubles rounded to float32 where they meet a float32
-tensor), so both packages and the CUDA kernels (``csrc/racing_model.cuh``)
+tensor), so both packages and the CUDA kernels (``csrc/device_math.cuh``)
 compute the same bits on the same inputs.
 """
 

@@ -177,11 +177,11 @@ def test_regen_twin_matches_jax_run_regen(jax_refs):
     ref = jax_refs["jax_regen_reference"]
     threshold = int(REGEN_K * 0.7)
     rows = torch.arange(REGEN_K)
-    got = fused_solve.racing_regen(torch.from_numpy(ref["prev"]), 0, rows, SIGMAS, U_MIN, U_MAX,
+    got = fused_solve.fused_regen(torch.from_numpy(ref["prev"]), 0, rows, SIGMAS, U_MIN, U_MAX,
                                    REGEN_K, threshold, torch.from_numpy(ref["noise"]))
     np.testing.assert_array_equal(got.numpy(), ref["pert"])  # tolerance 0
     some = torch.tensor([REGEN_K - 1, 3, 3, 0, threshold, threshold - 1])
-    sub = fused_solve.racing_regen(torch.from_numpy(ref["prev"]), 0, some, SIGMAS, U_MIN, U_MAX,
+    sub = fused_solve.fused_regen(torch.from_numpy(ref["prev"]), 0, some, SIGMAS, U_MIN, U_MAX,
                                    REGEN_K, threshold, torch.from_numpy(ref["noise"]))
     np.testing.assert_array_equal(sub.numpy(), ref["pert"][some.numpy()])
 
@@ -198,16 +198,16 @@ def test_seeded_regen_equals_phase1_dump(env, exploration):
     xref, _ = calc_ref_trajectory(x0, env.racing_center_path, torch.tensor(0), HORIZON)
     from mppi_playground_tpu_torch.models.racing_mpcc import extend_reference_path
 
-    _, dump = fused_solve.fused_racing_costs_dump(
+    _, dump = fused_solve.fused_costs_dump(
         x0, prev, seed, extend_reference_path(xref), make_racing_fused_task_from_env(env),
         SIGMAS, U_MIN, U_MAX, k, threshold)
-    full = fused_solve.racing_regen(prev, seed, torch.arange(k), SIGMAS, U_MIN, U_MAX, k,
+    full = fused_solve.fused_regen(prev, seed, torch.arange(k), SIGMAS, U_MIN, U_MAX, k,
                                     threshold)
     torch.testing.assert_close(full, dump.t().reshape(k, HORIZON, 2), rtol=0, atol=0)
     rows = torch.tensor([k - 1, 0, 777, threshold - 1, 256, 255])
-    sub = fused_solve.racing_regen(prev, seed, rows, SIGMAS, U_MIN, U_MAX, k, threshold)
+    sub = fused_solve.fused_regen(prev, seed, rows, SIGMAS, U_MIN, U_MAX, k, threshold)
     torch.testing.assert_close(sub, full[rows], rtol=0, atol=0)
-    assert fused_solve.racing_regen(prev, seed, rows[:0], SIGMAS, U_MIN, U_MAX, k,
+    assert fused_solve.fused_regen(prev, seed, rows[:0], SIGMAS, U_MIN, U_MAX, k,
                                     threshold).shape == (0, HORIZON, 2)
 
 

@@ -310,7 +310,7 @@ def test_auto_lambda_ticks_match_jax(jax_refs, env, mode):
     ({"horizon": 513}, ValueError),
     ({"dim_state": 3}, ValueError),
     ({"dtype": torch.float64}, ValueError),
-    ({"lambda_": "ESSPS", "lambda_epilogue": True}, NotImplementedError),
+    ({"lambda_": "ESSPS", "lambda_epilogue": True}, None),
 ])
 def test_fused_solver_envelope(env, change, error):
     """What the fused solver builds and runs, and what it refuses (``error``)."""

@@ -211,7 +211,7 @@ def test_fused_solve_twin_matches_jax_interpret(jax_ref, task, num_samples, expl
     ref = {k.split("_", 1)[1]: v for k, v in jax_ref.items() if k.startswith(f"{num_samples}_")}
     lam = torch.tensor([1.0])
     threshold = int(num_samples * (1.0 - exploration))
-    costs, stats, numer = fused_solve.fused_racing_solve(
+    costs, stats, numer = fused_solve.fused_solve(
         _t(ref["x0"]), _t(ref["prev"]), lam, 0, _t(ref["xref5"]), task,
         SIGMAS, U_MIN, U_MAX, num_samples, threshold, _t(ref["noise"]),
     )
@@ -229,7 +229,7 @@ def test_fused_solve_twin_matches_jax_interpret(jax_ref, task, num_samples, expl
 def test_reroll_twin_matches_jax_interpret(jax_ref, task):
     for x0, seq, want in zip(jax_ref["reroll_x0"], jax_ref["reroll_seq"],
                              jax_ref["reroll_states"]):
-        got = fused_solve.racing_reroll(_t(x0), _t(seq), task.x_lim, task.y_lim).numpy()
+        got = fused_solve.fused_reroll(_t(x0), _t(seq), task).numpy()
         assert got.shape == (REROLL_HORIZON + 1, 4)
         np.testing.assert_allclose(got, want, atol=5e-3)
         np.testing.assert_array_equal(got, want)  # op for op: tolerance 0
@@ -242,7 +242,7 @@ def _phase_inputs(ref, task):
 
 
 def test_phase1_twin_matches_jax_costs_and_dump(jax_ref, task):
-    costs, dump = fused_solve.fused_racing_costs_dump(*_phase_inputs(jax_ref, task))
+    costs, dump = fused_solve.fused_costs_dump(*_phase_inputs(jax_ref, task))
     assert costs.shape == (PHASE_K,) and dump.shape == (2 * PHASE_T, PHASE_K)
     np.testing.assert_allclose(costs.numpy(), jax_ref["phase_costs"], rtol=1e-5)
     np.testing.assert_array_equal(costs.numpy(), jax_ref["phase_costs"])  # bitwise under AVX
@@ -252,9 +252,9 @@ def test_phase1_twin_matches_jax_costs_and_dump(jax_ref, task):
 
 
 def test_phase2_twin_matches_jax_run_weighted(jax_ref, task):
-    costs, dump = fused_solve.fused_racing_costs_dump(*_phase_inputs(jax_ref, task))
+    costs, dump = fused_solve.fused_costs_dump(*_phase_inputs(jax_ref, task))
     lam = _t(jax_ref["phase_lam"]).reshape(1)
-    stats, numer = fused_solve.racing_weighted(costs, dump, lam)
+    stats, numer = fused_solve.fused_weighted(costs, dump, lam)
     update, weights, ess = combine_partials(costs, stats, numer, lam, PHASE_T, 2)
     np.testing.assert_allclose(weights.numpy(), jax_ref["phase_weights"], atol=1e-5)
     np.testing.assert_allclose(update.numpy(), jax_ref["phase_update"], atol=5e-3)
@@ -264,10 +264,10 @@ def test_phase2_twin_matches_jax_run_weighted(jax_ref, task):
 def test_phase2_at_lambda_one_equals_the_fixed_solve(jax_ref, task):
     """Phase 2 on phase 1's outputs gives the fixed-lambda solve's partials, bit for bit."""
     args = _phase_inputs(jax_ref, task)
-    costs, dump = fused_solve.fused_racing_costs_dump(*args)
+    costs, dump = fused_solve.fused_costs_dump(*args)
     lam = torch.ones(1)
-    stats, numer = fused_solve.racing_weighted(costs, dump, lam)
-    want_costs, want_stats, want_numer = fused_solve.fused_racing_solve(
+    stats, numer = fused_solve.fused_weighted(costs, dump, lam)
+    want_costs, want_stats, want_numer = fused_solve.fused_solve(
         args[0], args[1], lam, *args[2:])
     torch.testing.assert_close(costs, want_costs, rtol=0, atol=0)
     torch.testing.assert_close(stats, want_stats, rtol=0, atol=0)
@@ -276,7 +276,7 @@ def test_phase2_at_lambda_one_equals_the_fixed_solve(jax_ref, task):
 
 def test_phase_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fused_solve.racing_weighted(torch.zeros(8, device="meta"), torch.zeros(4, 8, device="meta"),
+        fused_solve.fused_weighted(torch.zeros(8, device="meta"), torch.zeros(4, 8, device="meta"),
                                     torch.ones(1, device="meta"))
 
 
@@ -319,8 +319,8 @@ def test_seeded_draws_do_not_depend_on_block_size(task):
                          dtype=torch.float32)
     lam = torch.tensor([1.0])
     args = (x0, prev, lam, seed, xref5, task, SIGMAS, U_MIN, U_MAX)
-    c_small, s_small, _ = fused_solve.fused_racing_solve(*args, 700, 700)
-    c_large, _, _ = fused_solve.fused_racing_solve(*args, 1800, 1800)
+    c_small, s_small, _ = fused_solve.fused_solve(*args, 700, 700)
+    c_large, _, _ = fused_solve.fused_solve(*args, 1800, 1800)
     torch.testing.assert_close(c_small, c_large[:700], rtol=0, atol=0)
     # partials of the padded last block: padding weighs nothing
     assert s_small.shape == (3, 3) and torch.isfinite(s_small).all()
@@ -336,7 +336,7 @@ def test_combine_partials_equals_plain_softmin(task):
     xref5 = torch.tensor(np.tile([[27.0, 1.0, 1.0, 0.0, 8.0]], (HORIZON + 1, 1)),
                          dtype=torch.float32)
     lam = torch.tensor([2.5])
-    costs, stats, numer = fused_solve.fused_racing_solve(
+    costs, stats, numer = fused_solve.fused_solve(
         x0, prev, lam, 0, xref5, task, SIGMAS, U_MIN, U_MAX, num_samples, num_samples, noise,
     )
     update, weights, ess = combine_partials(costs, stats, numer, lam, HORIZON, 2)
@@ -351,9 +351,9 @@ def test_combine_partials_equals_plain_softmin(task):
 def test_wrappers_reject_other_devices(task):
     x0 = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fused_solve.racing_reroll(x0, torch.zeros(5, 2, device="meta"), task.x_lim, task.y_lim)
+        fused_solve.fused_reroll(x0, torch.zeros(5, 2, device="meta"), task)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fused_solve.fused_racing_solve(
+        fused_solve.fused_solve(
             x0, torch.zeros(5, 2, device="meta"), torch.ones(1, device="meta"), 0,
             torch.zeros(6, 5, device="meta"), task, SIGMAS, U_MIN, U_MAX, 8, 8,
         )

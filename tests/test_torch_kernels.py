@@ -72,10 +72,10 @@ def test_fused_solve_kernel_matches_twin(card, mode, horizon, num_samples, explo
     threshold = int(num_samples * (1.0 - exploration))
     args = (x0, prev, lam, tick_seed(1, 2), xref5, task, SIGMAS, U_MIN, U_MAX,
             num_samples, threshold, noise if mode == "noise" else None)
-    launches = fused_solve.fused_racing_solve.launches
-    got = fused_solve.fused_racing_solve(*args)
-    assert fused_solve.fused_racing_solve.launches == launches + 1
-    want = fused_solve.fused_racing_solve_plain(*args)
+    launches = fused_solve.fused_solve.launches["racing_fused_solve"]
+    got = fused_solve.fused_solve(*args)
+    assert fused_solve.fused_solve.launches["racing_fused_solve"] == launches + 1
+    want = fused_solve.fused_solve_plain(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
     if mode == "noise":
@@ -96,8 +96,8 @@ def test_reroll_kernel_matches_twin(card):
         seq = torch.tensor(np.stack([rng.uniform(-2.5, 2.5, horizon),
                                      rng.uniform(-0.3, 0.3, horizon)], axis=1),
                            dtype=torch.float32, device="cuda")
-        got = fused_solve.racing_reroll(x0, seq, task.x_lim, task.y_lim)
-        want = fused_solve.racing_reroll_plain(x0, seq, task.x_lim, task.y_lim)
+        got = fused_solve.fused_reroll(x0, seq, task)
+        want = fused_solve.fused_reroll_plain(x0, seq, task)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
@@ -108,13 +108,13 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
     lam = torch.ones(1, device="cuda")
     base = (x0, prev, lam, 0, xref5, task, SIGMAS, U_MIN, U_MAX, 256, 256)
     with pytest.raises(ValueError, match="dtype"):
-        fused_solve.fused_racing_solve(x0.double(), *base[1:])
+        fused_solve.fused_solve(x0.double(), *base[1:])
     with pytest.raises(ValueError, match="contiguous"):
-        fused_solve.fused_racing_solve(x0, prev.t().contiguous().t(), *base[2:])
+        fused_solve.fused_solve(x0, prev.t().contiguous().t(), *base[2:])
     with pytest.raises(ValueError, match="shape"):
-        fused_solve.fused_racing_solve(x0, prev, lam, 0, xref5[:-1].contiguous(), *base[5:])
+        fused_solve.fused_solve(x0, prev, lam, 0, xref5[:-1].contiguous(), *base[5:])
     with pytest.raises(ValueError, match="horizon"):
-        fused_solve.fused_racing_solve(x0, torch.zeros(513, 2, device="cuda"), *base[2:])
+        fused_solve.fused_solve(x0, torch.zeros(513, 2, device="cuda"), *base[2:])
 
 
 @pytest.mark.parametrize("mode", ["noise", "seeded"])
@@ -126,10 +126,10 @@ def test_auto_lambda_phases_match_twins(card, mode, horizon, num_samples, explor
     threshold = int(num_samples * (1.0 - exploration))
     args = (x0, prev, tick_seed(3, 4), xref5, task, SIGMAS, U_MIN, U_MAX,
             num_samples, threshold, noise if mode == "noise" else None)
-    launches = fused_solve.fused_racing_costs_dump.launches
-    costs, dump = fused_solve.fused_racing_costs_dump(*args)
-    assert fused_solve.fused_racing_costs_dump.launches == launches + 1
-    want_costs, want_dump = fused_solve.fused_racing_costs_dump_plain(*args)
+    launches = fused_solve.fused_costs_dump.launches["racing_costs_dump"]
+    costs, dump = fused_solve.fused_costs_dump(*args)
+    assert fused_solve.fused_costs_dump.launches["racing_costs_dump"] == launches + 1
+    want_costs, want_dump = fused_solve.fused_costs_dump_plain(*args)
     torch.cuda.synchronize()
     assert dump.shape == (2 * horizon, num_samples)
     torch.testing.assert_close(costs, want_costs, rtol=1e-5, atol=0)
@@ -139,16 +139,16 @@ def test_auto_lambda_phases_match_twins(card, mode, horizon, num_samples, explor
 
     # phase 2 at lambda = 1 gives the fixed solve's partials, bit for bit
     lam = torch.ones(1, device="cuda")
-    fixed = fused_solve.fused_racing_solve(x0, prev, lam, *args[2:])
-    stats, numer = fused_solve.racing_weighted(costs, dump, lam)
+    fixed = fused_solve.fused_solve(x0, prev, lam, *args[2:])
+    stats, numer = fused_solve.fused_weighted(costs, dump, lam)
     torch.testing.assert_close(fixed[0], costs, rtol=0, atol=0)
     torch.testing.assert_close(stats, fixed[1], rtol=0, atol=0)
     torch.testing.assert_close(numer, fixed[2], rtol=0, atol=0)
 
     # phase 2 at another lambda against its twin: the fixed solve's bar
     lam = torch.full((1,), 37.5, device="cuda")
-    got = fused_solve.racing_weighted(costs, dump, lam)
-    want = fused_solve.racing_weighted_plain(costs, dump, lam)
+    got = fused_solve.fused_weighted(costs, dump, lam)
+    want = fused_solve.fused_weighted_plain(costs, dump, lam)
     g = combine_partials(costs, *got, lam, horizon, 2)
     w = combine_partials(costs, *want, lam, horizon, 2)
     torch.testing.assert_close(g[1], w[1], rtol=0, atol=1e-5)  # weights
@@ -227,11 +227,11 @@ def test_phase2_shares_the_weighted_update_body(card):
 
     env, task = card
     x0, prev, xref5, _ = _inputs(env, 50, 20_000, seed=4)
-    costs, dump = fused_solve.fused_racing_costs_dump(x0, prev, tick_seed(5, 6), xref5, task,
+    costs, dump = fused_solve.fused_costs_dump(x0, prev, tick_seed(5, 6), xref5, task,
                                                       SIGMAS, U_MIN, U_MAX, 20_000, 20_000)
     for lam in (0.5, 10.0):
         lam_t = torch.full((1,), lam, device="cuda")
-        p2 = fused_solve.racing_weighted(costs, dump, lam_t)
+        p2 = fused_solve.fused_weighted(costs, dump, lam_t)
         r9 = wu.weighted_update_partials(costs, dump.t().contiguous(), lam_t)
         torch.testing.assert_close(p2[0], r9[0], rtol=0, atol=0)
         torch.testing.assert_close(p2[1], r9[1], rtol=0, atol=0)
@@ -248,19 +248,19 @@ def test_regen_kernel_equals_phase1_dump(card, mode, horizon, num_samples, explo
     threshold = int(num_samples * (1.0 - exploration))
     nz = noise if mode == "noise" else None
     seed = tick_seed(7, 8)
-    costs, dump = fused_solve.fused_racing_costs_dump(x0, prev, seed, xref5, task, SIGMAS, U_MIN,
+    costs, dump = fused_solve.fused_costs_dump(x0, prev, seed, xref5, task, SIGMAS, U_MIN,
                                                       U_MAX, num_samples, threshold, nz)
     args = (SIGMAS, U_MIN, U_MAX, num_samples, threshold, nz)
-    launches = fused_solve.racing_regen.launches
-    full = fused_solve.racing_regen(prev, seed, torch.arange(num_samples, device="cuda"), *args)
-    assert fused_solve.racing_regen.launches == launches + 1
+    launches = fused_solve.fused_regen.launches["fused_regen_m2"]
+    full = fused_solve.fused_regen(prev, seed, torch.arange(num_samples, device="cuda"), *args)
+    assert fused_solve.fused_regen.launches["fused_regen_m2"] == launches + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(full, dump.t().reshape(num_samples, horizon, 2), rtol=0, atol=0)
     torch.testing.assert_close(
-        full, fused_solve.racing_regen_plain(prev, seed, torch.arange(num_samples, device="cuda"),
+        full, fused_solve.fused_regen_plain(prev, seed, torch.arange(num_samples, device="cuda"),
                                              *args), rtol=0, atol=0)
     rows = top_indices(-costs, min(300, num_samples))[1]
-    torch.testing.assert_close(fused_solve.racing_regen(prev, seed, rows, *args), full[rows],
+    torch.testing.assert_close(fused_solve.fused_regen(prev, seed, rows, *args), full[rows],
                                rtol=0, atol=0)
 
 
@@ -275,7 +275,7 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         wu.weighted_update_partials(costs, samples.t().contiguous().t(), one)
     with pytest.raises(ValueError, match="dtype"):
-        fused_solve.racing_regen(torch.zeros(5, 2, device="cuda"), 0,
+        fused_solve.fused_regen(torch.zeros(5, 2, device="cuda"), 0,
                                  torch.zeros(3, dtype=torch.int32, device="cuda"), SIGMAS, U_MIN,
                                  U_MAX, 16, 16)
 
@@ -289,3 +289,106 @@ def test_float64_controller_on_the_card_asks_for_the_plain_route(card):
         RacingController(env, dtype=torch.float64)
     ctrl = RacingController(env, dtype=torch.float64, kernel_backend="xla")
     assert ctrl.solver_backend == "xla"
+
+
+# --- every other model family, and the lambda epilogue -----------------------
+
+NEW_MODELS = ("navigation", "danger_zone", "pendulum", "cartpole", "mountain_car", "integrator")
+# models whose step calls libm sin/cos: the card's sinf/cosf against torch.sin/cos on
+# the card are expected to agree bit for bit; held to the JAX package's fused-vs-XLA
+# cost bar (tests/test_fused_models.py) if they do not
+LIBM_MODELS = ("danger_zone", "pendulum", "cartpole", "mountain_car")
+
+
+def _model_inputs(name, num_samples=None, seed=11):
+    from mppi_playground_tpu_torch.workloads import build_model_workload
+
+    w = build_model_workload(name, device="cuda", num_samples=num_samples)
+    kw = w.mppi_kwargs
+    horizon, m, k = kw["horizon"], kw["dim_control"], kw["num_samples"]
+    rng = np.random.default_rng(seed)
+    sig = np.asarray(kw["sigmas"])
+    prev = torch.tensor(rng.standard_normal((horizon, m)) * sig, dtype=torch.float32,
+                        device="cuda")
+    noise = torch.tensor(rng.standard_normal((k, horizon, m)) * sig, dtype=torch.float32,
+                         device="cuda")
+    bounds = (tuple(kw["sigmas"]), tuple(float(v) for v in torch.as_tensor(kw["u_min"]).tolist()),
+              tuple(float(v) for v in torch.as_tensor(kw["u_max"]).tolist()))
+    return w, prev, noise, bounds
+
+
+def _assert_costs(name, got, want):
+    if name in LIBM_MODELS:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["noise", "seeded"])
+@pytest.mark.parametrize("name", NEW_MODELS)
+def test_model_kernels_match_twins(card, name, mode):
+    w, prev, noise, (sig, lo, hi) = _model_inputs(name)
+    k = w.mppi_kwargs["num_samples"]
+    horizon, m = prev.shape
+    nz = noise if mode == "noise" else None
+    lam = torch.ones(1, device="cuda")
+    threshold = int(0.8 * k)
+    args = (w.x0, prev, lam, tick_seed(4, 2), None, w.task, sig, lo, hi, k, threshold, nz)
+    got = fused_solve.fused_solve(*args)
+    want = fused_solve.fused_solve_plain(*args)
+    costs, dump = fused_solve.fused_costs_dump(w.x0, prev, *args[3:])
+    want_dump = fused_solve.fused_costs_dump_plain(w.x0, prev, *args[3:])[1]
+    stats, numer = fused_solve.fused_weighted(costs, dump, lam)
+    rows = torch.arange(k, device="cuda")
+    regen = fused_solve.fused_regen(prev, args[3], rows, sig, lo, hi, k, threshold, nz)
+    torch.cuda.synchronize()
+    _assert_costs(name, got[0], want[0])
+    torch.testing.assert_close(dump, want_dump, rtol=0, atol=0)  # clamped draws: exact
+    g = combine_partials(*got, lam, horizon, m)
+    v = combine_partials(*want, lam, horizon, m)
+    torch.testing.assert_close(g[1], v[1], rtol=0, atol=1e-5)  # weights
+    torch.testing.assert_close(g[0], v[0], rtol=0, atol=5e-3)  # update
+    # phase 1 and 2 at lambda = 1 give the fixed solve, bit for bit
+    for a, b in ((costs, got[0]), (stats, got[1]), (numer, got[2])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # regeneration replays phase 1's dump
+    torch.testing.assert_close(regen, dump.t().reshape(k, horizon, m), rtol=0, atol=0)
+    seq = g[0].contiguous()
+    states = fused_solve.fused_reroll(w.x0, seq, w.task)
+    want_states = fused_solve.fused_reroll_plain(w.x0, seq, w.task)
+    torch.cuda.synchronize()
+    _assert_costs(name, states, want_states)
+
+
+@pytest.mark.parametrize("mode", ["ESSPS", "LBPS"])
+@pytest.mark.parametrize("name,num_samples", [("navigation", 3000), ("navigation", 100_000),
+                                              ("racing", 100_000)])
+def test_lambda_epilogue_equals_the_standalone_route(card, name, num_samples, mode):
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+
+    if name == "racing":
+        env, task = card
+        x0, prev, ref, noise = _inputs(env, 50, num_samples, seed=9)
+        sig, lo, hi = SIGMAS, U_MIN, U_MAX
+    else:
+        w, prev, noise, (sig, lo, hi) = _model_inputs(name, num_samples)
+        x0, ref, task = w.x0, None, w.task
+    param = num_samples / 10.0 if mode == "ESSPS" else 0.01
+    search = LambdaSearch(mode, 0.01, 10.0, param, 40 if mode == "ESSPS" else 32)
+    ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for nz in (noise, None):
+        args = (x0, prev, tick_seed(5, 1), ref, task, sig, lo, hi, num_samples, num_samples, nz)
+        before = fused_solve.fused_costs_dump_lambda.launches[f"{name}_costs_dump_lambda"]
+        for _ in range(2):  # the ticket resets between launches
+            costs, dump, lam = fused_solve.fused_costs_dump_lambda(*args, search, ticket)
+        assert (fused_solve.fused_costs_dump_lambda.launches[f"{name}_costs_dump_lambda"]
+                == before + 2)
+        want_costs, want_dump = fused_solve.fused_costs_dump(*args)
+        want_lam = search.run(want_costs)
+        torch.cuda.synchronize()
+        assert int(ticket.item()) == 0
+        torch.testing.assert_close(costs, want_costs, rtol=0, atol=0)
+        torch.testing.assert_close(dump, want_dump, rtol=0, atol=0)
+        assert lam.item() == want_lam.item(), (lam.item(), want_lam.item())
+        bar = dict(rtol=1e-4, atol=1e-6) if mode == "ESSPS" else dict(rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(lam.reshape(()), search.plain(costs), **bar)
