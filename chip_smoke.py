@@ -20,21 +20,25 @@ Phases, each of which fails the run if it fails:
    clamp and the interior), phase 2 at lambda* and, at lambda=1, against
    the fixed solve's partials; each timed with CUDA events;
 5. the weighted update (D=100 at lambda 1 and 10 on the unfused route's
-   perturbations and costs, D=100 and D=2,000 under spread costs) against
-   its twin, the block partials and the combined output each held to a bar,
-   and against phase 2 on the same perturbations (one reduction body:
-   bitwise); regeneration of all K rows, seeded and in noise mode, against
-   phase 1's dump (bitwise) and of the top 300 rows against those rows;
-   each timed, the weighted update beside ``torch.softmax`` then
-   ``torch.mv``;
+   perturbations and costs; D=100, 1,536 and 2,000 under spread costs; and
+   every (K, D) an unfused path of phases 7, 8 and 11 launches) against its
+   twin, the block partials and the combined output each held to a bar,
+   and against phase 2 on the same perturbations (the same statistics bit
+   for bit, the numerators to the partials bar); regeneration of all K
+   rows, seeded and in noise mode, against phase 1's dump (bitwise) and of
+   the top 300 rows against those rows; each timed, the weighted update at
+   each width and shape beside its bound and ``torch.softmax`` then
+   ``torch.mv``, at D=100 also with a cold L2;
 6. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
-   lambda and under ESSPS, LBPS and MPO, and ESSPS and LBPS with the lambda
-   epilogue, for 50 closed-loop ticks of ``RacingEnv.step`` each, every
-   launch counter set to 0 just before each mode and read just after: each
-   kernel of the mode's path launched once a tick and every other kernel
-   never, lambda in bounds, actions in bounds, progress, and one solve per
-   mode with no host sync (``torch.cuda.set_sync_debug_mode("error")``);
-   then a profile and the modes' ticks timed in turns;
+   lambda and under ESSPS, LBPS and MPO (the solver's default lambda route),
+   and ESSPS and LBPS forced onto the lambda epilogue and onto the
+   standalone search, for 50 closed-loop ticks of ``RacingEnv.step`` each,
+   every launch counter set to 0 just before each mode and read just after:
+   each kernel of the mode's path launched once a tick and every other
+   kernel never, lambda in bounds, actions in bounds, progress, and one
+   solve per mode with no host sync
+   (``torch.cuda.set_sync_debug_mode("error")``); then a profile and the
+   modes' ticks timed in turns;
 7. drive ``RacingController(env)`` on its unfused route (the default) and
    its fused route (``store_rollouts=False``) at T=25, K=4,000 and at T=50,
    K=100,000: 50 ticks each of ``update``, ``env.step`` and
@@ -48,21 +52,32 @@ Phases, each of which fails the run if it fails:
    configuration (Navigation2D also at K=100,000): the fused solve, phase 1,
    phase 1 with the lambda epilogue, phase 2, regeneration and the re-roll,
    seeded and in noise mode, each timed;
-10. the lambda epilogue (phase 1 and the search in one launch) against
-    phase 1 then the search kernel, costs, dump and lambda* bitwise, at the
-    flagship under ESSPS and LBPS and at Navigation2D, the two routes timed
-    in turns;
-11. every model family's closed loops through ``MPPI`` (``MODEL_PATHS``):
-    Navigation2D to its goal on both lambda routes and unfused (and at
-    K=100,000), the danger zone's 100-step episode, the pendulum upright
-    after 200 steps, the classic models fused and unfused; counted, one
-    fused tick with no host sync, medians of ``forward`` and
-    ``get_top_samples``, a profile of the Navigation2D tick.
+10. the lambda epilogue (phase 1 and the search in one launch, run by the
+    last cluster) against phase 1 then the search kernel, costs, dump,
+    lambda* and the ticket bitwise in both noise modes, under ESSPS and
+    LBPS: racing and Navigation2D at each K of ``ROUTE_SAMPLES``
+    (3,000-100,000), every other family at its example's configuration, and
+    Navigation2D at K=524,288, the epilogue's gate, under ESSPS; the routes
+    timed in turns (standalone, epilogue, epilogue, standalone), and the
+    epilogue's phase-1 part (no bisection steps) beside phase 1 alone; the
+    K at which the epilogue was no slower in every case; each epilogue
+    kernel's registers and spills;
+11. every model family's closed loops (``MODEL_PATHS``): through ``MPPI``
+    (the default lambda route), and through ``make_fused_solver`` where a
+    path forces the lambda epilogue or the standalone search: Navigation2D
+    to its goal on both lambda routes and unfused (and at K=100,000), the
+    danger zone's 100-step episode, the pendulum upright after 200 steps,
+    the classic models fused and unfused; counted, one fused tick with no
+    host sync, medians of ``forward`` and ``get_top_samples``, a profile of
+    the Navigation2D tick.
 
 It prints a ``kernels`` JSON line before the last (every kernel, each
 launched on some path, or the run fails), and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the package
 beside it, it exits non-zero and prints no result.
+
+:func:`search_kernels_in_turns` times the search kernels of this checkout
+against another checkout's in turns (its docstring gives the command).
 """
 
 from __future__ import annotations
@@ -99,8 +114,12 @@ OPS_SCALE = 2  # z * sigma, per step, seeded mode only
 # adds, e * e; LBPS c * a, - shift, exp, three adds, e * e, e * c.  Plus the
 # min (and max) pass and, for ESSPS, d = min - c once.
 OPS_ESSPS_EVAL, OPS_LBPS_EVAL = 5, 8
-AUTO_MODES = ("ESSPS", "LBPS", "MPO")
-EPILOGUE_MODES = ("ESSPS epilogue", "LBPS epilogue")  # lambda_epilogue=True
+AUTO_MODES = ("ESSPS", "LBPS", "MPO")  # the solver's default lambda route
+# mode -> lambda_epilogue: a lambda route forced on make_fused_solver
+ROUTE_MODES = {"ESSPS epilogue": True, "LBPS epilogue": True, "ESSPS standalone": False,
+               "LBPS standalone": False}
+# K at which phase 10 times the two lambda routes in turns, racing and Navigation2D
+ROUTE_SAMPLES = (3000, 10_000, 20_000, 30_000, K)
 
 
 FUSED_SOLVE_PY = "mppi_playground_tpu/ops/fused_solve.py"
@@ -427,10 +446,10 @@ def mode_solvers(env, task, flagship_solver, flagship_tick) -> dict:
 
     path = env.racing_center_path
     solvers = {"fixed": (flagship_solver, flagship_tick)}
-    for mode in AUTO_MODES + EPILOGUE_MODES:
+    for mode in AUTO_MODES + tuple(ROUTE_MODES):
         cfg = dataclasses.replace(flagship_solver.config, lambda_=mode.split()[0])
         solver = make_fused_solver(cfg, task, env.dynamics, device="cuda",
-                                   lambda_epilogue=mode in EPILOGUE_MODES)
+                                   lambda_epilogue=ROUTE_MODES.get(mode))
 
         def tick(state, cind, x, solver=solver, horizon=cfg.horizon):
             xref, new_cind = calc_ref_trajectory(x, path, cind, horizon)
@@ -458,6 +477,23 @@ def launch_counters() -> dict:
     counted["lbps_lambda_fused"] = (lambda_search.lbps_lambda_fused, None)
     counted["weighted_update_partials"] = (weighted_update.weighted_update_partials, None)
     return counted
+
+
+def fused_kernels(name, config, lambda_epilogue=None) -> set:
+    """The kernels one fused tick of ``config`` and its get_top_samples launch once each.
+
+    The lambda route is the solver's own choice
+    (``core.fused_solver.takes_lambda_epilogue``).
+    """
+    from mppi_playground_tpu_torch.core.fused_solver import takes_lambda_epilogue
+
+    tail = {f"{name}_reroll", f"fused_regen_m{config.dim_control}"}
+    lam = config.auto_lambda
+    if lam in ("ESSPS", "LBPS"):
+        if takes_lambda_epilogue(config, lambda_epilogue):
+            return tail | {f"{name}_costs_dump_lambda", "fused_weighted"}
+        return tail | {f"{name}_costs_dump", "fused_weighted", f"{lam.lower()}_lambda_fused"}
+    return tail | {f"{name}_fused_solve"}
 
 
 def read_counters(counted: dict) -> dict:
@@ -534,13 +570,7 @@ def drive_modes(torch, fused_solve, env, solvers, card):
                 return None
             x, _ = env.step(action_seq[0])
         launches = read_counters(counted)
-        if mode in ("fixed", "MPO"):
-            once = {"racing_fused_solve", "racing_reroll"}
-        elif mode in EPILOGUE_MODES:
-            once = {"racing_costs_dump_lambda", "fused_weighted", "racing_reroll"}
-        else:
-            once = {"racing_costs_dump", "fused_weighted", "racing_reroll",
-                    f"{mode.lower()}_lambda_fused"}
+        once = fused_kernels("racing", cfg, ROUTE_MODES.get(mode)) - {"fused_regen_m2"}
         want = {name: (TICKS if name in once else 0) for name in counted}
         if launches != want:
             fail(f"{mode}: launches {launches}, expected {want}")
@@ -638,14 +668,95 @@ def partials_errors(torch, got, want, costs, samples, lam) -> dict:
     return res
 
 
+def cold_graph_ms(torch, fn, reps: int, flush) -> float:
+    """Device ms of one call of ``fn`` with a cold L2, the mean of ``reps``.
+
+    ``flush`` (past the 50 MB L2) is zeroed before each call, outside the
+    timed events; the call is a one-call CUDA graph, enqueued while the
+    flush still runs, so no host gap enters the time.
+    """
+    graph = captured(torch, fn, 1)
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+WEIGHTED_UPDATE_WIDTHS = (100, 1536, 2000)  # D: the flagship's unfused width, the JAX gate, past it
+
+
+def unfused_shapes() -> list:
+    """``(K, D)`` of every weighted update an unfused path of this script launches.
+
+    ``RacingController`` at its defaults (T=25, K=4,000) and ``MPPI`` at the
+    same size (phases 7 and 8), the racing flagship's width (T=50,
+    K=100,000), and each unfused path of :data:`MODEL_PATHS` at its
+    example's configuration (``D = T * m``).
+    """
+    from mppi_playground_tpu_torch.workloads import MODEL_CONFIGS
+
+    shapes = {(4000, 2 * 25), (K, 2 * T)}
+    for name, _, kw, _ in MODEL_PATHS:
+        if kw.get("unfused"):
+            horizon, k = MODEL_CONFIGS[name][:2]
+            shapes.add((kw.get("num_samples", k), horizon * MODEL_OPS[name].m))
+    return sorted(shapes)
+
+
+def weighted_update_vs_twin(torch, label, costs, samples, lam: float):
+    """Row 9 against its twin on one input; the result, or None after a failure.
+
+    The block partials are held to ``PARTIALS_BAR``; merged by
+    ``combine_partials``, the weights to atol 1e-5, the update to atol 5e-3
+    and the ESS to rtol 1e-3.
+    """
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    lam_t = torch.full((1,), lam, device=costs.device)
+    slots = samples.shape[1]
+    got = wu.weighted_update_partials(costs, samples, lam_t)
+    want = wu.block_partials_plain(costs, samples, lam_t)
+    g = wu.combine_partials(costs, *got, lam_t, slots, 1)
+    w = wu.combine_partials(costs, *want, lam_t, slots, 1)
+    torch.cuda.synchronize()
+    res = dict(partials_max_abs_err=max((got[0] - want[0]).abs().max().item(),
+                                        (got[1] - want[1]).abs().max().item()),
+               partials=partials_errors(torch, got, want, costs, samples, lam_t),
+               weights_max_abs_err=(g[1] - w[1]).abs().max().item(),
+               update_max_abs_err=(g[0] - w[0]).abs().max().item(),
+               ess=(g[2].item(), w[2].item()))
+    print(f"weighted update vs twin ({label}): {json.dumps(res)}", flush=True)
+    if not (res["partials"]["ok"] and res["weights_max_abs_err"] <= 1e-5
+            and res["update_max_abs_err"] <= 5e-3
+            and abs(res["ess"][0] - res["ess"][1]) <= 1e-3 * abs(res["ess"][1])):
+        fail(f"weighted update ({label}) off the bar: partials {PARTIALS_BAR}; weights atol "
+             "1e-5, update atol 5e-3, ESS rtol 1e-3")
+        return None
+    return res
+
+
 def check_weighted_update(torch, fused_solve, pert, costs, dump_costs, dump, card):
-    """Row 9 at the flagship's shapes: the kernel against its twin, phase 2's shared body.
+    """Row 9: the kernel against its twin and phase 2; timed at each width and path shape.
 
     ``pert [K, T, 2]`` are the unfused route's clamped perturbations and
     ``costs`` theirs; ``dump_costs``/``dump`` phase 1's seeded outputs.
-    The flagship's costs (about 1e5) leave a few rows with weight, so the
-    perturbations also run under spread costs (uniform in [0, 100)), where
-    many rows carry weight.  Returns the kernels-line row, or None after a
+    The flagship's costs (about 1e5) leave a few rows with weight, so
+    seeded normal samples of each width also run under spread costs
+    (uniform in [0, 100)), where many rows carry weight.  Then seeded
+    samples under spread costs at every shape of :func:`unfused_shapes`
+    (the 4-byte-load kernel where D % 4 != 0, narrow row groups, ragged
+    last blocks).  Each width and shape is timed beside ``torch.softmax``
+    then ``torch.mv`` on the same inputs, warm (repeated launches; at D=100
+    the 40 MB of samples stay in the 50 MB L2); at D=100 also cold (L2
+    flushed before each launch), the cache state of the byte bound, which
+    is the row's ``ms``.  Returns the kernels-line row, or None after a
     failure.
     """
     from mppi_playground_tpu_torch.ops import weighted_update as wu
@@ -653,70 +764,97 @@ def check_weighted_update(torch, fused_solve, pert, costs, dump_costs, dump, car
     dev = costs.device
     flat = pert.reshape(K, 2 * T).contiguous()
     rng = torch.Generator(device=dev).manual_seed(SEED + 9)
-    wide = torch.randn(K, 2000, generator=rng, device=dev)
     spread = torch.rand(K, generator=rng, device=dev) * 100.0
-    err, bitwise = 0.0, True
-    for name, c, samples, lam in (("D=100, lambda=1", costs, flat, 1.0),
-                                  ("D=100, lambda=10", costs, flat, 10.0),
-                                  ("D=100, spread costs, lambda=1", spread, flat, 1.0),
-                                  ("D=2000, spread costs, lambda=1", spread, wide, 1.0)):
-        lam_t = torch.full((1,), lam, device=dev)
-        got = wu.weighted_update_partials(c, samples, lam_t)
-        want = wu.block_partials_plain(c, samples, lam_t)
-        slots = samples.shape[1]
-        g = wu.combine_partials(c, *got, lam_t, slots // 2, 2)
-        w = wu.combine_partials(c, *want, lam_t, slots // 2, 2)
-        torch.cuda.synchronize()
-        res = dict(partials_max_abs_err=max((got[0] - want[0]).abs().max().item(),
-                                            (got[1] - want[1]).abs().max().item()),
-                   partials_bitwise_equal=all(torch.equal(a, b) for a, b in zip(got, want)),
-                   partials=partials_errors(torch, got, want, c, samples, lam_t),
-                   weights_max_abs_err=(g[1] - w[1]).abs().max().item(),
-                   update_max_abs_err=(g[0] - w[0]).abs().max().item(),
-                   ess=(g[2].item(), w[2].item()))
-        print(f"weighted update vs twin ({name}, K={K}): {json.dumps(res)}", flush=True)
-        err = max(err, res["partials_max_abs_err"])
-        bitwise = bitwise and res["partials_bitwise_equal"]
-        if not (res["partials"]["ok"] and res["weights_max_abs_err"] <= 1e-5
-                and res["update_max_abs_err"] <= 5e-3
-                and abs(res["ess"][0] - res["ess"][1]) <= 1e-3 * abs(res["ess"][1])):
-            fail(f"weighted update ({name}) off the bar: partials {PARTIALS_BAR}; weights atol "
-                 "1e-5, update atol 5e-3, ESS rtol 1e-3")
-            return None
-    # phase 2 and row 9 share one reduction body: the same partials, bit for bit
+    one = torch.ones(1, device=dev)
+    err, times = 0.0, {}
+    for slots in WEIGHTED_UPDATE_WIDTHS:
+        wide = torch.randn(K, slots, generator=rng, device=dev)
+        cases = [(f"D={slots}, spread costs, lambda=1", spread, wide, 1.0)]
+        if slots == 2 * T:
+            cases = [(f"D={slots}, lambda=1", costs, flat, 1.0),
+                     (f"D={slots}, lambda=10", costs, flat, 10.0),
+                     (f"D={slots}, spread costs, lambda=1", spread, flat, 1.0)] + cases
+        for name, c, samples, lam in cases:
+            res = weighted_update_vs_twin(torch, f"{name}, K={K}", c, samples, lam)
+            if res is None:
+                return None
+            err = max(err, res["partials_max_abs_err"])
+        x, c = (flat, costs) if slots == 2 * T else (wide, spread)
+
+        def kernel(c=c, x=x):
+            return wu.weighted_update_partials(c, x, one)
+
+        def library(c=c, x=x):
+            return torch.mv(x.t(), torch.softmax(-c / one, dim=0))
+
+        times[slots] = dict(
+            ms=graph_ms(torch, kernel, 50), library_ms=graph_ms(torch, library, 50),
+            launch_loop_ms=cuda_ms(torch, kernel, 50),
+            plain_ms=cuda_ms(torch, lambda: wu.block_partials_plain(c, x, one), 3, warmup=1),
+            bound_ms=weighted_update_bound_ms(K, slots)[0])
+        if slots == 2 * T:
+            flush = torch.empty(32 * 1024 * 1024, device=dev)  # 128 MB
+            times[slots].update(cold_ms=cold_graph_ms(torch, kernel, 20, flush),
+                                cold_library_ms=cold_graph_ms(torch, library, 20, flush))
+            del flush
+        del wide
+    # phase 2 and row 9 share the statistics' code; their numerators sum in other orders
+    samples = dump.t().contiguous()
     for lam in (1.0, 10.0):
         lam_t = torch.full((1,), lam, device=dev)
         p2 = fused_solve.fused_weighted(dump_costs, dump, lam_t)
-        r9 = wu.weighted_update_partials(dump_costs, dump.t().contiguous(), lam_t)
-        same = all(torch.equal(a, b) for a, b in zip(p2, r9))
+        r9 = wu.weighted_update_partials(dump_costs, samples, lam_t)
+        res = partials_errors(torch, r9, p2, dump_costs, samples, lam_t)
+        res["stats_bitwise"] = bool(torch.equal(p2[0], r9[0]))
         print(f"phase 2 vs the weighted update on the transposed dump (lambda={lam}): "
-              f"bitwise={same}", flush=True)
-        if not same:
-            fail("phase 2 and the weighted update differ on the same perturbations")
+              f"{json.dumps(res)}", flush=True)
+        if not (res["ok"] and res["stats_bitwise"]):
+            fail(f"phase 2 and the weighted update differ on the same perturbations: statistics "
+                 f"bitwise, partials {PARTIALS_BAR}")
             return None
+    del samples
 
-    one = torch.ones(1, device=dev)
-    t_k = cuda_ms(torch, lambda: wu.weighted_update_partials(costs, flat, one), 50)
-    t_plain = cuda_ms(torch, lambda: wu.block_partials_plain(costs, flat, one), 5, warmup=1)
-    t_lib = cuda_ms(torch, lambda: torch.mv(flat.t(), torch.softmax(-costs / one, dim=0)), 50)
-    t_wide = cuda_ms(torch, lambda: wu.weighted_update_partials(spread, wide, one), 20)
-    t_wide_plain = cuda_ms(torch, lambda: wu.block_partials_plain(spread, wide, one), 3,
-                           warmup=1)
-    t_wide_lib = cuda_ms(torch, lambda: torch.mv(wide.t(), torch.softmax(-spread / one, dim=0)),
-                         20)
-    bound, by = weighted_update_bound_ms(K, 2 * T)
-    b_wide, _ = weighted_update_bound_ms(K, 2000)
-    print(f"times on {card}: weighted update D=100 {t_k:.4f} ms (bound {bound:.5f} ms), twin "
-          f"{t_plain:.3f} ms, softmax + mv (two calls) {t_lib:.4f} ms; D=2000 {t_wide:.4f} ms "
-          f"(bound {b_wide:.5f} ms), twin {t_wide_plain:.3f} ms, softmax + mv {t_wide_lib:.4f} "
-          "ms", flush=True)
+    at_paths = {}
+    for k, slots in unfused_shapes():
+        c = torch.rand(k, generator=rng, device=dev) * 100.0
+        x = torch.randn(k, slots, generator=rng, device=dev)
+        for lam in (1.0, 10.0):
+            res = weighted_update_vs_twin(torch, f"K={k}, D={slots}, spread costs, lambda={lam:g}",
+                                          c, x, lam)
+            if res is None:
+                return None
+            err = max(err, res["partials_max_abs_err"])
+        at_paths[f"K={k} D={slots}"] = dict(
+            ms=graph_ms(torch, lambda c=c, x=x: wu.weighted_update_partials(c, x, one), 50),
+            library_ms=graph_ms(torch, lambda c=c, x=x: torch.mv(x.t(), torch.softmax(-c / one,
+                                                                                        dim=0)),
+                                50),
+            bound_ms=weighted_update_bound_ms(k, slots)[0])
+
+    by = weighted_update_bound_ms(K, 2 * T)[1]
+    print(f"times on {card}, weighted update at K={K} (device time of launches replayed in a "
+          "CUDA graph, warm; cold: L2 flushed before each launch; launch loop: events around "
+          "back-to-back wrapper calls): " + "; ".join(
+              f"D={d}: {t['ms']:.4f} ms (launch loop {t['launch_loop_ms']:.4f} ms), bound "
+              f"{t['bound_ms']:.5f} ms, softmax + mv {t['library_ms']:.4f} ms, twin "
+              f"{t['plain_ms']:.3f} ms"
+              + (f", cold {t['cold_ms']:.4f} ms (softmax + mv {t['cold_library_ms']:.4f} ms)"
+                 if "cold_ms" in t else "")
+              for d, t in times.items()), flush=True)
+    print(f"times on {card}, weighted update at the unfused paths' shapes (graph replay, warm): "
+          + "; ".join(f"{shape}: {t['ms']:.4f} ms, bound {t['bound_ms']:.6f} ms, softmax + mv "
+                      f"{t['library_ms']:.4f} ms" for shape, t in at_paths.items()), flush=True)
+    t100 = times[2 * T]
     return dict(name="weighted_update_partials", route="cuda",
                 source="mppi_playground_tpu_torch/csrc/weighted_update.cu",
                 replaces="mppi_playground_tpu/ops/pallas_kernels.py:142", max_abs_err=err,
-                bitwise_equal_to_twin=bitwise, ms=t_k, plain_ms=t_plain, bound_ms=bound,
-                bound_by=by, library_ms=t_lib, library_calls="torch.softmax then torch.mv (2)",
-                d2000_ms=t_wide, d2000_plain_ms=t_wide_plain, d2000_bound_ms=b_wide,
-                d2000_library_ms=t_wide_lib)
+                ms=t100["cold_ms"], plain_ms=t100["plain_ms"], bound_ms=t100["bound_ms"],
+                bound_by=by, library_ms=t100["cold_library_ms"],
+                library_calls="torch.softmax then torch.mv (2)", cache="cold (L2 flushed)",
+                warm_ms=t100["ms"], warm_library_ms=t100["library_ms"],
+                launch_loop_ms=t100["launch_loop_ms"], at_paths=at_paths,
+                **{f"d{d}_{key}": value for d, t in times.items() if d != 2 * T
+                   for key, value in t.items()})
 
 
 def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min, u_max,
@@ -902,12 +1040,9 @@ def drive_mppi(torch, env, task, card):
             launches = read_counters(counted)
             if route == "xla":
                 want_once = {"weighted_update_partials": calls}
-            elif mode == 1.0:
-                want_once = {"racing_fused_solve": calls, "racing_reroll": calls,
-                             "fused_regen_m2": 1}
-            else:
-                want_once = {"racing_costs_dump": calls, "essps_lambda_fused": calls,
-                             "fused_weighted": calls, "racing_reroll": calls, "fused_regen_m2": 1}
+            else:  # one top-samples call after the ticks
+                want_once = {name: calls for name in fused_kernels("racing", c.config)}
+                want_once["fused_regen_m2"] = 1
             want = {name: want_once.get(name, 0) for name in counted}
             lam = c.lambda_
             ok = (torch.isfinite(action_seq).all() and torch.isfinite(seqs).all()
@@ -1119,59 +1254,207 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     }
 
 
-def routes_in_turns(torch, standalone, epilogue, windows: int = 6, per_window: int = 10) -> dict:
-    """Median device ms per call of the two lambda routes, timed window by window in turns."""
-    times = {"standalone": [], "epilogue": []}
-    for fn in (standalone, epilogue):
+def captured(torch, fn, reps: int):
+    """A CUDA graph of ``reps`` calls of ``fn`` (warmed up once off the default stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return graph
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls replayed as one CUDA graph.
+
+    Unlike :func:`cuda_ms` the host's launch rate does not enter: the
+    wrappers' Python and ``ctypes`` work happens once, at capture.
+    """
+    graph = captured(torch, fn, reps)
+    graph.replay()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(torch, fns: dict, windows: int = 6, per_window: int = 10) -> dict:
+    """Median device ms per call of each of ``fns``, timed window by window in turns.
+
+    Each function's ``per_window`` calls are one CUDA graph (device time, no
+    host launch gaps); the order flips every window (a, b, c, then c, b, a),
+    so that every function meets the same drift of the card.
+    """
+    graphs = {name: captured(torch, fn, per_window) for name, fn in fns.items()}
+    for graph in graphs.values():
+        graph.replay()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    order = list(graphs.items())
     for _ in range(windows):
-        for route, fn in (("standalone", standalone), ("epilogue", epilogue)):
-            times[route].append(cuda_ms(torch, fn, per_window, warmup=0))
-    return {route: statistics.median(v) for route, v in times.items()}
+        for name, graph in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / per_window)
+        order.reverse()
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def ptxas_report(logs: dict, pattern: str) -> list:
+    """``library:kernel: registers, spills`` of the kernels whose name holds ``pattern``.
+
+    From ``nvcc -Xptxas -v``'s log of each library built in this run.
+    """
+    out = []
+    for lib, log in sorted(logs.items()):
+        fn = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn and pattern in fn and ("spill" in line or "registers" in line):
+                out.append(f"{lib}:{fn}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
+    """Rows 7 and 8 of this checkout against another checkout's, in turns on one card.
+
+    Compares a change to the search kernels with its parent::
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.search_kernels_in_turns("DIR"))'
+
+    ``DIR`` is the other checkout's root: its ``csrc/lambda_search.cu`` is
+    built with this checkout's flags and called through the same C functions
+    (``essps_search``, ``lbps_search``).  At each K, on seeded costs uniform
+    in [0, 20) (each search takes its fixed number of steps on any costs),
+    both kernels must give lambda* bit for bit; :func:`in_turns` then times
+    them (device time of graph replays, the order flipped every window).
+    Prints the card's line, then one JSON line a search and K; returns the
+    exit code.
+    """
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.ops import cuda_build
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+
+    card = card_line()
+    print(card, flush=True)
+    source = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc" / "lambda_search.cu"
+    target = cuda_build.BUILD_DIR / "other_lambda_search.so"
+    target.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(target), str(source)],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(target))
+    argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 3
+                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    rng = torch.Generator(device="cuda").manual_seed(SEED)
+    for k in samples:
+        costs = torch.rand(k, generator=rng, device="cuda") * 20.0
+        for search in (LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40),
+                       LambdaSearch("LBPS", 0.01, 10.0, 0.01, 32)):
+            fn = getattr(lib, f"{search.mode.lower()}_search")
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+            def theirs(search=search, fn=fn, costs=costs):
+                out = torch.empty(1, device="cuda")
+                err = fn(costs.data_ptr(), costs.shape[0], ctypes.c_float(search.lambda_min),
+                         ctypes.c_float(search.lambda_max), ctypes.c_float(search.kernel_param),
+                         search.iters, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"the other checkout's search failed: cudaError_t {err}")
+                return out
+
+            def ours(search=search, costs=costs):
+                return search.run(costs)
+
+            lam_other, lam_this = theirs().item(), ours().item()
+            turns = in_turns(torch, {"other": theirs, "this": ours})
+            print(json.dumps({"search": search.mode, "num_samples": k, "card": card,
+                              "lam_other": lam_other, "lam_this": lam_this,
+                              "other_ms": turns["other"], "this_ms": turns["this"]}), flush=True)
+            if lam_other != lam_this:
+                return fail(f"{search.mode} at K={k}: lambda* {lam_this!r} here, {lam_other!r} "
+                            "in the other checkout")
+    return 0
 
 
 def check_epilogue(torch, fused_solve, cases, card):
     """Row 4: phase 1 with the search against phase 1 then the search kernel; timed in turns.
 
-    ``cases`` are ``(label, mode, phase-1 args)``.  Costs, dump and lambda*
-    must be bitwise the standalone route's, and lambda* within the bar of
-    ``lambda_vs_plain`` of the plain search on the twin's costs; ``max_abs_err``
-    is the largest gap of costs, dump and lambda* to the epilogue's plain twin.
-    Returns ``{label mode: result}`` or None after a failure.
+    ``cases`` are ``(label, mode, phase-1 args without the noise, noise)``.
+    In each noise mode the costs, dump and lambda* must be bitwise the
+    standalone route's and the ticket 0 after the launch; lambda* within the
+    bar of ``lambda_vs_plain`` of the plain search on the twin's costs;
+    ``max_abs_err`` is the largest gap of costs, dump and lambda* to the
+    epilogue's plain twin.  Timed in turns on the seeded stream: the
+    standalone route, the epilogue, its phase-1 part (the search with no
+    bisection or golden steps: the min/max pass and two evaluations) and
+    phase 1 alone.  Returns ``{label mode: result}`` or None after a
+    failure.
     """
     from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 
     out = {}
-    for label, mode, args in cases:
-        k = args[-3]
+    for label, mode, args, noise in cases:
+        k = args[-2]
         param = k / 10.0 if mode == "ESSPS" else 0.01
         search = LambdaSearch(mode, 0.01, 10.0, param, 40 if mode == "ESSPS" else 32)
+        no_steps = dataclasses.replace(search, iters=0)
         ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+        seeded = args + (None,)
 
-        def standalone():
-            costs, dump = fused_solve.fused_costs_dump(*args)
+        def standalone(a=seeded):
+            costs, dump = fused_solve.fused_costs_dump(*a)
             return costs, dump, search.run(costs)
 
-        def epilogue():
-            return fused_solve.fused_costs_dump_lambda(*args, search, ticket)
+        def epilogue(a=seeded, s=search):
+            return fused_solve.fused_costs_dump_lambda(*a, s, ticket)
 
-        got, want = epilogue(), standalone()
-        twin = fused_solve.fused_costs_dump_lambda_plain(*args, search)
-        torch.cuda.synchronize()
-        same = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-                and got[2].item() == want[2].item() and int(ticket.item()) == 0)
-        lam_err, lam_ok = lambda_vs_plain(search, twin[0], got[2])
-        err = max([(a - b).abs().max().item() for a, b in zip(got[:2], twin[:2])] + [lam_err])
-        del twin
-        turns = routes_in_turns(torch, standalone, epilogue)
-        res = dict(bitwise=bool(same), lam=got[2].item(), lam_vs_plain_abs_err=lam_err,
+        same, lam_ok, err, lam_gap = True, True, 0.0, 0.0
+        for nz in (noise, None):
+            a = args + (nz,)
+            got, want = epilogue(a), standalone(a)
+            torch.cuda.synchronize()
+            same = same and (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                             and got[2].item() == want[2].item() and int(ticket.item()) == 0)
+            twin = fused_solve.fused_costs_dump_lambda_plain(*a, search)
+            lam_err, ok = lambda_vs_plain(search, twin[0], got[2])
+            lam_ok, lam_gap = lam_ok and ok, max(lam_gap, lam_err)
+            err = max([err, lam_err] + [(x - y).abs().max().item()
+                                        for x, y in zip(got[:2], twin[:2])])
+            del twin, got, want
+        turns = in_turns(torch, {
+            "standalone": standalone,
+            "epilogue": epilogue,
+            "epilogue_no_steps": lambda: epilogue(s=no_steps),
+            "phase1": lambda: fused_solve.fused_costs_dump(*seeded),
+        })
+        res = dict(bitwise=bool(same), lam=epilogue()[2].item(), lam_vs_plain_abs_err=lam_gap,
                    lam_within_plain_bar=lam_ok, max_abs_err=err,
-                   standalone_ms=turns["standalone"], epilogue_ms=turns["epilogue"])
-        print(f"lambda epilogue vs standalone route ({label}, {mode}) on {card}: {json.dumps(res)}",
-              flush=True)
+                   standalone_ms=turns["standalone"], epilogue_ms=turns["epilogue"],
+                   epilogue_no_steps_ms=turns["epilogue_no_steps"], phase1_ms=turns["phase1"])
+        print(f"lambda epilogue vs standalone route ({label}, {mode}) on {card}, in turns: "
+              f"{json.dumps(res)}", flush=True)
         if not same:
-            fail(f"lambda epilogue ({label}, {mode}) differs from phase 1 + the search kernel")
+            fail(f"lambda epilogue ({label}, {mode}) differs from phase 1 + the search kernel, "
+                 "or left its ticket set")
             return None
         if not lam_ok:
             fail(f"lambda epilogue ({label}, {mode}): lambda* off the plain search's bar (ESSPS "
@@ -1182,43 +1465,72 @@ def check_epilogue(torch, fused_solve, cases, card):
 
 
 # (model, path, MPPI overrides, ticks): the closed loops of the model families.
-# "fused"/"unfused" at the example's configuration; the auto-lambda variants
-# put each model's phase-1 and epilogue kernels on a path.
+# "fused"/"unfused" at the example's configuration, through MPPI and its
+# default lambda route; "lambda_epilogue" forces a lambda route through
+# make_fused_solver (SolverLoop), so that each model's phase-1 kernels of
+# both routes run on a path.
 MODEL_PATHS = (
     ("navigation", "fused ESSPS", {}, 300),
     ("navigation", "fused ESSPS epilogue", dict(lambda_epilogue=True), 300),
+    ("navigation", "fused ESSPS standalone", dict(lambda_epilogue=False), 300),
     ("navigation", "unfused ESSPS", dict(unfused=True), 300),
     ("navigation", "fused MPO", dict(lambda_="MPO"), 10),
     ("navigation", "K=100000 fused ESSPS", dict(num_samples=100_000), 30),
     ("navigation", "K=100000 fused ESSPS epilogue", dict(num_samples=100_000,
                                                         lambda_epilogue=True), 30),
+    ("navigation", "K=100000 fused ESSPS standalone", dict(num_samples=100_000,
+                                                          lambda_epilogue=False), 10),
     ("danger_zone", "fused", {}, 100),
     ("danger_zone", "unfused", dict(unfused=True), 100),
-    ("danger_zone", "fused ESSPS", dict(lambda_="ESSPS"), 10),
-    ("danger_zone", "fused LBPS epilogue", dict(lambda_="LBPS", lambda_epilogue=True), 10),
-    ("pendulum", "fused ESSPS epilogue", dict(lambda_epilogue=True), 200),
-    ("pendulum", "fused ESSPS", {}, 30),
+    ("pendulum", "fused ESSPS", {}, 200),
+    ("pendulum", "fused ESSPS epilogue", dict(lambda_epilogue=True), 10),
+    ("pendulum", "fused ESSPS standalone", dict(lambda_epilogue=False), 30),
     ("pendulum", "unfused", dict(unfused=True), 30),
     ("pendulum", "fused fixed", dict(lambda_=1.0), 10),
 ) + tuple(
     (name, path, kw, ticks)
-    for name in ("cartpole", "mountain_car", "integrator")
-    for path, kw, ticks in (("fused", {}, 50), ("unfused", dict(unfused=True), 50),
-                            ("fused ESSPS", dict(lambda_="ESSPS"), 10),
-                            ("fused LBPS epilogue", dict(lambda_="LBPS", lambda_epilogue=True), 10))
+    for name, fixed_paths in (("danger_zone", ()),
+                              ("cartpole", (("fused", {}, 50), ("unfused", dict(unfused=True), 50))),
+                              ("mountain_car", (("fused", {}, 50),
+                                                ("unfused", dict(unfused=True), 50))),
+                              ("integrator", (("fused", {}, 50),
+                                              ("unfused", dict(unfused=True), 50))))
+    for path, kw, ticks in fixed_paths + (
+        ("fused ESSPS", dict(lambda_="ESSPS"), 10),
+        ("fused ESSPS standalone", dict(lambda_="ESSPS", lambda_epilogue=False), 10),
+        ("fused LBPS epilogue", dict(lambda_="LBPS", lambda_epilogue=True), 10))
 )
 
 
-def path_kernels(name, m, lam, epilogue, fused) -> set:
-    """The kernels a tick and its get_top_samples launch once each on a path."""
-    if not fused:
-        return {"weighted_update_partials"}
-    tail = {f"{name}_reroll", f"fused_regen_m{m}"}
-    if lam in ("ESSPS", "LBPS"):
-        if epilogue:
-            return tail | {f"{name}_costs_dump_lambda", "fused_weighted"}
-        return tail | {f"{name}_costs_dump", "fused_weighted", f"{lam.lower()}_lambda_fused"}
-    return tail | {f"{name}_fused_solve"}
+class SolverLoop:
+    """``MPPI``'s tick loop over a fused solver built with a forced lambda route.
+
+    ``MPPI`` takes no lambda-route option (as the JAX facade); a path that
+    forces one drives ``make_fused_solver(..., lambda_epilogue=...)`` through
+    the same ``forward``, ``get_top_samples`` and ``reset``.
+    """
+
+    solver_backend = "fused"
+
+    def __init__(self, solver):
+        self.solver, self.state, self.aux = solver, solver.init(), None
+
+    def forward(self, x):
+        result = self.solver.solve(self.state, x)
+        self.state, self.aux = result.state, result.aux
+        return result.action_seq, result.state_seq
+
+    def get_top_samples(self, n):
+        return self.solver.top_samples(self.aux, n)
+
+    def reset(self):
+        from mppi_playground_tpu_torch.core.solver import warm_reset
+
+        self.state, self.aux = warm_reset(self.solver, self.state), None
+
+    @property
+    def lambda_(self) -> float:
+        return float(self.state.lam)
 
 
 def drive_model_paths(torch, card):
@@ -1232,6 +1544,7 @@ def drive_model_paths(torch, card):
     episode's reward and cost.  Returns ``{path: result}`` or None.
     """
     from mppi_playground_tpu_torch import MPPI
+    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
     from mppi_playground_tpu_torch.utils.angles import angle_normalize
     from mppi_playground_tpu_torch.workloads import build_model_workload
 
@@ -1245,8 +1558,12 @@ def drive_model_paths(torch, card):
         envs[name] = w.env
         args = dict(w.mppi_kwargs, **kw)
         if fused:
-            args.update(store_rollouts=False, fused_task=w.task, lambda_epilogue=epilogue)
+            args.update(store_rollouts=False, fused_task=w.task)
         c = MPPI(**args)
+        config = c.config
+        if epilogue is not None:
+            c = SolverLoop(make_fused_solver(config, w.task, args["dynamics"], device="cuda",
+                                             lambda_epilogue=epilogue))
         label = f"{name} {path}"
         if c.solver_backend != ("fused" if fused else "xla"):
             fail(f"{label}: MPPI took the {c.solver_backend} route")
@@ -1310,7 +1627,7 @@ def drive_model_paths(torch, card):
             else:
                 x = w.plant(x, action_seq[0])
         launches = read_counters(counted)
-        once = path_kernels(name, args["dim_control"], args["lambda_"], epilogue, fused)
+        once = fused_kernels(name, config, epilogue) if fused else {"weighted_update_partials"}
         want = {kernel: (done if kernel in once else 0) for kernel in counted}
         if launches != want:
             fail(f"{label}: launches {launches}, expected {want}")
@@ -1328,7 +1645,7 @@ def drive_model_paths(torch, card):
                 return None
         if name == "danger_zone":
             res.update(episodic_reward=reward, episodic_cost=cost)
-        if name == "pendulum" and path == "fused ESSPS epilogue":
+        if name == "pendulum" and path == "fused ESSPS":
             res["theta"] = float(angle_normalize(x[0]))
             if abs(res["theta"]) >= 0.15:
                 fail(f"{label}: not upright after {ticks} steps (theta {res['theta']!r})")
@@ -1338,7 +1655,7 @@ def drive_model_paths(torch, card):
               f"{card}: {json.dumps({k: v for k, v in res.items() if k != 'launches'})}",
               flush=True)
         out[label] = res
-        if name == "navigation" and path in ("fused ESSPS", "fused ESSPS epilogue"):
+        if name == "navigation" and path in ("fused ESSPS epilogue", "fused ESSPS standalone"):
             def nav_tick(c=c, env=w.env):
                 nonlocal x
                 a, _ = c.forward(x)
@@ -1367,6 +1684,7 @@ def main() -> int:
     import numpy as np
 
     from mppi_playground_tpu_torch.core.config import tick_seed
+    from mppi_playground_tpu_torch.core.fused_solver import EPILOGUE_DEFAULT_MAX_SAMPLES
     from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
     from mppi_playground_tpu_torch.models.racing_mpcc import (
         calc_ref_trajectory,
@@ -1482,6 +1800,8 @@ def main() -> int:
                                           u_max, K, K, noise)
     dump_costs, dump = fused_solve.fused_costs_dump(x0, prev, seed, xref5, task, sig,
                                                            u_min, u_max, K, K, None)
+    print("ptxas, the weighted update: "
+          + "; ".join(ptxas_report(cuda_build.build_logs, "weighted_update")), flush=True)
     row9 = check_weighted_update(torch, fused_solve, pert, noise_costs, dump_costs, dump, card)
     if row9 is None:
         return 1
@@ -1511,7 +1831,7 @@ def main() -> int:
           f"{turns['fixed']:.3f} ms; " + "; ".join(
               f"{m} {turns[m]:.3f} ms "
               f"({100.0 * (turns[m] - turns['fixed']) / turns['fixed']:+.1f}%)"
-              for m in AUTO_MODES + EPILOGUE_MODES), flush=True)
+              for m in AUTO_MODES + tuple(ROUTE_MODES)), flush=True)
 
     # --- phase 7: the RacingController facade on both routes, counted -------
     facades = drive_facades(torch, env, card)
@@ -1542,38 +1862,55 @@ def main() -> int:
                                                                      "bound_by", "max_abs_err")})
 
     # --- phase 10: row 4, the lambda epilogue against the standalone route ----
-    nav, nav_prev, _, nav_bounds = model_inputs(torch, np, "navigation")
-    nav_wide, wide_prev, _, _ = model_inputs(torch, np, "navigation", 100_000)
-    flag_args = (x0, prev, seed, xref5, task, sig, u_min, u_max, K, K, None)
-    cases = [(f"flagship T={T} K={K}", mode, flag_args) for mode in ("ESSPS", "LBPS")] + [
-        (f"navigation T=30 K={k}", mode, (w.x0, p, seed, None, w.task, *nav_bounds, k, k, None))
-        for w, p, k, modes in ((nav, nav_prev, 3000, ("ESSPS", "LBPS")),
-                               (nav_wide, wide_prev, 100_000, ("ESSPS",)))
-        for mode in modes
-    ]
+    print("ptxas, the lambda epilogue's kernels: "
+          + "; ".join(ptxas_report(cuda_build.build_logs, "costs_dump_lambda")), flush=True)
+    both = ("ESSPS", "LBPS")
+    cases = []
+    for k in ROUTE_SAMPLES:
+        cases += [(f"racing T={T} K={k}", mode,
+                   (x0, prev, seed, xref5, task, sig, u_min, u_max, k, k),
+                   noise[:k].contiguous()) for mode in both]
+    # Navigation2D over the same K and at the epilogue's gate; every other
+    # family at its example's configuration
+    model_cases = [("navigation", k, both) for k in ROUTE_SAMPLES]
+    model_cases += [("navigation", 524_288, ("ESSPS",))]
+    model_cases += [(name, None, both) for name in NEW_MODELS if name != "navigation"]
+    for name, k, searches in model_cases:
+        w, m_prev, m_noise, m_bounds = model_inputs(torch, np, name, k)
+        k = w.mppi_kwargs["num_samples"]
+        cases += [(f"{name} T={m_prev.shape[0]} K={k}", mode,
+                   (w.x0, m_prev, seed, None, w.task, *m_bounds, k, k), m_noise)
+                  for mode in searches]
     epilogue = check_epilogue(torch, fused_solve, cases, card)
+    del cases
     if epilogue is None:
         return 1
+    by_k = {}
+    for label, res in epilogue.items():
+        k = int(label.split("K=")[1].split()[0])
+        by_k.setdefault(k, []).append(res["epilogue_ms"] <= res["standalone_ms"])
+    print(f"lambda routes on {card}: the epilogue no slower than the standalone route in every "
+          f"case at K = {[k for k, v in sorted(by_k.items()) if all(v)]}, slower in some at K = "
+          f"{[k for k, v in sorted(by_k.items()) if not all(v)]}; the default route takes the "
+          f"epilogue up to K = {EPILOGUE_DEFAULT_MAX_SAMPLES}", flush=True)
     from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 
+    flag_args = (x0, prev, seed, xref5, task, sig, u_min, u_max, K, K, None)
     flag_search = LambdaSearch("ESSPS", 0.01, 10.0, K / 10.0, 40)
     t_epi_plain = cuda_ms(torch, lambda: fused_solve.fused_costs_dump_lambda_plain(
         *flag_args, flag_search), 2, warmup=1)
     b_epi = phase1_bound_ms(K, T, True, grid_bytes, RACING, search_ops(K, 40, OPS_ESSPS_EVAL, 2))
-    flag_epi = epilogue[f"flagship T={T} K={K} ESSPS"]
+    flag_epi = epilogue[f"racing T={T} K={K} ESSPS"]
     racing_epilogue_row = kernel_row(
         "racing_costs_dump_lambda", "fused_racing.cu", f"{FUSED_SOLVE_PY}:783",
-        flag_epi["max_abs_err"], flag_epi["epilogue_ms"], t_epi_plain, *b_epi, search="ESSPS",
-        horizon=T, num_samples=K, standalone_route_ms=flag_epi["standalone_ms"],
-        lbps_ms=epilogue[f"flagship T={T} K={K} LBPS"]["epilogue_ms"],
-        lbps_standalone_route_ms=epilogue[f"flagship T={T} K={K} LBPS"]["standalone_ms"],
-        lbps_max_abs_err=epilogue[f"flagship T={T} K={K} LBPS"]["max_abs_err"])
-    nav_row = model_rows["navigation_costs_dump_lambda"]
-    for k in (3000, 100_000):
-        routes = epilogue[f"navigation T=30 K={k} ESSPS"]
-        nav_row[f"k{k}_in_turns"] = {"epilogue_ms": routes["epilogue_ms"],
-                                     "standalone_route_ms": routes["standalone_ms"],
-                                     "max_abs_err": routes["max_abs_err"]}
+        max(r["max_abs_err"] for label, r in epilogue.items() if label.startswith("racing")),
+        flag_epi["epilogue_ms"], t_epi_plain, *b_epi, search="ESSPS", horizon=T, num_samples=K,
+        in_turns={label: {key: r[key] for key in r if key.endswith("_ms")}
+                  for label, r in epilogue.items() if label.startswith("racing")})
+    for name in NEW_MODELS:
+        model_rows[f"{name}_costs_dump_lambda"]["in_turns"] = {
+            label: {key: r[key] for key in r if key.endswith("_ms")}
+            for label, r in epilogue.items() if label.startswith(f"{name} ")}
 
     # --- phase 11: the model families' closed loops through MPPI, counted -----
     model_paths = drive_model_paths(torch, card)

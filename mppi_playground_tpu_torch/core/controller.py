@@ -17,9 +17,9 @@ Routes, chosen once at construction from the config:
 * ``"fused"``: with ``fused_task`` (a model's :class:`FusedTask`, e.g.
   ``models.pendulum.fused_task()`` or ``Navigation2DEnv.fused_task()``) and
   ``store_rollouts=False``, when the config fits the fused kernels'
-  envelope: the model's fused kernels run each solve, and
-  ``lambda_epilogue=True`` runs an LBPS/ESSPS search inside the phase-1
-  launch.  ``get_top_samples`` regenerates the winning perturbations with
+  envelope: the model's fused kernels run each solve (under LBPS/ESSPS the
+  solver picks the lambda route by K, as ``make_fused_solver`` does by
+  default).  ``get_top_samples`` regenerates the winning perturbations with
   the regeneration kernel.  A config outside the envelope takes the unfused
   route, as in the JAX package.
 
@@ -75,16 +75,12 @@ class MPPI:
         kernel_backend: str = "auto",
         fused_task: Optional[FusedTask] = None,
         device: Optional[Union[str, torch.device]] = None,
-        lambda_epilogue: Optional[bool] = None,
     ) -> None:
         """
         Args:
             fused_task: optional :class:`FusedTask` of the model; with
                 ``store_rollouts=False`` and a config inside the fused
                 envelope, each solve runs the model's fused kernels.
-            lambda_epilogue: on the fused route under LBPS/ESSPS, ``True``
-                searches lambda inside the phase-1 launch
-                (``core/fused_solver.make_fused_solver``).
             device: where the solver runs; ``None`` means ``cuda``, and
                 ``"cpu"`` runs the kernels' plain twins.
         """
@@ -126,8 +122,7 @@ class MPPI:
             fused = fused_envelope(self.config)
         self.solver_backend = "fused" if fused else "xla"
         if fused:
-            self._solver = make_fused_solver(self.config, fused_task, dynamics, device=self.device,
-                                             lambda_epilogue=lambda_epilogue)
+            self._solver = make_fused_solver(self.config, fused_task, dynamics, device=self.device)
         else:
             self._solver = make_solver(self.config, dynamics, cost_func, device=self.device)
         self._state = self._solver.init()

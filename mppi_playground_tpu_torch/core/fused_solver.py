@@ -9,13 +9,14 @@ and the nominal re-roll by the re-roll kernel.
 * Fixed lambda and MPO: one launch of the fused solve at the state's
   lambda; MPO then takes its Adam step on the costs (``core/autolambda``).
 * LBPS and ESSPS, the JAX package's two-phase route, in one of two forms:
-  - standalone (``lambda_epilogue`` None or False, the default): phase 1
-    (costs and the clamped perturbations dumped), the search kernel of
-    ``ops/lambda_search.py`` on the costs, phase 2 (the block partials at
-    lambda* from the dump);
-  - the lambda epilogue (``lambda_epilogue=True``, up to K = 524,288 as in
-    the JAX package): phase 1 and the search in one launch, then phase 2.
-    lambda* is bit for bit the standalone route's.
+  - standalone: phase 1 (costs and the clamped perturbations dumped), the
+    search kernel of ``ops/lambda_search.py`` on the costs, phase 2 (the
+    block partials at lambda* from the dump);
+  - the lambda epilogue (up to K = 524,288 as in the JAX package): phase 1
+    and the search in one launch, then phase 2.  lambda* is bit for bit the
+    standalone route's.
+  ``lambda_epilogue=True`` or ``False`` forces one; the default (None)
+  picks by K (:func:`takes_lambda_epilogue`), as measured on the H100.
   lambda* stays on the device: phase 2 reads it through a pointer.
 
 A tick draws its kernel seed on the host from the state's ``(seed, tick)``,
@@ -68,6 +69,15 @@ from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
+# The default lambda route (lambda_epilogue=None) takes the epilogue up to
+# this K, the crossover measured on an NVIDIA H100 80GB HBM3 at 700 W by
+# chip_smoke.py's phase 10 (both routes' device times in turns, ESSPS and
+# LBPS, racing T=50 and Navigation2D T=30 at K=3,000-100,000, every other
+# family at its example's configuration; the times are in PERF.md): the
+# epilogue was no slower in every case up to K=10,000, and slower in some
+# from K=20,000 on, where the cluster launch slows phase 1's rollouts.
+EPILOGUE_DEFAULT_MAX_SAMPLES = 10_000
+
 
 def check_fused_envelope(config: MPPIConfig) -> None:
     """Raise ``ValueError`` for a config outside the fused kernels' envelope."""
@@ -90,6 +100,21 @@ def fused_envelope(config: MPPIConfig) -> bool:
     return True
 
 
+def takes_lambda_epilogue(config: MPPIConfig, lambda_epilogue: Optional[bool] = None) -> bool:
+    """Whether a fused solver of ``config`` searches LBPS/ESSPS lambda in phase 1's launch.
+
+    ``True`` and ``False`` force the route; ``None`` decides by K alone, on
+    the card and on the CPU alike: the epilogue up to
+    :data:`EPILOGUE_DEFAULT_MAX_SAMPLES`.  Never above
+    ``EPILOGUE_MAX_SAMPLES`` (524,288, the JAX package's gate).
+    """
+    if config.auto_lambda not in ("LBPS", "ESSPS") or config.num_samples > EPILOGUE_MAX_SAMPLES:
+        return False
+    if lambda_epilogue is None:
+        return config.num_samples <= EPILOGUE_DEFAULT_MAX_SAMPLES
+    return bool(lambda_epilogue)
+
+
 def make_fused_solver(
     config: MPPIConfig,
     task: FusedTask,
@@ -105,8 +130,9 @@ def make_fused_solver(
         dynamics: array-of-structs dynamics for ``states_prediction``.
         device: ``None`` means ``cuda``; ``"cpu"`` runs the kernels' twins.
         lambda_epilogue: ``True`` runs the LBPS/ESSPS search inside the
-            phase-1 launch (for ``num_samples <= 524,288``); ``None`` and
-            ``False`` take the standalone search kernel.
+            phase-1 launch (for ``num_samples <= 524,288``), ``False`` the
+            standalone search kernel; ``None`` picks by K
+            (:func:`takes_lambda_epilogue`).
     """
     check_fused_envelope(config)
     if (config.dim_state, config.dim_control) != (task.dim_state, task.dim_control):
@@ -134,8 +160,8 @@ def make_fused_solver(
             config.lbps_delta if auto == "LBPS" else config.target_ess,
             config.lbps_iters if auto == "LBPS" else config.essps_iters,
         )
-    use_epilogue = bool(search and lambda_epilogue and num_samples <= EPILOGUE_MAX_SAMPLES)
-    # the epilogue's count of finished blocks, zero between launches
+    use_epilogue = takes_lambda_epilogue(config, lambda_epilogue)
+    # the epilogue's count of finished clusters, zero between launches
     ticket = torch.zeros(1, dtype=torch.int32, device=device) if use_epilogue else None
 
     init = make_init(config, device)

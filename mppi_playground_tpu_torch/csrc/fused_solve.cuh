@@ -17,8 +17,9 @@
 //   layout of the noise input), and no partials are reduced.
 // * costs_dump_lambda_kernel (run_kernel with lambda_mode, row 4 of
 //   PERF.md's table, and _block_min_max_valid).  Phase 1 plus the ESSPS or
-//   LBPS search in the same launch: the block that finishes last runs the
-//   search of lambda_search.cuh over the K costs and writes lambda*.
+//   LBPS search in the same launch, in clusters of 8 CTAs: the cluster that
+//   finishes last runs the search of lambda_search.cuh over the K costs and
+//   writes lambda*.
 // * weighted_kernel (fused_solve.cu; run_weighted with pert, phase 2).  No
 //   rollout: per sample the cost and the dumped perturbations are read back
 //   and the block partials are reduced at the searched lambda (a device
@@ -63,11 +64,21 @@
 // resident in L2.  The reference rows and warm start sit in shared memory.
 // Padded threads past K cost 1e30 and weigh 0.  Compiled with -fmad=false and
 // no fast math so that it computes the plain twins' arithmetic operation for
-// operation.  The lambda epilogue is a last-block-done pattern: each block
-// writes its costs and dump, fences, and takes a ticket (one atomicAdd on an
-// int the solver allocates once); the block with the last ticket reads the K
-// costs from L2 and runs the search in the cluster kernels' summation order
-// (lambda_search.cuh), then resets the ticket for the next launch.
+// operation.  The lambda epilogue is a last-cluster-done pattern: phase 1
+// launches as clusters of 8 CTAs, as many as the card holds at once, each CTA
+// rolling out an equal share of the samples (CTAs past K write nothing); each
+// CTA writes its costs and dump and fences; after a cluster barrier one
+// thread of rank 0 takes a ticket for the whole cluster (one atomicAdd on an
+// int the solver allocates once) and tells every CTA of its cluster through
+// distributed shared memory whether it was last.  The last cluster runs the
+// standalone search kernels' own body (lambda_search.cuh cluster_search, four
+// virtual threads a thread), each CTA on its slice of the costs, copied into
+// the shared memory every CTA of the launch reserves for it (up to 200 KB),
+// then resets the ticket for the next launch or graph replay.  So the search
+// costs one cluster's evaluations, as on the standalone route, and saves that
+// route's launch and cost reload; but a cluster launch slows the rollouts
+// themselves by a quarter to a third at K=100,000 (PERF.md), so the
+// solver takes this route only up to the K where it is faster.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -299,29 +310,43 @@ struct Search {
 };
 
 template <class Model, bool kLbps>
-__global__ void __launch_bounds__(kBlock) costs_dump_lambda_kernel(Params<Model> p, Search q,
-                                                                   int* ticket, float* lam_out) {
+__global__ void __cluster_dims__(lsearch::kCluster, 1, 1) __launch_bounds__(kBlock)
+    costs_dump_lambda_kernel(Params<Model> p, Search q, int* ticket, float* lam_out) {
   extern __shared__ float smem[];
-  __shared__ bool s_last;
+  __shared__ lsearch::Exchange ex;
+  __shared__ int s_last;
+  lsearch::cg::cluster_group cluster = lsearch::cg::this_cluster();
   float* s_ref = smem;
   float* s_prev = s_ref + (p.s.horizon + 1) * Model::kRefWidth;
+  float* s_costs = s_prev + Model::kM * p.s.horizon;  // epilogue_resident floats
   load_reference(p, s_ref, s_prev);
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  if (k < p.s.num_samples) p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k);
+  // CTA b rolls out samples [b * per, (b + 1) * per), a thread every kBlock
+  const int per = (p.s.num_samples + static_cast<int>(gridDim.x) - 1) / static_cast<int>(gridDim.x);
+  const int end = min(p.s.num_samples, (static_cast<int>(blockIdx.x) + 1) * per);
+  for (int k = static_cast<int>(blockIdx.x) * per + static_cast<int>(threadIdx.x); k < end;
+       k += kBlock) {
+    p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k);
+  }
 
-  // last block done: this block's costs are visible before its ticket is
+  // last cluster done: the cluster's costs are visible before its ticket is
   __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
-  __syncthreads();
+  cluster.sync();
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    const int clusters = static_cast<int>(gridDim.x) / lsearch::kCluster;
+    const int last = atomicAdd(ticket, 1) == clusters - 1;
+    for (int r = 0; r < lsearch::kCluster; ++r) *cluster.map_shared_rank(&s_last, r) = last;
+  }
+  cluster.sync();  // after it, each CTA reads only its own shared memory
   if (!s_last) return;
   __threadfence();
-  const float lam = lsearch::block_search<kLbps>(p.costs, p.s.num_samples, q.lam_min, q.lam_max,
-                                                 q.param, q.iters);
-  if (threadIdx.x == 0) {
+  const float lam = lsearch::cluster_search<kLbps, lsearch::kThreads / kBlock>(
+      p.costs, p.s.num_samples, s_costs, lsearch::kMaxResident, q.lam_min, q.lam_max, q.param,
+      q.iters, ex, cluster);
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
     *lam_out = lam;
     atomicExch(ticket, 0);  // ready for the next launch (or graph replay)
   }
+  cluster.sync();  // no CTA leaves while another may still read its shared memory
 }
 
 template <int kM>
@@ -415,14 +440,47 @@ int launch_costs_dump(Params<Model> p, float* costs, float* dump, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+// Floats of its slice of the costs each CTA of the epilogue keeps in shared
+// memory while the last cluster searches: the whole slice up to 200 KB.  Every
+// CTA of the launch reserves them; held there, the search measured faster at
+// every K from 3,000 to 524,288 than with the slice read from memory at each
+// evaluation, the reservation's cost to phase 1 included (PERF.md).
+inline int epilogue_resident(int num_samples) {
+  const int chunk = (num_samples + lsearch::kCluster - 1) / lsearch::kCluster;
+  return chunk < lsearch::kMaxResident ? chunk : lsearch::kMaxResident;
+}
+
 template <class Model, bool kLbps>
 int launch_costs_dump_lambda_as(Params<Model> p, Search q, int* ticket, float* lam_out,
                                 cudaStream_t stream) {
-  const size_t shmem = reference_shared_bytes<Model>(p.s.horizon);
-  cudaError_t err = allow_shared(costs_dump_lambda_kernel<Model, kLbps>, shmem);
+  const size_t shmem = reference_shared_bytes<Model>(p.s.horizon) +
+                       sizeof(float) * static_cast<size_t>(epilogue_resident(p.s.num_samples));
+  const auto kernel = costs_dump_lambda_kernel<Model, kLbps>;
+  cudaError_t err = allow_shared(kernel, shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  costs_dump_lambda_kernel<Model, kLbps>
-      <<<blocks_for(p.s.num_samples), kBlock, shmem, stream>>>(p, q, ticket, lam_out);
+  cudaLaunchConfig_t config = {};
+  config.blockDim = dim3(kBlock);
+  config.dynamicSmemBytes = shmem;
+  config.stream = stream;
+  // As many clusters as the card holds at once (asked once per shared-memory
+  // size), and at least a warp's samples a CTA: every CTA is resident in one
+  // wave and takes an equal share of the samples, so that no SM carries more
+  // CTAs than another (a grid of ceil(K / 256) CTAs in clusters of 8 cannot
+  // be spread evenly over the GPCs).
+  static size_t cached_shmem = 0;
+  static int resident_clusters = 0;
+  if (resident_clusters == 0 || cached_shmem != shmem) {
+    config.gridDim = dim3(lsearch::kCluster);
+    err = cudaOccupancyMaxActiveClusters(&resident_clusters, kernel, &config);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (resident_clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    cached_shmem = shmem;
+  }
+  constexpr int kPerCluster = lsearch::kCluster * 32;
+  const int wanted = (p.s.num_samples + kPerCluster - 1) / kPerCluster;
+  config.gridDim = dim3(lsearch::kCluster * (wanted < resident_clusters ? wanted : resident_clusters));
+  err = cudaLaunchKernelEx(&config, kernel, p, q, ticket, lam_out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

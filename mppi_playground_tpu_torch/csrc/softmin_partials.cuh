@@ -1,7 +1,7 @@
-// Softmin partials of one block of 256 samples, shared by three kernels: the
-// fused solve of every model (csrc/fused_solve.cuh), auto-lambda phase 2
-// (csrc/fused_solve.cu), and the streaming weighted update of the unfused
-// solver (csrc/weighted_update.cu).
+// Softmin partials of one block of 256 samples: the body of the fused solve
+// of every model (csrc/fused_solve.cuh) and of auto-lambda phase 2
+// (csrc/fused_solve.cu); the streaming weighted update of the unfused solver
+// (csrc/weighted_update.cu) shares its statistics, block_stats.
 //
 // Per block: the max of s = -c/lambda, sum e and sum e^2 with e = exp(s - max),
 // and the numerator sum e * u for each of the sample's D action slots.
@@ -53,16 +53,9 @@ inline size_t shared_bytes(int slots) {
   return sizeof(float) * (kWarps + static_cast<size_t>(kWarps) * chunk);
 }
 
-// Softmin partials of one block: stats[blockIdx.x] = (max of s, sum e, sum
-// e^2) and numer[blockIdx.x, f] = sum e * u_f.  Every thread of the block
-// calls it; invalid threads carry cost 1e30 and weigh 0.  src.next(v) gives a
-// valid sample's next Source::kWidth slots, in ascending order (slots is a
-// multiple of kWidth).  Each slot is reduced within each warp, then across
-// the warps in warp order, one chunk of slots at a time.
-template <class Source>
-__device__ __forceinline__ void block_partials(float cost, float lam, bool valid, Source& src,
-                                               int slots, float* s_red, float* s_numer,
-                                               float* stats, float* numer) {
+// The block's softmin statistics, stats[blockIdx.x] = (max of s, sum e, sum
+// e^2) with s = -cost / lambda, one sample a thread; returns this thread's e.
+__device__ __forceinline__ float block_stats(float cost, float lam, float* s_red, float* stats) {
   const float s = -cost / lam;
   const float mx = block_reduce<true>(s, s_red);
   const float e = expf(s - mx);
@@ -73,7 +66,22 @@ __device__ __forceinline__ void block_partials(float cost, float lam, bool valid
     stats[blockIdx.x * 3 + 1] = z_sum;
     stats[blockIdx.x * 3 + 2] = sq_sum;
   }
+  return e;
+}
 
+// Softmin partials of one block: block_stats, and numer[blockIdx.x, f] =
+// sum e * u_f.  Every thread of the block calls it; invalid threads carry
+// cost 1e30 and weigh 0.  src.next(v) gives a valid sample's next
+// Source::kWidth slots, in ascending order (slots is a multiple of kWidth).
+// Each slot is reduced within each warp, then across the warps in warp
+// order, one chunk of slots at a time: the sources here (the fused solve's
+// regenerated perturbations, phase 2's slot-major dump) give each thread its
+// own sample.
+template <class Source>
+__device__ __forceinline__ void block_partials(float cost, float lam, bool valid, Source& src,
+                                               int slots, float* s_red, float* s_numer,
+                                               float* stats, float* numer) {
+  const float e = block_stats(cost, lam, s_red, stats);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int stride = slots < kChunk ? slots : kChunk;  // a warp's row of s_numer
   for (int c0 = 0; c0 < slots; c0 += kChunk) {

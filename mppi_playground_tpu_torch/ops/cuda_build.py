@@ -39,7 +39,8 @@ _functions: Dict[Tuple[str, str], object] = {}
 build_logs: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The ``nvcc`` on the PATH, else the CUDA toolkit's default one."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -62,7 +63,7 @@ def _start(name: str) -> Tuple[subprocess.Popen, Path, Path]:
     target = _target(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
 

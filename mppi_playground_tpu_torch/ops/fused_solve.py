@@ -14,9 +14,11 @@ a :class:`FusedTask`; the kernels are templated on a model plug
   the same rollout and costs, and the clamped perturbations dumped as
   ``[T*m, K]`` (slot-major, sample fastest); no partials.
 * :func:`fused_costs_dump_lambda` (``<model>_costs_dump_lambda``) — phase 1
-  with the ESSPS or LBPS search in the same launch: the block that finishes
-  last searches the K costs and writes lambda* to the device, bit for bit
-  the search kernels' (``ops/lambda_search.py``) on the same costs.
+  with the ESSPS or LBPS search in the same launch: phase 1 runs as
+  clusters of 8 blocks, and the cluster that finishes last searches the K
+  costs with the search kernels' own body and writes lambda* to the device,
+  bit for bit the search kernels' (``ops/lambda_search.py``) on the same
+  costs.
 * :func:`fused_weighted` (``fused_weighted``, ``csrc/fused_solve.cu``) —
   auto-lambda phase 2: the block partials of the fixed solve, from the
   costs and the dump at a lambda searched in between, without a rollout.
@@ -509,7 +511,7 @@ def fused_costs_dump_lambda(
 
     :func:`fused_costs_dump`'s outputs, and lambda* of ``search`` over the
     K costs, bit for bit the search kernel's on the same costs.  ``ticket``
-    is the kernel's ``[1]`` int32 count of finished blocks, zero between
+    is the kernel's ``[1]`` int32 count of finished clusters, zero between
     launches (the kernel resets it): a solver allocates one and passes it
     every tick.  CPU tensors take :func:`fused_costs_dump_lambda_plain`.
     """

@@ -9,11 +9,12 @@ weights[k] * samples[k]`` and the effective sample size ``1 / sum(w^2)``.
 * :func:`weighted_update_partials` (``csrc/weighted_update.cu``) — per
   block of 256 samples the softmin partials of ``[K, D]`` samples: the max
   of ``-c / lambda``, ``sum e``, ``sum e^2`` and the numerator ``sum e *
-  sample``.  Its block body is the one the fused solve and auto-lambda
-  phase 2 share (``csrc/softmin_partials.cuh``).  It launches its kernel
-  for CUDA tensors, counts the launch in its ``launches`` attribute, and
-  raises on what the kernel does not take; CPU tensors take
-  :func:`block_partials_plain`, the twin of that shared body.
+  sample``, streamed with neighbouring threads on neighbouring columns.  Its
+  statistics are the code the fused solve and auto-lambda phase 2 share
+  (``csrc/softmin_partials.cuh``).  It launches its kernel for CUDA
+  tensors, counts the launch in its ``launches`` attribute, and raises on
+  what the kernel does not take; CPU tensors take
+  :func:`block_partials_plain`, the twin of every kernel's block partials.
 * :func:`combine_partials` merges block partials into ``(update, weights,
   ess)`` in torch, for this kernel and the fused ones.
 * :func:`weighted_update` dispatches on the JAX package's backend names:
@@ -41,8 +42,9 @@ def block_partials_plain(costs, flat, lam):
 
     ``flat [K, D]`` holds each sample's slots; padded samples cost 1e30 and
     weigh 0.  ``lam`` holds one element; ``-c / lam`` divides by a tensor
-    (IEEE division, as the kernels do).  The twin of the kernels' shared
-    ``block_partials``.
+    (IEEE division, as the kernels do).  The twin of the kernels' block
+    partials (``softmin_partials.cuh`` ``block_partials`` and
+    ``weighted_update.cu``), which sum the numerator in other orders.
     """
     num_samples, slots = flat.shape
     blocks = -(-num_samples // BLOCK)

@@ -8,7 +8,8 @@ tests/test_torch_fused_solve.py); inputs are made with numpy.
   ``collision_check`` on seeded trajectories (all bitwise: no sqrt or libm
   reaches them but the goal test's norm), and three warm-started ``MPPI``
   ticks (T=8, K=1,024, ESSPS, injected noise) on each of the port's routes
-  (unfused; fused, standalone and with the lambda epilogue) against the JAX
+  (unfused; fused on its default lambda route, and forced onto the lambda
+  epilogue and onto the standalone search) against the JAX
   ``MPPI`` on its XLA route: actions and states atol 5e-3, lambda rtol
   1e-4, and the port's fused top samples against the JAX stored rollouts.
 * GoalInDangerZoneEnv: ``reset(seed=42)`` draws the JAX env's start,
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from mppi_playground_tpu_torch import MPPI
+from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver, takes_lambda_epilogue
 from mppi_playground_tpu_torch.envs import GoalInDangerZoneEnv, Navigation2DEnv
 from mppi_playground_tpu_torch.utils import convert
 from tests.test_torch_fused_solve import run_jax_reference
@@ -139,14 +141,42 @@ def test_navigation_steps_and_collisions_match_jax(jax_ref, env):
     assert got.sum() > 0  # the seeded trajectories do cross obstacles
 
 
-@pytest.mark.parametrize("route,epilogue", [("xla", None), ("fused", None), ("fused", True)])
+class _ForcedRoute:
+    """``MPPI``'s ticks over ``make_fused_solver`` with a forced lambda route.
+
+    ``MPPI`` takes no lambda-route option (as the JAX facade); the route is
+    forced below it, on the fused solver.
+    """
+
+    def __init__(self, solver):
+        self.solver, self.state = solver, solver.init()
+
+    def forward(self, x, noise):
+        result = self.solver.solve(self.state, x, noise=noise)
+        self.state, self.aux, self.noise = result.state, result.aux, noise
+        return result.action_seq, result.state_seq
+
+    def get_top_samples(self, n):
+        return self.solver.top_samples(self.aux, n, noise=self.noise)
+
+    @property
+    def lambda_(self):
+        return float(self.state.lam)
+
+
+# epilogue: None, the facade and its default route; True / False, the route forced
+@pytest.mark.parametrize("route,epilogue", [("xla", None), ("fused", None), ("fused", True),
+                                            ("fused", False)])
 def test_navigation_mppi_ticks_match_jax(jax_ref, env, route, epilogue):
-    extra = dict(store_rollouts=False, fused_task=env.fused_task(),
-                 lambda_epilogue=epilogue) if route == "fused" else {}
+    extra = dict(store_rollouts=False, fused_task=env.fused_task()) if route == "fused" else {}
     solver = MPPI(horizon=T, num_samples=K, dim_state=3, dim_control=2, dynamics=env.dynamics,
                   cost_func=env.cost_function, u_min=env.u_min, u_max=env.u_max,
                   sigmas=(0.5, 0.5), lambda_="ESSPS", device="cpu", **extra)
     assert solver.solver_backend == route
+    if epilogue is not None:
+        assert takes_lambda_epilogue(solver.config, epilogue) is epilogue
+        solver = _ForcedRoute(make_fused_solver(solver.config, env.fused_task(), env.dynamics,
+                                                device="cpu", lambda_epilogue=epilogue))
     x = env.reset()
     for tick in range(TICKS):
         action_seq, state_seq = solver.forward(x, noise=torch.from_numpy(_noise(tick)))

@@ -194,26 +194,44 @@ def test_search_wrapper_raises_above_the_gate(card):
         lambda_search.essps_lambda_fused(too_many, 1.0, 0.01, 10.0)
 
 
-@pytest.mark.parametrize("num_samples,slots", [(100_000, 100), (1500, 16), (3000, 2000), (7, 3)])
+def _assert_partials_bar(got, want, costs, samples, lam):
+    """Block partials against another reduction of the same ``samples [K, D]``.
+
+    Block maxima exact, sums of e and e^2 (each >= 1) within 1e-6 relative,
+    each numerator within 1e-5 of its sum of ``|e * sample|``
+    (``chip_smoke.PARTIALS_BAR``).
+    """
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    scale = wu.block_partials_plain(costs, samples.abs(), lam)[1]
+    assert torch.equal(got[0][:, 0], want[0][:, 0])
+    assert ((got[0][:, 1:] - want[0][:, 1:]).abs() / want[0][:, 1:]).max().item() <= 1e-6
+    assert ((got[1] - want[1]).abs() / (scale + 1e-30)).max().item() <= 1e-5
+
+
+# (K, D, offset): the unfused widths D=50 and 100, the JAX kernel's widest D=1,536 and
+# beyond, D not a multiple of 4, and samples that start 4 bytes past a 16-byte boundary
+# (the kernel's scalar loads)
+@pytest.mark.parametrize("num_samples,slots,offset", [
+    (100_000, 100, 0), (100_000, 1536, 0), (3000, 2000, 0), (7, 3, 0), (1500, 16, 0),
+    (4000, 50, 0), (2000, 100, 1), (300, 1, 0),
+])
 @pytest.mark.parametrize("lam", [0.01, 1.0, 10.0])
-def test_weighted_update_kernel_matches_twin(card, num_samples, slots, lam):
+def test_weighted_update_kernel_matches_twin(card, num_samples, slots, offset, lam):
     from mppi_playground_tpu_torch.ops import weighted_update as wu
 
     gen = torch.Generator(device="cuda").manual_seed(slots)
     costs = torch.rand(num_samples, generator=gen, device="cuda") * 100.0
-    samples = torch.randn(num_samples, slots, generator=gen, device="cuda")
+    flat = torch.randn(offset + num_samples * slots, generator=gen, device="cuda")
+    samples = flat[offset:].view(num_samples, slots)
+    assert samples.is_contiguous()
     lam_t = torch.full((1,), lam, device="cuda")
     launches = wu.weighted_update_partials.launches
     got = wu.weighted_update_partials(costs, samples, lam_t)
     assert wu.weighted_update_partials.launches == launches + 1
     want = wu.block_partials_plain(costs, samples, lam_t)
-    scale = wu.block_partials_plain(costs, samples.abs(), lam_t)[1]  # sum e |sample|
     torch.cuda.synchronize()
-    # the partials themselves: block maxima exact, sums of e and e^2 (each >= 1) within 1e-6
-    # relative, each numerator within 1e-5 of its sum of |terms|
-    assert torch.equal(got[0][:, 0], want[0][:, 0])
-    assert ((got[0][:, 1:] - want[0][:, 1:]).abs() / want[0][:, 1:]).max().item() <= 1e-6
-    assert ((got[1] - want[1]).abs() / (scale + 1e-30)).max().item() <= 1e-5
+    _assert_partials_bar(got, want, costs, samples, lam_t)
     g = wu.combine_partials(costs, *got, lam_t, slots, 1)
     w = wu.combine_partials(costs, *want, lam_t, slots, 1)
     torch.testing.assert_close(g[1], w[1], rtol=0, atol=1e-5)  # weights
@@ -221,20 +239,25 @@ def test_weighted_update_kernel_matches_twin(card, num_samples, slots, lam):
     torch.testing.assert_close(g[2], w[2], rtol=1e-3, atol=0)  # ESS
 
 
-def test_phase2_shares_the_weighted_update_body(card):
-    """Phase 2 and the weighted update on the same perturbations: the same partials, bitwise."""
+def test_phase2_and_the_weighted_update_meet_the_partials_bar(card):
+    """Phase 2 and the weighted update on the same perturbations.
+
+    They share the statistics' code (bitwise equal block maxima and sums) and
+    sum the numerator in different orders: the partials bar.
+    """
     from mppi_playground_tpu_torch.ops import weighted_update as wu
 
     env, task = card
     x0, prev, xref5, _ = _inputs(env, 50, 20_000, seed=4)
     costs, dump = fused_solve.fused_costs_dump(x0, prev, tick_seed(5, 6), xref5, task,
                                                       SIGMAS, U_MIN, U_MAX, 20_000, 20_000)
+    samples = dump.t().contiguous()
     for lam in (0.5, 10.0):
         lam_t = torch.full((1,), lam, device="cuda")
         p2 = fused_solve.fused_weighted(costs, dump, lam_t)
-        r9 = wu.weighted_update_partials(costs, dump.t().contiguous(), lam_t)
+        r9 = wu.weighted_update_partials(costs, samples, lam_t)
         torch.testing.assert_close(p2[0], r9[0], rtol=0, atol=0)
-        torch.testing.assert_close(p2[1], r9[1], rtol=0, atol=0)
+        _assert_partials_bar(r9, p2, costs, samples, lam_t)
 
 
 @pytest.mark.parametrize("mode", ["noise", "seeded"])
@@ -360,10 +383,18 @@ def test_model_kernels_match_twins(card, name, mode):
     _assert_costs(name, states, want_states)
 
 
+# K=1, 257 and 2,049 launch grids of 1, 2 and 9 blocks: not whole clusters of 8
 @pytest.mark.parametrize("mode", ["ESSPS", "LBPS"])
-@pytest.mark.parametrize("name,num_samples", [("navigation", 3000), ("navigation", 100_000),
-                                              ("racing", 100_000)])
+@pytest.mark.parametrize("name,num_samples", [
+    ("navigation", 1), ("navigation", 257), ("navigation", 2049), ("navigation", 3000),
+    ("navigation", 100_000), ("racing", 3000), ("racing", 100_000),
+])
 def test_lambda_epilogue_equals_the_standalone_route(card, name, num_samples, mode):
+    """Costs, dump and lambda* bitwise the standalone route's; the ticket back at 0.
+
+    After two launches in a row, and in a captured CUDA graph replayed twice;
+    both noise modes.
+    """
     from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 
     if name == "racing":
@@ -376,19 +407,34 @@ def test_lambda_epilogue_equals_the_standalone_route(card, name, num_samples, mo
     param = num_samples / 10.0 if mode == "ESSPS" else 0.01
     search = LambdaSearch(mode, 0.01, 10.0, param, 40 if mode == "ESSPS" else 32)
     ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernel = f"{name}_costs_dump_lambda"
     for nz in (noise, None):
         args = (x0, prev, tick_seed(5, 1), ref, task, sig, lo, hi, num_samples, num_samples, nz)
-        before = fused_solve.fused_costs_dump_lambda.launches[f"{name}_costs_dump_lambda"]
-        for _ in range(2):  # the ticket resets between launches
-            costs, dump, lam = fused_solve.fused_costs_dump_lambda(*args, search, ticket)
-        assert (fused_solve.fused_costs_dump_lambda.launches[f"{name}_costs_dump_lambda"]
-                == before + 2)
         want_costs, want_dump = fused_solve.fused_costs_dump(*args)
         want_lam = search.run(want_costs)
-        torch.cuda.synchronize()
-        assert int(ticket.item()) == 0
-        torch.testing.assert_close(costs, want_costs, rtol=0, atol=0)
-        torch.testing.assert_close(dump, want_dump, rtol=0, atol=0)
-        assert lam.item() == want_lam.item(), (lam.item(), want_lam.item())
+
+        def check(costs, dump, lam, how):
+            torch.cuda.synchronize()
+            assert int(ticket.item()) == 0, how
+            torch.testing.assert_close(costs, want_costs, rtol=0, atol=0, msg=how)
+            torch.testing.assert_close(dump, want_dump, rtol=0, atol=0, msg=how)
+            assert lam.item() == want_lam.item(), (how, lam.item(), want_lam.item())
+
+        before = fused_solve.fused_costs_dump_lambda.launches[kernel]
+        for i in range(2):  # the ticket resets between launches
+            check(*fused_solve.fused_costs_dump_lambda(*args, search, ticket), f"launch {i}")
+        assert fused_solve.fused_costs_dump_lambda.launches[kernel] == before + 2
+
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):  # warm up off the default stream, as capture needs
+            fused_solve.fused_costs_dump_lambda(*args, search, ticket)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused_solve.fused_costs_dump_lambda(*args, search, ticket)
+        for i in range(2):
+            graph.replay()
+            check(*out, f"graph replay {i}")
         bar = dict(rtol=1e-4, atol=1e-6) if mode == "ESSPS" else dict(rtol=1e-3, atol=1e-4)
-        torch.testing.assert_close(lam.reshape(()), search.plain(costs), **bar)
+        torch.testing.assert_close(out[2].reshape(()), search.plain(want_costs), **bar)

@@ -107,6 +107,33 @@ def test_wide_d_runs_where_jax_falls_back():
     _assert_close(got, want, BARS, "twin vs JAX (XLA fallback), D=2000")
 
 
+@pytest.mark.parametrize("slots", [1, 3, 100, 1536, 2000])
+def test_twin_in_the_kernel_block_layout_matches_jax(slots):
+    """The twin's 256-row blocks (the CUDA kernel's) against the JAX package at its widths.
+
+    K=2,500 fills 10 blocks, the last one ragged.  The JAX Pallas kernel in
+    interpret mode up to its widest D (1,536), ``_xla_weighted_update`` past
+    it; the JAX package's fused-against-XLA bar: weights atol 1e-5, update
+    atol 5e-3, ESS rtol 1e-3.
+    """
+    k = 2500
+    t, m = (slots // 2, 2) if slots % 2 == 0 else (slots, 1)
+    rng = np.random.default_rng(slots)
+    costs = rng.uniform(0, 100, size=k).astype(np.float32)
+    samples = rng.normal(size=(k, t, m)).astype(np.float32)
+    args = (jnp.asarray(costs), jnp.asarray(samples), jnp.asarray(1.0, jnp.float32))
+    want = (pallas_kernels.weighted_update(*args, interpret=True) if slots <= 1536
+            else _xla_weighted_update(*args))
+    lam = torch.tensor([1.0])
+    stats, numer = wu.block_partials_plain(torch.from_numpy(costs),
+                                           torch.from_numpy(samples.reshape(k, slots)), lam)
+    assert stats.shape == (10, 3) and numer.shape == (10, slots)
+    got = wu.combine_partials(torch.from_numpy(costs), stats, numer, lam, t, m)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0, atol=5e-3)
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-3)
+
+
 def test_xla_backend_is_softmax_and_einsum():
     rng = np.random.default_rng(4)
     costs = rng.uniform(0, 100, size=600).astype(np.float32)
