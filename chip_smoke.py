@@ -9,16 +9,18 @@ Phases, each of which fails the run if it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of ``mppi_playground_tpu_torch/csrc`` with ``nvcc``
-   (one process per source, started together);
+   (one process per source, started together), and sweep every float32
+   input of ``angle_normalize`` against its ``fmodf`` form
+   (``csrc/exact_checks.cu``), bit for bit;
 3. hold racing's kernels against their plain PyTorch twins on the card, at
    the flagship's shapes (T=50, K=100,000): the fused solve with injected
    noise and with its seeded Philox stream, and the re-roll; then time each
-   kernel and twin with CUDA events;
+   kernel (graph replay) and twin (CUDA events);
 4. the auto-lambda kernels against their twins at the same shapes: phase 1
    (costs and perturbation dump, both noise modes), the ESSPS and LBPS
    searches (on the flagship's costs and on vectors that reach each ESSPS
    clamp and the interior), phase 2 at lambda* and, at lambda=1, against
-   the fixed solve's partials; each timed with CUDA events;
+   the fixed solve's partials; each timed;
 5. the weighted update (D=100 at lambda 1 and 10 on the unfused route's
    perturbations and costs; D=100, 1,536 and 2,000 under spread costs; and
    every (K, D) an unfused path of phases 7, 8 and 11 launches) against its
@@ -26,7 +28,9 @@ Phases, each of which fails the run if it fails:
    and against phase 2 on the same perturbations (the same statistics bit
    for bit, the numerators to the partials bar); regeneration of all K
    rows, seeded and in noise mode, against phase 1's dump (bitwise) and of
-   the top 300 rows against those rows; each timed, the weighted update at
+   the top 300 rows against those rows, and the top 300 rows regenerated
+   and rolled out against their twin (bitwise); each timed, the weighted
+   update at
    each width and shape beside its bound and ``torch.softmax`` then
    ``torch.mv``, at D=100 also with a cold L2;
 6. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
@@ -50,8 +54,9 @@ Phases, each of which fails the run if it fails:
    counted;
 9. every other model family's kernels against their twins at its example's
    configuration (Navigation2D also at K=100,000): the fused solve, phase 1,
-   phase 1 with the lambda epilogue, phase 2, regeneration and the re-roll,
-   seeded and in noise mode, each timed;
+   phase 1 with the lambda epilogue, phase 2, regeneration, 300 rows
+   regenerated and rolled out, and the re-roll, seeded and in noise mode,
+   each timed;
 10. the lambda epilogue (phase 1 and the search in one launch, run by the
     last cluster) against phase 1 then the search kernel, costs, dump,
     lambda* and the ticket bitwise in both noise modes, under ESSPS and
@@ -71,13 +76,21 @@ Phases, each of which fails the run if it fails:
     host sync, medians of ``forward`` and ``get_top_samples``, a profile of
     the Navigation2D tick.
 
-It prints a ``kernels`` JSON line before the last (every kernel, each
-launched on some path, or the run fails), and as its last line
-``{"ok": true, "device": {...}}``.  Without a card, or without the package
-beside it, it exits non-zero and prints no result.
+Every kernel is timed as the device time of launches replayed in a CUDA
+graph (:func:`graph_ms`; the event loop beside it).  It prints each TPU
+kernel row's launches x (time - bound) over the run's paths, a ``kernels``
+JSON line before the last (every kernel, each launched on some path but
+:data:`OFF_PATHS`, or the run fails), and as its last line ``{"ok": true,
+"device": {...}}``.  Without a card, or without the package beside it, it
+exits non-zero and prints no result.
 
-:func:`search_kernels_in_turns` times the search kernels of this checkout
-against another checkout's in turns (its docstring gives the command).
+Comparisons with another checkout (the parent of a change, unpacked from
+``git archive``), each run by the command in its docstring:
+:func:`search_kernels_in_turns` (rows 7 and 8), :func:`fused_kernels_in_turns`
+(rows 1-6 of every family), :func:`top_samples_in_turns` (the fused
+``get_top_samples`` medians), :func:`row1_split` (patched copies of the
+fused solve); :func:`top_rollouts_cta_sizes` times row 6's CTA sizes and
+:func:`retimed_products` ranks the rows from two runs' logs.
 """
 
 from __future__ import annotations
@@ -252,7 +265,11 @@ def reroll_bound_ms(horizon: int, ops: ModelOps = RACING) -> tuple:
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time per call over ``reps`` calls, by CUDA events."""
+    """Mean time per call over ``reps`` back-to-back calls, by CUDA events.
+
+    Below ~0.05 ms a kernel's calls wait on the host's launches, so this
+    reads the launch rate; :func:`graph_ms` is the device's time.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -264,6 +281,11 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> tuple:
+    """``(graph-replay ms, event-loop ms)`` per call: :func:`graph_ms`, :func:`cuda_ms`."""
+    return graph_ms(torch, fn, reps), cuda_ms(torch, fn, reps)
 
 
 def profile_ticks(torch, run_tick, ticks: int, what: str = "with env.step") -> str:
@@ -396,19 +418,20 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
 
     # timings: kernel and twin, on this card
     flag = vectors["flagship"]
-    t_p1 = cuda_ms(torch, lambda: phase1(fused_solve.fused_costs_dump, None), 20)
-    t_p1_noise = cuda_ms(torch, lambda: phase1(fused_solve.fused_costs_dump, noise), 20)
+    t_p1, t_p1_loop = device_ms(torch, lambda: phase1(fused_solve.fused_costs_dump, None), 20)
+    t_p1_noise, _ = device_ms(torch, lambda: phase1(fused_solve.fused_costs_dump, noise), 20)
     t_p1_plain = cuda_ms(torch, lambda: phase1(fused_solve.fused_costs_dump_plain, None),
                          3, warmup=1)
-    t_es = cuda_ms(torch, lambda: lambda_search.essps_lambda_fused(flag, target, lam_min,
-                                                                   lam_max), 50)
+    t_es, t_es_loop = device_ms(torch, lambda: lambda_search.essps_lambda_fused(
+        flag, target, lam_min, lam_max), 50)
     t_es_plain = cuda_ms(torch, lambda: lambda_search.essps_lambda_plain(flag, target, lam_min,
                                                                          lam_max), 3, warmup=1)
-    t_lb = cuda_ms(torch, lambda: lambda_search.lbps_lambda_fused(flag, delta, lam_min,
-                                                                  lam_max), 50)
+    t_lb, t_lb_loop = device_ms(torch, lambda: lambda_search.lbps_lambda_fused(
+        flag, delta, lam_min, lam_max), 50)
     t_lb_plain = cuda_ms(torch, lambda: lambda_search.lbps_lambda_plain(flag, delta, lam_min,
                                                                         lam_max), 3, warmup=1)
-    t_p2 = cuda_ms(torch, lambda: fused_solve.fused_weighted(costs, dump, lam_star), 50)
+    t_p2, t_p2_loop = device_ms(torch, lambda: fused_solve.fused_weighted(costs, dump, lam_star),
+                                50)
     t_p2_plain = cuda_ms(torch, lambda: fused_solve.fused_weighted_plain(costs, dump, lam_star),
                          5, warmup=1)
     b_p1, by_p1 = phase1_bound_ms(K, T, True, grid_bytes)
@@ -416,22 +439,24 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
     b_es, by_es = search_bound_ms(K, 40, OPS_ESSPS_EVAL, 2)
     b_lb, by_lb = search_bound_ms(K, 32, OPS_LBPS_EVAL, 2)
     b_p2, by_p2 = phase2_bound_ms(K, T)
-    print(f"times on {card}: phase 1 {t_p1:.4f} ms (noise mode {t_p1_noise:.4f} ms, bound "
-          f"{b_p1:.5f} / {b_p1_noise:.5f} ms), twin {t_p1_plain:.3f} ms; ESSPS search "
-          f"{t_es:.4f} ms (bound {b_es:.5f} ms), twin {t_es_plain:.3f} ms; LBPS search "
-          f"{t_lb:.4f} ms (bound {b_lb:.5f} ms), twin {t_lb_plain:.3f} ms; phase 2 {t_p2:.4f} ms "
-          f"(bound {b_p2:.5f} ms), twin {t_p2_plain:.3f} ms", flush=True)
+    print(f"times on {card} (graph replay; event loop in brackets): phase 1 {t_p1:.4f} ms "
+          f"({t_p1_loop:.4f}; noise mode {t_p1_noise:.4f} ms, bound {b_p1:.5f} / "
+          f"{b_p1_noise:.5f} ms), twin {t_p1_plain:.3f} ms; ESSPS search {t_es:.4f} ms "
+          f"({t_es_loop:.4f}; bound {b_es:.5f} ms), twin {t_es_plain:.3f} ms; LBPS search "
+          f"{t_lb:.4f} ms ({t_lb_loop:.4f}; bound {b_lb:.5f} ms), twin {t_lb_plain:.3f} ms; "
+          f"phase 2 {t_p2:.4f} ms ({t_p2_loop:.4f}; bound {b_p2:.5f} ms), twin {t_p2_plain:.3f} "
+          "ms", flush=True)
 
     return {"kernels": [
         kernel_row("racing_costs_dump", "fused_racing.cu", f"{FUSED_SOLVE_PY}:783", p1_err, t_p1,
                    t_p1_plain, b_p1, by_p1, noise_mode_ms=t_p1_noise,
-                   noise_mode_bound_ms=b_p1_noise),
+                   noise_mode_bound_ms=b_p1_noise, launch_loop_ms=t_p1_loop),
         kernel_row("essps_lambda_fused", "lambda_search.cu", f"{LAMBDA_SEARCH_PY}:354",
-                   search_err["essps"], t_es, t_es_plain, b_es, by_es),
+                   search_err["essps"], t_es, t_es_plain, b_es, by_es, launch_loop_ms=t_es_loop),
         kernel_row("lbps_lambda_fused", "lambda_search.cu", f"{LAMBDA_SEARCH_PY}:394",
-                   search_err["lbps"], t_lb, t_lb_plain, b_lb, by_lb),
+                   search_err["lbps"], t_lb, t_lb_plain, b_lb, by_lb, launch_loop_ms=t_lb_loop),
         kernel_row("fused_weighted", "fused_solve.cu", f"{FUSED_SOLVE_PY}:887", p2_err, t_p2,
-                   t_p2_plain, b_p2, by_p2),
+                   t_p2_plain, b_p2, by_p2, launch_loop_ms=t_p2_loop),
     ]}
 
 
@@ -487,7 +512,7 @@ def fused_kernels(name, config, lambda_epilogue=None) -> set:
     """
     from mppi_playground_tpu_torch.core.fused_solver import takes_lambda_epilogue
 
-    tail = {f"{name}_reroll", f"fused_regen_m{config.dim_control}"}
+    tail = {f"{name}_reroll", f"{name}_top_rollouts"}
     lam = config.auto_lambda
     if lam in ("ESSPS", "LBPS"):
         if takes_lambda_epilogue(config, lambda_epilogue):
@@ -570,7 +595,7 @@ def drive_modes(torch, fused_solve, env, solvers, card):
                 return None
             x, _ = env.step(action_seq[0])
         launches = read_counters(counted)
-        once = fused_kernels("racing", cfg, ROUTE_MODES.get(mode)) - {"fused_regen_m2"}
+        once = fused_kernels("racing", cfg, ROUTE_MODES.get(mode)) - {"racing_top_rollouts"}
         want = {name: (TICKS if name in once else 0) for name in counted}
         if launches != want:
             fail(f"{mode}: launches {launches}, expected {want}")
@@ -638,6 +663,20 @@ def regen_bound_ms(rows: int, horizon: int, seeded: bool, m: int = 2) -> tuple:
     in_bytes = 4 * slots + 8 * rows + (0 if seeded else 4 * rows * slots)
     per_slot = OPS_PERTURB // 2 + ((OPS_NORMAL_PAIR + OPS_SCALE) // 2 if seeded else 0)
     return _bound(in_bytes, 4 * rows * slots, rows * slots * per_slot)
+
+
+def top_rollouts_bound_ms(rows: int, horizon: int, seeded: bool, ops: ModelOps = RACING) -> tuple:
+    """Least time of regenerating ``rows`` samples and rolling them out: [rows, T+1, n] written.
+
+    Reads x0, the warm start and the row indices, and in noise mode those
+    rows' noise; per row its T m draws (as :func:`regen_bound_ms` counts
+    them) and T model steps.
+    """
+    slots = ops.m * horizon
+    in_bytes = 4 * (ops.n + slots) + 8 * rows + (0 if seeded else 4 * rows * slots)
+    per_slot = OPS_PERTURB // 2 + ((OPS_NORMAL_PAIR + OPS_SCALE) // 2 if seeded else 0)
+    return _bound(in_bytes, 4 * rows * (horizon + 1) * ops.n,
+                  rows * (slots * per_slot + horizon * ops.step))
 
 
 PARTIALS_BAR = ("block maxima bitwise, sums of e and e^2 rtol 1e-6, each numerator within "
@@ -859,9 +898,12 @@ def check_weighted_update(torch, fused_solve, pert, costs, dump_costs, dump, car
 
 def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min, u_max,
                 weights, card):
-    """Row 6 at T=50, K=100,000: all K rows against phase 1's dump, the top 300 against them.
+    """Row 6 at T=50, K=100,000, seeded and in noise mode, against the twins.
 
-    Returns the kernels-line row, or None after a failure.
+    The actions-only kernel: all K rows against phase 1's dump, the top 300
+    against them.  The top 300 rows regenerated and rolled out
+    (``racing_top_rollouts``) against their twin, bit for bit.  Returns the
+    kernels-line rows of both, or None after a failure.
     """
     from mppi_playground_tpu_torch.core.diagnostics import top_indices
 
@@ -869,45 +911,69 @@ def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_m
     threshold = int(0.8 * K)  # both sides of the inherit split
     rows = torch.arange(K, device=dev)
     top = top_indices(weights, 300)[1]
-    err = 0.0
+    err = top_err = 0.0
     for mode, nz in (("seeded", None), ("noise", noise)):
         args = (sig, u_min, u_max, K, threshold, nz)
         _, dump = fused_solve.fused_costs_dump(x0, prev, seed, xref5, task, *args)
         full = fused_solve.fused_regen(prev, seed, rows, *args)
         twin = fused_solve.fused_regen_plain(prev, seed, rows, *args)
         sub = fused_solve.fused_regen(prev, seed, top, *args)
+        states = fused_solve.fused_top_rollouts(x0, prev, seed, top, task, *args)
+        w_states = fused_solve.fused_top_rollouts_plain(x0, prev, seed, top, task, *args)
         torch.cuda.synchronize()
         res = dict(all_rows_vs_phase1_dump=bool(torch.equal(full, dump.t().reshape(K, T, 2))),
                    all_rows_vs_twin=bool(torch.equal(full, twin)),
                    max_abs_err=(full - twin).abs().max().item(),
-                   top300_vs_all_rows=bool(torch.equal(sub, full[top])))
+                   top300_vs_all_rows=bool(torch.equal(sub, full[top])),
+                   top_rollouts_vs_twin=bool(torch.equal(states, w_states)),
+                   top_rollouts_max_abs_err=(states - w_states).abs().max().item())
         print(f"regeneration ({mode}, T={T}, K={K}): {json.dumps(res)}", flush=True)
         err = max(err, res["max_abs_err"])
-        if not all(v for k, v in res.items() if k != "max_abs_err"):
-            fail(f"regeneration ({mode}) is not bit for bit the solve's perturbations")
+        top_err = max(top_err, res["top_rollouts_max_abs_err"])
+        if not all(v for k, v in res.items() if not k.endswith("max_abs_err")):
+            fail(f"regeneration ({mode}) is not bit for bit the solve's perturbations, or the top "
+                 "rows' roll-out not its twin's")
             return None
     args = (sig, u_min, u_max, K, threshold)
-    t_all = cuda_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args), 20)
-    t_top = cuda_ms(torch, lambda: fused_solve.fused_regen(prev, seed, top, *args), 50)
-    t_noise = cuda_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args, noise), 20)
+    t_all, _ = device_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args), 20)
+    t_top, t_top_loop = device_ms(torch, lambda: fused_solve.fused_regen(prev, seed, top, *args),
+                                  50)
+    t_noise, _ = device_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args, noise),
+                           20)
     t_plain = cuda_ms(torch, lambda: fused_solve.fused_regen_plain(prev, seed, rows, *args), 3,
                       warmup=1)
     t_top_plain = cuda_ms(torch, lambda: fused_solve.fused_regen_plain(prev, seed, top, *args),
                           3, warmup=1)
+    t_roll, t_roll_loop = device_ms(
+        torch, lambda: fused_solve.fused_top_rollouts(x0, prev, seed, top, task, *args), 50)
+    t_roll_noise, _ = device_ms(
+        torch, lambda: fused_solve.fused_top_rollouts(x0, prev, seed, top, task, *args, noise), 50)
+    t_roll_plain = cuda_ms(torch, lambda: fused_solve.fused_top_rollouts_plain(
+        x0, prev, seed, top, task, *args), 3, warmup=1)
+    b_roll, by_roll = top_rollouts_bound_ms(300, T, True)
+    b_roll_noise, _ = top_rollouts_bound_ms(300, T, False)
     b_all, by_all = regen_bound_ms(K, T, True)
     b_top, by_top = regen_bound_ms(300, T, True)
     b_noise, _ = regen_bound_ms(K, T, False)
-    print(f"times on {card}: regeneration of all {K} rows {t_all:.4f} ms (bound {b_all:.5f} ms, "
-          f"{by_all}; noise mode {t_noise:.4f} ms, bound {b_noise:.5f} ms), twin {t_plain:.3f} "
-          f"ms; of the top 300 {t_top:.4f} ms (bound {b_top:.6f} ms, {by_top}), twin "
-          f"{t_top_plain:.3f} ms", flush=True)
-    return dict(name="fused_regen_m2", route="cuda",
-                source="mppi_playground_tpu_torch/csrc/fused_solve.cu",
-                replaces="mppi_playground_tpu/ops/fused_solve.py:937", max_abs_err=err,
-                ms=t_top, plain_ms=t_top_plain, bound_ms=b_top, bound_by=by_top,
-                library_ms=None, rows=300, all_rows_ms=t_all, all_rows_plain_ms=t_plain,
-                all_rows_bound_ms=b_all, all_rows_noise_mode_ms=t_noise,
-                all_rows_noise_mode_bound_ms=b_noise)
+    print(f"times on {card} (graph replay): regeneration of all {K} rows {t_all:.4f} ms (bound "
+          f"{b_all:.5f} ms, {by_all}; noise mode {t_noise:.4f} ms, bound {b_noise:.5f} ms), twin "
+          f"{t_plain:.3f} ms; of the top 300 {t_top:.4f} ms (event loop {t_top_loop:.4f} ms; "
+          f"bound {b_top:.6f} ms, {by_top}), twin {t_top_plain:.3f} ms; the top 300 rolled out "
+          f"{t_roll:.4f} ms (event loop {t_roll_loop:.4f} ms; noise mode {t_roll_noise:.4f} ms; "
+          f"bound {b_roll:.6f} ms, {by_roll}), twin {t_roll_plain:.3f} ms", flush=True)
+    return [
+        dict(name="fused_regen_m2", route="cuda",
+             source="mppi_playground_tpu_torch/csrc/fused_solve.cu",
+             replaces=f"{FUSED_SOLVE_PY}:937", max_abs_err=err, ms=t_top, plain_ms=t_top_plain,
+             bound_ms=b_top, bound_by=by_top, library_ms=None, rows=300,
+             launch_loop_ms=t_top_loop, all_rows_ms=t_all, all_rows_plain_ms=t_plain,
+             all_rows_bound_ms=b_all, all_rows_noise_mode_ms=t_noise,
+             all_rows_noise_mode_bound_ms=b_noise),
+        kernel_row("racing_top_rollouts", "reroll.cu", f"{FUSED_SOLVE_PY}:937", top_err, t_roll,
+                   t_roll_plain, b_roll, by_roll, rows=300, horizon=T, num_samples=K,
+                   launch_loop_ms=t_roll_loop, noise_mode_ms=t_roll_noise,
+                   noise_mode_bound_ms=b_roll_noise),
+    ]
 
 
 FACADE_ROUTES = (
@@ -976,7 +1042,7 @@ def drive_facades(torch, env, card):
                      "samples not in descending weight order")
                 return None
         launches = read_counters(counted)
-        once = ({"racing_fused_solve", "racing_reroll", "fused_regen_m2"} if fused
+        once = ({"racing_fused_solve", "racing_reroll", "racing_top_rollouts"} if fused
                 else {"weighted_update_partials"})
         want = {name: (TICKS if name in once else 0) for name in counted}
         progress = int(ctrl.current_path_index)
@@ -1042,7 +1108,7 @@ def drive_mppi(torch, env, task, card):
                 want_once = {"weighted_update_partials": calls}
             else:  # one top-samples call after the ticks
                 want_once = {name: calls for name in fused_kernels("racing", c.config)}
-                want_once["fused_regen_m2"] = 1
+                want_once["racing_top_rollouts"] = 1
             want = {name: want_once.get(name, 0) for name in counted}
             lam = c.lambda_
             ok = (torch.isfinite(action_seq).all() and torch.isfinite(seqs).all()
@@ -1059,6 +1125,10 @@ def drive_mppi(torch, env, task, card):
 
 
 NEW_MODELS = ("navigation", "danger_zone", "pendulum", "cartpole", "mountain_car", "integrator")
+# Row 6's kernel on its actions-only plug: held against phase 1's dump and the
+# twin, but launched on no path, since get_top_samples rolls the rows out in
+# the same launch (<model>_top_rollouts).
+OFF_PATHS = ("fused_regen_m1", "fused_regen_m2")
 # step with libm sinf/cosf: held to the JAX package's fused-vs-XLA cost bar,
 # rtol 2e-5 and atol 1e-5, where their costs are not bitwise the twin's
 LIBM_MODELS = ("danger_zone", "pendulum", "cartpole", "mountain_car")
@@ -1105,13 +1175,15 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     """Phase 9: one model's fused kernels against their twins at its configuration.
 
     The fused solve, phase 1, phase 1 with the ESSPS epilogue, phase 2 at
-    lambda=1, regeneration of all K rows and the re-roll, seeded and in
-    noise mode.  Gates: costs bitwise (the libm models: bitwise or the bar
-    above, reported), the partials by ``partials_errors``, the dump and the
-    regenerated rows bitwise, phase 1 + 2 at lambda=1 bitwise the fixed
-    solve, the epilogue's costs, dump and lambda* bitwise the standalone
-    route's.  Returns ``{kernel: row}`` (``m{m}_regen`` for the
-    regeneration of this model's m) or None after a failure.  The
+    lambda=1, regeneration of all K rows, 300 rows regenerated and rolled
+    out, and the re-roll, seeded and in noise mode.  Gates: costs bitwise
+    (the libm models: bitwise or the bar above, reported), the partials by
+    ``partials_errors``, the dump and the regenerated rows bitwise, phase 1 +
+    2 at lambda=1 bitwise the fixed solve, the epilogue's costs, dump and
+    lambda* bitwise the standalone route's, the rolled-out rows bitwise
+    their twin's (the libm models: states atol 5e-3).  Returns ``{kernel:
+    row}`` (``m{m}_regen`` for the regeneration of this model's m, and
+    ``weighted``, phase 2's time here) or None after a failure.  The
     epilogue's lambda* is also held against the plain search on the twin's
     costs (``lambda_vs_plain``); its row's error is the largest gap of its
     costs, dump and lambda* to its twin's.
@@ -1135,7 +1207,9 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     search = LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)
     ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
     rows = torch.arange(k, device="cuda")
-    err = dict(solve=0.0, dump=0.0, regen=0.0, reroll=0.0, epilogue=0.0)
+    err = dict(solve=0.0, dump=0.0, regen=0.0, reroll=0.0, epilogue=0.0, top_rollouts=0.0)
+    # rows the top rows' kernel rolls out against its twin: any 300 (every row if fewer)
+    picked = torch.randperm(k, generator=torch.Generator().manual_seed(SEED))[:300].to("cuda")
 
     def within_bar(got_costs, want_costs):  # the libm models' cost bar
         return bool(((got_costs - want_costs).abs() <= 1e-5 + 2e-5 * want_costs.abs()).all())
@@ -1152,6 +1226,9 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
         lam_standalone = search.run(p1[0])
         regen = fs.fused_regen(prev, seed, rows, sig, lo, hi, k, threshold, nz)
         w_regen = fs.fused_regen_plain(prev, seed, rows, sig, lo, hi, k, threshold, nz)
+        tops = fs.fused_top_rollouts(x0, prev, seed, picked, task, sig, lo, hi, k, threshold, nz)
+        w_tops = fs.fused_top_rollouts_plain(x0, prev, seed, picked, task, sig, lo, hi, k,
+                                             threshold, nz)
         torch.cuda.synchronize()
         lam_err, lam_ok = lambda_vs_plain(search, w_p1[0], epi[2])
         costs_bitwise = bool(torch.equal(got[0], want[0]))
@@ -1174,6 +1251,8 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
             epilogue_lam_vs_plain_abs_err=lam_err,
             epilogue_lam_within_plain_bar=lam_ok,
             regen_equals_dump=bool(torch.equal(regen, p1[1].t().reshape(k, horizon, m))),
+            top_rollouts_bitwise=bool(torch.equal(tops, w_tops)),
+            top_rollouts_max_abs_err=(tops - w_tops).abs().max().item(),
         )
         bitwise[mode] = costs_bitwise
         print(f"{label} kernels vs twins ({mode}): {json.dumps(res)}", flush=True)
@@ -1182,17 +1261,21 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
         err["epilogue"] = max(err["epilogue"], (epi[0] - w_p1[0]).abs().max().item(),
                               (epi[1] - w_p1[1]).abs().max().item(), lam_err)
         err["regen"] = max(err["regen"], (regen - w_regen).abs().max().item())
+        err["top_rollouts"] = max(err["top_rollouts"], res["top_rollouts_max_abs_err"])
+        tops_ok = res["top_rollouts_bitwise"] or (name in LIBM_MODELS
+                                                  and res["top_rollouts_max_abs_err"] <= 5e-3)
         costs_ok = costs_bitwise or (name in LIBM_MODELS and within_bar(got[0], want[0]))
         partials_ok = res["partials"]["ok"] or (
             not costs_bitwise and res["weights_max_abs_err"] <= 1e-5
             and res["update_max_abs_err"] <= 5e-3)
         if not (costs_ok and partials_ok and res["phase1_costs_equal_fixed"]
                 and res["phase1_dump_vs_twin_bitwise"] and res["phase2_at_1_equals_fixed"]
-                and res["epilogue_equals_standalone"] and lam_ok and res["regen_equals_dump"]):
+                and res["epilogue_equals_standalone"] and lam_ok and res["regen_equals_dump"]
+                and tops_ok):
             fail(f"{label} kernels ({mode}) off the bar: costs bitwise (libm: rtol 2e-5, atol "
                  f"1e-5), partials {PARTIALS_BAR}, dump, regeneration, phase 1 + 2 and the "
                  "epilogue bitwise, the epilogue's lambda* within ESSPS rtol 1e-4 atol 1e-6 "
-                 "of the plain search")
+                 "of the plain search, the top rows' roll-out bitwise (libm: atol 5e-3)")
             return None
     seq = g[0].contiguous()
     got_r = fs.fused_reroll(x0, seq, task)
@@ -1209,20 +1292,29 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     args = (x0, prev, lam, seed, None, task, sig, lo, hi, k, threshold, None)
     p1_args = (x0, prev) + args[3:]
     top = top_indices(g[1], min(300, k))[1]  # the seeded solve's heaviest rows
-    t = dict(
-        solve=cuda_ms(torch, lambda: fs.fused_solve(*args), 20),
+    kernels = dict(
+        solve=(lambda: fs.fused_solve(*args), 20),
+        dump=(lambda: fs.fused_costs_dump(*p1_args), 20),
+        epilogue=(lambda: fs.fused_costs_dump_lambda(*p1_args, search, ticket), 20),
+        reroll=(lambda: fs.fused_reroll(x0, seq, task), 50),
+        regen=(lambda: fs.fused_regen(prev, seed, top, sig, lo, hi, k, threshold), 50),
+        weighted=(lambda: fs.fused_weighted(*p1, lam), 50),
+        top_rollouts=(lambda: fs.fused_top_rollouts(x0, prev, seed, top, task, sig, lo, hi, k,
+                                                    threshold), 50),
+    )
+    t, loop = {}, {}
+    for key, (fn, reps) in kernels.items():  # graph replay, and the event loop beside it
+        t[key], loop[key] = device_ms(torch, fn, reps)
+    t.update(
         solve_plain=cuda_ms(torch, lambda: fs.fused_solve_plain(*args), 3, warmup=1),
-        dump=cuda_ms(torch, lambda: fs.fused_costs_dump(*p1_args), 20),
         dump_plain=cuda_ms(torch, lambda: fs.fused_costs_dump_plain(*p1_args), 3, warmup=1),
-        epilogue=cuda_ms(torch, lambda: fs.fused_costs_dump_lambda(*p1_args, search, ticket), 20),
         epilogue_plain=cuda_ms(torch, lambda: fs.fused_costs_dump_lambda_plain(*p1_args, search),
                                3, warmup=1),
-        reroll=cuda_ms(torch, lambda: fs.fused_reroll(x0, seq, task), 50),
         reroll_plain=cuda_ms(torch, lambda: fs.fused_reroll_plain(x0, seq, task), 5, warmup=1),
-        regen=cuda_ms(torch, lambda: fs.fused_regen(prev, seed, top, sig, lo, hi, k, threshold),
-                      50),
         regen_plain=cuda_ms(torch, lambda: fs.fused_regen_plain(prev, seed, top, sig, lo, hi, k,
                                                                 threshold), 3, warmup=1),
+        top_rollouts_plain=cuda_ms(torch, lambda: fs.fused_top_rollouts_plain(
+            x0, prev, seed, top, task, sig, lo, hi, k, threshold), 3, warmup=1),
     )
     b_solve = solve_bound_ms(k, horizon, True, grid_bytes, ops)
     b_dump = phase1_bound_ms(k, horizon, True, grid_bytes, ops)
@@ -1230,27 +1322,42 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
                             search_ops(k, 40, OPS_ESSPS_EVAL, 2))
     b_reroll = reroll_bound_ms(horizon, ops)
     b_regen = regen_bound_ms(len(top), horizon, True, m)
-    print(f"times on {card}, {label}: " + "; ".join(f"{key} {value:.4f} ms" for key, value in
-                                                    t.items())
+    b_weighted = phase2_bound_ms(k, horizon, m)
+    b_tops = top_rollouts_bound_ms(len(top), horizon, True, ops)
+    print(f"times on {card}, {label} (kernels by graph replay, their event loops in brackets; "
+          "twins by events): " + "; ".join(
+              f"{key} {value:.4f} ms" + (f" ({loop[key]:.4f})" if key in loop else "")
+              for key, value in t.items())
           + f"; bounds solve {b_solve[0]:.6f}, phase 1 {b_dump[0]:.6f}, epilogue {b_epi[0]:.6f},"
-          f" re-roll {b_reroll[0]:.8f}, regeneration of {len(top)} rows {b_regen[0]:.7f} ms",
-          flush=True)
+          f" re-roll {b_reroll[0]:.8f}, regeneration of {len(top)} rows {b_regen[0]:.7f}, their "
+          f"roll-out {b_tops[0]:.7f}, phase 2 {b_weighted[0]:.7f} ms", flush=True)
     shape = dict(horizon=horizon, num_samples=k, costs_bitwise_equal_to_twin=bitwise)
     rollout = (f"fused_{name}.cu", f"{FUSED_SOLVE_PY}:783")
     return {
         f"{name}_fused_solve": kernel_row(f"{name}_fused_solve", *rollout, err["solve"],
-                                          t["solve"], t["solve_plain"], *b_solve, **shape),
+                                          t["solve"], t["solve_plain"], *b_solve,
+                                          launch_loop_ms=loop["solve"], **shape),
         f"{name}_costs_dump": kernel_row(f"{name}_costs_dump", *rollout, err["dump"], t["dump"],
-                                         t["dump_plain"], *b_dump, **shape),
+                                         t["dump_plain"], *b_dump, launch_loop_ms=loop["dump"],
+                                         **shape),
         f"{name}_costs_dump_lambda": kernel_row(
             f"{name}_costs_dump_lambda", *rollout, err["epilogue"], t["epilogue"],
-            t["epilogue_plain"], *b_epi, search="ESSPS", **shape),
+            t["epilogue_plain"], *b_epi, search="ESSPS", launch_loop_ms=loop["epilogue"],
+            **shape),
         f"{name}_reroll": kernel_row(f"{name}_reroll", "reroll.cu", f"{FUSED_SOLVE_PY}:272",
                                      err["reroll"], t["reroll"], t["reroll_plain"], *b_reroll,
-                                     horizon=horizon),
+                                     horizon=horizon, launch_loop_ms=loop["reroll"]),
         f"m{m}_regen": kernel_row(f"fused_regen_m{m}", "fused_solve.cu", f"{FUSED_SOLVE_PY}:937",
                                   err["regen"], t["regen"], t["regen_plain"], *b_regen,
-                                  rows=len(top), horizon=horizon, num_samples=k, model=name),
+                                  rows=len(top), horizon=horizon, num_samples=k, model=name,
+                                  launch_loop_ms=loop["regen"]),
+        f"{name}_top_rollouts": kernel_row(
+            f"{name}_top_rollouts", "reroll.cu", f"{FUSED_SOLVE_PY}:937", err["top_rollouts"],
+            t["top_rollouts"], t["top_rollouts_plain"], *b_tops, rows=len(top), horizon=horizon,
+            num_samples=k, launch_loop_ms=loop["top_rollouts"]),
+        # phase 2 at this family's configuration: the kernel's time on its paths
+        "weighted": dict(ms=t["weighted"], launch_loop_ms=loop["weighted"],
+                         bound_ms=b_weighted[0]),
     }
 
 
@@ -1336,11 +1443,12 @@ def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
         python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.search_kernels_in_turns("DIR"))'
 
     ``DIR`` is the other checkout's root: its ``csrc/lambda_search.cu`` is
-    built with this checkout's flags and called through the same C functions
-    (``essps_search``, ``lbps_search``).  At each K, on seeded costs uniform
-    in [0, 20) (each search takes its fixed number of steps on any costs),
-    both kernels must give lambda* bit for bit; :func:`in_turns` then times
-    them (device time of graph replays, the order flipped every window).
+    built with this checkout's flags (:func:`build_copies`) and called
+    through the same C functions (``essps_search``, ``lbps_search``).  At
+    each K, on seeded costs uniform in [0, 20) (each search takes its fixed
+    number of steps on any costs), both kernels must give lambda* bit for
+    bit; :func:`in_turns` then times them (device time of graph replays, the
+    order flipped every window).
     Prints the card's line, then one JSON line a search and K; returns the
     exit code.
     """
@@ -1351,17 +1459,12 @@ def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from mppi_playground_tpu_torch.ops import cuda_build
     from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 
     card = card_line()
     print(card, flush=True)
-    source = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc" / "lambda_search.cu"
-    target = cuda_build.BUILD_DIR / "other_lambda_search.so"
-    target.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(target), str(source)],
-                   check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(target))
+    csrc = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc"
+    lib = build_copies({"other": (csrc, [])}, ["lambda_search"])["other"]["lambda_search"][0]
     argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 3
                 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     rng = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1369,8 +1472,7 @@ def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
         costs = torch.rand(k, generator=rng, device="cuda") * 20.0
         for search in (LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40),
                        LambdaSearch("LBPS", 0.01, 10.0, 0.01, 32)):
-            fn = getattr(lib, f"{search.mode.lower()}_search")
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fn = _ctypes_fn(lib, f"{search.mode.lower()}_search", argtypes)
 
             def theirs(search=search, fn=fn, costs=costs):
                 out = torch.empty(1, device="cuda")
@@ -1392,6 +1494,560 @@ def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
             if lam_other != lam_this:
                 return fail(f"{search.mode} at K={k}: lambda* {lam_this!r} here, {lam_other!r} "
                             "in the other checkout")
+    return 0
+
+
+# Patched copies of a checkout's csrc, each built with this checkout's flags: row1_split
+# times the racing fused solve of each against the unpatched build in turns, to see
+# what each section of the rollout costs.  (file, old, new) substitutions match the
+# sources as of the first redesign of row 1 (pass a checkout of that parent); an
+# "exact" variant must leave every output bit as it was.
+_SHARED_SLOTS = '''struct SharedSlots {  // the numerator's slots from shared memory
+  static constexpr int kWidth = 1;
+  const float* v;
+  int slot;
+  __device__ __forceinline__ void next(float* o) { o[0] = v[slot++]; }
+};
+
+'''
+_SOLVE_KERNEL = ("template <class Model>\n"
+                 "__global__ void __launch_bounds__(kBlock) fused_solve_kernel")
+_REGENERATE = "  Perturbation<Model::kM> pert(p.s, s_prev, valid ? k : 0);\n"
+_FMOD = "  float r = fmodf(x + pi, two_pi);\n"
+_DRAW = ("        devmath::normal_pair_from_bits(w.x, w.y, &z0, &z1);\n"
+         "        devmath::normal_pair_from_bits(w.z, w.w, &z2, &z3);\n")
+_PHILOX = ("        const uint4 w = devmath::philox4x32_10(\n"
+           "            make_uint4(static_cast<uint32_t>(f0 >> 2), 0u, 0u, 0u), s.seed,\n"
+           "            static_cast<uint32_t>(k));\n")
+EXACT_ANGLE_NORMALIZE = '''  const float y = x + pi;
+  float r;
+  if (fabsf(y) < two_pi) {
+    r = y;
+  } else if (y >= two_pi && y < 2.0f * two_pi) {
+    r = y - two_pi;
+  } else if (y <= -two_pi && y > -2.0f * two_pi) {
+    r = y == -two_pi ? -0.0f : y + two_pi;
+  } else {
+    r = fmodf(y, two_pi);
+  }
+'''
+NO_REGEN = [("fused_solve.cuh", _SOLVE_KERNEL, _SHARED_SLOTS + _SOLVE_KERNEL),
+            ("fused_solve.cuh", _REGENERATE, "  SharedSlots pert{s_prev, 0};\n")]
+NO_FMOD = [("device_math.cuh", _FMOD, "  float r = x + pi;\n")]
+ROW1_VARIANTS = {
+    "(a) numerator pass reads shared memory, no regeneration": (False, NO_REGEN),
+    "(b) grid loads removed": (False, [(
+        "device_math.cuh",
+        "  float a = (oob || __ldg(grid_a + idx) != 0) ? 1.0f : 0.0f;\n"
+        "  float b = (oob || __ldg(grid_b + idx) != 0) ? 1.0f : 0.0f;\n",
+        "  float a = (oob || idx == 7) ? 1.0f : 0.0f;\n  float b = a;\n")]),
+    "(b2) map query removed, divisions too": (False, [(
+        "racing_model.cuh",
+        "  float obstacle_cost = kQo * devmath::map_cost_pair(x, y, grid_a, grid_b, g);\n",
+        "  float obstacle_cost = 0.0f;\n")]),
+    "(c) fmodf bypassed": (False, NO_FMOD),
+    "(a) + (c)": (False, NO_REGEN + NO_FMOD),
+    "(d) no draws": (False, [(
+        "fused_solve.cuh", _PHILOX + _DRAW,
+        "        z0 = z1 = z2 = z3 = 1e-3f * static_cast<float>(f0 + k);\n")]),
+    "(d2) Philox kept, no Box-Muller": (False, [(
+        "fused_solve.cuh", _DRAW,
+        "        z0 = static_cast<float>(w.x & 0xFFFFu) * 1e-5f;\n"
+        "        z1 = static_cast<float>(w.y & 0xFFFFu) * 1e-5f;\n"
+        "        z2 = static_cast<float>(w.z & 0xFFFFu) * 1e-5f;\n"
+        "        z3 = static_cast<float>(w.w & 0xFFFFu) * 1e-5f;\n")]),
+    "exact angle_normalize shortcut": (True, [("device_math.cuh", _FMOD, EXACT_ANGLE_NORMALIZE)]),
+    "__launch_bounds__(256, 4)": (True, [(
+        "fused_solve.cuh", "__global__ void __launch_bounds__(kBlock) fused_solve_kernel",
+        "__global__ void __launch_bounds__(kBlock, 4) fused_solve_kernel")]),
+}
+# Copies of this checkout's row 1 timed beside those: the numerator tile as the
+# launch sizes it, none (every slot regenerated), or every slot (fewer CTAs an SM).
+_TILE_CHOICE = ("  int tile_slots = 0;\n"
+                "  cudaError_t err = tile_slots_for(fused_solve_kernel<Model>, base, slots, grid, "
+                "&tile_slots);\n")
+THIS_VARIANTS = {
+    "this checkout": [],
+    "this checkout, no tile": [("fused_solve.cuh", _TILE_CHOICE,
+                                "  int tile_slots = 0;\n  cudaError_t err = cudaSuccess;\n")],
+    "this checkout, every slot in the tile": [("fused_solve.cuh", _TILE_CHOICE,
+                                               "  int tile_slots = slots;\n"
+                                               "  cudaError_t err = cudaSuccess;\n")],
+    "this checkout, angle_normalize through fmodf": [("device_math.cuh", EXACT_ANGLE_NORMALIZE,
+                                                      _FMOD)],
+}
+
+
+def retimed_products(smoke_log: str, turns_log: str) -> int:
+    """:func:`row_products` before and after, from two runs' logs.
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.retimed_products("S", "F"))'
+
+    ``S`` holds this script's output (its kernels line gives each kernel's
+    launches on each path, its bound, and the times of rows 7-9), ``F`` the
+    output of :func:`fused_kernels_in_turns` (each side's graph-replay times
+    of rows 1-6 at every family's example configuration, racing's at the
+    flagship's).  On each side a row-1-to-5 kernel takes that side's time,
+    phase 2 (shared by every model) its path's model's with the bound of
+    racing's flagship or 0; row 6 takes the other side's regeneration time
+    (which then re-rolled in torch) and this side's ``<model>_top_rollouts``
+    from the kernels line.  Prints ``{"other": {row: ms}, "this": {row:
+    ms}}``.
+    """
+    kernels = next(json.loads(line)["kernels"] for line in Path(smoke_log).read_text().splitlines()
+                   if line.startswith('{"kernels"'))
+    turns = {}
+    for line in Path(turns_log).read_text().splitlines():
+        if line.startswith("{"):  # the first case of a kernel is at its example's configuration
+            entry = json.loads(line)
+            turns.setdefault(entry["kernel"], entry)
+    out = {}
+    for side in ("other", "this"):
+        rows, shared = [], {}
+        for k in kernels:
+            row = dict(k)
+            model = k["name"].split("_top_rollouts")[0]
+            key = f"{model}_regen" if k["row"] == 6 and side == "other" else k["name"]
+            if key in turns and (k["row"] != 6 or side == "other"):
+                row["ms"] = turns[key][f"{side}_ms"]
+            rows.append(row)
+        for name, entry in turns.items():
+            if name.endswith("_weighted"):
+                model = name[:-len("_weighted")]
+                bound = next(k["bound_ms"] for k in kernels if k["name"] == "fused_weighted")
+                shared[("fused_weighted", model)] = (entry[f"{side}_ms"],
+                                                     bound if model == "racing" else 0.0)
+        out[side] = row_products(rows, shared)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def build_copies(copies: dict, sources) -> dict:
+    """Build patched copies of ``csrc`` directories with this checkout's nvcc flags, at once.
+
+    ``copies`` maps a label to ``(csrc dir, [(file, old, new), ...])``; each
+    ``old`` must occur once in its file.  Each copy goes to
+    ``build/variants/<n>/``, each of ``sources`` (``<name>.cu``) to a library
+    beside it.  Returns ``{label: {source: (library path, nvcc log)}}``.
+    """
+    import shutil
+
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    root = cuda_build.BUILD_DIR.parent / "variants"
+    procs = []
+    try:
+        for i, (label, (csrc, subs)) in enumerate(copies.items()):
+            copy = root / f"v{i}"
+            shutil.rmtree(copy, ignore_errors=True)
+            shutil.copytree(csrc, copy)
+            for name, old, new in subs:
+                text = (copy / name).read_text()
+                if text.count(old) != 1:
+                    raise ValueError(f"{label}: {name} holds {old!r} {text.count(old)} times")
+                (copy / name).write_text(text.replace(old, new))
+            for src in sources:
+                lib = copy / f"{src}.so"
+                cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
+                       str(copy / f"{src}.cu")]
+                procs.append((label, src, lib, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        out = {}
+        for label, src, lib, proc in procs:
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for {label}, {src}.cu:\n{log[-4000:]}")
+            out.setdefault(label, {})[src] = (lib, log)
+        return out
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def sass_counts(lib: Path, pattern: str) -> dict:
+    """SASS instructions of the kernel whose mangled name holds ``pattern`` (``cuobjdump``).
+
+    ``{"total": n, "by_opcode": {opcode: n}}`` for the 12 most frequent
+    opcodes (predicates and modifiers dropped): static counts, each loop
+    body once.
+    """
+    import collections
+    import re
+
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    tool = Path(cuda_build.nvcc()).parent / "cuobjdump"
+    dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, inside = collections.Counter(), False
+    for line in dump.splitlines():
+        if "Function :" in line:
+            inside = pattern in line
+        elif inside:
+            found = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+            if found:
+                words = found.group(1).split()
+                op = words[1] if words[0].startswith("@") else words[0]
+                counts[op.split(".")[0]] += 1
+    return {"total": sum(counts.values()), "by_opcode": dict(counts.most_common(12))}
+
+
+def _ctypes_fn(lib: Path, symbol: str, argtypes: list):
+    """C function ``symbol`` of library ``lib``; ``argtypes`` end with the stream."""
+    import ctypes
+
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def _call(torch, fn, *args) -> None:
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")
+
+
+def row1_split(other: str) -> int:
+    """Where row 1's time goes: patched copies of another checkout's racing fused solve.
+
+    Run with the parent of row 1's redesign unpacked at ``DIR``::
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.row1_split("DIR"))'
+
+    ``DIR``'s ``csrc`` is built unpatched and once per entry of
+    :data:`ROW1_VARIANTS`, this checkout's once per entry of
+    :data:`THIS_VARIANTS`; at the flagship's shapes (seeded) each build's
+    ``racing_fused_solve`` is timed by graph replay in turns with the others
+    (:func:`in_turns`).  An exact variant and every build of this checkout
+    must give the unpatched build's costs and partials bit for bit in both
+    noise modes.  Prints the card, then one JSON line a build: its time,
+    registers and SASS counts of the kernel.  Returns the exit code.
+    """
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.core.config import tick_seed
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+
+    card = card_line()
+    print(card, flush=True)
+    csrc = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc"
+    copies = {"unpatched": (csrc, [])}
+    copies.update({label: (csrc, subs) for label, (_, subs) in ROW1_VARIANTS.items()})
+    here = Path(__file__).resolve().parent / "mppi_playground_tpu_torch" / "csrc"
+    copies.update({label: (here, subs) for label, subs in THIS_VARIANTS.items()})
+    built = build_copies(copies, ["fused_racing"])
+    _, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
+    lam = torch.ones(1, device="cuda")
+    sig, lo, hi = FLAGSHIP_BOUNDS
+    seed = tick_seed(42, 0)
+    blocks = -(-K // 256)
+    fns = {label: _ctypes_fn(libs["fused_racing"][0], "racing_fused_solve", fs._SOLVE_ARGTYPES)
+           for label, libs in built.items()}
+    exact_labels = [label for label in fns if label in THIS_VARIANTS
+                    or (label in ROW1_VARIANTS and ROW1_VARIANTS[label][0])]
+
+    def solve(fn, nz):
+        args, keep = fs._rollout_args(x0, prev, lam, seed, xref5, task, sig, lo, hi, K, K, nz)
+        out = (torch.empty(K, device="cuda"), torch.empty(blocks, 3, device="cuda"),
+               torch.empty(blocks, 2 * T, device="cuda"))
+        _call(torch, fn, *args, *(t.data_ptr() for t in out))
+        return out
+
+    exact = {label: all(torch.equal(a, b) for nz in (noise, None)
+                        for a, b in zip(solve(fns[label], nz), solve(fns["unpatched"], nz)))
+             for label in exact_labels}
+    turns = in_turns(torch, {label: (lambda fn=fn: solve(fn, None)) for label, fn in fns.items()},
+                     windows=10)
+    for label, libs in built.items():
+        lib, log = libs["fused_racing"]
+        print(json.dumps({"variant": label, "card": card, "ms": turns[label],
+                          "minus_unpatched_ms": turns[label] - turns["unpatched"],
+                          "exact": exact.get(label),
+                          "ptxas": ptxas_report({"fused_racing": log}, "fused_solve_kernel"),
+                          "sass": sass_counts(lib, "fused_solve_kernel")}), flush=True)
+    if not all(exact.values()):
+        return fail(f"an exact variant changed the outputs: {exact}")
+    return 0
+
+
+TOP_BLOCKS = (32, 64, 128, 256)  # CTA sizes top_rollouts_cta_sizes times
+
+
+def top_rollouts_cta_sizes() -> int:
+    """Row 6's CTA size: this checkout's top rows' kernel built at each of :data:`TOP_BLOCKS`.
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.top_rollouts_cta_sizes())'
+
+    Copies of ``csrc`` with ``kTopBlock`` set to each size; the racing
+    flagship's 300 heaviest rows (T=50, K=100,000) and Navigation2D's 300
+    at its example's configuration (T=30, K=3,000), seeded, each build's
+    states bit for bit the others', timed by graph replay in turns.  Prints
+    the card and one JSON line a model; returns the exit code.
+    """
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.core.config import tick_seed
+    from mppi_playground_tpu_torch.core.diagnostics import top_indices
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+
+    card = card_line()
+    print(card, flush=True)
+    csrc = Path(__file__).resolve().parent / "mppi_playground_tpu_torch" / "csrc"
+    kept = "constexpr int kTopBlock = 32;"
+    built = build_copies({size: (csrc, [("fused_solve.cuh", kept, f"constexpr int kTopBlock = "
+                                                                   f"{size};")])
+                          for size in TOP_BLOCKS}, ["reroll"])
+    seed = tick_seed(42, 0)
+    _, task, x0, xref5, prev, _ = flagship_inputs(torch, np)
+    costs = fs.fused_costs_dump(x0, prev, seed, xref5, task, *FLAGSHIP_BOUNDS, K, K)[0]
+    cases = [("racing", task, x0, prev, FLAGSHIP_BOUNDS, K, top_indices(-costs, 300)[1])]
+    w, m_prev, _, bounds = model_inputs(torch, np, "navigation")
+    k = w.mppi_kwargs["num_samples"]
+    costs = fs.fused_costs_dump(w.x0, m_prev, seed, None, w.task, *bounds, k, k)[0]
+    cases.append(("navigation", w.task, w.x0, m_prev, bounds, k, top_indices(-costs, 300)[1]))
+    failed = False
+    for name, task, x0, prev, (sig, lo, hi), k, rows in cases:
+        def run(fn):
+            out = torch.empty(rows.shape[0], prev.shape[0] + 1, task.dim_state, device="cuda")
+            _call(torch, fn, x0.data_ptr(), prev.data_ptr(), None, rows.data_ptr(),
+                  fs._floats((*sig, *lo, *hi)), fs._floats(task.floats), fs._ints(task.ints),
+                  seed, prev.shape[0], k, k, rows.shape[0], out.data_ptr())
+            return out
+
+        fns = {size: _ctypes_fn(libs["reroll"][0], f"{name}_top_rollouts",
+                                fs._TOP_ROLLOUTS_ARGTYPES) for size, libs in built.items()}
+        outs = [run(fn) for fn in fns.values()]
+        same = all(torch.equal(outs[0], o) for o in outs[1:])
+        turns = in_turns(torch, {size: (lambda fn=fn: run(fn)) for size, fn in fns.items()},
+                         windows=10)
+        print(json.dumps({"model": name, "rows": rows.shape[0], "horizon": prev.shape[0],
+                          "card": card, "bitwise_across_sizes": same,
+                          "ms_by_cta_size": turns}), flush=True)
+        failed = failed or not same
+    return fail("CTA sizes gave different states") if failed else 0
+
+
+def fused_kernels_in_turns(other: str) -> int:
+    """Rows 1-6 of this checkout against another checkout's, bit for bit and in turns.
+
+    Compares a change to the rollout kernels with its parent::
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.fused_kernels_in_turns("DIR"))'
+
+    ``DIR``'s ``fused_<model>.cu``, ``fused_solve.cu`` and ``reroll.cu`` are
+    built with this checkout's flags and called through the same C
+    functions.  For the flagship (racing, T=50, K=100,000), every other
+    family at its example's configuration and Navigation2D at K=100,000:
+    the fused solve (row 1), the re-roll (row 2), phase 1 (row 3), phase 1
+    with the ESSPS epilogue (row 4), phase 2 at lambda=1 on this checkout's
+    phase 1 (row 5) and the regeneration of the 300 cheapest rows (row 6)
+    must give the other build's outputs bit for bit, in both noise modes;
+    :func:`in_turns` then times each pair on the seeded stream.  Prints the
+    card, then one JSON line a model and kernel; returns the exit code.
+    """
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.core.config import tick_seed
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+
+    card = card_line()
+    print(card, flush=True)
+    csrc = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc"
+    libs = build_copies({"other": (csrc, [])},
+                        [f"fused_{name}" for name in fs.MODELS] + ["reroll", "fused_solve"])
+    libs = libs["other"]
+    seed = tick_seed(42, 0)
+    cases = []
+    _, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
+    cases.append((f"racing T={T} K={K}", task, x0, xref5, prev, noise, FLAGSHIP_BOUNDS))
+    for name, k in [(name, None) for name in NEW_MODELS] + [("navigation", 100_000)]:
+        w, m_prev, m_noise, bounds = model_inputs(torch, np, name, k)
+        cases.append((f"{name} T={m_prev.shape[0]} K={w.mppi_kwargs['num_samples']}", w.task,
+                      w.x0, None, m_prev, m_noise, bounds))
+    failed = False
+    for label, task, x0, ref, prev, noise, (sig, lo, hi) in cases:
+        model, k = task.model, noise.shape[0]
+        lam = torch.ones(1, device="cuda")
+        search = LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)
+        tickets = {side: torch.zeros(1, dtype=torch.int32, device="cuda")
+                   for side in ("this", "other")}
+        blocks, slots = -(-k // 256), prev.numel()
+        lib = libs[f"fused_{model}"][0]
+        shared = libs["fused_solve"][0]
+        theirs_fn = {
+            "fused_solve": _ctypes_fn(lib, f"{model}_fused_solve", fs._SOLVE_ARGTYPES),
+            "costs_dump": _ctypes_fn(lib, f"{model}_costs_dump", fs._DUMP_ARGTYPES),
+            "costs_dump_lambda": _ctypes_fn(lib, f"{model}_costs_dump_lambda",
+                                            fs._DUMP_LAMBDA_ARGTYPES),
+            "reroll": _ctypes_fn(libs["reroll"][0], f"{model}_reroll", fs._REROLL_ARGTYPES),
+            "weighted": _ctypes_fn(shared, "fused_weighted", fs._WEIGHTED_ARGTYPES),
+            "regen": _ctypes_fn(shared, f"fused_regen_m{task.dim_control}", fs._REGEN_ARGTYPES),
+        }
+        # phase 1's outputs that phase 2 reads, and the rows regenerated, by noise mode
+        phase1 = {id(nz): fs.fused_costs_dump(x0, prev, seed, ref, task, sig, lo, hi, k, k, nz)
+                  for nz in (noise, None)}
+        rows = torch.sort(phase1[id(None)][0], stable=True).indices[:300].contiguous()
+
+        def sampling(nz):
+            return (seed, ref, task, sig, lo, hi, k, k, nz)
+
+        def ours(kernel, nz):
+            if kernel == "fused_solve":
+                return fs.fused_solve(x0, prev, lam, *sampling(nz))
+            if kernel == "costs_dump":
+                return fs.fused_costs_dump(x0, prev, *sampling(nz))
+            if kernel == "costs_dump_lambda":
+                return fs.fused_costs_dump_lambda(x0, prev, *sampling(nz), search, tickets["this"])
+            if kernel == "weighted":
+                return fs.fused_weighted(*phase1[id(nz)], lam)
+            if kernel == "regen":
+                return (fs.fused_regen(prev, seed, rows, sig, lo, hi, k, k, nz),)
+            return (fs.fused_reroll(x0, prev, task),)
+
+        def theirs(kernel, nz):
+            fn = theirs_fn[kernel]
+            if kernel == "reroll":
+                out = torch.empty(prev.shape[0] + 1, task.dim_state, device="cuda")
+                _call(torch, fn, x0.data_ptr(), prev.data_ptr(), fs._floats(task.floats),
+                      fs._ints(task.ints), prev.shape[0], out.data_ptr())
+                return (out,)
+            if kernel == "weighted":
+                costs, dump = phase1[id(nz)]
+                out = (torch.empty(blocks, 3, device="cuda"),
+                       torch.empty(blocks, slots, device="cuda"))
+                _call(torch, fn, costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots, k,
+                      *(t.data_ptr() for t in out))
+                return out
+            if kernel == "regen":
+                out = torch.empty(rows.shape[0], *prev.shape, device="cuda")
+                nz_km = None if nz is None else fs._slot_major(nz, k, *prev.shape)
+                _call(torch, fn, prev.data_ptr(), None if nz is None else nz_km.data_ptr(),
+                      rows.data_ptr(), fs._floats((*sig, *lo, *hi)), seed, prev.shape[0], k, k,
+                      rows.shape[0], out.data_ptr())
+                return (out,)
+            args, keep = fs._rollout_args(x0, prev, lam if kernel == "fused_solve" else None,
+                                          *sampling(nz))
+            costs = torch.empty(k, device="cuda")
+            if kernel == "fused_solve":
+                out = (costs, torch.empty(blocks, 3, device="cuda"),
+                       torch.empty(blocks, slots, device="cuda"))
+                _call(torch, fn, *args, *(t.data_ptr() for t in out))
+            elif kernel == "costs_dump":
+                out = (costs, torch.empty(slots, k, device="cuda"))
+                _call(torch, fn, *args, *(t.data_ptr() for t in out))
+            else:
+                out = (costs, torch.empty(slots, k, device="cuda"), torch.empty(1, device="cuda"))
+                _call(torch, fn, *args, 0, search.lambda_min, search.lambda_max,
+                      search.kernel_param, search.iters, tickets["other"].data_ptr(),
+                      *(t.data_ptr() for t in out))
+            return out
+
+        for kernel in theirs_fn:
+            same = all(torch.equal(a, b) for nz in (noise, None)
+                       for a, b in zip(ours(kernel, nz), theirs(kernel, nz)))
+            turns = in_turns(torch, {"other": lambda kernel=kernel: theirs(kernel, None),
+                                     "this": lambda kernel=kernel: ours(kernel, None)})
+            print(json.dumps({"case": label, "kernel": f"{model}_{kernel}", "card": card,
+                              "bitwise": same, "other_ms": turns["other"],
+                              "this_ms": turns["this"]}), flush=True)
+            failed = failed or not same
+    return fail("a kernel's outputs differ from the other checkout's") if failed else 0
+
+
+def facade_top_samples(root: str) -> int:
+    """Median fused ``get_top_samples(300)`` of the checkout at ``root``: one JSON line.
+
+    ``RacingController`` on its fused route at T=25, K=4,000 and at T=50,
+    K=100,000, and Navigation2D's example configuration through ``MPPI``'s
+    fused route: 31 ticks each of the solve, then ``get_top_samples(300)``
+    timed on the host clock to a synchronize, then the plant's step; the
+    median of the last 30.
+    """
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import mppi_playground_tpu_torch
+    from mppi_playground_tpu_torch import MPPI
+    from mppi_playground_tpu_torch.envs import RacingController
+    from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
+    from mppi_playground_tpu_torch.workloads import build_model_workload
+
+    if not Path(mppi_playground_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
+        return fail(f"imported {mppi_playground_tpu_torch.__file__}, not the package under {root}")
+
+    def median_top(solve, top, step, x):
+        times = []
+        for i in range(31):
+            action_seq = solve(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seqs, _ = top(300)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+            if not torch.isfinite(seqs).all():
+                raise RuntimeError("non-finite top samples")
+            x = step(action_seq[0])
+        return statistics.median(times)
+
+    env = RacingEnv(device="cuda")
+    out = {"root": str(root)}
+    for label, kw in (("racing T=25 K=4000", {}),
+                      ("racing T=50 K=100000", dict(horizon=50, num_samples=100_000))):
+        ctrl = RacingController(env, store_rollouts=False, **kw)
+        out[label] = median_top(lambda x: ctrl.update(x)[0], ctrl.get_top_samples,
+                                lambda a: env.step(a)[0], env.reset())
+    nav = build_model_workload("navigation", device="cuda")
+    c = MPPI(**dict(nav.mppi_kwargs, store_rollouts=False, fused_task=nav.task))
+    out["navigation T=30 K=3000"] = median_top(lambda x: c.forward(x)[0], c.get_top_samples,
+                                               lambda a: nav.env.step(a)[0], nav.env.reset())
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def top_samples_in_turns(other: str) -> int:
+    """:func:`facade_top_samples` of another checkout and of this one, in turns.
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.top_samples_in_turns("DIR"))'
+
+    Four processes, one after another: ``DIR``, this checkout, this
+    checkout, ``DIR`` (each builds or loads its own kernels before it
+    times).  Prints the card, each process's JSON line, and the two medians
+    of each side as one JSON line.
+    """
+    here = Path(__file__).resolve().parent
+    card = card_line()
+    print(card, flush=True)
+    runs = {"other": [], "this": []}
+    for side in ("other", "this", "this", "other"):
+        root = Path(other).resolve() if side == "other" else here
+        code = f"import sys, chip_smoke; sys.exit(chip_smoke.facade_top_samples({str(root)!r}))"
+        proc = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode:
+            return fail(f"facade_top_samples({root}) failed:\n{proc.stdout[-2000:]}"
+                        f"{proc.stderr[-4000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(line, side=side)), flush=True)
+        runs[side].append(line)
+    print(json.dumps({"card": card, **{f"{side} {key}": [r[key] for r in lines]
+                                       for side, lines in runs.items()
+                                       for key in lines[0] if key != "root"}}), flush=True)
     return 0
 
 
@@ -1669,6 +2325,79 @@ def drive_model_paths(torch, card):
     return out
 
 
+def tpu_row(name: str) -> int:
+    """The row of PERF.md's table of TPU kernels that kernel ``name`` ports."""
+    for part, row in (("_fused_solve", 1), ("_reroll", 2), ("_costs_dump_lambda", 4),
+                      ("_costs_dump", 3), ("fused_weighted", 5), ("fused_regen_m", 6),
+                      ("_top_rollouts", 6), ("essps_lambda_fused", 7), ("lbps_lambda_fused", 8),
+                      ("weighted_update_partials", 9)):
+        if part in name:
+            return row
+    raise ValueError(f"no TPU kernel row for {name}")
+
+
+def path_model(path: str) -> str:
+    """The model family a path of this run drives (the flagship and both facades: racing)."""
+    first = path.split()[0]
+    return first if first in MODEL_OPS else "racing"
+
+
+def row_products(kernels: list, shared: dict) -> dict:
+    """``{row: ms}``: launches x (ms - bound_ms) summed over the kernels of each row.
+
+    A kernel of one model takes its own row's time; a kernel every model
+    shares (phase 2, the regeneration of m=1 and m=2) takes, path by path,
+    the time at that path's model's configuration (``shared``).  Model paths
+    at K=100,000 take the example configuration's time.
+    """
+    out = {}
+    for k in kernels:
+        total = 0.0
+        for path, n in k["launches_by_path"].items():
+            ms, bound = shared.get((k["name"], path_model(path)), (k["ms"], k["bound_ms"]))
+            total += n * (ms - bound)
+        out[k["row"]] = out.get(k["row"], 0.0) + total
+    return dict(sorted(out.items(), key=lambda item: -item[1]))
+
+
+FLAGSHIP_BOUNDS = ((0.5, 0.1), (-2.0, -0.25), (2.0, 0.25))  # sigma, u_min, u_max
+
+
+def angle_normalize_sweep(torch) -> tuple:
+    """``(inputs that differ, inputs in range)`` of ``csrc/exact_checks.cu``'s exhaustive sweep."""
+    import ctypes
+
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    cuda_build.launch("exact_checks", "angle_normalize_sweep", [ctypes.c_void_p] * 2,
+                      counts.device, counts.data_ptr())
+    differ, inside = counts.tolist()
+    return differ, inside
+
+
+def flagship_inputs(torch, np) -> tuple:
+    """``(env, task, x0, ref [T+1, 5], prev [T, 2], noise [K, T, 2])`` of the flagship, seeded."""
+    from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
+    from mppi_playground_tpu_torch.models.racing_mpcc import (
+        calc_ref_trajectory,
+        extend_reference_path,
+        make_racing_fused_task_from_env,
+    )
+
+    dev = torch.device("cuda")
+    env = RacingEnv(device=dev)
+    task = make_racing_fused_task_from_env(env)
+    rng = np.random.default_rng(SEED)
+    x0 = env.reset() + torch.tensor([0.0, 0.0, 0.0, 5.0], device=dev)
+    xref, _ = calc_ref_trajectory(x0, env.racing_center_path, torch.tensor(0, device=dev), T)
+    xref5 = extend_reference_path(xref).contiguous()
+    sig = FLAGSHIP_BOUNDS[0]
+    prev = torch.tensor(rng.standard_normal((T, 2)) * sig, dtype=torch.float32, device=dev)
+    noise = torch.tensor(rng.standard_normal((K, T, 2)) * sig, dtype=torch.float32, device=dev)
+    return env, task, x0, xref5, prev, noise
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         return fail(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
@@ -1685,12 +2414,6 @@ def main() -> int:
 
     from mppi_playground_tpu_torch.core.config import tick_seed
     from mppi_playground_tpu_torch.core.fused_solver import EPILOGUE_DEFAULT_MAX_SAMPLES
-    from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
-    from mppi_playground_tpu_torch.models.racing_mpcc import (
-        calc_ref_trajectory,
-        extend_reference_path,
-        make_racing_fused_task_from_env,
-    )
     from mppi_playground_tpu_torch.ops import cuda_build, fused_solve
     from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
     from mppi_playground_tpu_torch.workloads import build_flagship
@@ -1715,20 +2438,16 @@ def main() -> int:
     )
     print(f"build: {len(cuda_build.SOURCES)} sources in {build_s:.1f} s; ptxas: {regs}",
           flush=True)
+    differ, inside = angle_normalize_sweep(torch)
+    print(f"angle_normalize against its fmodf form on all 2^32 float32 inputs: {differ} differ "
+          f"({inside} with x + pi in (-4 pi, 4 pi), where fmodf is skipped)", flush=True)
+    if differ:
+        return fail("the angle_normalize shortcut is not bit for bit its fmodf form")
 
     # --- phase 3: kernels against their twins at the flagship's shapes ----
-    env = RacingEnv(device=dev)
-    task = make_racing_fused_task_from_env(env)
-    rng = np.random.default_rng(SEED)
-    x0 = env.reset() + torch.tensor([0.0, 0.0, 0.0, 5.0], device=dev)
-    xref, _ = calc_ref_trajectory(x0, env.racing_center_path, torch.tensor(0, device=dev), T)
-    xref5 = extend_reference_path(xref).contiguous()
-    prev = torch.tensor(rng.standard_normal((T, 2)) * (0.5, 0.1), dtype=torch.float32,
-                        device=dev)
-    noise = torch.tensor(rng.standard_normal((K, T, 2)) * (0.5, 0.1), dtype=torch.float32,
-                         device=dev)
+    env, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
     lam = torch.ones(1, device=dev)
-    sig, u_min, u_max = (0.5, 0.1), (-2.0, -0.25), (2.0, 0.25)
+    sig, u_min, u_max = FLAGSHIP_BOUNDS
     seed = tick_seed(42, 0)
     grid_bytes = sum(g.numel() for g in task.grids)
 
@@ -1773,20 +2492,22 @@ def main() -> int:
     if not (got_r.shape == (T + 1, 4) and torch.isfinite(got_r).all() and reroll_err <= 5e-3):
         return fail("re-roll off the bar: states atol 5e-3")
 
-    # timings: kernel and twin, turn about, on this card
-    t_solve = cuda_ms(torch, lambda: solve(fused_solve.fused_solve, None), 20)
+    # timings: kernel (graph replay, and the event loop beside it) and twin, on this card
+    t_solve, t_solve_loop = device_ms(torch, lambda: solve(fused_solve.fused_solve, None), 20)
     t_solve_plain = cuda_ms(torch, lambda: solve(fused_solve.fused_solve_plain, None), 3,
                             warmup=1)
-    t_solve_noise = cuda_ms(torch, lambda: solve(fused_solve.fused_solve, noise), 20)
-    t_reroll = cuda_ms(torch, lambda: fused_solve.fused_reroll(x0, seq, task), 50)
+    t_solve_noise, _ = device_ms(torch, lambda: solve(fused_solve.fused_solve, noise), 20)
+    t_reroll, t_reroll_loop = device_ms(torch, lambda: fused_solve.fused_reroll(x0, seq, task),
+                                        50)
     t_reroll_plain = cuda_ms(torch, lambda: fused_solve.fused_reroll_plain(x0, seq, task), 5,
                              warmup=1)
     b_solve, by_solve = solve_bound_ms(K, T, True, grid_bytes)
     b_noise, _ = solve_bound_ms(K, T, False, grid_bytes)
     b_reroll, by_reroll = reroll_bound_ms(T)
-    print(f"times on {card}: fused solve {t_solve:.4f} ms (noise mode {t_solve_noise:.4f} ms, "
-          f"bound {b_noise:.5f} ms), twin {t_solve_plain:.3f} ms; re-roll {t_reroll:.4f} ms, "
-          f"twin {t_reroll_plain:.3f} ms", flush=True)
+    print(f"times on {card} (graph replay; event loop in brackets): fused solve {t_solve:.4f} "
+          f"ms ({t_solve_loop:.4f}; noise mode {t_solve_noise:.4f} ms, bound {b_noise:.5f} ms), "
+          f"twin {t_solve_plain:.3f} ms; re-roll {t_reroll:.4f} ms ({t_reroll_loop:.4f}), twin "
+          f"{t_reroll_plain:.3f} ms", flush=True)
 
     # --- phase 4: the auto-lambda kernels against their twins -----------------
     auto = check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig,
@@ -1844,12 +2565,18 @@ def main() -> int:
 
     # --- phase 9: every other model family's kernels against their twins ------
     model_rows, regen_rows = {}, {}
+    # (kernel, model) -> (ms, bound ms) of the kernels every model's paths share
+    p2_row = next(r for r in auto["kernels"] if r["name"] == "fused_weighted")
+    shared = {("fused_weighted", "racing"): (p2_row["ms"], p2_row["bound_ms"])}
     for name in NEW_MODELS:
         rows = check_model_kernels(torch, np, name, card)
         if rows is None:
             return 1
         for key, row in rows.items():
-            if key.endswith("_regen"):
+            if key == "weighted":
+                shared[("fused_weighted", name)] = (row["ms"], row["bound_ms"])
+            elif key.endswith("_regen"):
+                shared[(row["name"], name)] = (row["ms"], row["bound_ms"])
                 regen_rows.setdefault(key, row)  # the first model of each m: pendulum's m=1
             else:
                 model_rows[key] = row
@@ -1935,6 +2662,7 @@ def main() -> int:
             "max_abs_err": max(checks["seeded"]["cost_max_abs_err"],
                                checks["noise"]["cost_max_abs_err"]),
             "ms": t_solve,
+            "launch_loop_ms": t_solve_loop,
             "plain_ms": t_solve_plain,
             "bound_ms": b_solve,
             "bound_by": by_solve,
@@ -1949,20 +2677,27 @@ def main() -> int:
             "replaces": "mppi_playground_tpu/ops/fused_solve.py:272",
             "max_abs_err": reroll_err,
             "ms": t_reroll,
+            "launch_loop_ms": t_reroll_loop,
             "plain_ms": t_reroll_plain,
             "bound_ms": b_reroll,
             "bound_by": by_reroll,
             "library_ms": None,
         },
-    ] + auto["kernels"] + [row6, row9, racing_epilogue_row] + list(model_rows.values()) + [
+    ] + auto["kernels"] + row6 + [row9, racing_epilogue_row] + list(model_rows.values()) + [
         regen_rows["m1_regen"]]
     for k in kernels:
         k["launches"], k["launches_by_path"] = launches_of(k["name"])
+        k["row"] = tpu_row(k["name"])
     listed = [k["name"] for k in kernels]
     missing = sorted(set(launch_counters()) - set(listed))
-    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    idle = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in OFF_PATHS]
+    for k in kernels:
+        if k["name"] in OFF_PATHS:
+            k["on_paths"] = False
     if missing or idle or len(set(listed)) != len(listed):
         return fail(f"kernels line: not listed {missing}; never launched on a path {idle}")
+    print(f"launches x (ms - bound_ms) over this run's paths, by TPU kernel row, on {card}: "
+          + json.dumps(row_products(kernels, shared)), flush=True)
     print(json.dumps({"kernels": kernels, "card": card,
                       "median_tick_ms": modes["fixed"]["median_ms"],
                       "median_tick_ms_in_turns": turns,

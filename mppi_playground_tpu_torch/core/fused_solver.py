@@ -27,10 +27,10 @@ and the config's dimensions those of the task's model; ``ValueError``
 outside it.
 
 Rollouts never reach memory.  ``solver.top_samples(aux, n, noise=None)``
-takes the top n samples by weight (as ``jax.lax.top_k`` orders them),
-regenerates only their perturbations from the solve's seed and warm start
-(or the noise passed back) with the regeneration kernel, and re-rolls them
-with ``states_prediction``.
+takes the top n samples by weight (as ``jax.lax.top_k`` orders them), then
+one launch of the top rows' kernel regenerates their perturbations from the
+solve's seed and warm start (or the noise passed back) and rolls them out
+through the task's model.
 """
 
 from __future__ import annotations
@@ -60,9 +60,9 @@ from mppi_playground_tpu_torch.ops.fused_solve import (
     FusedTask,
     fused_costs_dump,
     fused_costs_dump_lambda,
-    fused_regen,
     fused_reroll,
     fused_solve,
+    fused_top_rollouts,
     fused_weighted,
 )
 from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
@@ -236,9 +236,9 @@ def make_fused_solver(
         if noise is not None:
             noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
         top_w, rows = top_indices(aux.weights, n)
-        pert = fused_regen(aux.prev_action_seq, aux.seed, rows, sigmas, u_min, u_max,
-                           num_samples, threshold, noise)
-        return states_prediction(aux.x0, pert), top_w
+        states = fused_top_rollouts(aux.x0, aux.prev_action_seq, aux.seed, rows, task, sigmas,
+                                    u_min, u_max, num_samples, threshold, noise)
+        return states, top_w
 
     return MPPISolver(
         config=config,

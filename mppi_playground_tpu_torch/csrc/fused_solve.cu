@@ -1,6 +1,7 @@
 // The model-independent kernels of the fused solve (fused_solve.cuh):
-// auto-lambda phase 2 (fused_weighted) and seed regeneration for one and two
-// action dimensions (fused_regen_m1, fused_regen_m2).
+// auto-lambda phase 2 (fused_weighted) and seed regeneration alone for one and
+// two action dimensions (fused_regen_m1, fused_regen_m2: regen_rollout_kernel
+// on its actions-only plug; reroll.cu rolls the rows out as well).
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel
 // in its weighted_only + pert_in mode (run_weighted) and its regen_dump_only
@@ -34,12 +35,9 @@ template <int kM>
 int launch_regen(const float* prev, const float* noise, const int64_t* rows,
                  const float* bounds, uint32_t seed, int horizon, int num_samples, int threshold,
                  int num_rows, float* out, void* stream) {
-  const fused::Sampling<kM> s =
-      fused::make_sampling<kM>(prev, noise, bounds, seed, horizon, num_samples, threshold);
-  const size_t shmem = sizeof(float) * kM * static_cast<size_t>(horizon);
-  fused::regen_kernel<kM><<<fused::blocks_for(num_rows), kBlock, shmem,
-                            static_cast<cudaStream_t>(stream)>>>(s, rows, num_rows, out);
-  return static_cast<int>(cudaGetLastError());
+  return fused::launch_regen_rollout<fused::ActionsOnly<kM>>(
+      fused::make_sampling<kM>(prev, noise, bounds, seed, horizon, num_samples, threshold), rows,
+      num_rows, nullptr, {}, out, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

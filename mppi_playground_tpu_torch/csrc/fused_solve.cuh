@@ -24,10 +24,12 @@
 //   rollout: per sample the cost and the dumped perturbations are read back
 //   and the block partials are reduced at the searched lambda (a device
 //   pointer).  It depends on the model only through T*m.
-// * regen_kernel (run_regen, regen_dump_only mode).  No rollout: the clamped
-//   perturbations [n, T, m] of a list of n sample indices, from the solve's
-//   seed and warm start (or its injected noise), for get_top_samples.  It
-//   depends on the model only through m.
+// * regen_rollout_kernel (run_regen, regen_dump_only mode, and the re-roll
+//   of its rows that get_top_samples runs after it).  The clamped
+//   perturbations of a list of n sample indices, from the solve's seed and
+//   warm start (or its injected noise), rolled out through the model: the
+//   states [n, T+1, n_x] of get_top_samples in one launch, or, on the
+//   actions-only plug, the perturbations [n, T, m] alone.
 // * reroll_kernel (make_fused_reroll): x0 [n], actions [T, m] -> [T+1, n].
 //
 // A model plug (racing_model.cuh, unicycle_model.cuh, danger_zone_model.cuh,
@@ -36,7 +38,8 @@
 // the host from the model floats, ints and grids the wrapper passes, step()
 // and stage_cost().  Each model's source (fused_<model>.cu) instantiates the
 // rollout kernels with FUSED_MODEL_ENTRY_POINTS; fused_solve.cu holds phase 2
-// and regeneration; reroll.cu the re-roll of every model.
+// and regeneration alone; reroll.cu the re-roll and the top rows' roll-out of
+// every model.
 //
 // The noise.  With injected noise ([T*m, K], already scaled by sigma) every
 // mode reads it.  Seeded, action slot f = t*m + j of sample k takes normal
@@ -55,12 +58,19 @@
 // at T=30, K=3,000; the classic models) are far below a launch's cost at
 // their users' sizes; chip_smoke.py computes each bound from the shapes.
 //
-// What this simple design does about it.  One thread per sample, blocks of
-// 256.  The state lives in registers (kN floats; danger zone's 7 included);
-// in the fixed solve the perturbations are never stored: the numerator pass
-// regenerates the very same values after the softmin max is known (noise
-// mode re-reads them, slot-major, coalesced).  The dump's writes and reads
-// are coalesced the same way.  The grids are read directly (__ldg) and stay
+// What this design does about it.  One thread per sample, blocks of 256.
+// The state lives in registers (kN floats; danger zone's 7 included).  The
+// time goes to instructions: at the flagship the draws take about a third of
+// it (Box–Muller most), the map query's IEEE divisions and loads an eighth
+// (PERF.md, row 1's split).  So in the fixed solve each sample's clamped
+// actions are drawn once where shared memory allows: the rollout stores them
+// in a tile [slots, 256] that the numerator pass reads back after the
+// softmin max is known, as many slots as keep the CTAs an SM the grid needs
+// resident (about two thirds of racing's 100 at K=100,000, three CTAs an SM;
+// all of them where the grid gives an SM one CTA); the pass regenerates the
+// rest, the very same values (noise mode re-reads them, slot-major,
+// coalesced).  The dump's writes and reads are
+// coalesced the same way.  The grids are read directly (__ldg) and stay
 // resident in L2.  The reference rows and warm start sit in shared memory.
 // Padded threads past K cost 1e30 and weigh 0.  Compiled with -fmad=false and
 // no fast math so that it computes the plain twins' arithmetic operation for
@@ -233,11 +243,42 @@ size_t reference_shared_bytes(int horizon) {
                           static_cast<size_t>(Model::kM) * horizon);
 }
 
+// The clamped perturbations of one sample for the fixed solve's numerator
+// pass, kM slots a step: slots below tile_slots from the tile the rollout
+// stored them in ([tile_slots, kBlock] in shared memory, this thread's
+// column), the rest regenerated.  tile_slots is all the slots or a multiple
+// of 4, so that regeneration starts on a Philox block.
+template <int kM>
+struct TiledPerturbation {
+  static constexpr int kWidth = kM;
+  const float* tile;
+  int tile_slots;
+  Perturbation<kM> pert;
+  int step;
+
+  __device__ TiledPerturbation(const Sampling<kM>& s, const float* prev, int k,
+                               const float* tile_, int tile_slots_)
+      : tile(tile_ + threadIdx.x), tile_slots(tile_slots_), pert(s, prev, k), step(0) {}
+
+  __device__ __forceinline__ void next(float* v) {
+    const int f0 = step * kM;
+    if (f0 < tile_slots) {
+#pragma unroll
+      for (int j = 0; j < kM; ++j) v[j] = tile[(f0 + j) * kBlock];
+    } else {
+      pert.at(step, v);
+    }
+    ++step;
+  }
+};
+
 // Rollout of sample k with its stage and terminal costs; with kDump, each
-// clamped perturbation is also written to p.dump.
+// clamped perturbation is also written to p.dump; with a tile, slots below
+// tile_slots to this thread's column of it.
 template <class Model, bool kDump>
 __device__ __forceinline__ float rollout_cost(const Params<Model>& p, const float* s_ref,
-                                              const float* s_prev, int k) {
+                                              const float* s_prev, int k,
+                                              float* tile = nullptr, int tile_slots = 0) {
   constexpr int kN = Model::kN, kM = Model::kM;
   const int T = p.s.horizon;
   Perturbation<kM> pert(p.s, s_prev, k);
@@ -256,6 +297,7 @@ __device__ __forceinline__ float rollout_cost(const Params<Model>& p, const floa
 #pragma unroll
     for (int j = 0; j < kM; ++j) {
       if (kDump) p.dump[static_cast<size_t>(t * kM + j) * p.s.num_samples + k] = u[j];
+      if (t * kM + j < tile_slots) tile[(t * kM + j) * kBlock + threadIdx.x] = u[j];
       // prev_action at t is the action at max(t - 1, 0)
       pu[j] = t == 0 ? u[j] : pv[j];
     }
@@ -270,7 +312,7 @@ __device__ __forceinline__ float rollout_cost(const Params<Model>& p, const floa
 }
 
 template <class Model>
-__global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> p) {
+__global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> p, int tile_slots) {
   extern __shared__ float smem[];
   const int T = p.s.horizon;
   const int slots = Model::kM * T;
@@ -278,17 +320,19 @@ __global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> p) {
   float* s_prev = s_ref + (T + 1) * Model::kRefWidth;  // T * m
   float* s_red = s_prev + slots;                       // kWarps
   float* s_numer = s_red + softmin::kWarps;            // kWarps * min(T*m, kChunk)
+  float* s_tile = s_numer + softmin::kWarps * min(slots, softmin::kChunk);  // tile_slots * kBlock
   load_reference(p, s_ref, s_prev);
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < p.s.num_samples;
   float cost = 1e30f;  // padding never wins the softmin
   if (valid) {
-    cost = rollout_cost<Model, false>(p, s_ref, s_prev, k);
+    cost = rollout_cost<Model, false>(p, s_ref, s_prev, k, s_tile, tile_slots);
     p.costs[k] = cost;
   }
-  // the numerator pass regenerates (or re-reads) each perturbation
-  Perturbation<Model::kM> pert(p.s, s_prev, valid ? k : 0);
+  // the numerator pass reads each perturbation back from the tile, or
+  // regenerates (noise mode: re-reads) the slots the tile does not hold
+  TiledPerturbation<Model::kM> pert(p.s, s_prev, valid ? k : 0, s_tile, tile_slots);
   block_partials(cost, *p.lam, valid, pert, slots, s_red, s_numer, p.stats, p.numer);
 }
 
@@ -349,24 +393,69 @@ __global__ void __cluster_dims__(lsearch::kCluster, 1, 1) __launch_bounds__(kBlo
   cluster.sync();  // no CTA leaves while another may still read its shared memory
 }
 
-template <int kM>
-__global__ void __launch_bounds__(kBlock) regen_kernel(Sampling<kM> s, const int64_t* rows,
-                                                       int num_rows, float* out) {
+// The model plug of regeneration alone (fused_regen_m1, fused_regen_m2): no
+// state, no step; the actions are all it writes.
+template <int kM_>
+struct ActionsOnly {
+  static constexpr int kN = 1, kM = kM_;
+  struct Args {};
+  __device__ static __forceinline__ void step(float (&)[kN], const float (&)[kM], const Args&) {}
+};
+
+// Requested rows a CTA of regen_rollout_kernel: each row is one thread's chain
+// of T dependent steps, so small CTAs spread get_top_samples' 100-300 rows over
+// several SMs (PERF.md times 32 to 256).
+constexpr int kTopBlock = 32;
+
+// Regeneration and roll-out of requested samples, one thread a row i: sample
+// rows[i]'s clamped perturbed actions, replayed from the solve's seed and warm
+// start (or its noise) with the draws of every other kernel, written to
+// actions [n, T, m] where that is not null; and rolled from x0 through
+// Model::step, every state written to states [n, T+1, kN] where that is not
+// null.  A row past [0, K) is all NaN.
+template <class Model>
+__global__ void __launch_bounds__(kTopBlock)
+    regen_rollout_kernel(Sampling<Model::kM> s, const int64_t* rows, int num_rows,
+                         const float* x0, typename Model::Args args, float* actions,
+                         float* states) {
+  constexpr int kN = Model::kN, kM = Model::kM;
   extern __shared__ float smem[];
   float* s_prev = smem;  // T * m
-  const int slots = kM * s.horizon;
-  for (int i = threadIdx.x; i < slots; i += kBlock) s_prev[i] = s.prev[i];
+  const int T = s.horizon;
+  const int slots = kM * T;
+  for (int i = threadIdx.x; i < slots; i += kTopBlock) s_prev[i] = s.prev[i];
   __syncthreads();
-  const int i = blockIdx.x * kBlock + threadIdx.x;
+  const int i = blockIdx.x * kTopBlock + threadIdx.x;
   if (i >= num_rows) return;
   const int64_t k = rows[i];
-  float* dst = out + static_cast<size_t>(i) * slots;
+  float* act = actions == nullptr ? nullptr : actions + static_cast<size_t>(i) * slots;
+  float* st = states == nullptr ? nullptr : states + static_cast<size_t>(i) * (T + 1) * kN;
   if (k < 0 || k >= s.num_samples) {  // no such sample: a row of NaN, never a stray read
-    for (int f = 0; f < slots; ++f) dst[f] = __int_as_float(0x7fc00000);
+    const float nan = __int_as_float(0x7fc00000);
+    for (int f = 0; act != nullptr && f < slots; ++f) act[f] = nan;
+    for (int f = 0; st != nullptr && f < (T + 1) * kN; ++f) st[f] = nan;
     return;
   }
   Perturbation<kM> pert(s, s_prev, static_cast<int>(k));
-  for (int t = 0; t < s.horizon; ++t) pert.at(t, dst + kM * t);
+  float x[kN];
+#pragma unroll
+  for (int c = 0; c < kN; ++c) {
+    x[c] = st == nullptr ? 0.0f : x0[c];
+    if (st != nullptr) st[c] = x[c];
+  }
+  for (int t = 0; t < T; ++t) {
+    float u[kM];
+    pert.at(t, u);
+    if (act != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kM; ++j) act[kM * t + j] = u[j];
+    }
+    if (st != nullptr) {
+      Model::step(x, u, args);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) st[kN * (t + 1) + c] = x[c];
+    }
+  }
 }
 
 // One thread rolls the horizon in registers through the model's step.
@@ -400,6 +489,17 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 
 inline int blocks_for(int num_samples) { return (num_samples + kBlock - 1) / kBlock; }
 
+template <class Model>
+int launch_regen_rollout(const Sampling<Model::kM>& s, const int64_t* rows, int num_rows,
+                         const float* x0, typename Model::Args args, float* actions,
+                         float* states, cudaStream_t stream) {
+  const size_t shmem = sizeof(float) * Model::kM * static_cast<size_t>(s.horizon);
+  const int blocks = (num_rows + kTopBlock - 1) / kTopBlock;
+  regen_rollout_kernel<Model><<<blocks, kTopBlock, shmem, stream>>>(s, rows, num_rows, x0, args,
+                                                                    actions, states);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Params of a rollout launch from the wrappers' flat arguments.
 template <class Model>
 Params<Model> make_params(const float* x0, const float* prev, const float* lam, const float* ref,
@@ -415,17 +515,74 @@ Params<Model> make_params(const float* x0, const float* prev, const float* lam, 
   return p;
 }
 
+// Slots of the fused solve's numerator tile for a launch of `grid` CTAs whose
+// shared memory is `base` bytes without it: as many of a sample's `slots`
+// clamped actions as fit while an SM still holds as many CTAs at once as the
+// launch gives it (no more than the registers allow, no more than
+// ceil(grid / SMs)); all of them, or a multiple of 4 (whole Philox blocks).
+// Asked of the occupancy calculator once per (base, slots, grid).
+template <class Kernel>
+cudaError_t tile_slots_for(Kernel kernel, size_t base, int slots, int grid, int* tile_slots) {
+  static size_t cached_base = 0;
+  static int cached_slots = -1, cached_grid = -1, cached_tile = 0;
+  if (base == cached_base && slots == cached_slots && grid == cached_grid) {
+    *tile_slots = cached_tile;
+    return cudaSuccess;
+  }
+  int device = 0, sms = 0, per_sm = 0, per_block = 0, reserved = 0, resident = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kBlock, base);
+  if (err != cudaSuccess) return err;
+  const int per_sm_grid = (grid + sms - 1) / sms;
+  const int wanted = resident < per_sm_grid ? resident : per_sm_grid;
+  const long room = static_cast<long>(per_sm) / (wanted > 0 ? wanted : 1) - reserved;
+  const long budget = (room < per_block ? room : per_block) - static_cast<long>(base);
+  const int column = static_cast<int>(sizeof(float)) * kBlock;
+  int tile = budget > 0 ? static_cast<int>(budget / column) : 0;
+  tile = tile >= slots ? slots : tile / 4 * 4;
+  // the calculator has the last word: shrink until `wanted` CTAs fit
+  for (; tile > 0; tile = (tile == slots ? (slots - 1) / 4 * 4 : tile - 4)) {
+    const size_t bytes = base + static_cast<size_t>(column) * tile;
+    int fit = 0;
+    err = allow_shared(kernel, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kBlock, bytes);
+    if (err != cudaSuccess) return err;
+    if (fit >= wanted) break;
+  }
+  cached_base = base;
+  cached_slots = slots;
+  cached_grid = grid;
+  cached_tile = tile;
+  *tile_slots = tile;
+  return cudaSuccess;
+}
+
 template <class Model>
 int launch_solve(Params<Model> p, float* costs, float* stats, float* numer, cudaStream_t stream) {
   p.costs = costs;
   p.stats = stats;
   p.numer = numer;
   const int horizon = p.s.horizon;
-  const size_t shmem =
-      reference_shared_bytes<Model>(horizon) + softmin::shared_bytes(Model::kM * horizon);
-  cudaError_t err = allow_shared(fused_solve_kernel<Model>, shmem);
+  const int slots = Model::kM * horizon;
+  const int grid = blocks_for(p.s.num_samples);
+  const size_t base = reference_shared_bytes<Model>(horizon) + softmin::shared_bytes(slots);
+  int tile_slots = 0;
+  cudaError_t err = tile_slots_for(fused_solve_kernel<Model>, base, slots, grid, &tile_slots);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_solve_kernel<Model><<<blocks_for(p.s.num_samples), kBlock, shmem, stream>>>(p);
+  const size_t shmem = base + sizeof(float) * kBlock * static_cast<size_t>(tile_slots);
+  err = allow_shared(fused_solve_kernel<Model>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_solve_kernel<Model><<<grid, kBlock, shmem, stream>>>(p, tile_slots);
   return static_cast<int>(cudaGetLastError());
 }
 

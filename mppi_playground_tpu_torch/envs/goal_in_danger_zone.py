@@ -1,11 +1,13 @@
 """Goal-in-danger-zone CMDP environment.
 
-Counterpart of ``mppi_playground_tpu/envs/goal_in_danger_zone.py`` as a
-plain class, without gymnasium and without rendering: a circular danger
-zone (radius 10 at the origin), the goal drawn inside it and the start
-outside; a 7-dim observation; a host ``step`` in numpy returning the
-CMDP-style (reward, cost); and the batched ``parallel_step`` /
-``parallel_cost`` on tensors that the solver takes as dynamics and cost.
+Counterpart of ``mppi_playground_tpu/envs/goal_in_danger_zone.py``,
+without rendering: a circular danger zone (radius 10 at the origin), the
+goal drawn inside it and the start outside; a 7-dim observation; a host
+``step`` in numpy returning the CMDP-style (reward, cost); and the batched
+``parallel_step`` / ``parallel_cost`` on tensors that the solver takes as
+dynamics and cost.  Where gymnasium imports, the env is a ``gym.Env`` with
+the JAX env's ``action_space`` and ``observation_space``; without it, a
+plain class with the same methods.
 
 ``reset(seed=...)`` draws from ``np.random.default_rng(seed)``, the
 generator gymnasium's ``np_random`` builds from a seed, in the JAX env's
@@ -21,6 +23,15 @@ import numpy as np
 import torch
 
 from mppi_playground_tpu_torch.models import danger_zone as dz_model
+
+try:
+    import gymnasium as gym
+    from gymnasium import spaces
+
+    _GYM_BASE = gym.Env
+except ImportError:
+    spaces = None
+    _GYM_BASE = object
 
 
 class DangerZone:
@@ -50,7 +61,7 @@ class DangerZone:
         return bool(np.linalg.norm(pos - self.center) < self.radius)
 
 
-class GoalInDangerZoneEnv:
+class GoalInDangerZoneEnv(_GYM_BASE):
     """CMDP navigation env: observation ``[x, y, theta, vec_to_goal, vec_to_center]``."""
 
     def __init__(self, seed: int = 42, cfg: Optional[dict] = None):
@@ -62,6 +73,14 @@ class GoalInDangerZoneEnv:
         self._dt = 0.1
         self.max_episode_steps = 100
         self._rng: Optional[np.random.Generator] = None
+        if spaces is not None:
+            self.action_space = spaces.Box(
+                low=np.array([self._v_min, self._omega_min]),
+                high=np.array([self._v_max, self._omega_max]),
+                dtype=np.float32,
+            )
+            high = np.inf * np.ones(7)
+            self.observation_space = spaces.Box(-high, high, dtype=np.float32)
 
         # batched solver-facing callables (models/danger_zone.py)
         self.parallel_step = dz_model.make_dynamics()

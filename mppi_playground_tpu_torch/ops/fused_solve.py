@@ -22,10 +22,13 @@ a :class:`FusedTask`; the kernels are templated on a model plug
 * :func:`fused_weighted` (``fused_weighted``, ``csrc/fused_solve.cu``) —
   auto-lambda phase 2: the block partials of the fixed solve, from the
   costs and the dump at a lambda searched in between, without a rollout.
+* :func:`fused_top_rollouts` (``<model>_top_rollouts``, ``csrc/reroll.cu``)
+  — the states ``[n, T+1, n_x]`` of chosen sample indices: their clamped
+  perturbations replayed from a solve's seed and warm start (or its
+  injected noise) and rolled out through the model, in one launch: the
+  fused route's ``get_top_samples``.
 * :func:`fused_regen` (``fused_regen_m1`` / ``fused_regen_m2``) — the
-  clamped perturbations of chosen sample indices, replayed from a solve's
-  seed and warm start (or its injected noise): the rows ``get_top_samples``
-  re-rolls on the fused route.
+  same kernel on its actions-only plug: the clamped perturbations alone.
 * :func:`fused_reroll` (``<model>_reroll``, ``csrc/reroll.cu``) — the
   nominal re-roll.
 
@@ -290,11 +293,36 @@ def fused_weighted_plain(costs, dump, lam):
     return block_partials_plain(costs, dump.t(), lam)
 
 
+def _nan_rows(values: torch.Tensor, rows: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """``values`` with row i all NaN where ``rows[i]`` is outside ``[0, K)``, as in the kernel."""
+    valid = ((rows >= 0) & (rows < num_samples)).reshape(-1, *([1] * (values.dim() - 1)))
+    return torch.where(valid, values, torch.full_like(values, float("nan")))
+
+
 def fused_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples: int,
                       threshold: int, noise: Optional[torch.Tensor] = None):
     """The regeneration kernel's plain twin: all K perturbations, gathered at ``rows``."""
     pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
-    return pert[rows]
+    return _nan_rows(pert[rows.clamp(0, num_samples - 1)], rows, num_samples)
+
+
+def fused_top_rollouts_plain(x0, prev, seed, rows, task: FusedTask, sigmas, u_min, u_max,
+                             num_samples: int, threshold: int,
+                             noise: Optional[torch.Tensor] = None):
+    """The top rows' kernel's plain twin: :func:`fused_regen_plain`, then a batched SoA re-roll.
+
+    ``[n, T+1, n_x]``: the rows' perturbations rolled from ``x0`` through
+    the task's ``dynamics_soa``, what :func:`fused_reroll_plain` does for one
+    sequence.  A row outside ``[0, K)`` is all NaN.
+    """
+    pert = fused_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples, threshold,
+                             noise)
+    xs = tuple(x0[c].expand(rows.shape[0]) for c in range(task.dim_state))
+    states = [torch.stack(xs, dim=-1)]
+    for t in range(prev.shape[0]):
+        xs = task.dynamics_soa(xs, tuple(pert[:, t, j] for j in range(task.dim_control)))
+        states.append(torch.stack(xs, dim=-1))
+    return _nan_rows(torch.stack(states, dim=1), rows, num_samples)
 
 
 def fused_reroll_plain(x0, action_seq, task: FusedTask):
@@ -630,6 +658,66 @@ def fused_regen(
 
 fused_regen.launches = collections.Counter()
 
+_TOP_ROLLOUTS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_uint32] + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p] * 2)
+
+
+def fused_top_rollouts(
+    x0: torch.Tensor,
+    prev: torch.Tensor,
+    seed: int,
+    rows: torch.Tensor,
+    task: FusedTask,
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
+    num_samples: int,
+    threshold: int,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Regenerate a solve's samples at ``rows`` and roll them out -> ``[n, T+1, n_x]``.
+
+    ``x0 [n_x]`` and ``prev [T, m]`` are the state and warm start the solve
+    sampled from, ``seed`` its host kernel seed, ``noise`` the ``[K, T, m]``
+    noise it was given, if any; ``rows [n]`` (int64) picks the samples.  Row
+    ``i`` is sample ``rows[i]``'s trajectory from ``x0`` under the
+    perturbation the solve drew (:func:`fused_regen`'s row, bit for bit),
+    through the task's model; a row outside ``[0, K)`` is all NaN.  One
+    launch.  CPU tensors take :func:`fused_top_rollouts_plain`.
+    """
+    if not _on_card("fused_top_rollouts", x0):
+        return fused_top_rollouts_plain(x0, prev, seed, rows, task, sigmas, u_min, u_max,
+                                        num_samples, threshold, noise)
+    dev = x0.device
+    n, m = task.dim_state, task.dim_control
+    if prev.dim() != 2 or prev.shape[1] != m:
+        raise ValueError(f"the {task.model} model takes prev [T, {m}], got {tuple(prev.shape)}")
+    bounds = _check_sampling(prev, num_samples, sigmas, u_min, u_max)
+    horizon = prev.shape[0]
+    _check("x0", x0, (n,), torch.float32, dev)
+    _check("prev", prev, (horizon, m), torch.float32, dev)
+    num_rows = rows.shape[0]
+    _check("rows", rows, (num_rows,), torch.int64, dev)
+    out = torch.empty(num_rows, horizon + 1, n, dtype=torch.float32, device=dev)
+    if num_rows == 0:
+        return out
+    noise_ptr = None
+    if noise is not None:
+        noise = _slot_major(noise, num_samples, horizon, m)
+        noise_ptr = noise.data_ptr()
+    model_f, model_i = _floats(task.floats), _ints(task.ints)
+    name = f"{task.model}_top_rollouts"
+    cuda_build.launch(
+        "reroll", name, _TOP_ROLLOUTS_ARGTYPES, dev, x0.data_ptr(), prev.data_ptr(), noise_ptr,
+        rows.data_ptr(), bounds, model_f, model_i, int(seed) & _MASK32, horizon, num_samples,
+        max(0, min(threshold, num_samples)), num_rows, out.data_ptr(),
+    )
+    fused_top_rollouts.launches[name] += 1
+    return out
+
+
+fused_top_rollouts.launches = collections.Counter()
+
 _REROLL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
 
 
@@ -655,7 +743,7 @@ fused_reroll.launches = collections.Counter()
 
 # every wrapper, and the kernel names each counts launches under
 WRAPPERS = (fused_solve, fused_costs_dump, fused_costs_dump_lambda, fused_weighted, fused_regen,
-            fused_reroll)
+            fused_top_rollouts, fused_reroll)
 
 
 def kernel_names(wrapper) -> Tuple[str, ...]:
@@ -665,5 +753,6 @@ def kernel_names(wrapper) -> Tuple[str, ...]:
     if wrapper is fused_regen:
         return tuple(f"fused_regen_m{m}" for m in REGEN_WIDTHS)
     suffix = {fused_solve: "fused_solve", fused_costs_dump: "costs_dump",
-              fused_costs_dump_lambda: "costs_dump_lambda", fused_reroll: "reroll"}[wrapper]
+              fused_costs_dump_lambda: "costs_dump_lambda", fused_top_rollouts: "top_rollouts",
+              fused_reroll: "reroll"}[wrapper]
     return tuple(f"{model}_{suffix}" for model in MODELS)

@@ -222,3 +222,44 @@ def test_danger_zone_solver_callables_match_the_model():
     task = env.fused_task()
     assert task.model == "danger_zone" and task.floats[5] == 10.0
     assert env.danger_zone.is_inside(np.zeros(2)) and not env.danger_zone.is_inside(obs[:2])
+
+
+def test_danger_zone_env_is_a_gym_env_with_the_jax_spaces():
+    """With gymnasium, a ``gym.Env`` whose spaces equal the JAX env's; the same seeded reset."""
+    import gymnasium as gym
+
+    from mppi_playground_tpu.envs import GoalInDangerZoneEnv as JaxDZ
+
+    env, jax_env = GoalInDangerZoneEnv(seed=42), JaxDZ(seed=42)
+    assert isinstance(env, gym.Env)
+    for name in ("action_space", "observation_space"):
+        got, want = getattr(env, name), getattr(jax_env, name)
+        assert isinstance(got, gym.spaces.Box) and got.dtype == want.dtype == np.float32
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.low, want.low)
+        np.testing.assert_array_equal(got.high, want.high)
+    obs, _ = env.reset(seed=42)
+    np.testing.assert_array_equal(obs, jax_env.reset(seed=42)[0])
+    assert env.observation_space.contains(obs)
+    assert env.action_space.contains(np.array([0.5, -0.5], np.float32))
+
+
+def test_danger_zone_env_without_gymnasium_is_a_plain_class(monkeypatch):
+    """Where gymnasium does not import: a plain class, no spaces, the same seeded reset."""
+    import importlib
+    import sys
+
+    from mppi_playground_tpu_torch.envs import goal_in_danger_zone as module
+
+    want, _ = GoalInDangerZoneEnv(seed=42).reset(seed=42)
+    monkeypatch.setitem(sys.modules, "gymnasium", None)  # import gymnasium raises ImportError
+    try:
+        plain = importlib.reload(module).GoalInDangerZoneEnv(seed=42)
+        assert type(plain).__mro__[1:] == (object,)
+        assert not hasattr(plain, "action_space") and not hasattr(plain, "observation_space")
+        obs, info = plain.reset(seed=42)
+        np.testing.assert_array_equal(obs, want)
+        assert info == {"cost": 0.0}
+    finally:
+        monkeypatch.undo()
+        importlib.reload(module)

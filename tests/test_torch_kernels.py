@@ -438,3 +438,103 @@ def test_lambda_epilogue_equals_the_standalone_route(card, name, num_samples, mo
             check(*out, f"graph replay {i}")
         bar = dict(rtol=1e-4, atol=1e-6) if mode == "ESSPS" else dict(rtol=1e-3, atol=1e-4)
         torch.testing.assert_close(out[2].reshape(()), search.plain(want_costs), **bar)
+
+
+# --- row 6: the top rows regenerated and rolled out; row 1's bitwise bar ----------
+
+ALL_MODELS = ("racing",) + NEW_MODELS
+
+
+def _family(card, name, num_samples=None, seed=13):
+    """``(x0, prev, ref, noise, task, (sigmas, u_min, u_max), K)`` of a model on the card."""
+    if name == "racing":
+        env, task = card
+        k = num_samples or 4000
+        x0, prev, ref, noise = _inputs(env, 50, k, seed=seed)
+        return x0, prev, ref, noise, task, (SIGMAS, U_MIN, U_MAX), k
+    w, prev, noise, bounds = _model_inputs(name, num_samples, seed=seed)
+    return w.x0, prev, None, noise, w.task, bounds, w.mppi_kwargs["num_samples"]
+
+
+@pytest.mark.parametrize("mode", ["noise", "seeded"])
+@pytest.mark.parametrize("name", ALL_MODELS)
+def test_top_rollouts_kernel_matches_twin(card, name, mode):
+    """One launch: bitwise the twin (libm models: states atol 5e-3); rows past K all NaN.
+
+    Each row is also the one-sequence re-roll kernel on its regenerated
+    actions, bit for bit: both roll through the same device step.
+    """
+    x0, prev, _, noise, task, (sig, lo, hi), k = _family(card, name)
+    nz = noise if mode == "noise" else None
+    picked = torch.randperm(k, generator=torch.Generator().manual_seed(3))[:298]
+    rows = torch.cat([picked, torch.tensor([k, -1])]).to("cuda")
+    args = (x0, prev, tick_seed(6, 3), rows, task, sig, lo, hi, k, int(0.8 * k), nz)
+    kernel = f"{task.model}_top_rollouts"
+    before = fused_solve.fused_top_rollouts.launches[kernel]
+    got = fused_solve.fused_top_rollouts(*args)
+    assert fused_solve.fused_top_rollouts.launches[kernel] == before + 1
+    want = fused_solve.fused_top_rollouts_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (rows.shape[0], prev.shape[0] + 1, task.dim_state)
+    assert torch.isnan(got[-2:]).all() and torch.isfinite(got[:-2]).all()
+    if name in LIBM_MODELS:
+        torch.testing.assert_close(got[:-2], want[:-2], rtol=0, atol=5e-3)
+    else:
+        torch.testing.assert_close(got[:-2], want[:-2], rtol=0, atol=0)
+    actions = fused_solve.fused_regen(prev, args[2], rows, sig, lo, hi, k, int(0.8 * k), nz)
+    for i in (0, 1, rows.shape[0] - 3):
+        torch.testing.assert_close(got[i], fused_solve.fused_reroll(x0, actions[i].contiguous(),
+                                                                    task), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["noise", "seeded"])
+@pytest.mark.parametrize("num_samples", [1, 1500, 100_000])
+@pytest.mark.parametrize("name", ALL_MODELS)
+def test_fused_solve_is_bitwise_phase1_and_phase2_in_a_graph(card, name, num_samples, mode):
+    """Row 1's bar: costs the twin's, statistics and numerators phase 1 + phase 2's at lambda=1.
+
+    Bit for bit, eagerly and in a captured CUDA graph replayed twice (the
+    numerator tile is sized at capture); the partials also within the
+    partials bar of the twin, which sums in another order.
+    """
+    x0, prev, ref, noise, task, (sig, lo, hi), k = _family(card, name, num_samples)
+    nz = noise if mode == "noise" else None
+    lam = torch.ones(1, device="cuda")
+    args = (x0, prev, lam, tick_seed(8, 1), ref, task, sig, lo, hi, k, int(0.8 * k), nz)
+    got = fused_solve.fused_solve(*args)
+    costs, dump = fused_solve.fused_costs_dump(x0, prev, *args[3:])
+    stats, numer = fused_solve.fused_weighted(costs, dump, lam)
+    want = fused_solve.fused_solve_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in ((got[0], costs), (got[1], stats), (got[2], numer)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _assert_costs(name, got[0], want[0])
+    _assert_partials_bar(got[1:], want[1:], want[0], dump.t(), lam)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm up off the default stream, as capture needs
+        fused_solve.fused_solve(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_solve.fused_solve(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, got):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_angle_normalize_shortcut_is_fmodf_on_every_float(card):
+    """The exact shortcut in ``device_math.cuh`` against fmodf, all 2^32 inputs, bit for bit."""
+    import ctypes
+
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    cuda_build.launch("exact_checks", "angle_normalize_sweep", [ctypes.c_void_p] * 2,
+                      counts.device, counts.data_ptr())
+    differ, inside = counts.tolist()
+    assert differ == 0
+    assert inside > 2_000_000_000  # about 2.18e9 floats lie in (-4 pi, 4 pi)
