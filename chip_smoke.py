@@ -9,13 +9,22 @@ Phases, each of which fails the run if it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of ``mppi_playground_tpu_torch/csrc`` with ``nvcc``
-   (one process per source, started together), and sweep every float32
-   input of ``angle_normalize`` against its ``fmodf`` form
-   (``csrc/exact_checks.cu``), bit for bit;
+   (one process per source, started together), and the exhaustive sweeps of
+   ``csrc/exact_checks.cu``, each bit for bit: every float32 input of
+   ``angle_normalize`` against its ``fmodf`` form; the Box–Muller radius
+   against ``sqrtf(-2 logf(u1))`` on all 2^24 values of u1; the cell index
+   from the reciprocal against the IEEE division's on every float32
+   position, at the racing and Navigation2D maps' geometry and at
+   :data:`OTHER_CELL_SIZES`;
 3. hold racing's kernels against their plain PyTorch twins on the card, at
    the flagship's shapes (T=50, K=100,000): the fused solve with injected
-   noise and with its seeded Philox stream, and the re-roll; then time each
-   kernel (graph replay) and twin (CUDA events);
+   noise and with its seeded Philox stream, the re-roll, and the tick's
+   tail on each fused route's partials (fixed lambda, standalone,
+   epilogue), the SG filter off and on, eagerly and from a CUDA graph
+   replayed twice, bit for bit; then time each kernel (graph replay) and
+   twin (CUDA events), the tail beside the tail without its weights plus
+   the weights as torch ops, and beside ``combine_partials`` then the
+   re-roll;
 4. the auto-lambda kernels against their twins at the same shapes: phase 1
    (costs and perturbation dump, both noise modes), the ESSPS and LBPS
    searches (on the flagship's costs and on vectors that reach each ESSPS
@@ -56,7 +65,7 @@ Phases, each of which fails the run if it fails:
    configuration (Navigation2D also at K=100,000): the fused solve, phase 1,
    phase 1 with the lambda epilogue, phase 2, regeneration, 300 rows
    regenerated and rolled out, and the re-roll, seeded and in noise mode,
-   each timed;
+   and the tick's tail on each route as in phase 3, each timed;
 10. the lambda epilogue (phase 1 and the search in one launch, run by the
     last cluster) against phase 1 then the search kernel, costs, dump,
     lambda* and the ticket bitwise in both noise modes, under ESSPS and
@@ -88,8 +97,12 @@ Comparisons with another checkout (the parent of a change, unpacked from
 ``git archive``), each run by the command in its docstring:
 :func:`search_kernels_in_turns` (rows 7 and 8), :func:`fused_kernels_in_turns`
 (rows 1-6 of every family), :func:`top_samples_in_turns` (the fused
-``get_top_samples`` medians), :func:`row1_split` (patched copies of the
-fused solve); :func:`top_rollouts_cta_sizes` times row 6's CTA sizes and
+``get_top_samples`` medians), :func:`flagship_ticks_in_turns` (the flagship
+tick on the host clock and its profile), :func:`row1_split`,
+:func:`row3_split` and :func:`row2_split` (patched copies of the fused
+solve, phase 1 and the re-roll: what each section costs);
+:func:`top_rollouts_cta_sizes` times row 6's CTA sizes,
+:func:`chain_bounds` derives rows 2 and 6's latency bounds from the SASS, and
 :func:`retimed_products` ranks the rows from two runs' logs.
 """
 
@@ -512,7 +525,7 @@ def fused_kernels(name, config, lambda_epilogue=None) -> set:
     """
     from mppi_playground_tpu_torch.core.fused_solver import takes_lambda_epilogue
 
-    tail = {f"{name}_reroll", f"{name}_top_rollouts"}
+    tail = {f"{name}_tick_tail", f"{name}_top_rollouts"}
     lam = config.auto_lambda
     if lam in ("ESSPS", "LBPS"):
         if takes_lambda_epilogue(config, lambda_epilogue):
@@ -714,7 +727,7 @@ def cold_graph_ms(torch, fn, reps: int, flush) -> float:
     timed events; the call is a one-call CUDA graph, enqueued while the
     flush still runs, so no host gap enters the time.
     """
-    graph = captured(torch, fn, 1)
+    graph, _ = captured(torch, fn, 1)
     total = 0.0
     for _ in range(reps):
         flush.zero_()
@@ -1042,7 +1055,7 @@ def drive_facades(torch, env, card):
                      "samples not in descending weight order")
                 return None
         launches = read_counters(counted)
-        once = ({"racing_fused_solve", "racing_reroll", "racing_top_rollouts"} if fused
+        once = ({"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} if fused
                 else {"weighted_update_partials"})
         want = {name: (TICKS if name in once else 0) for name in counted}
         progress = int(ctrl.current_path_index)
@@ -1124,11 +1137,143 @@ def drive_mppi(torch, env, task, card):
     return out
 
 
+SG_WINDOW = (5, 3)  # the SG filter the tails are checked with: MPPIConfig's default window
+
+
+def tail_routes(torch, fs, x0, prev, seed, ref, task, bounds, k, noise) -> dict:
+    """``{route: (costs, stats, numer, lam [1])}``: each fused route's partials, seeded.
+
+    Fixed lambda 1 (the fused solve), standalone (phase 1, the ESSPS search
+    kernel, phase 2 at lambda*) and the epilogue (phase 1 with the search,
+    phase 2), as ``core/fused_solver.solve`` runs them.
+    """
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+
+    search = LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)
+    sampling = (seed, ref, task, *bounds, k, k, noise)
+    lam = torch.ones(1, device="cuda")
+    out = {"fixed": fs.fused_solve(x0, prev, lam, *sampling) + (lam,)}
+    costs, dump = fs.fused_costs_dump(x0, prev, *sampling)
+    lam_s = search.run(costs).reshape(1)
+    out["standalone"] = (costs, *fs.fused_weighted(costs, dump, lam_s), lam_s)
+    ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+    costs, dump, lam_e = fs.fused_costs_dump_lambda(x0, prev, *sampling, search, ticket)
+    out["epilogue"] = (costs, *fs.fused_weighted(costs, dump, lam_e), lam_e)
+    return out
+
+
+def check_tails(torch, fs, label, task, x0, routes: dict, libm: bool = False):
+    """The tick tail against its twin on each route's partials, eagerly and in a graph.
+
+    For each route of :func:`tail_routes`, with the SG filter off and on
+    (window :data:`SG_WINDOW` on a seeded history): the kernel's action
+    sequence, states, weights, ESS and shifted history bit for bit the
+    twin's (the libm models' states: bitwise or atol 5e-3, the re-roll's
+    bar), and the outputs of a CUDA graph of the launch, replayed twice, bit
+    for bit the eager launch's.  Returns ``(max_abs_err, results)`` or None
+    after a failure.
+    """
+    from mppi_playground_tpu_torch.core.sg_filter import savitzky_golay_coeffs
+
+    horizon = routes["fixed"][2].shape[1] // task.dim_control
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    history = (0.1 * torch.randn(horizon - 1, task.dim_control, generator=gen,
+                                 device="cuda")).contiguous()
+    coeffs = torch.tensor(savitzky_golay_coeffs(*SG_WINDOW), dtype=torch.float32,
+                          device="cuda")
+    err, results = 0.0, {}
+    for route, (costs, stats, numer, lam) in routes.items():
+        for sg in (None, coeffs):
+            args = (x0, costs, stats, numer, lam, task, history, sg)
+            got = fs.fused_tick_tail(*args)
+            want = fs.fused_tick_tail_plain(*args)
+            graph, replayed = captured(torch, lambda args=args: fs.fused_tick_tail(*args), 1)
+            graph.replay()
+            graph.replay()
+            torch.cuda.synchronize()
+            errs = [(g - w).abs().max().item() if g.numel() else 0.0 for g, w in zip(got, want)]
+            bitwise = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+            states_ok = bitwise[1] or (libm and errs[1] <= 5e-3)
+            res = dict(bitwise_twin=bitwise, max_abs_err=errs,
+                       graph_bitwise_eager=all(torch.equal(g, r) for g, r in zip(got, replayed)),
+                       ess=got[3].item())
+            key = f"{route}{' SG' if sg is not None else ''}"
+            results[key] = res
+            err = max(err, *errs)
+            if not (all(b for i, b in enumerate(bitwise) if i != 1) and states_ok
+                    and res["graph_bitwise_eager"] and torch.isfinite(got[1]).all()):
+                print(f"{label} tick tail vs twin ({key}): {json.dumps(res)}", flush=True)
+                fail(f"{label} tick tail ({key}) off the bar: actions, weights, ESS and history "
+                     "bitwise the twin's, states bitwise (libm: atol 5e-3), a replayed graph "
+                     "bitwise the eager launch")
+                return None
+    print(f"{label} tick tail vs twin on every route, SG off and on, eager and a graph replayed "
+          f"twice: bitwise {all(all(r['bitwise_twin']) for r in results.values())}, max_abs_err "
+          f"{err!r}", flush=True)
+    return err, results
+
+
+def tail_bound_ms(num_samples: int, horizon: int, ops: ModelOps = RACING) -> tuple:
+    """Least time of one tick tail: the partials read, the weights and states written.
+
+    Bytes: costs, block statistics and numerators, x0 and lambda in; weights,
+    actions, states, ESS and history out.  Operations: per block exp and
+    four for the sums, per block and slot two, per sample five for a weight,
+    and the re-roll's steps.
+    """
+    blocks, slots = -(-num_samples // 256), ops.m * horizon
+    in_bytes = 4 * (num_samples + blocks * (3 + slots) + ops.n + 1)
+    out_bytes = 4 * (num_samples + slots + ops.n * (horizon + 1) + 1 + slots - ops.m)
+    flops = blocks * (5 + 2 * slots) + 5 * num_samples + horizon * ops.step
+    return _bound(in_bytes, out_bytes, flops)
+
+
+def time_tails(torch, fs, task, x0, route, horizon: int) -> dict:
+    """Device ms by graph replay (event loop beside it) of the tail and its alternatives.
+
+    On one route's partials: the tail launch with its weights; the tail
+    without weights, then the weights as torch ops (the max, the sum of the
+    rescaled block sums, the weights' four elementwise ops); and the tail it replaced,
+    ``combine_partials`` then the re-roll launch.
+    """
+    from mppi_playground_tpu_torch.ops import cuda_build
+    from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
+
+    costs, stats, numer, lam = route
+    history = torch.zeros(horizon - 1, task.dim_control, device="cuda")
+    tail = cuda_build.function("reroll", f"{task.model}_tick_tail", fs._TAIL_ARGTYPES)
+    outs = [torch.empty(n, device="cuda") for n in
+            (horizon * task.dim_control, (horizon + 1) * task.dim_state, 1,
+             (horizon - 1) * task.dim_control)]
+
+    def torch_weights():  # the launch with a null weights pointer: one CTA, no weights
+        _call(torch, tail, x0.data_ptr(), costs.data_ptr(), stats.data_ptr(), numer.data_ptr(),
+              lam.data_ptr(), history.data_ptr(), None, fs._floats(task.floats),
+              fs._ints(task.ints), stats.shape[0], horizon, costs.shape[0], 0,
+              *(t.data_ptr() for t in outs[:3]), None, outs[3].data_ptr())
+        mx = stats[:, 0].max()
+        z = torch.sum(torch.exp(stats[:, 0] - mx) * stats[:, 1])
+        return torch.exp(-costs / lam - mx) / z
+
+    def combine_then_reroll():
+        update = combine_partials(costs, stats, numer, lam, horizon, task.dim_control)[0]
+        return fs.fused_reroll(x0, update, task)
+
+    out = {}
+    for key, fn in (("tail", lambda: fs.fused_tick_tail(x0, costs, stats, numer, lam, task,
+                                                        history)),
+                    ("tail_torch_weights", torch_weights),
+                    ("combine_partials_then_reroll", combine_then_reroll)):
+        out[f"{key}_ms"], out[f"{key}_launch_loop_ms"] = device_ms(torch, fn, 20)
+    return out
+
+
 NEW_MODELS = ("navigation", "danger_zone", "pendulum", "cartpole", "mountain_car", "integrator")
-# Row 6's kernel on its actions-only plug: held against phase 1's dump and the
-# twin, but launched on no path, since get_top_samples rolls the rows out in
-# the same launch (<model>_top_rollouts).
-OFF_PATHS = ("fused_regen_m1", "fused_regen_m2")
+# Held against their twins but launched on no path: row 6's kernel on its
+# actions-only plug, since get_top_samples rolls the rows out in the same
+# launch (<model>_top_rollouts); and the re-roll alone, since the tick's tail
+# re-rolls in its own launch (<model>_tick_tail).
+OFF_PATHS = ("fused_regen_m1", "fused_regen_m2") + tuple(f"{m}_reroll" for m in MODEL_OPS)
 # step with libm sinf/cosf: held to the JAX package's fused-vs-XLA cost bar,
 # rtol 2e-5 and atol 1e-5, where their costs are not bitwise the twin's
 LIBM_MODELS = ("danger_zone", "pendulum", "cartpole", "mountain_car")
@@ -1207,7 +1352,8 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     search = LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)
     ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
     rows = torch.arange(k, device="cuda")
-    err = dict(solve=0.0, dump=0.0, regen=0.0, reroll=0.0, epilogue=0.0, top_rollouts=0.0)
+    err = dict(solve=0.0, dump=0.0, regen=0.0, reroll=0.0, epilogue=0.0, top_rollouts=0.0,
+               tick_tail=0.0)
     # rows the top rows' kernel rolls out against its twin: any 300 (every row if fewer)
     picked = torch.randperm(k, generator=torch.Generator().manual_seed(SEED))[:300].to("cuda")
 
@@ -1288,6 +1434,12 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     if not (reroll_bitwise or (name in LIBM_MODELS and err["reroll"] <= 5e-3)):
         fail(f"{label} re-roll off the bar: bitwise (libm models: states atol 5e-3)")
         return None
+    routes = tail_routes(torch, fs, x0, prev, seed, None, task, (sig, lo, hi), k, None)
+    tails = check_tails(torch, fs, label, task, x0, routes, libm=name in LIBM_MODELS)
+    if tails is None:
+        return None
+    err["tick_tail"] = tails[0]
+    tail_args = (x0, *routes["fixed"], task, torch.zeros(horizon - 1, m, device="cuda"))
 
     args = (x0, prev, lam, seed, None, task, sig, lo, hi, k, threshold, None)
     p1_args = (x0, prev) + args[3:]
@@ -1301,6 +1453,7 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
         weighted=(lambda: fs.fused_weighted(*p1, lam), 50),
         top_rollouts=(lambda: fs.fused_top_rollouts(x0, prev, seed, top, task, sig, lo, hi, k,
                                                     threshold), 50),
+        tick_tail=(lambda: fs.fused_tick_tail(*tail_args), 50),
     )
     t, loop = {}, {}
     for key, (fn, reps) in kernels.items():  # graph replay, and the event loop beside it
@@ -1315,6 +1468,7 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
                                                                 threshold), 3, warmup=1),
         top_rollouts_plain=cuda_ms(torch, lambda: fs.fused_top_rollouts_plain(
             x0, prev, seed, top, task, sig, lo, hi, k, threshold), 3, warmup=1),
+        tick_tail_plain=cuda_ms(torch, lambda: fs.fused_tick_tail_plain(*tail_args), 3, warmup=1),
     )
     b_solve = solve_bound_ms(k, horizon, True, grid_bytes, ops)
     b_dump = phase1_bound_ms(k, horizon, True, grid_bytes, ops)
@@ -1324,13 +1478,15 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     b_regen = regen_bound_ms(len(top), horizon, True, m)
     b_weighted = phase2_bound_ms(k, horizon, m)
     b_tops = top_rollouts_bound_ms(len(top), horizon, True, ops)
+    b_tail = tail_bound_ms(k, horizon, ops)
     print(f"times on {card}, {label} (kernels by graph replay, their event loops in brackets; "
           "twins by events): " + "; ".join(
               f"{key} {value:.4f} ms" + (f" ({loop[key]:.4f})" if key in loop else "")
               for key, value in t.items())
           + f"; bounds solve {b_solve[0]:.6f}, phase 1 {b_dump[0]:.6f}, epilogue {b_epi[0]:.6f},"
           f" re-roll {b_reroll[0]:.8f}, regeneration of {len(top)} rows {b_regen[0]:.7f}, their "
-          f"roll-out {b_tops[0]:.7f}, phase 2 {b_weighted[0]:.7f} ms", flush=True)
+          f"roll-out {b_tops[0]:.7f}, phase 2 {b_weighted[0]:.7f}, tick tail {b_tail[0]:.7f} ms",
+          flush=True)
     shape = dict(horizon=horizon, num_samples=k, costs_bitwise_equal_to_twin=bitwise)
     rollout = (f"fused_{name}.cu", f"{FUSED_SOLVE_PY}:783")
     return {
@@ -1351,6 +1507,10 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
                                   err["regen"], t["regen"], t["regen_plain"], *b_regen,
                                   rows=len(top), horizon=horizon, num_samples=k, model=name,
                                   launch_loop_ms=loop["regen"]),
+        f"{name}_tick_tail": kernel_row(f"{name}_tick_tail", "reroll.cu", f"{FUSED_SOLVE_PY}:272",
+                                        err["tick_tail"], t["tick_tail"], t["tick_tail_plain"],
+                                        *b_tail, horizon=horizon, num_samples=k,
+                                        launch_loop_ms=loop["tick_tail"]),
         f"{name}_top_rollouts": kernel_row(
             f"{name}_top_rollouts", "reroll.cu", f"{FUSED_SOLVE_PY}:937", err["top_rollouts"],
             t["top_rollouts"], t["top_rollouts_plain"], *b_tops, rows=len(top), horizon=horizon,
@@ -1362,7 +1522,11 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
 
 
 def captured(torch, fn, reps: int):
-    """A CUDA graph of ``reps`` calls of ``fn`` (warmed up once off the default stream)."""
+    """A CUDA graph of ``reps`` calls of ``fn`` (warmed up once off the default stream).
+
+    Returns ``(graph, outputs)``: the outputs of the last captured call, which
+    each replay writes anew.
+    """
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1371,8 +1535,8 @@ def captured(torch, fn, reps: int):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
-            fn()
-    return graph
+            out = fn()
+    return graph, out
 
 
 def graph_ms(torch, fn, reps: int = 20) -> float:
@@ -1381,7 +1545,7 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     Unlike :func:`cuda_ms` the host's launch rate does not enter: the
     wrappers' Python and ``ctypes`` work happens once, at capture.
     """
-    graph = captured(torch, fn, reps)
+    graph, _ = captured(torch, fn, reps)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1400,7 +1564,7 @@ def in_turns(torch, fns: dict, windows: int = 6, per_window: int = 10) -> dict:
     host launch gaps); the order flips every window (a, b, c, then c, b, a),
     so that every function meets the same drift of the card.
     """
-    graphs = {name: captured(torch, fn, per_window) for name, fn in fns.items()}
+    graphs = {name: captured(torch, fn, per_window)[0] for name, fn in fns.items()}
     for graph in graphs.values():
         graph.replay()
     torch.cuda.synchronize()
@@ -1433,6 +1597,148 @@ def ptxas_report(logs: dict, pattern: str) -> list:
             elif fn and pattern in fn and ("spill" in line or "registers" in line):
                 out.append(f"{lib}:{fn}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+# Latency of one dependent issue on the H100's FP32 and integer pipes, in
+# cycles: the number each link of a chain of dependent SASS instructions adds.
+DEPENDENT_CYCLES = 4
+
+
+def _sass_program(dump: str, pattern: str) -> list:
+    """``[(address, predicate, opcode, operands)]`` of the first kernel whose name holds ``pattern``."""
+    import re
+
+    program, inside = [], False
+    for line in dump.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = pattern in line
+        elif inside:
+            found = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if found:
+                words = found.group(2).replace(",", " ").split()
+                pred = words.pop(0) if words[0].startswith("@") else None
+                program.append((int(found.group(1), 16), pred, words[0], words[1:]))
+    return program
+
+
+def loop_chain(program: list, stores_a_step: int, max_paths: int = 20_000) -> tuple:
+    """``(dependent instructions a step, paths)`` of the kernel's outermost loop.
+
+    The loop is the widest backward branch.  Every path through its body
+    from the head to that branch (a conditional branch may go either way;
+    inner backward branches are taken as not taken) is run for six trips,
+    each instruction one link after the latest of its operand registers and
+    predicate; a trip's chain is what each of the last four trips adds to the
+    deepest register, on average.  The least over the paths is the
+    loop-carried chain: no schedule of a trip issues its dependent
+    instructions in fewer links.  A trip of a loop the compiler unrolled
+    holds several steps: the global stores of a trip over ``stores_a_step``.
+    """
+    import re
+
+    index = {addr: i for i, (addr, *_rest) in enumerate(program)}
+    loops = [(index[int(ops[-1], 16)], i) for i, (addr, pred, op, ops) in enumerate(program)
+             if op.startswith("BRA") and ops and ops[-1].startswith("0x")
+             and int(ops[-1], 16) < addr]
+    head, back = max(loops, key=lambda span: span[1] - span[0])
+
+    def regs(words):
+        return re.findall(r"\b(U?R\d+|U?P\d+)\b", " ".join(words))
+
+    def paths(i, trail):
+        while i < back:
+            addr, pred, op, ops = program[i]
+            if op.startswith("BRA") and ops and ops[-1].startswith("0x"):
+                target = index[int(ops[-1], 16)]
+                if target > i:
+                    if pred is None and "P" not in " ".join(ops[:-1]):
+                        i = target
+                        continue
+                    yield from paths(target, trail)
+            elif op in ("EXIT", "RET"):
+                return
+            trail = trail + [i]
+            i += 1
+        yield trail
+
+    best, count = None, 0
+    for trail in paths(head, []):
+        count += 1
+        depth = {}
+        ends = []
+        for _ in range(6):
+            for i in trail:
+                _, pred, op, ops = program[i]
+                if op.startswith(("BRA", "BSSY", "BSYNC", "NOP")) or op.startswith("ST"):
+                    continue
+                dst, srcs = (ops[0], ops[1:]) if ops else (None, [])
+                dst_regs = regs([dst]) if dst else []
+                sources = regs(srcs) + (regs([pred]) if pred else [])
+                if pred:  # a predicated write keeps the old value where it is off
+                    sources += dst_regs
+                if op.startswith(("ISETP", "FSETP", "LOP3")) and "P" in (dst or ""):
+                    sources = regs(srcs[1:]) + (regs([pred]) if pred else [])
+                    dst_regs = regs([dst]) + regs(srcs[:1])
+                link = max((depth.get(r, 0) for r in sources if r not in ("RZ", "PT")),
+                           default=0) + 1
+                for r in dst_regs:
+                    depth[r] = link
+            ends.append(max(depth.values(), default=0))
+        steps = sum(program[i][2].startswith("STG") for i in trail) / stores_a_step
+        chain = (ends[5] - ends[1]) / 4 / steps
+        best = chain if best is None else min(best, chain)
+        if count >= max_paths:
+            break
+    return best, count
+
+
+def chain_bounds() -> int:
+    """The loop-carried latency bound of rows 2 and 6 for every model, from the SASS.
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.chain_bounds())'
+
+    Builds ``reroll.cu``, reads the SASS of each model's re-roll
+    (``reroll_kernel``) with ``cuobjdump``, finds its loop's least chain of
+    dependent instructions a step (:func:`loop_chain`), and prints, beside
+    the card's line and its top SM clock (``nvidia-smi``), the bound T x
+    chain x :data:`DEPENDENT_CYCLES` / clock at the model's horizon: no
+    launch can roll a sequence's states faster, whatever its bytes or
+    operations.  Row 6 rolls each of its rows through the same step (its
+    draws do not depend on the state), so a row's chain, and the launch's
+    bound, is the same.
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.ops import cuda_build
+    from mppi_playground_tpu_torch.workloads import MODEL_CONFIGS
+
+    card = card_line()
+    print(card, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    cuda_build.build(["reroll"])
+    tool = Path(cuda_build.nvcc()).parent / "cuobjdump"
+    dump = subprocess.run([str(tool), "-sass", str(cuda_build._target("reroll"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    plugs = {"racing": "6racing5Model", "navigation": "8unicycle15NavigationModel",
+             "danger_zone": "11danger_zone5Model", "pendulum": "7classic8Pendulum",
+             "cartpole": "7classic8Cartpole", "mountain_car": "7classic11MountainCar",
+             "integrator": "7classic10Integrator"}  # mangled plug names
+    for model, plug in plugs.items():
+        horizon = T if model == "racing" else MODEL_CONFIGS[model][0]
+        out = {"model": model, "horizon": horizon, "card": card, "sm_clock_mhz": clock_mhz}
+        chain, paths = loop_chain(_sass_program(dump, f"13reroll_kernelIN{plug}E"),
+                                  MODEL_OPS[model].n)
+        out.update(dependent_a_step=chain, paths=paths,
+                   bound_ms=horizon * chain * DEPENDENT_CYCLES / (clock_mhz * 1e3))
+        print(json.dumps(out), flush=True)
+    return 0
 
 
 def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
@@ -1669,9 +1975,10 @@ def build_copies(copies: dict, sources) -> dict:
 def sass_counts(lib: Path, pattern: str) -> dict:
     """SASS instructions of the kernel whose mangled name holds ``pattern`` (``cuobjdump``).
 
-    ``{"total": n, "by_opcode": {opcode: n}}`` for the 12 most frequent
-    opcodes (predicates and modifiers dropped): static counts, each loop
-    body once.
+    ``{"total": n, "by_opcode": {opcode: n}, "imad_forms": {form: n}}`` for
+    the 12 most frequent opcodes (predicates and modifiers dropped) and every
+    form of IMAD with its modifiers (IMAD.WIDE.U32 is one 32x32->64 product,
+    IMAD.HI.U32 its high word alone): static counts, each loop body once.
     """
     import collections
     import re
@@ -1681,7 +1988,7 @@ def sass_counts(lib: Path, pattern: str) -> dict:
     tool = Path(cuda_build.nvcc()).parent / "cuobjdump"
     dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, inside = collections.Counter(), False
+    counts, imad, inside = collections.Counter(), collections.Counter(), False
     for line in dump.splitlines():
         if "Function :" in line:
             inside = pattern in line
@@ -1691,7 +1998,10 @@ def sass_counts(lib: Path, pattern: str) -> dict:
                 words = found.group(1).split()
                 op = words[1] if words[0].startswith("@") else words[0]
                 counts[op.split(".")[0]] += 1
-    return {"total": sum(counts.values()), "by_opcode": dict(counts.most_common(12))}
+                if op.startswith("IMAD"):
+                    imad[op] += 1
+    return {"total": sum(counts.values()), "by_opcode": dict(counts.most_common(12)),
+            "imad_forms": dict(imad)}
 
 
 def _ctypes_fn(lib: Path, symbol: str, argtypes: list):
@@ -1776,6 +2086,191 @@ def row1_split(other: str) -> int:
     return 0
 
 
+# Patched copies of 62e730f's sources (before rows 3 and 2 were redesigned) for
+# row3_split and row2_split: what
+# each section of phase 1 and of the re-roll costs.  (file, old, new) as in
+# ROW1_VARIANTS; these too match only the sources of that tree.
+_DUMP_STORE = ("      if (kDump) p.dump[static_cast<size_t>(t * kM + j) * p.s.num_samples + k] = "
+               "u[j];\n")
+ROW3_VARIANTS = {
+    "(a) no draws": [("fused_solve.cuh", _PHILOX + _DRAW,
+                      "        z0 = z1 = z2 = z3 = 1e-3f * static_cast<float>(f0 + k);\n")],
+    "(a2) Philox kept, no Box-Muller": ROW1_VARIANTS["(d2) Philox kept, no Box-Muller"][1],
+    "(b) no map query": ROW1_VARIANTS["(b2) map query removed, divisions too"][1],
+    "(c) no dump stores": [("fused_solve.cuh", _DUMP_STORE, "")],
+}
+ROW3_SAMPLES = (K, 2 * K)  # phase 1 at each: issue- or latency-bound
+# Copies of this checkout's phase 1 timed beside those, each exact: a lever of
+# the redesign taken back, or one more tried.
+ROW3_THIS_VARIANTS = {
+    "this checkout, the IEEE division in the cell index": [(
+        "device_math.cuh", "  return fabsf(q0) < 0x1p101f ? q : q0;\n",
+        "  return p / g.cell_size;\n")],
+    "this checkout, logf and sqrtf of the library": [(
+        "device_math.cuh", "  float r = sqrt_fast(-2.0f * log_normal(u1));\n",
+        "  float r = sqrtf(-2.0f * logf(u1));\n")],
+    "this checkout, the rollout one step a trip": [(
+        "fused_solve.cuh", "#pragma unroll 2\n  for (int t = 0; t < T; ++t) {\n",
+        "#pragma unroll 1\n  for (int t = 0; t < T; ++t) {\n")],
+}
+_REROLL_LOOP = ("  for (int t = 0; t < horizon; ++t) {\n"
+                "    float u[kM];\n"
+                "#pragma unroll\n"
+                "    for (int j = 0; j < kM; ++j) u[j] = seq[kM * t + j];\n")
+ROW2_VARIANTS = {
+    "empty kernel": [("fused_solve.cuh", _REROLL_LOOP,
+                      "  for (int t = 0; t < 0; ++t) {\n    float u[kM] = {};\n")],
+    "actions staged in shared memory": [("fused_solve.cuh", _REROLL_LOOP, (
+        "  __shared__ float s_seq[1024];\n"
+        "  for (int i = 0; i < kM * horizon; ++i) s_seq[i] = seq[i];\n"
+        "  for (int t = 0; t < horizon; ++t) {\n    float u[kM];\n#pragma unroll\n"
+        "    for (int j = 0; j < kM; ++j) u[j] = s_seq[kM * t + j];\n"))],
+}
+
+
+def _split_setup(other: str, variants: dict, sources: list, this_variants=None):
+    """Build ``other``'s ``csrc`` unpatched and once per variant: ``(card, built)``, or None.
+
+    ``this_variants`` are built from this checkout's ``csrc`` beside them.
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+        return None
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    card = card_line()
+    print(card, flush=True)
+    csrc = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc"
+    here = Path(__file__).resolve().parent / "mppi_playground_tpu_torch" / "csrc"
+    copies = {"unpatched": (csrc, [])}
+    copies.update({label: (csrc, subs) for label, subs in variants.items()})
+    copies.update({label: (here, subs) for label, subs in (this_variants or {}).items()})
+    return card, build_copies(copies, sources)
+
+
+def row3_split(other: str) -> int:
+    """Where phase 1's time goes (row 3): patched copies of 62e730f's racing phase 1.
+
+    Run with 62e730f unpacked at ``DIR``::
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.row3_split("DIR"))'
+
+    ``DIR``'s ``fused_racing.cu`` is built unpatched and once per entry of
+    :data:`ROW3_VARIANTS`, this checkout's once per entry of
+    :data:`ROW3_THIS_VARIANTS`; at the flagship's shapes (seeded) each
+    build's ``racing_costs_dump`` and this checkout's phase 1
+    (``fused_costs_dump``) are timed by graph replay in turns.  This
+    checkout's costs and dump, and each of its variants', must be the
+    unpatched build's bit for bit in both noise modes.  Then the
+    unpatched build and this checkout at each K of :data:`ROW3_SAMPLES`, in
+    turns: near twice the time at twice the samples means the launch is
+    issue-bound, well under twice latency-bound.  Prints the card, then one
+    JSON line a build (time, registers, SASS counts of the kernel) and one
+    for the K sweep; returns the exit code.
+    """
+    import numpy as np
+    import torch
+
+    setup = _split_setup(other, ROW3_VARIANTS, ["fused_racing"], ROW3_THIS_VARIANTS)
+    if setup is None:
+        return 1
+    card, built = setup
+    from mppi_playground_tpu_torch.core.config import tick_seed
+    from mppi_playground_tpu_torch.ops import cuda_build
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+
+    _, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
+    sig, lo, hi = FLAGSHIP_BOUNDS
+    seed = tick_seed(42, 0)
+    fns = {label: _ctypes_fn(libs["fused_racing"][0], "racing_costs_dump", fs._DUMP_ARGTYPES)
+           for label, libs in built.items()}
+
+    def dump(fn, nz, k=K):
+        if fn is None:  # this checkout, through its wrapper
+            return fs.fused_costs_dump(x0, prev, seed, xref5, task, sig, lo, hi, k, k, nz)
+        args, keep = fs._rollout_args(x0, prev, None, seed, xref5, task, sig, lo, hi, k, k, nz)
+        out = (torch.empty(k, device="cuda"), torch.empty(2 * T, k, device="cuda"))
+        _call(torch, fn, *args, *(t.data_ptr() for t in out))
+        return out
+
+    exact = {label: all(torch.equal(a, b) for nz in (noise, None)
+                        for a, b in zip(dump(fns.get(label), nz), dump(fns["unpatched"], nz)))
+             for label in ("this checkout", *ROW3_THIS_VARIANTS)}
+    runs = {label: (lambda fn=fn: dump(fn, None)) for label, fn in fns.items()}
+    runs["this checkout"] = lambda: dump(None, None)
+    turns = in_turns(torch, runs, windows=10)
+    libs = {label: libs["fused_racing"] for label, libs in built.items()}
+    libs["this checkout"] = (cuda_build._target("fused_racing"),
+                             cuda_build.build_logs.get("fused_racing", ""))
+    for label, (lib, log) in libs.items():
+        print(json.dumps({"variant": label, "card": card, "ms": turns[label],
+                          "minus_unpatched_ms": turns[label] - turns["unpatched"],
+                          "exact": exact.get(label),
+                          "ptxas": ptxas_report({"fused_racing": log}, "costs_dump_kernel"),
+                          "sass": sass_counts(lib, "costs_dump_kernel")}), flush=True)
+    sweep = in_turns(torch, {f"{side} K={k}": (lambda fn=fn, k=k: dump(fn, None, k))
+                             for k in ROW3_SAMPLES
+                             for side, fn in (("62e730f", fns["unpatched"]), ("this", None))},
+                     windows=10)
+    print(json.dumps({"k_sweep_ms": sweep, "card": card, "ratio": {
+        side: sweep[f"{side} K={ROW3_SAMPLES[1]}"] / sweep[f"{side} K={ROW3_SAMPLES[0]}"]
+        for side in ("62e730f", "this")}}), flush=True)
+    if not all(exact.values()):
+        return fail(f"this checkout's phase 1 is not 62e730f's bit for bit: {exact}")
+    return 0
+
+
+def row2_split(other: str) -> int:
+    """Where the re-roll's time goes (row 2): patched copies of 62e730f's re-roll.
+
+    Run with 62e730f unpacked at ``DIR``::
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.row2_split("DIR"))'
+
+    ``DIR``'s ``reroll.cu`` is built unpatched and once per entry of
+    :data:`ROW2_VARIANTS` (an empty kernel: the launch alone in a graph; the
+    actions staged in shared memory before the chain); each build's
+    ``<model>_reroll`` and this checkout's (``fused_reroll``) are timed by
+    graph replay in turns at racing T=50 and mountain car T=100, rolling a
+    seeded warm start.  This checkout's states must be the unpatched build's
+    bit for bit.  Prints the card and one JSON line a model; returns the
+    exit code.
+    """
+    import numpy as np
+    import torch
+
+    setup = _split_setup(other, ROW2_VARIANTS, ["reroll"])
+    if setup is None:
+        return 1
+    card, built = setup
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+
+    _, task, x0, _, prev, _ = flagship_inputs(torch, np)
+    w, m_prev, _, _ = model_inputs(torch, np, "mountain_car")
+    failed = False
+    for name, task, x0, seq in (("racing", task, x0, prev), ("mountain_car", w.task, w.x0, m_prev)):
+        fns = {label: _ctypes_fn(libs["reroll"][0], f"{name}_reroll", fs._REROLL_ARGTYPES)
+               for label, libs in built.items()}
+
+        def run(fn, task=task, x0=x0, seq=seq):
+            if fn is None:  # this checkout, through its wrapper
+                return fs.fused_reroll(x0, seq, task)
+            out = torch.empty(seq.shape[0] + 1, task.dim_state, device="cuda")
+            _call(torch, fn, x0.data_ptr(), seq.data_ptr(), fs._floats(task.floats),
+                  fs._ints(task.ints), seq.shape[0], out.data_ptr())
+            return out
+
+        exact = bool(torch.equal(run(None), run(fns["unpatched"])))
+        runs = {label: (lambda fn=fn: run(fn)) for label, fn in fns.items()}
+        runs["this checkout"] = lambda: run(None)
+        turns = in_turns(torch, runs, windows=10, per_window=50)
+        print(json.dumps({"model": name, "horizon": seq.shape[0], "card": card, "ms": turns,
+                          "this_bitwise_unpatched": exact}), flush=True)
+        failed = failed or not exact
+    return fail("this checkout's re-roll is not 62e730f's bit for bit") if failed else 0
+
+
 TOP_BLOCKS = (32, 64, 128, 256)  # CTA sizes top_rollouts_cta_sizes times
 
 
@@ -1852,8 +2347,9 @@ def fused_kernels_in_turns(other: str) -> int:
     with the ESSPS epilogue (row 4), phase 2 at lambda=1 on this checkout's
     phase 1 (row 5) and the regeneration of the 300 cheapest rows (row 6)
     must give the other build's outputs bit for bit, in both noise modes;
-    :func:`in_turns` then times each pair on the seeded stream.  Prints the
-    card, then one JSON line a model and kernel; returns the exit code.
+    :func:`in_turns` then times each pair on the seeded stream (phase 1 in
+    noise mode too).  Prints the card, then one JSON line a model and kernel;
+    returns the exit code.
     """
     import numpy as np
     import torch
@@ -1960,11 +2456,14 @@ def fused_kernels_in_turns(other: str) -> int:
         for kernel in theirs_fn:
             same = all(torch.equal(a, b) for nz in (noise, None)
                        for a, b in zip(ours(kernel, nz), theirs(kernel, nz)))
-            turns = in_turns(torch, {"other": lambda kernel=kernel: theirs(kernel, None),
-                                     "this": lambda kernel=kernel: ours(kernel, None)})
-            print(json.dumps({"case": label, "kernel": f"{model}_{kernel}", "card": card,
-                              "bitwise": same, "other_ms": turns["other"],
-                              "this_ms": turns["this"]}), flush=True)
+            entry = {"case": label, "kernel": f"{model}_{kernel}", "card": card, "bitwise": same}
+            # phase 1 (row 3) in both noise modes, every other kernel seeded
+            for mode, nz in (("", None),) + ((("noise_", noise),) if kernel == "costs_dump"
+                                              else ()):
+                turns = in_turns(torch, {"other": lambda kernel=kernel, nz=nz: theirs(kernel, nz),
+                                         "this": lambda kernel=kernel, nz=nz: ours(kernel, nz)})
+                entry.update({f"other_{mode}ms": turns["other"], f"this_{mode}ms": turns["this"]})
+            print(json.dumps(entry), flush=True)
             failed = failed or not same
     return fail("a kernel's outputs differ from the other checkout's") if failed else 0
 
@@ -2025,30 +2524,99 @@ def top_samples_in_turns(other: str) -> int:
 
         python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.top_samples_in_turns("DIR"))'
 
-    Four processes, one after another: ``DIR``, this checkout, this
-    checkout, ``DIR`` (each builds or loads its own kernels before it
-    times).  Prints the card, each process's JSON line, and the two medians
-    of each side as one JSON line.
+    Four processes (:func:`processes_in_turns`).  Prints the card, each
+    process's JSON line, and the two medians of each side as one JSON line.
     """
-    here = Path(__file__).resolve().parent
     card = card_line()
     print(card, flush=True)
-    runs = {"other": [], "this": []}
-    for side in ("other", "this", "this", "other"):
-        root = Path(other).resolve() if side == "other" else here
-        code = f"import sys, chip_smoke; sys.exit(chip_smoke.facade_top_samples({str(root)!r}))"
-        proc = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
-                              text=True, timeout=900)
-        if proc.returncode:
-            return fail(f"facade_top_samples({root}) failed:\n{proc.stdout[-2000:]}"
-                        f"{proc.stderr[-4000:]}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(json.dumps(dict(line, side=side)), flush=True)
-        runs[side].append(line)
+    runs = processes_in_turns(other, "facade_top_samples", card)
+    if runs is None:
+        return 1
     print(json.dumps({"card": card, **{f"{side} {key}": [r[key] for r in lines]
                                        for side, lines in runs.items()
                                        for key in lines[0] if key != "root"}}), flush=True)
     return 0
+
+
+def processes_in_turns(other: str, function: str, card: str):
+    """``function(root)`` of another checkout and of this one, each in a process, in turns.
+
+    Four processes, one after another: ``other``, this checkout, this
+    checkout, ``other`` (each builds or loads its own kernels before it
+    times).  Prints each process's JSON line (its last) with its side and the
+    card; returns ``{"other": [line, line], "this": [line, line]}``, or None
+    after a failure.
+    """
+    here = Path(__file__).resolve().parent
+    runs = {"other": [], "this": []}
+    for side in ("other", "this", "this", "other"):
+        root = Path(other).resolve() if side == "other" else here
+        code = f"import sys, chip_smoke; sys.exit(chip_smoke.{function}({str(root)!r}))"
+        proc = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode:
+            fail(f"{function}({root}) failed:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+            return None
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(line, side=side, card=card)), flush=True)
+        runs[side].append(line)
+    return runs
+
+
+def flagship_ticks(root: str) -> int:
+    """The flagship's tick on the host clock, and its profile, for the checkout at ``root``.
+
+    ``build_flagship(device="cuda")`` (racing, T=50, K=100,000) at its fixed
+    lambda and under ESSPS: 20 warm-up ticks, then 100 closed-loop ticks
+    (``tick``, ``env.step``) each timed to a synchronize, and a profile of 10
+    more (:func:`profile_ticks`: device activities a tick, busy share).
+    Prints one JSON line; returns the exit code.
+    """
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import mppi_playground_tpu_torch
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
+    from mppi_playground_tpu_torch.workloads import build_flagship
+
+    if not Path(mppi_playground_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
+        return fail(f"imported {mppi_playground_tpu_torch.__file__}, not the package under {root}")
+    env, solver, tick = build_flagship(horizon=T, num_samples=K, device="cuda")
+    solvers = mode_solvers(env, make_racing_fused_task_from_env(env), solver, tick)
+    out = {"root": str(root)}
+    for mode in ("fixed", "ESSPS"):
+        solver, tick = solvers[mode]
+        run = {"state": solver.init(), "cind": torch.tensor(0, device="cuda"), "x": env.reset()}
+
+        def one(run=run, tick=tick):
+            action_seq, _, run["state"], run["cind"] = tick(run["state"], run["cind"], run["x"])
+            run["x"], _ = env.step(action_seq[0])
+
+        times = []
+        for i in range(120):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            if i >= 20:
+                times.append(1e3 * (time.perf_counter() - t0))
+        out[mode] = {"median_tick_ms": statistics.median(times),
+                     "profile": profile_ticks(torch, one, 10)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def flagship_ticks_in_turns(other: str) -> int:
+    """:func:`flagship_ticks` of another checkout and of this one, in turns.
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.flagship_ticks_in_turns("DIR"))'
+
+    Four processes (:func:`processes_in_turns`).  Prints the card and each
+    process's JSON line.
+    """
+    card = card_line()
+    print(card, flush=True)
+    return 0 if processes_in_turns(other, "flagship_ticks", card) is not None else 1
 
 
 def check_epilogue(torch, fused_solve, cases, card):
@@ -2327,7 +2895,8 @@ def drive_model_paths(torch, card):
 
 def tpu_row(name: str) -> int:
     """The row of PERF.md's table of TPU kernels that kernel ``name`` ports."""
-    for part, row in (("_fused_solve", 1), ("_reroll", 2), ("_costs_dump_lambda", 4),
+    for part, row in (("_fused_solve", 1), ("_reroll", 2), ("_tick_tail", 2),
+                      ("_costs_dump_lambda", 4),
                       ("_costs_dump", 3), ("fused_weighted", 5), ("fused_regen_m", 6),
                       ("_top_rollouts", 6), ("essps_lambda_fused", 7), ("lbps_lambda_fused", 8),
                       ("weighted_update_partials", 9)):
@@ -2363,17 +2932,38 @@ def row_products(kernels: list, shared: dict) -> dict:
 FLAGSHIP_BOUNDS = ((0.5, 0.1), (-2.0, -0.25), (2.0, 0.25))  # sigma, u_min, u_max
 
 
-def angle_normalize_sweep(torch) -> tuple:
-    """``(inputs that differ, inputs in range)`` of ``csrc/exact_checks.cu``'s exhaustive sweep."""
+def exact_sweep(torch, symbol: str, counts: int, *args) -> tuple:
+    """The counts of ``csrc/exact_checks.cu``'s exhaustive sweep ``symbol``.
+
+    ``args`` are the sweep's leading pointers; it adds into ``counts``
+    zeroed int64 counters.
+    """
     import ctypes
 
     from mppi_playground_tpu_torch.ops import cuda_build
 
-    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
-    cuda_build.launch("exact_checks", "angle_normalize_sweep", [ctypes.c_void_p] * 2,
-                      counts.device, counts.data_ptr())
-    differ, inside = counts.tolist()
-    return differ, inside
+    out = torch.zeros(counts, dtype=torch.int64, device="cuda")
+    cuda_build.launch("exact_checks", symbol, [ctypes.c_void_p] * (len(args) + 2), out.device,
+                      *args, out.data_ptr())
+    return tuple(out.tolist())
+
+
+# Cell sizes of the cell-index sweep besides the repo's maps' (at racing's origin
+# and width): a user can pass any, and the reciprocal's proof does not depend on it.
+OTHER_CELL_SIZES = (0.01, 0.05, 0.07, 0.25, 0.3, 1.0)
+
+
+def cell_sweeps(torch, geometries: dict) -> dict:
+    """``csrc/exact_checks.cu``'s cell-index sweep over all 2^32 positions at each geometry.
+
+    ``geometries`` maps a label to a task's ``(floats, ints)``; each gives
+    ``{label: (cells that differ, quotients that differ (positions from
+    2^-100, quotients below 2^100), positions on the grid)}``.
+    """
+    from mppi_playground_tpu_torch.ops.fused_solve import _floats, _ints
+
+    return {label: exact_sweep(torch, "cell_sweep", 3, _floats(floats[:7]), _ints(ints[:2]))
+            for label, (floats, ints) in geometries.items()}
 
 
 def flagship_inputs(torch, np) -> tuple:
@@ -2438,14 +3028,33 @@ def main() -> int:
     )
     print(f"build: {len(cuda_build.SOURCES)} sources in {build_s:.1f} s; ptxas: {regs}",
           flush=True)
-    differ, inside = angle_normalize_sweep(torch)
+    differ, inside = exact_sweep(torch, "angle_normalize_sweep", 2)
     print(f"angle_normalize against its fmodf form on all 2^32 float32 inputs: {differ} differ "
           f"({inside} with x + pi in (-4 pi, 4 pi), where fmodf is skipped)", flush=True)
     if differ:
         return fail("the angle_normalize shortcut is not bit for bit its fmodf form")
+    radius = exact_sweep(torch, "radius_sweep", 3)
+    print(f"Box-Muller radius sqrt_fast(-2 log_normal(u1)) against sqrtf(-2 logf(u1)) on all "
+          f"{radius[2]} values of u1: {radius[0]} radii differ ({radius[1]} logarithms)",
+          flush=True)
+    if radius[0] or radius[1] or radius[2] != 1 << 24:
+        return fail("the Box-Muller radius is not bit for bit sqrtf(-2 logf(u1))")
+    from mppi_playground_tpu_torch.workloads import build_model_workload
+
+    env, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
+    racing_geo = (task.floats, task.ints)
+    nav_task = build_model_workload("navigation", device="cuda").task
+    geometries = {"racing": racing_geo, "navigation": (nav_task.floats, nav_task.ints)}
+    geometries.update({f"cell {c}": (racing_geo[0][:6] + (c,), racing_geo[1])
+                       for c in OTHER_CELL_SIZES})
+    cells = cell_sweeps(torch, geometries)
+    print("cell index from the reciprocal against the IEEE division on all 2^32 float32 "
+          "positions (cells that differ; quotients that differ, of positions from 2^-100 and "
+          f"quotients below 2^100; positions on the grid): {json.dumps(cells)}", flush=True)
+    if any(differ or quotients for differ, quotients, _ in cells.values()):
+        return fail("the cell index from the reciprocal is not the IEEE division's")
 
     # --- phase 3: kernels against their twins at the flagship's shapes ----
-    env, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
     lam = torch.ones(1, device=dev)
     sig, u_min, u_max = FLAGSHIP_BOUNDS
     seed = tick_seed(42, 0)
@@ -2489,8 +3098,25 @@ def main() -> int:
     reroll_err = (got_r - want_r).abs().max().item()
     print(f"re-roll vs twin (T={T}): max_abs_err={reroll_err!r} "
           f"bitwise={bool(torch.equal(got_r, want_r))}", flush=True)
-    if not (got_r.shape == (T + 1, 4) and torch.isfinite(got_r).all() and reroll_err <= 5e-3):
-        return fail("re-roll off the bar: states atol 5e-3")
+    if not (got_r.shape == (T + 1, 4) and torch.isfinite(got_r).all()
+            and torch.equal(got_r, want_r)):
+        return fail("re-roll off the bar: states bitwise the twin's")
+    routes = tail_routes(torch, fused_solve, x0, prev, seed, xref5, task, (sig, u_min, u_max), K,
+                         None)
+    tails = check_tails(torch, fused_solve, f"racing T={T} K={K}", task, x0, routes)
+    if tails is None:
+        return 1
+    tail_err, tail_checks = tails
+    t_tails = time_tails(torch, fused_solve, task, x0, routes["fixed"], T)
+    fixed_args = (x0, *routes["fixed"][:3], routes["fixed"][3], task,
+                  torch.zeros(T - 1, 2, device=dev))
+    t_tail_plain = cuda_ms(torch, lambda: fused_solve.fused_tick_tail_plain(*fixed_args), 3,
+                           warmup=1)
+    b_tail, by_tail = tail_bound_ms(K, T)
+    print(f"tick tail on {card} (graph replay; event loop in brackets): " + "; ".join(
+        f"{key[:-3]} {value:.4f} ms ({t_tails[key[:-3] + '_launch_loop_ms']:.4f})"
+        for key, value in t_tails.items() if not key.endswith("launch_loop_ms"))
+        + f"; twin {t_tail_plain:.3f} ms; bound {b_tail:.6f} ms ({by_tail})", flush=True)
 
     # timings: kernel (graph replay, and the event loop beside it) and twin, on this card
     t_solve, t_solve_loop = device_ms(torch, lambda: solve(fused_solve.fused_solve, None), 20)
@@ -2682,6 +3308,21 @@ def main() -> int:
             "bound_ms": b_reroll,
             "bound_by": by_reroll,
             "library_ms": None,
+        },
+        {
+            "name": "racing_tick_tail",
+            "route": "cuda",
+            "source": "mppi_playground_tpu_torch/csrc/reroll.cu",
+            "replaces": "mppi_playground_tpu/ops/fused_solve.py:272",
+            "max_abs_err": tail_err,
+            "ms": t_tails["tail_ms"],
+            "launch_loop_ms": t_tails["tail_launch_loop_ms"],
+            "plain_ms": t_tail_plain,
+            "bound_ms": b_tail,
+            "bound_by": by_tail,
+            "library_ms": None,
+            "alternatives_ms": t_tails,
+            "checks": tail_checks,
         },
     ] + auto["kernels"] + row6 + [row9, racing_epilogue_row] + list(model_rows.values()) + [
         regen_rows["m1_regen"]]

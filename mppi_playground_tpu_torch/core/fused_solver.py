@@ -3,8 +3,10 @@
 Counterpart of ``mppi_playground_tpu/core/fused_solver.py``: the same
 ``MPPISolver`` bundle, state and ``SolveResult`` as
 ``core/solver.make_solver``, with the sample, rollout, cost and weighting
-body run by the kernels of the task's model, ``combine_partials`` in torch,
-and the nominal re-roll by the re-roll kernel.
+body run by the kernels of the task's model, and the rest of the tick in one
+launch of the tail kernel (``ops/fused_solve.fused_tick_tail``): the block
+partials merged into the update, the weights and the ESS, the SG filter and
+its history, and the nominal re-roll.
 
 * Fixed lambda and MPO: one launch of the fused solve at the state's
   lambda; MPO then takes its Adam step on the costs (``core/autolambda``).
@@ -17,7 +19,8 @@ and the nominal re-roll by the re-roll kernel.
     standalone route's.
   ``lambda_epilogue=True`` or ``False`` forces one; the default (None)
   picks by K (:func:`takes_lambda_epilogue`), as measured on the H100.
-  lambda* stays on the device: phase 2 reads it through a pointer.
+  lambda* stays on the device: phase 2 and the tail read it through a
+  pointer.
 
 A tick draws its kernel seed on the host from the state's ``(seed, tick)``,
 so nothing in it waits on the device.  Only the racing task reads the
@@ -50,7 +53,6 @@ from mppi_playground_tpu_torch.core.solver import (
     advance_state,
     make_init,
     make_states_prediction,
-    smooth_predict_advance,
 )
 from mppi_playground_tpu_torch.models.racing_mpcc import extend_reference_path
 from mppi_playground_tpu_torch.ops.fused_solve import (
@@ -60,13 +62,12 @@ from mppi_playground_tpu_torch.ops.fused_solve import (
     FusedTask,
     fused_costs_dump,
     fused_costs_dump_lambda,
-    fused_reroll,
     fused_solve,
+    fused_tick_tail,
     fused_top_rollouts,
     fused_weighted,
 )
 from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
-from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
 # The default lambda route (lambda_epilogue=None) takes the epilogue up to
@@ -167,9 +168,6 @@ def make_fused_solver(
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)
 
-    def epilogue_prediction(x0, action_seqs):
-        return fused_reroll(x0, action_seqs[0], task)[None]
-
     def solve(
         state: MPPIState,
         x0: torch.Tensor,
@@ -199,11 +197,9 @@ def make_fused_solver(
             lam = state.lam
             costs, stats, numer = fused_solve(x0, prev, lam.reshape(1), seed, ref, task,
                                               *sampling)
-        update, weights, ess = combine_partials(
-            costs, stats, numer, lam, config.horizon, config.dim_control
-        )
-        action_seq, state_seq, new_sg_history = smooth_predict_advance(
-            config, sg_coeffs, epilogue_prediction, state, x0, update
+        action_seq, state_seq, weights, ess, new_sg_history = fused_tick_tail(
+            x0, costs, stats, numer, lam.reshape(1), task, state.sg_history.contiguous(),
+            sg_coeffs,
         )
         new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history)
         aux = SolveAux(

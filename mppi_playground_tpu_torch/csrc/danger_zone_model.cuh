@@ -26,13 +26,19 @@ struct Model {
   static Args make_args(const float* f, const int*, const uint8_t*, const uint8_t*) {
     return Args{f[0], f[1], f[2], f[3], f[4], f[5], f[6]};
   }
-  __device__ static __forceinline__ void step(float (&x)[kN], const float (&u)[kM],
-                                              const Args& a) {
+  // a step's action-only terms: the clamped speed and the clamped turn rate times dt
+  static constexpr int kPre = 2;
+  __device__ static __forceinline__ void prepare(const float (&u)[kM], float (&p)[kPre],
+                                                 const Args& a) {
+    p[0] = clampf(u[0], a.u_min0, a.u_max0);
+    p[1] = clampf(u[1], a.u_min1, a.u_max1) * a.delta_t;
+  }
+  __device__ static __forceinline__ void step_prepared(float (&x)[kN], const float (&p)[kPre],
+                                                       const Args& a) {
     const float gx = x[0] + x[3], gy = x[1] + x[4];
     const float cx = x[0] + x[5], cy = x[1] + x[6];
-    const float v = clampf(u[0], a.u_min0, a.u_max0);
-    const float omega = clampf(u[1], a.u_min1, a.u_max1);
-    const float theta = devmath::angle_normalize(x[2] + omega * a.delta_t);
+    const float v = p[0];
+    const float theta = devmath::angle_normalize(x[2] + p[1]);
     const float nx = x[0] + v * cosf(theta) * a.delta_t;
     const float ny = x[1] + v * sinf(theta) * a.delta_t;
     x[0] = nx;

@@ -30,13 +30,15 @@
 //   warm start (or its injected noise), rolled out through the model: the
 //   states [n, T+1, n_x] of get_top_samples in one launch, or, on the
 //   actions-only plug, the perturbations [n, T, m] alone.
-// * reroll_kernel (make_fused_reroll): x0 [n], actions [T, m] -> [T+1, n].
 //
+// The re-roll (make_fused_reroll) and the tick's tail after these kernels are
+// in tick_tail.cuh.
 // A model plug (racing_model.cuh, unicycle_model.cuh, danger_zone_model.cuh,
 // classic_models.cuh) gives kN, kM, kRefWidth (floats of its per-tick
 // reference row in shared memory, racing only), its per-launch Args built on
-// the host from the model floats, ints and grids the wrapper passes, step()
-// and stage_cost().  Each model's source (fused_<model>.cu) instantiates the
+// the host from the model floats, ints and grids the wrapper passes, a step
+// as prepare() (its kPre action-only terms) then step_prepared() (model_step
+// below), and stage_cost().  Each model's source (fused_<model>.cu) instantiates the
 // rollout kernels with FUSED_MODEL_ENTRY_POINTS; fused_solve.cu holds phase 2
 // and regeneration alone; reroll.cu the re-roll and the top rows' roll-out of
 // every model.
@@ -60,9 +62,16 @@
 //
 // What this design does about it.  One thread per sample, blocks of 256.
 // The state lives in registers (kN floats; danger zone's 7 included).  The
-// time goes to instructions: at the flagship the draws take about a third of
-// it (Box–Muller most), the map query's IEEE divisions and loads an eighth
-// (PERF.md, row 1's split).  So in the fixed solve each sample's clamped
+// time goes to issued instructions (on an H100 twice the samples take 1.8x
+// the time):
+// at the flagship the draws take over a third of phase 1 (Box–Muller most),
+// the map query a fifth (PERF.md, the splits of rows 1 and 3).  So each
+// instruction the rollout can drop without changing a bit goes: the
+// Box–Muller radius skips logf's and sqrtf's special-input paths, the cell
+// index takes the quotient from the reciprocal and rounds and converts in
+// one instruction (device_math.cuh; exact_checks.cu sweeps each on every
+// input), and the loop takes two steps a trip, so that a step's Philox parity
+// is known at compile time.  In the fixed solve each sample's clamped
 // actions are drawn once where shared memory allows: the rollout stores them
 // in a tile [slots, 256] that the numerator pass reads back after the
 // softmin max is known, as many slots as keep the CTAs an SM the grid needs
@@ -131,6 +140,15 @@ Sampling<kM> make_sampling(const float* prev, const float* noise, const float* b
   s.num_samples = num_samples;
   s.threshold = threshold;
   return s;
+}
+
+// One model step: its action-only terms, then the step from them.
+template <class Model>
+__device__ __forceinline__ void model_step(float (&x)[Model::kN], const float (&u)[Model::kM],
+                                           const typename Model::Args& a) {
+  float p[Model::kPre];
+  Model::prepare(u, p, a);
+  Model::step_prepared(x, p, a);
 }
 
 template <class Model>
@@ -289,6 +307,9 @@ __device__ __forceinline__ float rollout_cost(const Params<Model>& p, const floa
   float u[kM], pu[kM];
 #pragma unroll
   for (int j = 0; j < kM; ++j) u[j] = pu[j] = 0.0f;
+  // two steps a trip: a step's parity, and so whether it opens a Philox block
+  // (m = 2), is then known at compile time
+#pragma unroll 2
   for (int t = 0; t < T; ++t) {
     float pv[kM];
 #pragma unroll
@@ -302,7 +323,7 @@ __device__ __forceinline__ float rollout_cost(const Params<Model>& p, const floa
       pu[j] = t == 0 ? u[j] : pv[j];
     }
     acc = acc + Model::stage_cost(x, u, pu, s_ref + Model::kRefWidth * t, p.args);
-    Model::step(x, u, p.args);
+    model_step<Model>(x, u, p.args);
   }
   // terminal cost: zero action; t and prev_action keep their last values
   float zero[kM];
@@ -397,9 +418,12 @@ __global__ void __cluster_dims__(lsearch::kCluster, 1, 1) __launch_bounds__(kBlo
 // state, no step; the actions are all it writes.
 template <int kM_>
 struct ActionsOnly {
-  static constexpr int kN = 1, kM = kM_;
+  static constexpr int kN = 1, kM = kM_, kPre = 1;
   struct Args {};
-  __device__ static __forceinline__ void step(float (&)[kN], const float (&)[kM], const Args&) {}
+  __device__ static __forceinline__ void prepare(const float (&)[kM], float (&)[kPre],
+                                                 const Args&) {}
+  __device__ static __forceinline__ void step_prepared(float (&)[kN], const float (&)[kPre],
+                                                       const Args&) {}
 };
 
 // Requested rows a CTA of regen_rollout_kernel: each row is one thread's chain
@@ -411,7 +435,7 @@ constexpr int kTopBlock = 32;
 // rows[i]'s clamped perturbed actions, replayed from the solve's seed and warm
 // start (or its noise) with the draws of every other kernel, written to
 // actions [n, T, m] where that is not null; and rolled from x0 through
-// Model::step, every state written to states [n, T+1, kN] where that is not
+// model_step, every state written to states [n, T+1, kN] where that is not
 // null.  A row past [0, K) is all NaN.
 template <class Model>
 __global__ void __launch_bounds__(kTopBlock)
@@ -451,31 +475,10 @@ __global__ void __launch_bounds__(kTopBlock)
       for (int j = 0; j < kM; ++j) act[kM * t + j] = u[j];
     }
     if (st != nullptr) {
-      Model::step(x, u, args);
+      model_step<Model>(x, u, args);
 #pragma unroll
       for (int c = 0; c < kN; ++c) st[kN * (t + 1) + c] = x[c];
     }
-  }
-}
-
-// One thread rolls the horizon in registers through the model's step.
-template <class Model>
-__global__ void reroll_kernel(const float* x0, const float* seq, int horizon,
-                              typename Model::Args args, float* out) {
-  constexpr int kN = Model::kN, kM = Model::kM;
-  float x[kN];
-#pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    x[c] = x0[c];
-    out[c] = x[c];
-  }
-  for (int t = 0; t < horizon; ++t) {
-    float u[kM];
-#pragma unroll
-    for (int j = 0; j < kM; ++j) u[j] = seq[kM * t + j];
-    Model::step(x, u, args);
-#pragma unroll
-    for (int c = 0; c < kN; ++c) out[kN * (t + 1) + c] = x[c];
   }
 }
 

@@ -35,18 +35,25 @@ __device__ __forceinline__ float tan_small(float x) {
                                  x2 * static_cast<float>(17.0 / 315.0))));
 }
 
-// models/bicycle.py make_dynamics_soa, one Euler step in place.
+// models/bicycle.py make_dynamics_soa: the terms of a step that depend on the
+// action alone, the clamped acceleration times dt and tan of the clamped steer.
+__device__ __forceinline__ void bicycle_terms(float u0, float u1, float& accel_dt,
+                                              float& tan_steer) {
+  accel_dt = clampf(u0, kUMin0, kUMax0) * kDeltaT;
+  tan_steer = tan_small(clampf(u1, kUMin1, kUMax1));
+}
+
+// models/bicycle.py make_dynamics_soa, one Euler step in place from the terms.
 __device__ __forceinline__ void bicycle_step(float& x, float& y, float& th, float& v,
-                                             float u0, float u1, const Geometry& g) {
+                                             float accel_dt, float tan_steer,
+                                             const Geometry& g) {
   float theta = devmath::angle_normalize(th);
-  float accel = clampf(u0, kUMin0, kUMax0);
-  float steer = clampf(u1, kUMin1, kUMax1);
   float s, c;
   devmath::sincos_npi(theta, &s, &c);
   float nx = clampf(x + v * c * kDeltaT, g.x_lo, g.x_hi);
   float ny = clampf(y + v * s * kDeltaT, g.y_lo, g.y_hi);
-  float nth = devmath::angle_normalize(theta + v * tan_small(steer) / kWheelbase * kDeltaT);
-  float nv = clampf(v + accel * kDeltaT, -kVMax, kVMax);
+  float nth = devmath::angle_normalize(theta + v * tan_steer / kWheelbase * kDeltaT);
+  float nv = clampf(v + accel_dt, -kVMax, kVMax);
   x = nx;
   y = ny;
   th = nth;
@@ -74,8 +81,9 @@ __device__ __forceinline__ float mpcc_stage_cost(float x, float y, float v, floa
   return path_cost + velocity_cost + obstacle_cost + input_cost;
 }
 
-// The model plug of fused_solve.cuh.  State (x, y, theta, v), action (accel,
-// steer); the tick's reference rows (x, y, sin, cos, v) in shared memory.
+// The model plug of fused_solve.cuh and tick_tail.cuh.  State (x, y, theta,
+// v), action (accel, steer); the tick's reference rows (x, y, sin, cos, v) in
+// shared memory.
 // Model floats: x_lo, x_hi, y_lo, y_hi, origin_x, origin_y, cell_size;
 // ints: width, height; grids: obstacle, lane.
 struct Model {
@@ -89,9 +97,15 @@ struct Model {
                         const uint8_t* grid_b) {
     return Args{devmath::make_geometry(f, i), grid_a, grid_b};
   }
-  __device__ static __forceinline__ void step(float (&x)[kN], const float (&u)[kM],
-                                              const Args& a) {
-    bicycle_step(x[0], x[1], x[2], x[3], u[0], u[1], a.geo);
+  // a step's action-only terms (accel * dt, tan of the steer), then the step from them
+  static constexpr int kPre = 2;
+  __device__ static __forceinline__ void prepare(const float (&u)[kM], float (&p)[kPre],
+                                                 const Args&) {
+    bicycle_terms(u[0], u[1], p[0], p[1]);
+  }
+  __device__ static __forceinline__ void step_prepared(float (&x)[kN], const float (&p)[kPre],
+                                                       const Args& a) {
+    bicycle_step(x[0], x[1], x[2], x[3], p[0], p[1], a.geo);
   }
   __device__ static __forceinline__ float stage_cost(const float (&x)[kN], const float (&u)[kM],
                                                      const float (&pu)[kM], const float* ref,

@@ -1,40 +1,54 @@
-// Nominal-trajectory re-roll and the top rows' roll-out of every model:
+// The tick's tail, the nominal re-roll and the top rows' roll-out of every
+// model: <model>_tick_tail (the block partials merged into the update, ESS
+// and weights, the SG filter, the history shift, the re-roll: tick_tail.cuh);
 // <model>_reroll, x0 [n], seq [T, m] -> [T+1, n]; <model>_top_rollouts, the
 // states [rows, T+1, n] of chosen samples regenerated and rolled out.
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py, make_fused_reroll.kernel
 // (a Pallas TPU kernel that rolls the sequence on broadcast vregs, for any
-// FusedTask); and run_regen (regen_dump_only mode) followed by the batched
-// re-roll that core/fused_solver.py _top compiles with it.
+// FusedTask) with the merge and filter XLA runs around it; and run_regen
+// (regen_dump_only mode) followed by the batched re-roll that
+// core/fused_solver.py _top compiles with it.
 //
-// What bounds them on the H100.  The re-roll reads 4(n + Tm) bytes and writes
-// 4n(T+1): 1.2 KB for racing at T=50, 0.4 ns at 3.35 TB/s, and does a few tens
-// of float operations a step.  The top rows' roll-out writes 4 n (T+1) bytes a
-// row and draws T m normals a row: 300 racing rows at T=50 are 245 KB and
-// about 3e6 float operations, 0.07 us and 0.05 us.  Neither bound matters:
-// the T steps of a row form one chain of dependent operations, so the time is
-// that chain's latency on one thread plus the launch.
-//
-// What this simple design does about it.  One thread rolls a horizon in
-// registers through the same __device__ step as the model's fused solve
-// (fused_solve.cuh reroll_kernel, regen_rollout_kernel) and writes each state
-// as it goes; the top rows' CTAs are small, so that their chains run on
-// several SMs.  Entry points <model>_reroll(x0, seq, model_f, model_i,
-// horizon, out, stream) and <model>_top_rollouts(x0, prev, noise, rows,
-// bounds, model_f, model_i, seed, horizon, num_samples, threshold, num_rows,
-// out, stream), the model floats and ints as the rollout kernels take them.
+// What bounds them on the H100, and the design: tick_tail.cuh for the first
+// two.  The top rows' roll-out writes 4 n (T+1) bytes a row and draws T m
+// normals a row: 300 racing rows at T=50 are 245 KB and about 3e6 float
+// operations, 0.07 us and 0.05 us; but the T steps of a row form one chain of
+// dependent operations, so the time is that chain's latency on one thread
+// plus the launch.  One thread a row (fused_solve.cuh regen_rollout_kernel)
+// through the model's step, small CTAs so that the chains run on several
+// SMs.  Entry points <model>_tick_tail(x0, costs, stats, numer, lam, history,
+// coeffs, model_f, model_i, blocks, horizon, num_samples, window, actions,
+// states, ess, weights, history_out, stream), <model>_reroll(x0, seq,
+// model_f, model_i, horizon, out, stream) and <model>_top_rollouts(x0, prev,
+// noise, rows, bounds, model_f, model_i, seed, horizon, num_samples,
+// threshold, num_rows, out, stream), the model floats and ints as the rollout
+// kernels take them.
 #include "classic_models.cuh"
 #include "danger_zone_model.cuh"
 #include "fused_solve.cuh"
 #include "racing_model.cuh"
+#include "tick_tail.cuh"
 #include "unicycle_model.cuh"
 
 #define TAIL_ENTRY_POINTS(prefix, Model)                                                       \
   extern "C" int prefix##_reroll(const float* x0, const float* seq, const float* model_f,     \
                                  const int* model_i, int horizon, float* out, void* stream) {   \
-    fused::reroll_kernel<Model><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(               \
-        x0, seq, horizon, Model::make_args(model_f, model_i, nullptr, nullptr), out);          \
-    return static_cast<int>(cudaGetLastError());                                               \
+    return fused::launch_reroll<Model>(x0, seq, horizon,                                       \
+                                       Model::make_args(model_f, model_i, nullptr, nullptr),   \
+                                       out, static_cast<cudaStream_t>(stream));                \
+  }                                                                                            \
+  extern "C" int prefix##_tick_tail(                                                           \
+      const float* x0, const float* costs, const float* stats, const float* numer,             \
+      const float* lam, const float* history, const float* coeffs, const float* model_f,       \
+      const int* model_i, int blocks, int horizon, int num_samples, int window, float* actions, \
+      float* states, float* ess, float* weights, float* history_out, void* stream) {           \
+    const fused::Tail q{x0,      costs,       stats,   numer,   lam,     history,    coeffs,   \
+                        blocks,  horizon,     num_samples, window, actions, states, ess,       \
+                        weights, history_out};                                                 \
+    return fused::launch_tick_tail<Model>(q, Model::make_args(model_f, model_i, nullptr,       \
+                                                              nullptr),                        \
+                                          static_cast<cudaStream_t>(stream));                  \
   }                                                                                            \
   extern "C" int prefix##_top_rollouts(const float* x0, const float* prev, const float* noise, \
                                        const int64_t* rows, const float* bounds,              \

@@ -31,16 +31,22 @@ struct NavigationModel {
     return Args{devmath::make_geometry(f, i), f[7], f[8], f[9], f[10], f[11], f[12], f[13],
                 f[14], grid_a};
   }
-  __device__ static __forceinline__ void step(float (&x)[kN], const float (&u)[kM],
-                                              const Args& a) {
+  // a step's action-only terms: the clamped speed and the clamped turn rate times dt
+  static constexpr int kPre = 2;
+  __device__ static __forceinline__ void prepare(const float (&u)[kM], float (&p)[kPre],
+                                                 const Args& a) {
+    p[0] = clampf(u[0], a.u_min0, a.u_max0);
+    p[1] = clampf(u[1], a.u_min1, a.u_max1) * a.delta_t;
+  }
+  __device__ static __forceinline__ void step_prepared(float (&x)[kN], const float (&p)[kPre],
+                                                       const Args& a) {
     const float theta = devmath::angle_normalize(x[2]);
-    const float v = clampf(u[0], a.u_min0, a.u_max0);
-    const float omega = clampf(u[1], a.u_min1, a.u_max1);
+    const float v = p[0];
     float s, c;
     devmath::sincos_npi(theta, &s, &c);
     const float nx = clampf(x[0] + v * c * a.delta_t, a.geo.x_lo, a.geo.x_hi);
     const float ny = clampf(x[1] + v * s * a.delta_t, a.geo.y_lo, a.geo.y_hi);
-    x[2] = devmath::angle_normalize(theta + omega * a.delta_t);
+    x[2] = devmath::angle_normalize(theta + p[1]);
     x[0] = nx;
     x[1] = ny;
   }

@@ -43,25 +43,37 @@ def make_dynamics_soa(
     v_max: float = V_MAX,
     delta_t: float = DELTA_T,
 ) -> Callable:
-    """Structure-of-arrays bicycle step on tuples of same-shape tensors."""
+    """Structure-of-arrays bicycle step on tuples of same-shape tensors.
+
+    The step is ``step_terms(xs, action_terms(us))``, both attributes of the
+    returned function: the terms that depend on the action alone (the
+    clamped acceleration times dt, tan of the clamped steer), then the step
+    from them, as the CUDA kernels split it (``csrc/racing_model.cuh``), so
+    that the terms of a whole sequence can be taken at once.
+    """
     steer_bound = max(abs(float(u_min[1])), abs(float(u_max[1])))
     tan_fn = _tan_small if steer_bound <= 0.25 + 1e-6 else torch.tan
 
-    def dynamics_soa(xs, us):
-        x, y, theta, v = xs
-        theta = angle_normalize(theta)
-        accel = torch.clamp(us[0], u_min[0], u_max[0])
-        steer = torch.clamp(us[1], u_min[1], u_max[1])
+    def action_terms(us):
+        accel_dt = torch.clamp(us[0], u_min[0], u_max[0]) * delta_t
+        return accel_dt, tan_fn(torch.clamp(us[1], u_min[1], u_max[1]))
 
+    def step_terms(xs, terms):
+        x, y, theta, v = xs
+        accel_dt, tan_steer = terms
+        theta = angle_normalize(theta)
         sin_t, cos_t = sincos_npi(theta)
         new_x = torch.clamp(x + v * cos_t * delta_t, x_lim[0], x_lim[1])
         new_y = torch.clamp(y + v * sin_t * delta_t, y_lim[0], y_lim[1])
-        new_theta = angle_normalize(
-            theta + v * tan_fn(steer) / wheelbase * delta_t
-        )
-        new_v = torch.clamp(v + accel * delta_t, -v_max, v_max)
+        new_theta = angle_normalize(theta + v * tan_steer / wheelbase * delta_t)
+        new_v = torch.clamp(v + accel_dt, -v_max, v_max)
         return (new_x, new_y, new_theta, new_v)
 
+    def dynamics_soa(xs, us):
+        return step_terms(xs, action_terms(us))
+
+    dynamics_soa.action_terms = action_terms
+    dynamics_soa.step_terms = step_terms
     return dynamics_soa
 
 

@@ -9,7 +9,6 @@ a :class:`FusedTask`; the kernels are templated on a model plug
 * :func:`fused_solve` (``<model>_fused_solve``) — per sample: the perturbed,
   clamped warm start, T model steps with the stage and terminal cost; per
   block of 256 samples the softmin partials.
-  ``ops/weighted_update.combine_partials`` merges the blocks.
 * :func:`fused_costs_dump` (``<model>_costs_dump``) — auto-lambda phase 1:
   the same rollout and costs, and the clamped perturbations dumped as
   ``[T*m, K]`` (slot-major, sample fastest); no partials.
@@ -29,8 +28,14 @@ a :class:`FusedTask`; the kernels are templated on a model plug
   fused route's ``get_top_samples``.
 * :func:`fused_regen` (``fused_regen_m1`` / ``fused_regen_m2``) — the
   same kernel on its actions-only plug: the clamped perturbations alone.
+* :func:`fused_tick_tail` (``<model>_tick_tail``, ``csrc/reroll.cu``,
+  ``csrc/tick_tail.cuh``) — the tick's tail in one launch after the fused
+  solve or phase 2: the block partials merged into the update, the weights
+  and the ESS (``ops/weighted_update.combine_partials``' function, summed in
+  the kernel's order), the SG filter where the config has one, its history
+  shifted, and the nominal re-roll.
 * :func:`fused_reroll` (``<model>_reroll``, ``csrc/reroll.cu``) — the
-  nominal re-roll.
+  nominal re-roll alone.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in its
 ``launches`` counter under the kernel's name, and raises on what the kernel
@@ -323,6 +328,99 @@ def fused_top_rollouts_plain(x0, prev, seed, rows, task: FusedTask, sigmas, u_mi
         xs = task.dynamics_soa(xs, tuple(pert[:, t, j] for j in range(task.dim_control)))
         states.append(torch.stack(xs, dim=-1))
     return _nan_rows(torch.stack(states, dim=1), rows, num_samples)
+
+
+TAIL_BLOCK = 1024  # threads of the tail kernel's CTAs (csrc/tick_tail.cuh kTailBlock)
+
+
+def _tail_thread_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum of ``v [B]`` in the tail kernel's order, a 0-dim tensor.
+
+    Thread t adds ``v[t], v[t + 1024], ...`` in turn from 0; each warp folds
+    its 32 lanes by halves (lane 0's result of the shuffle-down tree), and
+    the 32 warp sums are added in warp order.  The padding adds exact zeros.
+    """
+    rows = -(-v.shape[0] // TAIL_BLOCK)
+    v = torch.cat([v, v.new_zeros(rows * TAIL_BLOCK - v.shape[0])]).view(rows, TAIL_BLOCK)
+    acc = v.new_zeros(TAIL_BLOCK)
+    for r in range(rows):
+        acc = acc + v[r]
+    acc = acc.view(TAIL_BLOCK // 32, 32)
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = acc[:, :half] + acc[:, half:]
+    total = acc[0, 0]
+    for w in range(1, acc.shape[0]):
+        total = total + acc[w, 0]
+    return total
+
+
+def tail_merge_plain(costs, stats, numer, lam):
+    """``(update [D], weights [K], ess)`` of the block partials, in the tail kernel's order.
+
+    ``combine_partials``' function: alpha = exp(block max - max), z = sum
+    alpha s1, sumsq = sum alpha^2 s2 (each by :func:`_tail_thread_sum`).  The
+    numerators: ``1024 // D`` groups, group g summing alpha numer over the
+    blocks g, g + groups, ... in turn from 0, then the groups' sums added in
+    group order.
+    """
+    tile_max = stats[:, 0]
+    mx = torch.max(tile_max)
+    alpha = torch.exp(tile_max - mx)
+    z = _tail_thread_sum(alpha * stats[:, 1])
+    sumsq = _tail_thread_sum(alpha * alpha * stats[:, 2])
+    blocks, slots = numer.shape
+    groups = TAIL_BLOCK // slots
+    pad = -(-blocks // groups) * groups - blocks
+    a = torch.cat([alpha, alpha.new_zeros(pad)]).view(-1, groups, 1)
+    rows = torch.cat([numer, numer.new_zeros(pad, slots)]).view(-1, groups, slots)
+    acc = numer.new_zeros(groups, slots)
+    for r in range(rows.shape[0]):
+        acc = acc + a[r] * rows[r]
+    numer_g = acc[0]
+    for g in range(1, groups):
+        numer_g = numer_g + acc[g]
+    weights = torch.exp(-costs / lam.reshape(()) - mx) / z
+    return numer_g / z, weights, z * z / sumsq
+
+
+def sg_filter_plain(action_seq, history, coeffs):
+    """``core/sg_filter.apply_sg_filter`` with each output's taps summed in order from 0.
+
+    The tail kernel's filter: the history and the sequence ``[2T-1, m]``,
+    mirrored at each end (edge rows repeated), cross-correlated with the
+    window, the last T rows kept.
+    """
+    horizon = action_seq.shape[0]
+    prolonged = torch.cat([history, action_seq], dim=0)
+    length, pad = prolonged.shape[0], coeffs.shape[0] // 2
+    padded = torch.cat(
+        [prolonged[:pad].flip(0), prolonged, prolonged[length - pad:].flip(0)], dim=0
+    )
+    acc = action_seq.new_zeros(action_seq.shape)
+    for j in range(coeffs.shape[0]):
+        acc = acc + padded[horizon - 1 + j: 2 * horizon - 1 + j] * coeffs[j]
+    return acc
+
+
+def fused_tick_tail_plain(x0, costs, stats, numer, lam, task: FusedTask, sg_history,
+                          sg_coeffs=None):
+    """The tail kernel's plain twin: ``(action_seq, state_seq, weights, ess, sg_history)``.
+
+    :func:`tail_merge_plain`, :func:`sg_filter_plain` where ``sg_coeffs`` is
+    given, the history shifted by the first action (``cat(history[1:],
+    action_seq[:1])``), and :func:`fused_reroll_plain` of the action
+    sequence.
+    """
+    m = task.dim_control
+    horizon = numer.shape[1] // m
+    update, w, ess = tail_merge_plain(costs, stats, numer, lam)
+    action_seq = update.reshape(horizon, m)
+    if sg_coeffs is not None:
+        action_seq = sg_filter_plain(action_seq, sg_history, sg_coeffs)
+    history = torch.cat([sg_history[1:], action_seq[:1]], dim=0)[:horizon - 1]
+    states = fused_reroll_plain(x0, action_seq, task)
+    return action_seq, states, w, ess, history
 
 
 def fused_reroll_plain(x0, action_seq, task: FusedTask):
@@ -741,9 +839,84 @@ def fused_reroll(x0: torch.Tensor, action_seq: torch.Tensor, task: FusedTask) ->
 
 fused_reroll.launches = collections.Counter()
 
+_TAIL_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+
+
+def fused_tick_tail(
+    x0: torch.Tensor,
+    costs: torch.Tensor,
+    stats: torch.Tensor,
+    numer: torch.Tensor,
+    lam: torch.Tensor,
+    task: FusedTask,
+    sg_history: torch.Tensor,
+    sg_coeffs: Optional[torch.Tensor] = None,
+):
+    """The tick's tail in one launch -> ``(action_seq [T, m], state_seq [T+1, n], weights [K],
+    ess, sg_history [T-1, m])``.
+
+    ``costs [K]``, ``stats [B, 3]`` and ``numer [B, T*m]`` from
+    :func:`fused_solve` or :func:`fused_weighted`, ``lam`` (one element,
+    read by the kernel, never by the host) the lambda they were weighted at,
+    ``x0 [n]`` the state to re-roll from, ``sg_history [T-1, m]`` the SG
+    filter's history, ``sg_coeffs [w]`` its window (None: no filter).  The
+    action sequence is the merged update, filtered where ``sg_coeffs`` is
+    given; ``sg_history`` comes back shifted by its first action, as
+    ``core/solver.smooth_predict_advance`` shifts it; ``ess`` is 0-dim.  CPU
+    tensors take :func:`fused_tick_tail_plain`.
+    """
+    if not _on_card("fused_tick_tail", x0):
+        return fused_tick_tail_plain(x0, costs, stats, numer, lam, task, sg_history, sg_coeffs)
+    dev = x0.device
+    n, m = task.dim_state, task.dim_control
+    num_samples, blocks = costs.shape[0], stats.shape[0]
+    slots = numer.shape[1] if numer.dim() == 2 else 0
+    horizon = slots // m
+    if not (1 <= horizon and horizon * m == slots <= MAX_SLOTS):
+        raise ValueError(f"numer must be [B, T*{m}] with 1 <= T*{m} <= {MAX_SLOTS}, got "
+                         f"{tuple(numer.shape)}")
+    if not 1 <= num_samples < 2**31 - BLOCK or blocks != -(-num_samples // BLOCK):
+        raise ValueError(f"stats must be [ceil(K / {BLOCK}), 3] for K={num_samples}, got "
+                         f"{tuple(stats.shape)}")
+    f32 = torch.float32
+    _check("x0", x0, (n,), f32, dev)
+    _check("costs", costs, (num_samples,), f32, dev)
+    _check("stats", stats, (blocks, 3), f32, dev)
+    _check("numer", numer, (blocks, slots), f32, dev)
+    _check("lam", lam, tuple(lam.shape), f32, dev)
+    if lam.numel() != 1:
+        raise ValueError("lam must hold one element")
+    _check("sg_history", sg_history, (horizon - 1, m), f32, dev)
+    window = 0
+    if sg_coeffs is not None:
+        window = sg_coeffs.shape[0]
+        _check("sg_coeffs", sg_coeffs, (window,), f32, dev)
+        if window % 2 == 0 or window // 2 > 2 * horizon - 2:
+            raise ValueError(f"the SG window must be odd with window // 2 <= 2T - 2, got "
+                             f"{window} at T={horizon}")
+    action_seq = torch.empty(horizon, m, dtype=f32, device=dev)
+    states = torch.empty(horizon + 1, n, dtype=f32, device=dev)
+    ess = torch.empty(1, dtype=f32, device=dev)
+    w = torch.empty(num_samples, dtype=f32, device=dev)
+    history = torch.empty(horizon - 1, m, dtype=f32, device=dev)
+    model_f, model_i = _floats(task.floats), _ints(task.ints)
+    name = f"{task.model}_tick_tail"
+    cuda_build.launch(
+        "reroll", name, _TAIL_ARGTYPES, dev, x0.data_ptr(), costs.data_ptr(), stats.data_ptr(),
+        numer.data_ptr(), lam.data_ptr(), sg_history.data_ptr(),
+        None if sg_coeffs is None else sg_coeffs.data_ptr(), model_f, model_i, blocks, horizon,
+        num_samples, window, action_seq.data_ptr(), states.data_ptr(), ess.data_ptr(),
+        w.data_ptr(), history.data_ptr(),
+    )
+    fused_tick_tail.launches[name] += 1
+    return action_seq, states, w, ess.reshape(()), history
+
+
+fused_tick_tail.launches = collections.Counter()
+
 # every wrapper, and the kernel names each counts launches under
 WRAPPERS = (fused_solve, fused_costs_dump, fused_costs_dump_lambda, fused_weighted, fused_regen,
-            fused_top_rollouts, fused_reroll)
+            fused_top_rollouts, fused_reroll, fused_tick_tail)
 
 
 def kernel_names(wrapper) -> Tuple[str, ...]:
@@ -754,5 +927,5 @@ def kernel_names(wrapper) -> Tuple[str, ...]:
         return tuple(f"fused_regen_m{m}" for m in REGEN_WIDTHS)
     suffix = {fused_solve: "fused_solve", fused_costs_dump: "costs_dump",
               fused_costs_dump_lambda: "costs_dump_lambda", fused_top_rollouts: "top_rollouts",
-              fused_reroll: "reroll"}[wrapper]
+              fused_reroll: "reroll", fused_tick_tail: "tick_tail"}[wrapper]
     return tuple(f"{model}_{suffix}" for model in MODELS)

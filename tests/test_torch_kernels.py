@@ -528,13 +528,150 @@ def test_fused_solve_is_bitwise_phase1_and_phase2_in_a_graph(card, name, num_sam
 
 def test_angle_normalize_shortcut_is_fmodf_on_every_float(card):
     """The exact shortcut in ``device_math.cuh`` against fmodf, all 2^32 inputs, bit for bit."""
+    differ, inside = _sweep("angle_normalize_sweep", 2)
+    assert differ == 0
+    assert inside > 2_000_000_000  # about 2.18e9 floats lie in (-4 pi, 4 pi)
+
+
+# --- row 3 redesigned (fewer instructions a sample), row 2 as the tick's tail ------
+
+@pytest.mark.parametrize("mode", ["noise", "seeded"])
+@pytest.mark.parametrize("num_samples", [1, 1500, 100_000])
+@pytest.mark.parametrize("name", ALL_MODELS)
+def test_phase1_kernel_is_bitwise_its_twin(card, name, num_samples, mode):
+    """Row 3: costs and dump bit for bit the twin's, the kernel's outputs before its redesign.
+
+    The redesign computes the Box–Muller radius and the cell index in fewer
+    instructions, each proven exact by an exhaustive sweep; every output bit
+    stays.
+    """
+    x0, prev, ref, noise, task, (sig, lo, hi), k = _family(card, name, num_samples)
+    nz = noise if mode == "noise" else None
+    args = (x0, prev, tick_seed(9, 2), ref, task, sig, lo, hi, k, int(0.8 * k), nz)
+    kernel = f"{task.model}_costs_dump"
+    before = fused_solve.fused_costs_dump.launches[kernel]
+    costs, dump = fused_solve.fused_costs_dump(*args)
+    assert fused_solve.fused_costs_dump.launches[kernel] == before + 1
+    want_costs, want_dump = fused_solve.fused_costs_dump_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(costs, want_costs, rtol=0, atol=0)
+    torch.testing.assert_close(dump, want_dump, rtol=0, atol=0)
+
+
+def _tail_routes(x0, prev, ref, task, bounds, k):
+    """``{route: (costs, stats, numer, lam)}`` of the fixed, standalone and epilogue routes."""
+    search = lambda_search.LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)
+    sampling = (tick_seed(4, 4), ref, task, *bounds, k, k, None)
+    lam = torch.ones(1, device="cuda")
+    out = {"fixed": fused_solve.fused_solve(x0, prev, lam, *sampling) + (lam,)}
+    costs, dump = fused_solve.fused_costs_dump(x0, prev, *sampling)
+    lam_s = search.run(costs).reshape(1)
+    out["standalone"] = (costs, *fused_solve.fused_weighted(costs, dump, lam_s), lam_s)
+    ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+    costs, dump, lam_e = fused_solve.fused_costs_dump_lambda(x0, prev, *sampling, search, ticket)
+    out["epilogue"] = (costs, *fused_solve.fused_weighted(costs, dump, lam_e), lam_e)
+    return out
+
+
+@pytest.mark.parametrize("sg", [False, True])
+@pytest.mark.parametrize("name", ALL_MODELS)
+def test_tick_tail_kernel_is_bitwise_its_twin(card, name, sg):
+    """Row 2's tail: the merged update, weights, ESS, filtered actions, history and states.
+
+    On each fused route's partials, bit for bit the twin's (which sums in
+    the kernel's order), eagerly and from a CUDA graph of the launch
+    replayed twice; one launch a call.  The libm models' states: bitwise or
+    atol 5e-3, the re-roll's bar.
+    """
+    from mppi_playground_tpu_torch.core.sg_filter import savitzky_golay_coeffs
+
+    x0, prev, ref, _, task, bounds, k = _family(card, name, 2000 if name == "racing" else None)
+    horizon, m = prev.shape
+    history = torch.tensor(np.random.default_rng(5).standard_normal((horizon - 1, m)) * 0.1,
+                           dtype=torch.float32, device="cuda")
+    coeffs = (torch.tensor(savitzky_golay_coeffs(5, 3), dtype=torch.float32, device="cuda")
+              if sg else None)
+    kernel = f"{task.model}_tick_tail"
+    for route, partials in _tail_routes(x0, prev, ref, task, bounds, k).items():
+        args = (x0, *partials, task, history, coeffs)
+        before = fused_solve.fused_tick_tail.launches[kernel]
+        got = fused_solve.fused_tick_tail(*args)
+        assert fused_solve.fused_tick_tail.launches[kernel] == before + 1
+        want = fused_solve.fused_tick_tail_plain(*args)
+        torch.cuda.synchronize()
+        assert got[1].shape == (horizon + 1, task.dim_state) and torch.isfinite(got[1]).all()
+        for i in (0, 2, 3, 4):  # actions, weights, ESS, history
+            torch.testing.assert_close(got[i], want[i], rtol=0, atol=0, msg=route)
+        if name in LIBM_MODELS:
+            torch.testing.assert_close(got[1], want[1], rtol=0, atol=5e-3, msg=route)
+        else:
+            torch.testing.assert_close(got[1], want[1], rtol=0, atol=0, msg=route)
+
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fused_solve.fused_tick_tail(*args)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused_solve.fused_tick_tail(*args)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            for a, b in zip(out, got):
+                torch.testing.assert_close(a, b, rtol=0, atol=0, msg=route)
+
+
+def test_tick_tail_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    env, task = card
+    x0, prev, xref5, _ = _inputs(env, 8, 512, seed=2)
+    lam = torch.ones(1, device="cuda")
+    costs, stats, numer = fused_solve.fused_solve(x0, prev, lam, 0, xref5, task, SIGMAS, U_MIN,
+                                                  U_MAX, 512, 512)
+    history = torch.zeros(7, 2, device="cuda")
+    with pytest.raises(ValueError, match="sg_history"):
+        fused_solve.fused_tick_tail(x0, costs, stats, numer, lam, task, history[:6].contiguous())
+    with pytest.raises(ValueError, match="stats"):
+        fused_solve.fused_tick_tail(x0, costs[:256].contiguous(), stats, numer, lam, task,
+                                    history)
+    with pytest.raises(ValueError, match="SG window"):
+        fused_solve.fused_tick_tail(x0, costs, stats, numer, lam, task, history,
+                                    torch.ones(4, device="cuda"))
+
+
+def _sweep(symbol, counts, *args):
+    """The ``counts`` counters of ``csrc/exact_checks.cu``'s sweep ``symbol``."""
     import ctypes
 
     from mppi_playground_tpu_torch.ops import cuda_build
 
-    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
-    cuda_build.launch("exact_checks", "angle_normalize_sweep", [ctypes.c_void_p] * 2,
-                      counts.device, counts.data_ptr())
-    differ, inside = counts.tolist()
-    assert differ == 0
-    assert inside > 2_000_000_000  # about 2.18e9 floats lie in (-4 pi, 4 pi)
+    out = torch.zeros(counts, dtype=torch.int64, device="cuda")
+    cuda_build.launch("exact_checks", symbol, [ctypes.c_void_p] * (len(args) + 2), out.device,
+                      *args, out.data_ptr())
+    return out.tolist()
+
+
+def test_box_muller_radius_is_the_library_calls_on_every_input(card):
+    """``sqrt_fast(-2 log_normal(u1))`` against ``sqrtf(-2.0f * logf(u1))``, all 2^24 u1."""
+    radii, logs, checked = _sweep("radius_sweep", 3)
+    assert (radii, logs, checked) == (0, 0, 1 << 24)
+
+
+@pytest.mark.parametrize("model", ["racing", "navigation", 0.01, 0.3])
+def test_cell_index_is_the_ieee_divisions_on_every_float(card, model):
+    """One dimension of ``cell_index`` against the division form, all 2^32 positions.
+
+    At the racing and Navigation2D maps' geometry, and at two other cell
+    sizes on racing's: the same off-grid flag and cell everywhere, and the
+    same quotient for every position of magnitude 2^-100 or more whose
+    quotient lies below 2^100.
+    """
+    from mppi_playground_tpu_torch.ops.fused_solve import _floats, _ints
+
+    env, task = card
+    if model == "navigation":
+        task = _model_inputs("navigation")[0].task
+    floats = task.floats[:7] if isinstance(model, str) else task.floats[:6] + (model,)
+    differ, quotients, on_grid = _sweep("cell_sweep", 3, _floats(floats), _ints(task.ints[:2]))
+    assert (differ, quotients) == (0, 0)
+    assert on_grid > 0
