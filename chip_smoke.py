@@ -15,7 +15,8 @@ Phases, each of which fails the run if it fails:
    against ``sqrtf(-2 logf(u1))`` on all 2^24 values of u1; the cell index
    from the reciprocal against the IEEE division's on every float32
    position, at the racing and Navigation2D maps' geometry and at
-   :data:`OTHER_CELL_SIZES`;
+   :data:`OTHER_CELL_SIZES`; and the device key's advance (the device
+   ``tick_seed``) against the host's on 4,100 keys (:func:`key_sweep`);
 3. hold racing's kernels against their plain PyTorch twins on the card, at
    the flagship's shapes (T=50, K=100,000): the fused solve with injected
    noise and with its seeded Philox stream, the re-roll, and the tick's
@@ -29,7 +30,8 @@ Phases, each of which fails the run if it fails:
    (costs and perturbation dump, both noise modes), the ESSPS and LBPS
    searches (on the flagship's costs and on vectors that reach each ESSPS
    clamp and the interior), phase 2 at lambda* and, at lambda=1, against
-   the fixed solve's partials; each timed;
+   the fixed solve's partials; each timed, phase 2 beside ``torch.softmax``
+   then ``torch.mv`` of the dump;
 5. the weighted update (D=100 at lambda 1 and 10 on the unfused route's
    perturbations and costs; D=100, 1,536 and 2,000 under spread costs; and
    every (K, D) an unfused path of phases 7, 8 and 11 launches) against its
@@ -83,7 +85,22 @@ Phases, each of which fails the run if it fails:
     danger zone's 100-step episode, the pendulum upright after 200 steps,
     the classic models fused and unfused; counted, one fused tick with no
     host sync, medians of ``forward`` and ``get_top_samples``, a profile of
-    the Navigation2D tick.
+    the Navigation2D tick;
+12. the closed loops on the card (:func:`drive_closed_loops`): 50 flagship
+    ticks as one replayed CUDA graph (``make_closed_loop``, the plant
+    ``RacingEnv.dynamics``) at fixed lambda, under MPO and under ESSPS on
+    both lambda routes, each bit for bit 50 eager ticks, its replays counted
+    (each kernel of the route 50 times) with any host sync an error, timed
+    (amortized tick and ticks/s, capture time, the device-busy share of an
+    episode from the profiler); ``RacingController.update`` replayed from its graph against the
+    eager tick on both routes at T=25, K=4,000 and T=50, K=100,000 (two
+    replays draw different streams, each its eager tick's;
+    ``get_top_samples(300)`` after them; the medians of both in turns); a
+    moved map version recaptures; ``RacingController.run_episode`` on both
+    routes with the racing example's goal ``done_fn`` and ``MPPI.run_episode``
+    (Navigation2D to its goal, the pendulum upright after 200 ticks) bit
+    for bit as many ``update``/``forward`` calls; ``PipelinedRunner`` at
+    depth 1 and 2 bit for bit ``make_pipelined_closed_loop``.
 
 Every kernel is timed as the device time of launches replayed in a CUDA
 graph (:func:`graph_ms`; the event loop beside it).  It prints each TPU
@@ -98,12 +115,9 @@ Comparisons with another checkout (the parent of a change, unpacked from
 :func:`search_kernels_in_turns` (rows 7 and 8), :func:`fused_kernels_in_turns`
 (rows 1-6 of every family), :func:`top_samples_in_turns` (the fused
 ``get_top_samples`` medians), :func:`flagship_ticks_in_turns` (the flagship
-tick on the host clock and its profile), :func:`row1_split`,
-:func:`row3_split` and :func:`row2_split` (patched copies of the fused
-solve, phase 1 and the re-roll: what each section costs);
-:func:`top_rollouts_cta_sizes` times row 6's CTA sizes,
-:func:`chain_bounds` derives rows 2 and 6's latency bounds from the SASS, and
-:func:`retimed_products` ranks the rows from two runs' logs.
+tick on the host clock and its profile); :func:`chain_bounds` derives rows
+2 and 6's latency bounds from the SASS, and :func:`retimed_products` ranks
+the rows from two runs' logs.
 """
 
 from __future__ import annotations
@@ -118,6 +132,11 @@ from pathlib import Path
 
 T, K = 50, 100_000
 TICKS = 50
+# A trace lost the first device activities after its start (even 1 s after it),
+# so each begins with PRIMING_KERNELS empty kernels and a marker kernel, which
+# must be seen, and keeps TRACE_MARGIN_S of idle time at each end.
+PRIMING_KERNELS = 200
+TRACE_MARGIN_S = 0.2
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 non-tensor FLOP/s.
@@ -154,9 +173,21 @@ LAMBDA_SEARCH_PY = "mppi_playground_tpu/ops/lambda_search.py"
 
 def kernel_row(name, source, replaces, err, ms, plain, bound, by, **extra) -> dict:
     """A kernel's entry of the kernels line (``library_ms`` None: no library call computes it)."""
-    return dict(name=name, route="cuda", source=f"mppi_playground_tpu_torch/csrc/{source}",
-                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=None, **extra)
+    return {**dict(name=name, route="cuda", source=f"mppi_playground_tpu_torch/csrc/{source}",
+                   replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                   bound_by=by, library_ms=None), **extra}
+
+
+
+def device_seed(torch, word: int):
+    """A kernel seed word on the card, as a solver passes it (its key's ``key[2:]``).
+
+    A host int seed is filled into a tensor at every call, which would put a
+    fill kernel into every timed graph.
+    """
+    from mppi_playground_tpu_torch.ops.fused_solve import _seed_tensor
+
+    return _seed_tensor(word, torch.device("cuda"))
 
 
 def fail(msg: str) -> int:
@@ -312,11 +343,13 @@ def profile_ticks(torch, run_tick, ticks: int, what: str = "with env.step") -> s
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(ticks):
             run_tick()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+        time.sleep(TRACE_MARGIN_S)
     activities = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not activities:
         raise RuntimeError("torch.profiler recorded no device activity")
@@ -447,6 +480,9 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
                                 50)
     t_p2_plain = cuda_ms(torch, lambda: fused_solve.fused_weighted_plain(costs, dump, lam_star),
                          5, warmup=1)
+    # one library pair for row 5's function: the weights, then the dump times them
+    t_p2_library = graph_ms(torch, lambda: torch.mv(dump, torch.softmax(-costs / lam_star, 0)),
+                            50)
     b_p1, by_p1 = phase1_bound_ms(K, T, True, grid_bytes)
     b_p1_noise, _ = phase1_bound_ms(K, T, False, grid_bytes)
     b_es, by_es = search_bound_ms(K, 40, OPS_ESSPS_EVAL, 2)
@@ -458,7 +494,7 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
           f"({t_es_loop:.4f}; bound {b_es:.5f} ms), twin {t_es_plain:.3f} ms; LBPS search "
           f"{t_lb:.4f} ms ({t_lb_loop:.4f}; bound {b_lb:.5f} ms), twin {t_lb_plain:.3f} ms; "
           f"phase 2 {t_p2:.4f} ms ({t_p2_loop:.4f}; bound {b_p2:.5f} ms), twin {t_p2_plain:.3f} "
-          "ms", flush=True)
+          f"ms, torch.softmax + torch.mv {t_p2_library:.4f} ms", flush=True)
 
     return {"kernels": [
         kernel_row("racing_costs_dump", "fused_racing.cu", f"{FUSED_SOLVE_PY}:783", p1_err, t_p1,
@@ -469,7 +505,7 @@ def check_auto_kernels(torch, fused_solve, x0, prev, noise, xref5, task, seed, s
         kernel_row("lbps_lambda_fused", "lambda_search.cu", f"{LAMBDA_SEARCH_PY}:394",
                    search_err["lbps"], t_lb, t_lb_plain, b_lb, by_lb, launch_loop_ms=t_lb_loop),
         kernel_row("fused_weighted", "fused_solve.cu", f"{FUSED_SOLVE_PY}:887", p2_err, t_p2,
-                   t_p2_plain, b_p2, by_p2, launch_loop_ms=t_p2_loop),
+                   t_p2_plain, b_p2, by_p2, launch_loop_ms=t_p2_loop, library_ms=t_p2_library),
     ]}
 
 
@@ -548,6 +584,129 @@ def zero_counters() -> dict:
         else:
             fn.launches.clear()
     return counted
+
+
+# The kernel functions of csrc/ in a profiler's (demangled) kernel names, and the launch
+# counters they belong to; longer names first where one begins another
+KERNEL_FUNCTIONS = (
+    ("costs_dump_lambda_kernel<", "costs_dump_lambda"), ("costs_dump_kernel<", "costs_dump"),
+    ("fused_solve_kernel<", "fused_solve"), ("tick_tail_kernel<", "tick_tail"),
+    ("reroll_kernel<", "reroll"), ("regen_rollout_kernel<", "top_rollouts"),
+)
+KERNEL_MODELS = (
+    ("racing::", "racing"), ("unicycle::NavigationModel", "navigation"),
+    ("danger_zone::", "danger_zone"), ("classic::Pendulum", "pendulum"),
+    ("classic::Cartpole", "cartpole"), ("classic::MountainCar", "mountain_car"),
+    ("classic::Integrator", "integrator"),
+)
+
+
+def counter_of(kernel: str):
+    """The launch counter of a device kernel named in a profiler trace; None for torch's own."""
+    for function, counter in (("weighted_update_kernel<", "weighted_update_partials"),
+                              ("weighted_kernel(", "fused_weighted"),
+                              ("search_kernel<false>", "essps_lambda_fused"),
+                              ("search_kernel<true>", "lbps_lambda_fused")):
+        if function in kernel:
+            return counter
+    for function, suffix in KERNEL_FUNCTIONS:
+        if function in kernel:
+            model_arg = kernel[kernel.index(function) + len(function):].split(",")[0]
+            for m in (1, 2):
+                if model_arg.startswith(f"fused::ActionsOnly<{m}>"):
+                    return f"fused_regen_m{m}"
+            for prefix, model in KERNEL_MODELS:
+                if model_arg.startswith(prefix):
+                    return f"{model}_{suffix}"
+            raise ValueError(f"kernel {kernel!r}: no launch counter for its model")
+    return None
+
+
+@dataclasses.dataclass
+class Trace:
+    """The device's side of a traced run: ``{counter: kernels run}``, busy time, activities."""
+
+    launches: dict
+    busy_us: float
+    activities: int
+    sequence: list  # our kernels' counters in the order the device started them
+    skew_ms: float  # a marker kernel's start in the trace less its launch on the host clock
+
+
+def traced(torch, fn, no_sync: bool = False):
+    """``fn()`` under ``torch.profiler``'s device trace -> ``(fn's result, Trace)``.
+
+    The trace sees every kernel the device ran, eager launches and the
+    replays of a CUDA graph alike (no wrapper counts a replay: the graph
+    launches its kernels itself); :func:`counter_of` names each of ours.
+    The priming and marker kernels before ``fn`` are left out of the
+    result.  With ``no_sync`` any host sync inside ``fn`` raises.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_start = time.perf_counter()
+        for _ in range(PRIMING_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        t_mark = time.perf_counter() - t_start
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        if no_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    events.sort(key=lambda e: e.time_range.start)
+    marks = [e for e in events if "spin_kernel" in e.name]
+    if not marks or abs(marks[-1].time_range.start / 1e3 - 1e3 * t_mark) > 1e3 * TRACE_MARGIN_S:
+        raise RuntimeError("the device trace lost its marker kernel: it may have lost others")
+    skew_ms = marks[-1].time_range.start / 1e3 - 1e3 * t_mark
+    events = [e for e in events if "spin_kernel" not in e.name]
+    sequence = [c for c in (counter_of(e.name) for e in events) if c is not None]
+    launches = {}
+    for counter in sequence:
+        launches[counter] = launches.get(counter, 0) + 1
+    return out, Trace(launches, sum(e.time_range.elapsed_us() for e in events), len(events),
+                      sequence, skew_ms)
+
+
+def path_launches(label: str, counted: dict, traces: list, want: dict):
+    """A path's launches, each seen on the device, or None after a failure.
+
+    Every counter was set to 0 just before the path, whose runs that launch
+    kernels were each traced (:func:`traced`, ``traces``); the counters are
+    read now.  The device must have run each kernel as often as ``want``
+    says (0 where it says nothing); each wrapper must have counted a launch
+    of each kernel of the path (an eager tick; a CUDA graph's capture and
+    replays count nothing), and never more than the device ran.
+    """
+    device = {name: sum(t.launches.get(name, 0) for t in traces) for name in counted}
+    want = {name: want.get(name, 0) for name in counted}
+    wrappers = read_counters(counted)
+    uncounted = sorted(name for name in counted if want[name] and not wrappers[name])
+    over = sorted(name for name in counted if wrappers[name] > device[name])
+    if device != want or uncounted or over:
+        def nonzero(d):
+            return {k: v for k, v in d.items() if v}
+
+        letters = {name: chr(ord("A") + i) for i, name in enumerate(sorted(set(
+            n for t in traces for n in t.sequence)))}
+        fail(f"{label}: kernels run on the device {nonzero(device)}, expected {nonzero(want)}; "
+             f"wrappers' counts {nonzero(wrappers)} (none for {uncounted}, more than the "
+             f"device ran for {over}); marker skews {[t.skew_ms for t in traces]} ms; the device's "
+             f"order {letters}: "
+             + " | ".join("".join(letters[n] for n in t.sequence) for t in traces))
+        return None
+    return device
 
 
 def drive_modes(torch, fused_solve, env, solvers, card):
@@ -948,7 +1107,8 @@ def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_m
                  "rows' roll-out not its twin's")
             return None
     args = (sig, u_min, u_max, K, threshold)
-    t_all, _ = device_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args), 20)
+    t_all, t_all_loop = device_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args),
+                                  20)
     t_top, t_top_loop = device_ms(torch, lambda: fused_solve.fused_regen(prev, seed, top, *args),
                                   50)
     t_noise, _ = device_ms(torch, lambda: fused_solve.fused_regen(prev, seed, rows, *args, noise),
@@ -975,13 +1135,12 @@ def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_m
           f"{t_roll:.4f} ms (event loop {t_roll_loop:.4f} ms; noise mode {t_roll_noise:.4f} ms; "
           f"bound {b_roll:.6f} ms, {by_roll}), twin {t_roll_plain:.3f} ms", flush=True)
     return [
-        dict(name="fused_regen_m2", route="cuda",
-             source="mppi_playground_tpu_torch/csrc/fused_solve.cu",
-             replaces=f"{FUSED_SOLVE_PY}:937", max_abs_err=err, ms=t_top, plain_ms=t_top_plain,
-             bound_ms=b_top, bound_by=by_top, library_ms=None, rows=300,
-             launch_loop_ms=t_top_loop, all_rows_ms=t_all, all_rows_plain_ms=t_plain,
-             all_rows_bound_ms=b_all, all_rows_noise_mode_ms=t_noise,
-             all_rows_noise_mode_bound_ms=b_noise),
+        # all K rows: the unfused route's draw at the flagship's shape
+        kernel_row("fused_regen_m2", "fused_solve.cu", f"{FUSED_SOLVE_PY}:937", err, t_all,
+                   t_plain, b_all, by_all, rows=K, horizon=T, launch_loop_ms=t_all_loop,
+                   noise_mode_ms=t_noise, noise_mode_bound_ms=b_noise, top_300_ms=t_top,
+                   top_300_plain_ms=t_top_plain, top_300_bound_ms=b_top,
+                   top_300_launch_loop_ms=t_top_loop),
         kernel_row("racing_top_rollouts", "reroll.cu", f"{FUSED_SOLVE_PY}:937", top_err, t_roll,
                    t_roll_plain, b_roll, by_roll, rows=300, horizon=T, num_samples=K,
                    launch_loop_ms=t_roll_loop, noise_mode_ms=t_roll_noise,
@@ -1001,10 +1160,13 @@ def drive_facades(torch, env, card):
     """Phase 7: ``RacingController`` on both routes at two widths, 50 ticks each.
 
     Each tick is ``update``, ``env.step`` and ``get_top_samples(300)``, as
-    the racing example runs them.  One tick of each route (without
-    ``env.step``) runs under ``set_sync_debug_mode("error")``; all eight
-    counters are set to 0 before a route's ticks and read after.  Returns
-    ``{route: {"launches", "tick_ms", "top_ms", "profile"}}`` or None.
+    the racing example runs them.  A route's first update runs eagerly and
+    captures the tick's graph; one replayed tick (without ``env.step``) runs
+    under ``set_sync_debug_mode("error")``; then the 50 ticks, checked.  All
+    of it runs under the device trace (:func:`traced`), every counter set to
+    0 before and read after (:func:`path_launches`).  Then 50 more ticks,
+    untraced and uncounted, give the medians (host clock, synchronized).
+    Returns ``{route: {"launches", "tick_ms", "top_ms", "profile"}}`` or None.
     """
     from mppi_playground_tpu_torch.envs import RacingController
 
@@ -1015,53 +1177,67 @@ def drive_facades(torch, env, card):
         if ctrl.solver_backend != ("fused" if fused else "xla"):
             fail(f"{route}: RacingController took the {ctrl.solver_backend} route")
             return None
-        x = env.reset()
-        ctrl.update(x)  # builds the kernels' libraries and the lookahead table
-        ctrl.get_top_samples(300)
-        ctrl.reset()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            ctrl.update(x)
+        def ticks():
+            x = env.reset()
+            ctrl.update(x)  # eager (builds the kernels, the lookahead table), then the capture
             ctrl.get_top_samples(300)
-        except RuntimeError as err:
-            fail(f"{route}: a tick synchronized with the host: {err}")
+            ctrl.reset()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ctrl.update(x)
+                ctrl.get_top_samples(300)
+            except RuntimeError as err:
+                return f"a tick synchronized with the host: {err}"
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ctrl.reset()
+            x = env.reset()
+            for _ in range(TICKS):
+                action_seq, state_seq = ctrl.update(x)
+                x, _ = env.step(action_seq[0])
+                seqs, weights = ctrl.get_top_samples(300)
+                excess = torch.maximum(env.u_min - action_seq,
+                                       action_seq - env.u_max).max().item()
+                if not (torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()
+                        and torch.isfinite(seqs).all() and excess <= 1e-5
+                        and seqs.shape == (300, ctrl.config.horizon + 1, 4)
+                        and bool((weights[:-1] >= weights[1:]).all())):
+                    return (f"non-finite output, actions out of bounds by {excess!r}, or top "
+                            "samples not in descending weight order")
             return None
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
 
-        ctrl.reset()
         counted = zero_counters()
-        x = env.reset()
+        err, trace = traced(torch, ticks)
+        if err is not None:
+            fail(f"{route}: {err}")
+            return None
+        once = ({"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} if fused
+                else {"fused_regen_m2", "weighted_update_partials"})
+        launches = path_launches(f"RacingController {route}", counted, [trace],
+                                 {name: TICKS + 2 for name in once})
+        if launches is None:
+            return None
+        progress = int(ctrl.current_path_index)
+        if progress <= 0:
+            fail(f"{route}: the car made no progress along the track (index {progress})")
+            return None
         tick_ms, top_ms = [], []
+        ctrl.reset()
+        x = env.reset()
         for _ in range(TICKS):
             t0 = time.perf_counter()
-            action_seq, state_seq = ctrl.update(x)
+            action_seq, _ = ctrl.update(x)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             x, _ = env.step(action_seq[0])
             t2 = time.perf_counter()
-            seqs, weights = ctrl.get_top_samples(300)
+            ctrl.get_top_samples(300)
             torch.cuda.synchronize()
             tick_ms.append(1e3 * (t1 - t0))
             top_ms.append(1e3 * (time.perf_counter() - t2))
-            excess = torch.maximum(env.u_min - action_seq, action_seq - env.u_max).max().item()
-            if not (torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()
-                    and torch.isfinite(seqs).all() and excess <= 1e-5
-                    and seqs.shape == (300, ctrl.config.horizon + 1, 4)
-                    and bool((weights[:-1] >= weights[1:]).all())):
-                fail(f"{route}: non-finite output, actions out of bounds by {excess!r}, or top "
-                     "samples not in descending weight order")
-                return None
-        launches = read_counters(counted)
-        once = ({"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} if fused
-                else {"weighted_update_partials"})
-        want = {name: (TICKS if name in once else 0) for name in counted}
-        progress = int(ctrl.current_path_index)
-        if launches != want or progress <= 0:
-            fail(f"{route}: launches {launches}, expected {want}; track index {progress}")
-            return None
+        x = env.reset()
 
         def facade_tick(ctrl=ctrl):
             nonlocal x
@@ -1074,8 +1250,8 @@ def drive_facades(torch, env, card):
                    top_ms=statistics.median(top_ms), profile=prof)
         print(f"RacingController {route} ({ctrl.solver_backend}): {TICKS} ticks on {card}: "
               f"median update {res['tick_ms']:.3f} ms, median get_top_samples(300) "
-              f"{res['top_ms']:.3f} ms (host clock, synchronized); track index {progress}; "
-              f"launches {launches}; {prof}", flush=True)
+              f"{res['top_ms']:.3f} ms (host clock, synchronized, untraced); track index "
+              f"{progress}; launches on the device {launches}; {prof}", flush=True)
         out[route] = res
     return out
 
@@ -1118,7 +1294,7 @@ def drive_mppi(torch, env, task, card):
             samples, states = c.get_samples_from_posterior(action_seq, x, 100)
             launches = read_counters(counted)
             if route == "xla":
-                want_once = {"weighted_update_partials": calls}
+                want_once = {"fused_regen_m2": calls, "weighted_update_partials": calls}
             else:  # one top-samples call after the ticks
                 want_once = {name: calls for name in fused_kernels("racing", c.config)}
                 want_once["racing_top_rollouts"] = 1
@@ -1250,7 +1426,7 @@ def time_tails(torch, fs, task, x0, route, horizon: int) -> dict:
         _call(torch, tail, x0.data_ptr(), costs.data_ptr(), stats.data_ptr(), numer.data_ptr(),
               lam.data_ptr(), history.data_ptr(), None, fs._floats(task.floats),
               fs._ints(task.ints), stats.shape[0], horizon, costs.shape[0], 0,
-              *(t.data_ptr() for t in outs[:3]), None, outs[3].data_ptr())
+              *(t.data_ptr() for t in outs[:3]), None, outs[3].data_ptr(), None, None)
         mx = stats[:, 0].max()
         z = torch.sum(torch.exp(stats[:, 0] - mx) * stats[:, 1])
         return torch.exp(-costs / lam - mx) / z
@@ -1269,11 +1445,11 @@ def time_tails(torch, fs, task, x0, route, horizon: int) -> dict:
 
 
 NEW_MODELS = ("navigation", "danger_zone", "pendulum", "cartpole", "mountain_car", "integrator")
-# Held against their twins but launched on no path: row 6's kernel on its
-# actions-only plug, since get_top_samples rolls the rows out in the same
-# launch (<model>_top_rollouts); and the re-roll alone, since the tick's tail
-# re-rolls in its own launch (<model>_tick_tail).
-OFF_PATHS = ("fused_regen_m1", "fused_regen_m2") + tuple(f"{m}_reroll" for m in MODEL_OPS)
+# Held against their twins but launched on no path: the re-roll alone, since
+# the tick's tail re-rolls in its own launch (<model>_tick_tail).  Row 6's
+# kernel on its actions-only plug (fused_regen_m1/_m2) is the unfused route's
+# draw.
+OFF_PATHS = tuple(f"{m}_reroll" for m in MODEL_OPS)
 # step with libm sinf/cosf: held to the JAX package's fused-vs-XLA cost bar,
 # rtol 2e-5 and atol 1e-5, where their costs are not bitwise the twin's
 LIBM_MODELS = ("danger_zone", "pendulum", "cartpole", "mountain_car")
@@ -1346,7 +1522,7 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     ops = MODEL_OPS[name]
     label = f"{name} (T={horizon}, K={k})"
     threshold = int(0.8 * k)  # both sides of the inherit split
-    seed = tick_seed(42, 1)
+    seed = device_seed(torch, tick_seed(42, 1))
     lam = torch.ones(1, device="cuda")
     grid_bytes = sum(g.numel() for g in task.grids)
     search = LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)
@@ -1449,7 +1625,8 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
         dump=(lambda: fs.fused_costs_dump(*p1_args), 20),
         epilogue=(lambda: fs.fused_costs_dump_lambda(*p1_args, search, ticket), 20),
         reroll=(lambda: fs.fused_reroll(x0, seq, task), 50),
-        regen=(lambda: fs.fused_regen(prev, seed, top, sig, lo, hi, k, threshold), 50),
+        # all K rows: the unfused route's draw at this configuration
+        regen=(lambda: fs.fused_regen(prev, seed, rows, sig, lo, hi, k, threshold), 50),
         weighted=(lambda: fs.fused_weighted(*p1, lam), 50),
         top_rollouts=(lambda: fs.fused_top_rollouts(x0, prev, seed, top, task, sig, lo, hi, k,
                                                     threshold), 50),
@@ -1464,7 +1641,7 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
         epilogue_plain=cuda_ms(torch, lambda: fs.fused_costs_dump_lambda_plain(*p1_args, search),
                                3, warmup=1),
         reroll_plain=cuda_ms(torch, lambda: fs.fused_reroll_plain(x0, seq, task), 5, warmup=1),
-        regen_plain=cuda_ms(torch, lambda: fs.fused_regen_plain(prev, seed, top, sig, lo, hi, k,
+        regen_plain=cuda_ms(torch, lambda: fs.fused_regen_plain(prev, seed, rows, sig, lo, hi, k,
                                                                 threshold), 3, warmup=1),
         top_rollouts_plain=cuda_ms(torch, lambda: fs.fused_top_rollouts_plain(
             x0, prev, seed, top, task, sig, lo, hi, k, threshold), 3, warmup=1),
@@ -1475,7 +1652,7 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     b_epi = phase1_bound_ms(k, horizon, True, grid_bytes, ops,
                             search_ops(k, 40, OPS_ESSPS_EVAL, 2))
     b_reroll = reroll_bound_ms(horizon, ops)
-    b_regen = regen_bound_ms(len(top), horizon, True, m)
+    b_regen = regen_bound_ms(k, horizon, True, m)
     b_weighted = phase2_bound_ms(k, horizon, m)
     b_tops = top_rollouts_bound_ms(len(top), horizon, True, ops)
     b_tail = tail_bound_ms(k, horizon, ops)
@@ -1484,8 +1661,8 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
               f"{key} {value:.4f} ms" + (f" ({loop[key]:.4f})" if key in loop else "")
               for key, value in t.items())
           + f"; bounds solve {b_solve[0]:.6f}, phase 1 {b_dump[0]:.6f}, epilogue {b_epi[0]:.6f},"
-          f" re-roll {b_reroll[0]:.8f}, regeneration of {len(top)} rows {b_regen[0]:.7f}, their "
-          f"roll-out {b_tops[0]:.7f}, phase 2 {b_weighted[0]:.7f}, tick tail {b_tail[0]:.7f} ms",
+          f" re-roll {b_reroll[0]:.8f}, regeneration of all {k} rows {b_regen[0]:.7f}, the top "
+          f"{len(top)} rows' roll-out {b_tops[0]:.7f}, phase 2 {b_weighted[0]:.7f}, tick tail {b_tail[0]:.7f} ms",
           flush=True)
     shape = dict(horizon=horizon, num_samples=k, costs_bitwise_equal_to_twin=bitwise)
     rollout = (f"fused_{name}.cu", f"{FUSED_SOLVE_PY}:783")
@@ -1505,7 +1682,7 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
                                      horizon=horizon, launch_loop_ms=loop["reroll"]),
         f"m{m}_regen": kernel_row(f"fused_regen_m{m}", "fused_solve.cu", f"{FUSED_SOLVE_PY}:937",
                                   err["regen"], t["regen"], t["regen_plain"], *b_regen,
-                                  rows=len(top), horizon=horizon, num_samples=k, model=name,
+                                  rows=k, horizon=horizon, num_samples=k, model=name,
                                   launch_loop_ms=loop["regen"]),
         f"{name}_tick_tail": kernel_row(f"{name}_tick_tail", "reroll.cu", f"{FUSED_SOLVE_PY}:272",
                                         err["tick_tail"], t["tick_tail"], t["tick_tail_plain"],
@@ -1803,87 +1980,6 @@ def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
     return 0
 
 
-# Patched copies of a checkout's csrc, each built with this checkout's flags: row1_split
-# times the racing fused solve of each against the unpatched build in turns, to see
-# what each section of the rollout costs.  (file, old, new) substitutions match the
-# sources as of the first redesign of row 1 (pass a checkout of that parent); an
-# "exact" variant must leave every output bit as it was.
-_SHARED_SLOTS = '''struct SharedSlots {  // the numerator's slots from shared memory
-  static constexpr int kWidth = 1;
-  const float* v;
-  int slot;
-  __device__ __forceinline__ void next(float* o) { o[0] = v[slot++]; }
-};
-
-'''
-_SOLVE_KERNEL = ("template <class Model>\n"
-                 "__global__ void __launch_bounds__(kBlock) fused_solve_kernel")
-_REGENERATE = "  Perturbation<Model::kM> pert(p.s, s_prev, valid ? k : 0);\n"
-_FMOD = "  float r = fmodf(x + pi, two_pi);\n"
-_DRAW = ("        devmath::normal_pair_from_bits(w.x, w.y, &z0, &z1);\n"
-         "        devmath::normal_pair_from_bits(w.z, w.w, &z2, &z3);\n")
-_PHILOX = ("        const uint4 w = devmath::philox4x32_10(\n"
-           "            make_uint4(static_cast<uint32_t>(f0 >> 2), 0u, 0u, 0u), s.seed,\n"
-           "            static_cast<uint32_t>(k));\n")
-EXACT_ANGLE_NORMALIZE = '''  const float y = x + pi;
-  float r;
-  if (fabsf(y) < two_pi) {
-    r = y;
-  } else if (y >= two_pi && y < 2.0f * two_pi) {
-    r = y - two_pi;
-  } else if (y <= -two_pi && y > -2.0f * two_pi) {
-    r = y == -two_pi ? -0.0f : y + two_pi;
-  } else {
-    r = fmodf(y, two_pi);
-  }
-'''
-NO_REGEN = [("fused_solve.cuh", _SOLVE_KERNEL, _SHARED_SLOTS + _SOLVE_KERNEL),
-            ("fused_solve.cuh", _REGENERATE, "  SharedSlots pert{s_prev, 0};\n")]
-NO_FMOD = [("device_math.cuh", _FMOD, "  float r = x + pi;\n")]
-ROW1_VARIANTS = {
-    "(a) numerator pass reads shared memory, no regeneration": (False, NO_REGEN),
-    "(b) grid loads removed": (False, [(
-        "device_math.cuh",
-        "  float a = (oob || __ldg(grid_a + idx) != 0) ? 1.0f : 0.0f;\n"
-        "  float b = (oob || __ldg(grid_b + idx) != 0) ? 1.0f : 0.0f;\n",
-        "  float a = (oob || idx == 7) ? 1.0f : 0.0f;\n  float b = a;\n")]),
-    "(b2) map query removed, divisions too": (False, [(
-        "racing_model.cuh",
-        "  float obstacle_cost = kQo * devmath::map_cost_pair(x, y, grid_a, grid_b, g);\n",
-        "  float obstacle_cost = 0.0f;\n")]),
-    "(c) fmodf bypassed": (False, NO_FMOD),
-    "(a) + (c)": (False, NO_REGEN + NO_FMOD),
-    "(d) no draws": (False, [(
-        "fused_solve.cuh", _PHILOX + _DRAW,
-        "        z0 = z1 = z2 = z3 = 1e-3f * static_cast<float>(f0 + k);\n")]),
-    "(d2) Philox kept, no Box-Muller": (False, [(
-        "fused_solve.cuh", _DRAW,
-        "        z0 = static_cast<float>(w.x & 0xFFFFu) * 1e-5f;\n"
-        "        z1 = static_cast<float>(w.y & 0xFFFFu) * 1e-5f;\n"
-        "        z2 = static_cast<float>(w.z & 0xFFFFu) * 1e-5f;\n"
-        "        z3 = static_cast<float>(w.w & 0xFFFFu) * 1e-5f;\n")]),
-    "exact angle_normalize shortcut": (True, [("device_math.cuh", _FMOD, EXACT_ANGLE_NORMALIZE)]),
-    "__launch_bounds__(256, 4)": (True, [(
-        "fused_solve.cuh", "__global__ void __launch_bounds__(kBlock) fused_solve_kernel",
-        "__global__ void __launch_bounds__(kBlock, 4) fused_solve_kernel")]),
-}
-# Copies of this checkout's row 1 timed beside those: the numerator tile as the
-# launch sizes it, none (every slot regenerated), or every slot (fewer CTAs an SM).
-_TILE_CHOICE = ("  int tile_slots = 0;\n"
-                "  cudaError_t err = tile_slots_for(fused_solve_kernel<Model>, base, slots, grid, "
-                "&tile_slots);\n")
-THIS_VARIANTS = {
-    "this checkout": [],
-    "this checkout, no tile": [("fused_solve.cuh", _TILE_CHOICE,
-                                "  int tile_slots = 0;\n  cudaError_t err = cudaSuccess;\n")],
-    "this checkout, every slot in the tile": [("fused_solve.cuh", _TILE_CHOICE,
-                                               "  int tile_slots = slots;\n"
-                                               "  cudaError_t err = cudaSuccess;\n")],
-    "this checkout, angle_normalize through fmodf": [("device_math.cuh", EXACT_ANGLE_NORMALIZE,
-                                                      _FMOD)],
-}
-
-
 def retimed_products(smoke_log: str, turns_log: str) -> int:
     """:func:`row_products` before and after, from two runs' logs.
 
@@ -1972,38 +2068,6 @@ def build_copies(copies: dict, sources) -> dict:
                 proc.wait()
 
 
-def sass_counts(lib: Path, pattern: str) -> dict:
-    """SASS instructions of the kernel whose mangled name holds ``pattern`` (``cuobjdump``).
-
-    ``{"total": n, "by_opcode": {opcode: n}, "imad_forms": {form: n}}`` for
-    the 12 most frequent opcodes (predicates and modifiers dropped) and every
-    form of IMAD with its modifiers (IMAD.WIDE.U32 is one 32x32->64 product,
-    IMAD.HI.U32 its high word alone): static counts, each loop body once.
-    """
-    import collections
-    import re
-
-    from mppi_playground_tpu_torch.ops import cuda_build
-
-    tool = Path(cuda_build.nvcc()).parent / "cuobjdump"
-    dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-    counts, imad, inside = collections.Counter(), collections.Counter(), False
-    for line in dump.splitlines():
-        if "Function :" in line:
-            inside = pattern in line
-        elif inside:
-            found = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
-            if found:
-                words = found.group(1).split()
-                op = words[1] if words[0].startswith("@") else words[0]
-                counts[op.split(".")[0]] += 1
-                if op.startswith("IMAD"):
-                    imad[op] += 1
-    return {"total": sum(counts.values()), "by_opcode": dict(counts.most_common(12)),
-            "imad_forms": dict(imad)}
-
-
 def _ctypes_fn(lib: Path, symbol: str, argtypes: list):
     """C function ``symbol`` of library ``lib``; ``argtypes`` end with the stream."""
     import ctypes
@@ -2019,319 +2083,6 @@ def _call(torch, fn, *args) -> None:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")
 
 
-def row1_split(other: str) -> int:
-    """Where row 1's time goes: patched copies of another checkout's racing fused solve.
-
-    Run with the parent of row 1's redesign unpacked at ``DIR``::
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.row1_split("DIR"))'
-
-    ``DIR``'s ``csrc`` is built unpatched and once per entry of
-    :data:`ROW1_VARIANTS`, this checkout's once per entry of
-    :data:`THIS_VARIANTS`; at the flagship's shapes (seeded) each build's
-    ``racing_fused_solve`` is timed by graph replay in turns with the others
-    (:func:`in_turns`).  An exact variant and every build of this checkout
-    must give the unpatched build's costs and partials bit for bit in both
-    noise modes.  Prints the card, then one JSON line a build: its time,
-    registers and SASS counts of the kernel.  Returns the exit code.
-    """
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from mppi_playground_tpu_torch.core.config import tick_seed
-    from mppi_playground_tpu_torch.ops import fused_solve as fs
-
-    card = card_line()
-    print(card, flush=True)
-    csrc = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc"
-    copies = {"unpatched": (csrc, [])}
-    copies.update({label: (csrc, subs) for label, (_, subs) in ROW1_VARIANTS.items()})
-    here = Path(__file__).resolve().parent / "mppi_playground_tpu_torch" / "csrc"
-    copies.update({label: (here, subs) for label, subs in THIS_VARIANTS.items()})
-    built = build_copies(copies, ["fused_racing"])
-    _, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
-    lam = torch.ones(1, device="cuda")
-    sig, lo, hi = FLAGSHIP_BOUNDS
-    seed = tick_seed(42, 0)
-    blocks = -(-K // 256)
-    fns = {label: _ctypes_fn(libs["fused_racing"][0], "racing_fused_solve", fs._SOLVE_ARGTYPES)
-           for label, libs in built.items()}
-    exact_labels = [label for label in fns if label in THIS_VARIANTS
-                    or (label in ROW1_VARIANTS and ROW1_VARIANTS[label][0])]
-
-    def solve(fn, nz):
-        args, keep = fs._rollout_args(x0, prev, lam, seed, xref5, task, sig, lo, hi, K, K, nz)
-        out = (torch.empty(K, device="cuda"), torch.empty(blocks, 3, device="cuda"),
-               torch.empty(blocks, 2 * T, device="cuda"))
-        _call(torch, fn, *args, *(t.data_ptr() for t in out))
-        return out
-
-    exact = {label: all(torch.equal(a, b) for nz in (noise, None)
-                        for a, b in zip(solve(fns[label], nz), solve(fns["unpatched"], nz)))
-             for label in exact_labels}
-    turns = in_turns(torch, {label: (lambda fn=fn: solve(fn, None)) for label, fn in fns.items()},
-                     windows=10)
-    for label, libs in built.items():
-        lib, log = libs["fused_racing"]
-        print(json.dumps({"variant": label, "card": card, "ms": turns[label],
-                          "minus_unpatched_ms": turns[label] - turns["unpatched"],
-                          "exact": exact.get(label),
-                          "ptxas": ptxas_report({"fused_racing": log}, "fused_solve_kernel"),
-                          "sass": sass_counts(lib, "fused_solve_kernel")}), flush=True)
-    if not all(exact.values()):
-        return fail(f"an exact variant changed the outputs: {exact}")
-    return 0
-
-
-# Patched copies of 62e730f's sources (before rows 3 and 2 were redesigned) for
-# row3_split and row2_split: what
-# each section of phase 1 and of the re-roll costs.  (file, old, new) as in
-# ROW1_VARIANTS; these too match only the sources of that tree.
-_DUMP_STORE = ("      if (kDump) p.dump[static_cast<size_t>(t * kM + j) * p.s.num_samples + k] = "
-               "u[j];\n")
-ROW3_VARIANTS = {
-    "(a) no draws": [("fused_solve.cuh", _PHILOX + _DRAW,
-                      "        z0 = z1 = z2 = z3 = 1e-3f * static_cast<float>(f0 + k);\n")],
-    "(a2) Philox kept, no Box-Muller": ROW1_VARIANTS["(d2) Philox kept, no Box-Muller"][1],
-    "(b) no map query": ROW1_VARIANTS["(b2) map query removed, divisions too"][1],
-    "(c) no dump stores": [("fused_solve.cuh", _DUMP_STORE, "")],
-}
-ROW3_SAMPLES = (K, 2 * K)  # phase 1 at each: issue- or latency-bound
-# Copies of this checkout's phase 1 timed beside those, each exact: a lever of
-# the redesign taken back, or one more tried.
-ROW3_THIS_VARIANTS = {
-    "this checkout, the IEEE division in the cell index": [(
-        "device_math.cuh", "  return fabsf(q0) < 0x1p101f ? q : q0;\n",
-        "  return p / g.cell_size;\n")],
-    "this checkout, logf and sqrtf of the library": [(
-        "device_math.cuh", "  float r = sqrt_fast(-2.0f * log_normal(u1));\n",
-        "  float r = sqrtf(-2.0f * logf(u1));\n")],
-    "this checkout, the rollout one step a trip": [(
-        "fused_solve.cuh", "#pragma unroll 2\n  for (int t = 0; t < T; ++t) {\n",
-        "#pragma unroll 1\n  for (int t = 0; t < T; ++t) {\n")],
-}
-_REROLL_LOOP = ("  for (int t = 0; t < horizon; ++t) {\n"
-                "    float u[kM];\n"
-                "#pragma unroll\n"
-                "    for (int j = 0; j < kM; ++j) u[j] = seq[kM * t + j];\n")
-ROW2_VARIANTS = {
-    "empty kernel": [("fused_solve.cuh", _REROLL_LOOP,
-                      "  for (int t = 0; t < 0; ++t) {\n    float u[kM] = {};\n")],
-    "actions staged in shared memory": [("fused_solve.cuh", _REROLL_LOOP, (
-        "  __shared__ float s_seq[1024];\n"
-        "  for (int i = 0; i < kM * horizon; ++i) s_seq[i] = seq[i];\n"
-        "  for (int t = 0; t < horizon; ++t) {\n    float u[kM];\n#pragma unroll\n"
-        "    for (int j = 0; j < kM; ++j) u[j] = s_seq[kM * t + j];\n"))],
-}
-
-
-def _split_setup(other: str, variants: dict, sources: list, this_variants=None):
-    """Build ``other``'s ``csrc`` unpatched and once per variant: ``(card, built)``, or None.
-
-    ``this_variants`` are built from this checkout's ``csrc`` beside them.
-    """
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
-        return None
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    card = card_line()
-    print(card, flush=True)
-    csrc = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc"
-    here = Path(__file__).resolve().parent / "mppi_playground_tpu_torch" / "csrc"
-    copies = {"unpatched": (csrc, [])}
-    copies.update({label: (csrc, subs) for label, subs in variants.items()})
-    copies.update({label: (here, subs) for label, subs in (this_variants or {}).items()})
-    return card, build_copies(copies, sources)
-
-
-def row3_split(other: str) -> int:
-    """Where phase 1's time goes (row 3): patched copies of 62e730f's racing phase 1.
-
-    Run with 62e730f unpacked at ``DIR``::
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.row3_split("DIR"))'
-
-    ``DIR``'s ``fused_racing.cu`` is built unpatched and once per entry of
-    :data:`ROW3_VARIANTS`, this checkout's once per entry of
-    :data:`ROW3_THIS_VARIANTS`; at the flagship's shapes (seeded) each
-    build's ``racing_costs_dump`` and this checkout's phase 1
-    (``fused_costs_dump``) are timed by graph replay in turns.  This
-    checkout's costs and dump, and each of its variants', must be the
-    unpatched build's bit for bit in both noise modes.  Then the
-    unpatched build and this checkout at each K of :data:`ROW3_SAMPLES`, in
-    turns: near twice the time at twice the samples means the launch is
-    issue-bound, well under twice latency-bound.  Prints the card, then one
-    JSON line a build (time, registers, SASS counts of the kernel) and one
-    for the K sweep; returns the exit code.
-    """
-    import numpy as np
-    import torch
-
-    setup = _split_setup(other, ROW3_VARIANTS, ["fused_racing"], ROW3_THIS_VARIANTS)
-    if setup is None:
-        return 1
-    card, built = setup
-    from mppi_playground_tpu_torch.core.config import tick_seed
-    from mppi_playground_tpu_torch.ops import cuda_build
-    from mppi_playground_tpu_torch.ops import fused_solve as fs
-
-    _, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
-    sig, lo, hi = FLAGSHIP_BOUNDS
-    seed = tick_seed(42, 0)
-    fns = {label: _ctypes_fn(libs["fused_racing"][0], "racing_costs_dump", fs._DUMP_ARGTYPES)
-           for label, libs in built.items()}
-
-    def dump(fn, nz, k=K):
-        if fn is None:  # this checkout, through its wrapper
-            return fs.fused_costs_dump(x0, prev, seed, xref5, task, sig, lo, hi, k, k, nz)
-        args, keep = fs._rollout_args(x0, prev, None, seed, xref5, task, sig, lo, hi, k, k, nz)
-        out = (torch.empty(k, device="cuda"), torch.empty(2 * T, k, device="cuda"))
-        _call(torch, fn, *args, *(t.data_ptr() for t in out))
-        return out
-
-    exact = {label: all(torch.equal(a, b) for nz in (noise, None)
-                        for a, b in zip(dump(fns.get(label), nz), dump(fns["unpatched"], nz)))
-             for label in ("this checkout", *ROW3_THIS_VARIANTS)}
-    runs = {label: (lambda fn=fn: dump(fn, None)) for label, fn in fns.items()}
-    runs["this checkout"] = lambda: dump(None, None)
-    turns = in_turns(torch, runs, windows=10)
-    libs = {label: libs["fused_racing"] for label, libs in built.items()}
-    libs["this checkout"] = (cuda_build._target("fused_racing"),
-                             cuda_build.build_logs.get("fused_racing", ""))
-    for label, (lib, log) in libs.items():
-        print(json.dumps({"variant": label, "card": card, "ms": turns[label],
-                          "minus_unpatched_ms": turns[label] - turns["unpatched"],
-                          "exact": exact.get(label),
-                          "ptxas": ptxas_report({"fused_racing": log}, "costs_dump_kernel"),
-                          "sass": sass_counts(lib, "costs_dump_kernel")}), flush=True)
-    sweep = in_turns(torch, {f"{side} K={k}": (lambda fn=fn, k=k: dump(fn, None, k))
-                             for k in ROW3_SAMPLES
-                             for side, fn in (("62e730f", fns["unpatched"]), ("this", None))},
-                     windows=10)
-    print(json.dumps({"k_sweep_ms": sweep, "card": card, "ratio": {
-        side: sweep[f"{side} K={ROW3_SAMPLES[1]}"] / sweep[f"{side} K={ROW3_SAMPLES[0]}"]
-        for side in ("62e730f", "this")}}), flush=True)
-    if not all(exact.values()):
-        return fail(f"this checkout's phase 1 is not 62e730f's bit for bit: {exact}")
-    return 0
-
-
-def row2_split(other: str) -> int:
-    """Where the re-roll's time goes (row 2): patched copies of 62e730f's re-roll.
-
-    Run with 62e730f unpacked at ``DIR``::
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.row2_split("DIR"))'
-
-    ``DIR``'s ``reroll.cu`` is built unpatched and once per entry of
-    :data:`ROW2_VARIANTS` (an empty kernel: the launch alone in a graph; the
-    actions staged in shared memory before the chain); each build's
-    ``<model>_reroll`` and this checkout's (``fused_reroll``) are timed by
-    graph replay in turns at racing T=50 and mountain car T=100, rolling a
-    seeded warm start.  This checkout's states must be the unpatched build's
-    bit for bit.  Prints the card and one JSON line a model; returns the
-    exit code.
-    """
-    import numpy as np
-    import torch
-
-    setup = _split_setup(other, ROW2_VARIANTS, ["reroll"])
-    if setup is None:
-        return 1
-    card, built = setup
-    from mppi_playground_tpu_torch.ops import fused_solve as fs
-
-    _, task, x0, _, prev, _ = flagship_inputs(torch, np)
-    w, m_prev, _, _ = model_inputs(torch, np, "mountain_car")
-    failed = False
-    for name, task, x0, seq in (("racing", task, x0, prev), ("mountain_car", w.task, w.x0, m_prev)):
-        fns = {label: _ctypes_fn(libs["reroll"][0], f"{name}_reroll", fs._REROLL_ARGTYPES)
-               for label, libs in built.items()}
-
-        def run(fn, task=task, x0=x0, seq=seq):
-            if fn is None:  # this checkout, through its wrapper
-                return fs.fused_reroll(x0, seq, task)
-            out = torch.empty(seq.shape[0] + 1, task.dim_state, device="cuda")
-            _call(torch, fn, x0.data_ptr(), seq.data_ptr(), fs._floats(task.floats),
-                  fs._ints(task.ints), seq.shape[0], out.data_ptr())
-            return out
-
-        exact = bool(torch.equal(run(None), run(fns["unpatched"])))
-        runs = {label: (lambda fn=fn: run(fn)) for label, fn in fns.items()}
-        runs["this checkout"] = lambda: run(None)
-        turns = in_turns(torch, runs, windows=10, per_window=50)
-        print(json.dumps({"model": name, "horizon": seq.shape[0], "card": card, "ms": turns,
-                          "this_bitwise_unpatched": exact}), flush=True)
-        failed = failed or not exact
-    return fail("this checkout's re-roll is not 62e730f's bit for bit") if failed else 0
-
-
-TOP_BLOCKS = (32, 64, 128, 256)  # CTA sizes top_rollouts_cta_sizes times
-
-
-def top_rollouts_cta_sizes() -> int:
-    """Row 6's CTA size: this checkout's top rows' kernel built at each of :data:`TOP_BLOCKS`.
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.top_rollouts_cta_sizes())'
-
-    Copies of ``csrc`` with ``kTopBlock`` set to each size; the racing
-    flagship's 300 heaviest rows (T=50, K=100,000) and Navigation2D's 300
-    at its example's configuration (T=30, K=3,000), seeded, each build's
-    states bit for bit the others', timed by graph replay in turns.  Prints
-    the card and one JSON line a model; returns the exit code.
-    """
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from mppi_playground_tpu_torch.core.config import tick_seed
-    from mppi_playground_tpu_torch.core.diagnostics import top_indices
-    from mppi_playground_tpu_torch.ops import fused_solve as fs
-
-    card = card_line()
-    print(card, flush=True)
-    csrc = Path(__file__).resolve().parent / "mppi_playground_tpu_torch" / "csrc"
-    kept = "constexpr int kTopBlock = 32;"
-    built = build_copies({size: (csrc, [("fused_solve.cuh", kept, f"constexpr int kTopBlock = "
-                                                                   f"{size};")])
-                          for size in TOP_BLOCKS}, ["reroll"])
-    seed = tick_seed(42, 0)
-    _, task, x0, xref5, prev, _ = flagship_inputs(torch, np)
-    costs = fs.fused_costs_dump(x0, prev, seed, xref5, task, *FLAGSHIP_BOUNDS, K, K)[0]
-    cases = [("racing", task, x0, prev, FLAGSHIP_BOUNDS, K, top_indices(-costs, 300)[1])]
-    w, m_prev, _, bounds = model_inputs(torch, np, "navigation")
-    k = w.mppi_kwargs["num_samples"]
-    costs = fs.fused_costs_dump(w.x0, m_prev, seed, None, w.task, *bounds, k, k)[0]
-    cases.append(("navigation", w.task, w.x0, m_prev, bounds, k, top_indices(-costs, 300)[1]))
-    failed = False
-    for name, task, x0, prev, (sig, lo, hi), k, rows in cases:
-        def run(fn):
-            out = torch.empty(rows.shape[0], prev.shape[0] + 1, task.dim_state, device="cuda")
-            _call(torch, fn, x0.data_ptr(), prev.data_ptr(), None, rows.data_ptr(),
-                  fs._floats((*sig, *lo, *hi)), fs._floats(task.floats), fs._ints(task.ints),
-                  seed, prev.shape[0], k, k, rows.shape[0], out.data_ptr())
-            return out
-
-        fns = {size: _ctypes_fn(libs["reroll"][0], f"{name}_top_rollouts",
-                                fs._TOP_ROLLOUTS_ARGTYPES) for size, libs in built.items()}
-        outs = [run(fn) for fn in fns.values()]
-        same = all(torch.equal(outs[0], o) for o in outs[1:])
-        turns = in_turns(torch, {size: (lambda fn=fn: run(fn)) for size, fn in fns.items()},
-                         windows=10)
-        print(json.dumps({"model": name, "rows": rows.shape[0], "horizon": prev.shape[0],
-                          "card": card, "bitwise_across_sizes": same,
-                          "ms_by_cta_size": turns}), flush=True)
-        failed = failed or not same
-    return fail("CTA sizes gave different states") if failed else 0
-
-
 def fused_kernels_in_turns(other: str) -> int:
     """Rows 1-6 of this checkout against another checkout's, bit for bit and in turns.
 
@@ -2341,7 +2092,8 @@ def fused_kernels_in_turns(other: str) -> int:
 
     ``DIR``'s ``fused_<model>.cu``, ``fused_solve.cu`` and ``reroll.cu`` are
     built with this checkout's flags and called through the same C
-    functions.  For the flagship (racing, T=50, K=100,000), every other
+    functions, with the seed by value where its kernels take it so (before
+    the seed moved to device memory, 890f23a and older).  For the flagship (racing, T=50, K=100,000), every other
     family at its example's configuration and Navigation2D at K=100,000:
     the fused solve (row 1), the re-roll (row 2), phase 1 (row 3), phase 1
     with the ESSPS epilogue (row 4), phase 2 at lambda=1 on this checkout's
@@ -2367,7 +2119,19 @@ def fused_kernels_in_turns(other: str) -> int:
     libs = build_copies({"other": (csrc, [])},
                         [f"fused_{name}" for name in fs.MODELS] + ["reroll", "fused_solve"])
     libs = libs["other"]
-    seed = tick_seed(42, 0)
+    import ctypes
+
+    word = tick_seed(42, 0)
+    seed = device_seed(torch, word)
+    by_pointer = "const uint32_t* seed;" in (csrc / "fused_solve.cuh").read_text()
+    their_seed = seed.data_ptr() if by_pointer else word
+
+    def their_types(types, at=10):
+        return types if by_pointer else types[:at] + [ctypes.c_uint32] + types[at + 1:]
+
+    their_regen_types = (fs._REGEN_ARGTYPES if by_pointer else
+                         [ctypes.c_void_p] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p] * 2)
     cases = []
     _, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
     cases.append((f"racing T={T} K={K}", task, x0, xref5, prev, noise, FLAGSHIP_BOUNDS))
@@ -2386,13 +2150,14 @@ def fused_kernels_in_turns(other: str) -> int:
         lib = libs[f"fused_{model}"][0]
         shared = libs["fused_solve"][0]
         theirs_fn = {
-            "fused_solve": _ctypes_fn(lib, f"{model}_fused_solve", fs._SOLVE_ARGTYPES),
-            "costs_dump": _ctypes_fn(lib, f"{model}_costs_dump", fs._DUMP_ARGTYPES),
+            "fused_solve": _ctypes_fn(lib, f"{model}_fused_solve",
+                                      their_types(fs._SOLVE_ARGTYPES)),
+            "costs_dump": _ctypes_fn(lib, f"{model}_costs_dump", their_types(fs._DUMP_ARGTYPES)),
             "costs_dump_lambda": _ctypes_fn(lib, f"{model}_costs_dump_lambda",
-                                            fs._DUMP_LAMBDA_ARGTYPES),
+                                            their_types(fs._DUMP_LAMBDA_ARGTYPES)),
             "reroll": _ctypes_fn(libs["reroll"][0], f"{model}_reroll", fs._REROLL_ARGTYPES),
             "weighted": _ctypes_fn(shared, "fused_weighted", fs._WEIGHTED_ARGTYPES),
-            "regen": _ctypes_fn(shared, f"fused_regen_m{task.dim_control}", fs._REGEN_ARGTYPES),
+            "regen": _ctypes_fn(shared, f"fused_regen_m{task.dim_control}", their_regen_types),
         }
         # phase 1's outputs that phase 2 reads, and the rows regenerated, by noise mode
         phase1 = {id(nz): fs.fused_costs_dump(x0, prev, seed, ref, task, sig, lo, hi, k, k, nz)
@@ -2432,12 +2197,14 @@ def fused_kernels_in_turns(other: str) -> int:
             if kernel == "regen":
                 out = torch.empty(rows.shape[0], *prev.shape, device="cuda")
                 nz_km = None if nz is None else fs._slot_major(nz, k, *prev.shape)
+                keys = (None, None) if by_pointer else ()
                 _call(torch, fn, prev.data_ptr(), None if nz is None else nz_km.data_ptr(),
-                      rows.data_ptr(), fs._floats((*sig, *lo, *hi)), seed, prev.shape[0], k, k,
-                      rows.shape[0], out.data_ptr())
+                      rows.data_ptr(), fs._floats((*sig, *lo, *hi)), their_seed, prev.shape[0],
+                      k, k, rows.shape[0], out.data_ptr(), *keys)
                 return (out,)
             args, keep = fs._rollout_args(x0, prev, lam if kernel == "fused_solve" else None,
                                           *sampling(nz))
+            args = args[:10] + (their_seed,) + args[11:]
             costs = torch.empty(k, device="cuda")
             if kernel == "fused_solve":
                 out = (costs, torch.empty(blocks, 3, device="cuda"),
@@ -2761,11 +2528,14 @@ def drive_model_paths(torch, card):
     """Phases 10 and 11: every model family's closed loops through ``MPPI``, counted.
 
     Each path: ``forward``, ``get_top_samples`` and the plant, tick after
-    tick, all launch counters set to 0 before the path and read after; one
-    fused tick under ``set_sync_debug_mode("error")``; the median forward
-    and get_top_samples times.  Navigation stops at the goal (0.5 m); the
-    pendulum must stand upright after 200 steps; the danger zone sums its
-    episode's reward and cost.  Returns ``{path: result}`` or None.
+    tick (on the fused route after an eager tick, which ``MPPI`` follows
+    with the capture, and one tick under ``set_sync_debug_mode("error")``),
+    all of it under the device trace, every launch counter set to 0 before
+    the path and read after (:func:`path_launches`); the median forward and
+    get_top_samples times (host clock, under the trace).  Navigation stops
+    at the goal (0.5 m); the pendulum must stand upright after 200 steps;
+    the danger zone sums its episode's reward and cost.  Returns ``{path:
+    result}`` or None.
     """
     from mppi_playground_tpu_torch import MPPI
     from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
@@ -2794,71 +2564,78 @@ def drive_model_paths(torch, card):
             return None
         top_n = {"navigation": 300, "danger_zone": 100}.get(name, 50)
         top_n = min(top_n, args["num_samples"])
-        if fused:  # one tick, and its top samples, with any host sync made an error
-            c.forward(w.x0)
-            c.get_top_samples(top_n)
-            c.reset()
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                c.forward(w.x0)
-                c.get_top_samples(top_n)
-            except RuntimeError as err:
-                fail(f"{label}: a tick synchronized with the host: {err}")
-                return None
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            c.reset()
         if name == "danger_zone":
             obs, _ = w.env.reset(seed=42)
             x = torch.tensor(obs, device="cuda")
         else:
             x = w.env.reset() if name == "navigation" else w.x0
-        counted = zero_counters()
         fwd_ms, top_ms, reward, cost, reached, dist_100 = [], [], 0.0, 0.0, None, None
         lo = torch.as_tensor(args["u_min"], dtype=torch.float32, device="cuda")
         hi = torch.as_tensor(args["u_max"], dtype=torch.float32, device="cuda")
         done = 0
-        for i in range(ticks):
-            t0 = time.perf_counter()
-            action_seq, state_seq = c.forward(x)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            seqs, weights = c.get_top_samples(top_n)
-            torch.cuda.synchronize()
-            fwd_ms.append(1e3 * (t1 - t0))
-            top_ms.append(1e3 * (time.perf_counter() - t1))
-            done += 1
-            excess = torch.maximum(lo - action_seq, action_seq - hi).max().item()
-            if not (torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()
-                    and torch.isfinite(seqs).all() and excess <= 1e-5
-                    and bool((weights[:-1] >= weights[1:]).all())):
-                fail(f"{label}: non-finite output, actions out of bounds by {excess!r}, or top "
-                     "samples not in descending weight order")
-                return None
-            if name == "navigation":
-                x, at_goal = w.env.step(action_seq[0])
-                if i == 99:
-                    dist_100 = (x[:2] - w.env.goal_pos).norm().item()
-                if at_goal:
-                    reached = i + 1
-                    break
-            elif name == "danger_zone":
-                obs, r, _, _, info = w.env.step(action_seq[0].cpu().numpy())
-                reward, cost = reward + r, cost + info["cost"]
-                x = torch.tensor(obs, device="cuda")
-            else:
-                x = w.plant(x, action_seq[0])
-        launches = read_counters(counted)
-        once = fused_kernels(name, config, epilogue) if fused else {"weighted_update_partials"}
-        want = {kernel: (done if kernel in once else 0) for kernel in counted}
-        if launches != want:
-            fail(f"{label}: launches {launches}, expected {want}")
+
+        def drive():
+            nonlocal x, reward, cost, reached, dist_100, done
+            if fused:  # the eager tick (MPPI: and the capture), then one with no host sync
+                c.forward(w.x0)
+                c.get_top_samples(top_n)
+                c.reset()
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    c.forward(w.x0)
+                    c.get_top_samples(top_n)
+                except RuntimeError as err:
+                    return f"a tick synchronized with the host: {err}"
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                c.reset()
+            for i in range(ticks):
+                t0 = time.perf_counter()
+                action_seq, state_seq = c.forward(x)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                seqs, weights = c.get_top_samples(top_n)
+                torch.cuda.synchronize()
+                fwd_ms.append(1e3 * (t1 - t0))
+                top_ms.append(1e3 * (time.perf_counter() - t1))
+                done += 1
+                excess = torch.maximum(lo - action_seq, action_seq - hi).max().item()
+                if not (torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()
+                        and torch.isfinite(seqs).all() and excess <= 1e-5
+                        and bool((weights[:-1] >= weights[1:]).all())):
+                    return (f"non-finite output, actions out of bounds by {excess!r}, or top "
+                            "samples not in descending weight order")
+                if name == "navigation":
+                    x, at_goal = w.env.step(action_seq[0])
+                    if i == 99:
+                        dist_100 = (x[:2] - w.env.goal_pos).norm().item()
+                    if at_goal:
+                        reached = i + 1
+                        break
+                elif name == "danger_zone":
+                    obs, r, _, _, info = w.env.step(action_seq[0].cpu().numpy())
+                    reward, cost = reward + r, cost + info["cost"]
+                    x = torch.tensor(obs, device="cuda")
+                else:
+                    x = w.plant(x, action_seq[0])
             return None
-        res = dict(ticks=done, forward_ms=statistics.median(fwd_ms),
-                   top_samples_ms=statistics.median(top_ms), lambda_=c.lambda_,
-                   launches_per_tick={k: v / done for k, v in launches.items() if v},
+
+        counted = zero_counters()
+        err, trace = traced(torch, drive)
+        if err is not None:
+            fail(f"{label}: {err}")
+            return None
+        once = (fused_kernels(name, config, epilogue) if fused else
+                {f"fused_regen_m{config.dim_control}", "weighted_update_partials"})
+        launches = path_launches(label, counted, [trace],
+                                 {kernel: done + (2 if fused else 0) for kernel in once})
+        if launches is None:
+            return None
+        res = dict(ticks=done, forward_ms_traced=statistics.median(fwd_ms),
+                   top_samples_ms_traced=statistics.median(top_ms), lambda_=c.lambda_,
+                   device_launches={k: v for k, v in launches.items() if v},
                    final_state=[float(v) for v in x.tolist()])
         if name == "navigation":
             res.update(goal_reached_at_tick=reached, distance_at_tick_100=dist_100,
@@ -2891,6 +2668,433 @@ def drive_model_paths(torch, card):
                                            "with env.step and get_top_samples(300)")
             print(f"{label}: {res['profile']}", flush=True)
     return out
+
+
+EPISODE_TICKS = 50  # phase 12's flagship and facade episodes
+
+
+def _bitwise(torch, a, b) -> bool:
+    """Two trees of tensors equal bit for bit, leaf by leaf."""
+    from mppi_playground_tpu_torch.core.closed_loop import _tensors
+
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def eager_episode(torch, solver, plant, num_ticks, state, x, carry=None, info_fn=None):
+    """The closed loop one eager solve at a time -> ``(state, x, xs, us, carry)``."""
+    xs, us = [], []
+    for _ in range(num_ticks):
+        info, carry_next = info_fn(carry, x) if info_fn is not None else (None, carry)
+        r = solver.solve(state, x, info=info)
+        u = r.action_seq[0]
+        xs.append(x)
+        us.append(u)
+        state, x, carry = r.state, plant(x, u), carry_next
+    return state, x, torch.stack(xs), torch.stack(us), carry
+
+
+def synced_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def flagship_episodes(torch, env, card):
+    """Phase 12a: 50 flagship ticks as one replayed graph: fixed lambda, MPO, ESSPS on both routes.
+
+    Each episode (``make_closed_loop`` with ``RacingEnv.dynamics`` as the
+    plant and the reference rows through ``info_fn``) must be bit for bit 50
+    eager ticks from the same state.  Its first two runs go under the device
+    trace, every counter set to 0 before them: the device must run each
+    kernel of the route 50 times a run, the wrappers count tick 0 of the
+    first run (eager) and nothing else, and the second run (all replays) may
+    not sync with the host.  Then it is timed (three untraced runs, host
+    clock, synchronized), and the second run's trace gives the device's busy
+    time.  Returns ``{mode: {...}}`` or None.
+    """
+    from mppi_playground_tpu_torch.core.closed_loop import make_closed_loop
+    from mppi_playground_tpu_torch.core.config import make_key
+    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
+    from mppi_playground_tpu_torch.models.racing_mpcc import (
+        calc_ref_trajectory,
+        make_racing_fused_task_from_env,
+    )
+    from mppi_playground_tpu_torch.workloads import build_flagship
+
+    _, fixed, _ = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
+    task = make_racing_fused_task_from_env(env)
+    essps = dataclasses.replace(fixed.config, lambda_="ESSPS")
+    mpo = dataclasses.replace(fixed.config, lambda_="MPO")
+    solvers = {"fixed": (fixed, None),
+               "MPO": (make_fused_solver(mpo, task, env.dynamics, device="cuda"), None),
+               "ESSPS standalone": (make_fused_solver(essps, task, env.dynamics, device="cuda"),
+                                    None),
+               "ESSPS epilogue": (make_fused_solver(essps, task, env.dynamics, device="cuda",
+                                                    lambda_epilogue=True), True)}
+    path = env.racing_center_path
+
+    def info_fn(cind, x):
+        xref, new_cind = calc_ref_trajectory(x, path, cind, T)
+        return {"reference_path": xref}, new_cind
+
+    def plant(x, u):
+        return env.dynamics(x[None], u[None])[0]
+
+    out = {}
+    for mode, (solver, epilogue) in solvers.items():
+        run = make_closed_loop(solver, plant, EPISODE_TICKS, info_fn=info_fn)
+        state0, x0 = solver.init(), env.reset()
+        c0 = torch.zeros((), dtype=torch.int64, device="cuda")
+        counted = zero_counters()
+        # tick 0 eagerly, the capture, the replays; then replays only
+        first, first_trace = traced(torch, lambda: run(state0, x0, c0))
+        try:
+            second, second_trace = traced(torch, lambda: run(state0, x0, c0), no_sync=True)
+        except RuntimeError as err:
+            fail(f"flagship {mode} episode: the replays synchronized with the host: {err}")
+            return None
+        once = fused_kernels("racing", solver.config, epilogue) - {"racing_top_rollouts"}
+        launches = path_launches(f"flagship episode {mode}", counted,
+                                 [first_trace, second_trace],
+                                 {name: 2 * EPISODE_TICKS for name in once})
+        if launches is None:
+            return None
+        # the wrappers counted tick 0 of the first run, the one eager tick, and nothing else
+        eager_once = read_counters(counted) == {name: int(name in once) for name in counted}
+        eager = eager_episode(torch, solver, plant, EPISODE_TICKS, state0, x0, c0, info_fn)
+        exact = _bitwise(torch, first, eager)
+        key_ok = bool(torch.equal(first[0].key, make_key(solver.config.seed, EPISODE_TICKS,
+                                                          "cuda")))
+        runs = [synced_ms(torch, lambda: run(state0, x0, c0)) for _ in range(3)]
+        ms = statistics.median(runs) / EPISODE_TICKS
+        busy_us, activities = second_trace.busy_us, second_trace.activities
+        res = dict(bitwise_eager=exact, replays_repeat=_bitwise(torch, second, first),
+                   key_after=key_ok, progress=int(first[4]), launches=launches,
+                   wrappers_counted_the_eager_tick_only=eager_once,
+                   capture_s=run.episode.graph.capture_s, amortized_tick_ms=ms,
+                   ticks_per_s=1e3 / ms, episode_device_busy_us=busy_us,
+                   device_activities_a_tick=activities / EPISODE_TICKS,
+                   busy_share_of_unprofiled_episode=busy_us / (1e3 * ms * EPISODE_TICKS))
+        print(f"phase 12 flagship {mode}: {EPISODE_TICKS} ticks (T={T}, K={K}) replayed from "
+              f"one CUDA graph on {card}: {json.dumps({k: v for k, v in res.items()})}",
+              flush=True)
+        print(f"phase 12 flagship {mode}: device trace of the second episode on {card}: busy "
+              f"{busy_us:.1f} us ({busy_us / EPISODE_TICKS:.1f} us a tick, "
+              f"{activities / EPISODE_TICKS:.1f} activities a tick), "
+              f"{100 * res['busy_share_of_unprofiled_episode']:.1f}% of the untraced "
+              f"episode's {1e3 * ms * EPISODE_TICKS:.1f} us", flush=True)
+        if not (exact and res["replays_repeat"] and key_ok and eager_once
+                and res["progress"] > 0 and torch.isfinite(first[2]).all()):
+            fail(f"flagship {mode} episode: bitwise {exact}, repeat {res['replays_repeat']}, key "
+                 f"{key_ok}, wrappers counted the eager tick only {eager_once}, track index "
+                 f"{res['progress']}")
+            return None
+        out[mode] = res
+    return out
+
+
+FACADE_GRAPH_ROUTES = (("T=25 K=4000", dict()), ("T=50 K=100000", dict(horizon=50,
+                                                                        num_samples=100_000)))
+
+
+def facade_graphs(torch, env, card):
+    """Phase 12b: ``RacingController.update`` replayed from a graph against the eager tick.
+
+    On both routes at T=25, K=4,000 and T=50, K=100,000: each update
+    (the first eager, then the capture; the later ones replayed) bit for bit the eager tick
+    (``_tick``: the reference rows and the solve) from the same state, the
+    state and path index after them, and ``get_top_samples(300)`` after the
+    last; on the fused route two replays' seed words and costs differ.
+    Then the medians of replayed updates and of eager ticks, each
+    synchronized, in turns, the plant outside the clock.  Returns
+    ``{label: {...}}`` or None.
+    """
+    from mppi_playground_tpu_torch.core import diagnostics
+    from mppi_playground_tpu_torch.envs import RacingController
+
+    out = {}
+    for size, kw in FACADE_GRAPH_ROUTES:
+        for fused in (False, True):
+            label = f"{size} {'fused' if fused else 'unfused'}"
+            ctrl = RacingController(env, store_rollouts=not fused, **kw)
+            ref = RacingController(env, store_rollouts=not fused, **kw)
+            heavy = not fused and "T=50" in size
+            ticks = 6 if heavy else 12
+            x = env.reset()
+            st, cind = ref.solver_state, ref.current_path_index
+            exact, seeds, costs = True, [], []
+            for i in range(ticks):
+                a, s_ = ctrl.update(x)
+                aux = ctrl._last_aux
+                r, cind, _ = ref._tick(st, x, cind)
+                st = r.state
+                exact = exact and all(torch.equal(p, q) for p, q in (
+                    (a, r.action_seq), (s_, r.state_seq), (aux.costs, r.aux.costs),
+                    (aux.weights, r.aux.weights)))
+                if fused and i in (1, 2):  # the first two replays
+                    seeds.append((aux.seed.clone(), r.aux.seed.clone()))
+                    costs.append(aux.costs.clone())
+                x = env.dynamics(x[None], a[:1])[0]
+            tops = ctrl.get_top_samples(300)
+            want_tops = diagnostics.top_samples_from_last(ref._solver, r.aux, 300)
+            exact = (exact and _bitwise(torch, tops, want_tops)
+                     and _bitwise(torch, ctrl.solver_state, st)
+                     and torch.equal(ctrl.current_path_index, cind))
+            streams = None
+            if fused:
+                streams = (all(torch.equal(g, e) for g, e in seeds)
+                           and not torch.equal(seeds[0][0], seeds[1][0])
+                           and not torch.equal(costs[0], costs[1]))
+            reps = 4 if heavy else 20
+
+            def replayed(x):
+                return ctrl.update(x)[0]
+
+            def eager(x):
+                nonlocal st, cind
+                r, cind, _ = ref._tick(st, x, cind)
+                st = r.state
+                return r.action_seq
+
+            times = {"replayed": [], "eager": []}  # the tick alone, the plant outside
+            for _ in range(2):
+                for name, step in (("replayed", replayed), ("eager", eager)):
+                    for _ in range(reps):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        a = step(x)
+                        torch.cuda.synchronize()
+                        times[name].append(1e3 * (time.perf_counter() - t0))
+                        x = env.dynamics(x[None], a[:1])[0]
+            res = dict(bitwise_eager=bool(exact), streams_differ_and_match=streams,
+                       capture_s=ctrl._ticks.graph.capture_s,
+                       replayed_update_ms=statistics.median(times["replayed"]),
+                       eager_tick_ms=statistics.median(times["eager"]))
+            print(f"phase 12 RacingController {label} ({ctrl.solver_backend}) on {card}: "
+                  f"{json.dumps(res)}", flush=True)
+            if not exact or streams is False:
+                fail(f"RacingController {label}: replayed updates differ from the eager ticks "
+                     f"(bitwise {exact}, streams {streams})")
+                return None
+            out[label] = res
+    return out
+
+
+def map_move_recapture(torch, card):
+    """Phase 12c: a moved map version rebuilds the solver and recaptures the graph."""
+    import numpy as np
+
+    from mppi_playground_tpu_torch.envs import RacingController, RacingEnv
+
+    env = RacingEnv(device="cuda")  # its own: this check adds an obstacle
+    ctrl = RacingController(env, store_rollouts=False)
+    ref = RacingController(env, store_rollouts=False)
+    x = env.reset()
+    st, cind = ref.solver_state, ref.current_path_index
+    exact, graphs = True, []
+    for i in range(6):
+        if i == 3:
+            env.obstacle_map.add_circle_obstacle(np.asarray([30.0, 30.0]), 2.0)
+            ref._refresh_if_maps_changed()
+        a, _ = ctrl.update(x)
+        graphs.append(ctrl._ticks.graph)
+        r, cind, _ = ref._tick(st, x, cind)
+        st = r.state
+        exact = exact and torch.equal(a, r.action_seq) and torch.equal(ctrl._last_aux.costs,
+                                                                        r.aux.costs)
+        x = env.dynamics(x[None], a[:1])[0]
+    # ticks 0 and 3 eager and then the capture, the others replays
+    recaptured = (graphs[0] is graphs[1] is graphs[2] is not None
+                  and graphs[3] is graphs[4] is graphs[5] is not None
+                  and graphs[3] is not graphs[0])
+    print(f"phase 12 map version moved after 3 ticks on {card}: bitwise {exact}, recaptured "
+          f"{recaptured}", flush=True)
+    return exact and recaptured
+
+
+def facade_episodes(torch, env, card):
+    """Phase 12d: ``run_episode`` on both facades, each bit for bit as many ticks by hand.
+
+    ``RacingController.run_episode`` on both routes at T=25, K=4,000 with
+    the racing example's goal ``done_fn``, against ``update`` tick after
+    tick (the same plant); its first two episodes traced and counted
+    (:func:`path_launches`: each kernel of the route 50 times an episode on
+    the device).  ``MPPI.run_episode``:
+    Navigation2D to its goal (ESSPS, T=30, K=3,000, fused) and the pendulum
+    after 200 ticks (ESSPS, T=15, K=1,000, fused), against ``forward``.
+    Returns ``{label: {...}}`` or None.
+    """
+    import numpy as np
+
+    from mppi_playground_tpu_torch import MPPI
+    from mppi_playground_tpu_torch.envs import RacingController
+    from mppi_playground_tpu_torch.utils.angles import angle_normalize
+    from mppi_playground_tpu_torch.workloads import build_model_workload
+
+    def against_ticks(label, xs, us, ep, step, done_fn, budget):
+        """``xs``, ``us`` and ``ep`` of an episode against ``step(x) -> x`` by hand."""
+        x = xs[0]
+        got_x, got_u, done = [x], [], False
+        for _ in range(budget):
+            x, u = step(x)
+            got_x.append(x)
+            got_u.append(u)
+            if done_fn is not None and bool(done_fn(x)):
+                done = True
+                break
+        n = len(got_u)
+        ok = (torch.equal(xs[:n + 1], torch.stack(got_x)) and torch.equal(us[:n], torch.stack(got_u))
+              and (ep is None or (int(ep["ticks"]) == n and bool(ep["done"]) == done)))
+        if done:
+            ok = ok and bool((us[n:] == 0).all()) and bool((xs[n + 1:] == x).all())
+        return ok, n, done
+
+    out = {}
+    goal, thr = env.racing_center_path[-1, :2], env.GOAL_THRESHOLD
+
+    def racing_done(x):
+        return torch.linalg.norm(x[:2] - goal) < thr
+
+    for fused in (False, True):
+        label = f"RacingController.run_episode T=25 K=4000 {'fused' if fused else 'unfused'}"
+        ctrl = RacingController(env, store_rollouts=not fused)
+        ref = RacingController(env, store_rollouts=not fused)
+        x0 = env.reset()
+        counted = zero_counters()  # two traced episodes: tick 0 eager, the capture, replays
+        (xs, us, ep), first = traced(
+            torch, lambda: ctrl.run_episode(x0, EPISODE_TICKS, done_fn=racing_done))
+        after_first = (ctrl.solver_state, ctrl.current_path_index)
+        _, second = traced(
+            torch, lambda: ctrl.run_episode(xs[-1], EPISODE_TICKS, done_fn=racing_done))
+        once = ({"racing_fused_solve", "racing_tick_tail"} if fused
+                else {"fused_regen_m2", "weighted_update_partials"})
+        launches = path_launches(label, counted, [first, second],
+                                 {name: 2 * EPISODE_TICKS for name in once})
+        if launches is None:
+            return None
+
+        def step(x, ref=ref):
+            a, _ = ref.update(x)
+            return env.dynamics(x[None], a[:1])[0], a[0]
+
+        ok, n, done = against_ticks(label, xs, us, ep, step, racing_done, EPISODE_TICKS)
+        ok = ok and (done or (_bitwise(torch, after_first[0], ref.solver_state)
+                              and torch.equal(after_first[1], ref.current_path_index)))
+        try:
+            ctrl.get_top_samples(10)
+            ok = False  # diagnostics must be gone after an episode
+        except RuntimeError:
+            pass
+        res = dict(bitwise_updates=bool(ok), ticks=n, done=done, launches=launches,
+                   xs_shape=list(xs.shape), us_shape=list(us.shape))
+        print(f"phase 12 {label} on {card}: {json.dumps(res)}", flush=True)
+        if not ok:
+            fail(f"{label}: episode against update calls {ok}")
+            return None
+        out[label] = res
+
+    for name, budget in (("navigation", 300), ("pendulum", 200)):
+        w = build_model_workload(name, device="cuda")
+        args = dict(w.mppi_kwargs, store_rollouts=False, fused_task=w.task)
+        a_c, b_c = MPPI(**args), MPPI(**args)
+        dynamics = args["dynamics"]
+
+        def plant(x, u, dynamics=dynamics):
+            return dynamics(x[None], u[None])[0]
+
+        x0 = w.env.reset() if name == "navigation" else w.x0
+        done_fn = None
+        if name == "navigation":
+            goal_pos, g_thr = w.env.goal_pos, w.env.GOAL_THRESHOLD
+
+            def done_fn(x, goal_pos=goal_pos, g_thr=g_thr):
+                return torch.linalg.norm(x[:2] - goal_pos) < g_thr
+
+            xs, us, ep = a_c.run_episode(plant, x0, budget, done_fn=done_fn)
+        else:
+            (xs, us), ep = a_c.run_episode(plant, x0, budget), None
+
+        def step(x, b_c=b_c, plant=plant):
+            a, _ = b_c.forward(x)
+            return plant(x, a[0]), a[0]
+
+        label = f"MPPI.run_episode {name} T={args['horizon']} K={args['num_samples']} fused"
+        ok, n, done = against_ticks(label, xs, us, ep, step, done_fn, budget)
+        res = dict(bitwise_forward=bool(ok), ticks=n, done=done,
+                   xs_shape=list(xs.shape), us_shape=list(us.shape))
+        if name == "pendulum":
+            res["theta"] = float(angle_normalize(xs[-1, 0]))
+            ok = ok and abs(res["theta"]) < 0.15
+        else:
+            ok = ok and done
+        print(f"phase 12 {label} on {card}: {json.dumps(res)}", flush=True)
+        if not ok:
+            fail(f"{label}: {res}")
+            return None
+        out[label] = res
+    return out
+
+
+def pipelined_episodes(torch, card):
+    """Phase 12e: ``PipelinedRunner``'s host loop against ``make_pipelined_closed_loop``.
+
+    The pendulum's fused solver (ESSPS, T=15, K=1,000), 100 ticks at depth 1
+    and 2, compensated: the states visited bit for bit.
+    """
+    from mppi_playground_tpu_torch import MPPI, PipelinedRunner
+    from mppi_playground_tpu_torch.core.closed_loop import make_pipelined_closed_loop
+    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
+    from mppi_playground_tpu_torch.workloads import build_model_workload
+
+    w = build_model_workload("pendulum", device="cuda")
+    args = dict(w.mppi_kwargs, store_rollouts=False, fused_task=w.task)
+    solver = make_fused_solver(MPPI(**args).config, w.task, args["dynamics"], device="cuda")
+
+    def plant(x, u):
+        return args["dynamics"](x[None], u[None])[0]
+
+    out = {}
+    for depth in (1, 2):
+        runner = PipelinedRunner(solver, depth=depth)
+        runner.reset(seed=3)
+        x, host = w.x0, []
+        for _ in range(100):
+            host.append(x)
+            x = plant(x, torch.as_tensor(runner.step(x), device="cuda"))
+        run = make_pipelined_closed_loop(solver, plant, 100, depth)
+        _, xf, xs, us, _ = run(solver.init(seed=3), w.x0)
+        ok = torch.equal(torch.stack(host), xs) and torch.equal(x, xf)
+        out[f"depth {depth}"] = bool(ok)
+    print(f"phase 12 PipelinedRunner against make_pipelined_closed_loop (pendulum, 100 ticks) on "
+          f"{card}: {json.dumps(out)}", flush=True)
+    return out if all(out.values()) else None
+
+
+def drive_closed_loops(torch, env, card):
+    """Phase 12: the closed loops on the card (12a-12e); returns their results or None."""
+    t0 = time.perf_counter()
+    flagship = flagship_episodes(torch, env, card)
+    if flagship is None:
+        return None
+    facades = facade_graphs(torch, env, card)
+    if facades is None:
+        return None
+    if not map_move_recapture(torch, card):
+        fail("a moved map did not rebuild and recapture, or the ticks after it differ")
+        return None
+    episodes = facade_episodes(torch, env, card)
+    if episodes is None:
+        return None
+    if pipelined_episodes(torch, card) is None:
+        fail("PipelinedRunner differs from make_pipelined_closed_loop")
+        return None
+    seconds = time.perf_counter() - t0
+    print(f"phase 12 took {seconds:.1f} s on {card}", flush=True)
+    return dict(flagship=flagship, facades=facades, episodes=episodes, seconds=seconds)
 
 
 def tpu_row(name: str) -> int:
@@ -2946,6 +3150,34 @@ def exact_sweep(torch, symbol: str, counts: int, *args) -> tuple:
     cuda_build.launch("exact_checks", symbol, [ctypes.c_void_p] * (len(args) + 2), out.device,
                       *args, out.data_ptr())
     return tuple(out.tolist())
+
+
+def key_sweep(torch, np) -> dict:
+    """``devmath::advance_key`` (and so ``devmath::tick_seed``) against the host's ``tick_seed``.
+
+    4,096 random seeds (the top bit set in about half) and ticks up to 2^40,
+    and the edges (seed 2^64 - 1, ticks 2^32 - 1 and 2^32); each device key
+    moved on one tick must equal ``make_key(seed, tick + 1)`` word for word.
+    """
+    import ctypes
+
+    from mppi_playground_tpu_torch.core.config import make_key
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    rng = np.random.default_rng(SEED)
+    pairs = [(int(s), int(t)) for s, t in zip(rng.integers(0, 2**64, 4096, dtype=np.uint64),
+                                              rng.integers(0, 2**40, 4096))]
+    pairs += [(2**64 - 1, 2**32 - 1), (2**63 + 1, 2**32), (0, 0), (7, 2**32 + 5)]
+    keys = torch.stack([make_key(s, t, "cpu") for s, t in pairs]).cuda()
+    out = torch.empty_like(keys)
+    cuda_build.launch("exact_checks", "key_sweep", [ctypes.c_void_p, ctypes.c_int] +
+                      [ctypes.c_void_p] * 2, keys.device, keys.data_ptr(), len(pairs),
+                      out.data_ptr())
+    want = torch.stack([make_key(s, t + 1, "cpu") for s, t in pairs])
+    differ = int((out.cpu() != want).any(dim=1).sum())
+    return dict(keys=len(pairs), differ=differ,
+                top_bit_seeds=sum(s >= 2**63 for s, _ in pairs),
+                ticks_past_2_32=sum(t >= 2**32 for _, t in pairs))
 
 
 # Cell sizes of the cell-index sweep besides the repo's maps' (at racing's origin
@@ -3039,6 +3271,10 @@ def main() -> int:
           flush=True)
     if radius[0] or radius[1] or radius[2] != 1 << 24:
         return fail("the Box-Muller radius is not bit for bit sqrtf(-2 logf(u1))")
+    keys = key_sweep(torch, np)
+    print(f"device key advance against the host's tick_seed: {json.dumps(keys)}", flush=True)
+    if keys["differ"]:
+        return fail("the device tick_seed is not the host's word for word")
     from mppi_playground_tpu_torch.workloads import build_model_workload
 
     env, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
@@ -3057,7 +3293,7 @@ def main() -> int:
     # --- phase 3: kernels against their twins at the flagship's shapes ----
     lam = torch.ones(1, device=dev)
     sig, u_min, u_max = FLAGSHIP_BOUNDS
-    seed = tick_seed(42, 0)
+    seed = device_seed(torch, tick_seed(42, 0))
     grid_bytes = sum(g.numel() for g in task.grids)
 
     def solve(fn, mode_noise):
@@ -3270,7 +3506,16 @@ def main() -> int:
     if model_paths is None:
         return 1
 
+    # --- phase 12: the closed loops on the card -------------------------------
+    loops = drive_closed_loops(torch, env, card)
+    if loops is None:
+        return 1
+
     paths = {f"flagship {m}": run["launches"] for m, run in modes.items()}
+    paths.update({f"flagship episode {m}": run["launches"]
+                  for m, run in loops["flagship"].items()})
+    paths.update({label: run["launches"] for label, run in loops["episodes"].items()
+                  if "launches" in run})
     paths.update({f"RacingController {r}": run["launches"] for r, run in facades.items()})
     paths.update(mppi_runs)
     paths.update({label: run["launches"] for label, run in model_paths.items()})
@@ -3346,6 +3591,11 @@ def main() -> int:
                                                "get_top_samples": run["top_ms"]}
                                            for r, run in facades.items()},
                       "lambda_routes_in_turns": epilogue,
+                      "closed_loops": {
+                          "flagship": {m: {k: v for k, v in run.items()
+                                           if k not in ("launches", "profile")}
+                                       for m, run in loops["flagship"].items()},
+                          "facades": loops["facades"], "seconds": loops["seconds"]},
                       "model_paths": {label: {k: v for k, v in run.items()
                                               if k not in ("launches", "profile")}
                                       for label, run in model_paths.items()}}), flush=True)

@@ -13,6 +13,7 @@ they raise unless the caller asks for ``device="cpu"``.
 This package imports neither ``jax`` nor anything of ``mppi_playground_tpu``.
 """
 
+from mppi_playground_tpu_torch.core.closed_loop import PipelinedRunner
 from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState
 from mppi_playground_tpu_torch.core.controller import MPPI
 from mppi_playground_tpu_torch.core.solver import (
@@ -27,6 +28,7 @@ __all__ = [
     "MPPIConfig",
     "MPPIState",
     "MPPISolver",
+    "PipelinedRunner",
     "SolveAux",
     "SolveResult",
     "make_solver",

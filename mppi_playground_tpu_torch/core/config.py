@@ -2,11 +2,15 @@
 
 Counterpart of ``mppi_playground_tpu/core/config.py``.  :class:`MPPIConfig`
 has the same fields, validation and derived properties, with ``dtype`` a
-``torch.dtype``.  :class:`MPPIState` holds plain tensors plus a host-side
-``(seed, tick)`` pair in place of the JAX PRNG key: the per-tick kernel seed
-is hashed from it on the host (:func:`tick_seed`), so drawing it never waits
-on the device.  The MPO temperature and its Adam moments are tensors on the
-solver's device (:class:`AdamState`).
+``torch.dtype``.  :class:`MPPIState` holds plain tensors plus a ``(seed,
+tick)`` pair in place of the JAX PRNG key, twice: as host integers, which
+read without waiting on the device, and as the device key the kernels draw
+from (:func:`make_key`: the seed, the tick and the tick's kernel seed
+:func:`tick_seed` as three 32-bit words).  A solve reads the key's seed word
+through a pointer and moves the key on by one tick on the device, so that
+a CUDA graph of the tick draws a new stream at every replay.  The MPO
+temperature and its Adam moments are tensors on the solver's device
+(:class:`AdamState`).
 """
 
 from __future__ import annotations
@@ -127,8 +131,15 @@ class MPPIState:
         previous_action_seq: ``[horizon, dim_control]`` warm start.
         sg_history: ``[horizon-1, dim_control]`` previously applied actions.
         lam: current temperature, a 0-dim tensor on the solver's device.
-        seed: host integer; with ``tick`` it names this tick's noise stream.
-        tick: host integer, advanced by one every solve.
+        seed: host integer; with ``tick`` it names the first tick's noise stream.
+        tick: host integer, advanced by one every solve: the ticks run.
+        key: the device key the kernels draw from, ``make_key(seed, tick)``
+            advanced on the device; ``None`` makes it from the host pair at
+            the next solve.  Once made, the key decides every later draw and
+            the host pair only counts: a closed loop whose ``done_fn`` fired
+            froze the key at the tick it fired, while ``tick`` counts every
+            tick the loop ran, so ``make_key(seed, tick)`` then names another
+            stream than the state's key.
         mpo_log_temperature: 0-dim tensor; ``init`` sets it to
             ``log(initial_lambda)`` in MPO mode, else 0.
         mpo_opt_state: the MPO temperature's :class:`AdamState` in MPO mode,
@@ -142,8 +153,10 @@ class MPPIState:
     tick: int = 0
     mpo_log_temperature: Optional[torch.Tensor] = None
     mpo_opt_state: Optional[AdamState] = None
+    key: Optional[torch.Tensor] = None
 
 
+_MASK32 = 0xFFFFFFFF
 _MASK64 = (1 << 64) - 1
 
 
@@ -155,3 +168,53 @@ def tick_seed(seed: int, tick: int) -> int:
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     z ^= z >> 31
     return int(z & 0x7FFFFFFF)
+
+
+def _int32(word: int) -> int:
+    """A 32-bit word as the int32 of the same bits."""
+    word &= _MASK32
+    return word - (1 << 32) if word >= 1 << 31 else word
+
+
+def make_key(seed: int, tick: int, device) -> torch.Tensor:
+    """The device key of ``(seed, tick)``: int32 ``[3]`` words (seed, tick, tick_seed).
+
+    The low 32 bits of the seed and the tick, which are all :func:`tick_seed`
+    reads, and the tick's kernel seed.  Made on the host and copied once.
+    """
+    words = (seed, tick, tick_seed(seed, tick))
+    return torch.tensor([_int32(w) for w in words], dtype=torch.int32, device=device)
+
+
+def _mul64(hi: torch.Tensor, lo: torch.Tensor, m: int):
+    """``(hi, lo) * m mod 2^64`` on int64 tensors holding 32-bit words."""
+    from mppi_playground_tpu_torch.ops.fused_solve import _mulhilo
+
+    m_hi, m_lo = m >> 32, m & _MASK32
+    p_hi, p_lo = _mulhilo(lo, m_lo)
+    cross = _mulhilo(lo, m_hi)[1] + _mulhilo(hi, m_lo)[1]
+    return (p_hi + cross) & _MASK32, p_lo
+
+
+def _xorshift(hi: torch.Tensor, lo: torch.Tensor, r: int):
+    """``z ^ (z >> r)`` for ``0 < r < 32`` on (hi, lo) 32-bit words."""
+    return hi ^ (hi >> r), lo ^ (((lo >> r) | (hi << (32 - r))) & _MASK32)
+
+
+def tick_seed_plain(seed_lo: torch.Tensor, tick_lo: torch.Tensor) -> torch.Tensor:
+    """:func:`tick_seed` on int64 tensors of 32-bit words, the device function's twin."""
+    lo = tick_lo + (0x9E3779B97F4A7C15 & _MASK32)
+    hi = (seed_lo + (0x9E3779B97F4A7C15 >> 32) + (lo >> 32)) & _MASK32
+    lo = lo & _MASK32
+    hi, lo = _mul64(*_xorshift(hi, lo, 30), 0xBF58476D1CE4E5B9)
+    hi, lo = _mul64(*_xorshift(hi, lo, 27), 0x94D049BB133111EB)
+    hi, lo = _xorshift(hi, lo, 31)
+    return lo & 0x7FFFFFFF
+
+
+def advance_key_plain(key: torch.Tensor) -> torch.Tensor:
+    """The key of the next tick, ``devmath::advance_key``'s twin: int32 ``[3]``."""
+    words = key.to(torch.int64) & _MASK32
+    seed, tick = words[0], (words[1] + 1) & _MASK32
+    out = torch.stack([seed, tick, tick_seed_plain(seed, tick)])
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)

@@ -23,9 +23,22 @@ Routes, chosen once at construction from the config:
   the regeneration kernel.  A config outside the envelope takes the unfused
   route, as in the JAX package.
 
-The route taken is :attr:`MPPI.solver_backend`.  ``run_episode`` (N ticks in
-one dispatched program) is not part of this port yet: it comes with
-``core/closed_loop.py`` as a CUDA graph of the ticks.
+The route taken is :attr:`MPPI.solver_backend`.
+
+On the card a seeded ``forward`` without ``info`` replays a CUDA graph of the
+tick (``core/closed_loop.ReplayedTick``, which holds the state across
+ticks): the first such call runs eagerly and captures, every later one
+replays; :attr:`solver_state` reads a copy of the state.  ``forward`` with
+``info`` or ``noise``, and every tick on the CPU, runs eagerly.
+``run_episode`` runs N ticks through ``core/closed_loop.make_closed_loop``:
+one replayed graph of the tick body on the card.
+
+So ``dynamics`` and ``cost_func`` must be capturable on the card: torch
+operations on the tensors they are given, no reads of device values on the
+host (``float(x)``, ``x.item()``, ``if x > 0``), no tensors made from host
+data, and no Python values that change between calls (a replay repeats what
+the capture saw).  A capture that fails raises and names this requirement;
+nothing falls back to the eager tick.
 """
 
 from __future__ import annotations
@@ -35,6 +48,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from mppi_playground_tpu_torch.core import diagnostics
+from mppi_playground_tpu_torch.core.closed_loop import (
+    ReplayedTick,
+    RunnerCache,
+    make_closed_loop,
+)
 from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState
 from mppi_playground_tpu_torch.core.fused_solver import fused_envelope, make_fused_solver
 from mppi_playground_tpu_torch.core.solver import CostFn, Dynamics, SolveAux, make_solver, warm_reset
@@ -47,7 +65,11 @@ def _floats(values) -> Tuple[float, ...]:
 
 
 class MPPI:
-    """MPPI controller with the reference's constructor and methods."""
+    """MPPI controller with the reference's constructor and methods.
+
+    On the card ``dynamics`` and ``cost_func`` must be capturable in a CUDA
+    graph, since a seeded ``forward`` replays one (see the module docstring).
+    """
 
     def __init__(
         self,
@@ -125,7 +147,8 @@ class MPPI:
             self._solver = make_fused_solver(self.config, fused_task, dynamics, device=self.device)
         else:
             self._solver = make_solver(self.config, dynamics, cost_func, device=self.device)
-        self._state = self._solver.init()
+        self._ticks = ReplayedTick(self._tick, self._solver.init())
+        self._episode_runners = RunnerCache()
         self._last_aux: Optional[SolveAux] = None
         self._last_noise: Optional[torch.Tensor] = None
         self._sigmas = torch.tensor(self.config.sigmas, dtype=dtype, device=self.device)
@@ -134,12 +157,15 @@ class MPPI:
 
     @property
     def solver_state(self) -> MPPIState:
-        """The warm-start state carried across ticks."""
-        return self._state
+        """The warm-start state carried across ticks (a copy while the graph holds it)."""
+        return self._ticks.state
 
     @solver_state.setter
     def solver_state(self, value: MPPIState) -> None:
-        self._state = value
+        self._ticks.state = value
+
+    def _tick(self, state: MPPIState, x: torch.Tensor, carry, **kw):
+        return self._solver.solve(state, x, **kw), carry, None
 
     def reset(self) -> None:
         """Zero the warm start; the adapted lambda and MPO state persist.
@@ -147,7 +173,7 @@ class MPPI:
         The last solve's diagnostics go with it: ``get_top_samples`` then
         raises instead of replaying the previous episode.
         """
-        self._state = warm_reset(self._solver, self._state)
+        self.solver_state = warm_reset(self._solver, self.solver_state)
         self._last_aux = None
         self._last_noise = None
 
@@ -164,11 +190,14 @@ class MPPI:
                 f"state must have shape ({self.config.dim_state},) (= dim_state), "
                 f"got {tuple(state.shape)}"
             )
-        result = self._solver.solve(self._state, state, info=info, noise=noise)
-        self._state = result.state
-        self._last_aux = result.aux
+        if info is None and noise is None:
+            action_seq, state_seq, aux, _ = self._ticks.step(state)
+        else:
+            action_seq, state_seq, aux, _ = self._ticks.step(state, graph=False, info=info,
+                                                             noise=noise)
+        self._last_aux = aux
         self._last_noise = noise  # the fused top-k replay must reuse it
-        return result.action_seq, result.state_seq
+        return action_seq, state_seq
 
     __call__ = forward
 
@@ -181,6 +210,51 @@ class MPPI:
         return diagnostics.top_samples_from_last(
             self._solver, self._last_aux, num_samples, noise=self._last_noise
         )
+
+    def run_episode(
+        self,
+        plant_fn,
+        state,
+        num_ticks: int,
+        info_fn=None,
+        carry=None,
+        done_fn=None,
+    ):
+        """``num_ticks`` [solve -> apply the first action -> plant step] ticks as one closed loop.
+
+        ``core/closed_loop.make_closed_loop``: on the card one CUDA graph of
+        the tick, replayed ``num_ticks`` times.  ``plant_fn (x [n], u [m]) ->
+        x_next [n]`` may differ from the solver's internal model; ``info_fn
+        (carry, x) -> (info, carry)`` builds each tick's cost context, seeded
+        with ``carry``.  Pass stable callables: runners are cached per
+        ``(plant_fn, num_ticks, info_fn, done_fn)`` identity, so a fresh
+        lambda per call captures the tick anew every time.  Moves the warm
+        start on like ``num_ticks`` calls to :meth:`forward`; per-solve
+        diagnostics are gone afterwards (``get_top_samples`` raises).
+        Returns ``(xs [num_ticks+1, n], us [num_ticks, m])``, ``xs[t]`` the
+        state ``us[t]`` was solved at and ``xs[-1]`` the final post-step
+        state, then the final carry when ``info_fn`` is given, then an
+        ``episode`` dict (``done``, ``ticks``) when ``done_fn (x) -> bool`` is
+        given: the episode freezes once it fires.
+        """
+        def build():
+            return make_closed_loop(self._solver, plant_fn, num_ticks, info_fn=info_fn,
+                                    done_fn=done_fn)
+
+        key = (id(plant_fn), num_ticks, id(info_fn), id(done_fn))
+        run = self._episode_runners.get_or_build(key, build)
+        out = run(self._ticks.state, torch.as_tensor(state, dtype=self.config.dtype,
+                                               device=self.device), carry)
+        st, xf, xs, us, final_carry = out[:5]
+        self.solver_state = st
+        self._last_aux = None
+        self._last_noise = None
+        ret = (torch.cat([xs, xf[None]]), us)
+        if info_fn is not None:
+            ret = ret + (final_carry,)
+        if done_fn is not None:
+            ret = ret + (out[5],)
+        return ret
 
     def get_samples_from_posterior(
         self, optimal_solution, state, num_samples: int
@@ -210,4 +284,4 @@ class MPPI:
     @property
     def lambda_(self) -> float:
         """The current temperature (reads it back to the host)."""
-        return float(self._state.lam)
+        return float(self._ticks.state.lam)

@@ -22,8 +22,12 @@ its history, and the nominal re-roll.
   lambda* stays on the device: phase 2 and the tail read it through a
   pointer.
 
-A tick draws its kernel seed on the host from the state's ``(seed, tick)``,
-so nothing in it waits on the device.  Only the racing task reads the
+A tick reads its kernel seed from the state's device key (``key[2:]``,
+``core/config.make_key``) through a pointer, and its tail writes the next
+tick's key: nothing in it waits on the device or on the host, so that a
+CUDA graph of the tick draws a new stream at every replay (the λ
+epilogue's ticket is zero again after every launch, which the kernel
+sees to).  Only the racing task reads the
 tick's ``info`` (``info['reference_path']``).  The port's envelope: float32,
 no stored rollouts, ``horizon * dim_control <= 1024``, ``dim_state <= 128``
 and the config's dimensions those of the task's model; ``ValueError``
@@ -42,7 +46,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, tick_seed
+from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState
 from mppi_playground_tpu_torch.core.diagnostics import top_indices
 from mppi_playground_tpu_torch.core.sg_filter import config_sg_coeffs
 from mppi_playground_tpu_torch.core.solver import (
@@ -53,6 +57,7 @@ from mppi_playground_tpu_torch.core.solver import (
     advance_state,
     make_init,
     make_states_prediction,
+    state_key,
 )
 from mppi_playground_tpu_torch.models.racing_mpcc import extend_reference_path
 from mppi_playground_tpu_torch.ops.fused_solve import (
@@ -176,7 +181,8 @@ def make_fused_solver(
     ) -> SolveResult:
         """One fused solve; the racing task needs ``info['reference_path']`` ``[T+1, 4]``."""
         x0 = torch.as_tensor(x0, dtype=dtype, device=device).contiguous()
-        seed = tick_seed(state.seed, state.tick)
+        key = state_key(state, device)
+        seed = key[2:]  # the tick's seed word, read by the drawing kernel
         ref = None
         if task.reference_width:
             ref = extend_reference_path(info["reference_path"]).contiguous()
@@ -197,11 +203,13 @@ def make_fused_solver(
             lam = state.lam
             costs, stats, numer = fused_solve(x0, prev, lam.reshape(1), seed, ref, task,
                                               *sampling)
+        key_out = torch.empty_like(key)
         action_seq, state_seq, weights, ess, new_sg_history = fused_tick_tail(
             x0, costs, stats, numer, lam.reshape(1), task, state.sg_history.contiguous(),
-            sg_coeffs,
+            sg_coeffs, key=key, key_out=key_out,
         )
-        new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history)
+        new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history,
+                                  key_out)
         aux = SolveAux(
             costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=None,
             # replay handles for top_samples

@@ -14,8 +14,15 @@ PyTorch and is the second, independent route that the fused CUDA solver
 * the quadratic action cost is left out of the trajectory totals.
 
 Noise: ``solve(noise=...)`` takes ``[K, T, m]`` perturbations already
-scaled by sigma.  Without it, the noise is drawn from a ``torch.Generator``
-seeded with the state's ``(seed, tick)``.
+scaled by sigma.  Without it, the noise is the fused kernels' seeded stream
+at the seed word of the state's device key (``core/config.make_key``), so
+that the unfused route samples exactly the fused route's perturbations and
+a CUDA graph of the tick draws a new stream at every replay.  For float32
+with ``dim_control`` in (1, 2) and ``horizon * dim_control <= 1024`` (the
+regeneration kernel's envelope) one launch of that kernel over rows
+0..K-1 draws, clamps and moves the key on (its twin on the CPU); any other
+config draws ``ops/fused_solve.seeded_normals`` in torch ops, the seed
+read as a tensor, and moves the key on by its twin.
 
 The softmin tail follows ``config.kernel_backend``, decided once when the
 solver is built: ``"auto"`` and ``"pallas"`` run the streaming weighted
@@ -34,8 +41,19 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 
 from mppi_playground_tpu_torch.core import autolambda
-from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, tick_seed
+from mppi_playground_tpu_torch.core.config import (
+    MPPIConfig,
+    MPPIState,
+    advance_key_plain,
+    make_key,
+)
 from mppi_playground_tpu_torch.core.sg_filter import apply_sg_filter, config_sg_coeffs
+from mppi_playground_tpu_torch.ops.fused_solve import (
+    MAX_SLOTS,
+    REGEN_WIDTHS,
+    fused_regen,
+    seeded_normals,
+)
 from mppi_playground_tpu_torch.ops.weighted_update import weighted_update
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
@@ -48,10 +66,11 @@ class SolveAux(NamedTuple):
 
     ``seed``, ``x0``, ``prev_action_seq`` and ``noise_injected`` are the
     fused solver's replay handles (``None`` on the unfused route): the
-    host kernel seed of the tick, the initial state and warm start the
-    samples were drawn around, and whether the solve ran on injected noise
-    (a host bool), so that ``top_samples`` can regenerate the winning
-    perturbations without storing rollouts.  Reading them never syncs.
+    kernel seed word of the tick (a one-element int32 tensor on the
+    solver's device), the initial state and warm start the samples were
+    drawn around, and whether the solve ran on injected noise (a host
+    bool), so that ``top_samples`` can regenerate the winning perturbations
+    without storing rollouts.  Reading them never syncs.
     """
 
     costs: torch.Tensor
@@ -59,7 +78,7 @@ class SolveAux(NamedTuple):
     lam: torch.Tensor
     ess: torch.Tensor
     state_seq_batch: Optional[torch.Tensor]
-    seed: Optional[int] = None
+    seed: Optional[torch.Tensor] = None
     x0: Optional[torch.Tensor] = None
     prev_action_seq: Optional[torch.Tensor] = None
     noise_injected: Optional[bool] = None
@@ -91,9 +110,9 @@ def warm_reset(solver: MPPISolver, state: MPPIState) -> MPPIState:
     """Zero the warm start and the SG history, keeping the adapted temperature.
 
     Like the reference's ``reset``: lambda and the MPO state persist across
-    episodes, and so does the noise stream (``seed`` and ``tick``, as the
-    JAX package keeps its key).  Shared by the ``MPPI`` and
-    ``RacingController`` facades.
+    episodes, and so does the noise stream (``seed``, ``tick`` and the
+    device key, as the JAX package keeps its key).  Shared by the ``MPPI``
+    and ``RacingController`` facades.
     """
     fresh = solver.init(seed=state.seed)
     return dataclasses.replace(
@@ -102,7 +121,15 @@ def warm_reset(solver: MPPISolver, state: MPPIState) -> MPPIState:
         tick=state.tick,
         mpo_log_temperature=state.mpo_log_temperature,
         mpo_opt_state=state.mpo_opt_state,
+        key=state.key,
     )
+
+
+def state_key(state: MPPIState, device: torch.device) -> torch.Tensor:
+    """The state's device key; made from its host ``(seed, tick)`` where it has none."""
+    if state.key is not None:
+        return state.key
+    return make_key(state.seed, state.tick, device)
 
 
 def _rollout_and_costs(
@@ -154,6 +181,7 @@ def make_init(config: MPPIConfig, device: torch.device):
             log_t, opt_state = autolambda.mpo_init(config.initial_lambda, lam)
         else:
             log_t, opt_state = torch.zeros_like(lam), None
+        seed = config.seed if seed is None else int(seed)
         return MPPIState(
             previous_action_seq=torch.zeros(
                 config.horizon, config.dim_control, dtype=dtype, device=device
@@ -162,10 +190,11 @@ def make_init(config: MPPIConfig, device: torch.device):
                 max(config.horizon - 1, 0), config.dim_control, dtype=dtype, device=device
             ),
             lam=lam,
-            seed=config.seed if seed is None else int(seed),
+            seed=seed,
             tick=0,
             mpo_log_temperature=log_t,
             mpo_opt_state=opt_state,
+            key=make_key(seed, 0, device),
         )
 
     return init
@@ -205,8 +234,9 @@ def advance_state(
     lam: torch.Tensor,
     action_seq: torch.Tensor,
     sg_history: torch.Tensor,
+    key: torch.Tensor,
 ) -> MPPIState:
-    """The next tick's state; MPO steps its temperature on this tick's costs."""
+    """The next tick's state, ``key`` its device key; MPO steps its temperature on this tick's costs."""
     log_t, opt_state = state.mpo_log_temperature, state.mpo_opt_state
     if config.auto_lambda == "MPO":
         if opt_state is None:
@@ -220,6 +250,7 @@ def advance_state(
         tick=state.tick + 1,
         mpo_log_temperature=log_t,
         mpo_opt_state=opt_state,
+        key=key,
     )
 
 
@@ -266,9 +297,41 @@ def make_solver(
     sigmas = torch.tensor(config.sigmas, dtype=dtype, device=device)
     threshold = config.inherited_samples
     sg_coeffs = config_sg_coeffs(config, dtype, device)
+    # the regeneration kernel draws and clamps all K rows in one launch
+    regen = (dtype == torch.float32 and dim_control in REGEN_WIDTHS
+             and horizon * dim_control <= MAX_SLOTS)
+    all_rows = torch.arange(num_samples, device=device) if regen else None
 
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)
+
+    def perturbations(state: MPPIState, noise: Optional[torch.Tensor]):
+        """The clamped perturbed sequences ``[K, T, m]`` and the next tick's key."""
+        key = state_key(state, device)
+        mean_action_seq = state.previous_action_seq
+        if regen:
+            key_out = torch.empty_like(key)
+            if noise is not None:
+                noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
+            perturbed = fused_regen(
+                mean_action_seq.contiguous(), key[2:], all_rows, config.sigmas, config.u_min,
+                config.u_max, num_samples, threshold, noise, key=key, key_out=key_out,
+            )
+            return perturbed, key_out
+        if noise is None:
+            normals = seeded_normals(key[2:], num_samples, horizon, device, dim_control)
+            noise = normals.to(dtype) * sigmas
+        else:
+            noise = torch.as_tensor(noise, dtype=dtype, device=device)
+        if threshold >= num_samples:
+            perturbed = mean_action_seq[None] + noise
+        elif threshold <= 0:
+            perturbed = noise
+        else:
+            perturbed = torch.cat(
+                [mean_action_seq[None] + noise[:threshold], noise[threshold:]], dim=0
+            )
+        return torch.clamp(perturbed, u_min, u_max), advance_key_plain(key)
 
     def solve(
         state: MPPIState,
@@ -279,25 +342,7 @@ def make_solver(
         """One MPPI solve; ``noise`` optional ``[K, T, m]``, already scaled."""
         user_info = {} if info is None else dict(info)
         x0 = torch.as_tensor(x0, dtype=dtype, device=device)
-        if noise is None:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(tick_seed(state.seed, state.tick))
-            noise = torch.randn(
-                num_samples, horizon, dim_control, generator=gen, dtype=dtype, device=device
-            ) * sigmas
-        else:
-            noise = torch.as_tensor(noise, dtype=dtype, device=device)
-
-        mean_action_seq = state.previous_action_seq
-        if threshold >= num_samples:
-            perturbed = mean_action_seq[None] + noise
-        elif threshold <= 0:
-            perturbed = noise
-        else:
-            perturbed = torch.cat(
-                [mean_action_seq[None] + noise[:threshold], noise[threshold:]], dim=0
-            )
-        perturbed = torch.clamp(perturbed, u_min, u_max)
+        perturbed, key = perturbations(state, noise)
 
         x0_batch = x0.expand(num_samples, dim_state)
         costs, state_seq_batch = _rollout_and_costs(
@@ -315,7 +360,7 @@ def make_solver(
         action_seq, state_seq, new_sg_history = smooth_predict_advance(
             config, sg_coeffs, states_prediction, state, x0, update
         )
-        new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history)
+        new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history, key)
         aux = SolveAux(
             costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=state_seq_batch
         )

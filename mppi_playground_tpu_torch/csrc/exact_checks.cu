@@ -21,6 +21,10 @@
 // counts[0] the positions whose off-grid flag or (on the grid) cell differ,
 // counts[1] those of magnitude 2^-100 or more whose quotient differs from the
 // IEEE one where that is below 2^100, counts[2] the positions on the grid.
+//
+// key_sweep: devmath::advance_key (and so devmath::tick_seed) on n device
+// keys [n, 3], written to out [n, 3], for the caller to hold against the
+// host's tick_seed (core/config.py) word for word.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -97,7 +101,18 @@ __global__ void cell_sweep_kernel(devmath::Geometry g, unsigned long long* count
   atomicAdd(&counts[2], on_grid);
 }
 
+__global__ void key_sweep_kernel(const uint32_t* keys, int n, uint32_t* out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    devmath::advance_key(keys + 3 * static_cast<size_t>(i), out + 3 * static_cast<size_t>(i));
+  }
+}
+
 }  // namespace
+
+extern "C" int key_sweep(const uint32_t* keys, int n, uint32_t* out, void* stream) {
+  key_sweep_kernel<<<132, 256, 0, static_cast<cudaStream_t>(stream)>>>(keys, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int angle_normalize_sweep(unsigned long long* counts, void* stream) {
   angle_sweep_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(counts);

@@ -33,11 +33,12 @@ __global__ void __launch_bounds__(kBlock) weighted_kernel(const float* costs, co
 
 template <int kM>
 int launch_regen(const float* prev, const float* noise, const int64_t* rows,
-                 const float* bounds, uint32_t seed, int horizon, int num_samples, int threshold,
-                 int num_rows, float* out, void* stream) {
+                 const float* bounds, const uint32_t* seed, int horizon, int num_samples,
+                 int threshold, int num_rows, float* out, const uint32_t* key, uint32_t* key_out,
+                 void* stream) {
   return fused::launch_regen_rollout<fused::ActionsOnly<kM>>(
       fused::make_sampling<kM>(prev, noise, bounds, seed, horizon, num_samples, threshold), rows,
-      num_rows, nullptr, {}, out, nullptr, static_cast<cudaStream_t>(stream));
+      num_rows, nullptr, {}, out, nullptr, key, key_out, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -55,11 +56,11 @@ extern "C" int fused_weighted(const float* costs, const float* dump, const float
 
 #define FUSED_REGEN_ENTRY_POINT(m)                                                            \
   extern "C" int fused_regen_m##m(const float* prev, const float* noise, const int64_t* rows, \
-                                  const float* bounds, uint32_t seed, int horizon,            \
+                                  const float* bounds, const uint32_t* seed, int horizon,     \
                                   int num_samples, int threshold, int num_rows, float* out,   \
-                                  void* stream) {                                             \
+                                  const uint32_t* key, uint32_t* key_out, void* stream) {     \
     return launch_regen<m>(prev, noise, rows, bounds, seed, horizon, num_samples, threshold,  \
-                           num_rows, out, stream);                                            \
+                           num_rows, out, key, key_out, stream);                              \
   }
 
 FUSED_REGEN_ENTRY_POINT(1)

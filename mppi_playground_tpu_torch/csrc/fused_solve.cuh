@@ -114,19 +114,23 @@ using softmin::block_partials;
 using softmin::kBlock;
 
 // What the sampling of perturbations reads: warm start, noise, bounds, seed.
+// The seed word lives in device memory (a solver's key, core/config.py), so
+// that a CUDA graph of the tick draws the stream of the tick it replays; each
+// CTA loads it once (load_seed).
 template <int kM>
 struct Sampling {
-  const float* prev;   // [T, kM] warm start
-  const float* noise;  // [T*kM, K] slot-major, already scaled by sigma; null = seeded
+  const float* prev;      // [T, kM] warm start
+  const float* noise;     // [T*kM, K] slot-major, already scaled by sigma; null = seeded
+  const uint32_t* seed;   // [1] the tick's seed word (null: noise mode, where none is read)
   float sigma[kM], u_min[kM], u_max[kM];
-  uint32_t seed;
   int horizon, num_samples, threshold;
 };
 
 // Sampling from the wrapper's bounds array (sigma, u_min, u_max; kM each).
 template <int kM>
 Sampling<kM> make_sampling(const float* prev, const float* noise, const float* bounds,
-                           uint32_t seed, int horizon, int num_samples, int threshold) {
+                           const uint32_t* seed, int horizon, int num_samples,
+                           int threshold) {
   Sampling<kM> s{};
   s.prev = prev;
   s.noise = noise;
@@ -178,13 +182,14 @@ struct Perturbation {
   const Sampling<kM>& s;
   const float* prev;  // shared copy of the warm start
   int k;
+  uint32_t seed;      // the CTA's copy of the seed word (load_seed)
   bool inherit;
   float z0, z1, z2, z3;    // the normals of the current Philox block
   int step;                // next() position
 
-  __device__ Perturbation(const Sampling<kM>& s_, const float* prev_, int k_)
-      : s(s_), prev(prev_), k(k_), inherit(k_ < s_.threshold), z0(0.0f), z1(0.0f), z2(0.0f),
-        z3(0.0f), step(0) {}
+  __device__ Perturbation(const Sampling<kM>& s_, const float* prev_, int k_, uint32_t seed_)
+      : s(s_), prev(prev_), k(k_), seed(seed_), inherit(k_ < s_.threshold), z0(0.0f), z1(0.0f),
+        z2(0.0f), z3(0.0f), step(0) {}
 
   __device__ __forceinline__ void next(float* v) { at(step++, v); }
 
@@ -203,7 +208,7 @@ struct Perturbation {
       float n[kM];
       if ((f0 & 3) == 0) {
         const uint4 w = devmath::philox4x32_10(
-            make_uint4(static_cast<uint32_t>(f0 >> 2), 0u, 0u, 0u), s.seed,
+            make_uint4(static_cast<uint32_t>(f0 >> 2), 0u, 0u, 0u), seed,
             static_cast<uint32_t>(k));
         devmath::normal_pair_from_bits(w.x, w.y, &z0, &z1);
         devmath::normal_pair_from_bits(w.z, w.w, &z2, &z3);
@@ -243,16 +248,27 @@ struct DumpedPerturbation {
   }
 };
 
-// The reference rows and the warm start, copied to shared memory.
+// The seed word, read from device memory by one thread of the CTA into
+// s_seed; the CTA's threads read it after the caller's __syncthreads.
+template <int kM>
+__device__ __forceinline__ void load_seed(const Sampling<kM>& s, uint32_t* s_seed) {
+  if (threadIdx.x == 0) *s_seed = s.seed == nullptr ? 0u : *s.seed;
+}
+
+// The reference rows, the warm start and the seed word, copied to shared
+// memory; returns the seed word.
 template <class Model>
-__device__ __forceinline__ void load_reference(const Params<Model>& p, float* s_ref,
-                                               float* s_prev) {
+__device__ __forceinline__ uint32_t load_reference(const Params<Model>& p, float* s_ref,
+                                                   float* s_prev) {
+  __shared__ uint32_t s_seed;
   const int T = p.s.horizon;
+  load_seed(p.s, &s_seed);
   if (Model::kRefWidth > 0) {
     for (int i = threadIdx.x; i < (T + 1) * Model::kRefWidth; i += kBlock) s_ref[i] = p.ref[i];
   }
   for (int i = threadIdx.x; i < Model::kM * T; i += kBlock) s_prev[i] = p.s.prev[i];
   __syncthreads();
+  return s_seed;
 }
 
 template <class Model>
@@ -274,9 +290,9 @@ struct TiledPerturbation {
   Perturbation<kM> pert;
   int step;
 
-  __device__ TiledPerturbation(const Sampling<kM>& s, const float* prev, int k,
+  __device__ TiledPerturbation(const Sampling<kM>& s, const float* prev, int k, uint32_t seed,
                                const float* tile_, int tile_slots_)
-      : tile(tile_ + threadIdx.x), tile_slots(tile_slots_), pert(s, prev, k), step(0) {}
+      : tile(tile_ + threadIdx.x), tile_slots(tile_slots_), pert(s, prev, k, seed), step(0) {}
 
   __device__ __forceinline__ void next(float* v) {
     const int f0 = step * kM;
@@ -295,11 +311,11 @@ struct TiledPerturbation {
 // tile_slots to this thread's column of it.
 template <class Model, bool kDump>
 __device__ __forceinline__ float rollout_cost(const Params<Model>& p, const float* s_ref,
-                                              const float* s_prev, int k,
+                                              const float* s_prev, int k, uint32_t seed,
                                               float* tile = nullptr, int tile_slots = 0) {
   constexpr int kN = Model::kN, kM = Model::kM;
   const int T = p.s.horizon;
-  Perturbation<kM> pert(p.s, s_prev, k);
+  Perturbation<kM> pert(p.s, s_prev, k, seed);
   float x[kN];
 #pragma unroll
   for (int c = 0; c < kN; ++c) x[c] = p.x0[c];
@@ -342,18 +358,18 @@ __global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> p, in
   float* s_red = s_prev + slots;                       // kWarps
   float* s_numer = s_red + softmin::kWarps;            // kWarps * min(T*m, kChunk)
   float* s_tile = s_numer + softmin::kWarps * min(slots, softmin::kChunk);  // tile_slots * kBlock
-  load_reference(p, s_ref, s_prev);
+  const uint32_t seed = load_reference(p, s_ref, s_prev);
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < p.s.num_samples;
   float cost = 1e30f;  // padding never wins the softmin
   if (valid) {
-    cost = rollout_cost<Model, false>(p, s_ref, s_prev, k, s_tile, tile_slots);
+    cost = rollout_cost<Model, false>(p, s_ref, s_prev, k, seed, s_tile, tile_slots);
     p.costs[k] = cost;
   }
   // the numerator pass reads each perturbation back from the tile, or
   // regenerates (noise mode: re-reads) the slots the tile does not hold
-  TiledPerturbation<Model::kM> pert(p.s, s_prev, valid ? k : 0, s_tile, tile_slots);
+  TiledPerturbation<Model::kM> pert(p.s, s_prev, valid ? k : 0, seed, s_tile, tile_slots);
   block_partials(cost, *p.lam, valid, pert, slots, s_red, s_numer, p.stats, p.numer);
 }
 
@@ -362,9 +378,9 @@ __global__ void __launch_bounds__(kBlock) costs_dump_kernel(Params<Model> p) {
   extern __shared__ float smem[];
   float* s_ref = smem;
   float* s_prev = s_ref + (p.s.horizon + 1) * Model::kRefWidth;
-  load_reference(p, s_ref, s_prev);
+  const uint32_t seed = load_reference(p, s_ref, s_prev);
   const int k = blockIdx.x * kBlock + threadIdx.x;
-  if (k < p.s.num_samples) p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k);
+  if (k < p.s.num_samples) p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k, seed);
 }
 
 // What the lambda epilogue searches with: ESSPS (param = target ESS) or
@@ -384,13 +400,13 @@ __global__ void __cluster_dims__(lsearch::kCluster, 1, 1) __launch_bounds__(kBlo
   float* s_ref = smem;
   float* s_prev = s_ref + (p.s.horizon + 1) * Model::kRefWidth;
   float* s_costs = s_prev + Model::kM * p.s.horizon;  // epilogue_resident floats
-  load_reference(p, s_ref, s_prev);
+  const uint32_t seed = load_reference(p, s_ref, s_prev);
   // CTA b rolls out samples [b * per, (b + 1) * per), a thread every kBlock
   const int per = (p.s.num_samples + static_cast<int>(gridDim.x) - 1) / static_cast<int>(gridDim.x);
   const int end = min(p.s.num_samples, (static_cast<int>(blockIdx.x) + 1) * per);
   for (int k = static_cast<int>(blockIdx.x) * per + static_cast<int>(threadIdx.x); k < end;
        k += kBlock) {
-    p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k);
+    p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k, seed);
   }
 
   // last cluster done: the cluster's costs are visible before its ticket is
@@ -436,19 +452,25 @@ constexpr int kTopBlock = 32;
 // start (or its noise) with the draws of every other kernel, written to
 // actions [n, T, m] where that is not null; and rolled from x0 through
 // model_step, every state written to states [n, T+1, kN] where that is not
-// null.  A row past [0, K) is all NaN.
+// null.  A row past [0, K) is all NaN.  Where key_out is not null, CTA 0
+// also moves the solver's key on by one tick into it (the unfused solver's
+// draw of all K rows is the tick's one drawing launch).
 template <class Model>
 __global__ void __launch_bounds__(kTopBlock)
     regen_rollout_kernel(Sampling<Model::kM> s, const int64_t* rows, int num_rows,
                          const float* x0, typename Model::Args args, float* actions,
-                         float* states) {
+                         float* states, const uint32_t* key, uint32_t* key_out) {
   constexpr int kN = Model::kN, kM = Model::kM;
   extern __shared__ float smem[];
+  __shared__ uint32_t s_seed;
   float* s_prev = smem;  // T * m
   const int T = s.horizon;
   const int slots = kM * T;
+  load_seed(s, &s_seed);
   for (int i = threadIdx.x; i < slots; i += kTopBlock) s_prev[i] = s.prev[i];
+  if (key_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0) devmath::advance_key(key, key_out);
   __syncthreads();
+  const uint32_t seed = s_seed;
   const int i = blockIdx.x * kTopBlock + threadIdx.x;
   if (i >= num_rows) return;
   const int64_t k = rows[i];
@@ -460,7 +482,7 @@ __global__ void __launch_bounds__(kTopBlock)
     for (int f = 0; st != nullptr && f < (T + 1) * kN; ++f) st[f] = nan;
     return;
   }
-  Perturbation<kM> pert(s, s_prev, static_cast<int>(k));
+  Perturbation<kM> pert(s, s_prev, static_cast<int>(k), seed);
   float x[kN];
 #pragma unroll
   for (int c = 0; c < kN; ++c) {
@@ -495,11 +517,13 @@ inline int blocks_for(int num_samples) { return (num_samples + kBlock - 1) / kBl
 template <class Model>
 int launch_regen_rollout(const Sampling<Model::kM>& s, const int64_t* rows, int num_rows,
                          const float* x0, typename Model::Args args, float* actions,
-                         float* states, cudaStream_t stream) {
+                         float* states, const uint32_t* key, uint32_t* key_out,
+                         cudaStream_t stream) {
   const size_t shmem = sizeof(float) * Model::kM * static_cast<size_t>(s.horizon);
   const int blocks = (num_rows + kTopBlock - 1) / kTopBlock;
   regen_rollout_kernel<Model><<<blocks, kTopBlock, shmem, stream>>>(s, rows, num_rows, x0, args,
-                                                                    actions, states);
+                                                                    actions, states, key,
+                                                                    key_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -508,7 +532,7 @@ template <class Model>
 Params<Model> make_params(const float* x0, const float* prev, const float* lam, const float* ref,
                           const uint8_t* grid_a, const uint8_t* grid_b, const float* noise,
                           const float* bounds, const float* model_f, const int* model_i,
-                          uint32_t seed, int horizon, int num_samples, int threshold) {
+                          const uint32_t* seed, int horizon, int num_samples, int threshold) {
   Params<Model> p{};
   p.s = make_sampling<Model::kM>(prev, noise, bounds, seed, horizon, num_samples, threshold);
   p.x0 = x0;
@@ -658,12 +682,13 @@ int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, f
 // The flat C arguments the rollout entry points share, in the order the
 // wrappers (ops/fused_solve.py) pass them.  bounds: sigma, u_min, u_max (m
 // each); model_f / model_i: the model's floats and ints (its header says
-// which); ref: the per-tick reference rows (racing) or null.
+// which); ref: the per-tick reference rows (racing) or null; seed: the
+// tick's seed word in device memory.
 #define FUSED_ROLLOUT_ARGS                                                                    \
   const float *x0, const float *prev, const float *lam, const float *ref,                    \
       const uint8_t *grid_a, const uint8_t *grid_b, const float *noise, const float *bounds, \
-      const float *model_f, const int *model_i, uint32_t seed, int horizon, int num_samples,  \
-      int threshold
+      const float *model_f, const int *model_i, const uint32_t *seed, int horizon,            \
+      int num_samples, int threshold
 #define FUSED_ROLLOUT_NAMES                                                                  \
   x0, prev, lam, ref, grid_a, grid_b, noise, bounds, model_f, model_i, seed, horizon,       \
       num_samples, threshold

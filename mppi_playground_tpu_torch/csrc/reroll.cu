@@ -19,7 +19,7 @@
 // through the model's step, small CTAs so that the chains run on several
 // SMs.  Entry points <model>_tick_tail(x0, costs, stats, numer, lam, history,
 // coeffs, model_f, model_i, blocks, horizon, num_samples, window, actions,
-// states, ess, weights, history_out, stream), <model>_reroll(x0, seq,
+// states, ess, weights, history_out, key, key_out, stream), <model>_reroll(x0, seq,
 // model_f, model_i, horizon, out, stream) and <model>_top_rollouts(x0, prev,
 // noise, rows, bounds, model_f, model_i, seed, horizon, num_samples,
 // threshold, num_rows, out, stream), the model floats and ints as the rollout
@@ -42,10 +42,11 @@
       const float* x0, const float* costs, const float* stats, const float* numer,             \
       const float* lam, const float* history, const float* coeffs, const float* model_f,       \
       const int* model_i, int blocks, int horizon, int num_samples, int window, float* actions, \
-      float* states, float* ess, float* weights, float* history_out, void* stream) {           \
+      float* states, float* ess, float* weights, float* history_out, const uint32_t* key,      \
+      uint32_t* key_out, void* stream) {                                                       \
     const fused::Tail q{x0,      costs,       stats,   numer,   lam,     history,    coeffs,   \
                         blocks,  horizon,     num_samples, window, actions, states, ess,       \
-                        weights, history_out};                                                 \
+                        weights, history_out, key,  key_out};                                  \
     return fused::launch_tick_tail<Model>(q, Model::make_args(model_f, model_i, nullptr,       \
                                                               nullptr),                        \
                                           static_cast<cudaStream_t>(stream));                  \
@@ -53,14 +54,14 @@
   extern "C" int prefix##_top_rollouts(const float* x0, const float* prev, const float* noise, \
                                        const int64_t* rows, const float* bounds,              \
                                        const float* model_f, const int* model_i,              \
-                                       uint32_t seed, int horizon, int num_samples,           \
+                                       const uint32_t* seed, int horizon, int num_samples,    \
                                        int threshold, int num_rows, float* out,               \
                                        void* stream) {                                        \
     return fused::launch_regen_rollout<Model>(                                                 \
         fused::make_sampling<Model::kM>(prev, noise, bounds, seed, horizon, num_samples,       \
                                         threshold),                                            \
         rows, num_rows, x0, Model::make_args(model_f, model_i, nullptr, nullptr), nullptr,     \
-        out, static_cast<cudaStream_t>(stream));                                               \
+        out, nullptr, nullptr, static_cast<cudaStream_t>(stream));                             \
   }
 
 TAIL_ENTRY_POINTS(racing, racing::Model)

@@ -48,6 +48,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "device_math.cuh"
 #include "softmin_partials.cuh"
 
 namespace fused {
@@ -110,11 +111,15 @@ __global__ void __launch_bounds__(kRerollBlock)
 }
 
 // What the tail reads and writes.  history and history_out are [T-1, m],
-// coeffs [window] (null: no SG filter), weights [K] (null: not written).
+// coeffs [window] (null: no SG filter), weights [K] (null: not written);
+// key and key_out the solver's device key before and after the tick (null:
+// not moved on), which the tail, the last launch of a fused tick, advances.
 struct Tail {
   const float *x0, *costs, *stats, *numer, *lam, *history, *coeffs;
   int blocks, horizon, num_samples, window;
   float *actions, *states, *ess, *weights, *history_out;
+  const uint32_t* key;
+  uint32_t* key_out;
 };
 
 // Block-wide max or sum, valid in every thread: each warp folds its lanes by
@@ -189,6 +194,9 @@ __global__ void __launch_bounds__(kTailBlock)
   extern __shared__ float smem[];
   const int T = q.horizon, slots = kM * T, hist = kM * (T - 1);
   float acc = 0.0f, z, sumsq;
+  if (q.key_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    devmath::advance_key(q.key, q.key_out);
+  }
   const float mx = merged_max(q, s_red);
   if (blockIdx.x > 0) {  // the weights, a grid-stride share of them a CTA
     merged_sums<false>(q, slots, mx, s_alpha, s_red, &z, &sumsq, &acc);

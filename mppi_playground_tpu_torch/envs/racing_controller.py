@@ -18,9 +18,18 @@ Routes (``solver_backend``):
   the card and on the CPU alike.
 
 The solver closes over the env's maps, so :meth:`RacingController.update`
-rebuilds it when ``env.obstacle_map.version`` has moved.  ``run_episode``
-(N ticks in one dispatched program) is not part of this port yet: it comes
-with ``core/closed_loop.py`` as a CUDA graph of the ticks.
+and :meth:`RacingController.run_episode` rebuild it when
+``env.obstacle_map.version`` has moved, where the JAX controller re-jits.
+
+On the card a seeded ``update`` replays a CUDA graph of the tick (the
+reference rows and the solve, ``core/closed_loop.ReplayedTick``, which
+holds the state and the path index across ticks): the first seeded update,
+and the first after a rebuild, runs eagerly and captures; the later ones
+replay, and :attr:`solver_state` and :attr:`current_path_index` read
+copies.  ``update`` with ``noise``, and every tick on the CPU, runs
+eagerly.  ``run_episode`` runs N ticks
+through ``core/closed_loop.make_closed_loop``: one replayed graph of the
+tick body on the card.
 """
 
 from __future__ import annotations
@@ -30,7 +39,12 @@ from typing import Optional, Tuple
 import torch
 
 from mppi_playground_tpu_torch.core import diagnostics
-from mppi_playground_tpu_torch.core.config import MPPIConfig
+from mppi_playground_tpu_torch.core.closed_loop import (
+    ReplayedTick,
+    RunnerCache,
+    make_closed_loop,
+)
+from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState
 from mppi_playground_tpu_torch.core.fused_solver import fused_envelope, make_fused_solver
 from mppi_playground_tpu_torch.core.solver import make_solver, warm_reset
 from mppi_playground_tpu_torch.models.racing_mpcc import (
@@ -87,15 +101,14 @@ class RacingController:
             reference_path_interval=reference_path_interval,
             v_max=float(env.V_MAX),
         )
+        self._ticks: Optional[ReplayedTick] = None
         self._build_solver()
-        self.solver_state = self._solver.init()
-        self.current_path_index = torch.zeros((), dtype=torch.int64, device=self.device)
-        self.reference_path: Optional[torch.Tensor] = None
+        self._xref: Optional[torch.Tensor] = None
         self._last_aux = None
         self._last_noise = None
 
     def _build_solver(self) -> None:
-        """(Re)build the solver over the env's maps as they are now."""
+        """(Re)build the solver over the env's maps as they are now; a new graph follows."""
         env = self.env
         if self.solver_backend == "fused":
             task = make_racing_fused_task_from_env(env)
@@ -103,35 +116,109 @@ class RacingController:
         else:
             cost_fn = make_mpcc_cost(env.obstacle_cost_map, env.lane_cost_map)
             self._solver = make_solver(self.config, env.dynamics, cost_fn, device=self.device)
+        if self._ticks is None:
+            state = self._solver.init()
+            cind = torch.zeros((), dtype=torch.int64, device=self.device)
+        else:  # the state and the path index carry over; the graph goes
+            state, cind = self._ticks.state, self._ticks.carry
+        self._ticks = ReplayedTick(self._tick, state, cind)
+        self._episode_runners = RunnerCache()  # they close over the previous solver
         self._map_version = env.obstacle_map.version
+
+    def _refresh_if_maps_changed(self) -> None:
+        if self.env.obstacle_map.version != self._map_version:
+            self._build_solver()
+
+    @property
+    def solver_state(self) -> MPPIState:
+        """The warm-start state carried across ticks (a copy while the graph holds it)."""
+        return self._ticks.state
+
+    @solver_state.setter
+    def solver_state(self, value: MPPIState) -> None:
+        self._ticks.state = value
+
+    @property
+    def current_path_index(self) -> torch.Tensor:
+        """The monotone progress index along the center path, a 0-dim int64 tensor."""
+        return self._ticks.carry
+
+    @current_path_index.setter
+    def current_path_index(self, value: torch.Tensor) -> None:
+        self._ticks.carry = torch.as_tensor(value, dtype=torch.int64, device=self.device)
+
+    @property
+    def reference_path(self) -> Optional[torch.Tensor]:
+        """The last tick's reference ``[T+1, 4]``, or None."""
+        return self._xref
 
     def reset(self) -> None:
         """Zero the warm start and the path index; the adapted lambda persists."""
         self.solver_state = warm_reset(self._solver, self.solver_state)
-        self.current_path_index = torch.zeros((), dtype=torch.int64, device=self.device)
-        self.reference_path = None
+        self.current_path_index = 0
+        self._xref = None
         self._last_aux = None
         self._last_noise = None
+
+    def _tick(self, state: MPPIState, x: torch.Tensor, cind: torch.Tensor, noise=None):
+        """The reference rows and the solve: ``(result, new_cind, xref)``."""
+        xref, new_cind = calc_ref_trajectory(
+            x, self.env.racing_center_path, cind, self.config.horizon, **self._ref_args
+        )
+        result = self._solver.solve(state, x, info={"reference_path": xref}, noise=noise)
+        return result, new_cind, xref
 
     def update(
         self, state: torch.Tensor, noise: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One control tick -> ``(action_seq [T, 2], state_seq [T+1, 4])``."""
-        if self.env.obstacle_map.version != self._map_version:
-            self._build_solver()
+        self._refresh_if_maps_changed()
         x = torch.as_tensor(state, dtype=self.config.dtype, device=self.device)
-        xref, self.current_path_index = calc_ref_trajectory(
-            x, self.env.racing_center_path, self.current_path_index, self.config.horizon,
-            **self._ref_args,
-        )
-        result = self._solver.solve(
-            self.solver_state, x, info={"reference_path": xref}, noise=noise
-        )
-        self.reference_path = xref
-        self.solver_state = result.state
-        self._last_aux = result.aux
+        action_seq, state_seq, self._last_aux, self._xref = self._ticks.step(
+            x, graph=noise is None, noise=noise)
         self._last_noise = noise
-        return result.action_seq, result.state_seq
+        return action_seq, state_seq
+
+    def run_episode(self, state: torch.Tensor, num_ticks: int, done_fn=None):
+        """``num_ticks`` control ticks as one closed loop (``core/closed_loop``).
+
+        The whole [reference rows -> solve -> apply the first action ->
+        ``env.dynamics``] loop, on the card one CUDA graph of the tick
+        replayed ``num_ticks`` times.  Moves the warm start and the path index
+        on like ``num_ticks`` calls to :meth:`update`.  Returns ``(xs
+        [num_ticks+1, 4], us [num_ticks, 2])``, ``xs[t]`` the state ``us[t]``
+        was solved at and ``xs[-1]`` the final post-step state; with
+        ``done_fn (x [4]) -> bool`` the episode freezes once it fires and a
+        third element ``episode`` (``done``, ``ticks``) is returned.  Pass a
+        stable callable: runners are cached per ``(num_ticks, done_fn)``
+        identity.
+        """
+        self._refresh_if_maps_changed()
+
+        def build():
+            env = self.env
+
+            def info_fn(cind, x):
+                xref, new_cind = calc_ref_trajectory(
+                    x, env.racing_center_path, cind, self.config.horizon, **self._ref_args
+                )
+                return {"reference_path": xref}, new_cind
+
+            return make_closed_loop(self._solver, lambda x, u: env.dynamics(x[None], u[None])[0],
+                                    num_ticks, info_fn=info_fn, done_fn=done_fn)
+
+        run = self._episode_runners.get_or_build((num_ticks, id(done_fn)), build)
+        x0 = torch.as_tensor(state, dtype=self.config.dtype, device=self.device)
+        out = run(self.solver_state, x0, self.current_path_index)
+        st, xf, xs, us, cind = out[:5]
+        self.solver_state, self.current_path_index, self._xref = st, cind, None
+        # per-solve diagnostics and the reference are stale after an episode
+        self._last_aux = None
+        self._last_noise = None
+        xs = torch.cat([xs, xf[None]])
+        if done_fn is not None:
+            return xs, us, out[5]
+        return xs, us
 
     def get_top_samples(self, num_samples: int = 300) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-weighted rollouts of the last tick ``[n, T+1, 4]`` and their weights, descending."""

@@ -128,3 +128,14 @@ def launch(name: str, symbol: str, argtypes: list, device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+
+
+def launched() -> int:
+    """What a launch just made on the current stream adds to its wrapper's count.
+
+    1 where the kernel runs; 0 while a CUDA graph is being captured, which
+    records the launch and runs nothing.  A graph's replays run its kernels
+    without any wrapper: their launches are seen on the device (a profiler's
+    kernel trace), not in the counts.
+    """
+    return 0 if torch.cuda.is_current_stream_capturing() else 1

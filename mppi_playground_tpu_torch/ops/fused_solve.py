@@ -38,7 +38,8 @@ a :class:`FusedTask`; the kernels are templated on a model plug
   nominal re-roll alone.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in its
-``launches`` counter under the kernel's name, and raises on what the kernel
+``launches`` counter under the kernel's name (a launch a CUDA graph captures
+is not counted: ``cuda_build.launched``), and raises on what the kernel
 does not take.  For CPU tensors it runs the plain PyTorch twin beside it
 (``*_plain``), which does the kernel's arithmetic operation for operation
 through the task's own ``dynamics_soa`` and ``stage_cost_soa``.  The twins
@@ -52,6 +53,13 @@ keyed on (seed, k) with counter (f div 4, 0, 0, 0), and Box–Muller on 24
 bits of each word: the draws do not depend on the launch geometry.  The
 TPU's hardware bits cannot be replayed, so the seeded stream is checked by
 its statistics.
+
+The seed is a word in device memory that each CTA of a drawing kernel loads
+once: a solver passes its key's seed word (``core/config.make_key``, a view
+``key[2:]``), so that a CUDA graph of the tick replays a new stream at every
+replay; a host integer is filled into a one-word tensor first.  The tail and the
+regeneration kernel take the key and a ``key_out`` besides: CTA 0 writes the
+next tick's key there.
 """
 
 from __future__ import annotations
@@ -202,20 +210,28 @@ def normal_pair_from_bits(b1: torch.Tensor, b2: torch.Tensor):
     return r * cos_t, r * sin_t
 
 
-def seeded_normals(seed: int, num_samples: int, horizon: int, device,
+def seed_word(seed):
+    """The seed as Philox's first key word: a host int, or an int64 0-dim tensor of a seed tensor."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _MASK32
+    return int(seed) & _MASK32
+
+
+def seeded_normals(seed, num_samples: int, horizon: int, device,
                    dim_control: int = 2) -> torch.Tensor:
     """``[K, T, m]`` standard normals of the kernels' seeded stream.
 
     Slot ``f = t*m + j`` of sample k is normal ``f mod 4`` of the Philox
     block with counter ``f div 4`` and key ``(seed, k)``; for m=2 an even
-    step takes words (x, y), an odd one (z, w).
+    step takes words (x, y), an odd one (z, w).  ``seed`` is a host int or
+    a one-element int32 tensor (a key's seed word), read on the device.
     """
     slots = horizon * dim_control
     quads = -(-slots // 4)
     k = torch.arange(num_samples, dtype=torch.int64, device=device)[:, None]
     q = torch.arange(quads, dtype=torch.int64, device=device)[None, :].expand(num_samples, quads)
     zero = torch.zeros_like(q)
-    w0, w1, w2, w3 = philox4x32_10((q, zero, zero, zero), int(seed) & _MASK32, k)
+    w0, w1, w2, w3 = philox4x32_10((q, zero, zero, zero), seed_word(seed), k)
     a0, a1 = normal_pair_from_bits(w0, w1)
     b0, b1 = normal_pair_from_bits(w2, w3)
     z = torch.stack([a0, a1, b0, b1], dim=-1).reshape(num_samples, 4 * quads)
@@ -466,6 +482,45 @@ def _ints(values) -> ctypes.Array:
     return (ctypes.c_int * max(1, len(values)))(*values)
 
 
+def _seed_tensor(seed, device) -> torch.Tensor:
+    """The kernels' seed word ``[1]`` int32 on ``device``: a host int filled in, a tensor checked.
+
+    A fill copies nothing from the host, so a CUDA graph can capture it (as a
+    constant: every replay draws that one stream).
+    """
+    if not isinstance(seed, torch.Tensor):
+        word = int(seed) & _MASK32
+        return torch.full((1,), word - (1 << 32) if word >= 1 << 31 else word,
+                          dtype=torch.int32, device=device)
+    if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != device:
+        raise ValueError(f"a seed tensor is one int32 word on {device}, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    return seed.reshape(1)
+
+
+def _key_pair(key, key_out, device):
+    """Check a solver key ``[3]`` and the ``key_out`` the kernel writes -> their pointers."""
+    if (key is None) != (key_out is None):
+        raise ValueError("key and key_out come together")
+    if key is None:
+        return None, None
+    _check("key", key, (3,), torch.int32, device)
+    _check("key_out", key_out, (3,), torch.int32, device)
+    if key_out.data_ptr() == key.data_ptr():
+        raise ValueError("key_out must not alias key: other CTAs read the key's seed word")
+    return key.data_ptr(), key_out.data_ptr()
+
+
+def _advance_plain(key, key_out) -> None:
+    """The kernels' key advance on the twins' side: ``key_out`` <- the next tick's key."""
+    if (key is None) != (key_out is None):
+        raise ValueError("key and key_out come together")
+    if key is not None:
+        from mppi_playground_tpu_torch.core.config import advance_key_plain
+
+        key_out.copy_(advance_key_plain(key))
+
+
 def _check_sampling(prev, num_samples, sigmas, u_min, u_max):
     horizon, m = prev.shape if prev.dim() == 2 else (0, 0)
     if prev.dim() != 2 or not 1 <= horizon or horizon * m > MAX_SLOTS or m not in REGEN_WIDTHS:
@@ -492,7 +547,8 @@ def _rollout_args(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max, num_samp
     ``args`` are the leading arguments the rollout entry points of
     ``csrc/fused_solve.cuh`` share (``lam`` None: a null pointer, for phase
     1, which reads none); ``keep`` holds what must live until the launch
-    returns (the noise in the kernels' layout, the host arrays).
+    returns (the noise in the kernels' layout, the seed word, the host
+    arrays).
     """
     dev = x0.device
     n, m = task.dim_state, task.dim_control
@@ -524,15 +580,16 @@ def _rollout_args(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max, num_samp
         noise = _slot_major(noise, num_samples, horizon, m)
         noise_ptr = noise.data_ptr()
     model_f, model_i = _floats(task.floats), _ints(task.ints)
+    seed = _seed_tensor(seed, dev)
     args = (
         x0.data_ptr(), prev.data_ptr(), None if lam is None else lam.data_ptr(),
         ref.data_ptr() if width else None, *grid_ptrs, noise_ptr, bounds, model_f, model_i,
-        int(seed) & _MASK32, horizon, num_samples, max(0, min(threshold, num_samples)),
+        seed.data_ptr(), horizon, num_samples, max(0, min(threshold, num_samples)),
     )
-    return args, (noise, bounds, model_f, model_i)
+    return args, (noise, seed, bounds, model_f, model_i)
 
 
-_ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_uint32] + [ctypes.c_int] * 3
+_ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
 _SOLVE_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 4
 _DUMP_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 3
 _DUMP_LAMBDA_ARGTYPES = (_ROLLOUT_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3
@@ -543,7 +600,7 @@ def fused_solve(
     x0: torch.Tensor,
     prev: torch.Tensor,
     lam: torch.Tensor,
-    seed: int,
+    seed,
     ref: Optional[torch.Tensor],
     task: FusedTask,
     sigmas: Sequence[float],
@@ -557,7 +614,8 @@ def fused_solve(
 
     ``x0 [n]``, ``prev [T, m]``, ``lam`` (one element), all float32 on one
     device; ``ref`` the racing model's ``[T+1, 5]`` reference rows ``(x, y,
-    sin, cos, v)`` (None for the other models); ``seed`` a host integer;
+    sin, cos, v)`` (None for the other models); ``seed`` a host integer or
+    a one-element int32 tensor on the device (a key's seed word);
     ``noise`` optional ``[K, T, m]`` already scaled by sigma.  ``B =
     ceil(K / 256)``.  CPU tensors take :func:`fused_solve_plain`.
     """
@@ -574,7 +632,7 @@ def fused_solve(
     name = f"{task.model}_fused_solve"
     cuda_build.launch(f"fused_{task.model}", name, _SOLVE_ARGTYPES, dev, *args,
                       costs.data_ptr(), stats.data_ptr(), numer.data_ptr())
-    fused_solve.launches[name] += 1
+    fused_solve.launches[name] += cuda_build.launched()
     return costs, stats, numer
 
 
@@ -584,7 +642,7 @@ fused_solve.launches = collections.Counter()
 def fused_costs_dump(
     x0: torch.Tensor,
     prev: torch.Tensor,
-    seed: int,
+    seed,
     ref: Optional[torch.Tensor],
     task: FusedTask,
     sigmas: Sequence[float],
@@ -611,7 +669,7 @@ def fused_costs_dump(
     name = f"{task.model}_costs_dump"
     cuda_build.launch(f"fused_{task.model}", name, _DUMP_ARGTYPES, dev, *args,
                       costs.data_ptr(), dump.data_ptr())
-    fused_costs_dump.launches[name] += 1
+    fused_costs_dump.launches[name] += cuda_build.launched()
     return costs, dump
 
 
@@ -621,7 +679,7 @@ fused_costs_dump.launches = collections.Counter()
 def fused_costs_dump_lambda(
     x0: torch.Tensor,
     prev: torch.Tensor,
-    seed: int,
+    seed,
     ref: Optional[torch.Tensor],
     task: FusedTask,
     sigmas: Sequence[float],
@@ -660,7 +718,7 @@ def fused_costs_dump_lambda(
         ctypes.c_float(search.lambda_max), ctypes.c_float(search.kernel_param),
         int(search.iters), ticket.data_ptr(), costs.data_ptr(), dump.data_ptr(), lam.data_ptr(),
     )
-    fused_costs_dump_lambda.launches[name] += 1
+    fused_costs_dump_lambda.launches[name] += cuda_build.launched()
     return costs, dump, lam
 
 
@@ -699,19 +757,18 @@ def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
     cuda_build.launch("fused_solve", "fused_weighted", _WEIGHTED_ARGTYPES, dev,
                       costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots,
                       num_samples, stats.data_ptr(), numer.data_ptr())
-    fused_weighted.launches["fused_weighted"] += 1
+    fused_weighted.launches["fused_weighted"] += cuda_build.launched()
     return stats, numer
 
 
 fused_weighted.launches = collections.Counter()
 
-_REGEN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 2)
+_REGEN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
 
 
 def fused_regen(
     prev: torch.Tensor,
-    seed: int,
+    seed,
     rows: torch.Tensor,
     sigmas: Sequence[float],
     u_min: Sequence[float],
@@ -719,17 +776,24 @@ def fused_regen(
     num_samples: int,
     threshold: int,
     noise: Optional[torch.Tensor] = None,
+    key: Optional[torch.Tensor] = None,
+    key_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Replay a solve's clamped perturbations at ``rows`` -> ``[n, T, m]``.
 
     ``prev [T, m]`` is the warm start the solve sampled around and ``seed``
-    its host kernel seed; ``noise`` the ``[K, T, m]`` noise it was given,
-    if any.  ``rows [n]`` (int64, each in ``[0, K)``) picks the samples;
-    row ``i`` of the result is sample ``rows[i]``'s perturbation, bit for
-    bit the one the solve drew (and phase 1 dumped).  The kernel depends on
-    the model only through m.  CPU tensors take :func:`fused_regen_plain`.
+    its kernel seed (a host int or a one-element int32 tensor on the
+    device); ``noise`` the ``[K, T, m]`` noise it was given, if any.
+    ``rows [n]`` (int64, each in ``[0, K)``) picks the samples; row ``i`` of
+    the result is sample ``rows[i]``'s perturbation, bit for bit the one the
+    solve drew (and phase 1 dumped).  The kernel depends on the model only
+    through m.  With a solver's ``key`` ``[3]`` and ``key_out`` (int32, not
+    aliased), the launch also writes the next tick's key to ``key_out``: the
+    unfused solver draws all K rows so, one launch a tick.  CPU tensors take
+    :func:`fused_regen_plain` (and the key's twin).
     """
     if not _on_card("fused_regen", prev):
+        _advance_plain(key, key_out)
         return fused_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples,
                                  threshold, noise)
     dev = prev.device
@@ -737,33 +801,34 @@ def fused_regen(
     horizon, m = prev.shape
     num_rows = rows.shape[0]
     _check("rows", rows, (num_rows,), torch.int64, dev)
+    key_ptr, key_out_ptr = _key_pair(key, key_out, dev)
     out = torch.empty(num_rows, horizon, m, dtype=torch.float32, device=dev)
-    if num_rows == 0:
+    if num_rows == 0 and key is None:
         return out
     noise_ptr = None
     if noise is not None:
         noise = _slot_major(noise, num_samples, horizon, m)
         noise_ptr = noise.data_ptr()
+    seed = _seed_tensor(seed, dev)
     name = f"fused_regen_m{m}"
     cuda_build.launch(
         "fused_solve", name, _REGEN_ARGTYPES, dev, prev.data_ptr(), noise_ptr,
-        rows.data_ptr(), bounds, int(seed) & _MASK32, horizon, num_samples,
-        max(0, min(threshold, num_samples)), num_rows, out.data_ptr(),
+        rows.data_ptr(), bounds, seed.data_ptr(), horizon, num_samples,
+        max(0, min(threshold, num_samples)), num_rows, out.data_ptr(), key_ptr, key_out_ptr,
     )
-    fused_regen.launches[name] += 1
+    fused_regen.launches[name] += cuda_build.launched()
     return out
 
 
 fused_regen.launches = collections.Counter()
 
-_TOP_ROLLOUTS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_uint32] + [ctypes.c_int] * 4
-                          + [ctypes.c_void_p] * 2)
+_TOP_ROLLOUTS_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
 
 
 def fused_top_rollouts(
     x0: torch.Tensor,
     prev: torch.Tensor,
-    seed: int,
+    seed,
     rows: torch.Tensor,
     task: FusedTask,
     sigmas: Sequence[float],
@@ -776,7 +841,8 @@ def fused_top_rollouts(
     """Regenerate a solve's samples at ``rows`` and roll them out -> ``[n, T+1, n_x]``.
 
     ``x0 [n_x]`` and ``prev [T, m]`` are the state and warm start the solve
-    sampled from, ``seed`` its host kernel seed, ``noise`` the ``[K, T, m]``
+    sampled from, ``seed`` its kernel seed (a host int or a one-element int32
+    tensor on the device), ``noise`` the ``[K, T, m]``
     noise it was given, if any; ``rows [n]`` (int64) picks the samples.  Row
     ``i`` is sample ``rows[i]``'s trajectory from ``x0`` under the
     perturbation the solve drew (:func:`fused_regen`'s row, bit for bit),
@@ -804,13 +870,14 @@ def fused_top_rollouts(
         noise = _slot_major(noise, num_samples, horizon, m)
         noise_ptr = noise.data_ptr()
     model_f, model_i = _floats(task.floats), _ints(task.ints)
+    seed = _seed_tensor(seed, dev)
     name = f"{task.model}_top_rollouts"
     cuda_build.launch(
         "reroll", name, _TOP_ROLLOUTS_ARGTYPES, dev, x0.data_ptr(), prev.data_ptr(), noise_ptr,
-        rows.data_ptr(), bounds, model_f, model_i, int(seed) & _MASK32, horizon, num_samples,
+        rows.data_ptr(), bounds, model_f, model_i, seed.data_ptr(), horizon, num_samples,
         max(0, min(threshold, num_samples)), num_rows, out.data_ptr(),
     )
-    fused_top_rollouts.launches[name] += 1
+    fused_top_rollouts.launches[name] += cuda_build.launched()
     return out
 
 
@@ -833,13 +900,13 @@ def fused_reroll(x0: torch.Tensor, action_seq: torch.Tensor, task: FusedTask) ->
     name = f"{task.model}_reroll"
     cuda_build.launch("reroll", name, _REROLL_ARGTYPES, dev, x0.data_ptr(),
                       action_seq.data_ptr(), model_f, model_i, horizon, out.data_ptr())
-    fused_reroll.launches[name] += 1
+    fused_reroll.launches[name] += cuda_build.launched()
     return out
 
 
 fused_reroll.launches = collections.Counter()
 
-_TAIL_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+_TAIL_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
 
 
 def fused_tick_tail(
@@ -851,6 +918,8 @@ def fused_tick_tail(
     task: FusedTask,
     sg_history: torch.Tensor,
     sg_coeffs: Optional[torch.Tensor] = None,
+    key: Optional[torch.Tensor] = None,
+    key_out: Optional[torch.Tensor] = None,
 ):
     """The tick's tail in one launch -> ``(action_seq [T, m], state_seq [T+1, n], weights [K],
     ess, sg_history [T-1, m])``.
@@ -862,10 +931,14 @@ def fused_tick_tail(
     filter's history, ``sg_coeffs [w]`` its window (None: no filter).  The
     action sequence is the merged update, filtered where ``sg_coeffs`` is
     given; ``sg_history`` comes back shifted by its first action, as
-    ``core/solver.smooth_predict_advance`` shifts it; ``ess`` is 0-dim.  CPU
-    tensors take :func:`fused_tick_tail_plain`.
+    ``core/solver.smooth_predict_advance`` shifts it; ``ess`` is 0-dim.  With
+    a solver's ``key`` ``[3]`` and ``key_out`` (int32, not aliased), the
+    launch also writes the next tick's key to ``key_out``, so that a fused
+    tick moves its key on without a launch of its own.  CPU tensors take
+    :func:`fused_tick_tail_plain` (and the key's twin).
     """
     if not _on_card("fused_tick_tail", x0):
+        _advance_plain(key, key_out)
         return fused_tick_tail_plain(x0, costs, stats, numer, lam, task, sg_history, sg_coeffs)
     dev = x0.device
     n, m = task.dim_state, task.dim_control
@@ -899,6 +972,7 @@ def fused_tick_tail(
     ess = torch.empty(1, dtype=f32, device=dev)
     w = torch.empty(num_samples, dtype=f32, device=dev)
     history = torch.empty(horizon - 1, m, dtype=f32, device=dev)
+    key_ptr, key_out_ptr = _key_pair(key, key_out, dev)
     model_f, model_i = _floats(task.floats), _ints(task.ints)
     name = f"{task.model}_tick_tail"
     cuda_build.launch(
@@ -906,9 +980,9 @@ def fused_tick_tail(
         numer.data_ptr(), lam.data_ptr(), sg_history.data_ptr(),
         None if sg_coeffs is None else sg_coeffs.data_ptr(), model_f, model_i, blocks, horizon,
         num_samples, window, action_seq.data_ptr(), states.data_ptr(), ess.data_ptr(),
-        w.data_ptr(), history.data_ptr(),
+        w.data_ptr(), history.data_ptr(), key_ptr, key_out_ptr,
     )
-    fused_tick_tail.launches[name] += 1
+    fused_tick_tail.launches[name] += cuda_build.launched()
     return action_seq, states, w, ess.reshape(()), history
 
 

@@ -19,10 +19,11 @@ is :meth:`LambdaSearch.plain`.
 
 These differ from the loops of ``core/autolambda.py`` only in rounding: the
 same searches on another form of the same sums.  Each wrapper launches its
-kernel for CUDA tensors, counts the launch in its ``launches`` attribute,
-and raises on what the kernel does not take.  For CPU tensors it runs the
-plain twin beside it (``*_plain``), which does the kernel's arithmetic
-operation for operation, its sums included (:func:`kernel_order_sum`): the
+kernel for CUDA tensors, counts the launch in its ``launches`` attribute
+(not while a CUDA graph captures it: ``cuda_build.launched``), and raises
+on what the kernel does not take.  For CPU tensors it runs the plain twin
+beside it (``*_plain``), which does the kernel's arithmetic operation for
+operation, its sums included (:func:`kernel_order_sum`): the
 LBPS objective is so flat near its minimum that two summation orders can
 stop golden section ~0.1% apart.  The result is a 0-dim tensor on the
 costs' device; nothing is read back to the host.
@@ -235,7 +236,7 @@ def essps_lambda_fused(
     if not _check_costs("essps_lambda_fused", costs, iters):
         return essps_lambda_plain(costs, target_ess, lambda_min, lambda_max, iters)
     lam = _launch("essps_search", costs, lambda_min, lambda_max, target_ess, iters)
-    essps_lambda_fused.launches += 1
+    essps_lambda_fused.launches += cuda_build.launched()
     return lam
 
 
@@ -249,7 +250,7 @@ def lbps_lambda_fused(
     if not _check_costs("lbps_lambda_fused", costs, iters):
         return lbps_lambda_plain(costs, delta, lambda_min, lambda_max, iters)
     lam = _launch("lbps_search", costs, lambda_min, lambda_max, (1.0 - delta) / delta, iters)
-    lbps_lambda_fused.launches += 1
+    lbps_lambda_fused.launches += cuda_build.launched()
     return lam
 
 

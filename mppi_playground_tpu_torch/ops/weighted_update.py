@@ -12,7 +12,8 @@ weights[k] * samples[k]`` and the effective sample size ``1 / sum(w^2)``.
   sample``, streamed with neighbouring threads on neighbouring columns.  Its
   statistics are the code the fused solve and auto-lambda phase 2 share
   (``csrc/softmin_partials.cuh``).  It launches its kernel for CUDA
-  tensors, counts the launch in its ``launches`` attribute, and raises on
+  tensors, counts the launch in its ``launches`` attribute (not while a
+  CUDA graph captures it), and raises on
   what the kernel does not take; CPU tensors take
   :func:`block_partials_plain`, the twin of every kernel's block partials.
 * :func:`combine_partials` merges block partials into ``(update, weights,
@@ -125,7 +126,7 @@ def weighted_update_partials(costs: torch.Tensor, samples: torch.Tensor, lam: to
     cuda_build.launch("weighted_update", "weighted_update", _ARGTYPES, dev,
                       costs.data_ptr(), samples.data_ptr(), lam.data_ptr(), slots, num_samples,
                       stats.data_ptr(), numer.data_ptr())
-    weighted_update_partials.launches += 1
+    weighted_update_partials.launches += cuda_build.launched()
     return stats, numer
 
 

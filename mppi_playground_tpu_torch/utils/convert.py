@@ -16,7 +16,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from mppi_playground_tpu_torch.core.config import AdamState, MPPIState
+from mppi_playground_tpu_torch.core.config import AdamState, MPPIState, make_key
 from mppi_playground_tpu_torch.maps.grid_cost import GridMapData
 from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
 from mppi_playground_tpu_torch.utils.device import resolve_device
@@ -38,7 +38,9 @@ def mppi_state(
     """An :class:`MPPIState` from the JAX state's arrays (its key is not carried).
 
     ``mpo_opt_state`` is ``(count, mu, nu)`` of the JAX state's Adam state
-    (``state.mpo_opt_state[0]``), or ``None`` outside MPO mode.
+    (``state.mpo_opt_state[0]``), or ``None`` outside MPO mode.  ``seed``
+    and ``tick`` name the port's noise stream; its device key is made from
+    them.
     """
     device = resolve_device(device)
 
@@ -58,6 +60,7 @@ def mppi_state(
         tick=int(tick),
         mpo_log_temperature=tensor(mpo_log_temperature).reshape(()),
         mpo_opt_state=opt_state,
+        key=make_key(seed, tick, device),
     )
 
 

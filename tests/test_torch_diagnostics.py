@@ -214,7 +214,9 @@ def test_seeded_regen_equals_phase1_dump(env, exploration):
 def test_top_samples_errors(env):
     noise = torch.from_numpy(_noise(3))
     fused, rf, ru, _ = _port_solves(env, 1.0, noise)
-    assert rf.aux.noise_injected is True and isinstance(rf.aux.seed, int)
+    # the tick's seed word, a device tensor that top_samples replays from
+    assert rf.aux.noise_injected is True and rf.aux.seed.dtype == torch.int32
+    assert rf.aux.seed.shape == (1,)
     assert ru.aux.seed is None and ru.aux.noise_injected is None
     with pytest.raises(ValueError, match="injected noise"):
         fused.top_samples(rf.aux, 5)
