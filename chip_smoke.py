@@ -100,7 +100,29 @@ Phases, each of which fails the run if it fails:
     routes with the racing example's goal ``done_fn`` and ``MPPI.run_episode``
     (Navigation2D to its goal, the pendulum upright after 200 ticks) bit
     for bit as many ``update``/``forward`` calls; ``PipelinedRunner`` at
-    depth 1 and 2 bit for bit ``make_pipelined_closed_loop``.
+    depth 1 and 2 bit for bit ``make_pipelined_closed_loop``;
+13. the fleet (:func:`drive_fleets`): the racing fleet of
+    ``benchmarks/fleet.py`` (T=25, K=4,096, σ=(0.5, 0.1), λ=1, the plant
+    ``RacingEnv.dynamics``, the scenarios staggered along the path, each
+    one's reference rows from ``calc_ref_trajectory_batch``) at B=8, 32 and
+    128 for 50 ticks through ``make_batched_fused_solver`` and
+    ``make_fleet_closed_loop``, each bit for bit its B independent
+    ``make_closed_loop`` episodes (xs, us, final states and keys), its
+    replays counted in the device trace (each batched kernel once a tick,
+    not B times) with any host sync an error, and timed (solves/s, amortized
+    tick, capture, device-busy share) in turns with the same scenarios as B
+    single solves a tick in one graph (``scenario_by_scenario``, the JAX
+    package's ``lax.map`` form); the MPO, ESSPS and LBPS fleets at B=32 and
+    every other family's fleet (fixed λ and ESSPS, B=8, 10 ticks) the same
+    way; the batched launches (rows 1, 2, 3, 5, 7 and 8 for racing at
+    B=128; rows 1, 2 and 3 of every other family at B=8) bit for bit their
+    single launches in both noise modes and at their twins' bars, timed by
+    graph replay in turns with their B single launches beside the batched
+    launch's bound (the shared grids read once), each kernel's row of the
+    kernels line holding its batched launch as ``batched``; and the utils on the flagship: ``checked_solve`` raising
+    the JAX message after a plant that turns the state into NaN,
+    ``time_fn`` beside :func:`graph_ms`, and an episode saved after 25
+    ticks, restored and run on bit for bit the uninterrupted one.
 
 Every kernel is timed as the device time of launches replayed in a CUDA
 graph (:func:`graph_ms`; the event loop beside it).  It prints each TPU
@@ -240,26 +262,31 @@ def _per_step(ops: ModelOps, seeded: bool) -> int:
     return ops.m * per_slot + ops.cost + ops.step
 
 
-def _rollout_in_bytes(ops: ModelOps, num_samples, horizon, seeded, grid_bytes) -> int:
-    in_bytes = 4 * (ops.n + ops.m * horizon + ops.ref * (horizon + 1)) + grid_bytes
-    return in_bytes + (0 if seeded else 4 * num_samples * horizon * ops.m)
+def _rollout_in_bytes(ops: ModelOps, num_samples, horizon, seeded, grid_bytes,
+                      batch: int = 1) -> int:
+    """Bytes a rollout launch of ``batch`` scenarios reads: each scenario's start, warm start,
+    reference rows (and noise), and the grids once, which all scenarios share."""
+    per_scenario = 4 * (ops.n + ops.m * horizon + ops.ref * (horizon + 1))
+    per_scenario += 0 if seeded else 4 * num_samples * horizon * ops.m
+    return batch * per_scenario + grid_bytes
 
 
 def solve_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int,
-                   ops: ModelOps = RACING) -> tuple:
-    """Least time of one fused solve: (ms, 'bytes' | 'operations').
+                   ops: ModelOps = RACING, batch: int = 1) -> tuple:
+    """Least time of one fused solve of ``batch`` scenarios: (ms, 'bytes' | 'operations').
 
-    Bytes: each input read once, each output written once.  Operations: the
-    rollout with its costs, the draws, and e * pert summed into the
-    numerator, once per sample (the kernel regenerates the perturbations a
-    second time; that is its design, not the function's work).
+    Bytes: each input read once (the shared grids once for all scenarios),
+    each output written once.  Operations: the rollout with its costs, the
+    draws, and e * pert summed into the numerator, once per sample (the
+    kernel regenerates the perturbations a second time; that is its design,
+    not the function's work).
     """
     blocks = -(-num_samples // 256)
     slots = ops.m * horizon
-    in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes) + 4
-    out_bytes = 4 * (num_samples + 3 * blocks + slots * blocks)
+    in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes, batch) + 4 * batch
+    out_bytes = 4 * batch * (num_samples + 3 * blocks + slots * blocks)
     per_sample = horizon * _per_step(ops, seeded) + ops.cost + 4 + 2 * slots
-    return _bound(in_bytes, out_bytes, num_samples * per_sample)
+    return _bound(in_bytes, out_bytes, batch * num_samples * per_sample)
 
 
 def _bound(in_bytes: float, out_bytes: float, ops: float) -> tuple:
@@ -269,15 +296,16 @@ def _bound(in_bytes: float, out_bytes: float, ops: float) -> tuple:
 
 
 def phase1_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int,
-                    ops: ModelOps = RACING, search_ops: float = 0.0) -> tuple:
-    """Least time of auto-lambda phase 1: the rollout and costs, and the dump written.
+                    ops: ModelOps = RACING, search_ops: float = 0.0, batch: int = 1) -> tuple:
+    """Least time of auto-lambda phase 1 of ``batch`` scenarios: the rollout and costs, and the
+    dump written.
 
     ``search_ops`` adds a lambda search's operations (and its one output
-    float) for the lambda epilogue.
+    float) for the lambda epilogue, which takes one scenario.
     """
-    in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes)
-    out_bytes = 4 * num_samples * (1 + ops.m * horizon) + (4 if search_ops else 0)
-    rollout = num_samples * (horizon * _per_step(ops, seeded) + ops.cost)
+    in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes, batch)
+    out_bytes = 4 * batch * num_samples * (1 + ops.m * horizon) + (4 if search_ops else 0)
+    rollout = batch * num_samples * (horizon * _per_step(ops, seeded) + ops.cost)
     return _bound(in_bytes, out_bytes, rollout + search_ops)
 
 
@@ -547,8 +575,8 @@ def launch_counters() -> dict:
     for wrapper in fused_solve.WRAPPERS:
         for name in fused_solve.kernel_names(wrapper):
             counted[name] = (wrapper, name)
-    counted["essps_lambda_fused"] = (lambda_search.essps_lambda_fused, None)
-    counted["lbps_lambda_fused"] = (lambda_search.lbps_lambda_fused, None)
+    for search in (lambda_search.essps_lambda_fused, lambda_search.lbps_lambda_fused):
+        counted[search.__name__] = (search, None)
     counted["weighted_update_partials"] = (weighted_update.weighted_update_partials, None)
     return counted
 
@@ -1473,15 +1501,17 @@ def model_inputs(torch, np, name, num_samples=None):
     return w, prev, noise, bounds
 
 
-def lambda_vs_plain(search, costs, lam) -> tuple:
+def lambda_vs_plain(search, costs, lam, want=None) -> tuple:
     """``lam`` against the plain search on ``costs``: ``(abs error, within the bar)``.
 
     The bar of the search kernels' own check: ESSPS rtol 1e-4 atol 1e-6;
-    LBPS rtol 1e-3 atol 1e-4 and its objective within rtol 1e-5.
+    LBPS rtol 1e-3 atol 1e-4 and its objective within rtol 1e-5.  ``want``
+    is the plain search's λ* where the caller has it.
     """
     from mppi_playground_tpu_torch.ops import lambda_search
 
-    got, want = lam.reshape(()), search.plain(costs)
+    got = lam.reshape(())
+    want = search.plain(costs) if want is None else want.reshape(())
     err = abs(got.item() - want.item())
     if search.mode == "ESSPS":
         return err, err <= 1e-6 + 1e-4 * abs(want.item())
@@ -2202,9 +2232,12 @@ def fused_kernels_in_turns(other: str) -> int:
                       rows.data_ptr(), fs._floats((*sig, *lo, *hi)), their_seed, prev.shape[0],
                       k, k, rows.shape[0], out.data_ptr(), *keys)
                 return (out,)
-            args, keep = fs._rollout_args(x0, prev, lam if kernel == "fused_solve" else None,
-                                          *sampling(nz))
-            args = args[:10] + (their_seed,) + args[11:]
+            args, keep = fs._rollout_args(x0[None], prev[None],
+                                          lam if kernel == "fused_solve" else None,
+                                          fs._one_seed(seed), fs._one(ref), task, sig, lo, hi, k,
+                                          k, fs._one(nz))
+            # their single-scenario entry points take no batch and no seed stride
+            args = args[:10] + (their_seed,) + args[11:-2]
             costs = torch.empty(k, device="cuda")
             if kernel == "fused_solve":
                 out = (costs, torch.empty(blocks, 3, device="cuda"),
@@ -2384,6 +2417,64 @@ def flagship_ticks_in_turns(other: str) -> int:
     card = card_line()
     print(card, flush=True)
     return 0 if processes_in_turns(other, "flagship_ticks", card) is not None else 1
+
+
+def flagship_episodes_at(root: str) -> int:
+    """The flagship's replayed episodes for the checkout at ``root``: fixed λ and MPO.
+
+    50 ticks (``make_closed_loop``, the plant ``RacingEnv.dynamics``, the
+    reference rows through ``info_fn``) run once (tick 0 and the capture),
+    then seven runs each timed on the host clock to a synchronize; the median
+    over 50 ticks.  Prints one JSON line; returns the exit code.
+    """
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import mppi_playground_tpu_torch
+    from mppi_playground_tpu_torch.core.closed_loop import make_closed_loop
+    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
+    from mppi_playground_tpu_torch.models.racing_mpcc import (
+        calc_ref_trajectory,
+        make_racing_fused_task_from_env,
+    )
+    from mppi_playground_tpu_torch.workloads import build_flagship
+
+    if not Path(mppi_playground_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
+        return fail(f"imported {mppi_playground_tpu_torch.__file__}, not the package under {root}")
+    env, fixed, _ = build_flagship(horizon=T, num_samples=K, device="cuda")
+    mpo = make_fused_solver(dataclasses.replace(fixed.config, lambda_="MPO"),
+                            make_racing_fused_task_from_env(env), env.dynamics, device="cuda")
+    path = env.racing_center_path
+
+    def info_fn(cind, x):
+        xref, new_cind = calc_ref_trajectory(x, path, cind, T)
+        return {"reference_path": xref}, new_cind
+
+    out = {"root": str(root)}
+    for mode, solver in (("fixed", fixed), ("MPO", mpo)):
+        run = make_closed_loop(solver, lambda x, u: env.dynamics(x[None], u[None])[0],
+                               EPISODE_TICKS, info_fn=info_fn)
+        state0, x0 = solver.init(), env.reset()
+        c0 = torch.zeros((), dtype=torch.int64, device="cuda")
+        run(state0, x0, c0)
+        runs = [synced_ms(torch, lambda: run(state0, x0, c0)) for _ in range(7)]
+        out[mode] = {"amortized_tick_ms": statistics.median(runs) / EPISODE_TICKS,
+                     "episode_ms": runs}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def flagship_episodes_in_turns(other: str) -> int:
+    """:func:`flagship_episodes_at` of another checkout and of this one, in turns.
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.flagship_episodes_in_turns("DIR"))'
+
+    Four processes (:func:`processes_in_turns`).  Prints the card and each
+    process's JSON line.
+    """
+    card = card_line()
+    print(card, flush=True)
+    return 0 if processes_in_turns(other, "flagship_episodes_at", card) is not None else 1
 
 
 def check_epilogue(torch, fused_solve, cases, card):
@@ -3097,6 +3188,586 @@ def drive_closed_loops(torch, env, card):
     return dict(flagship=flagship, facades=facades, episodes=episodes, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the fleet
+# ---------------------------------------------------------------------------
+
+FLEET_T, FLEET_K, FLEET_TICKS = 25, 4096, 50  # benchmarks/fleet.py's racing fleet
+FLEET_BATCHES = (8, 32, 128)
+FLEET_MODES_B = 32  # the MPO, ESSPS and LBPS fleets
+MODEL_FLEET_B, MODEL_FLEET_TICKS = 8, 10  # every other family's fleets
+KERNELS_B = 128  # the batched launches held against their twins and timed
+FLEET_DEVICE = "cuda"
+
+
+def fleet_kernels(model: str, config) -> set:
+    """The kernels one fused fleet tick of ``config`` launches once each, for all B scenarios."""
+    lam = config.auto_lambda
+    if lam in ("ESSPS", "LBPS"):
+        return {f"{model}_costs_dump", f"{lam.lower()}_lambda_fused", "fused_weighted",
+                f"{model}_tick_tail"}
+    return {f"{model}_fused_solve", f"{model}_tick_tail"}
+
+
+def fleet_config(lam, horizon=FLEET_T, num_samples=FLEET_K):
+    """The racing fleet's configuration (benchmarks/fleet.py; examples/racing.py:24-35)."""
+    from mppi_playground_tpu_torch.core.config import MPPIConfig
+
+    return MPPIConfig(horizon=horizon, num_samples=num_samples, dim_state=4, dim_control=2,
+                      u_min=FLEET_BOUNDS[1], u_max=FLEET_BOUNDS[2], sigmas=FLEET_BOUNDS[0],
+                      lambda_=lam, store_rollouts=False)
+
+
+FLEET_BOUNDS = ((0.5, 0.1), (-2.0, -0.25), (2.0, 0.25))  # RacingEnv's u_min, u_max
+
+
+def racing_fleet_starts(torch, env, batch: int):
+    """``(x0s [B, 4], cinds [B])``: the fleet staggered along the path (benchmarks/fleet.py:84-92)."""
+    path = env.racing_center_path
+    step = len(path) // batch
+    x0s = env.reset().repeat(batch, 1)
+    x0s[:, :3] = path[::max(1, step)][:batch]
+    cinds = torch.arange(batch, dtype=torch.int64, device=path.device) * step
+    return x0s.contiguous(), cinds
+
+
+def racing_fleet_fns(env, horizon=FLEET_T):
+    """``(info_batch, info_one, plant_one)`` of the racing fleet and of its single episodes."""
+    from mppi_playground_tpu_torch.models.racing_mpcc import (
+        calc_ref_trajectory,
+        calc_ref_trajectory_batch,
+    )
+
+    path = env.racing_center_path
+
+    def info_batch(cinds, xs):
+        xrefs, new = calc_ref_trajectory_batch(xs, path, cinds, horizon)
+        return {"reference_path": xrefs}, new
+
+    def info_one(cind, x):
+        xref, new = calc_ref_trajectory(x, path, cind, horizon)
+        return {"reference_path": xref}, new
+
+    return info_batch, info_one, lambda x, u: env.dynamics(x[None], u[None])[0]
+
+
+def fleet_vs_episodes(torch, solver, plant_one, num_ticks, states, x0s, carry0, info_one,
+                      fleet_out) -> list:
+    """The scenarios whose fleet episode differs from their own ``make_closed_loop`` episode.
+
+    Each scenario runs alone from its state (``scenario(states, b)``), start
+    and carry; its xs, us, final plant state, final solver state (device key
+    included) and final carry must equal the fleet's row b bit for bit.
+    """
+    from mppi_playground_tpu_torch.core.closed_loop import make_closed_loop
+    from mppi_playground_tpu_torch.parallel import scenario
+
+    st, xf, xs, us, c = fleet_out[:5]
+    loop = make_closed_loop(solver, plant_one, num_ticks, info_fn=info_one)
+    differ = []
+    for b in range(x0s.shape[0]):
+        st_b, xf_b, xs_b, us_b, c_b = loop(scenario(states, b), x0s[b],
+                                           None if carry0 is None else carry0[b])
+        same = (torch.equal(xs[:, b], xs_b) and torch.equal(us[:, b], us_b)
+                and torch.equal(xf[b], xf_b) and _bitwise(torch, scenario(st, b), st_b)
+                and (c is None or torch.equal(c[b], c_b)))
+        if not same:
+            differ.append(b)
+    return differ
+
+
+def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one, info_one,
+                num_ticks, card, turns: bool = False):
+    """One fleet path: traced twice, every kernel counted, bit for bit its episodes; timed.
+
+    Every counter is set to 0 first.  The first run (tick 0 eager, the
+    capture, the replays) and the second (replays only, any host sync an
+    error) run under the device trace, which must see each batched kernel of
+    the fleet's tick once a tick, not B times; the wrappers count tick 0
+    alone.  The fleet must equal B ``make_closed_loop`` episodes bit for bit,
+    and its two runs each other.  It is then timed: three untraced runs
+    (host clock ending in a synchronize) give the fleet's solves/s and
+    amortized tick, the second run's trace its device-busy share.  With
+    ``turns``, the same B scenarios as B single solves a tick in one captured
+    graph (``parallel.sharded.scenario_by_scenario`` of the single fused
+    solver: the JAX package's ``lax.map`` form) run in turns with it (fleet, looped,
+    looped, fleet, ...), bit for bit the fleet.  Returns the results or None.
+    """
+    from mppi_playground_tpu_torch.core.closed_loop import make_fleet_closed_loop
+    from mppi_playground_tpu_torch.parallel.sharded import scenario_by_scenario
+
+    batch = x0s.shape[0]
+    run = make_fleet_closed_loop(batched, plant, num_ticks, info_fn=info_batch)
+    states = batched.init_batch()
+    counted = zero_counters()
+    first, first_trace = traced(torch, lambda: run(states, x0s, carry0))
+    try:
+        second, second_trace = traced(torch, lambda: run(states, x0s, carry0), no_sync=True)
+    except RuntimeError as err:
+        fail(f"{label}: the replays synchronized with the host: {err}")
+        return None
+    once = fleet_kernels(label.split()[0], batched.config)
+    launches = path_launches(label, counted, [first_trace, second_trace],
+                             {name: 2 * num_ticks for name in once})
+    if launches is None:
+        return None
+    eager_once = read_counters(counted) == {name: int(name in once) for name in counted}
+    differ = fleet_vs_episodes(torch, batched.solver, plant_one, num_ticks, states, x0s, carry0,
+                               info_one, first)
+    runs = [synced_ms(torch, lambda: run(states, x0s, carry0)) for _ in range(3)]
+    ms = statistics.median(runs)
+    res = dict(batch=batch, ticks=num_ticks, bitwise_episodes=not differ,
+               replays_repeat=_bitwise(torch, first, second),
+               wrappers_counted_the_eager_tick_only=eager_once, launches=launches,
+               capture_s=getattr(run.episode.graph, "capture_s", None), episode_ms=ms,
+               amortized_tick_ms=ms / num_ticks, solves_per_s=batch * num_ticks / (ms / 1e3),
+               device_busy_us=second_trace.busy_us,
+               busy_share=second_trace.busy_us / (1e3 * ms),
+               finite=bool(torch.isfinite(first[1]).all() and torch.isfinite(first[3]).all()))
+    if turns:
+        looped = make_fleet_closed_loop(scenario_by_scenario(batched.solver, batch), plant,
+                                        num_ticks, info_fn=info_batch)
+        looped_out = looped(states, x0s, carry0)
+        _, looped_trace = traced(torch, lambda: looped(states, x0s, carry0))
+        fns = {"fleet": lambda: run(states, x0s, carry0),
+               "looped": lambda: looped(states, x0s, carry0)}
+        times = {name: [] for name in fns}
+        order = list(fns)
+        for _ in range(3):
+            for name in order:
+                times[name].append(synced_ms(torch, fns[name]))
+            order.reverse()
+        fleet_ms, looped_ms = (statistics.median(times[n]) for n in ("fleet", "looped"))
+        res.update(looped_bitwise=_bitwise(torch, looped_out, first),
+                   looped_capture_s=getattr(looped.episode.graph, "capture_s", None),
+                   in_turns_fleet_episode_ms=fleet_ms, in_turns_looped_episode_ms=looped_ms,
+                   in_turns_fleet_solves_per_s=batch * num_ticks / (fleet_ms / 1e3),
+                   in_turns_looped_solves_per_s=batch * num_ticks / (looped_ms / 1e3),
+                   looped_busy_share=looped_trace.busy_us / (1e3 * looped_ms),
+                   looped_device_busy_us=looped_trace.busy_us)
+    shown = dict(res, launches={k: v for k, v in launches.items() if v})
+    print(f"phase 13 {label}: {num_ticks} ticks of {batch} scenarios replayed from one CUDA "
+          f"graph on {card}: {json.dumps(shown)}", flush=True)
+    if not (res["bitwise_episodes"] and res["replays_repeat"] and eager_once and res["finite"]
+            and res.get("looped_bitwise", True)):
+        fail(f"{label}: scenarios differing from their own episodes {differ}; repeat "
+             f"{res['replays_repeat']}; the wrappers counted the eager tick only {eager_once}; "
+             f"finite {res['finite']}; the looped form bitwise {res.get('looped_bitwise')}")
+        return None
+    return res
+
+
+def racing_fleets(torch, env, card):
+    """Phase 13a: the racing fleet at B=8, 32 and 128 (fixed λ, in turns with the looped
+    form), and under MPO, ESSPS and LBPS at B=32.  Returns ``{label: result}`` or None."""
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
+    from mppi_playground_tpu_torch.parallel import make_batched_fused_solver
+
+    task = make_racing_fused_task_from_env(env)
+    info_batch, info_one, plant_one = racing_fleet_fns(env)
+    cases = [(f"racing fleet B={b}", 1.0, b, True) for b in FLEET_BATCHES]
+    cases += [(f"racing fleet {m} B={FLEET_MODES_B}", m, FLEET_MODES_B, False)
+              for m in ("MPO", "ESSPS", "LBPS")]
+    out = {}
+    for label, lam, batch, turns in cases:
+        batched = make_batched_fused_solver(fleet_config(lam), task, env.dynamics, FLEET_DEVICE,
+                                            batch)
+        x0s, cinds = racing_fleet_starts(torch, env, batch)
+        res = drive_fleet(torch, label, batched, env.dynamics, x0s, cinds, info_batch,
+                          plant_one, info_one, FLEET_TICKS, card, turns=turns)
+        if res is None:
+            return None
+        out[label] = res
+    return out
+
+
+def model_fleets(torch, card):
+    """Phase 13b: every other family's fleet at its example's configuration, fixed λ and ESSPS.
+
+    B=8 scenarios (the example's start, each moved by 0.05 b in every
+    coordinate), 10 ticks, the model's own dynamics as the plant: each run as
+    :func:`drive_fleet` runs the racing fleet.  Returns ``{label: result}`` or None.
+    """
+    from mppi_playground_tpu_torch.core.config import MPPIConfig
+    from mppi_playground_tpu_torch.parallel import make_batched_fused_solver
+    from mppi_playground_tpu_torch.workloads import build_model_workload
+
+    out = {}
+    for name in NEW_MODELS:
+        w = build_model_workload(name, device=FLEET_DEVICE)
+        kw = w.mppi_kwargs
+        plant = kw["dynamics"]
+        x0s = model_starts(torch, w.x0, MODEL_FLEET_B)
+        for lam in (1.0, "ESSPS"):
+            config = MPPIConfig(
+                horizon=kw["horizon"], num_samples=kw["num_samples"],
+                dim_state=kw["dim_state"], dim_control=kw["dim_control"],
+                u_min=tuple(float(v) for v in torch.as_tensor(kw["u_min"]).tolist()),
+                u_max=tuple(float(v) for v in torch.as_tensor(kw["u_max"]).tolist()),
+                sigmas=tuple(kw["sigmas"]), lambda_=lam, store_rollouts=False)
+            batched = make_batched_fused_solver(config, w.task, plant, FLEET_DEVICE,
+                                                MODEL_FLEET_B)
+            label = f"{name} fleet {'fixed' if lam == 1.0 else lam} B={MODEL_FLEET_B}"
+            res = drive_fleet(torch, label, batched, plant, x0s, None, None,
+                              lambda x, u: plant(x[None], u[None])[0], None, MODEL_FLEET_TICKS,
+                              card)
+            if res is None:
+                return None
+            out[label] = res
+    return out
+
+
+def model_starts(torch, x0, batch: int):
+    """``[B, n]`` starts: ``x0`` moved by 0.05 b in every coordinate."""
+    return (x0[None] + 0.05 * torch.arange(batch, device=x0.device)[:, None]).contiguous()
+
+
+def batched_kernel_rows(torch, label, task, ops, x0s, prevs, refs, noise, bounds, k, card,
+                        grid_bytes, searches: bool):
+    """Phase 13c: the batched launches against the single launches and their twins; timed.
+
+    Each batched launch (row 1, row 3 in both noise modes; rows 7 and 8,
+    row 5 and row 2 on its outputs where ``searches``, else row 2 on row 1's)
+    must give each scenario b the single launch's outputs on b's inputs bit
+    for bit, and meet its twin at the single kernels' bars (costs rtol 1e-5
+    seeded and bitwise in noise mode, the dump bitwise, the weights atol
+    1e-5 and the update atol 5e-3 from the partials, λ* within the
+    searches' bars, the tail's weights atol 1e-5 and actions atol 5e-3).
+    Each is timed by graph replay, in turns with its B single launches,
+    beside the bound of the batched launch's work (the rollouts' shared grids
+    read once, everything else B times the single launch's).  Returns
+    ``{kernel: row}`` (the kernels' names, as the kernels line has them) or
+    None.
+    """
+    from mppi_playground_tpu_torch.core.config import make_batch_key
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+    from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
+
+    batch, horizon, m = prevs.shape
+    dev = x0s.device
+    keys = make_batch_key(SEED, 0, batch, dev)
+    seeds, lams = keys[:, 2], torch.ones(batch, device=dev)
+    model = task.model
+    ref = (lambda b: refs[b]) if refs is not None else (lambda b: None)
+    args = (task, *bounds, k, k)
+    checks, rows = {}, {}
+
+    def slices(batched_out, singles) -> bool:
+        return all(torch.equal(t[b], s) for b, one in enumerate(singles)
+                   for t, s in zip(batched_out, one))
+
+    def merged(costs, stats, numer, lam):
+        return combine_partials(costs, stats, numer, lam, horizon, m)
+
+    def partials_vs_twin(got, want, lam):
+        """Weights and update from each scenario's partials against the twin's."""
+        w_err = u_err = 0.0
+        for b in range(batch):
+            g = merged(got[0][b], got[1][b], got[2][b], lam[b])
+            v = merged(want[0][b], want[1][b], want[2][b], lam[b])
+            w_err = max(w_err, (g[1] - v[1]).abs().max().item())
+            u_err = max(u_err, (g[0] - v[0]).abs().max().item())
+        return w_err, u_err
+
+    plain_ms = {}
+
+    def twin(name, fn):
+        """The twin's output; its time (one call, CUDA events) kept for ``name``'s row."""
+        if dev.type != "cuda":
+            return fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[name] = start.elapsed_time(end)
+        return out
+
+    def timed(name, batched_fn, single_fn, bound, err):
+        """``bound``: the batched launch's (``batch=`` of the bound functions)."""
+        turns = in_turns(torch, {"batched": batched_fn, "singles": single_fn}, windows=4,
+                         per_window=5)
+        source, replaces = SOURCES_OF[name.replace(f"{model}_", "<model>_")]
+        rows[name] = kernel_row(
+            name, source.replace("<model>", model), replaces, err, turns["batched"],
+            plain_ms.get(name), *bound, batch=batch, horizon=horizon, num_samples=k,
+            single_launches_ms=turns["singles"])
+
+    def times_b(bound):
+        """B times a single launch's bound: no input of these is shared by the scenarios."""
+        return batch * bound[0], bound[1]
+
+    solved = {}
+    for mode, nz in (("seeded", None), ("noise", noise)):
+        one_noise = (lambda b: None) if nz is None else (lambda b, nz=nz: nz[b])
+        got = fs.fused_solve_batch(x0s, prevs, lams, seeds, refs, *args, nz)
+        singles = [fs.fused_solve(x0s[b], prevs[b], lams[b:b + 1], keys[b, 2:], ref(b), *args,
+                                  one_noise(b)) for b in range(batch)]
+        want = twin(f"{model}_fused_solve" if nz is None else "",
+                    lambda: fs.fused_solve_batch_plain(x0s, prevs, lams, seeds, refs, *args, nz))
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
+        w_err, u_err = partials_vs_twin(got, want, lams)
+        checks[f"row 1 {mode}"] = dict(
+            singles_bitwise=slices(got, singles), cost_max_rel_err=rel,
+            costs_bitwise=bool(torch.equal(got[0], want[0])), weights_max_abs_err=w_err,
+            update_max_abs_err=u_err,
+            ok=rel <= 1e-5 and w_err <= 1e-5 and u_err <= 5e-3
+            and (mode == "seeded" or bool(torch.equal(got[0], want[0]))))
+        solved[mode] = got
+        dumped = fs.fused_costs_dump_batch(x0s, prevs, seeds, refs, *args, nz)
+        singles = [fs.fused_costs_dump(x0s[b], prevs[b], keys[b, 2:], ref(b), *args,
+                                       one_noise(b)) for b in range(batch)]
+        want = twin(f"{model}_costs_dump" if nz is None else "",
+                    lambda: fs.fused_costs_dump_batch_plain(x0s, prevs, seeds, refs, *args, nz))
+        rel = ((dumped[0] - want[0]).abs() / want[0].abs()).max().item()
+        checks[f"row 3 {mode}"] = dict(
+            singles_bitwise=slices(dumped, singles), cost_max_rel_err=rel,
+            dump_bitwise=bool(torch.equal(dumped[1], want[1])),
+            ok=rel <= 1e-5 and bool(torch.equal(dumped[1], want[1]))
+            and (mode == "seeded" or bool(torch.equal(dumped[0], want[0]))))
+        if mode == "seeded":
+            seeded_dump = dumped
+    costs, stats, numer = solved["seeded"]
+    lam_star = lams
+    if searches:
+        costs, dump = seeded_dump
+        # spread costs put each scenario's λ* inside the bracket
+        spread = ((costs - costs.min(dim=1, keepdim=True).values) * 1e-2).contiguous()
+        for mode, search in (("ESSPS", LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)),
+                             ("LBPS", LambdaSearch("LBPS", 0.01, 10.0, 0.01, 32))):
+            for which, c in (("costs", costs), ("spread", spread)):
+                lam = search.run_batch(c)
+                singles = [search.run(c[b]) for b in range(batch)]
+                want = twin(f"{mode.lower()}_lambda_fused" if which == "spread" else "",
+                            lambda s=search, c=c: torch.stack([s.plain(c[b])
+                                                               for b in range(batch)]))
+                bars = [lambda_vs_plain(search, c[b], lam[b], want[b]) for b in range(batch)]
+                checks[f"row {7 if mode == 'ESSPS' else 8} {which}"] = dict(
+                    singles_bitwise=all(torch.equal(lam[b], s) for b, s in enumerate(singles)),
+                    max_abs_err=max(e for e, _ in bars), lam_range=(lam.min().item(),
+                                                                   lam.max().item()),
+                    ok=all(ok for _, ok in bars))
+        lam_star = LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40).run_batch(spread)
+        stats, numer = fs.fused_weighted_batch(costs, dump, lam_star)
+        singles = [fs.fused_weighted(costs[b], dump[b], lam_star[b:b + 1]) for b in range(batch)]
+        want = twin("fused_weighted",
+                    lambda: fs.fused_weighted_batch_plain(costs, dump, lam_star))
+        w_err, u_err = partials_vs_twin((costs, stats, numer), (costs, *want), lam_star)
+        checks["row 5"] = dict(singles_bitwise=slices((stats, numer), singles),
+                               weights_max_abs_err=w_err, update_max_abs_err=u_err,
+                               ok=w_err <= 1e-5 and u_err <= 5e-3)
+    history = torch.zeros(batch, horizon - 1, m, device=dev)
+    keys_out = torch.empty_like(keys)
+    tail = fs.fused_tick_tail_batch(x0s, costs, stats, numer, lam_star, task, history,
+                                    keys=keys, keys_out=keys_out)
+    singles = []
+    for b in range(batch):
+        key_out = torch.empty(3, dtype=torch.int32, device=dev)
+        one = fs.fused_tick_tail(x0s[b], costs[b], stats[b], numer[b], lam_star[b:b + 1], task,
+                                 history[b].contiguous(), key=keys[b].contiguous(),
+                                 key_out=key_out)
+        singles.append((*one[:3], one[3].reshape(()), one[4], key_out))
+    want = twin(f"{model}_tick_tail",
+                lambda: fs.fused_tick_tail_batch_plain(x0s, costs, stats, numer, lam_star, task,
+                                                       history))
+    w_err = (tail[2] - want[2]).abs().max().item()
+    a_err = (tail[0] - want[0]).abs().max().item()
+    checks["row 2"] = dict(singles_bitwise=slices((*tail, keys_out), singles),
+                           weights_max_abs_err=w_err, actions_max_abs_err=a_err,
+                           ok=w_err <= 1e-5 and a_err <= 5e-3)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"phase 13 {label}: batched launches against the single launches and their twins "
+          f"on {card}: {json.dumps(checks)}", flush=True)
+    if not all(c["ok"] and c["singles_bitwise"] for c in checks.values()):
+        fail(f"{label}: a batched launch differs from its single launches or misses its "
+             "twin's bar")
+        return None
+
+    # timings: graph replay of the batched launch in turns with its B single launches
+    def singles_of(fn):
+        return lambda: [fn(b) for b in range(batch)]
+
+    timed(f"{model}_fused_solve",
+          lambda: fs.fused_solve_batch(x0s, prevs, lams, seeds, refs, *args),
+          singles_of(lambda b: fs.fused_solve(x0s[b], prevs[b], lams[b:b + 1], keys[b, 2:],
+                                              ref(b), *args)),
+          solve_bound_ms(k, horizon, True, grid_bytes, ops, batch=batch),
+          max(checks["row 1 seeded"]["cost_max_rel_err"], checks["row 1 noise"]["cost_max_rel_err"]))
+    timed(f"{model}_costs_dump",
+          lambda: fs.fused_costs_dump_batch(x0s, prevs, seeds, refs, *args),
+          singles_of(lambda b: fs.fused_costs_dump(x0s[b], prevs[b], keys[b, 2:], ref(b),
+                                                   *args)),
+          phase1_bound_ms(k, horizon, True, grid_bytes, ops, batch=batch),
+          max(checks["row 3 seeded"]["cost_max_rel_err"], checks["row 3 noise"]["cost_max_rel_err"]))
+    timed(f"{model}_tick_tail",
+          lambda: fs.fused_tick_tail_batch(x0s, costs, stats, numer, lam_star, task, history,
+                                           keys=keys, keys_out=keys_out),
+          singles_of(lambda b: fs.fused_tick_tail(x0s[b], costs[b], stats[b], numer[b],
+                                                  lam_star[b:b + 1], task, history[b])),
+          times_b(tail_bound_ms(k, horizon, ops)), checks["row 2"]["weights_max_abs_err"])
+    if searches:
+        timed("fused_weighted", lambda: fs.fused_weighted_batch(costs, dump, lam_star),
+              singles_of(lambda b: fs.fused_weighted(costs[b], dump[b], lam_star[b:b + 1])),
+              times_b(phase2_bound_ms(k, horizon, m)), checks["row 5"]["weights_max_abs_err"])
+        for mode, search, per_eval, per_cost in (
+                ("essps", LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40), OPS_ESSPS_EVAL, 2),
+                ("lbps", LambdaSearch("LBPS", 0.01, 10.0, 0.01, 32), OPS_LBPS_EVAL, 2)):
+            timed(f"{mode}_lambda_fused", lambda s=search: s.run_batch(spread),
+                  singles_of(lambda b, s=search: s.run(spread[b])),
+                  times_b(search_bound_ms(k, search.iters, per_eval, per_cost)),
+                  checks[f"row {7 if mode == 'essps' else 8} spread"]["max_abs_err"])
+    print(f"phase 13 {label}: batched launches on {card} (graph replay, in turns with B single "
+          "launches; bound of the batched launch's work): " + "; ".join(
+              f"{name} {r['ms']:.4f} ms against {r['single_launches_ms']:.4f} ms of "
+              f"{batch} single launches (bound {r['bound_ms']:.5f} ms, {r['bound_by']}; twin "
+              f"{r['plain_ms'] or 0.0:.1f} ms)" for name, r in rows.items()), flush=True)
+    return rows
+
+
+# source file and TPU kernel line of each kernel with a batched launch (<model> stands for
+# the model)
+SOURCES_OF = {
+    "<model>_fused_solve": ("fused_<model>.cu", f"{FUSED_SOLVE_PY}:783"),
+    "<model>_costs_dump": ("fused_<model>.cu", f"{FUSED_SOLVE_PY}:783"),
+    "<model>_tick_tail": ("reroll.cu", f"{FUSED_SOLVE_PY}:272"),
+    "fused_weighted": ("fused_solve.cu", f"{FUSED_SOLVE_PY}:887"),
+    "essps_lambda_fused": ("lambda_search.cu", f"{LAMBDA_SEARCH_PY}:354"),
+    "lbps_lambda_fused": ("lambda_search.cu", f"{LAMBDA_SEARCH_PY}:394"),
+}
+
+
+def fleet_kernel_inputs(torch, np, env, batch: int):
+    """Racing's batched-launch inputs at the fleet's width: the staggered starts, their
+    reference rows, seeded warm starts and noise ``[B, K, T, 2]``."""
+    from mppi_playground_tpu_torch.models.racing_mpcc import (
+        calc_ref_trajectory_batch,
+        extend_reference_path,
+    )
+
+    dev = env.racing_center_path.device
+    x0s, cinds = racing_fleet_starts(torch, env, batch)
+    xrefs, _ = calc_ref_trajectory_batch(x0s, env.racing_center_path, cinds, FLEET_T)
+    rng = np.random.default_rng(SEED)
+    sig = FLEET_BOUNDS[0]
+    prevs = torch.tensor(rng.standard_normal((batch, FLEET_T, 2)) * sig, dtype=torch.float32,
+                         device=dev)
+    noise = torch.tensor((rng.standard_normal((batch, FLEET_K, FLEET_T, 2)) * sig)
+                         .astype(np.float32), device=dev)
+    return x0s, prevs, extend_reference_path(xrefs).contiguous(), noise
+
+
+def model_kernel_inputs(torch, np, name, batch: int):
+    """A family's batched-launch inputs at its configuration: its seeded warm start and
+    noise, each scenario's scaled by 1 + b/10 and 1 + b/100, and :func:`model_starts`."""
+    w, prev, noise, bounds = model_inputs(torch, np, name)
+    scale = torch.arange(batch, device=prev.device, dtype=torch.float32)
+    prevs = (prev[None] * (1 + 0.1 * scale)[:, None, None]).contiguous()
+    noises = (noise[None] * (1 + 0.01 * scale)[:, None, None, None]).contiguous()
+    return w, model_starts(torch, w.x0, batch), prevs, noises, bounds
+
+
+def utils_on_card(torch, env, card):
+    """Phase 13d: ``checked_solve``, ``time_fn`` and the checkpoint on the flagship, on the card.
+
+    A checked flagship solve passes, then a plant that turns the state into
+    NaN makes the next checked solve raise with the JAX package's message;
+    ``time_fn`` times the flagship tick beside :func:`graph_ms`; a flagship
+    episode of 50 ticks saved after 25 (``save_state``), restored
+    (``load_state``) and run for 25 more is bit for bit the uninterrupted
+    episode.  Returns the results or None.
+    """
+    import tempfile
+
+    from mppi_playground_tpu_torch.core.closed_loop import make_closed_loop
+    from mppi_playground_tpu_torch.utils.checkpoint import load_state, save_state
+    from mppi_playground_tpu_torch.utils.guards import NonFiniteSolveError, checked_solve
+    from mppi_playground_tpu_torch.utils.timing import time_fn
+    from mppi_playground_tpu_torch.workloads import build_flagship
+
+    _, solver, _ = build_flagship(horizon=T, num_samples=K, env=env, device=FLEET_DEVICE)
+    _, info_one, plant_one = racing_fleet_fns(env, T)
+    x, c = env.reset(), torch.zeros((), dtype=torch.int64, device=FLEET_DEVICE)
+    checked = checked_solve(solver)
+    info, c = info_one(c, x)
+    r = checked(solver.init(), x, info=info)
+    x_nan = torch.full_like(x, float("nan"))  # the plant's next state
+    info, c = info_one(c, x_nan)
+    message = None
+    try:
+        checked(r.state, x_nan, info=info)
+    except NonFiniteSolveError as err:
+        message = str(err)
+    nan_raised = message == "non-finite trajectory costs (dynamics or cost overflow)"
+
+    x0, c0 = env.reset(), torch.zeros((), dtype=torch.int64, device=FLEET_DEVICE)
+    info0, _ = info_one(c0, x0)
+    state0 = solver.init()
+    stats = time_fn(lambda: solver.solve(state0, x0, info=info0), warmup=3, iters=20)
+    tick_graph_ms = graph_ms(torch, lambda: solver.solve(state0, x0, info=info0), 20) \
+        if x0.device.type == "cuda" else None
+
+    half = EPISODE_TICKS // 2
+    whole = make_closed_loop(solver, plant_one, EPISODE_TICKS, info_fn=info_one)
+    part = make_closed_loop(solver, plant_one, half, info_fn=info_one)
+    want = whole(state0, x0, c0)
+    st, xf, xs_a, us_a, c_half = part(state0, x0, c0)
+    with tempfile.TemporaryDirectory() as tmp:
+        restored = load_state(save_state(f"{tmp}/flagship", st), solver.init())
+    st, xf, xs_b, us_b, c_end = part(restored, xf, c_half)
+    resumed = (st, xf, torch.cat([xs_a, xs_b]), torch.cat([us_a, us_b]), c_end)
+    res = dict(checked_nan_raised=nan_raised, checked_message=message,
+               checked_first_solve_finite=bool(torch.isfinite(r.action_seq).all()),
+               time_fn_ms={k[:-2] + "_ms": 1e3 * v for k, v in stats.items() if k != "per_s"},
+               time_fn_per_s=stats["per_s"], tick_graph_ms=tick_graph_ms,
+               resume_bitwise=_bitwise(torch, resumed, want) and st.tick == want[0].tick)
+    print(f"phase 13 utils on the flagship (T={T}, K={K}) on {card}: {json.dumps(res)}",
+          flush=True)
+    if not (nan_raised and res["checked_first_solve_finite"] and res["resume_bitwise"]):
+        fail(f"utils on the card: NaN raised with the JAX message {nan_raised} ({message!r}); "
+             f"the resumed episode bitwise {res['resume_bitwise']}")
+        return None
+    return res
+
+
+def drive_fleets(torch, np, env, card):
+    """Phase 13: the fleet (13a-13d); returns its results or None."""
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
+
+    t0 = time.perf_counter()
+    racing = racing_fleets(torch, env, card)
+    if racing is None:
+        return None
+    models = model_fleets(torch, card)
+    if models is None:
+        return None
+    task = make_racing_fused_task_from_env(env)
+    rows = batched_kernel_rows(
+        torch, f"racing T={FLEET_T} K={FLEET_K} B={KERNELS_B}", task, RACING,
+        *fleet_kernel_inputs(torch, np, env, KERNELS_B), FLEET_BOUNDS, FLEET_K, card,
+        sum(g.numel() for g in task.grids), searches=True)
+    if rows is None:
+        return None
+    for name in NEW_MODELS:
+        w, x0s, prevs, noises, bounds = model_kernel_inputs(torch, np, name, MODEL_FLEET_B)
+        k = w.mppi_kwargs["num_samples"]
+        got = batched_kernel_rows(
+            torch, f"{name} T={prevs.shape[1]} K={k} B={MODEL_FLEET_B}", w.task,
+            MODEL_OPS[name], x0s, prevs, None, noises, bounds, k, card,
+            sum(g.numel() for g in w.task.grids), searches=False)
+        if got is None:
+            return None
+        rows.update(got)
+    utils = utils_on_card(torch, env, card)
+    if utils is None:
+        return None
+    seconds = time.perf_counter() - t0
+    print(f"phase 13 took {seconds:.1f} s on {card}", flush=True)
+    return dict(racing=racing, models=models, rows=rows, utils=utils, seconds=seconds)
+
+
 def tpu_row(name: str) -> int:
     """The row of PERF.md's table of TPU kernels that kernel ``name`` ports."""
     for part, row in (("_fused_solve", 1), ("_reroll", 2), ("_tick_tail", 2),
@@ -3115,19 +3786,29 @@ def path_model(path: str) -> str:
     return first if first in MODEL_OPS else "racing"
 
 
+def is_fleet_path(path: str) -> bool:
+    """Whether a path of this run is a fleet's (phase 13), whose launches are batched."""
+    return " fleet" in path
+
+
 def row_products(kernels: list, shared: dict) -> dict:
     """``{row: ms}``: launches x (ms - bound_ms) summed over the kernels of each row.
 
     A kernel of one model takes its own row's time; a kernel every model
     shares (phase 2, the regeneration of m=1 and m=2) takes, path by path,
     the time at that path's model's configuration (``shared``).  Model paths
-    at K=100,000 take the example configuration's time.
+    at K=100,000 take the example configuration's time; a fleet's path takes
+    the kernel's batched launch's (``batched``, phase 13).
     """
     out = {}
     for k in kernels:
         total = 0.0
         for path, n in k["launches_by_path"].items():
+            if not n:
+                continue
             ms, bound = shared.get((k["name"], path_model(path)), (k["ms"], k["bound_ms"]))
+            if is_fleet_path(path):
+                ms, bound = k["batched"]["ms"], k["batched"]["bound_ms"]
             total += n * (ms - bound)
         out[k["row"]] = out.get(k["row"], 0.0) + total
     return dict(sorted(out.items(), key=lambda item: -item[1]))
@@ -3511,6 +4192,11 @@ def main() -> int:
     if loops is None:
         return 1
 
+    # --- phase 13: the fleet --------------------------------------------------
+    fleet = drive_fleets(torch, np, env, card)
+    if fleet is None:
+        return 1
+
     paths = {f"flagship {m}": run["launches"] for m, run in modes.items()}
     paths.update({f"flagship episode {m}": run["launches"]
                   for m, run in loops["flagship"].items()})
@@ -3519,6 +4205,8 @@ def main() -> int:
     paths.update({f"RacingController {r}": run["launches"] for r, run in facades.items()})
     paths.update(mppi_runs)
     paths.update({label: run["launches"] for label, run in model_paths.items()})
+    paths.update({label: run["launches"] for label, run in
+                  {**fleet["racing"], **fleet["models"]}.items()})
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -3574,6 +4262,9 @@ def main() -> int:
     for k in kernels:
         k["launches"], k["launches_by_path"] = launches_of(k["name"])
         k["row"] = tpu_row(k["name"])
+        if k["name"] in fleet["rows"]:  # its launch over a fleet, with the fleets' launches
+            k["batched"] = dict(fleet["rows"][k["name"]], launches=sum(
+                n for path, n in k["launches_by_path"].items() if is_fleet_path(path)))
     listed = [k["name"] for k in kernels]
     missing = sorted(set(launch_counters()) - set(listed))
     idle = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in OFF_PATHS]
@@ -3598,7 +4289,13 @@ def main() -> int:
                           "facades": loops["facades"], "seconds": loops["seconds"]},
                       "model_paths": {label: {k: v for k, v in run.items()
                                               if k not in ("launches", "profile")}
-                                      for label, run in model_paths.items()}}), flush=True)
+                                      for label, run in model_paths.items()},
+                      "fleet": {"episodes": {label: {k: v for k, v in run.items()
+                                                     if k != "launches"}
+                                             for label, run in {**fleet["racing"],
+                                                                **fleet["models"]}.items()},
+                                "utils": fleet["utils"], "seconds": fleet["seconds"]}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,7 +1,7 @@
 """mppi_playground_tpu_torch — the MPPI framework in PyTorch, for one NVIDIA H100.
 
 A port of ``mppi_playground_tpu`` (JAX/XLA/Pallas) that mirrors its layout
-(``core/``, ``models/``, ``maps/``, ``ops/``, ``envs/``, ``utils/``,
+(``core/``, ``models/``, ``maps/``, ``ops/``, ``envs/``, ``parallel/``, ``utils/``,
 ``workloads.py``).  Plain tensor code is PyTorch; every Pallas kernel on the
 ported path is a CUDA C++ kernel for Hopper (``csrc/``), built with ``nvcc``
 at first use and bound with ``ctypes``.  Each kernel wrapper has a plain

@@ -44,6 +44,24 @@ def _logsumexp(x: torch.Tensor) -> torch.Tensor:
     return m + torch.log(torch.sum(torch.exp(x - m)))
 
 
+def fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed pairwise order, whatever the leading axes.
+
+    The axis is padded with zeros to a power of two and halved until one
+    element is left (``x[:h] + x[h:]``).  Elementwise adds only, so each row
+    of a ``[B, K]`` tensor sums to the bits of the same ``[K]`` vector alone:
+    torch's own reductions pick their order by the shape, B included.
+    """
+    n = x.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width != n:
+        x = torch.cat([x, x.new_zeros(*x.shape[:-1], width - n)], dim=-1)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def ess_from_costs(costs: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     """ESS of ``softmax(-costs / lam)``: ``exp(2 lse(s) - lse(2 s))``."""
     s = -costs / lam
@@ -146,13 +164,20 @@ def mpo_step(
     (t * t))`` and ``dL/dlog_t = dL/dt * sigmoid(log_t)``.  Then one Adam
     step at lr 0.2 in ``optax.adam``'s order.  As in the reference, the new
     lambda is read back as ``exp(log_t)``, not ``softplus(log_t)``.
+
+    ``costs [..., K]`` with the other arguments ``[...]``: a fleet's
+    ``[B, K]`` steps each scenario as its own ``[K]`` would, bit for bit
+    (the sums are :func:`fold_sum`'s; the max is exact in any order).
     """
     temperature = torch.nn.functional.softplus(log_temperature)
-    s = -costs / temperature
-    lse = _logsumexp(s)
-    w = torch.softmax(s, dim=0)
+    s = -costs / temperature[..., None]
+    m = torch.max(s, dim=-1, keepdim=True).values
+    e = torch.exp(s - m)
+    z = fold_sum(e)
+    lse = m[..., 0] + torch.log(z)
+    w = e / z[..., None]
     grad_t = (MPO_EPSILON + lse) + temperature * (
-        torch.sum(w * costs) / (temperature * temperature)
+        fold_sum(w * costs) / (temperature * temperature)
     )
     grad = grad_t * torch.sigmoid(log_temperature)
 

@@ -30,6 +30,8 @@ only on the device (``chip_smoke.py`` counts them in a profiler's trace).
 solves in flight, their plans copied to pinned host memory behind CUDA
 events; :func:`make_pipelined_closed_loop` is its schedule as a replayed
 closed loop, for measuring what the staleness costs.
+:func:`make_fleet_closed_loop` is the simulation farm: B episodes of a
+batched solver (``parallel/sharded.py``) in one replayed tick body.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from mppi_playground_tpu_torch.core.config import MPPIState
+from mppi_playground_tpu_torch.core.config import MPPIState, batch_key
 from mppi_playground_tpu_torch.core.solver import state_key
 
 # ---------------------------------------------------------------------------
@@ -112,21 +114,79 @@ def _copy_into(dst, src) -> None:
         d.copy_(s)
 
 
-def _freeze(done, old_tree, new_tree):
+def _skeleton(tree):
+    """``tree``'s containers, every leaf (a tensor, a bool, any other value) one mark."""
+    if tree is None:
+        return None
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return (type(tree), tuple((f.name, _skeleton(getattr(tree, f.name)))
+                                  for f in dataclasses.fields(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_skeleton(leaf) for leaf in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _skeleton(tree[k])) for k in sorted(tree)))
+    return "*"
+
+
+def _map_spec(fn, spec, old, new):
+    """``fn(s, o, n)`` at every leaf of ``spec``, a tree of ``new``'s structure."""
+    if spec is None:
+        return new
+    if dataclasses.is_dataclass(spec) and not isinstance(spec, type):
+        return dataclasses.replace(new, **{
+            f.name: _map_spec(fn, getattr(spec, f.name), getattr(old, f.name),
+                              getattr(new, f.name)) for f in dataclasses.fields(spec)})
+    if isinstance(spec, tuple) and hasattr(spec, "_fields"):
+        return type(new)(*(_map_spec(fn, *leaves) for leaves in zip(spec, old, new)))
+    if isinstance(spec, (tuple, list)):
+        return type(new)(_map_spec(fn, *leaves) for leaves in zip(spec, old, new))
+    if isinstance(spec, dict):
+        return {k: _map_spec(fn, spec[k], old[k], new[k]) for k in new}
+    return fn(spec, old, new)
+
+
+def _freeze(done, old_tree, new_tree, spec=None):
     """Select ``old_tree`` where ``done`` (broadcast from the left), the JAX ``_freeze``.
 
-    Leaves whose leading shape is ``done``'s freeze row-wise; every other
-    leaf passes through as ``new``, as do fixed leaves (the host tick).  The
-    JAX function's ``spec`` argument serves only its fleet loop, which is not
-    ported yet.
+    Without ``spec``, the per-episode test is purely structural: leaves
+    whose leading shape is ``done``'s freeze row-wise, every other leaf (e.g.
+    a fleet ``info_fn`` carry shared by all episodes) passes through as
+    ``new``, as do fixed leaves (the host tick).  A *shared* carry leaf whose
+    leading dimension happens to equal the batch size B is indistinguishable
+    from a per-episode leaf under that heuristic: pass ``spec``, a tree of
+    bools of ``new_tree``'s structure (True = per-episode, freeze row-wise;
+    False = shared, pass through), to say so (``carry_freeze`` on
+    :func:`make_fleet_closed_loop`).
     """
 
-    def pick(n, o):
-        if n.dim() < done.dim() or tuple(n.shape[:done.dim()]) != tuple(done.shape):
-            return n
+    def row_freeze(o, n):
         return torch.where(done.reshape(done.shape + (1,) * (n.dim() - done.dim())), o, n)
 
-    return _map(pick, new_tree, old_tree)
+    def per_episode(n) -> bool:
+        return (isinstance(n, torch.Tensor) and n.dim() >= done.dim()
+                and tuple(n.shape[:done.dim()]) == tuple(done.shape))
+
+    if spec is not None:
+        spec_def, new_def = _skeleton(spec), _skeleton(new_tree)
+        if spec_def != new_def:
+            raise ValueError(
+                f"carry_freeze must be a pytree of bools with the same structure as the "
+                f"info_fn carry: got {spec_def}, carry is {new_def}"
+            )
+
+        def pick_spec(s, o, n):
+            if not s:
+                return n
+            if not per_episode(n):
+                raise ValueError(
+                    f"carry_freeze marks a leaf of shape {tuple(getattr(n, 'shape', ()))} as "
+                    f"per-episode, but its leading shape is not {tuple(done.shape)}"
+                )
+            return row_freeze(o, n)
+
+        return _map_spec(pick_spec, spec, old_tree, new_tree)
+
+    return _map(lambda n, o: row_freeze(o, n) if per_episode(n) else n, new_tree, old_tree)
 
 
 class RunnerCache:
@@ -169,6 +229,19 @@ CAPTURABLE = (
 )
 
 
+def _end_generator_capture(device: torch.device) -> None:
+    """Take torch's CUDA generator out of capture mode after a capture that failed.
+
+    A failed capture ends before the generator's epilogue, and every later
+    draw from it raises ("Offset increment outside graph capture"); the
+    next capture that succeeds ends it, so one of a single fill follows.
+    """
+    with torch.cuda.device(device):
+        scratch = torch.empty(1, device=device)
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            scratch.zero_()
+
+
 class TickGraph:
     """``body()`` captured once in a CUDA graph; :meth:`replay` launches it.
 
@@ -187,6 +260,7 @@ class TickGraph:
             with torch.cuda.device(device), torch.cuda.graph(self.graph):
                 self.out = body()
         except RuntimeError as err:
+            _end_generator_capture(device)
             raise RuntimeError(f"capturing the control tick in a CUDA graph failed; "
                                f"{CAPTURABLE}. The capture raised: {err}") from err
         self.capture_s = time.perf_counter() - t0
@@ -405,6 +479,97 @@ def make_pipelined_closed_loop(
         (st, xf, c, _), xs, us = episode((_with_key(state, solver.device), x0, carry, queue),
                                          x0, u_like)
         return dataclasses.replace(st, tick=state.tick + num_ticks), xf, xs, us, c
+
+    run.episode = episode
+    return run
+
+
+def make_fleet_closed_loop(
+    batched_solver,
+    plant_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    num_ticks: int,
+    info_fn: Optional[Callable[[Any, torch.Tensor], Any]] = None,
+    done_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    *,
+    carry_freeze: Any = None,
+):
+    """A fleet of independent episodes as one replayed tick body.
+
+    The simulation-farm mode: the ``batch_size`` control problems of
+    ``batched_solver`` (``parallel.make_batched_fused_solver`` /
+    ``make_batched_solver``), each stepped for ``num_ticks`` ticks.  As in
+    :func:`make_closed_loop`, tick 0 runs eagerly on the card, the fleet's
+    tick body is captured once and replayed ``num_ticks - 1`` times, with
+    nothing on the host between ticks; on the CPU the body runs eagerly.
+
+    Args:
+        plant_fn: batched plant ``(xs [B, n], us [B, m]) -> [B, n]``.
+        info_fn: optional ``(carry, xs [B, n]) -> (batched_info, carry)``
+            where ``batched_info`` is a dict of ``[B, ...]`` tensors, the
+            per-scenario cost context (e.g. each episode's reference
+            trajectory, ``models/racing_mpcc.calc_ref_trajectory_batch``),
+            passed as ``solve_batch(batched_info=...)``.
+        done_fn: optional batched termination predicate ``(xs [B, n]) ->
+            bool [B]`` on the post-step states.  Episodes that report done
+            freeze one by one (solver state, device key included, plant
+            state, and the ``info_fn`` carry leaves whose leading axis is
+            ``B``, or as ``carry_freeze`` says); the fleet runs to the tick
+            budget.  Without ``carry_freeze``, "per-episode" is decided by
+            shape alone: a shared carry leaf whose leading dimension happens
+            to equal ``B`` freezes row-wise.
+        carry_freeze: optional tree of bools of the ``info_fn`` carry's
+            structure in place of that test: ``True`` leaves freeze row-wise
+            when their episode is done (their leading shape must be ``[B]``),
+            ``False`` leaves are shared and always pass through.  It needs
+            both ``info_fn`` and ``done_fn``.
+
+    Returns ``run(states, x0s, carry=None) -> (states, xs_final, xs
+    [num_ticks, B, n], us [num_ticks, B, m], final_carry[, episode])`` where
+    ``episode`` (with ``done_fn`` only) holds ``done [B]`` and ``ticks
+    [B]`` int32, the ticks run by each episode.  The states' host ``tick``
+    moves on by ``num_ticks``.
+    """
+    if carry_freeze is not None and (done_fn is None or info_fn is None):
+        # the spec only ever applies to the info_fn carry of a done_fn loop:
+        # dropping it quietly would hide a mis-wired call
+        raise ValueError(
+            "carry_freeze requires both info_fn (it describes the info_fn "
+            "carry) and done_fn (freezing only happens on termination)"
+        )
+    config = batched_solver.config
+
+    def tick(loop, t):
+        sts, xs, c, done, ticks = loop
+        binfo, c_next = info_fn(c, xs) if info_fn is not None else (None, c)
+        result = batched_solver.solve_batch(sts, xs, batched_info=binfo)
+        us = result.action_seq[:, 0]
+        if done_fn is None:
+            return (result.state, plant_fn(xs, us), c_next, None, None), xs, us
+        us = torch.where(done[:, None], torch.zeros_like(us), us)
+        xs_next = torch.where(done[:, None], xs, plant_fn(xs, us))
+        sts_next = _freeze(done, sts, result.state)
+        if info_fn is not None:
+            c_next = _freeze(done, c, c_next, spec=carry_freeze)
+        ticks = ticks + (~done).to(torch.int32)
+        done = done | torch.as_tensor(done_fn(xs_next), device=xs.device).reshape(done.shape).bool()
+        return (sts_next, xs_next, c_next, done, ticks), xs, us
+
+    episode = _Episode(tick, num_ticks)
+
+    def run(states: MPPIState, x0s, carry: Any = None):
+        x0s = torch.as_tensor(x0s, dtype=config.dtype, device=batched_solver.device)
+        batch = x0s.shape[0]
+        u_like = x0s.new_empty(batch, config.dim_control)
+        flags = (None, None)
+        if done_fn is not None:
+            flags = (torch.zeros(batch, dtype=torch.bool, device=x0s.device),
+                     torch.zeros(batch, dtype=torch.int32, device=x0s.device))
+        states = dataclasses.replace(states, key=batch_key(states, batch, x0s.device))
+        (st, xf, c, done, ticks), xs, us = episode((states, x0s, carry, *flags), x0s, u_like)
+        st = dataclasses.replace(st, tick=states.tick + num_ticks)
+        if done_fn is None:
+            return st, xf, xs, us, c
+        return st, xf, xs, us, c, {"done": done, "ticks": ticks}
 
     run.episode = episode
     return run

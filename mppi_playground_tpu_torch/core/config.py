@@ -212,6 +212,38 @@ def tick_seed_plain(seed_lo: torch.Tensor, tick_lo: torch.Tensor) -> torch.Tenso
     return lo & 0x7FFFFFFF
 
 
+# Scenario b of a fleet seeded with s draws from seed (s + b * SCENARIO_STRIDE) mod 2^32
+SCENARIO_STRIDE = 0x9E3779B9
+
+
+def scenario_seed(seed: int, b: int) -> int:
+    """The host seed of scenario ``b`` of a fleet whose batch seed is ``seed``.
+
+    ``(seed + b * 0x9E3779B9) mod 2^32``: the multiplier is odd, so ``b ->
+    scenario_seed(seed, b)`` is one to one on ``[0, 2^32)`` and the
+    scenarios of a fleet draw from distinct seeds, each through the single
+    solver's stream (``make_key``); scenario 0 keeps the low 32 bits of
+    ``seed``, all :func:`tick_seed` reads.  The JAX package splits one
+    ``PRNGKey`` into B keys, whose stream torch cannot replay.
+    """
+    return (int(seed) + int(b) * SCENARIO_STRIDE) & _MASK32
+
+
+def make_batch_key(seed: int, tick: int, batch: int, device) -> torch.Tensor:
+    """A fleet's device keys at ``tick``: int32 ``[batch, 3]``, row b ``make_key(scenario_seed(seed, b), tick)``."""
+    rows = [(scenario_seed(seed, b), tick, tick_seed(scenario_seed(seed, b), tick))
+            for b in range(batch)]
+    return torch.tensor([[_int32(w) for w in row] for row in rows], dtype=torch.int32,
+                        device=device)
+
+
+def batch_key(states: "MPPIState", batch: int, device) -> torch.Tensor:
+    """A batched state's device keys ``[B, 3]``; made from its host pair where it has none."""
+    if states.key is not None:
+        return states.key
+    return make_batch_key(states.seed, states.tick, batch, device)
+
+
 def advance_key_plain(key: torch.Tensor) -> torch.Tensor:
     """The key of the next tick, ``devmath::advance_key``'s twin: int32 ``[3]``."""
     words = key.to(torch.int64) & _MASK32

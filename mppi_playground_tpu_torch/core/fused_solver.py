@@ -42,11 +42,13 @@ through the task's model.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState
+from mppi_playground_tpu_torch.core.closed_loop import _map
+from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, batch_key
 from mppi_playground_tpu_torch.core.diagnostics import top_indices
 from mppi_playground_tpu_torch.core.sg_filter import config_sg_coeffs
 from mppi_playground_tpu_torch.core.solver import (
@@ -65,12 +67,14 @@ from mppi_playground_tpu_torch.ops.fused_solve import (
     MAX_SLOTS,
     MAX_STATE,
     FusedTask,
-    fused_costs_dump,
+    fused_costs_dump_batch,
     fused_costs_dump_lambda,
-    fused_solve,
+    fused_solve_batch,
     fused_tick_tail,
+    fused_tick_tail_batch,
     fused_top_rollouts,
     fused_weighted,
+    fused_weighted_batch,
 )
 from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 from mppi_playground_tpu_torch.utils.device import resolve_device
@@ -121,6 +125,85 @@ def takes_lambda_epilogue(config: MPPIConfig, lambda_epilogue: Optional[bool] = 
     return bool(lambda_epilogue)
 
 
+def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device):
+    """``solve_batch(states, x0s, info=None, noise=None)``: B scenarios' fused solves, a launch
+    a kernel.
+
+    Every tensor leaf of the batched ``states`` and ``x0s [B, n]`` has a
+    leading ``[B]`` axis (the device keys ``[B, 3]``); the racing task's
+    ``info['reference_path']`` is ``[B, T+1, 4]``, or one ``[T+1, 4]`` for
+    every scenario; ``noise`` is ``[B, K, T, m]``.  Fixed lambda and MPO
+    launch the fused solve at each scenario's lambda; LBPS and ESSPS take the
+    standalone route (phase 1, one search cluster a scenario, phase 2); then
+    one launch of the tail, which writes each scenario's next key.  The state
+    advance, MPO's Adam step included, runs as torch operations over
+    ``[B]``.  Scenario b's outputs are bit for bit its solve alone: the
+    kernels give each scenario its own view of the launch.  ``config`` is
+    checked by the caller (:func:`make_fused_solver`).
+    """
+    dtype = config.dtype
+    sigmas = tuple(float(s) for s in config.sigmas)
+    u_min = tuple(float(v) for v in config.u_min)
+    u_max = tuple(float(v) for v in config.u_max)
+    sampling_sizes = (config.num_samples, config.inherited_samples)
+    sg_coeffs = config_sg_coeffs(config, dtype, device)
+    search = _search(config)
+
+    def solve_batch(
+        states: MPPIState,
+        x0s: torch.Tensor,
+        info: Optional[Dict[str, Any]] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> SolveResult:
+        x0s = torch.as_tensor(x0s, dtype=dtype, device=device).contiguous()
+        batch = x0s.shape[0]
+        keys = batch_key(states, batch, device)
+        if noise is not None:
+            noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
+        seeds = keys[:, 2]  # each scenario's seed word, read by the drawing kernels
+        refs = None
+        if task.reference_width:
+            ref = info["reference_path"]
+            if ref.dim() == 2:
+                ref = ref.expand(batch, *ref.shape)
+            refs = extend_reference_path(ref).contiguous()
+        prevs = states.previous_action_seq.contiguous()
+        sampling = (sigmas, u_min, u_max, *sampling_sizes, noise)
+        if search is not None:
+            costs, dump = fused_costs_dump_batch(x0s, prevs, seeds, refs, task, *sampling)
+            lam = search.run_batch(costs)
+            stats, numer = fused_weighted_batch(costs, dump, lam)
+        else:  # fixed and MPO weight at each scenario's lambda
+            lam = states.lam.contiguous()
+            costs, stats, numer = fused_solve_batch(x0s, prevs, lam, seeds, refs, task,
+                                                    *sampling)
+        keys_out = torch.empty_like(keys)
+        action_seq, state_seq, weights, ess, new_sg_history = fused_tick_tail_batch(
+            x0s, costs, stats, numer, lam, task, states.sg_history.contiguous(), sg_coeffs,
+            keys=keys, keys_out=keys_out,
+        )
+        new_states = advance_state(config, states, costs, lam, action_seq, new_sg_history,
+                                   keys_out)
+        aux = SolveAux(costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=None,
+                       # replay handles for top_samples: a scenario's seed word [1]
+                       seed=keys[:, 2:], x0=x0s, prev_action_seq=prevs,
+                       noise_injected=noise is not None)
+        return SolveResult(action_seq, state_seq, new_states, aux)
+
+    return solve_batch
+
+
+def _search(config: MPPIConfig) -> Optional[LambdaSearch]:
+    """The LBPS or ESSPS search of ``config``; None for fixed lambda and MPO."""
+    if config.auto_lambda == "LBPS":
+        return LambdaSearch("LBPS", config.lambda_min, config.lambda_max, config.lbps_delta,
+                            config.lbps_iters)
+    if config.auto_lambda == "ESSPS":
+        return LambdaSearch("ESSPS", config.lambda_min, config.lambda_max, config.target_ess,
+                            config.essps_iters)
+    return None
+
+
 def make_fused_solver(
     config: MPPIConfig,
     task: FusedTask,
@@ -139,6 +222,9 @@ def make_fused_solver(
             phase-1 launch (for ``num_samples <= 524,288``), ``False`` the
             standalone search kernel; ``None`` picks by K
             (:func:`takes_lambda_epilogue`).
+
+    Every route but the λ epilogue is :func:`make_solve_batch`'s on a batch
+    of one scenario.
     """
     check_fused_envelope(config)
     if (config.dim_state, config.dim_control) != (task.dim_state, task.dim_control):
@@ -157,18 +243,12 @@ def make_fused_solver(
     u_max = tuple(float(v) for v in config.u_max)
     threshold = config.inherited_samples
     num_samples = config.num_samples
-    auto = config.auto_lambda
     sg_coeffs = config_sg_coeffs(config, dtype, device)
-    search = None
-    if auto in ("LBPS", "ESSPS"):
-        search = LambdaSearch(
-            auto, config.lambda_min, config.lambda_max,
-            config.lbps_delta if auto == "LBPS" else config.target_ess,
-            config.lbps_iters if auto == "LBPS" else config.essps_iters,
-        )
+    search = _search(config)
     use_epilogue = takes_lambda_epilogue(config, lambda_epilogue)
     # the epilogue's count of finished clusters, zero between launches
     ticket = torch.zeros(1, dtype=torch.int32, device=device) if use_epilogue else None
+    solve_batch = make_solve_batch(config, task, device)
 
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)
@@ -180,29 +260,25 @@ def make_fused_solver(
         noise: Optional[torch.Tensor] = None,
     ) -> SolveResult:
         """One fused solve; the racing task needs ``info['reference_path']`` ``[T+1, 4]``."""
-        x0 = torch.as_tensor(x0, dtype=dtype, device=device).contiguous()
+        x0 = torch.as_tensor(x0, dtype=dtype, device=device)
         key = state_key(state, device)
+        if noise is not None:
+            noise = torch.as_tensor(noise, dtype=dtype, device=device)
+        if not use_epilogue:
+            one = dataclasses.replace(_map(lambda t: t[None], state), key=key[None])
+            return _map(lambda t: t[0], solve_batch(
+                one, x0[None], info=info, noise=None if noise is None else noise[None]))
+        x0, noise = x0.contiguous(), None if noise is None else noise.contiguous()
         seed = key[2:]  # the tick's seed word, read by the drawing kernel
         ref = None
         if task.reference_width:
             ref = extend_reference_path(info["reference_path"]).contiguous()
-        if noise is not None:
-            noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
         prev = state.previous_action_seq
-        sampling = (sigmas, u_min, u_max, num_samples, threshold, noise)
-        if use_epilogue:
-            costs, dump, lam = fused_costs_dump_lambda(x0, prev, seed, ref, task, *sampling,
-                                                       search, ticket)
-            lam = lam.reshape(())
-            stats, numer = fused_weighted(costs, dump, lam.reshape(1))
-        elif search is not None:
-            costs, dump = fused_costs_dump(x0, prev, seed, ref, task, *sampling)
-            lam = search.run(costs)
-            stats, numer = fused_weighted(costs, dump, lam.reshape(1))
-        else:  # fixed and MPO weight at the state's lambda
-            lam = state.lam
-            costs, stats, numer = fused_solve(x0, prev, lam.reshape(1), seed, ref, task,
-                                              *sampling)
+        costs, dump, lam = fused_costs_dump_lambda(x0, prev, seed, ref, task, sigmas, u_min,
+                                                   u_max, num_samples, threshold, noise,
+                                                   search, ticket)
+        lam = lam.reshape(())
+        stats, numer = fused_weighted(costs, dump, lam.reshape(1))
         key_out = torch.empty_like(key)
         action_seq, state_seq, weights, ess, new_sg_history = fused_tick_tail(
             x0, costs, stats, numer, lam.reshape(1), task, state.sg_history.contiguous(),

@@ -10,17 +10,28 @@
 // holds: bytes bound it (4K(1 + D) read).  Regeneration writes 4 T m bytes a
 // requested row; at get_top_samples' 300 rows a launch costs more than the
 // work.  The model's rollout kernels are in fused_<model>.cu.
+//
+// Phase 2 over a fleet (fused_weighted_batch): the scenarios on gridDim.y,
+// scenario b's costs, dump, lambda and partials at b of their own sizes, so
+// that each scenario's partials are bit for bit its own launch's.
 #include "fused_solve.cuh"
 
 namespace {
 
 using fused::kBlock;
 
-// Phase 2: the block partials of the costs and the dumped perturbations.
+// Phase 2: the block partials of the costs and the dumped perturbations, of
+// scenario blockIdx.y.
 __global__ void __launch_bounds__(kBlock) weighted_kernel(const float* costs, const float* dump,
                                                           const float* lam, int slots,
                                                           int num_samples, float* stats,
                                                           float* numer) {
+  const size_t b = blockIdx.y, n = static_cast<size_t>(num_samples);
+  costs += b * n;
+  dump += b * slots * n;
+  lam += b;
+  stats += b * gridDim.x * 3;
+  numer += b * gridDim.x * slots;
   extern __shared__ float smem[];
   float* s_red = smem;                       // kWarps
   float* s_numer = s_red + softmin::kWarps;  // kWarps * min(slots, kChunk)
@@ -43,15 +54,23 @@ int launch_regen(const float* prev, const float* noise, const int64_t* rows,
 
 }  // namespace
 
-extern "C" int fused_weighted(const float* costs, const float* dump, const float* lam, int slots,
-                              int num_samples, float* stats, float* numer, void* stream) {
+// batch scenarios: costs [B, K], dump [B, slots, K], lam [B], stats [B, blocks, 3],
+// numer [B, blocks, slots].
+extern "C" int fused_weighted_batch(const float* costs, const float* dump, const float* lam,
+                                    int slots, int num_samples, int batch, float* stats,
+                                    float* numer, void* stream) {
   const size_t shmem = softmin::shared_bytes(slots);
   cudaError_t err = fused::allow_shared(weighted_kernel, shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  weighted_kernel<<<fused::blocks_for(num_samples), kBlock, shmem,
-                           static_cast<cudaStream_t>(stream)>>>(costs, dump, lam, slots,
-                                                                 num_samples, stats, numer);
+  weighted_kernel<<<dim3(fused::blocks_for(num_samples), batch), kBlock, shmem,
+                    static_cast<cudaStream_t>(stream)>>>(costs, dump, lam, slots, num_samples,
+                                                         stats, numer);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fused_weighted(const float* costs, const float* dump, const float* lam, int slots,
+                              int num_samples, float* stats, float* numer, void* stream) {
+  return fused_weighted_batch(costs, dump, lam, slots, num_samples, 1, stats, numer, stream);
 }
 
 #define FUSED_REGEN_ENTRY_POINT(m)                                                            \

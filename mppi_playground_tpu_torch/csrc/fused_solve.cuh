@@ -116,7 +116,9 @@ using softmin::kBlock;
 // What the sampling of perturbations reads: warm start, noise, bounds, seed.
 // The seed word lives in device memory (a solver's key, core/config.py), so
 // that a CUDA graph of the tick draws the stream of the tick it replays; each
-// CTA loads it once (load_seed).
+// CTA loads it once (load_seed).  A batched launch (a fleet of scenarios on
+// gridDim.y) reads scenario b's seed word seed_stride words after scenario
+// b - 1's (3 for a batch of keys [B, 3]).
 template <int kM>
 struct Sampling {
   const float* prev;      // [T, kM] warm start
@@ -124,14 +126,16 @@ struct Sampling {
   const uint32_t* seed;   // [1] the tick's seed word (null: noise mode, where none is read)
   float sigma[kM], u_min[kM], u_max[kM];
   int horizon, num_samples, threshold;
+  int seed_stride;
 };
 
 // Sampling from the wrapper's bounds array (sigma, u_min, u_max; kM each).
 template <int kM>
 Sampling<kM> make_sampling(const float* prev, const float* noise, const float* bounds,
                            const uint32_t* seed, int horizon, int num_samples,
-                           int threshold) {
+                           int threshold, int seed_stride = 0) {
   Sampling<kM> s{};
+  s.seed_stride = seed_stride;
   s.prev = prev;
   s.noise = noise;
   for (int j = 0; j < kM; ++j) {
@@ -166,6 +170,29 @@ struct Params {
   float* stats;  // [blocks, 3]: max(-c/lam), sum e, sum e^2 (fixed solve)
   float* numer;  // [blocks, T*m] (fixed solve)
   float* dump;   // [T*m, K] clamped perturbations, slot-major (phase 1)
+
+  // Scenario b of a batched launch (gridDim.y scenarios, each array above
+  // [B, ...]): every per-scenario array moved on by b of its own size; the
+  // bounds, the model's constants and its grids are shared.  Scenario 0 is
+  // the launch of one scenario, unchanged, so scenario b's outputs are bit
+  // for bit a single launch's on its inputs.
+  __device__ __forceinline__ Params scenario(int b) const {
+    Params q = *this;
+    if (b == 0) return q;
+    const size_t n = static_cast<size_t>(b), T = s.horizon, K = s.num_samples;
+    const size_t slots = Model::kM * T, blocks = (K + softmin::kBlock - 1) / softmin::kBlock;
+    q.s.prev += n * slots;
+    if (s.noise != nullptr) q.s.noise += n * slots * K;
+    if (s.seed != nullptr) q.s.seed += n * s.seed_stride;
+    q.x0 += n * Model::kN;
+    if (lam != nullptr) q.lam += n;
+    if (ref != nullptr) q.ref += n * (T + 1) * Model::kRefWidth;
+    if (costs != nullptr) q.costs += n * K;
+    if (stats != nullptr) q.stats += n * blocks * 3;
+    if (numer != nullptr) q.numer += n * blocks * slots;
+    if (dump != nullptr) q.dump += n * slots * K;
+    return q;
+  }
 };
 
 __device__ __forceinline__ float pick(float z0, float z1, float z2, float z3, int r) {
@@ -349,7 +376,8 @@ __device__ __forceinline__ float rollout_cost(const Params<Model>& p, const floa
 }
 
 template <class Model>
-__global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> p, int tile_slots) {
+__global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> batch, int tile_slots) {
+  const Params<Model> p = batch.scenario(blockIdx.y);
   extern __shared__ float smem[];
   const int T = p.s.horizon;
   const int slots = Model::kM * T;
@@ -374,7 +402,8 @@ __global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> p, in
 }
 
 template <class Model>
-__global__ void __launch_bounds__(kBlock) costs_dump_kernel(Params<Model> p) {
+__global__ void __launch_bounds__(kBlock) costs_dump_kernel(Params<Model> batch) {
+  const Params<Model> p = batch.scenario(blockIdx.y);
   extern __shared__ float smem[];
   float* s_ref = smem;
   float* s_prev = s_ref + (p.s.horizon + 1) * Model::kRefWidth;
@@ -532,9 +561,11 @@ template <class Model>
 Params<Model> make_params(const float* x0, const float* prev, const float* lam, const float* ref,
                           const uint8_t* grid_a, const uint8_t* grid_b, const float* noise,
                           const float* bounds, const float* model_f, const int* model_i,
-                          const uint32_t* seed, int horizon, int num_samples, int threshold) {
+                          const uint32_t* seed, int horizon, int num_samples, int threshold,
+                          int seed_stride = 0) {
   Params<Model> p{};
-  p.s = make_sampling<Model::kM>(prev, noise, bounds, seed, horizon, num_samples, threshold);
+  p.s = make_sampling<Model::kM>(prev, noise, bounds, seed, horizon, num_samples, threshold,
+                                 seed_stride);
   p.x0 = x0;
   p.lam = lam;
   p.ref = ref;
@@ -542,8 +573,8 @@ Params<Model> make_params(const float* x0, const float* prev, const float* lam, 
   return p;
 }
 
-// Slots of the fused solve's numerator tile for a launch of `grid` CTAs whose
-// shared memory is `base` bytes without it: as many of a sample's `slots`
+// Slots of the fused solve's numerator tile for a launch of `grid` CTAs (all
+// scenarios' of a batched launch) whose shared memory is `base` bytes without it: as many of a sample's `slots`
 // clamped actions as fit while an SM still holds as many CTAs at once as the
 // launch gives it (no more than the registers allow, no more than
 // ceil(grid / SMs)); all of them, or a multiple of 4 (whole Philox blocks).
@@ -594,33 +625,38 @@ cudaError_t tile_slots_for(Kernel kernel, size_t base, int slots, int grid, int*
   return cudaSuccess;
 }
 
+// batch scenarios on gridDim.y (1: one scenario), each [B, ...] array of
+// Params holding scenario b at b of its own size (Params::scenario).
 template <class Model>
-int launch_solve(Params<Model> p, float* costs, float* stats, float* numer, cudaStream_t stream) {
+int launch_solve(Params<Model> p, int batch, float* costs, float* stats, float* numer,
+                 cudaStream_t stream) {
   p.costs = costs;
   p.stats = stats;
   p.numer = numer;
   const int horizon = p.s.horizon;
   const int slots = Model::kM * horizon;
-  const int grid = blocks_for(p.s.num_samples);
+  const int blocks = blocks_for(p.s.num_samples);
   const size_t base = reference_shared_bytes<Model>(horizon) + softmin::shared_bytes(slots);
   int tile_slots = 0;
-  cudaError_t err = tile_slots_for(fused_solve_kernel<Model>, base, slots, grid, &tile_slots);
+  cudaError_t err =
+      tile_slots_for(fused_solve_kernel<Model>, base, slots, blocks * batch, &tile_slots);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t shmem = base + sizeof(float) * kBlock * static_cast<size_t>(tile_slots);
   err = allow_shared(fused_solve_kernel<Model>, shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_solve_kernel<Model><<<grid, kBlock, shmem, stream>>>(p, tile_slots);
+  fused_solve_kernel<Model><<<dim3(blocks, batch), kBlock, shmem, stream>>>(p, tile_slots);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class Model>
-int launch_costs_dump(Params<Model> p, float* costs, float* dump, cudaStream_t stream) {
+int launch_costs_dump(Params<Model> p, int batch, float* costs, float* dump,
+                      cudaStream_t stream) {
   p.costs = costs;
   p.dump = dump;
   const size_t shmem = reference_shared_bytes<Model>(p.s.horizon);
   cudaError_t err = allow_shared(costs_dump_kernel<Model>, shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  costs_dump_kernel<Model><<<blocks_for(p.s.num_samples), kBlock, shmem, stream>>>(p);
+  costs_dump_kernel<Model><<<dim3(blocks_for(p.s.num_samples), batch), kBlock, shmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -693,18 +729,33 @@ int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, f
   x0, prev, lam, ref, grid_a, grid_b, noise, bounds, model_f, model_i, seed, horizon,       \
       num_samples, threshold
 
-// The three rollout entry points of one model: <prefix>_fused_solve,
-// <prefix>_costs_dump and <prefix>_costs_dump_lambda.
+// The rollout entry points of one model: <prefix>_fused_solve,
+// <prefix>_costs_dump and <prefix>_costs_dump_lambda; and the first two over a
+// batch of scenarios, <prefix>_fused_solve_batch and <prefix>_costs_dump_batch
+// (every array of FUSED_ROLLOUT_ARGS but the bounds, the model's constants and
+// grids [B, ...]; seed_stride words between the scenarios' seed words).
 #define FUSED_MODEL_ENTRY_POINTS(prefix, Model)                                               \
   extern "C" int prefix##_fused_solve(FUSED_ROLLOUT_ARGS, float* costs, float* stats,         \
                                       float* numer, void* stream) {                           \
-    return fused::launch_solve(fused::make_params<Model>(FUSED_ROLLOUT_NAMES), costs, stats,  \
-                               numer, static_cast<cudaStream_t>(stream));                     \
+    return fused::launch_solve(fused::make_params<Model>(FUSED_ROLLOUT_NAMES), 1, costs,      \
+                               stats, numer, static_cast<cudaStream_t>(stream));              \
+  }                                                                                           \
+  extern "C" int prefix##_fused_solve_batch(FUSED_ROLLOUT_ARGS, int batch, int seed_stride,   \
+                                            float* costs, float* stats, float* numer,         \
+                                            void* stream) {                                   \
+    return fused::launch_solve(fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride),   \
+                               batch, costs, stats, numer, static_cast<cudaStream_t>(stream)); \
   }                                                                                           \
   extern "C" int prefix##_costs_dump(FUSED_ROLLOUT_ARGS, float* costs, float* dump,           \
                                      void* stream) {                                          \
-    return fused::launch_costs_dump(fused::make_params<Model>(FUSED_ROLLOUT_NAMES), costs,    \
+    return fused::launch_costs_dump(fused::make_params<Model>(FUSED_ROLLOUT_NAMES), 1, costs, \
                                     dump, static_cast<cudaStream_t>(stream));                 \
+  }                                                                                           \
+  extern "C" int prefix##_costs_dump_batch(FUSED_ROLLOUT_ARGS, int batch, int seed_stride,    \
+                                           float* costs, float* dump, void* stream) {         \
+    return fused::launch_costs_dump(                                                          \
+        fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride), batch, costs, dump,      \
+        static_cast<cudaStream_t>(stream));                                                   \
   }                                                                                           \
   extern "C" int prefix##_costs_dump_lambda(FUSED_ROLLOUT_ARGS, int lbps, float lam_min,      \
                                             float lam_max, float param, int iters,            \

@@ -15,7 +15,10 @@
 //   sqrt(ratio) over the costs.  Golden section carries the surviving value.
 //
 // The search itself is lambda_search.cuh's cluster_search, which the lambda
-// epilogue of auto-lambda phase 1 (fused_solve.cuh) runs too.
+// epilogue of auto-lambda phase 1 (fused_solve.cuh) runs too.  Over a fleet
+// (essps_search_batch, lbps_search_batch) each scenario is one cluster, on
+// gridDim.y (__cluster_dims__ keeps a cluster inside one scenario): scenario
+// b searches costs [b, 0:K) into out[b], bit for bit its own launch.
 //
 // Each evaluation is a reduction over all K costs on which the next step
 // depends.  What bounds it on the H100: the function reads 4K bytes once
@@ -55,6 +58,8 @@ template <bool kLbps>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     search_kernel(const float* costs, int num_samples, float lam_min, float lam_max, float param,
                   int iters, float* out) {
+  costs += static_cast<size_t>(blockIdx.y) * num_samples;
+  out += blockIdx.y;
   extern __shared__ float smem[];
   __shared__ lsearch::Exchange ex;
   cg::cluster_group cluster = cg::this_cluster();
@@ -66,8 +71,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 }
 
 template <bool kLbps>
-int launch_search(const float* costs, int num_samples, float lam_min, float lam_max, float param,
-                  int iters, float* out, void* stream) {
+int launch_search(const float* costs, int num_samples, int batch, float lam_min, float lam_max,
+                  float param, int iters, float* out, void* stream) {
   const int chunk = (num_samples + kCluster - 1) / kCluster;
   const size_t shmem = sizeof(float) * static_cast<size_t>(std::min(chunk, kMaxResident));
   if (shmem > 48 * 1024) {
@@ -76,8 +81,9 @@ int launch_search(const float* costs, int num_samples, float lam_min, float lam_
         static_cast<int>(shmem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  search_kernel<kLbps><<<kCluster, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      costs, num_samples, lam_min, lam_max, param, iters, out);
+  search_kernel<kLbps><<<dim3(kCluster, batch), kThreads, shmem,
+                         static_cast<cudaStream_t>(stream)>>>(costs, num_samples, lam_min,
+                                                              lam_max, param, iters, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -85,10 +91,26 @@ int launch_search(const float* costs, int num_samples, float lam_min, float lam_
 
 extern "C" int essps_search(const float* costs, int num_samples, float lam_min, float lam_max,
                             float target, int iters, float* out, void* stream) {
-  return launch_search<false>(costs, num_samples, lam_min, lam_max, target, iters, out, stream);
+  return launch_search<false>(costs, num_samples, 1, lam_min, lam_max, target, iters, out,
+                              stream);
 }
 
 extern "C" int lbps_search(const float* costs, int num_samples, float lam_min, float lam_max,
                            float ratio, int iters, float* out, void* stream) {
-  return launch_search<true>(costs, num_samples, lam_min, lam_max, ratio, iters, out, stream);
+  return launch_search<true>(costs, num_samples, 1, lam_min, lam_max, ratio, iters, out, stream);
+}
+
+// batch scenarios: costs [B, K] -> out [B].
+extern "C" int essps_search_batch(const float* costs, int num_samples, int batch, float lam_min,
+                                  float lam_max, float target, int iters, float* out,
+                                  void* stream) {
+  return launch_search<false>(costs, num_samples, batch, lam_min, lam_max, target, iters, out,
+                              stream);
+}
+
+extern "C" int lbps_search_batch(const float* costs, int num_samples, int batch, float lam_min,
+                                 float lam_max, float ratio, int iters, float* out,
+                                 void* stream) {
+  return launch_search<true>(costs, num_samples, batch, lam_min, lam_max, ratio, iters, out,
+                             stream);
 }

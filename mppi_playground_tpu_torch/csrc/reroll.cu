@@ -19,7 +19,9 @@
 // through the model's step, small CTAs so that the chains run on several
 // SMs.  Entry points <model>_tick_tail(x0, costs, stats, numer, lam, history,
 // coeffs, model_f, model_i, blocks, horizon, num_samples, window, actions,
-// states, ess, weights, history_out, key, key_out, stream), <model>_reroll(x0, seq,
+// states, ess, weights, history_out, key, key_out, stream) and its fleet form
+// <model>_tick_tail_batch (the same with int batch after window: every array
+// [B, ...] but the SG window, the keys [B, 3]), <model>_reroll(x0, seq,
 // model_f, model_i, horizon, out, stream) and <model>_top_rollouts(x0, prev,
 // noise, rows, bounds, model_f, model_i, seed, horizon, num_samples,
 // threshold, num_rows, out, stream), the model floats and ints as the rollout
@@ -38,18 +40,28 @@
                                        Model::make_args(model_f, model_i, nullptr, nullptr),   \
                                        out, static_cast<cudaStream_t>(stream));                \
   }                                                                                            \
+  extern "C" int prefix##_tick_tail_batch(                                                     \
+      const float* x0, const float* costs, const float* stats, const float* numer,             \
+      const float* lam, const float* history, const float* coeffs, const float* model_f,       \
+      const int* model_i, int blocks, int horizon, int num_samples, int window, int batch,     \
+      float* actions, float* states, float* ess, float* weights, float* history_out,           \
+      const uint32_t* key, uint32_t* key_out, void* stream) {                                  \
+    const fused::Tail q{x0,      costs,       stats,   numer,   lam,     history,    coeffs,   \
+                        blocks,  horizon,     num_samples, window, actions, states, ess,       \
+                        weights, history_out, key,  key_out};                                  \
+    return fused::launch_tick_tail<Model>(q, batch,                                            \
+                                          Model::make_args(model_f, model_i, nullptr, nullptr), \
+                                          static_cast<cudaStream_t>(stream));                  \
+  }                                                                                            \
   extern "C" int prefix##_tick_tail(                                                           \
       const float* x0, const float* costs, const float* stats, const float* numer,             \
       const float* lam, const float* history, const float* coeffs, const float* model_f,       \
       const int* model_i, int blocks, int horizon, int num_samples, int window, float* actions, \
       float* states, float* ess, float* weights, float* history_out, const uint32_t* key,      \
       uint32_t* key_out, void* stream) {                                                       \
-    const fused::Tail q{x0,      costs,       stats,   numer,   lam,     history,    coeffs,   \
-                        blocks,  horizon,     num_samples, window, actions, states, ess,       \
-                        weights, history_out, key,  key_out};                                  \
-    return fused::launch_tick_tail<Model>(q, Model::make_args(model_f, model_i, nullptr,       \
-                                                              nullptr),                        \
-                                          static_cast<cudaStream_t>(stream));                  \
+    return prefix##_tick_tail_batch(x0, costs, stats, numer, lam, history, coeffs, model_f,    \
+                                    model_i, blocks, horizon, num_samples, window, 1, actions,  \
+                                    states, ess, weights, history_out, key, key_out, stream);  \
   }                                                                                            \
   extern "C" int prefix##_top_rollouts(const float* x0, const float* prev, const float* noise, \
                                        const int64_t* rows, const float* bounds,              \

@@ -120,6 +120,32 @@ struct Tail {
   float *actions, *states, *ess, *weights, *history_out;
   const uint32_t* key;
   uint32_t* key_out;
+
+  // Scenario b of a batched launch (gridDim.y scenarios, each array [B, ...]
+  // but the shared SG window): every array moved on by b of its own size, the
+  // keys by 3 words.  So the first CTA of each scenario moves that scenario's
+  // key on, and scenario b's outputs are bit for bit its own launch's.
+  template <int kN, int kM>
+  __device__ __forceinline__ Tail scenario(int b) const {
+    Tail q = *this;
+    if (b == 0) return q;
+    const size_t n = static_cast<size_t>(b), T = horizon, K = num_samples;
+    const size_t slots = kM * T, hist = kM * (T - 1);
+    q.x0 += n * kN;
+    q.costs += n * K;
+    q.stats += n * blocks * 3;
+    q.numer += n * blocks * slots;
+    q.lam += n;
+    q.history += n * hist;
+    q.actions += n * slots;
+    q.states += n * (T + 1) * kN;
+    q.ess += n;
+    if (weights != nullptr) q.weights += n * K;
+    q.history_out += n * hist;
+    if (key != nullptr) q.key += 3 * n;
+    if (key_out != nullptr) q.key_out += 3 * n;
+    return q;
+  }
 };
 
 // Block-wide max or sum, valid in every thread: each warp folds its lanes by
@@ -187,8 +213,9 @@ __device__ __forceinline__ void merged_sums(const Tail& q, int slots, float mx, 
 
 template <class Model>
 __global__ void __launch_bounds__(kTailBlock)
-    tick_tail_kernel(Tail q, typename Model::Args args) {
+    tick_tail_kernel(Tail batch, typename Model::Args args) {
   constexpr int kM = Model::kM;
+  const Tail q = batch.scenario<Model::kN, kM>(blockIdx.y);
   __shared__ float s_red[kTailWarps];
   __shared__ float s_alpha[kTailBlock];
   extern __shared__ float smem[];
@@ -260,8 +287,9 @@ int launch_reroll(const float* x0, const float* seq, int horizon, typename Model
   return static_cast<int>(cudaGetLastError());
 }
 
+// batch scenarios on gridDim.y (1: one scenario; Tail::scenario).
 template <class Model>
-int launch_tick_tail(const Tail& q, typename Model::Args args, cudaStream_t stream) {
+int launch_tick_tail(const Tail& q, int batch, typename Model::Args args, cudaStream_t stream) {
   const int slots = Model::kM * q.horizon;
   const size_t shmem = sizeof(float) * (static_cast<size_t>(Model::kM) * (2 * q.horizon - 1) +
                                         slots + static_cast<size_t>(Model::kPre) * q.horizon +
@@ -272,7 +300,7 @@ int launch_tick_tail(const Tail& q, typename Model::Args args, cudaStream_t stre
     weight_ctas = (q.num_samples + per - 1) / per;
     if (weight_ctas > kTailMaxWeightCtas) weight_ctas = kTailMaxWeightCtas;
   }
-  tick_tail_kernel<Model><<<1 + weight_ctas, kTailBlock, shmem, stream>>>(q, args);
+  tick_tail_kernel<Model><<<dim3(1 + weight_ctas, batch), kTailBlock, shmem, stream>>>(q, args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -53,6 +53,16 @@ def grid_cost(map_data: GridMapData, x: torch.Tensor) -> torch.Tensor:
     return torch.where(out_of_bounds, torch.ones_like(values), values)
 
 
+def _cell(i: torch.Tensor, size: int) -> torch.Tensor:
+    """A rounded cell coordinate as an index into ``[0, size)``: clamped, and 0 for NaN.
+
+    The kernels' ``__float2int_rn`` converts NaN to 0 and their bounds test
+    then finds it on the grid, so a NaN position reads cell 0 there; here too,
+    where the NaN would otherwise become an index far out of range.
+    """
+    return torch.nan_to_num(torch.clamp(i, 0.0, float(size - 1)), nan=0.0).to(torch.int64)
+
+
 def grid_occupancy(
     grid: torch.Tensor,
     origin: tuple,
@@ -72,8 +82,7 @@ def grid_occupancy(
     ix = torch.round(px / cell + origin[0])
     iy = torch.round(py / cell + origin[1])
     oob = (ix < 0) | (ix >= w) | (iy < 0) | (iy >= h)
-    ixi = torch.clamp(ix, 0.0, float(w - 1)).to(torch.int64)
-    iyi = torch.clamp(iy, 0.0, float(h - 1)).to(torch.int64)
+    ixi, iyi = _cell(ix, w), _cell(iy, h)
     return (oob | (grid[ixi, iyi] != 0)).to(px.dtype)
 
 
@@ -97,8 +106,7 @@ def grid_cost_pair(
     ix = torch.round(px / cell + origin[0])
     iy = torch.round(py / cell + origin[1])
     oob = (ix < 0) | (ix >= w) | (iy < 0) | (iy >= h)
-    ixi = torch.clamp(ix, 0.0, float(w - 1)).to(torch.int64)
-    iyi = torch.clamp(iy, 0.0, float(h - 1)).to(torch.int64)
+    ixi, iyi = _cell(ix, w), _cell(iy, h)
     cost_a = (oob | (grid_a[ixi, iyi] != 0)).to(px.dtype)
     cost_b = (oob | (grid_b[ixi, iyi] != 0)).to(px.dtype)
     return cost_a + cost_b

@@ -163,16 +163,16 @@ def make_racing_fused_task_from_env(env):
 
 
 def extend_reference_path(xref: torch.Tensor) -> torch.Tensor:
-    """``[T+1, 4]`` (x, y, yaw, v) -> ``[T+1, 5]`` (x, y, sin, cos, v)."""
+    """``[..., T+1, 4]`` (x, y, yaw, v) -> ``[..., T+1, 5]`` (x, y, sin, cos, v)."""
     return torch.stack(
         [
-            xref[:, 0],
-            xref[:, 1],
-            torch.sin(xref[:, 2]),
-            torch.cos(xref[:, 2]),
-            xref[:, 3],
+            xref[..., 0],
+            xref[..., 1],
+            torch.sin(xref[..., 2]),
+            torch.cos(xref[..., 2]),
+            xref[..., 3],
         ],
-        dim=1,
+        dim=-1,
     )
 
 
@@ -242,3 +242,53 @@ def calc_ref_trajectory(
     )
     xref = torch.cat([xref_pose, v_column[:, None]], dim=1)
     return xref.to(state.dtype), ind
+
+
+def calc_ref_trajectory_batch(
+    states: torch.Tensor,
+    path: torch.Tensor,
+    cinds: torch.Tensor,
+    horizon: int,
+    DL: float = 0.1,
+    lookahead_distance: float = 3.0,
+    reference_path_interval: float = 0.85,
+    v_max: float = V_MAX,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`calc_ref_trajectory` for a fleet: row b is the single call on ``states[b]``, bit for bit.
+
+    The JAX fleet's ``jax.vmap(calc_ref_trajectory)``, written out over the
+    leading axis: the same operations elementwise (the nearest path point by
+    the first minimum, the float64 lookahead table, the zeroed velocity
+    column of a row whose lookahead overruns the path end).
+
+    Args:
+        states: ``[B, 4]`` vehicle states.
+        path: ``[N, 3]`` resampled center path.
+        cinds: ``[B]`` int64 monotone progress indices.
+
+    Returns:
+        (xrefs ``[B, horizon+1, 4]``, new_cinds ``[B]`` int64).
+    """
+    ncourse = path.shape[0]
+    dx = path[:, 0] - states[:, 0:1]
+    dy = path[:, 1] - states[:, 1:2]
+    d = torch.sqrt(dx * dx + dy * dy)
+    nearest = torch.argmin(d, dim=1)  # first minimum
+    ind = torch.maximum(torch.as_tensor(cinds, dtype=torch.int64, device=path.device), nearest)
+
+    dinds = _lookahead_offsets(
+        int(horizon), float(DL), float(lookahead_distance),
+        float(reference_path_interval), path.device,
+    )
+    rows = ind[:, None] + dinds
+    valid = rows < ncourse
+    rows = torch.clamp(rows, max=ncourse - 1)
+    xref_pose = path[rows]
+
+    v_column = torch.where(
+        torch.all(valid, dim=1, keepdim=True),
+        torch.full((1, horizon + 1), v_max, dtype=path.dtype, device=path.device),
+        torch.zeros((1, horizon + 1), dtype=path.dtype, device=path.device),
+    )
+    xrefs = torch.cat([xref_pose, v_column[..., None]], dim=-1)
+    return xrefs.to(states.dtype), ind

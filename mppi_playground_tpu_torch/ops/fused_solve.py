@@ -37,10 +37,25 @@ a :class:`FusedTask`; the kernels are templated on a model plug
 * :func:`fused_reroll` (``<model>_reroll``, ``csrc/reroll.cu``) — the
   nominal re-roll alone.
 
-Each wrapper launches its kernel for CUDA tensors, counts the launch in its
-``launches`` counter under the kernel's name (a launch a CUDA graph captures
-is not counted: ``cuda_build.launched``), and raises on what the kernel
-does not take.  For CPU tensors it runs the plain PyTorch twin beside it
+A fleet of B scenarios launches each kernel of its tick once, the scenarios
+on the grid's second axis (``blockIdx.y``): :func:`fused_solve_batch`,
+:func:`fused_costs_dump_batch`, :func:`fused_weighted_batch` and
+:func:`fused_tick_tail_batch` (``<model>_fused_solve_batch``,
+``<model>_costs_dump_batch``, ``fused_weighted_batch``,
+``<model>_tick_tail_batch``; the searches' in ``ops/lambda_search.py``).
+Every per-scenario array gains a leading ``[B]`` axis; the bounds, the
+model's constants and grids and the SG window are shared.  Scenario b's
+outputs are bit for bit the single launch's on scenario b's inputs, and its
+draws are the single solve's stream, keyed on (its seed word, k).  Their
+twins run the single twins scenario by scenario.  :func:`fused_solve`,
+:func:`fused_costs_dump`, :func:`fused_weighted` and :func:`fused_tick_tail`
+are these wrappers on a batch of one.
+
+Each wrapper launches its kernel for CUDA tensors, counts the launch in the
+``launches`` counter of the kernel's single-scenario wrapper under the
+kernel's name, whichever form launched it (a launch a CUDA graph captures is
+not counted: ``cuda_build.launched``), and raises on what the kernel does
+not take.  For CPU tensors it runs the plain PyTorch twin beside it
 (``*_plain``), which does the kernel's arithmetic operation for operation
 through the task's own ``dynamics_soa`` and ``stage_cost_soa``.  The twins
 also run on CUDA tensors when called directly, which is how the kernels are
@@ -540,35 +555,63 @@ def _slot_major(noise, num_samples, horizon, m):
     return noise.reshape(num_samples, horizon * m).t().contiguous()
 
 
-def _rollout_args(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max, num_samples,
-                  threshold, noise):
-    """Check a rollout kernel's inputs on the card -> ``(args, keep)``.
+def _seed_words(seeds, batch: int, device) -> Tuple[torch.Tensor, int]:
+    """A fleet's seed words -> ``(tensor, stride in words)``.
 
-    ``args`` are the leading arguments the rollout entry points of
-    ``csrc/fused_solve.cuh`` share (``lam`` None: a null pointer, for phase
-    1, which reads none); ``keep`` holds what must live until the launch
-    returns (the noise in the kernels' layout, the seed word, the host
-    arrays).
+    A tensor is ``batch`` int32 words on ``device`` at any stride (a batch
+    of keys' ``keys[:, 2]``, stride 3); host integers are filled in word by
+    word (:func:`_seed_tensor`: a CUDA graph can capture the fills).
     """
-    dev = x0.device
+    if not isinstance(seeds, torch.Tensor):
+        words = [_seed_tensor(v, device) for v in seeds]
+        seeds = words[0] if len(words) == 1 else torch.cat(words)
+    if seeds.dtype != torch.int32 or tuple(seeds.shape) != (batch,) or seeds.device != device:
+        raise ValueError(f"the seed words are [{batch}] int32 on {device}, got {seeds.dtype} "
+                         f"{tuple(seeds.shape)} on {seeds.device}")
+    return seeds, seeds.stride(0)
+
+
+def _one_seed(seed):
+    """A single launch's seed (host int, or one int32 word on the device) as a batch of one's."""
+    return seed.reshape(1) if isinstance(seed, torch.Tensor) else [seed]
+
+
+def _one(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A single launch's array as a batch of one's (a view)."""
+    return None if t is None else t[None]
+
+
+def _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max, num_samples,
+                  threshold, noise):
+    """Check a rollout kernel's inputs for B scenarios on the card -> ``(args, keep)``.
+
+    Every array but the bounds, the model's constants and grids has a
+    leading ``[B]`` axis (``lams`` ``[B]``, ``seeds`` the scenarios' words,
+    :func:`_seed_words`).  ``args`` are the leading arguments the rollout
+    entry points of ``csrc/fused_solve.cuh`` share (``lams`` None: a null
+    pointer, for phase 1, which reads none), then the batch and the seed
+    words' stride; ``keep`` holds what must live until the launch returns
+    (the noise in the kernels' layout, the seed words, the host arrays).
+    """
+    dev = x0s.device
     n, m = task.dim_state, task.dim_control
-    if prev.dim() != 2 or prev.shape[1] != m:
-        raise ValueError(f"the {task.model} model takes prev [T, {m}], got {tuple(prev.shape)}")
-    bounds = _check_sampling(prev, num_samples, sigmas, u_min, u_max)
-    horizon = prev.shape[0]
+    if prevs.dim() != 3 or prevs.shape[-1] != m or prevs.shape[0] < 1:
+        raise ValueError(f"the {task.model} model takes prev [B, T, {m}], got "
+                         f"{tuple(prevs.shape)}")
+    batch, horizon = prevs.shape[:2]
+    bounds = _check_sampling(prevs[0], num_samples, sigmas, u_min, u_max)
     f32 = torch.float32
-    _check("x0", x0, (n,), f32, dev)
-    if prev.device != dev:
-        raise ValueError(f"prev is on {prev.device}, expected {dev}")
-    if lam is not None:
-        _check("lam", lam, tuple(lam.shape), f32, dev)
-        if lam.numel() != 1:
-            raise ValueError("lam must hold one element")
+    _check("x0", x0s, (batch, n), f32, dev)
+    _check("prev", prevs, (batch, horizon, m), f32, dev)
+    if lams is not None:
+        _check("lam", lams, tuple(lams.shape), f32, dev)
+        if lams.numel() != batch:
+            raise ValueError(f"lam must hold {batch} element(s), one a scenario")
     width = task.reference_width
     if width:
-        if ref is None:
+        if refs is None:
             raise ValueError(f"the {task.model} model needs its reference rows [T+1, {width}]")
-        _check("ref", ref, (horizon + 1, width), f32, dev)
+        _check("ref", refs, (batch, horizon + 1, width), f32, dev)
     grids = list(task.grids)
     for i, grid in enumerate(grids):
         _check(f"grid {i}", grid, tuple(grids[0].shape), torch.uint8, dev)
@@ -577,23 +620,31 @@ def _rollout_args(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max, num_samp
     grid_ptrs = [g.data_ptr() for g in grids] + [None] * (2 - len(grids))
     noise_ptr = None
     if noise is not None:
-        noise = _slot_major(noise, num_samples, horizon, m)
+        _check("noise", noise, (batch, num_samples, horizon, m), f32, noise.device)
+        noise = noise.reshape(batch, num_samples, horizon * m).transpose(1, 2).contiguous()
         noise_ptr = noise.data_ptr()
     model_f, model_i = _floats(task.floats), _ints(task.ints)
-    seed = _seed_tensor(seed, dev)
+    seeds, stride = _seed_words(seeds, batch, dev)
     args = (
-        x0.data_ptr(), prev.data_ptr(), None if lam is None else lam.data_ptr(),
-        ref.data_ptr() if width else None, *grid_ptrs, noise_ptr, bounds, model_f, model_i,
-        seed.data_ptr(), horizon, num_samples, max(0, min(threshold, num_samples)),
+        x0s.data_ptr(), prevs.data_ptr(), None if lams is None else lams.data_ptr(),
+        refs.data_ptr() if width else None, *grid_ptrs, noise_ptr, bounds, model_f, model_i,
+        seeds.data_ptr(), horizon, num_samples, max(0, min(threshold, num_samples)), batch,
+        stride,
     )
-    return args, (noise, seed, bounds, model_f, model_i)
+    return args, (noise, seeds, bounds, model_f, model_i)
 
 
 _ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+# _SOLVE_ARGTYPES, _DUMP_ARGTYPES, _WEIGHTED_ARGTYPES and _TAIL_ARGTYPES are the
+# single-scenario entry points', which csrc/ keeps as the batch of one for callers of
+# its C interface; the wrappers launch the fleet forms
 _SOLVE_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 4
 _DUMP_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 3
 _DUMP_LAMBDA_ARGTYPES = (_ROLLOUT_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3
                          + [ctypes.c_int] + [ctypes.c_void_p] * 5)
+# the fleet forms: the batch and the seed words' stride after the shared arguments
+_SOLVE_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+_DUMP_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 
 
 def fused_solve(
@@ -617,23 +668,13 @@ def fused_solve(
     sin, cos, v)`` (None for the other models); ``seed`` a host integer or
     a one-element int32 tensor on the device (a key's seed word);
     ``noise`` optional ``[K, T, m]`` already scaled by sigma.  ``B =
-    ceil(K / 256)``.  CPU tensors take :func:`fused_solve_plain`.
+    ceil(K / 256)``.  :func:`fused_solve_batch` of a batch of one, which
+    counts the launch here; CPU tensors take :func:`fused_solve_plain`.
     """
-    if not _on_card("fused_solve", x0):
-        return fused_solve_plain(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max,
-                                 num_samples, threshold, noise)
-    args, keep = _rollout_args(x0, prev, lam, seed, ref, task, sigmas, u_min, u_max,
-                               num_samples, threshold, noise)
-    dev = x0.device
-    blocks = -(-num_samples // BLOCK)
-    costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
-    stats = torch.empty(blocks, 3, dtype=torch.float32, device=dev)
-    numer = torch.empty(blocks, prev.numel(), dtype=torch.float32, device=dev)
-    name = f"{task.model}_fused_solve"
-    cuda_build.launch(f"fused_{task.model}", name, _SOLVE_ARGTYPES, dev, *args,
-                      costs.data_ptr(), stats.data_ptr(), numer.data_ptr())
-    fused_solve.launches[name] += cuda_build.launched()
-    return costs, stats, numer
+    costs, stats, numer = fused_solve_batch(
+        x0[None], prev[None], lam.reshape(-1), _one_seed(seed), _one(ref), task, sigmas, u_min,
+        u_max, num_samples, threshold, _one(noise))
+    return costs[0], stats[0], numer[0]
 
 
 fused_solve.launches = collections.Counter()
@@ -655,22 +696,14 @@ def fused_costs_dump(
     """Auto-lambda phase 1 -> ``(costs [K], dump [T*m, K])``.
 
     The rollout and costs of :func:`fused_solve` (same arguments, no
-    lambda), and each sample's clamped perturbations, slot-major.  CPU
-    tensors take :func:`fused_costs_dump_plain`.
+    lambda), and each sample's clamped perturbations, slot-major.
+    :func:`fused_costs_dump_batch` of a batch of one, which counts the
+    launch here; CPU tensors take :func:`fused_costs_dump_plain`.
     """
-    if not _on_card("fused_costs_dump", x0):
-        return fused_costs_dump_plain(x0, prev, seed, ref, task, sigmas, u_min, u_max,
-                                      num_samples, threshold, noise)
-    dev = x0.device
-    args, keep = _rollout_args(x0, prev, None, seed, ref, task, sigmas, u_min, u_max,
-                               num_samples, threshold, noise)
-    costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
-    dump = torch.empty(prev.numel(), num_samples, dtype=torch.float32, device=dev)
-    name = f"{task.model}_costs_dump"
-    cuda_build.launch(f"fused_{task.model}", name, _DUMP_ARGTYPES, dev, *args,
-                      costs.data_ptr(), dump.data_ptr())
-    fused_costs_dump.launches[name] += cuda_build.launched()
-    return costs, dump
+    costs, dump = fused_costs_dump_batch(x0[None], prev[None], _one_seed(seed), _one(ref), task,
+                                         sigmas, u_min, u_max, num_samples, threshold,
+                                         _one(noise))
+    return costs[0], dump[0]
 
 
 fused_costs_dump.launches = collections.Counter()
@@ -703,8 +736,9 @@ def fused_costs_dump_lambda(
         return fused_costs_dump_lambda_plain(x0, prev, seed, ref, task, sigmas, u_min, u_max,
                                              num_samples, threshold, noise, search)
     dev = x0.device
-    args, keep = _rollout_args(x0, prev, None, seed, ref, task, sigmas, u_min, u_max,
-                               num_samples, threshold, noise)
+    args, keep = _rollout_args(x0[None], prev[None], None, _one_seed(seed), _one(ref), task,
+                               sigmas, u_min, u_max, num_samples, threshold, _one(noise))
+    args = args[:-2]  # one scenario: the entry point takes no batch and no seed stride
     _check("ticket", ticket, (1,), torch.int32, dev)
     if search.iters < 0:
         raise ValueError(f"iters must be >= 0, got {search.iters}")
@@ -733,32 +767,12 @@ def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
     ``costs [K]`` and ``dump [D, K]`` (``D = T*m``) from
     :func:`fused_costs_dump`, ``lam`` one element on the same device (read
     by the kernel, never by the host).  The same partials
-    :func:`fused_solve` gives at ``lam``.  CPU tensors take
+    :func:`fused_solve` gives at ``lam``.  :func:`fused_weighted_batch` of a
+    batch of one, which counts the launch here; CPU tensors take
     :func:`fused_weighted_plain`.
     """
-    if not _on_card("fused_weighted", costs):
-        return fused_weighted_plain(costs, dump, lam)
-    dev = costs.device
-    num_samples = costs.shape[0]
-    slots = dump.shape[0]
-    if not 1 <= slots <= MAX_SLOTS:
-        raise ValueError(f"dump must be [D, K] with 1 <= D <= {MAX_SLOTS}")
-    if not 1 <= num_samples < 2**31 - BLOCK:
-        raise ValueError(f"num_samples out of range: {num_samples}")
-    f32 = torch.float32
-    _check("costs", costs, (num_samples,), f32, dev)
-    _check("dump", dump, (slots, num_samples), f32, dev)
-    _check("lam", lam, tuple(lam.shape), f32, dev)
-    if lam.numel() != 1:
-        raise ValueError("lam must hold one element")
-    blocks = -(-num_samples // BLOCK)
-    stats = torch.empty(blocks, 3, dtype=f32, device=dev)
-    numer = torch.empty(blocks, slots, dtype=f32, device=dev)
-    cuda_build.launch("fused_solve", "fused_weighted", _WEIGHTED_ARGTYPES, dev,
-                      costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots,
-                      num_samples, stats.data_ptr(), numer.data_ptr())
-    fused_weighted.launches["fused_weighted"] += cuda_build.launched()
-    return stats, numer
+    stats, numer = fused_weighted_batch(costs[None], dump[None], lam.reshape(-1))
+    return stats[0], numer[0]
 
 
 fused_weighted.launches = collections.Counter()
@@ -934,32 +948,225 @@ def fused_tick_tail(
     ``core/solver.smooth_predict_advance`` shifts it; ``ess`` is 0-dim.  With
     a solver's ``key`` ``[3]`` and ``key_out`` (int32, not aliased), the
     launch also writes the next tick's key to ``key_out``, so that a fused
-    tick moves its key on without a launch of its own.  CPU tensors take
-    :func:`fused_tick_tail_plain` (and the key's twin).
+    tick moves its key on without a launch of its own.
+    :func:`fused_tick_tail_batch` of a batch of one, which counts the launch
+    here; CPU tensors take :func:`fused_tick_tail_plain` (and the key's twin).
     """
-    if not _on_card("fused_tick_tail", x0):
-        _advance_plain(key, key_out)
-        return fused_tick_tail_plain(x0, costs, stats, numer, lam, task, sg_history, sg_coeffs)
-    dev = x0.device
+    action_seq, states, w, ess, history = fused_tick_tail_batch(
+        x0[None], costs[None], stats[None], numer[None], lam.reshape(-1), task, sg_history[None],
+        sg_coeffs, _one(key), _one(key_out))
+    return action_seq[0], states[0], w[0], ess[0], history[0]
+
+
+fused_tick_tail.launches = collections.Counter()
+
+# ---------------------------------------------------------------------------
+# A fleet of scenarios, one launch a kernel: the wrappers and their twins
+# ---------------------------------------------------------------------------
+
+def _scenario_seed(seeds, b):
+    """Scenario b's seed for the single twins: a host int, or its word as a 0-dim view."""
+    return seeds[b] if isinstance(seeds, torch.Tensor) else int(seeds[b])
+
+
+def _stack(parts):
+    """Per-scenario outputs (tuples of tensors) -> one tuple of ``[B, ...]`` tensors."""
+    return tuple(torch.stack(column) for column in zip(*parts))
+
+
+def fused_solve_batch_plain(x0s, prevs, lams, seeds, refs, task: FusedTask, sigmas, u_min,
+                            u_max, num_samples: int, threshold: int, noise=None):
+    """:func:`fused_solve_batch`'s twin: :func:`fused_solve_plain` scenario by scenario."""
+    return _stack(fused_solve_plain(
+        x0s[b], prevs[b], lams[b], _scenario_seed(seeds, b), None if refs is None else refs[b],
+        task, sigmas, u_min, u_max, num_samples, threshold, None if noise is None else noise[b])
+        for b in range(x0s.shape[0]))
+
+
+def fused_solve_batch(
+    x0s: torch.Tensor,
+    prevs: torch.Tensor,
+    lams: torch.Tensor,
+    seeds,
+    refs: Optional[torch.Tensor],
+    task: FusedTask,
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
+    num_samples: int,
+    threshold: int,
+    noise: Optional[torch.Tensor] = None,
+):
+    """:func:`fused_solve` for B scenarios in one launch -> ``(costs [B, K], stats [B, blocks,
+    3], numer [B, blocks, T*m])``.
+
+    ``x0s [B, n]``, ``prevs [B, T, m]``, ``lams [B]``, ``refs [B, T+1, 5]``
+    (racing) or None, ``noise [B, K, T, m]`` or None; ``seeds`` the B seed
+    words, an int32 ``[B]`` tensor at any stride (a batch of keys'
+    ``keys[:, 2]``) or host integers.  CPU tensors take
+    :func:`fused_solve_batch_plain`.
+    """
+    if not _on_card("fused_solve_batch", x0s):
+        return fused_solve_batch_plain(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max,
+                                       num_samples, threshold, noise)
+    args, keep = _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max,
+                               num_samples, threshold, noise)
+    batch, dev = prevs.shape[0], x0s.device
+    blocks = -(-num_samples // BLOCK)
+    costs = torch.empty(batch, num_samples, dtype=torch.float32, device=dev)
+    stats = torch.empty(batch, blocks, 3, dtype=torch.float32, device=dev)
+    numer = torch.empty(batch, blocks, prevs[0].numel(), dtype=torch.float32, device=dev)
+    cuda_build.launch(f"fused_{task.model}", f"{task.model}_fused_solve_batch",
+                      _SOLVE_BATCH_ARGTYPES, dev, *args, costs.data_ptr(), stats.data_ptr(),
+                      numer.data_ptr())
+    fused_solve.launches[f"{task.model}_fused_solve"] += cuda_build.launched()
+    return costs, stats, numer
+
+
+def fused_costs_dump_batch_plain(x0s, prevs, seeds, refs, task: FusedTask, sigmas, u_min, u_max,
+                                 num_samples: int, threshold: int, noise=None):
+    """:func:`fused_costs_dump_batch`'s twin: :func:`fused_costs_dump_plain` scenario by scenario."""
+    return _stack(fused_costs_dump_plain(
+        x0s[b], prevs[b], _scenario_seed(seeds, b), None if refs is None else refs[b], task,
+        sigmas, u_min, u_max, num_samples, threshold, None if noise is None else noise[b])
+        for b in range(x0s.shape[0]))
+
+
+def fused_costs_dump_batch(
+    x0s: torch.Tensor,
+    prevs: torch.Tensor,
+    seeds,
+    refs: Optional[torch.Tensor],
+    task: FusedTask,
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
+    num_samples: int,
+    threshold: int,
+    noise: Optional[torch.Tensor] = None,
+):
+    """Phase 1 for B scenarios in one launch -> ``(costs [B, K], dump [B, T*m, K])``.
+
+    The arguments of :func:`fused_solve_batch` without lambda.  CPU tensors
+    take :func:`fused_costs_dump_batch_plain`.
+    """
+    if not _on_card("fused_costs_dump_batch", x0s):
+        return fused_costs_dump_batch_plain(x0s, prevs, seeds, refs, task, sigmas, u_min, u_max,
+                                            num_samples, threshold, noise)
+    args, keep = _rollout_args(x0s, prevs, None, seeds, refs, task, sigmas, u_min, u_max,
+                               num_samples, threshold, noise)
+    batch, dev = prevs.shape[0], x0s.device
+    costs = torch.empty(batch, num_samples, dtype=torch.float32, device=dev)
+    dump = torch.empty(batch, prevs[0].numel(), num_samples, dtype=torch.float32, device=dev)
+    cuda_build.launch(f"fused_{task.model}", f"{task.model}_costs_dump_batch",
+                      _DUMP_BATCH_ARGTYPES, dev, *args, costs.data_ptr(), dump.data_ptr())
+    fused_costs_dump.launches[f"{task.model}_costs_dump"] += cuda_build.launched()
+    return costs, dump
+
+
+def fused_weighted_batch_plain(costs, dump, lam):
+    """:func:`fused_weighted_batch`'s twin: :func:`fused_weighted_plain` scenario by scenario."""
+    return _stack(fused_weighted_plain(costs[b], dump[b], lam[b]) for b in range(costs.shape[0]))
+
+
+_WEIGHTED_BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+
+
+def fused_weighted_batch(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
+    """Phase 2 for B scenarios in one launch -> ``(stats [B, blocks, 3], numer [B, blocks, D])``.
+
+    ``costs [B, K]``, ``dump [B, D, K]`` from :func:`fused_costs_dump_batch`,
+    ``lam [B]`` (read by the kernel).  CPU tensors take
+    :func:`fused_weighted_batch_plain`.
+    """
+    if not _on_card("fused_weighted_batch", costs):
+        return fused_weighted_batch_plain(costs, dump, lam)
+    dev = costs.device
+    if costs.dim() != 2 or dump.dim() != 3:
+        raise ValueError(f"costs must be [B, K] and dump [B, D, K], got {tuple(costs.shape)} and "
+                         f"{tuple(dump.shape)}")
+    batch, num_samples = costs.shape
+    slots = dump.shape[1]
+    if not 1 <= slots <= MAX_SLOTS:
+        raise ValueError(f"dump must be [B, D, K] with 1 <= D <= {MAX_SLOTS}")
+    if not 1 <= num_samples < 2**31 - BLOCK or batch < 1:
+        raise ValueError(f"costs out of range: {tuple(costs.shape)}")
+    f32 = torch.float32
+    _check("costs", costs, (batch, num_samples), f32, dev)
+    _check("dump", dump, (batch, slots, num_samples), f32, dev)
+    _check("lam", lam, (batch,), f32, dev)
+    blocks = -(-num_samples // BLOCK)
+    stats = torch.empty(batch, blocks, 3, dtype=f32, device=dev)
+    numer = torch.empty(batch, blocks, slots, dtype=f32, device=dev)
+    cuda_build.launch("fused_solve", "fused_weighted_batch", _WEIGHTED_BATCH_ARGTYPES, dev,
+                      costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots, num_samples,
+                      batch, stats.data_ptr(), numer.data_ptr())
+    fused_weighted.launches["fused_weighted"] += cuda_build.launched()
+    return stats, numer
+
+
+def fused_tick_tail_batch_plain(x0s, costs, stats, numer, lam, task: FusedTask, sg_history,
+                                sg_coeffs=None, keys=None, keys_out=None):
+    """:func:`fused_tick_tail_batch`'s twin: :func:`fused_tick_tail_plain` (and the key's twin)
+    scenario by scenario."""
+    parts = []
+    for b in range(x0s.shape[0]):
+        if keys is not None or keys_out is not None:
+            _advance_plain(None if keys is None else keys[b],
+                           None if keys_out is None else keys_out[b])
+        action_seq, states, w, ess, history = fused_tick_tail_plain(
+            x0s[b], costs[b], stats[b], numer[b], lam[b], task, sg_history[b], sg_coeffs)
+        parts.append((action_seq, states, w, ess.reshape(()), history))
+    return _stack(parts)
+
+
+_TAIL_BATCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+
+
+def fused_tick_tail_batch(
+    x0s: torch.Tensor,
+    costs: torch.Tensor,
+    stats: torch.Tensor,
+    numer: torch.Tensor,
+    lam: torch.Tensor,
+    task: FusedTask,
+    sg_history: torch.Tensor,
+    sg_coeffs: Optional[torch.Tensor] = None,
+    keys: Optional[torch.Tensor] = None,
+    keys_out: Optional[torch.Tensor] = None,
+):
+    """:func:`fused_tick_tail` for B scenarios in one launch -> ``(action_seq [B, T, m],
+    state_seq [B, T+1, n], weights [B, K], ess [B], sg_history [B, T-1, m])``.
+
+    ``x0s [B, n]``, ``costs [B, K]``, ``stats [B, blocks, 3]``, ``numer [B,
+    blocks, T*m]``, ``lam [B]``, ``sg_history [B, T-1, m]``; ``sg_coeffs``
+    shared; with ``keys`` and ``keys_out`` (int32 ``[B, 3]``, not aliased)
+    the first CTA of each scenario writes that scenario's next key.  CPU
+    tensors take :func:`fused_tick_tail_batch_plain`.
+    """
+    if not _on_card("fused_tick_tail_batch", x0s):
+        return fused_tick_tail_batch_plain(x0s, costs, stats, numer, lam, task, sg_history,
+                                           sg_coeffs, keys, keys_out)
+    dev = x0s.device
     n, m = task.dim_state, task.dim_control
-    num_samples, blocks = costs.shape[0], stats.shape[0]
-    slots = numer.shape[1] if numer.dim() == 2 else 0
+    if costs.dim() != 2 or stats.dim() != 3 or numer.dim() != 3:
+        raise ValueError("costs must be [B, K], stats [B, blocks, 3] and numer [B, blocks, T*m]")
+    batch, num_samples = costs.shape
+    blocks, slots = stats.shape[1], numer.shape[2]
     horizon = slots // m
     if not (1 <= horizon and horizon * m == slots <= MAX_SLOTS):
-        raise ValueError(f"numer must be [B, T*{m}] with 1 <= T*{m} <= {MAX_SLOTS}, got "
+        raise ValueError(f"numer must be [B, blocks, T*{m}] with 1 <= T*{m} <= {MAX_SLOTS}, got "
                          f"{tuple(numer.shape)}")
     if not 1 <= num_samples < 2**31 - BLOCK or blocks != -(-num_samples // BLOCK):
-        raise ValueError(f"stats must be [ceil(K / {BLOCK}), 3] for K={num_samples}, got "
+        raise ValueError(f"stats must be [B, ceil(K / {BLOCK}), 3] for K={num_samples}, got "
                          f"{tuple(stats.shape)}")
     f32 = torch.float32
-    _check("x0", x0, (n,), f32, dev)
-    _check("costs", costs, (num_samples,), f32, dev)
-    _check("stats", stats, (blocks, 3), f32, dev)
-    _check("numer", numer, (blocks, slots), f32, dev)
-    _check("lam", lam, tuple(lam.shape), f32, dev)
-    if lam.numel() != 1:
-        raise ValueError("lam must hold one element")
-    _check("sg_history", sg_history, (horizon - 1, m), f32, dev)
+    _check("x0s", x0s, (batch, n), f32, dev)
+    _check("costs", costs, (batch, num_samples), f32, dev)
+    _check("stats", stats, (batch, blocks, 3), f32, dev)
+    _check("numer", numer, (batch, blocks, slots), f32, dev)
+    _check("lam", lam, (batch,), f32, dev)
+    _check("sg_history", sg_history, (batch, horizon - 1, m), f32, dev)
     window = 0
     if sg_coeffs is not None:
         window = sg_coeffs.shape[0]
@@ -967,26 +1174,30 @@ def fused_tick_tail(
         if window % 2 == 0 or window // 2 > 2 * horizon - 2:
             raise ValueError(f"the SG window must be odd with window // 2 <= 2T - 2, got "
                              f"{window} at T={horizon}")
-    action_seq = torch.empty(horizon, m, dtype=f32, device=dev)
-    states = torch.empty(horizon + 1, n, dtype=f32, device=dev)
-    ess = torch.empty(1, dtype=f32, device=dev)
-    w = torch.empty(num_samples, dtype=f32, device=dev)
-    history = torch.empty(horizon - 1, m, dtype=f32, device=dev)
-    key_ptr, key_out_ptr = _key_pair(key, key_out, dev)
+    if (keys is None) != (keys_out is None):
+        raise ValueError("keys and keys_out come together")
+    key_ptr = key_out_ptr = None
+    if keys is not None:
+        _check("keys", keys, (batch, 3), torch.int32, dev)
+        _check("keys_out", keys_out, (batch, 3), torch.int32, dev)
+        if keys_out.data_ptr() == keys.data_ptr():
+            raise ValueError("keys_out must not alias keys: other CTAs read the seed words")
+        key_ptr, key_out_ptr = keys.data_ptr(), keys_out.data_ptr()
+    action_seq = torch.empty(batch, horizon, m, dtype=f32, device=dev)
+    states = torch.empty(batch, horizon + 1, n, dtype=f32, device=dev)
+    ess = torch.empty(batch, dtype=f32, device=dev)
+    w = torch.empty(batch, num_samples, dtype=f32, device=dev)
+    history = torch.empty(batch, horizon - 1, m, dtype=f32, device=dev)
     model_f, model_i = _floats(task.floats), _ints(task.ints)
-    name = f"{task.model}_tick_tail"
     cuda_build.launch(
-        "reroll", name, _TAIL_ARGTYPES, dev, x0.data_ptr(), costs.data_ptr(), stats.data_ptr(),
-        numer.data_ptr(), lam.data_ptr(), sg_history.data_ptr(),
+        "reroll", f"{task.model}_tick_tail_batch", _TAIL_BATCH_ARGTYPES, dev, x0s.data_ptr(), costs.data_ptr(),
+        stats.data_ptr(), numer.data_ptr(), lam.data_ptr(), sg_history.data_ptr(),
         None if sg_coeffs is None else sg_coeffs.data_ptr(), model_f, model_i, blocks, horizon,
-        num_samples, window, action_seq.data_ptr(), states.data_ptr(), ess.data_ptr(),
+        num_samples, window, batch, action_seq.data_ptr(), states.data_ptr(), ess.data_ptr(),
         w.data_ptr(), history.data_ptr(), key_ptr, key_out_ptr,
     )
-    fused_tick_tail.launches[name] += cuda_build.launched()
-    return action_seq, states, w, ess.reshape(()), history
-
-
-fused_tick_tail.launches = collections.Counter()
+    fused_tick_tail.launches[f"{task.model}_tick_tail"] += cuda_build.launched()
+    return action_seq, states, w, ess, history
 
 # every wrapper, and the kernel names each counts launches under
 WRAPPERS = (fused_solve, fused_costs_dump, fused_costs_dump_lambda, fused_weighted, fused_regen,

@@ -12,6 +12,10 @@ by hand for Hopper in ``csrc/lambda_search.cu``:
   min(c)*a)`` (the exact hoist), carrying the surviving value;
   ``range_pen = (max - min) * sqrt(f32((1 - delta) / delta))``.
 
+A fleet's searches are one launch, a cluster a scenario
+(:func:`essps_lambda_fused_batch`, :func:`lbps_lambda_fused_batch`: costs
+``[B, K]`` -> ``[B]``), each scenario's λ* bit for bit its own launch's.
+
 The λ epilogue of auto-lambda phase 1 (``ops/fused_solve.fused_costs_dump_lambda``)
 runs the same searches, with the same element bodies and summation order
 (``csrc/lambda_search.cuh``), so both routes give λ* bit for bit; its twin
@@ -196,28 +200,22 @@ class LambdaSearch:
                                       self.iters)
         return lbps_lambda_plain(costs, self.param, self.lambda_min, self.lambda_max, self.iters)
 
-
-_SEARCH_ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 3
-    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-)
-
-
-def _launch(symbol: str, costs: torch.Tensor, lambda_min, lambda_max, param, iters: int):
-    out = torch.empty(1, dtype=torch.float32, device=costs.device)
-    cuda_build.launch("lambda_search", symbol, _SEARCH_ARGTYPES, costs.device, costs.data_ptr(),
-                      costs.shape[0], ctypes.c_float(lambda_min), ctypes.c_float(lambda_max),
-                      ctypes.c_float(param), int(iters), out.data_ptr())
-    return out.reshape(())
+    def run_batch(self, costs: torch.Tensor) -> torch.Tensor:
+        """lambda* of each row of ``costs [B, K]`` in one launch (the twin for CPU costs), ``[B]``."""
+        if self.mode == "ESSPS":
+            return essps_lambda_fused_batch(costs, self.param, self.lambda_min, self.lambda_max,
+                                            self.iters)
+        return lbps_lambda_fused_batch(costs, self.param, self.lambda_min, self.lambda_max,
+                                       self.iters)
 
 
 def _check_costs(name: str, costs: torch.Tensor, iters: int) -> bool:
-    """Validate the costs; True where the kernel runs (a CUDA tensor)."""
+    """Validate costs ``[B, K]``; True where the kernel runs (a CUDA tensor)."""
     if costs.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{name} runs on cuda or cpu, not {costs.device}")
-    if costs.dim() != 1 or not 1 <= costs.shape[0] <= MAX_SAMPLES:
+    if costs.dim() != 2 or not 1 <= costs.shape[1] <= MAX_SAMPLES or costs.shape[0] < 1:
         raise ValueError(
-            f"{name} takes costs [K] with 1 <= K <= {MAX_SAMPLES}, got {tuple(costs.shape)}"
+            f"{name} takes costs [B, K] with 1 <= K <= {MAX_SAMPLES}, got {tuple(costs.shape)}"
         )
     if costs.dtype != torch.float32:
         raise ValueError(f"costs has dtype {costs.dtype}, expected torch.float32")
@@ -228,16 +226,24 @@ def _check_costs(name: str, costs: torch.Tensor, iters: int) -> bool:
     return costs.device.type == "cuda"
 
 
+def _one_row(name: str, costs: torch.Tensor) -> torch.Tensor:
+    """A single search's costs ``[K]`` as a batch of one's ``[1, K]``."""
+    if costs.dim() != 1:
+        raise ValueError(f"{name} takes costs [K], got {tuple(costs.shape)}")
+    return costs[None]
+
+
 def essps_lambda_fused(
     costs: torch.Tensor, target_ess: float, lambda_min: float, lambda_max: float,
     iters: int = 40,
 ) -> torch.Tensor:
-    """ESSPS ``lambda*`` of ``costs [K]`` float32, a 0-dim tensor on its device."""
-    if not _check_costs("essps_lambda_fused", costs, iters):
-        return essps_lambda_plain(costs, target_ess, lambda_min, lambda_max, iters)
-    lam = _launch("essps_search", costs, lambda_min, lambda_max, target_ess, iters)
-    essps_lambda_fused.launches += cuda_build.launched()
-    return lam
+    """ESSPS ``lambda*`` of ``costs [K]`` float32, a 0-dim tensor on its device.
+
+    :func:`essps_lambda_fused_batch` of a batch of one, which counts the
+    launch here.
+    """
+    return essps_lambda_fused_batch(_one_row("essps_lambda_fused", costs), target_ess,
+                                    lambda_min, lambda_max, iters)[0]
 
 
 essps_lambda_fused.launches = 0
@@ -246,12 +252,63 @@ essps_lambda_fused.launches = 0
 def lbps_lambda_fused(
     costs: torch.Tensor, delta: float, lambda_min: float, lambda_max: float, iters: int = 32,
 ) -> torch.Tensor:
-    """LBPS ``lambda*`` of ``costs [K]`` float32, a 0-dim tensor on its device."""
-    if not _check_costs("lbps_lambda_fused", costs, iters):
-        return lbps_lambda_plain(costs, delta, lambda_min, lambda_max, iters)
-    lam = _launch("lbps_search", costs, lambda_min, lambda_max, (1.0 - delta) / delta, iters)
-    lbps_lambda_fused.launches += cuda_build.launched()
-    return lam
+    """LBPS ``lambda*`` of ``costs [K]`` float32, a 0-dim tensor on its device.
+
+    :func:`lbps_lambda_fused_batch` of a batch of one, which counts the
+    launch here.
+    """
+    return lbps_lambda_fused_batch(_one_row("lbps_lambda_fused", costs), delta, lambda_min,
+                                   lambda_max, iters)[0]
 
 
 lbps_lambda_fused.launches = 0
+
+
+_SEARCH_BATCH_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+)
+
+
+def _launch_batch(symbol: str, costs: torch.Tensor, lambda_min, lambda_max, param, iters: int):
+    batch, num_samples = costs.shape
+    out = torch.empty(batch, dtype=torch.float32, device=costs.device)
+    cuda_build.launch("lambda_search", symbol, _SEARCH_BATCH_ARGTYPES, costs.device,
+                      costs.data_ptr(), num_samples, batch, ctypes.c_float(lambda_min),
+                      ctypes.c_float(lambda_max), ctypes.c_float(param), int(iters),
+                      out.data_ptr())
+    return out
+
+
+def essps_lambda_fused_batch(
+    costs: torch.Tensor, target_ess: float, lambda_min: float, lambda_max: float,
+    iters: int = 40,
+) -> torch.Tensor:
+    """ESSPS ``lambda*`` of each row of ``costs [B, K]``, ``[B]``: one cluster a scenario.
+
+    Counts in ``essps_lambda_fused.launches``.  CPU costs take
+    :func:`essps_lambda_plain` row by row.
+    """
+    if not _check_costs("essps_lambda_fused", costs, iters):
+        return torch.stack([essps_lambda_plain(c, target_ess, lambda_min, lambda_max, iters)
+                            for c in costs])
+    lam = _launch_batch("essps_search_batch", costs, lambda_min, lambda_max, target_ess, iters)
+    essps_lambda_fused.launches += cuda_build.launched()
+    return lam
+
+
+def lbps_lambda_fused_batch(
+    costs: torch.Tensor, delta: float, lambda_min: float, lambda_max: float, iters: int = 32,
+) -> torch.Tensor:
+    """LBPS ``lambda*`` of each row of ``costs [B, K]``, ``[B]``: one cluster a scenario.
+
+    Counts in ``lbps_lambda_fused.launches``.  CPU costs take
+    :func:`lbps_lambda_plain` row by row.
+    """
+    if not _check_costs("lbps_lambda_fused", costs, iters):
+        return torch.stack([lbps_lambda_plain(c, delta, lambda_min, lambda_max, iters)
+                            for c in costs])
+    lam = _launch_batch("lbps_search_batch", costs, lambda_min, lambda_max,
+                        (1.0 - delta) / delta, iters)
+    lbps_lambda_fused.launches += cuda_build.launched()
+    return lam

@@ -1,0 +1,112 @@
+"""Checkpoint / resume for solver state.
+
+Counterpart of ``save_state`` / ``load_state`` of
+``mppi_playground_tpu/utils/checkpoint.py``: a single ``.npz`` file of the
+state's leaves, gathered to the host.  The port's :class:`MPPIState` is
+more than tensors: its leaves are its tensors (the warm start, the SG
+history, lambda, the device key, MPO's temperature and Adam moments) and its
+host numbers (the seed and the tick), in the order of its fields; a ``None``
+(no MPO state) is no leaf, as in a JAX pytree.  Tensors keep their bits;
+host numbers are stored as JSON text, so a 64-bit seed round-trips.  The
+device key is saved as it is: after a closed loop's ``done_fn`` fired it
+names another stream than ``make_key(seed, tick)``, and the restored state
+draws from it.  A batched fleet state (``parallel.make_batched_fused_solver``)
+round-trips the same way.
+
+The JAX package's Orbax directory checkpoint is not ported here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+_HOST = (bool, int, float)
+
+
+def _npz(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _flatten(tree, out: list) -> list:
+    """The leaves of ``tree`` (tensors and host numbers) in field order; ``None`` has none."""
+    if tree is None:
+        return out
+    if isinstance(tree, (torch.Tensor,) + _HOST):
+        out.append(tree)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            _flatten(getattr(tree, f.name), out)
+    elif isinstance(tree, (tuple, list)):
+        for leaf in tree:
+            _flatten(leaf, out)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], out)
+    else:
+        raise TypeError(f"cannot checkpoint a leaf of type {type(tree).__name__}")
+    return out
+
+
+def _unflatten(template, leaves):
+    """``template`` with its leaves taken in turn from the iterator ``leaves``."""
+    if template is None:
+        return None
+    if isinstance(template, (torch.Tensor,) + _HOST):
+        return next(leaves)
+    if dataclasses.is_dataclass(template) and not isinstance(template, type):
+        return dataclasses.replace(template, **{
+            f.name: _unflatten(getattr(template, f.name), leaves)
+            for f in dataclasses.fields(template)})
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(_unflatten(leaf, leaves) for leaf in template))
+    if isinstance(template, (tuple, list)):
+        return type(template)(_unflatten(leaf, leaves) for leaf in template)
+    return {k: _unflatten(template[k], leaves) for k in sorted(template)}
+
+
+def save_state(path: str, state) -> str:
+    """Persist a solver-state tree to ``path`` (.npz); returns the file's path."""
+    arrays = {}
+    for i, leaf in enumerate(_flatten(state, [])):
+        if isinstance(leaf, torch.Tensor):
+            arrays[f"leaf_{i}"] = leaf.detach().cpu().numpy()
+        else:
+            arrays[f"leaf_{i}"] = np.array(json.dumps(leaf))
+    np.savez(_npz(path), **arrays)
+    return _npz(path)
+
+
+def load_state(path: str, template):
+    """Restore a tree saved by :func:`save_state`.
+
+    Args:
+        template: a tree with the target structure (e.g. ``solver.init()``, or
+            a fleet's ``init_batch()``) whose tensor leaves give the shapes,
+            dtypes and the device each restored tensor goes to.
+    """
+    with np.load(_npz(path)) as data:
+        leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
+    template_leaves = _flatten(template, [])
+    if len(leaves) != len(template_leaves):
+        raise ValueError(
+            f"checkpoint has {len(leaves)} leaves; template expects {len(template_leaves)}"
+        )
+    restored = []
+    for i, (leaf, tmpl) in enumerate(zip(leaves, template_leaves)):
+        host = leaf.dtype.kind == "U"
+        shape = () if isinstance(tmpl, _HOST) else tuple(tmpl.shape)
+        if host != isinstance(tmpl, _HOST) or tuple(leaf.shape) != shape:
+            raise ValueError(
+                f"checkpoint leaf {i} has shape {tuple(leaf.shape)}; template expects "
+                f"{shape} — was this state saved from a different solver config?"
+            )
+        if host:
+            restored.append(type(tmpl)(json.loads(str(leaf))))
+        else:
+            restored.append(torch.from_numpy(leaf.copy()).to(
+                dtype=tmpl.dtype, device=tmpl.device))
+    return _unflatten(template, iter(restored))

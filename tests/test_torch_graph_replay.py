@@ -156,3 +156,6 @@ def test_a_tick_that_cannot_be_captured_names_the_requirement_on_the_card(card):
     torch.cuda.synchronize()
     a, _ = c.forward(torch.tensor([3.0, 0.0], device="cuda"), info={})  # eager ticks still run
     assert torch.isfinite(a).all()
+    # the failed capture left torch's CUDA generator out of capture mode: it still draws
+    assert torch.isfinite(torch.randn(4, device="cuda")).all()
+
