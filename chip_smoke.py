@@ -122,7 +122,19 @@ Phases, each of which fails the run if it fails:
     kernels line holding its batched launch as ``batched``; and the utils on the flagship: ``checked_solve`` raising
     the JAX message after a plant that turns the state into NaN,
     ``time_fn`` beside :func:`graph_ms`, and an episode saved after 25
-    ticks, restored and run on bit for bit the uninterrupted one.
+    ticks, restored and run on bit for bit the uninterrupted one;
+14. sample sharding (:func:`drive_sharding`): rows 1, 3 and 5 launched shard
+    by shard at D = 2, 4 and 8 (``parallel/sharded.shard_size`` samples from
+    each shard's offset, the inheritance threshold in a later shard), at the
+    flagship and on a B=8 fleet launch, in both noise modes, concatenated and
+    sliced to K bit for bit the whole launch, D=2's last shard against its
+    twins; ``make_sharded_fused_solver`` on a one-rank NCCL group, 50
+    flagship ticks at fixed λ, MPO and ESSPS bit for bit
+    ``make_fused_solver``'s, counted, the host-driven tick in turns with the
+    single solver and, where NCCL's collectives capture, the replayed
+    episode bit for bit and in turns; two gloo ranks sharing the card, five
+    sharded flagship ticks bit for bit the single solve on both ranks, a
+    capture raising ``closed_loop.CAPTURABLE``.
 
 Every kernel is timed as the device time of launches replayed in a CUDA
 graph (:func:`graph_ms`; the event loop beside it).  It prints each TPU
@@ -1948,6 +1960,50 @@ def chain_bounds() -> int:
     return 0
 
 
+def rollout_sass(other: str) -> int:
+    """The SASS instruction counts of the rollout kernels of this checkout and another's.
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.rollout_sass("DIR"))'
+
+    Builds every ``fused_<model>.cu`` of both checkouts with this checkout's
+    flags and prints, a JSON line a model and kernel (row 1's
+    ``fused_solve_kernel``, row 3's ``costs_dump_kernel``), each build's
+    instruction count and the opcodes whose counts differ.
+    """
+    import collections
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.ops import cuda_build
+    from mppi_playground_tpu_torch.ops.fused_solve import MODELS
+
+    card = card_line()
+    print(card, flush=True)
+    sources = [f"fused_{name}" for name in MODELS]
+    csrc = Path(__file__).resolve().parent / "mppi_playground_tpu_torch" / "csrc"
+    libs = build_copies({"this": (csrc, []), "other": (
+        Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc", [])}, sources)
+    tool = Path(cuda_build.nvcc()).parent / "cuobjdump"
+    for name in MODELS:
+        dumps = {side: subprocess.run([str(tool), "-sass", str(libs[side][f"fused_{name}"][0])],
+                                      capture_output=True, text=True, check=True,
+                                      timeout=300).stdout for side in libs}
+        for kernel in ("18fused_solve_kernel", "17costs_dump_kernel"):
+            ops = {side: collections.Counter(op for _, _, op, _ in _sass_program(dump, kernel))
+                   for side, dump in dumps.items()}
+            diff = {op: ops["this"][op] - ops["other"][op]
+                    for op in set(ops["this"]) | set(ops["other"])
+                    if ops["this"][op] != ops["other"][op]}
+            print(json.dumps({"model": name, "kernel": kernel[2:], "card": card,
+                              "this": sum(ops["this"].values()),
+                              "other": sum(ops["other"].values()), "differ": diff}),
+                  flush=True)
+    return 0
+
+
 def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
     """Rows 7 and 8 of this checkout against another checkout's, in turns on one card.
 
@@ -2237,7 +2293,7 @@ def fused_kernels_in_turns(other: str) -> int:
                                           fs._one_seed(seed), fs._one(ref), task, sig, lo, hi, k,
                                           k, fs._one(nz))
             # their single-scenario entry points take no batch and no seed stride
-            args = args[:10] + (their_seed,) + args[11:-2]
+            args = args[:10] + (their_seed,) + args[11:-4]
             costs = torch.empty(k, device="cuda")
             if kernel == "fused_solve":
                 out = (costs, torch.empty(blocks, 3, device="cuda"),
@@ -3879,6 +3935,356 @@ def cell_sweeps(torch, geometries: dict) -> dict:
             for label, (floats, ints) in geometries.items()}
 
 
+# --- phase 14: sample sharding -------------------------------------------------
+
+SHARDS = (2, 4, 8)
+# inside a later shard at every D: the shards are 50,176, 25,088 and 12,544 samples
+SHARD_THRESHOLD = 70_000
+FLEET_SHARD_B, FLEET_SHARD_THRESHOLD = 8, 3_000  # the fleet's launch: its K=4,096 in 2-8 shards
+SHARDED_TICKS = 50  # the one-rank NCCL facade's ticks a mode
+GLOO_TICKS = 5  # the two gloo ranks' ticks
+
+
+def shard_rows(torch, fs, x0s, prevs, lams, seeds, refs, task, k, threshold, noise) -> dict:
+    """Rows 1, 3 and 5 of every shard at D = 2, 4, 8, concatenated and sliced, against the whole.
+
+    ``noise [B, K, T, 2]``; every other array as the ``*_batch`` wrappers
+    take it.  In both noise modes each shard launches at its sample offset
+    (``parallel/sharded.shard_size``); its costs, partials and dump,
+    concatenated in shard order and sliced to K samples and ``ceil(K /
+    256)`` blocks, must be the whole launch's bit for bit, and its samples
+    past K must cost 1e30 and dump zeros.  D=2's last shard is also held
+    against its twins (costs and dump bitwise, the partials at
+    :data:`PARTIALS_BAR`'s tolerance through ``partials_errors``-style
+    checks: the block maxima bitwise).  Returns ``{f"{mode} D={d}": {...}}``.
+    """
+    from mppi_playground_tpu_torch.parallel.sharded import shard_size
+
+    sig, lo, hi = FLAGSHIP_BOUNDS
+    blocks = -(-k // 256)
+    out = {}
+    for mode, nz in (("seeded", None), ("noise", noise)):
+        whole1 = fs.fused_solve_batch(x0s, prevs, lams, seeds, refs, task, sig, lo, hi, k,
+                                      threshold, nz)
+        whole3 = fs.fused_costs_dump_batch(x0s, prevs, seeds, refs, task, sig, lo, hi, k,
+                                           threshold, nz)
+        whole5 = fs.fused_weighted_batch(*whole3, lams)
+        for d in SHARDS:
+            local = shard_size(k, d)
+            r1, r3, r5, padding = [], [], [], True
+            for rank in range(d):
+                off, rows = rank * local, None
+                if nz is not None:
+                    rows = nz[:, off:off + local]
+                    rows = torch.cat([rows, rows.new_zeros(rows.shape[0], local - rows.shape[1],
+                                                           *rows.shape[2:])], 1).contiguous()
+                shard = (local, threshold, rows, off, k)
+                r1.append(fs.fused_solve_batch(x0s, prevs, lams, seeds, refs, task, sig, lo, hi,
+                                               *shard))
+                r3.append(fs.fused_costs_dump_batch(x0s, prevs, seeds, refs, task, sig, lo, hi,
+                                                    *shard))
+                r5.append(fs.fused_weighted_batch(*r3[-1], lams, off, k))
+                past = torch.arange(off, off + local, device=x0s.device) >= k
+                padding = padding and bool((r1[-1][0][:, past] == 1e30).all()
+                                           and (r3[-1][0][:, past] == 1e30).all()
+                                           and (r3[-1][1][:, :, past] == 0).all())
+            torch.cuda.synchronize()
+
+            def same(parts, whole, dim, n):
+                return bool(torch.equal(torch.cat(parts, dim).narrow(dim, 0, n), whole))
+
+            res = {
+                "row1": same([r[0] for r in r1], whole1[0], 1, k)
+                and same([r[1] for r in r1], whole1[1], 1, blocks)
+                and same([r[2] for r in r1], whole1[2], 1, blocks),
+                "row3": same([r[0] for r in r3], whole3[0], 1, k)
+                and same([r[1] for r in r3], whole3[1], 2, k),
+                "row5": same([r[0] for r in r5], whole5[0], 1, blocks)
+                and same([r[1] for r in r5], whole5[1], 1, blocks),
+                "padding": padding, "shard_samples": local,
+            }
+            if d == 2 and mode == "seeded":  # the last shard against its twins
+                off = local
+                tw1 = fs.fused_solve_batch_plain(x0s, prevs, lams, seeds, refs, task, sig, lo,
+                                                 hi, local, threshold, None, off, k)
+                tw3 = fs.fused_costs_dump_batch_plain(x0s, prevs, seeds, refs, task, sig, lo,
+                                                      hi, local, threshold, None, off, k)
+                tw5 = fs.fused_weighted_batch_plain(*tw3, lams, off, k)
+                res["twin_costs_bitwise"] = bool(torch.equal(r1[1][0], tw1[0])
+                                                 and torch.equal(r3[1][0], tw3[0]))
+                res["twin_dump_bitwise"] = bool(torch.equal(r3[1][1], tw3[1]))
+                res["twin_block_max_bitwise"] = bool(torch.equal(r1[1][1][..., 0], tw1[1][..., 0])
+                                                     and torch.equal(r5[1][0][..., 0],
+                                                                     tw5[0][..., 0]))
+                res["twin_partials_max_rel_err"] = max(
+                    ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+                    for a, b in ((r1[1][1][..., 1:], tw1[1][..., 1:]),
+                                 (r5[1][0][..., 1:], tw5[0][..., 1:])))
+                res["twin_numer_max_abs_err"] = max(
+                    (r1[1][2] - tw1[2]).abs().max().item(), (r5[1][1] - tw5[1]).abs().max().item())
+            out[f"{mode} D={d}"] = res
+    return out
+
+
+def free_port() -> int:
+    """A TCP port on localhost that no process listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def flagship_closed_loop_fns(env):
+    """``(info_fn, plant)`` of the flagship's closed loop (phase 12's)."""
+    from mppi_playground_tpu_torch.models.racing_mpcc import calc_ref_trajectory
+
+    path = env.racing_center_path
+
+    def info_fn(cind, x):
+        xref, new_cind = calc_ref_trajectory(x, path, cind, T)
+        return {"reference_path": xref}, new_cind
+
+    return info_fn, lambda x, u: env.dynamics(x[None], u[None])[0]
+
+
+def sharded_facade(torch, env, card):
+    """Phase 14b: ``make_sharded_fused_solver`` on a one-rank NCCL group, against the single solver.
+
+    At the flagship (T=50, K=100,000), fixed λ, MPO and ESSPS: 50 eager
+    ticks of each, counted, bit for bit (the final state and key, every
+    tick's state and action); the host-driven tick of both in turns (10
+    windows of 5 ticks); then the 50-tick episode through
+    ``make_closed_loop``: where the NCCL collectives capture, it must be bit
+    for bit the eager ticks, and its replays are timed in turns with the
+    single solver's; where they do not, the capture's error is recorded.
+    Returns ``{mode: {...}}`` or None.
+    """
+    import torch.distributed as dist
+
+    from mppi_playground_tpu_torch.core.closed_loop import make_closed_loop
+    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
+    from mppi_playground_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        make_sharded_fused_solver,
+    )
+    from mppi_playground_tpu_torch.workloads import build_flagship
+
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh()
+        _, fixed, _ = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
+        task = make_racing_fused_task_from_env(env)
+        info_fn, plant = flagship_closed_loop_fns(env)
+        out = {}
+        for mode in ("fixed", "MPO", "ESSPS"):
+            config = fixed.config if mode == "fixed" else dataclasses.replace(fixed.config,
+                                                                              lambda_=mode)
+            single = make_fused_solver(config, task, env.dynamics, device="cuda")
+            sharded = make_sharded_fused_solver(config, task, env.dynamics, mesh)
+            x0 = env.reset()
+            c0 = torch.zeros((), dtype=torch.int64, device="cuda")
+            counted = zero_counters()
+            got = eager_episode(torch, sharded, plant, SHARDED_TICKS, sharded.init(), x0, c0,
+                                info_fn)
+            launches = read_counters(counted)
+            want = eager_episode(torch, single, plant, SHARDED_TICKS, single.init(), x0, c0,
+                                 info_fn)
+            exact = _bitwise(torch, got, want)
+            runners = {"single": single, "sharded": sharded}
+            states = {name: solver.init() for name, solver in runners.items()}
+            carry = {name: (x0, c0) for name in runners}
+            times = {name: [] for name in runners}
+            order = list(runners)
+            for _ in range(10):
+                for name in order:
+                    def ticks(name=name):
+                        for _ in range(5):
+                            x, c = carry[name]
+                            info, c_next = info_fn(c, x)
+                            r = runners[name].solve(states[name], x, info=info)
+                            states[name], carry[name] = r.state, (plant(x, r.action_seq[0]),
+                                                                  c_next)
+                    times[name].append(synced_ms(torch, ticks) / 5)
+                order.reverse()
+            res = dict(bitwise_single=exact,
+                       launches={k: v for k, v in launches.items() if v},
+                       tick_ms_in_turns={n: statistics.median(v) for n, v in times.items()})
+            try:
+                run = make_closed_loop(sharded, plant, SHARDED_TICKS, info_fn=info_fn)
+                episode = run(sharded.init(), x0, c0)
+                res["captured"] = True
+                res["replayed_bitwise_eager"] = _bitwise(torch, episode, got)
+                single_run = make_closed_loop(single, plant, SHARDED_TICKS, info_fn=info_fn)
+                single_run(single.init(), x0, c0)
+                runs = {"single": [], "sharded": []}
+                for _ in range(3):
+                    for name, fn in (("single", single_run), ("sharded", run),
+                                     ("sharded", run), ("single", single_run)):
+                        solver = runners[name]
+                        runs[name].append(synced_ms(torch, lambda fn=fn, solver=solver: fn(
+                            solver.init(), x0, c0)) / SHARDED_TICKS)
+                res["replayed_tick_ms_in_turns"] = {n: statistics.median(v)
+                                                    for n, v in runs.items()}
+                res["capture_s"] = run.episode.graph.capture_s
+            except RuntimeError as err:
+                res["captured"] = False
+                res["capture_error"] = str(err)[-400:]
+            print(f"phase 14 sharded facade, {mode}, one-rank NCCL group, T={T}, K={K}, "
+                  f"{SHARDED_TICKS} ticks on {card}: {json.dumps(res)}", flush=True)
+            want_kernels = fused_kernels("racing", config) - {"racing_top_rollouts"}
+            if not (exact and set(res["launches"]) == want_kernels
+                    and all(v == SHARDED_TICKS for v in res["launches"].values())
+                    and res.get("replayed_bitwise_eager", True)):
+                fail(f"sharded facade {mode}: bitwise {exact}, launches {res['launches']} "
+                     f"(want {sorted(want_kernels)} {SHARDED_TICKS} times each), replayed "
+                     f"{res.get('replayed_bitwise_eager')}")
+                return None
+            out[mode] = res
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of two gloo ranks sharing the card: :func:`gloo_pair`'s body."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.core.closed_loop import CAPTURABLE, make_closed_loop
+    from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
+    from mppi_playground_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        make_sharded_fused_solver,
+    )
+    from mppi_playground_tpu_torch.workloads import build_flagship
+
+    initialize_distributed(f"localhost:{port}", 2, rank, device="cuda", backend="gloo")
+    try:
+        env = RacingEnv(device="cuda")
+        _, single, _ = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
+        sharded = make_sharded_fused_solver(single.config, make_racing_fused_task_from_env(env),
+                                            env.dynamics, make_mesh(device_type="cuda"))
+        info_fn, plant = flagship_closed_loop_fns(env)
+        x0 = env.reset()
+        c0 = torch.zeros((), dtype=torch.int64, device="cuda")
+        eager_episode(torch, sharded, plant, 1, sharded.init(), x0, c0, info_fn)  # warm
+        t0 = time.perf_counter()
+        got = eager_episode(torch, sharded, plant, GLOO_TICKS, sharded.init(), x0, c0, info_fn)
+        torch.cuda.synchronize()
+        tick_ms = 1e3 * (time.perf_counter() - t0) / GLOO_TICKS
+        want = eager_episode(torch, single, plant, GLOO_TICKS, single.init(), x0, c0, info_fn)
+        res = dict(rank=rank, bitwise_single=_bitwise(torch, got, want), tick_ms=tick_ms)
+        try:
+            make_closed_loop(sharded, plant, 3, info_fn=info_fn)(sharded.init(), x0, c0)
+            res["capture"] = "captured"
+        except RuntimeError as err:
+            res["capture"] = "raised CAPTURABLE" if CAPTURABLE in str(err) else str(err)[-400:]
+        (Path(out_dir) / f"gloo_rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_pair(torch, card):
+    """Phase 14c: two gloo ranks sharing the card, five sharded flagship ticks each.
+
+    Each rank's fixed-λ solve, its samples sharded over the two ranks and
+    gathered through host memory (gloo's CUDA collectives), must be bit for
+    bit the single solve on that rank; a capture of the sharded tick must
+    raise ``closed_loop.CAPTURABLE`` (gloo's collectives cannot be captured).
+    The tick time is gloo through host memory on one card, not a multi-GPU
+    number.  Returns the ranks' results or None.
+    """
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent) as d:
+        mp.spawn(_gloo_rank, args=(free_port(), d), nprocs=2, join=True)
+        ranks = [json.loads((Path(d) / f"gloo_rank{r}.json").read_text()) for r in range(2)]
+    print(f"phase 14 two gloo ranks sharing {card} (collectives through host memory; not a "
+          f"multi-GPU number), T={T}, K={K}, {GLOO_TICKS} ticks: {json.dumps(ranks)}",
+          flush=True)
+    if not all(r["bitwise_single"] and r["capture"] == "raised CAPTURABLE" for r in ranks):
+        fail("two gloo ranks: a rank's sharded solve differs from the single solve, or its "
+             "capture did not raise the CAPTURABLE message")
+        return None
+    return ranks
+
+
+def drive_sharding(torch, np, env, card):
+    """Phase 14: sample sharding on the card.
+
+    (a) rows 1, 3 and 5 per shard (:func:`shard_rows`) at the flagship
+    (racing, T=50, K=100,000, the inheritance threshold in a later shard)
+    and on a B=8 fleet launch (T=25, K=4,096), D = 2, 4, 8, both noise
+    modes; (b) :func:`sharded_facade`; (c) :func:`gloo_pair`.  Returns
+    ``{"rows": ..., "facade": ..., "gloo": ..., "seconds": s}`` or None.
+    """
+    from mppi_playground_tpu_torch.core.config import tick_seed
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+
+    t0 = time.perf_counter()
+    _, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
+    seed = device_seed(torch, tick_seed(42, 0))
+    lam = torch.full((1,), 0.7, device="cuda")
+    flagship = shard_rows(torch, fs, x0[None], prev[None], lam, seed.reshape(1), xref5[None],
+                          task, K, SHARD_THRESHOLD, noise[None])
+    del noise
+    x0s, prevs, refs, fleet_noise = fleet_kernel_inputs(torch, np, env, FLEET_SHARD_B)
+    seeds = torch.stack([device_seed(torch, tick_seed(42, b)) for b in range(FLEET_SHARD_B)])
+    lams = torch.linspace(0.5, 2.0, FLEET_SHARD_B, device="cuda")
+    fleet = shard_rows(torch, fs, x0s, prevs, lams, seeds.reshape(-1), refs, task, FLEET_K,
+                       FLEET_SHARD_THRESHOLD, fleet_noise)
+    rows = {f"flagship T={T} K={K}": flagship,
+            f"fleet B={FLEET_SHARD_B} T={FLEET_T} K={FLEET_K}": fleet}
+    print(f"phase 14 rows 1, 3, 5 per shard against the whole launch on {card}: "
+          f"{json.dumps(rows)}", flush=True)
+    bad = [f"{label} {case}" for label, cases in rows.items() for case, r in cases.items()
+           if not (r["row1"] and r["row3"] and r["row5"] and r["padding"]
+                   and r.get("twin_costs_bitwise", True) and r.get("twin_dump_bitwise", True)
+                   and r.get("twin_block_max_bitwise", True)
+                   and r.get("twin_partials_max_rel_err", 0.0) <= 1e-6
+                   and r.get("twin_numer_max_abs_err", 0.0) <= 1e-3)]
+    if bad:
+        fail(f"shards of rows 1, 3, 5 differ from the whole launch or their twins: {bad}")
+        return None
+    facade = sharded_facade(torch, env, card)
+    if facade is None:
+        return None
+    gloo = gloo_pair(torch, card)
+    if gloo is None:
+        return None
+    return {"rows": rows, "facade": facade, "gloo": gloo, "seconds": time.perf_counter() - t0}
+
+
+def sharding_alone() -> int:
+    """Phase 14 alone, after the build: ``python3 -c 'import sys, chip_smoke;
+    sys.exit(chip_smoke.sharding_alone())'``."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"build: {cuda_build.build():.1f} s", flush=True)
+    out = drive_sharding(torch, np, RacingEnv(device="cuda"), card)
+    return 1 if out is None else 0
+
+
 def flagship_inputs(torch, np) -> tuple:
     """``(env, task, x0, ref [T+1, 5], prev [T, 2], noise [K, T, 2])`` of the flagship, seeded."""
     from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
@@ -4197,6 +4603,11 @@ def main() -> int:
     if fleet is None:
         return 1
 
+    # --- phase 14: sample sharding --------------------------------------------
+    sharding = drive_sharding(torch, np, env, card)
+    if sharding is None:
+        return 1
+
     paths = {f"flagship {m}": run["launches"] for m, run in modes.items()}
     paths.update({f"flagship episode {m}": run["launches"]
                   for m, run in loops["flagship"].items()})
@@ -4207,6 +4618,9 @@ def main() -> int:
     paths.update({label: run["launches"] for label, run in model_paths.items()})
     paths.update({label: run["launches"] for label, run in
                   {**fleet["racing"], **fleet["models"]}.items()})
+    paths.update({f"sharded flagship {m}": {name: run["launches"].get(name, 0)
+                                            for name in launch_counters()}
+                  for m, run in sharding["facade"].items()})
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -4259,9 +4673,14 @@ def main() -> int:
         },
     ] + auto["kernels"] + row6 + [row9, racing_epilogue_row] + list(model_rows.values()) + [
         regen_rows["m1_regen"]]
+    sharded_rows = {"racing_fused_solve": "row1", "racing_costs_dump": "row3",
+                    "fused_weighted": "row5"}
     for k in kernels:
         k["launches"], k["launches_by_path"] = launches_of(k["name"])
         k["row"] = tpu_row(k["name"])
+        if k["name"] in sharded_rows:  # the shards' launches it was held on, bit for bit
+            k["sharded"] = {label: {case: r[sharded_rows[k["name"]]] for case, r in cases.items()}
+                            for label, cases in sharding["rows"].items()}
         if k["name"] in fleet["rows"]:  # its launch over a fleet, with the fleets' launches
             k["batched"] = dict(fleet["rows"][k["name"]], launches=sum(
                 n for path, n in k["launches_by_path"].items() if is_fleet_path(path)))
@@ -4294,7 +4713,10 @@ def main() -> int:
                                                      if k != "launches"}
                                              for label, run in {**fleet["racing"],
                                                                 **fleet["models"]}.items()},
-                                "utils": fleet["utils"], "seconds": fleet["seconds"]}}),
+                                "utils": fleet["utils"], "seconds": fleet["seconds"]},
+                      "sharding": {"facade": {m: {k: v for k, v in run.items() if k != "launches"}
+                                              for m, run in sharding["facade"].items()},
+                                   "gloo": sharding["gloo"], "seconds": sharding["seconds"]}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Optional
 
@@ -255,6 +256,12 @@ class TickGraph:
 
     def __init__(self, body: Callable[[], Any], device: torch.device):
         self.graph = torch.cuda.CUDAGraph()
+        # A graph the collector frees while this one captures (one left in a
+        # reference cycle) is destroyed mid-capture, which invalidates the
+        # capture: collect first, and hold the collector off until it ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         try:
             with torch.cuda.device(device), torch.cuda.graph(self.graph):
@@ -263,6 +270,9 @@ class TickGraph:
             _end_generator_capture(device)
             raise RuntimeError(f"capturing the control tick in a CUDA graph failed; "
                                f"{CAPTURABLE}. The capture raised: {err}") from err
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
 
     def replay(self) -> None:

@@ -33,6 +33,14 @@ no stored rollouts, ``horizon * dim_control <= 1024``, ``dim_state <= 128``
 and the config's dimensions those of the task's model; ``ValueError``
 outside it.
 
+The solve core (``make_fused_solver(..., solve_core=)``, the JAX package's
+``solve_core`` seam) is what runs a tick's samples: the fused solve, phase 1
+and phase 2, and the gathers that make their costs and block partials the
+whole launch's.  The default, :class:`SolveCore`, launches them over all K
+samples on the solver's device; ``parallel/sharded.py``'s shard core runs a
+shard of them and gathers the shards over a process group.  Every rank then
+runs the same tail on the same inputs.
+
 Rollouts never reach memory.  ``solver.top_samples(aux, n, noise=None)``
 takes the top n samples by weight (as ``jax.lax.top_k`` orders them), then
 one launch of the top rows' kernel regenerates their perturbations from the
@@ -125,7 +133,63 @@ def takes_lambda_epilogue(config: MPPIConfig, lambda_epilogue: Optional[bool] = 
     return bool(lambda_epilogue)
 
 
-def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device):
+class SolveCore:
+    """The kernels of a tick's samples, and the gathers that make them the whole launch's.
+
+    The methods take B scenarios (every array ``[B, ...]``, the seed words
+    ``[B]``), as the ``*_batch`` wrappers of ``ops/fused_solve.py`` do, with
+    the injected noise ``[B, K, T, m]`` of all K samples.  This core runs the
+    whole launch on one device: its ``num_samples`` samples from
+    ``sample_offset`` 0 are all ``total_samples``, and its gathers return
+    what they are given.  A shard core (``parallel/sharded.ShardedCore``)
+    runs ``num_samples`` samples from its ``sample_offset``, takes its rows
+    of the noise (:meth:`shard_noise`), and gathers every rank's costs
+    ``[B, K]`` and block partials ``[B, ceil(K / 256), ...]`` in the whole
+    launch's order.
+    """
+
+    def __init__(self, config: MPPIConfig, task: FusedTask, num_samples: Optional[int] = None,
+                 sample_offset: int = 0):
+        self.task = task
+        self.bounds = (tuple(float(s) for s in config.sigmas),
+                       tuple(float(v) for v in config.u_min),
+                       tuple(float(v) for v in config.u_max))
+        self.total_samples = config.num_samples
+        self.num_samples = config.num_samples if num_samples is None else num_samples
+        self.sample_offset = sample_offset
+        self.threshold = config.inherited_samples
+
+    def shard_noise(self, noise: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This core's rows ``[B, num_samples, T, m]`` of the noise of all K samples."""
+        return noise
+
+    def fused_solve(self, x0s, prevs, lams, seeds, refs, noise):
+        """Row 1: ``(costs, stats, numer)`` of this core's samples."""
+        return fused_solve_batch(x0s, prevs, lams, seeds, refs, self.task, *self.bounds,
+                                 self.num_samples, self.threshold, self.shard_noise(noise),
+                                 self.sample_offset, self.total_samples)
+
+    def costs_dump(self, x0s, prevs, seeds, refs, noise):
+        """Row 3: ``(costs, dump)`` of this core's samples."""
+        return fused_costs_dump_batch(x0s, prevs, seeds, refs, self.task, *self.bounds,
+                                      self.num_samples, self.threshold, self.shard_noise(noise),
+                                      self.sample_offset, self.total_samples)
+
+    def weighted(self, costs, dump, lams):
+        """Row 5: the block partials of this core's samples from its phase 1's outputs."""
+        return fused_weighted_batch(costs, dump, lams, self.sample_offset, self.total_samples)
+
+    def gather_costs(self, costs: torch.Tensor) -> torch.Tensor:
+        """Every sample's costs ``[B, K]`` from this core's."""
+        return costs
+
+    def gather_partials(self, stats: torch.Tensor, numer: torch.Tensor):
+        """Every block's partials ``([B, blocks, 3], [B, blocks, T*m])`` from this core's."""
+        return stats, numer
+
+
+def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device,
+                     core: Optional[SolveCore] = None):
     """``solve_batch(states, x0s, info=None, noise=None)``: B scenarios' fused solves, a launch
     a kernel.
 
@@ -138,14 +202,13 @@ def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device):
     one launch of the tail, which writes each scenario's next key.  The state
     advance, MPO's Adam step included, runs as torch operations over
     ``[B]``.  Scenario b's outputs are bit for bit its solve alone: the
-    kernels give each scenario its own view of the launch.  ``config`` is
-    checked by the caller (:func:`make_fused_solver`).
+    kernels give each scenario its own view of the launch.  ``core`` runs
+    the samples (:class:`SolveCore`, the default, all of them on
+    ``device``).  ``config`` is checked by the caller
+    (:func:`make_fused_solver`).
     """
     dtype = config.dtype
-    sigmas = tuple(float(s) for s in config.sigmas)
-    u_min = tuple(float(v) for v in config.u_min)
-    u_max = tuple(float(v) for v in config.u_max)
-    sampling_sizes = (config.num_samples, config.inherited_samples)
+    core = SolveCore(config, task) if core is None else core
     sg_coeffs = config_sg_coeffs(config, dtype, device)
     search = _search(config)
 
@@ -168,15 +231,16 @@ def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device):
                 ref = ref.expand(batch, *ref.shape)
             refs = extend_reference_path(ref).contiguous()
         prevs = states.previous_action_seq.contiguous()
-        sampling = (sigmas, u_min, u_max, *sampling_sizes, noise)
         if search is not None:
-            costs, dump = fused_costs_dump_batch(x0s, prevs, seeds, refs, task, *sampling)
+            local_costs, dump = core.costs_dump(x0s, prevs, seeds, refs, noise)
+            costs = core.gather_costs(local_costs)
             lam = search.run_batch(costs)
-            stats, numer = fused_weighted_batch(costs, dump, lam)
+            stats, numer = core.gather_partials(*core.weighted(local_costs, dump, lam))
         else:  # fixed and MPO weight at each scenario's lambda
             lam = states.lam.contiguous()
-            costs, stats, numer = fused_solve_batch(x0s, prevs, lam, seeds, refs, task,
-                                                    *sampling)
+            local_costs, stats, numer = core.fused_solve(x0s, prevs, lam, seeds, refs, noise)
+            costs = core.gather_costs(local_costs)
+            stats, numer = core.gather_partials(stats, numer)
         keys_out = torch.empty_like(keys)
         action_seq, state_seq, weights, ess, new_sg_history = fused_tick_tail_batch(
             x0s, costs, stats, numer, lam, task, states.sg_history.contiguous(), sg_coeffs,
@@ -210,6 +274,7 @@ def make_fused_solver(
     dynamics: Dynamics,
     device: Optional[Union[str, torch.device]] = None,
     lambda_epilogue: Optional[bool] = None,
+    solve_core: Optional[SolveCore] = None,
 ) -> MPPISolver:
     """Build the fused-kernel solver for ``task``'s model.
 
@@ -222,6 +287,10 @@ def make_fused_solver(
             phase-1 launch (for ``num_samples <= 524,288``), ``False`` the
             standalone search kernel; ``None`` picks by K
             (:func:`takes_lambda_epilogue`).
+        solve_core: what runs the tick's samples (:class:`SolveCore`); None
+            is all of them on ``device``.  A supplied core (a shard of a
+            sample-sharded solve) takes the standalone search, as the JAX
+            package keeps the epilogue off a sharded core.
 
     Every route but the λ epilogue is :func:`make_solve_batch`'s on a batch
     of one scenario.
@@ -245,10 +314,13 @@ def make_fused_solver(
     num_samples = config.num_samples
     sg_coeffs = config_sg_coeffs(config, dtype, device)
     search = _search(config)
-    use_epilogue = takes_lambda_epilogue(config, lambda_epilogue)
+    if solve_core is not None and lambda_epilogue:
+        raise ValueError("a supplied solve_core takes the standalone lambda search: the epilogue "
+                         "searches one launch's costs")
+    use_epilogue = solve_core is None and takes_lambda_epilogue(config, lambda_epilogue)
     # the epilogue's count of finished clusters, zero between launches
     ticket = torch.zeros(1, dtype=torch.int32, device=device) if use_epilogue else None
-    solve_batch = make_solve_batch(config, task, device)
+    solve_batch = make_solve_batch(config, task, device, solve_core)
 
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)

@@ -17,12 +17,9 @@ Noise: ``solve(noise=...)`` takes ``[K, T, m]`` perturbations already
 scaled by sigma.  Without it, the noise is the fused kernels' seeded stream
 at the seed word of the state's device key (``core/config.make_key``), so
 that the unfused route samples exactly the fused route's perturbations and
-a CUDA graph of the tick draws a new stream at every replay.  For float32
-with ``dim_control`` in (1, 2) and ``horizon * dim_control <= 1024`` (the
-regeneration kernel's envelope) one launch of that kernel over rows
-0..K-1 draws, clamps and moves the key on (its twin on the CPU); any other
-config draws ``ops/fused_solve.seeded_normals`` in torch ops, the seed
-read as a tensor, and moves the key on by its twin.
+a CUDA graph of the tick draws a new stream at every replay
+(:func:`make_perturbations`: one launch of the regeneration kernel over
+rows 0..K-1 where the config is in its envelope).
 
 The softmin tail follows ``config.kernel_backend``, decided once when the
 solver is built: ``"auto"`` and ``"pallas"`` run the streaming weighted
@@ -276,6 +273,66 @@ def smooth_predict_advance(
     return optimal_action_seq, optimal_state_seq, new_sg_history
 
 
+def make_perturbations(config: MPPIConfig, device: torch.device):
+    """``perturbations(key, mean, noise, first=0, count=K)``: the unfused draw of rows
+    ``[first, first + count)``.
+
+    Returns the clamped perturbed sequences ``[count, T, m]`` of those
+    samples around the warm start ``mean [T, m]`` and the next tick's key.
+    Row r is sample ``first + r`` of the stream at the key's seed word (or
+    of ``noise [K, T, m]``): a shard of a sample-sharded solve draws its rows
+    of the whole draw.  For float32 with ``dim_control`` in (1, 2) and
+    ``horizon * dim_control <= 1024`` (the regeneration kernel's envelope)
+    one launch of that kernel over the rows draws, clamps and moves the key
+    on (its twin on the CPU); any other config draws
+    ``ops/fused_solve.seeded_normals`` in torch ops and moves the key on by
+    its twin.
+    """
+    dtype = config.dtype
+    num_samples, horizon = config.num_samples, config.horizon
+    dim_control = config.dim_control
+    u_min = torch.tensor(config.u_min, dtype=dtype, device=device)
+    u_max = torch.tensor(config.u_max, dtype=dtype, device=device)
+    sigmas = torch.tensor(config.sigmas, dtype=dtype, device=device)
+    threshold = config.inherited_samples
+    # the regeneration kernel draws and clamps the rows in one launch
+    regen = (dtype == torch.float32 and dim_control in REGEN_WIDTHS
+             and horizon * dim_control <= MAX_SLOTS)
+    all_rows = torch.arange(num_samples, device=device) if regen else None
+
+    def perturbations(key: torch.Tensor, mean_action_seq: torch.Tensor,
+                      noise: Optional[torch.Tensor], first: int = 0,
+                      count: Optional[int] = None):
+        count = num_samples - first if count is None else count
+        if regen and count:  # a shard with no rows moves the key on by the twin below
+            key_out = torch.empty_like(key)
+            if noise is not None:
+                noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
+            rows = all_rows[first:first + count]
+            perturbed = fused_regen(
+                mean_action_seq.contiguous(), key[2:], rows, config.sigmas, config.u_min,
+                config.u_max, num_samples, threshold, noise, key=key, key_out=key_out,
+            )
+            return perturbed, key_out
+        if noise is None:
+            normals = seeded_normals(key[2:], count, horizon, device, dim_control, first)
+            noise = normals.to(dtype) * sigmas
+        else:
+            noise = torch.as_tensor(noise, dtype=dtype, device=device)[first:first + count]
+        inherit = max(0, min(threshold - first, count))
+        if inherit >= count:
+            perturbed = mean_action_seq[None] + noise
+        elif inherit <= 0:
+            perturbed = noise
+        else:
+            perturbed = torch.cat(
+                [mean_action_seq[None] + noise[:inherit], noise[inherit:]], dim=0
+            )
+        return torch.clamp(perturbed, u_min, u_max), advance_key_plain(key)
+
+    return perturbations
+
+
 def make_solver(
     config: MPPIConfig,
     dynamics: Dynamics,
@@ -290,48 +347,13 @@ def make_solver(
             f"the weighted-update kernel takes float32; a {dtype} config on {device} "
             "needs kernel_backend='xla'"
         )
-    num_samples, horizon = config.num_samples, config.horizon
-    dim_control, dim_state = config.dim_control, config.dim_state
-    u_min = torch.tensor(config.u_min, dtype=dtype, device=device)
-    u_max = torch.tensor(config.u_max, dtype=dtype, device=device)
-    sigmas = torch.tensor(config.sigmas, dtype=dtype, device=device)
-    threshold = config.inherited_samples
+    num_samples = config.num_samples
+    dim_state = config.dim_state
     sg_coeffs = config_sg_coeffs(config, dtype, device)
-    # the regeneration kernel draws and clamps all K rows in one launch
-    regen = (dtype == torch.float32 and dim_control in REGEN_WIDTHS
-             and horizon * dim_control <= MAX_SLOTS)
-    all_rows = torch.arange(num_samples, device=device) if regen else None
 
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)
-
-    def perturbations(state: MPPIState, noise: Optional[torch.Tensor]):
-        """The clamped perturbed sequences ``[K, T, m]`` and the next tick's key."""
-        key = state_key(state, device)
-        mean_action_seq = state.previous_action_seq
-        if regen:
-            key_out = torch.empty_like(key)
-            if noise is not None:
-                noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
-            perturbed = fused_regen(
-                mean_action_seq.contiguous(), key[2:], all_rows, config.sigmas, config.u_min,
-                config.u_max, num_samples, threshold, noise, key=key, key_out=key_out,
-            )
-            return perturbed, key_out
-        if noise is None:
-            normals = seeded_normals(key[2:], num_samples, horizon, device, dim_control)
-            noise = normals.to(dtype) * sigmas
-        else:
-            noise = torch.as_tensor(noise, dtype=dtype, device=device)
-        if threshold >= num_samples:
-            perturbed = mean_action_seq[None] + noise
-        elif threshold <= 0:
-            perturbed = noise
-        else:
-            perturbed = torch.cat(
-                [mean_action_seq[None] + noise[:threshold], noise[threshold:]], dim=0
-            )
-        return torch.clamp(perturbed, u_min, u_max), advance_key_plain(key)
+    perturbations = make_perturbations(config, device)
 
     def solve(
         state: MPPIState,
@@ -342,7 +364,8 @@ def make_solver(
         """One MPPI solve; ``noise`` optional ``[K, T, m]``, already scaled."""
         user_info = {} if info is None else dict(info)
         x0 = torch.as_tensor(x0, dtype=dtype, device=device)
-        perturbed, key = perturbations(state, noise)
+        perturbed, key = perturbations(state_key(state, device), state.previous_action_seq,
+                                       noise)
 
         x0_batch = x0.expand(num_samples, dim_state)
         costs, state_seq_batch = _rollout_and_costs(

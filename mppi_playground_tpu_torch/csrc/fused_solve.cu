@@ -13,7 +13,10 @@
 //
 // Phase 2 over a fleet (fused_weighted_batch): the scenarios on gridDim.y,
 // scenario b's costs, dump, lambda and partials at b of their own sizes, so
-// that each scenario's partials are bit for bit its own launch's.
+// that each scenario's partials are bit for bit its own launch's.  On a shard
+// of a sample-sharded solve it masks by the global index as the rollout
+// kernels do (fused_solve.cuh Sampling): local sample k is valid where k <
+// num_samples and sample_offset + k < total_samples.
 #include "fused_solve.cuh"
 
 namespace {
@@ -24,7 +27,8 @@ using fused::kBlock;
 // scenario blockIdx.y.
 __global__ void __launch_bounds__(kBlock) weighted_kernel(const float* costs, const float* dump,
                                                           const float* lam, int slots,
-                                                          int num_samples, float* stats,
+                                                          int num_samples, int sample_offset,
+                                                          int total_samples, float* stats,
                                                           float* numer) {
   const size_t b = blockIdx.y, n = static_cast<size_t>(num_samples);
   costs += b * n;
@@ -36,7 +40,7 @@ __global__ void __launch_bounds__(kBlock) weighted_kernel(const float* costs, co
   float* s_red = smem;                       // kWarps
   float* s_numer = s_red + softmin::kWarps;  // kWarps * min(slots, kChunk)
   const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < num_samples;
+  const bool valid = k < num_samples && sample_offset + k < total_samples;
   const float cost = valid ? costs[k] : 1e30f;  // padding never wins the softmin
   fused::DumpedPerturbation src{dump, num_samples, valid ? k : 0, 0};
   fused::block_partials(cost, *lam, valid, src, slots, s_red, s_numer, stats, numer);
@@ -55,22 +59,26 @@ int launch_regen(const float* prev, const float* noise, const int64_t* rows,
 }  // namespace
 
 // batch scenarios: costs [B, K], dump [B, slots, K], lam [B], stats [B, blocks, 3],
-// numer [B, blocks, slots].
+// numer [B, blocks, slots]; a shard's sample_offset and the solve's total_samples
+// (0 and num_samples for the whole launch), shared by every scenario.
 extern "C" int fused_weighted_batch(const float* costs, const float* dump, const float* lam,
-                                    int slots, int num_samples, int batch, float* stats,
-                                    float* numer, void* stream) {
+                                    int slots, int num_samples, int batch, int sample_offset,
+                                    int total_samples, float* stats, float* numer,
+                                    void* stream) {
   const size_t shmem = softmin::shared_bytes(slots);
   cudaError_t err = fused::allow_shared(weighted_kernel, shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   weighted_kernel<<<dim3(fused::blocks_for(num_samples), batch), kBlock, shmem,
                     static_cast<cudaStream_t>(stream)>>>(costs, dump, lam, slots, num_samples,
-                                                         stats, numer);
+                                                         sample_offset, total_samples, stats,
+                                                         numer);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int fused_weighted(const float* costs, const float* dump, const float* lam, int slots,
                               int num_samples, float* stats, float* numer, void* stream) {
-  return fused_weighted_batch(costs, dump, lam, slots, num_samples, 1, stats, numer, stream);
+  return fused_weighted_batch(costs, dump, lam, slots, num_samples, 1, 0, num_samples, stats,
+                              numer, stream);
 }
 
 #define FUSED_REGEN_ENTRY_POINT(m)                                                            \

@@ -81,7 +81,9 @@
 // coalesced).  The dump's writes and reads are
 // coalesced the same way.  The grids are read directly (__ldg) and stay
 // resident in L2.  The reference rows and warm start sit in shared memory.
-// Padded threads past K cost 1e30 and weigh 0.  Compiled with -fmad=false and
+// Padded threads past K cost 1e30 and weigh 0 (on a shard of a sample-sharded
+// solve, its samples past the solve's K write cost 1e30 and zero actions, the
+// JAX package's padding).  Compiled with -fmad=false and
 // no fast math so that it computes the plain twins' arithmetic operation for
 // operation.  The lambda epilogue is a last-cluster-done pattern: phase 1
 // launches as clusters of 8 CTAs, as many as the card holds at once, each CTA
@@ -119,6 +121,16 @@ using softmin::kBlock;
 // CTA loads it once (load_seed).  A batched launch (a fleet of scenarios on
 // gridDim.y) reads scenario b's seed word seed_stride words after scenario
 // b - 1's (3 for a batch of keys [B, 3]).
+//
+// A shard of a sample-sharded solve (parallel/sharded.py) rolls out the
+// num_samples samples from global index sample_offset (a multiple of kBlock)
+// of a solve of total_samples.  Two indices are kept apart: the local k
+// addresses memory (the costs, the dump, the noise [T*kM, num_samples], the
+// block's partial row), and the global sample_offset + k keys Philox, decides
+// inheritance (< threshold) and validity (< total_samples).  A sample whose
+// global index is past total_samples is absent from every partial, as in the
+// ragged last block of the whole launch.  The whole launch is offset 0 and
+// total_samples = num_samples.
 template <int kM>
 struct Sampling {
   const float* prev;      // [T, kM] warm start
@@ -127,15 +139,25 @@ struct Sampling {
   float sigma[kM], u_min[kM], u_max[kM];
   int horizon, num_samples, threshold;
   int seed_stride;
+  int sample_offset, total_samples;
+
+  // Whether local sample k is one of the solve's samples.
+  __device__ __forceinline__ bool valid(int k) const {
+    return k < num_samples && sample_offset + k < total_samples;
+  }
 };
 
-// Sampling from the wrapper's bounds array (sigma, u_min, u_max; kM each).
+// Sampling from the wrapper's bounds array (sigma, u_min, u_max; kM each);
+// total_samples < 0 means num_samples (the whole launch).
 template <int kM>
 Sampling<kM> make_sampling(const float* prev, const float* noise, const float* bounds,
                            const uint32_t* seed, int horizon, int num_samples,
-                           int threshold, int seed_stride = 0) {
+                           int threshold, int seed_stride = 0, int sample_offset = 0,
+                           int total_samples = -1) {
   Sampling<kM> s{};
   s.seed_stride = seed_stride;
+  s.sample_offset = sample_offset;
+  s.total_samples = total_samples < 0 ? num_samples : total_samples;
   s.prev = prev;
   s.noise = noise;
   for (int j = 0; j < kM; ++j) {
@@ -208,15 +230,17 @@ struct Perturbation {
   static constexpr int kWidth = kM;
   const Sampling<kM>& s;
   const float* prev;  // shared copy of the warm start
-  int k;
+  int k;              // the local index: the noise's column
+  uint32_t gk;        // the global index sample_offset + k: Philox's key
   uint32_t seed;      // the CTA's copy of the seed word (load_seed)
   bool inherit;
   float z0, z1, z2, z3;    // the normals of the current Philox block
   int step;                // next() position
 
   __device__ Perturbation(const Sampling<kM>& s_, const float* prev_, int k_, uint32_t seed_)
-      : s(s_), prev(prev_), k(k_), seed(seed_), inherit(k_ < s_.threshold), z0(0.0f), z1(0.0f),
-        z2(0.0f), z3(0.0f), step(0) {}
+      : s(s_), prev(prev_), k(k_), gk(static_cast<uint32_t>(s_.sample_offset + k_)), seed(seed_),
+        inherit(s_.sample_offset + k_ < s_.threshold), z0(0.0f), z1(0.0f), z2(0.0f), z3(0.0f),
+        step(0) {}
 
   __device__ __forceinline__ void next(float* v) { at(step++, v); }
 
@@ -235,8 +259,7 @@ struct Perturbation {
       float n[kM];
       if ((f0 & 3) == 0) {
         const uint4 w = devmath::philox4x32_10(
-            make_uint4(static_cast<uint32_t>(f0 >> 2), 0u, 0u, 0u), seed,
-            static_cast<uint32_t>(k));
+            make_uint4(static_cast<uint32_t>(f0 >> 2), 0u, 0u, 0u), seed, gk);
         devmath::normal_pair_from_bits(w.x, w.y, &z0, &z1);
         devmath::normal_pair_from_bits(w.z, w.w, &z2, &z3);
         if constexpr (kM == 2) {  // an even step: the first pair
@@ -389,12 +412,10 @@ __global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> batch
   const uint32_t seed = load_reference(p, s_ref, s_prev);
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < p.s.num_samples;
+  const bool valid = p.s.valid(k);
   float cost = 1e30f;  // padding never wins the softmin
-  if (valid) {
-    cost = rollout_cost<Model, false>(p, s_ref, s_prev, k, seed, s_tile, tile_slots);
-    p.costs[k] = cost;
-  }
+  if (valid) cost = rollout_cost<Model, false>(p, s_ref, s_prev, k, seed, s_tile, tile_slots);
+  if (k < p.s.num_samples) p.costs[k] = cost;  // a shard's samples past the solve: 1e30
   // the numerator pass reads each perturbation back from the tile, or
   // regenerates (noise mode: re-reads) the slots the tile does not hold
   TiledPerturbation<Model::kM> pert(p.s, s_prev, valid ? k : 0, seed, s_tile, tile_slots);
@@ -409,7 +430,13 @@ __global__ void __launch_bounds__(kBlock) costs_dump_kernel(Params<Model> batch)
   float* s_prev = s_ref + (p.s.horizon + 1) * Model::kRefWidth;
   const uint32_t seed = load_reference(p, s_ref, s_prev);
   const int k = blockIdx.x * kBlock + threadIdx.x;
-  if (k < p.s.num_samples) p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k, seed);
+  if (p.s.valid(k)) {
+    p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k, seed);
+  } else if (k < p.s.num_samples) {  // a shard's samples past the solve: cost 1e30, zero actions
+    p.costs[k] = 1e30f;
+    for (int f = 0; f < Model::kM * p.s.horizon; ++f)
+      p.dump[static_cast<size_t>(f) * p.s.num_samples + k] = 0.0f;
+  }
 }
 
 // What the lambda epilogue searches with: ESSPS (param = target ESS) or
@@ -562,10 +589,10 @@ Params<Model> make_params(const float* x0, const float* prev, const float* lam, 
                           const uint8_t* grid_a, const uint8_t* grid_b, const float* noise,
                           const float* bounds, const float* model_f, const int* model_i,
                           const uint32_t* seed, int horizon, int num_samples, int threshold,
-                          int seed_stride = 0) {
+                          int seed_stride = 0, int sample_offset = 0, int total_samples = -1) {
   Params<Model> p{};
   p.s = make_sampling<Model::kM>(prev, noise, bounds, seed, horizon, num_samples, threshold,
-                                 seed_stride);
+                                 seed_stride, sample_offset, total_samples);
   p.x0 = x0;
   p.lam = lam;
   p.ref = ref;
@@ -733,7 +760,9 @@ int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, f
 // <prefix>_costs_dump and <prefix>_costs_dump_lambda; and the first two over a
 // batch of scenarios, <prefix>_fused_solve_batch and <prefix>_costs_dump_batch
 // (every array of FUSED_ROLLOUT_ARGS but the bounds, the model's constants and
-// grids [B, ...]; seed_stride words between the scenarios' seed words).
+// grids [B, ...]; seed_stride words between the scenarios' seed words), which
+// also take a shard's sample_offset and the solve's total_samples (Sampling;
+// 0 and num_samples for the whole launch), shared by every scenario.
 #define FUSED_MODEL_ENTRY_POINTS(prefix, Model)                                               \
   extern "C" int prefix##_fused_solve(FUSED_ROLLOUT_ARGS, float* costs, float* stats,         \
                                       float* numer, void* stream) {                           \
@@ -741,9 +770,11 @@ int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, f
                                stats, numer, static_cast<cudaStream_t>(stream));              \
   }                                                                                           \
   extern "C" int prefix##_fused_solve_batch(FUSED_ROLLOUT_ARGS, int batch, int seed_stride,   \
+                                            int sample_offset, int total_samples,             \
                                             float* costs, float* stats, float* numer,         \
                                             void* stream) {                                   \
-    return fused::launch_solve(fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride),   \
+    return fused::launch_solve(fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride,    \
+                                                         sample_offset, total_samples),       \
                                batch, costs, stats, numer, static_cast<cudaStream_t>(stream)); \
   }                                                                                           \
   extern "C" int prefix##_costs_dump(FUSED_ROLLOUT_ARGS, float* costs, float* dump,           \
@@ -752,10 +783,12 @@ int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, f
                                     dump, static_cast<cudaStream_t>(stream));                 \
   }                                                                                           \
   extern "C" int prefix##_costs_dump_batch(FUSED_ROLLOUT_ARGS, int batch, int seed_stride,    \
+                                           int sample_offset, int total_samples,              \
                                            float* costs, float* dump, void* stream) {         \
     return fused::launch_costs_dump(                                                          \
-        fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride), batch, costs, dump,      \
-        static_cast<cudaStream_t>(stream));                                                   \
+        fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride, sample_offset,            \
+                                  total_samples),                                             \
+        batch, costs, dump, static_cast<cudaStream_t>(stream));                               \
   }                                                                                           \
   extern "C" int prefix##_costs_dump_lambda(FUSED_ROLLOUT_ARGS, int lbps, float lam_min,      \
                                             float lam_max, float param, int iters,            \

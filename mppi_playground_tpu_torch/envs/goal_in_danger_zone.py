@@ -1,13 +1,16 @@
 """Goal-in-danger-zone CMDP environment.
 
-Counterpart of ``mppi_playground_tpu/envs/goal_in_danger_zone.py``,
-without rendering: a circular danger zone (radius 10 at the origin), the
+Counterpart of ``mppi_playground_tpu/envs/goal_in_danger_zone.py``: a
+circular danger zone (radius 10 at the origin), the
 goal drawn inside it and the start outside; a 7-dim observation; a host
 ``step`` in numpy returning the CMDP-style (reward, cost); and the batched
 ``parallel_step`` / ``parallel_cost`` on tensors that the solver takes as
 dynamics and cost.  Where gymnasium imports, the env is a ``gym.Env`` with
 the JAX env's ``action_space`` and ``observation_space``; without it, a
-plain class with the same methods.
+plain class with the same methods.  ``render`` draws the zone, the goal, the
+robot and the solver's plan (``set_render_info``) with matplotlib; in
+``render_mode="rgb_array"`` it returns and keeps each frame, and ``close``
+writes them as a GIF.
 
 ``reset(seed=...)`` draws from ``np.random.default_rng(seed)``, the
 generator gymnasium's ``np_random`` builds from a seed, in the JAX env's
@@ -22,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from mppi_playground_tpu_torch.envs import rendering
 from mppi_playground_tpu_torch.models import danger_zone as dz_model
 
 try:
@@ -60,12 +64,23 @@ class DangerZone:
     def is_inside(self, pos: np.ndarray) -> bool:
         return bool(np.linalg.norm(pos - self.center) < self.radius)
 
+    def render(self, ax) -> None:
+        """The zone as a grey disk on a matplotlib axes."""
+        from matplotlib import pyplot as plt
+
+        ax.set_xlim(-self.radius * 2, self.radius * 2)
+        ax.set_ylim(-self.radius * 2, self.radius * 2)
+        ax.add_artist(plt.Circle(self.center, self.radius, color="gray", alpha=0.5))
+
 
 class GoalInDangerZoneEnv(_GYM_BASE):
     """CMDP navigation env: observation ``[x, y, theta, vec_to_goal, vec_to_center]``."""
 
-    def __init__(self, seed: int = 42, cfg: Optional[dict] = None):
+    metadata = {"render_modes": ["human", "rgb_array"], "render_fps": 50}
+
+    def __init__(self, seed: int = 42, cfg: Optional[dict] = None, render_mode: str = "human"):
         cfg = cfg or {"shape": "circle", "radius": 10.0, "center": [0.0, 0.0]}
+        self.render_mode = render_mode
         self._seed = seed
         self._danger_zone = DangerZone(shape=cfg.get("shape", "circle"), cfg=cfg)
         self._v_max, self._omega_max = 1.0, 1.0
@@ -86,6 +101,10 @@ class GoalInDangerZoneEnv(_GYM_BASE):
         self.parallel_step = dz_model.make_dynamics()
         self._parallel_cost = dz_model.make_cost(radius=self._danger_zone.radius)
         self._step = 0
+        self._fig = None
+        self._ax = None
+        self._frames = []
+        self.set_render_info()
 
     @property
     def danger_zone(self) -> DangerZone:
@@ -142,3 +161,60 @@ class GoalInDangerZoneEnv(_GYM_BASE):
         truncated = self._step >= self.max_episode_steps
         self._step += 1
         return self._observe(), reward, terminated, truncated, {"cost": cost}
+
+    # ------------------------------------------------------------------
+    def set_render_info(
+        self,
+        is_colllision: Optional[bool] = None,
+        predicted_trajectory=None,
+        top_samples=None,
+    ) -> None:
+        """What the next :meth:`render` draws besides the scene (tensors or arrays)."""
+        self._is_collision = is_colllision
+        self._predicted_trajectory = predicted_trajectory
+        self._top_samples = top_samples
+
+    def render(self) -> Optional[np.ndarray]:
+        """Draw the scene; in ``rgb_array`` mode return the frame and keep it for :meth:`close`."""
+        from matplotlib import pyplot as plt
+
+        if self._fig is None:
+            self._fig = plt.figure(layout="tight")
+            self._ax = self._fig.add_subplot()
+            self._ax.set_aspect("equal")
+        ax = self._ax
+
+        self._danger_zone.render(ax)
+        ax.scatter(self._goal[0], self._goal[1], marker="o", color="orange", zorder=10)
+        if self._is_collision is not None:
+            color = "red" if self._is_collision else "green"
+            ax.scatter(self._pos[0], self._pos[1], marker="o", color=color, zorder=100)
+        if self._predicted_trajectory is not None:
+            traj = rendering.host(self._predicted_trajectory)
+            ax.scatter(traj[:, 0], traj[:, 1], color="darkblue", marker="o", s=3, zorder=2)
+        if self._top_samples is not None:
+            rendering.draw_top_samples(ax, self._top_samples[0], self._top_samples[1])
+
+        if self.render_mode == "human":
+            plt.pause(0.01)
+            plt.cla()
+        elif self.render_mode == "rgb_array":
+            frame = rendering.fig_to_rgb(self._fig)
+            plt.cla()
+            self._frames.append(frame)
+            return frame
+        return None
+
+    def close(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the kept frames as a GIF (``video/goal_in_danger_zone.gif`` by default) and
+        release the figure; the frames are cleared either way."""
+        written = None
+        if self._frames:
+            written = rendering.save_gif(self._frames, path or "video/goal_in_danger_zone.gif")
+        self._frames = []
+        if self._fig is not None:
+            from matplotlib import pyplot as plt
+
+            plt.close(self._fig)
+            self._fig = None
+        return written

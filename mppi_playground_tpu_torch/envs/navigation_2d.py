@@ -1,12 +1,13 @@
 """2D navigation environment: a differential-drive robot among obstacles.
 
-Counterpart of ``mppi_playground_tpu/envs/navigation_2d.py`` without
-rendering: a 20x20 m map at 0.1 m cells with 7 random circles (r=1) and 7
+Counterpart of ``mppi_playground_tpu/envs/navigation_2d.py``: a 20x20 m map at 0.1 m cells with 7 random circles (r=1) and 7
 random 2x2 rectangles inside +-7.5 m (seed 42), start (-9, -9) facing the
 goal (9, 9); unicycle dynamics, the goal-plus-occupancy cost, the goal test
 and the per-trajectory collision check.  The map is built on the host with
 numpy (byte for byte the JAX package's grid) and uploaded once to
 ``device``; :meth:`fused_task` hands it to the fused kernels as uint8.
+``render`` draws the scene with matplotlib (``envs/rendering.py``) and
+``close`` writes the captured frames as a GIF.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from mppi_playground_tpu_torch.envs import rendering
 from mppi_playground_tpu_torch.maps.obstacle_map import ObstacleMap, generate_random_obstacles
 from mppi_playground_tpu_torch.models import unicycle
 from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
@@ -64,6 +66,9 @@ class Navigation2DEnv:
             goal=self._goal_pos, obstacle_map=self._obstacle_map.device_map
         )
         self._robot_state = self._initial_state()
+        self._fig = None
+        self._ax = None
+        self._rendered_frames = []
 
     def _initial_state(self) -> torch.Tensor:
         delta = self._goal_pos - self._start_pos
@@ -93,8 +98,14 @@ class Navigation2DEnv:
         )
 
     def reset(self) -> torch.Tensor:
-        """Reset the robot to the start, facing the goal."""
+        """Reset the robot to the start, facing the goal, and the rendering figure."""
         self._robot_state = self._initial_state()
+        self._rendered_frames = []
+        if self._fig is not None:  # no figure left in pyplot's registry
+            from matplotlib import pyplot as plt
+
+            plt.close(self._fig)
+        self._fig = None
         return self._robot_state
 
     def step(self, u: torch.Tensor) -> Tuple[torch.Tensor, bool]:
@@ -108,3 +119,55 @@ class Navigation2DEnv:
     def collision_check(self, state: torch.Tensor) -> torch.Tensor:
         """Occupancy along trajectories ``[B, T+1, 3]`` -> ``[B, T+1]``."""
         return self._obstacle_map.compute_cost(state[:, :, :2])
+
+    # ------------------------------------------------------------------
+    def _ensure_figure(self):
+        if self._fig is None:
+            from matplotlib import pyplot as plt
+
+            self._fig = plt.figure(layout="tight")
+            self._ax = self._fig.add_subplot()
+            self._ax.set_xlim(self._obstacle_map.x_lim)
+            self._ax.set_ylim(self._obstacle_map.y_lim)
+            self._ax.set_aspect("equal")
+
+    def render(
+        self,
+        predicted_trajectory: Optional[torch.Tensor] = None,
+        is_collisions: Optional[torch.Tensor] = None,
+        top_samples: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        mode: str = "human",
+    ) -> None:
+        """Draw the scene; ``mode="rgb_array"`` captures a frame for :meth:`close`.  Reads the
+        tensors on the host."""
+        from matplotlib import pyplot as plt
+
+        self._ensure_figure()
+        ax = self._ax
+        ax.set_xlabel("x [m]")
+        ax.set_ylabel("y [m]")
+        self._obstacle_map.render(ax, zorder=10)
+        ax.scatter(*rendering.host(self._start_pos), marker="o", color="red", zorder=10)
+        ax.scatter(*rendering.host(self._goal_pos), marker="o", color="orange", zorder=10)
+        state = rendering.host(self._robot_state)
+        ax.scatter(state[0], state[1], marker="o", color="green", zorder=100)
+
+        if top_samples is not None:
+            rendering.draw_top_samples(ax, top_samples[0], top_samples[1])
+        if predicted_trajectory is not None:
+            rendering.draw_predicted_trajectory(
+                ax, predicted_trajectory[None] if predicted_trajectory.ndim == 2
+                else predicted_trajectory, is_collisions)
+
+        if mode == "human":
+            plt.pause(0.001)
+            plt.cla()
+        elif mode == "rgb_array":
+            self._rendered_frames.append(rendering.fig_to_rgb(self._fig))
+            plt.cla()
+
+    def close(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the captured frames as a GIF (``video/navigation_2d_<seed>.gif`` by default)."""
+        if path is None:
+            path = f"video/navigation_2d_{self._seed}.gif"
+        return rendering.save_gif(self._rendered_frames, path)

@@ -39,6 +39,20 @@ def cell_divisor(cell_size: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), cell_size, dtype=like.dtype, device=like.device)
 
 
+def map_query(map_data, x: torch.Tensor) -> torch.Tensor:
+    """Occupancy cost through either map form: :class:`GridMapData` or a feature map.
+
+    A :class:`GridMapData` is read by :func:`grid_cost`; a
+    ``maps/feature_query.FeatureMapData`` by its analytic query.  Both give
+    the same values.
+    """
+    if isinstance(map_data, GridMapData):
+        return grid_cost(map_data, x)
+    from mppi_playground_tpu_torch.maps.feature_query import feature_cost
+
+    return feature_cost(map_data, x)
+
+
 def grid_cost(map_data: GridMapData, x: torch.Tensor) -> torch.Tensor:
     """Occupancy cost of positions ``x [..., 2]`` -> ``[...]``."""
     grid = map_data.grid

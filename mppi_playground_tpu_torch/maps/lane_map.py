@@ -2,7 +2,9 @@
 
 Counterpart of ``mppi_playground_tpu/maps/lane_map.py``: rasterize the lane
 centerline into a ones-grid, apply ``scipy.ndimage.distance_transform_edt``
-and threshold at half the lane width -> 0 (drivable) / 1 (off-lane).
+and threshold at half the lane width -> 0 (drivable) / 1 (off-lane).  Queries
+read the grid (:func:`maps.grid_cost.grid_cost`) or its analytic feature
+form (:attr:`LaneMap.feature_map`), which gives the same values.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 from scipy.ndimage import distance_transform_edt
 
+from mppi_playground_tpu_torch.maps.feature_query import FeatureMapData, build_feature_map
 from mppi_playground_tpu_torch.maps.grid_cost import GridMapData, grid_cost
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
@@ -69,7 +72,11 @@ class LaneMap:
         distance_map = distance_transform_edt(grid)
         max_distance = (lane_width / 2) / cell_size
         self._map = np.where(distance_map <= max_distance, 0, 1)
+        self._centerline_cells = np.unique(cells, axis=0)
+        self._max_distance = max_distance
         self._device_map: Optional[GridMapData] = None
+        self._feature_map: Optional[FeatureMapData] = None
+        self._feature_map_built = False
 
     @property
     def grid(self) -> np.ndarray:
@@ -96,6 +103,28 @@ class LaneMap:
             )
         return self._device_map
 
+    @property
+    def feature_map(self) -> Optional[FeatureMapData]:
+        """The gather-free analytic corridor query (``maps/feature_query.py``).
+
+        The EDT-threshold corridor is the union of radius-``w`` disks on the
+        rasterized centerline cells; redundant cells are pruned and the
+        result verified against the stored grid when it is built.
+        """
+        if not self._feature_map_built:
+            self._feature_map = build_feature_map(
+                self._map, self._cell_map_origin, self._cell_size, self._centerline_cells,
+                np.full(len(self._centerline_cells), self._max_distance ** 2),
+                inside_is_blocked=False, prune=True, dtype=self._dtype, device=self._device)
+            self._feature_map_built = True
+        return self._feature_map
+
+    @property
+    def cost_map(self):
+        """The feature map where it reproduces the grid exactly, else the grid."""
+        fm = self.feature_map
+        return fm if fm is not None else self.device_map
+
     def row_interval_table(self):
         """Per-row interval encoding of the grid (``ops/row_intervals``)."""
         from mppi_playground_tpu_torch.ops.row_intervals import build_row_interval_table
@@ -105,3 +134,8 @@ class LaneMap:
     def compute_cost(self, x: torch.Tensor) -> torch.Tensor:
         """Batched off-lane cost."""
         return grid_cost(self.device_map, x)
+
+    def render_occupancy(self, ax, cmap: str = "binary") -> None:
+        """The grid as an image in world coordinates on a matplotlib axes."""
+        extent = [self.x_lim[0], self.x_lim[1], self.y_lim[0], self.y_lim[1]]
+        ax.imshow(self._map.T, cmap=cmap, origin="lower", extent=extent)

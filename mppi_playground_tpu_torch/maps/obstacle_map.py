@@ -5,10 +5,10 @@ of ``map_size / cell_size`` cells, circles rasterized around rounded centers,
 rectangles around ceil'd centers, and the seeded rejection-sampling
 generator with the same ``np.random.default_rng`` draw order, so a seed gives
 byte-identical grids in both packages.  Construction is host-side numpy;
-queries run on a device through :func:`maps.grid_cost.grid_cost`.
-
-The analytic feature-map query of the JAX package is not part of this port
-slice: the fused CUDA kernel reads the grid itself.
+queries run on a device through :func:`maps.grid_cost.grid_cost`, or through
+the analytic feature form (:attr:`ObstacleMap.feature_map`,
+``maps/feature_query.py``), which gives the same values; the fused CUDA
+kernels read the grid itself.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from mppi_playground_tpu_torch.maps.feature_query import FeatureMapData, build_feature_map
 from mppi_playground_tpu_torch.maps.grid_cost import GridMapData, grid_cost
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
@@ -76,6 +77,8 @@ class ObstacleMap:
         self.circle_obs_list: List[CircleObstacle] = []
         self.rectangle_obs_list: List[RectangleObstacle] = []
         self._device_map: Optional[GridMapData] = None
+        self._feature_map: Optional[FeatureMapData] = None
+        self._feature_map_built = False
         self._version = 0
 
     def add_circle_obstacle(self, center: np.ndarray, radius: float) -> None:
@@ -97,6 +100,7 @@ class ObstacleMap:
 
         self.circle_obs_list.append(CircleObstacle(np.asarray(center, float), radius))
         self._device_map = None
+        self._feature_map_built = False
         self._version += 1
 
     def add_rectangle_obstacle(
@@ -122,6 +126,7 @@ class ObstacleMap:
             RectangleObstacle(np.asarray(center, float), width, height)
         )
         self._device_map = None
+        self._feature_map_built = False
         self._version += 1
 
     @property
@@ -161,6 +166,47 @@ class ObstacleMap:
             )
         return self._device_map
 
+    @property
+    def feature_map(self) -> Optional[FeatureMapData]:
+        """The gather-free analytic query data (``maps/feature_query.py``), on the map's device.
+
+        Built from the obstacle list with the rasterizer's cell arithmetic and
+        verified cell for cell against the stored grid; ``None`` when the grid
+        cannot be reproduced analytically (e.g. a disk clipped at the map's
+        edge), where callers keep the grid.
+        """
+        if not self._feature_map_built:
+            discs = np.array(
+                [np.round(c.center / self._cell_size + self._cell_map_origin)
+                 for c in self.circle_obs_list], np.int64).reshape(-1, 2)
+            r2 = np.array([ceil(c.radius / self._cell_size) ** 2 for c in self.circle_obs_list],
+                          np.float64)
+            rects = []
+            for r in self.rectangle_obs_list:
+                center_occ = np.ceil(r.center / self._cell_size + self._cell_map_origin).astype(int)
+                w_occ = ceil(ceil(r.width / self._cell_size) / 2)
+                h_occ = ceil(ceil(r.height / self._cell_size) / 2)
+                rects.append([np.clip(center_occ[0] - w_occ, 0, self._map.shape[0] - 1),
+                              np.clip(center_occ[0] + w_occ, 0, self._map.shape[0] - 1),
+                              np.clip(center_occ[1] - h_occ, 0, self._map.shape[1] - 1),
+                              np.clip(center_occ[1] + h_occ, 0, self._map.shape[1] - 1)])
+            self._feature_map = build_feature_map(
+                self._map, self._cell_map_origin, self._cell_size, discs, r2,
+                rects=np.asarray(rects, np.int64).reshape(-1, 4), inside_is_blocked=True,
+                prune=False, dtype=self._dtype, device=self._device)
+            self._feature_map_built = True
+        return self._feature_map
+
+    @property
+    def cost_map(self):
+        """The feature map where it reproduces the grid exactly, else the grid.
+
+        The JAX package's fastest exact form on the TPU; on the card a gather
+        is cheap, and the port's envs and kernels read :attr:`device_map`.
+        """
+        fm = self.feature_map
+        return fm if fm is not None else self.device_map
+
     def row_interval_table(self):
         """Per-row interval encoding of the grid (``ops/row_intervals``)."""
         from mppi_playground_tpu_torch.ops.row_intervals import build_row_interval_table
@@ -170,6 +216,24 @@ class ObstacleMap:
     def compute_cost(self, x: torch.Tensor) -> torch.Tensor:
         """Batched occupancy cost."""
         return grid_cost(self.device_map, x)
+
+    # ------------------------------------------------------------------
+    def render_occupancy(self, ax, cmap: str = "binary") -> None:
+        """The grid as an image on a matplotlib axes."""
+        ax.imshow(self._map, cmap=cmap)
+
+    def render(self, ax, zorder: int = 0) -> None:
+        """The obstacles in world coordinates on a matplotlib axes."""
+        from matplotlib import pyplot as plt
+
+        ax.set_xlim(self.x_lim)
+        ax.set_ylim(self.y_lim)
+        ax.set_aspect("equal")
+        for circle in self.circle_obs_list:
+            ax.add_patch(plt.Circle(circle.center, circle.radius, color="gray", zorder=zorder))
+        for rect in self.rectangle_obs_list:
+            ax.add_patch(plt.Rectangle(rect.center - np.array([rect.width / 2, rect.height / 2]),
+                                       rect.width, rect.height, color="gray", zorder=zorder))
 
 
 def generate_random_obstacles(

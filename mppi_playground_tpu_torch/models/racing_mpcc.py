@@ -24,8 +24,8 @@ import torch
 
 from mppi_playground_tpu_torch.maps.grid_cost import (
     GridMapData,
-    grid_cost,
     grid_cost_pair,
+    map_query,
 )
 from mppi_playground_tpu_torch.models.bicycle import V_MAX
 
@@ -50,7 +50,9 @@ def make_mpcc_cost(
     """Contouring-control stage cost on ``state [K, 4]``, ``action [K, 2]``.
 
     Expects ``info['reference_path']`` ``[horizon+1, 4]`` (x, y, yaw,
-    v_target) and the solver's ``info['t']`` / ``info['prev_action']``.
+    v_target) and the solver's ``info['t']`` / ``info['prev_action']``.  The
+    maps are either form, :class:`GridMapData` or a feature map
+    (``maps/grid_cost.map_query``).
     """
 
     def cost(state: torch.Tensor, action: torch.Tensor, info: dict) -> torch.Tensor:
@@ -68,7 +70,7 @@ def make_mpcc_cost(
         velocity_cost = qv * (state[:, 3] - ref[3]) ** 2
 
         pos = state[:, :2]
-        map_cost = grid_cost(obstacle_map, pos) + grid_cost(lane_map, pos)
+        map_cost = map_query(obstacle_map, pos) + map_query(lane_map, pos)
         obstacle_cost = qo * map_cost
 
         input_cost = qin * torch.sum(action**2, dim=1)

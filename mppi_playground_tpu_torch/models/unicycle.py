@@ -19,7 +19,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from mppi_playground_tpu_torch.maps.grid_cost import GridMapData, grid_cost, grid_occupancy
+from mppi_playground_tpu_torch.maps.grid_cost import GridMapData, grid_occupancy, map_query
 from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
 from mppi_playground_tpu_torch.utils.angles import angle_normalize
 from mppi_playground_tpu_torch.utils.fastmath import sincos_npi
@@ -79,12 +79,15 @@ def make_navigation_cost(
     obstacle_map: GridMapData,
     obstacle_weight: float = OBSTACLE_WEIGHT,
 ) -> Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]:
-    """Goal-distance + occupancy-penalty cost on ``state [K, 3]`` (``goal [2]`` a tensor)."""
+    """Goal-distance + occupancy-penalty cost on ``state [K, 3]`` (``goal [2]`` a tensor).
+
+    ``obstacle_map`` is either form (``maps/grid_cost.map_query``).
+    """
 
     def cost(state: torch.Tensor, action: torch.Tensor, info: dict) -> torch.Tensor:
         d = state[:, :2] - goal
         goal_cost = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])  # the 2-norm
-        obstacle_cost = grid_cost(obstacle_map, state[:, :2])
+        obstacle_cost = map_query(obstacle_map, state[:, :2])
         return goal_cost + obstacle_weight * obstacle_cost
 
     return cost

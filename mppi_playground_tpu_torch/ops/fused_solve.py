@@ -51,6 +51,17 @@ twins run the single twins scenario by scenario.  :func:`fused_solve`,
 :func:`fused_costs_dump`, :func:`fused_weighted` and :func:`fused_tick_tail`
 are these wrappers on a batch of one.
 
+A shard of a sample-sharded solve (``parallel/sharded.py``) passes the rollout
+wrappers and phase 2 (rows 1, 3 and 5) its ``sample_offset``, the global index
+of its first sample (a multiple of 256), and the solve's ``total_samples``;
+``num_samples`` is then the shard's.  The local index addresses memory (the
+costs, the dump, the injected noise, the block partials), the global one keys
+the draws and decides inheritance (``< threshold``) and validity (``<
+total_samples``).  A shard's samples past the solve cost 1e30 and dump zero
+actions, and weigh 0 in its partials; so the shards' outputs concatenated and
+sliced to the solve's K samples and ``ceil(K / 256)`` blocks are the whole
+launch's.  The defaults (0 and ``num_samples``) are the whole launch.
+
 Each wrapper launches its kernel for CUDA tensors, counts the launch in the
 ``launches`` counter of the kernel's single-scenario wrapper under the
 kernel's name, whichever form launched it (a launch a CUDA graph captures is
@@ -233,17 +244,19 @@ def seed_word(seed):
 
 
 def seeded_normals(seed, num_samples: int, horizon: int, device,
-                   dim_control: int = 2) -> torch.Tensor:
+                   dim_control: int = 2, sample_offset: int = 0) -> torch.Tensor:
     """``[K, T, m]`` standard normals of the kernels' seeded stream.
 
     Slot ``f = t*m + j`` of sample k is normal ``f mod 4`` of the Philox
     block with counter ``f div 4`` and key ``(seed, k)``; for m=2 an even
     step takes words (x, y), an odd one (z, w).  ``seed`` is a host int or
-    a one-element int32 tensor (a key's seed word), read on the device.
+    a one-element int32 tensor (a key's seed word), read on the device.  Row
+    i is sample ``sample_offset + i``: a shard draws its rows of the stream.
     """
     slots = horizon * dim_control
     quads = -(-slots // 4)
-    k = torch.arange(num_samples, dtype=torch.int64, device=device)[:, None]
+    k = torch.arange(sample_offset, sample_offset + num_samples, dtype=torch.int64,
+                     device=device)[:, None]
     q = torch.arange(quads, dtype=torch.int64, device=device)[None, :].expand(num_samples, quads)
     zero = torch.zeros_like(q)
     w0, w1, w2, w3 = philox4x32_10((q, zero, zero, zero), seed_word(seed), k)
@@ -257,14 +270,16 @@ def seeded_normals(seed, num_samples: int, horizon: int, device,
 # The plain twins
 # ---------------------------------------------------------------------------
 
-def _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max):
-    """Clamped perturbed action sequences ``[K, T, m]``."""
+def _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max,
+                   sample_offset: int = 0):
+    """Clamped perturbed action sequences ``[K, T, m]`` of samples ``sample_offset + k``."""
     horizon, dim_control = prev.shape
     dev = prev.device
     if noise is None:
         sig = torch.tensor(sigmas, dtype=torch.float32, device=dev)
-        noise = seeded_normals(seed, num_samples, horizon, dev, dim_control) * sig
-    inherit = (torch.arange(num_samples, device=dev) < threshold)[:, None, None]
+        noise = seeded_normals(seed, num_samples, horizon, dev, dim_control, sample_offset) * sig
+    inherit = (torch.arange(sample_offset, sample_offset + num_samples, device=dev)
+               < threshold)[:, None, None]
     v = torch.where(inherit, prev[None] + noise, noise)
     lo = torch.tensor(u_min, dtype=torch.float32, device=dev)
     hi = torch.tensor(u_max, dtype=torch.float32, device=dev)
@@ -290,25 +305,55 @@ def _rollout_costs_plain(x0, pert, ref, task: FusedTask):
     return acc + task.stage_cost_soa(xs, zeros, ctx)
 
 
+def _absent(num_samples: int, sample_offset: int, total_samples: Optional[int], device):
+    """``[K]`` bool: a shard's samples past the solve's ``total_samples`` (None: none are)."""
+    if total_samples is None:
+        return None
+    return torch.arange(sample_offset, sample_offset + num_samples, device=device) >= total_samples
+
+
+def _pad_absent(costs, pert, absent):
+    """``(costs, pert [K, D])`` with the absent samples at cost 1e30 and zero actions."""
+    if absent is None:
+        return costs, pert
+    return (torch.where(absent, costs.new_full((), 1e30), costs),
+            torch.where(absent[:, None], pert.new_zeros(()), pert))
+
+
 def fused_solve_plain(
     x0, prev, lam, seed, ref, task: FusedTask, sigmas, u_min, u_max,
     num_samples: int, threshold: int, noise: Optional[torch.Tensor] = None,
+    sample_offset: int = 0, total_samples: Optional[int] = None,
 ):
-    """The fused kernel's plain twin: ``(costs [K], stats [B, 3], numer [B, T*m])``."""
-    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
+    """The fused kernel's plain twin: ``(costs [K], stats [B, 3], numer [B, T*m])``.
+
+    On a shard, the samples from ``sample_offset`` of a solve of
+    ``total_samples``; those past it cost 1e30 and weigh 0.
+    """
+    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max,
+                          sample_offset)
     costs = _rollout_costs_plain(x0, pert, ref, task)
-    stats, numer = block_partials_plain(costs, pert.reshape(num_samples, -1), lam)
+    costs, flat = _pad_absent(costs, pert.reshape(num_samples, -1),
+                              _absent(num_samples, sample_offset, total_samples, x0.device))
+    stats, numer = block_partials_plain(costs, flat, lam)
     return costs, stats, numer
 
 
 def fused_costs_dump_plain(
     x0, prev, seed, ref, task: FusedTask, sigmas, u_min, u_max,
     num_samples: int, threshold: int, noise: Optional[torch.Tensor] = None,
+    sample_offset: int = 0, total_samples: Optional[int] = None,
 ):
-    """The phase-1 kernel's plain twin: ``(costs [K], dump [T*m, K])``."""
-    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max)
+    """The phase-1 kernel's plain twin: ``(costs [K], dump [T*m, K])``.
+
+    On a shard, the samples past the solve cost 1e30 and dump zeros.
+    """
+    pert = _perturbations(prev, noise, seed, num_samples, threshold, sigmas, u_min, u_max,
+                          sample_offset)
     costs = _rollout_costs_plain(x0, pert, ref, task)
-    return costs, pert.reshape(num_samples, -1).t().contiguous()
+    costs, flat = _pad_absent(costs, pert.reshape(num_samples, -1),
+                              _absent(num_samples, sample_offset, total_samples, x0.device))
+    return costs, flat.t().contiguous()
 
 
 def fused_costs_dump_lambda_plain(
@@ -324,9 +369,15 @@ def fused_costs_dump_lambda_plain(
     return costs, dump, search.plain(costs).reshape(1)
 
 
-def fused_weighted_plain(costs, dump, lam):
-    """The phase-2 kernel's plain twin: ``(stats [B, 3], numer [B, T*m])``."""
-    return block_partials_plain(costs, dump.t(), lam)
+def fused_weighted_plain(costs, dump, lam, sample_offset: int = 0,
+                         total_samples: Optional[int] = None):
+    """The phase-2 kernel's plain twin: ``(stats [B, 3], numer [B, T*m])``.
+
+    On a shard, the samples past the solve's ``total_samples`` weigh 0.
+    """
+    costs, flat = _pad_absent(costs, dump.t(),
+                              _absent(costs.shape[0], sample_offset, total_samples, costs.device))
+    return block_partials_plain(costs, flat, lam)
 
 
 def _nan_rows(values: torch.Tensor, rows: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -581,17 +632,31 @@ def _one(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t[None]
 
 
+def _shard(num_samples: int, sample_offset: int, total_samples: Optional[int]) -> int:
+    """Check a shard's ``sample_offset`` and the solve's ``total_samples`` -> the latter."""
+    total = num_samples if total_samples is None else int(total_samples)
+    if sample_offset < 0 or sample_offset % BLOCK:
+        raise ValueError(f"sample_offset must be a non-negative multiple of {BLOCK}, got "
+                         f"{sample_offset}")
+    if not 1 <= total < 2**31 - BLOCK or sample_offset + num_samples >= 2**31 - BLOCK:
+        raise ValueError(f"total_samples out of range: {total} (offset {sample_offset}, "
+                         f"{num_samples} samples a shard)")
+    return total
+
+
 def _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max, num_samples,
-                  threshold, noise):
+                  threshold, noise, sample_offset=0, total_samples=None):
     """Check a rollout kernel's inputs for B scenarios on the card -> ``(args, keep)``.
 
     Every array but the bounds, the model's constants and grids has a
     leading ``[B]`` axis (``lams`` ``[B]``, ``seeds`` the scenarios' words,
     :func:`_seed_words`).  ``args`` are the leading arguments the rollout
     entry points of ``csrc/fused_solve.cuh`` share (``lams`` None: a null
-    pointer, for phase 1, which reads none), then the batch and the seed
-    words' stride; ``keep`` holds what must live until the launch returns
-    (the noise in the kernels' layout, the seed words, the host arrays).
+    pointer, for phase 1, which reads none), then the batch, the seed
+    words' stride, the shard's ``sample_offset`` and the solve's
+    ``total_samples``; ``keep`` holds what must live until the launch
+    returns (the noise in the kernels' layout, the seed words, the host
+    arrays).
     """
     dev = x0s.device
     n, m = task.dim_state, task.dim_control
@@ -625,11 +690,12 @@ def _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max, num
         noise_ptr = noise.data_ptr()
     model_f, model_i = _floats(task.floats), _ints(task.ints)
     seeds, stride = _seed_words(seeds, batch, dev)
+    total = _shard(num_samples, sample_offset, total_samples)
     args = (
         x0s.data_ptr(), prevs.data_ptr(), None if lams is None else lams.data_ptr(),
         refs.data_ptr() if width else None, *grid_ptrs, noise_ptr, bounds, model_f, model_i,
-        seeds.data_ptr(), horizon, num_samples, max(0, min(threshold, num_samples)), batch,
-        stride,
+        seeds.data_ptr(), horizon, num_samples, max(0, min(threshold, total)), batch,
+        stride, sample_offset, total,
     )
     return args, (noise, seeds, bounds, model_f, model_i)
 
@@ -642,9 +708,10 @@ _SOLVE_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 4
 _DUMP_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 3
 _DUMP_LAMBDA_ARGTYPES = (_ROLLOUT_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3
                          + [ctypes.c_int] + [ctypes.c_void_p] * 5)
-# the fleet forms: the batch and the seed words' stride after the shared arguments
-_SOLVE_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-_DUMP_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+# the fleet forms: the batch, the seed words' stride, the shard's sample offset and the
+# solve's total samples after the shared arguments
+_SOLVE_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+_DUMP_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 
 
 def fused_solve(
@@ -660,6 +727,8 @@ def fused_solve(
     num_samples: int,
     threshold: int,
     noise: Optional[torch.Tensor] = None,
+    sample_offset: int = 0,
+    total_samples: Optional[int] = None,
 ):
     """One fused solve -> ``(costs [K], stats [B, 3], numer [B, T*m])``.
 
@@ -668,12 +737,14 @@ def fused_solve(
     sin, cos, v)`` (None for the other models); ``seed`` a host integer or
     a one-element int32 tensor on the device (a key's seed word);
     ``noise`` optional ``[K, T, m]`` already scaled by sigma.  ``B =
-    ceil(K / 256)``.  :func:`fused_solve_batch` of a batch of one, which
-    counts the launch here; CPU tensors take :func:`fused_solve_plain`.
+    ceil(K / 256)``.  A shard passes its ``sample_offset`` and the solve's
+    ``total_samples`` (the module's docstring).  :func:`fused_solve_batch`
+    of a batch of one, which counts the launch here; CPU tensors take
+    :func:`fused_solve_plain`.
     """
     costs, stats, numer = fused_solve_batch(
         x0[None], prev[None], lam.reshape(-1), _one_seed(seed), _one(ref), task, sigmas, u_min,
-        u_max, num_samples, threshold, _one(noise))
+        u_max, num_samples, threshold, _one(noise), sample_offset, total_samples)
     return costs[0], stats[0], numer[0]
 
 
@@ -692,6 +763,8 @@ def fused_costs_dump(
     num_samples: int,
     threshold: int,
     noise: Optional[torch.Tensor] = None,
+    sample_offset: int = 0,
+    total_samples: Optional[int] = None,
 ):
     """Auto-lambda phase 1 -> ``(costs [K], dump [T*m, K])``.
 
@@ -702,7 +775,7 @@ def fused_costs_dump(
     """
     costs, dump = fused_costs_dump_batch(x0[None], prev[None], _one_seed(seed), _one(ref), task,
                                          sigmas, u_min, u_max, num_samples, threshold,
-                                         _one(noise))
+                                         _one(noise), sample_offset, total_samples)
     return costs[0], dump[0]
 
 
@@ -738,7 +811,7 @@ def fused_costs_dump_lambda(
     dev = x0.device
     args, keep = _rollout_args(x0[None], prev[None], None, _one_seed(seed), _one(ref), task,
                                sigmas, u_min, u_max, num_samples, threshold, _one(noise))
-    args = args[:-2]  # one scenario: the entry point takes no batch and no seed stride
+    args = args[:-4]  # one scenario: no batch, seed stride, sample offset or total
     _check("ticket", ticket, (1,), torch.int32, dev)
     if search.iters < 0:
         raise ValueError(f"iters must be >= 0, got {search.iters}")
@@ -761,17 +834,20 @@ fused_costs_dump_lambda.launches = collections.Counter()
 _WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 
 
-def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
+def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor,
+                   sample_offset: int = 0, total_samples: Optional[int] = None):
     """Auto-lambda phase 2 -> ``(stats [B, 3], numer [B, D])`` at ``lam``.
 
     ``costs [K]`` and ``dump [D, K]`` (``D = T*m``) from
     :func:`fused_costs_dump`, ``lam`` one element on the same device (read
     by the kernel, never by the host).  The same partials
-    :func:`fused_solve` gives at ``lam``.  :func:`fused_weighted_batch` of a
-    batch of one, which counts the launch here; CPU tensors take
+    :func:`fused_solve` gives at ``lam``; a shard passes the ``sample_offset``
+    and ``total_samples`` its phase 1 took.  :func:`fused_weighted_batch` of
+    a batch of one, which counts the launch here; CPU tensors take
     :func:`fused_weighted_plain`.
     """
-    stats, numer = fused_weighted_batch(costs[None], dump[None], lam.reshape(-1))
+    stats, numer = fused_weighted_batch(costs[None], dump[None], lam.reshape(-1), sample_offset,
+                                        total_samples)
     return stats[0], numer[0]
 
 
@@ -975,11 +1051,13 @@ def _stack(parts):
 
 
 def fused_solve_batch_plain(x0s, prevs, lams, seeds, refs, task: FusedTask, sigmas, u_min,
-                            u_max, num_samples: int, threshold: int, noise=None):
+                            u_max, num_samples: int, threshold: int, noise=None,
+                            sample_offset: int = 0, total_samples: Optional[int] = None):
     """:func:`fused_solve_batch`'s twin: :func:`fused_solve_plain` scenario by scenario."""
     return _stack(fused_solve_plain(
         x0s[b], prevs[b], lams[b], _scenario_seed(seeds, b), None if refs is None else refs[b],
-        task, sigmas, u_min, u_max, num_samples, threshold, None if noise is None else noise[b])
+        task, sigmas, u_min, u_max, num_samples, threshold, None if noise is None else noise[b],
+        sample_offset, total_samples)
         for b in range(x0s.shape[0]))
 
 
@@ -996,6 +1074,8 @@ def fused_solve_batch(
     num_samples: int,
     threshold: int,
     noise: Optional[torch.Tensor] = None,
+    sample_offset: int = 0,
+    total_samples: Optional[int] = None,
 ):
     """:func:`fused_solve` for B scenarios in one launch -> ``(costs [B, K], stats [B, blocks,
     3], numer [B, blocks, T*m])``.
@@ -1003,14 +1083,16 @@ def fused_solve_batch(
     ``x0s [B, n]``, ``prevs [B, T, m]``, ``lams [B]``, ``refs [B, T+1, 5]``
     (racing) or None, ``noise [B, K, T, m]`` or None; ``seeds`` the B seed
     words, an int32 ``[B]`` tensor at any stride (a batch of keys'
-    ``keys[:, 2]``) or host integers.  CPU tensors take
+    ``keys[:, 2]``) or host integers.  A shard's ``sample_offset`` and the
+    solve's ``total_samples`` are shared by every scenario.  CPU tensors take
     :func:`fused_solve_batch_plain`.
     """
     if not _on_card("fused_solve_batch", x0s):
         return fused_solve_batch_plain(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max,
-                                       num_samples, threshold, noise)
+                                       num_samples, threshold, noise, sample_offset,
+                                       total_samples)
     args, keep = _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max,
-                               num_samples, threshold, noise)
+                               num_samples, threshold, noise, sample_offset, total_samples)
     batch, dev = prevs.shape[0], x0s.device
     blocks = -(-num_samples // BLOCK)
     costs = torch.empty(batch, num_samples, dtype=torch.float32, device=dev)
@@ -1024,11 +1106,13 @@ def fused_solve_batch(
 
 
 def fused_costs_dump_batch_plain(x0s, prevs, seeds, refs, task: FusedTask, sigmas, u_min, u_max,
-                                 num_samples: int, threshold: int, noise=None):
+                                 num_samples: int, threshold: int, noise=None,
+                                 sample_offset: int = 0, total_samples: Optional[int] = None):
     """:func:`fused_costs_dump_batch`'s twin: :func:`fused_costs_dump_plain` scenario by scenario."""
     return _stack(fused_costs_dump_plain(
         x0s[b], prevs[b], _scenario_seed(seeds, b), None if refs is None else refs[b], task,
-        sigmas, u_min, u_max, num_samples, threshold, None if noise is None else noise[b])
+        sigmas, u_min, u_max, num_samples, threshold, None if noise is None else noise[b],
+        sample_offset, total_samples)
         for b in range(x0s.shape[0]))
 
 
@@ -1044,6 +1128,8 @@ def fused_costs_dump_batch(
     num_samples: int,
     threshold: int,
     noise: Optional[torch.Tensor] = None,
+    sample_offset: int = 0,
+    total_samples: Optional[int] = None,
 ):
     """Phase 1 for B scenarios in one launch -> ``(costs [B, K], dump [B, T*m, K])``.
 
@@ -1052,9 +1138,10 @@ def fused_costs_dump_batch(
     """
     if not _on_card("fused_costs_dump_batch", x0s):
         return fused_costs_dump_batch_plain(x0s, prevs, seeds, refs, task, sigmas, u_min, u_max,
-                                            num_samples, threshold, noise)
+                                            num_samples, threshold, noise, sample_offset,
+                                            total_samples)
     args, keep = _rollout_args(x0s, prevs, None, seeds, refs, task, sigmas, u_min, u_max,
-                               num_samples, threshold, noise)
+                               num_samples, threshold, noise, sample_offset, total_samples)
     batch, dev = prevs.shape[0], x0s.device
     costs = torch.empty(batch, num_samples, dtype=torch.float32, device=dev)
     dump = torch.empty(batch, prevs[0].numel(), num_samples, dtype=torch.float32, device=dev)
@@ -1064,23 +1151,27 @@ def fused_costs_dump_batch(
     return costs, dump
 
 
-def fused_weighted_batch_plain(costs, dump, lam):
+def fused_weighted_batch_plain(costs, dump, lam, sample_offset: int = 0,
+                               total_samples: Optional[int] = None):
     """:func:`fused_weighted_batch`'s twin: :func:`fused_weighted_plain` scenario by scenario."""
-    return _stack(fused_weighted_plain(costs[b], dump[b], lam[b]) for b in range(costs.shape[0]))
+    return _stack(fused_weighted_plain(costs[b], dump[b], lam[b], sample_offset, total_samples)
+                  for b in range(costs.shape[0]))
 
 
-_WEIGHTED_BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+_WEIGHTED_BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
 
 
-def fused_weighted_batch(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor):
+def fused_weighted_batch(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor,
+                         sample_offset: int = 0, total_samples: Optional[int] = None):
     """Phase 2 for B scenarios in one launch -> ``(stats [B, blocks, 3], numer [B, blocks, D])``.
 
     ``costs [B, K]``, ``dump [B, D, K]`` from :func:`fused_costs_dump_batch`,
-    ``lam [B]`` (read by the kernel).  CPU tensors take
+    ``lam [B]`` (read by the kernel); a shard's ``sample_offset`` and the
+    solve's ``total_samples``, as its phase 1 took them.  CPU tensors take
     :func:`fused_weighted_batch_plain`.
     """
     if not _on_card("fused_weighted_batch", costs):
-        return fused_weighted_batch_plain(costs, dump, lam)
+        return fused_weighted_batch_plain(costs, dump, lam, sample_offset, total_samples)
     dev = costs.device
     if costs.dim() != 2 or dump.dim() != 3:
         raise ValueError(f"costs must be [B, K] and dump [B, D, K], got {tuple(costs.shape)} and "
@@ -1091,6 +1182,7 @@ def fused_weighted_batch(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Ten
         raise ValueError(f"dump must be [B, D, K] with 1 <= D <= {MAX_SLOTS}")
     if not 1 <= num_samples < 2**31 - BLOCK or batch < 1:
         raise ValueError(f"costs out of range: {tuple(costs.shape)}")
+    total = _shard(num_samples, sample_offset, total_samples)
     f32 = torch.float32
     _check("costs", costs, (batch, num_samples), f32, dev)
     _check("dump", dump, (batch, slots, num_samples), f32, dev)
@@ -1100,7 +1192,7 @@ def fused_weighted_batch(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Ten
     numer = torch.empty(batch, blocks, slots, dtype=f32, device=dev)
     cuda_build.launch("fused_solve", "fused_weighted_batch", _WEIGHTED_BATCH_ARGTYPES, dev,
                       costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots, num_samples,
-                      batch, stats.data_ptr(), numer.data_ptr())
+                      batch, sample_offset, total, stats.data_ptr(), numer.data_ptr())
     fused_weighted.launches["fused_weighted"] += cuda_build.launched()
     return stats, numer
 

@@ -1,8 +1,20 @@
 """Checkpoint / resume for solver state.
 
-Counterpart of ``save_state`` / ``load_state`` of
-``mppi_playground_tpu/utils/checkpoint.py``: a single ``.npz`` file of the
-state's leaves, gathered to the host.  The port's :class:`MPPIState` is
+Counterpart of ``mppi_playground_tpu/utils/checkpoint.py``, with its two
+interchangeable backends:
+
+* :func:`save_state` / :func:`load_state` — a single ``.npz`` file of the
+  state's leaves, gathered to the host;
+* :func:`save_state_orbax` / :func:`wait_until_saved` /
+  :func:`load_state_orbax` — a directory checkpoint.  The JAX package writes
+  it with Orbax; here the backend is ``torch.distributed.checkpoint``, under
+  the JAX names so that a reader finds the counterpart.  A state whose
+  tensors are DTensors on a mesh (a fleet's state sharded over the scenario
+  axis) comes back with the template's placements, each rank reading only
+  its own rows: the sharded restore of a large serving state, with no
+  gather.
+
+The port's :class:`MPPIState` is
 more than tensors: its leaves are its tensors (the warm start, the SG
 history, lambda, the device key, MPO's temperature and Adam moments) and its
 host numbers (the seed and the tick), in the order of its fields; a ``None``
@@ -12,14 +24,13 @@ device key is saved as it is: after a closed loop's ``done_fn`` fired it
 names another stream than ``make_key(seed, tick)``, and the restored state
 draws from it.  A batched fleet state (``parallel.make_batched_fused_solver``)
 round-trips the same way.
-
-The JAX package's Orbax directory checkpoint is not ported here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
@@ -109,4 +120,93 @@ def load_state(path: str, template):
         else:
             restored.append(torch.from_numpy(leaf.copy()).to(
                 dtype=tmpl.dtype, device=tmpl.device))
+    return _unflatten(template, iter(restored))
+
+
+# ----------------------------------------------------------------------
+# The directory checkpoint (torch.distributed.checkpoint)
+# ----------------------------------------------------------------------
+
+_PENDING: list = []  # the futures of saves still in flight (wait=False)
+
+
+def _state_dict(tree) -> dict:
+    """``{"leaf_i": tensor or the host number's JSON text}`` of ``tree``'s leaves."""
+    return {f"leaf_{i}": leaf if isinstance(leaf, torch.Tensor) else json.dumps(leaf)
+            for i, leaf in enumerate(_flatten(tree, []))}
+
+
+def _no_dist() -> bool:
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized())
+
+
+def save_state_orbax(path: str, state, *, wait: bool = True) -> str:
+    """Persist a solver-state tree as a directory checkpoint; returns its absolute path.
+
+    Args:
+        path: the checkpoint directory (created; overwritten if it exists).
+        state: a state tree (``solver.init()``, a solve's ``.state``, a
+            fleet's state, or one whose tensors are DTensors on a mesh: every
+            rank of the process group calls with its own shards).
+        wait: block until the checkpoint is written.  With ``wait=False``
+            the write goes on in the background
+            (``torch.distributed.checkpoint.async_save``); call
+            :func:`wait_until_saved` before reading it back.
+    """
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    writer = dcp.FileSystemWriter(path, overwrite=True)
+    state_dict = _state_dict(state)
+    if wait:
+        dcp.save(state_dict, storage_writer=writer, no_dist=_no_dist())
+    else:
+        _PENDING.append(dcp.async_save(state_dict, storage_writer=writer, no_dist=_no_dist()))
+    return path
+
+
+def wait_until_saved() -> None:
+    """Join every ``save_state_orbax(..., wait=False)`` still in flight."""
+    while _PENDING:
+        _PENDING.pop(0).result()
+
+
+def load_state_orbax(path: str, template):
+    """Restore a tree saved by :func:`save_state_orbax`.
+
+    Every tensor comes back with the shape, dtype and device of the
+    corresponding ``template`` tensor, and a DTensor with its mesh and
+    placements: each rank reads only its own shard.  ``template`` itself is
+    left as it is.
+
+    Raises:
+        ValueError: the checkpoint does not match the template (another
+            solver config), with the JAX package's message.
+    """
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.api import CheckpointException
+
+    template_leaves = _flatten(template, [])
+    state_dict = {f"leaf_{i}": torch.empty_like(leaf) if isinstance(leaf, torch.Tensor)
+                  else json.dumps(leaf) for i, leaf in enumerate(template_leaves)}
+    try:
+        reader = dcp.FileSystemReader(os.path.abspath(path))
+        saved = reader.read_metadata().state_dict_metadata
+        if set(saved) != set(state_dict):
+            raise ValueError(f"the checkpoint has {len(saved)} leaves; the template "
+                             f"{len(state_dict)}")
+        dcp.load(state_dict, storage_reader=reader, no_dist=_no_dist())
+    except (ValueError, RuntimeError, CheckpointException) as exc:
+        raise ValueError(
+            f"checkpoint at {path!r} does not match the template state "
+            "(was it saved from a different solver config?): "
+            f"{exc}"
+        ) from exc
+    restored = []
+    for i, tmpl in enumerate(template_leaves):
+        value = state_dict[f"leaf_{i}"]
+        restored.append(value if isinstance(tmpl, torch.Tensor)
+                        else type(tmpl)(json.loads(value)))
     return _unflatten(template, iter(restored))

@@ -3,7 +3,8 @@
 The tests hand the same inputs to both packages through these functions:
 the solver state's warm start, SG history, temperature and MPO state; an
 occupancy grid with its origin and cell size, as a map or as the fused
-kernels' uint8 raster with the navigation task built on it; the circuit's
+kernels' uint8 raster with the navigation task built on it; a map's analytic
+feature form; the circuit's
 center path; an environment's observation (the danger zone's 7 floats).
 Nothing here imports the JAX package: callers pass ``np.asarray(...)`` of
 its arrays.  ``device=None`` means ``cuda``, as everywhere in the port.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from mppi_playground_tpu_torch.core.config import AdamState, MPPIState, make_key
+from mppi_playground_tpu_torch.maps.feature_query import FeatureMapData
 from mppi_playground_tpu_torch.maps.grid_cost import GridMapData
 from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
 from mppi_playground_tpu_torch.utils.device import resolve_device
@@ -77,6 +79,30 @@ def grid_map(
         grid=torch.as_tensor(np.array(grid), dtype=dtype, device=device),
         origin=torch.as_tensor(np.array(origin), dtype=dtype, device=device),
         cell_size=float(cell_size),
+    )
+
+
+def feature_map(
+    arrays: dict,
+    cell_size: float,
+    width: int,
+    height: int,
+    inside_is_blocked: bool,
+    device: Device = None,
+    dtype: torch.dtype = torch.float32,
+) -> FeatureMapData:
+    """A :class:`FeatureMapData` from a JAX ``FeatureMapData``'s arrays and its static fields.
+
+    ``arrays`` maps the array fields (``disc_x``, ``disc_y``, ``disc_r2``,
+    ``rect_x0``, ``rect_x1``, ``rect_y0``, ``rect_y1``, ``origin``) to numpy
+    arrays.
+    """
+    device = resolve_device(device)
+    fields = ("disc_x", "disc_y", "disc_r2", "rect_x0", "rect_x1", "rect_y0", "rect_y1", "origin")
+    return FeatureMapData(
+        **{f: torch.as_tensor(np.array(arrays[f]), dtype=dtype, device=device) for f in fields},
+        cell_size=float(cell_size), width=int(width), height=int(height),
+        inside_is_blocked=bool(inside_is_blocked),
     )
 
 

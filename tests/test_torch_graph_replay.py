@@ -159,3 +159,30 @@ def test_a_tick_that_cannot_be_captured_names_the_requirement_on_the_card(card):
     # the failed capture left torch's CUDA generator out of capture mode: it still draws
     assert torch.isfinite(torch.randn(4, device="cuda")).all()
 
+
+
+def test_a_capture_survives_graphs_left_for_the_collector(card):
+    """Graphs in reference cycles, freed by the collector, never land inside a capture.
+
+    Destroying a CUDA graph while another captures invalidates the capture (it
+    failed so once, between the two ``RacingController`` cases above, in one
+    process). ``TickGraph`` collects first and holds the collector off.
+    """
+    import gc
+
+    from mppi_playground_tpu_torch.core.closed_loop import TickGraph
+
+    x = torch.zeros(256, device="cuda")
+    for _ in range(4):  # captured graphs left in cycles, for the collector
+        holder = [TickGraph(lambda: x.add_(1.0), x.device)]
+        holder.append(holder)
+    del holder
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)  # collect at every allocation the collector counts
+    try:
+        graph = TickGraph(lambda: [x.mul(2.0) + float(i) for i in range(64)][-1], x.device)
+    finally:
+        gc.set_threshold(*threshold)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph.out, x * 2.0 + 63.0)
