@@ -128,13 +128,27 @@ Phases, each of which fails the run if it fails:
     each shard's offset, the inheritance threshold in a later shard), at the
     flagship and on a B=8 fleet launch, in both noise modes, concatenated and
     sliced to K bit for bit the whole launch, D=2's last shard against its
-    twins; ``make_sharded_fused_solver`` on a one-rank NCCL group, 50
-    flagship ticks at fixed λ, MPO and ESSPS bit for bit
+    twins; ``make_sharded_fused_solver`` on the one-rank group
+    ``initialize_distributed`` makes for a CUDA device (``cpu:gloo,cuda:nccl``),
+    50 flagship ticks at fixed λ, MPO and ESSPS bit for bit
     ``make_fused_solver``'s, counted, the host-driven tick in turns with the
-    single solver and, where NCCL's collectives capture, the replayed
-    episode bit for bit and in turns; two gloo ranks sharing the card, five
-    sharded flagship ticks bit for bit the single solve on both ranks, a
-    capture raising ``closed_loop.CAPTURABLE``.
+    single solver, the replayed episode (NCCL's collectives captured) bit for
+    bit and in turns, and the sharded state through the directory checkpoint
+    with and without ``wait``, bit for bit; two gloo ranks sharing the card,
+    five sharded flagship ticks bit for bit the single solve on both ranks, a
+    capture raising ``closed_loop.CAPTURABLE``;
+15. the examples on the card (:func:`drive_examples`): each script of
+    ``mppi_playground_tpu_torch/examples`` through its ``main`` on ``cuda``,
+    headless, at its own configuration for a few steps: the default route,
+    ``--fused`` where the script has it, ``--episode`` where it has it, and
+    racing's ``--pipelined 2``; each run under the device trace, every
+    counter set to 0 before it, the kernels it ran held to the route's
+    (:data:`EXAMPLE_RUNS`), its average solve time printed; the mujoco
+    script and ``make_media`` where gymnasium (and mujoco) are installed,
+    else their solvers a few ticks against their own dynamics; then the
+    pendulum's ``--episode`` at its configuration ends upright
+    (:data:`PENDULUM_EPISODE_THETA_BOUND`) and the pipelined-quality bounds
+    hold (:func:`pipelined_quality`).
 
 Every kernel is timed as the device time of launches replayed in a CUDA
 graph (:func:`graph_ms`; the event loop beside it).  It prints each TPU
@@ -3941,7 +3955,7 @@ SHARDS = (2, 4, 8)
 # inside a later shard at every D: the shards are 50,176, 25,088 and 12,544 samples
 SHARD_THRESHOLD = 70_000
 FLEET_SHARD_B, FLEET_SHARD_THRESHOLD = 8, 3_000  # the fleet's launch: its K=4,096 in 2-8 shards
-SHARDED_TICKS = 50  # the one-rank NCCL facade's ticks a mode
+SHARDED_TICKS = 50  # the one-rank facade's ticks a mode
 GLOO_TICKS = 5  # the two gloo ranks' ticks
 
 
@@ -4048,17 +4062,53 @@ def flagship_closed_loop_fns(env):
     return info_fn, lambda x, u: env.dynamics(x[None], u[None])[0]
 
 
-def sharded_facade(torch, env, card):
-    """Phase 14b: ``make_sharded_fused_solver`` on a one-rank NCCL group, against the single solver.
+def checkpoint_round_trips(torch, state, template) -> dict:
+    """The directory checkpoint of ``state`` on this group: saved with and without ``wait``.
 
-    At the flagship (T=50, K=100,000), fixed λ, MPO and ESSPS: 50 eager
-    ticks of each, counted, bit for bit (the final state and key, every
-    tick's state and action); the host-driven tick of both in turns (10
-    windows of 5 ticks); then the 50-tick episode through
-    ``make_closed_loop``: where the NCCL collectives capture, it must be bit
-    for bit the eager ticks, and its replays are timed in turns with the
-    single solver's; where they do not, the capture's error is recorded.
-    Returns ``{mode: {...}}`` or None.
+    ``save_state_orbax`` then ``load_state_orbax`` into ``template``, once
+    with ``wait=True`` and once with ``wait=False`` and ``wait_until_saved``;
+    ``{wait: restored bit for bit}``, or the error's text.
+    """
+    import tempfile
+
+    from mppi_playground_tpu_torch.ops import cuda_build
+    from mppi_playground_tpu_torch.utils.checkpoint import (
+        load_state_orbax,
+        save_state_orbax,
+        wait_until_saved,
+    )
+
+    out = {}
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent) as d:
+        for wait in (True, False):
+            try:
+                path = save_state_orbax(str(Path(d) / f"wait_{wait}"), state, wait=wait)
+                wait_until_saved()
+                restored = load_state_orbax(path, template)
+                out[f"wait={wait}"] = (_bitwise(torch, restored, state)
+                                       and (restored.seed, restored.tick)
+                                       == (state.seed, state.tick))
+            except Exception as err:  # recorded, and the phase fails on it
+                out[f"wait={wait}"] = f"{type(err).__name__}: {str(err)[-300:]}"
+    return out
+
+
+def sharded_facade(torch, env, card):
+    """Phase 14b: ``make_sharded_fused_solver`` on a one-rank group, against the single solver.
+
+    The group is ``initialize_distributed``'s for a CUDA device,
+    ``"cpu:gloo,cuda:nccl"``: NCCL for the CUDA tensors, gloo for the CPU
+    ones.  At the flagship (T=50, K=100,000), fixed λ, MPO and ESSPS: 50
+    eager ticks of each, counted, bit for bit (the final state and key,
+    every tick's state and action); the host-driven tick of both in turns
+    (10 windows of 5 ticks); then the 50-tick episode through
+    ``make_closed_loop``, which must capture (NCCL's collectives in the
+    mixed group), be bit for bit the eager ticks, and whose replays are
+    timed in turns with the single solver's; last, the sharded solver's
+    state after its ticks through the directory checkpoint, with and without
+    ``wait`` (:func:`checkpoint_round_trips`), bit for bit.  Returns ``{mode:
+    {...}}`` or None.
     """
     import torch.distributed as dist
 
@@ -4066,6 +4116,7 @@ def sharded_facade(torch, env, card):
     from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
     from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
     from mppi_playground_tpu_torch.parallel import (
+        cuda_backend,
         initialize_distributed,
         make_mesh,
         make_sharded_fused_solver,
@@ -4074,6 +4125,13 @@ def sharded_facade(torch, env, card):
 
     initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
     try:
+        group = dict(backend=str(dist.get_backend()), cuda_backend=cuda_backend(),
+                     current_device=torch.cuda.current_device())
+        print(f"phase 14 the one-rank group on {card}: {json.dumps(group)}", flush=True)
+        if group["cuda_backend"] != "nccl" or "cpu:gloo" not in group["backend"]:
+            fail(f"initialize_distributed on a CUDA device made the group {group}, not "
+                 "cpu:gloo,cuda:nccl")
+            return None
         mesh = make_mesh()
         _, fixed, _ = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
         task = make_racing_fused_task_from_env(env)
@@ -4132,15 +4190,18 @@ def sharded_facade(torch, env, card):
             except RuntimeError as err:
                 res["captured"] = False
                 res["capture_error"] = str(err)[-400:]
-            print(f"phase 14 sharded facade, {mode}, one-rank NCCL group, T={T}, K={K}, "
-                  f"{SHARDED_TICKS} ticks on {card}: {json.dumps(res)}", flush=True)
+            res["checkpoint_bitwise"] = checkpoint_round_trips(torch, got[0], sharded.init())
+            print(f"phase 14 sharded facade, {mode}, one-rank cpu:gloo,cuda:nccl group, T={T}, "
+                  f"K={K}, {SHARDED_TICKS} ticks on {card}: {json.dumps(res)}", flush=True)
             want_kernels = fused_kernels("racing", config) - {"racing_top_rollouts"}
             if not (exact and set(res["launches"]) == want_kernels
                     and all(v == SHARDED_TICKS for v in res["launches"].values())
-                    and res.get("replayed_bitwise_eager", True)):
+                    and res["captured"] and res["replayed_bitwise_eager"]
+                    and all(v is True for v in res["checkpoint_bitwise"].values())):
                 fail(f"sharded facade {mode}: bitwise {exact}, launches {res['launches']} "
-                     f"(want {sorted(want_kernels)} {SHARDED_TICKS} times each), replayed "
-                     f"{res.get('replayed_bitwise_eager')}")
+                     f"(want {sorted(want_kernels)} {SHARDED_TICKS} times each), captured "
+                     f"{res['captured']}, replayed {res.get('replayed_bitwise_eager')}, "
+                     f"checkpoint {res['checkpoint_bitwise']}")
                 return None
             out[mode] = res
         return out
@@ -4283,6 +4344,277 @@ def sharding_alone() -> int:
     print(f"build: {cuda_build.build():.1f} s", flush=True)
     out = drive_sharding(torch, np, RacingEnv(device="cuda"), card)
     return 1 if out is None else 0
+
+
+# --- phase 15: the examples on the card ------------------------------------------
+
+UNFUSED_M1 = frozenset({"fused_regen_m1", "weighted_update_partials"})  # the draw, row 9
+UNFUSED_M2 = frozenset({"fused_regen_m2", "weighted_update_partials"})
+# (path label: the model first, as path_model reads it; script; main's keywords for the
+# traced run; the kernels the device must run, no more and no fewer).  The fused routes:
+# the pendulum and Navigation2D at K <= 10,000 take ESSPS's epilogue (row 4, then row 5),
+# racing's fixed lambda the fused solve (row 1); each fused tick ends in its tail (row 2)
+# and the scripts that draw the top samples regenerate them (row 6).
+EXAMPLE_RUNS = (
+    ("pendulum example", "pendulum", dict(steps=10, use_gym=False), UNFUSED_M1),
+    ("pendulum example --fused", "pendulum", dict(steps=10, use_gym=False, fused=True),
+     {"pendulum_costs_dump_lambda", "fused_weighted", "pendulum_tick_tail"}),
+    ("pendulum example --episode", "pendulum", dict(steps=10, episode=True), UNFUSED_M1),
+    ("cartpole example", "cartpole", dict(steps=10, use_gym=False), UNFUSED_M1),
+    ("cartpole example --episode", "cartpole", dict(steps=10, episode=True), UNFUSED_M1),
+    ("mountain_car example", "mountaincar", dict(steps=10, use_gym=False), UNFUSED_M1),
+    ("mountain_car example --episode", "mountaincar", dict(steps=10, episode=True), UNFUSED_M1),
+    ("navigation example", "navigation2d", dict(max_steps=10, render=False), UNFUSED_M2),
+    ("navigation example --fused", "navigation2d", dict(max_steps=10, render=False, fused=True),
+     {"navigation_costs_dump_lambda", "fused_weighted", "navigation_tick_tail",
+      "navigation_top_rollouts"}),
+    ("navigation example --episode", "navigation2d",
+     dict(max_steps=10, render=False, episode=True), UNFUSED_M2),
+    ("danger_zone example", "goal_in_danger_zone", dict(max_steps=10, render=False), UNFUSED_M2),
+    ("danger_zone example --episode", "goal_in_danger_zone",
+     dict(max_steps=10, render=False, episode=True), UNFUSED_M2),
+    ("racing example", "racing", dict(max_steps=10, render=False), UNFUSED_M2),
+    ("racing example --fused", "racing", dict(max_steps=10, render=False, fused=True),
+     {"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"}),
+    ("racing example --episode", "racing", dict(max_steps=10, render=False, episode=True),
+     UNFUSED_M2),
+    ("racing example --pipelined 2", "racing", dict(max_steps=10, render=False, pipelined=2),
+     UNFUSED_M2),
+    ("mujoco example", "mujoco_cartpole", dict(steps=10, render=False), UNFUSED_M1),
+    ("make_media example --fast", "make_media", dict(argv=["--fast", "--out", None]), UNFUSED_M1),
+)
+# the keywords a run takes off for its timed pass: the script's own step count
+TIMED_DEFAULTS = ("steps", "max_steps")
+PENDULUM_EPISODE_THETA_BOUND = 0.04  # tests/test_torch_examples.py, from a CPU run
+# (depth, compensate, ticks, |theta| bound, cost bound over strict): the JAX bounds of
+# tests/test_pipelined_quality.py, as tests/test_torch_pipelined_quality.py holds them
+PIPELINED_BOUNDS = ((0, True, 150, 0.15, None), (2, True, 300, 0.25, 1.6),
+                    (2, False, 300, 0.25, 2.5), (4, True, 300, None, 6.0))
+
+
+def _needs_gym(script: str):
+    """Why ``script`` cannot run here (gymnasium, or mujoco's env, missing), or None."""
+    import importlib.util
+
+    if script not in ("mujoco_cartpole", "make_media"):
+        return None
+    if importlib.util.find_spec("gymnasium") is None:
+        return "gymnasium is not installed"
+    if script == "mujoco_cartpole":
+        if importlib.util.find_spec("mujoco") is None:
+            return "mujoco is not installed"
+        try:
+            import gymnasium
+
+            gymnasium.make("InvertedPendulum-v4").close()
+        except Exception as err:  # missing assets or GL stack
+            return f"InvertedPendulum-v4 unavailable: {err}"
+    return None
+
+
+def _own_dynamics_ticks(torch, script: str, ticks: int = 5):
+    """The solver(s) of ``script`` a few ticks against their own dynamics, in place of gym."""
+    import importlib
+    import math
+
+    from mppi_playground_tpu_torch.models import cartpole, mountain_car, pendulum
+
+    ex = importlib.import_module(f"mppi_playground_tpu_torch.examples.{script}")
+    if script == "mujoco_cartpole":
+        runs = [(ex.make_solver("cuda"), ex.dynamics, [0.0, 0.0, 0.05, 0.0])]
+    else:
+        models = {"pendulum": (pendulum, [math.pi, 0.0]), "cartpole": (cartpole, [0, 0, 0.05, 0]),
+                  "mountaincar": (mountain_car, [-0.5, 0.0])}
+        runs = [(ex.make_solver(name, "cuda"), models[name][0].dynamics, models[name][1])
+                for name in ex.WORKLOADS]
+    for solver, dynamics, x0 in runs:
+        x = torch.tensor(x0, dtype=torch.float32, device="cuda")
+        for _ in range(ticks):
+            actions, _ = solver.forward(x)
+            x = dynamics(x[None], actions[None, 0])[0]
+        if not torch.isfinite(x).all():
+            return f"{script}: non-finite state after {ticks} ticks"
+    return None
+
+
+def _run_main(script: str, kwargs: dict, out_dir: str) -> str:
+    """``script``'s ``main`` on the card with ``kwargs``; returns what it printed."""
+    import contextlib
+    import importlib
+    import io
+
+    ex = importlib.import_module(f"mppi_playground_tpu_torch.examples.{script}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if "argv" in kwargs:
+            ex.main([a if a is not None else out_dir for a in kwargs["argv"]] + ["--device",
+                                                                               "cuda"])
+        else:
+            ex.main(**kwargs, device="cuda")
+    return buf.getvalue()
+
+
+def _solve_ms(text: str):
+    """The solve time a script printed, in ms: the average, the pipelined step or an episode's
+    tick; None where it printed none."""
+    import re
+
+    for pattern in (r"average solve time: ([0-9.eE+-]+)", r"avg step ([0-9.eE+-]+) ms",
+                    r"\(([0-9.]+) ms(?:/tick| per budget tick)"):
+        found = re.search(pattern, text)
+        if found:
+            return float(found.group(1))
+    return None
+
+
+def pipelined_quality(torch):
+    """The pipelined-quality bounds on the card: ``{case: result}`` and whether all held.
+
+    The pendulum swing-up (T=15, K=512, λ=1, seed 3) through
+    ``make_pipelined_closed_loop`` at depth 0 (150 ticks), 2 with and without
+    compensation and 4 (300 ticks), against the strict loop's 300-tick cost.
+    """
+    import math
+
+    from mppi_playground_tpu_torch import MPPIConfig, make_solver
+    from mppi_playground_tpu_torch.core.closed_loop import make_pipelined_closed_loop
+    from mppi_playground_tpu_torch.models import pendulum
+    from mppi_playground_tpu_torch.utils.angles import angle_normalize
+
+    config = MPPIConfig(horizon=15, num_samples=512, dim_state=2, dim_control=1,
+                        u_min=pendulum.U_MIN, u_max=pendulum.U_MAX, sigmas=(1.0,), lambda_=1.0,
+                        store_rollouts=False)
+
+    def plant(x, u):
+        return pendulum.dynamics(x[None], u[None])[0]
+
+    def run(depth, compensate, ticks):
+        solver = make_solver(config, pendulum.dynamics, pendulum.cost, device="cuda")
+        loop = make_pipelined_closed_loop(solver, plant, ticks, depth, compensate=compensate)
+        _, xf, xs, _, _ = loop(solver.init(seed=3), torch.tensor([math.pi, 0.0], device="cuda"))
+        cost = float(torch.sum(angle_normalize(xs[:, 0]) ** 2 + 0.1 * xs[:, 1] ** 2))
+        return abs(float(angle_normalize(xf[0]))), cost, float(xs[:, 1].abs().max())
+
+    strict = run(0, True, 300)[1]
+    out, ok = {"strict cost (300 ticks)": strict}, True
+    for depth, compensate, ticks, theta_bound, ratio_bound in PIPELINED_BOUNDS:
+        theta, cost, omega = run(depth, compensate, ticks)
+        res = dict(ticks=ticks, final_abs_theta=theta, cost=cost, cost_over_strict=cost / strict,
+                   max_abs_omega=omega)
+        held = ((theta_bound is None or theta < theta_bound)
+                and (ratio_bound is None or cost < ratio_bound * strict)
+                and (depth != 4 or omega <= 8.0))
+        res["held"] = held
+        ok = ok and held
+        out[f"depth {depth} compensate={compensate}"] = res
+    return out, ok
+
+
+def drive_examples(torch, card):
+    """Phase 15: every example script through its ``main`` on the card.
+
+    Each run of :data:`EXAMPLE_RUNS` (headless, a few steps) goes under the
+    device trace with every launch counter set to 0 before it: the kernels
+    the device ran must be the route's, each counted by its wrapper at least
+    once (an eager tick: the first of a facade's ticks or of an episode)
+    and never more than the device ran.  Then each run that prints a solve
+    time runs again untraced at the script's own step count, and its time
+    is printed beside the card.  The mujoco script and ``make_media`` need
+    gymnasium (and mujoco): without them the phase says so and drives their
+    solvers against their own dynamics instead.  Last, the pendulum's
+    ``--episode`` at its configuration (200 ticks) must end with |θ| below
+    :data:`PENDULUM_EPISODE_THETA_BOUND`, and :func:`pipelined_quality`'s
+    bounds must hold.  Returns ``{"runs": ..., "pendulum": ...,
+    "pipelined": ..., "seconds": s}`` or None.
+    """
+    import re
+    import tempfile
+
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    runs = {}
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent) as out_dir:
+        for label, script, kwargs, want in EXAMPLE_RUNS:
+            missing = _needs_gym(script)
+            counted = zero_counters()
+            if missing is None:
+                text, trace = traced(torch, lambda: _run_main(script, kwargs, out_dir))
+                ran = "main"
+            else:
+                print(f"phase 15 {label}: main did not run ({missing}); its solver instead, "
+                      "against its own dynamics", flush=True)
+                err, trace = traced(torch, lambda: _own_dynamics_ticks(torch, script))
+                if err is not None:
+                    fail(f"{label}: {err}")
+                    return None
+                text, ran = "", "solver against its own dynamics"
+            device = {name: trace.launches.get(name, 0) for name in counted}
+            wrappers = read_counters(counted)
+            ran_kernels = {name for name, n in device.items() if n}
+            uncounted = sorted(name for name in want if not wrappers[name])
+            over = sorted(name for name in counted if wrappers[name] > device[name])
+            if ran_kernels != set(want) or uncounted or over:
+                fail(f"{label}: kernels run on the device {sorted(ran_kernels)}, expected "
+                     f"{sorted(want)}; no wrapper count for {uncounted}, more counted than run "
+                     f"for {over}")
+                return None
+            res = dict(ran=ran, launches={k: v for k, v in device.items() if v},
+                       printed=[line for line in text.splitlines() if line.strip()][-3:])
+            timed = _solve_ms(text) is not None and ran == "main"
+            if timed and "episode" not in kwargs and "pipelined" not in kwargs:
+                steps = {k: v for k, v in kwargs.items() if k not in TIMED_DEFAULTS}
+                res["solve_ms"] = _solve_ms(_run_main(script, steps, out_dir))
+                res["timed"] = "untraced, the script's own step count"
+            elif timed:
+                res["solve_ms"] = _solve_ms(text)
+                res["timed"] = "the traced run"
+            elif script == "goal_in_danger_zone":  # it prints no time: its host loop's step
+                steps = {k: v for k, v in kwargs.items() if k not in TIMED_DEFAULTS}
+                start = time.perf_counter()
+                _run_main(script, steps, out_dir)
+                res["step_ms"] = 1e3 * (time.perf_counter() - start) / 100  # 100 steps
+                res["timed"] = ("untraced, the script's own 100 steps: solve, env.step and "
+                                "the bookkeeping, host clock")
+            runs[label] = res
+            print(f"phase 15 {label} on {card}: {json.dumps(res)}", flush=True)
+    text = _run_main("pendulum", dict(steps=200, episode=True), "")
+    theta = float(re.search(r"final theta: (\S+)", text).group(1))
+    pendulum = dict(final_theta=theta, bound=PENDULUM_EPISODE_THETA_BOUND, ms_a_tick=_solve_ms(text))
+    print(f"phase 15 pendulum --episode at T=15, K=1000, ESSPS, 200 ticks on {card}: "
+          f"{json.dumps(pendulum)}", flush=True)
+    if not abs(theta) < PENDULUM_EPISODE_THETA_BOUND:
+        fail(f"the pendulum example's episode ended at theta {theta!r}, not upright")
+        return None
+    pipelined, held = pipelined_quality(torch)
+    print(f"phase 15 pipelined-quality bounds (pendulum, T=15, K=512) on {card}: "
+          f"{json.dumps(pipelined)}", flush=True)
+    if not held:
+        fail("a pipelined-quality bound failed on the card")
+        return None
+    if any(m == "jax" or m.startswith(("jax.", "mppi_playground_tpu.")) for m in sys.modules):
+        fail("an example imported jax or the JAX package")
+        return None
+    seconds = time.perf_counter() - t0
+    print(f"phase 15 took {seconds:.1f} s on {card}", flush=True)
+    return dict(runs=runs, pendulum=pendulum, pipelined=pipelined, seconds=seconds)
+
+
+def examples_alone() -> int:
+    """Phase 15 alone, after the build: ``python3 -c 'import sys, chip_smoke;
+    sys.exit(chip_smoke.examples_alone())'``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"build: {cuda_build.build():.1f} s", flush=True)
+    return 1 if drive_examples(torch, card) is None else 0
 
 
 def flagship_inputs(torch, np) -> tuple:
@@ -4608,6 +4940,11 @@ def main() -> int:
     if sharding is None:
         return 1
 
+    # --- phase 15: the examples on the card -----------------------------------
+    examples = drive_examples(torch, card)
+    if examples is None:
+        return 1
+
     paths = {f"flagship {m}": run["launches"] for m, run in modes.items()}
     paths.update({f"flagship episode {m}": run["launches"]
                   for m, run in loops["flagship"].items()})
@@ -4621,6 +4958,8 @@ def main() -> int:
     paths.update({f"sharded flagship {m}": {name: run["launches"].get(name, 0)
                                             for name in launch_counters()}
                   for m, run in sharding["facade"].items()})
+    paths.update({label: {name: run["launches"].get(name, 0) for name in launch_counters()}
+                  for label, run in examples["runs"].items()})
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -4716,7 +5055,13 @@ def main() -> int:
                                 "utils": fleet["utils"], "seconds": fleet["seconds"]},
                       "sharding": {"facade": {m: {k: v for k, v in run.items() if k != "launches"}
                                               for m, run in sharding["facade"].items()},
-                                   "gloo": sharding["gloo"], "seconds": sharding["seconds"]}}),
+                                   "gloo": sharding["gloo"], "seconds": sharding["seconds"]},
+                      "examples": {"runs": {label: {k: v for k, v in run.items()
+                                                    if k != "launches"}
+                                            for label, run in examples["runs"].items()},
+                                   "pendulum_episode": examples["pendulum"],
+                                   "pipelined_quality": examples["pipelined"],
+                                   "seconds": examples["seconds"]}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

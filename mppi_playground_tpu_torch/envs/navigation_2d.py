@@ -17,6 +17,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from mppi_playground_tpu_torch.envs import rendering
+from mppi_playground_tpu_torch.maps.grid_cost import GridMapData
 from mppi_playground_tpu_torch.maps.obstacle_map import ObstacleMap, generate_random_obstacles
 from mppi_playground_tpu_torch.models import unicycle
 from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
@@ -63,7 +64,7 @@ class Navigation2DEnv:
             x_lim=tuple(self._obstacle_map.x_lim), y_lim=tuple(self._obstacle_map.y_lim)
         )
         self.cost_function = unicycle.make_navigation_cost(
-            goal=self._goal_pos, obstacle_map=self._obstacle_map.device_map
+            goal=self._goal_pos, obstacle_map=self.obstacle_cost_map
         )
         self._robot_state = self._initial_state()
         self._fig = None
@@ -83,6 +84,11 @@ class Navigation2DEnv:
     @property
     def obstacle_map(self) -> ObstacleMap:
         return self._obstacle_map
+
+    @property
+    def obstacle_cost_map(self) -> GridMapData:
+        """Fastest exact query map (see ObstacleMap.cost_map): on the card, the grid itself."""
+        return self._obstacle_map.device_map
 
     def fused_task(self) -> FusedTask:
         """The navigation model's plug for the fused kernels (``core/fused_solver.py``)."""

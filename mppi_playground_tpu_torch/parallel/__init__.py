@@ -5,6 +5,7 @@ from mppi_playground_tpu_torch.core.config import scenario_seed
 from mppi_playground_tpu_torch.parallel.mesh import (
     SAMPLE_AXIS,
     SCENARIO_AXIS,
+    cuda_backend,
     initialize_distributed,
     make_mesh,
     replicated,
@@ -29,6 +30,7 @@ __all__ = [
     "BatchedMPPISolver",
     "ShardedFusedSolver",
     "ShardedMPPISolver",
+    "cuda_backend",
     "initialize_distributed",
     "make_batched_fused_solver",
     "make_batched_solver",

@@ -18,6 +18,7 @@ The JAX package's ``NamedSharding`` s are DTensor placements here
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -48,8 +49,14 @@ def initialize_distributed(
             (from the environment where ``None``).
         single_host: an explicit no-op, for scripts that run the same code
             on one machine and on many.
-        device: the device this rank drives; ``None`` means ``cuda``.
-        backend: ``None`` picks NCCL for a CUDA device and gloo for the CPU.
+        device: the device this rank drives; ``None`` means ``cuda``.  A
+            CUDA device becomes the process's current device
+            (``torch.cuda.set_device``), which :func:`mesh_device` returns:
+            ``"cuda:1"`` that card, and ``None`` or ``"cuda"`` under torchrun
+            the card of ``LOCAL_RANK`` (else the current one stays).
+        backend: ``None`` picks ``"cpu:gloo,cuda:nccl"`` for a CUDA device
+            (NCCL for CUDA tensors, gloo for CPU tensors, which an
+            asynchronous directory checkpoint needs) and gloo for the CPU.
             Gloo on a CUDA device lets several ranks share one card, its
             collectives going through host memory (NCCL refuses two ranks on
             one GPU).
@@ -62,8 +69,14 @@ def initialize_distributed(
     if dist.is_initialized():
         return
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        index = dev.index
+        if index is None and "LOCAL_RANK" in os.environ:
+            index = int(os.environ["LOCAL_RANK"])
+        if index is not None:
+            torch.cuda.set_device(index)
     if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        backend = "cpu:gloo,cuda:nccl" if dev.type == "cuda" else "gloo"
     if coordinator_address is None:
         init_method = "env://"
     elif "://" in coordinator_address:
@@ -78,6 +91,24 @@ def initialize_distributed(
     dist.init_process_group(backend, init_method=init_method, **kwargs)
 
 
+def cuda_backend(group=None, backend: Optional[str] = None) -> Optional[str]:
+    """The backend that serves CUDA tensors on ``group`` (the default group where ``None``).
+
+    Read from the group's backend string (or ``backend``, where given): a
+    plain one (``"nccl"``, ``"gloo"``) serves every device type, and a mixed
+    one names a backend a device type (``"cpu:gloo,cuda:nccl"`` -> ``"nccl"``).
+    ``None`` where no backend serves CUDA tensors (``"cpu:gloo"``).
+    """
+    spec = str(dist.get_backend(group) if backend is None else backend).lower()
+    if ":" not in spec:
+        return spec
+    for entry in spec.split(","):
+        device_type, _, name = entry.strip().partition(":")
+        if device_type == "cuda":
+            return name
+    return None
+
+
 def make_mesh(
     mesh_shape: Optional[Tuple[int, int]] = None,
     axis_names: Sequence[str] = (SCENARIO_AXIS, SAMPLE_AXIS),
@@ -89,7 +120,8 @@ def make_mesh(
     ``devices`` are the ranks the mesh takes, in mesh order (all of them by
     default, one device each); the default shape puts them all on the sample
     axis, ``(1, n)``.  ``device_type`` is the ranks' devices: ``None`` means
-    ``cuda`` for an NCCL group and ``cpu`` otherwise (a gloo group whose
+    ``cuda`` where NCCL serves the group's CUDA tensors (:func:`cuda_backend`)
+    and ``cpu`` otherwise (a gloo group whose
     ranks share a card passes ``"cuda"``).  Every rank builds the same mesh.
     """
     from torch.distributed.device_mesh import DeviceMesh
@@ -101,7 +133,7 @@ def make_mesh(
     if math.prod(mesh_shape) != n:
         raise ValueError(f"mesh_shape {tuple(mesh_shape)} does not match {n} devices")
     if device_type is None:
-        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        device_type = "cuda" if cuda_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.tensor(ranks).reshape(tuple(mesh_shape)),
                       mesh_dim_names=tuple(axis_names))
 

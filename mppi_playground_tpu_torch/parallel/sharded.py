@@ -54,6 +54,7 @@ each.
 ``core/solver.py`` scenario by scenario, each with its own ``info``: the
 counterpart of the JAX ``vmap``, since the user's dynamics and cost are not
 kernels.  Its kernels (the draw, the weighted update) launch B times a tick.
+On a sample axis each scenario runs :func:`make_sharded_solver`'s shard.
 The route is fixed when the solver is built.
 """
 
@@ -100,6 +101,7 @@ from mppi_playground_tpu_torch.parallel.mesh import (
     SAMPLE_AXIS,
     SCENARIO_AXIS,
     axis_of,
+    cuda_backend,
     mesh_device,
 )
 
@@ -155,8 +157,8 @@ def all_gather_rows(t: torch.Tensor, group, shards: int) -> torch.Tensor:
     capture raises here (NCCL's can be captured).
     """
     if (t.is_cuda and torch.cuda.is_current_stream_capturing()
-            and dist.get_backend(group) != "nccl"):
-        raise RuntimeError(f"a {dist.get_backend(group)} collective cannot be captured in a "
+            and cuda_backend(group) != "nccl"):
+        raise RuntimeError(f"a {cuda_backend(group)} collective cannot be captured in a "
                            "CUDA graph: capture a sample-sharded solve on an NCCL group")
     t = t.contiguous()
     out = t.new_empty(shards, *t.shape)
@@ -408,6 +410,7 @@ def make_batched_solver(
     mesh,
     batch_size: int,
     scenario_axis: str = SCENARIO_AXIS,
+    sample_axis: Optional[str] = SAMPLE_AXIS,
 ) -> BatchedMPPISolver:
     """Solve ``batch_size`` independent control problems a tick, scenario by scenario.
 
@@ -418,11 +421,21 @@ def make_batched_solver(
     ``info`` (e.g. each scenario's goal).  Every output has a leading
     ``[B]`` axis.  ``mesh`` is a mesh, whose ``scenario_axis`` splits the
     fleet (each rank's B is then its ``batch_size / S`` scenarios), or a
-    device, one rank (``None`` means ``cuda``).
+    device, one rank (``None`` means ``cuda``).  On a mesh whose
+    ``sample_axis`` has more than one rank, each scenario's K samples are
+    sharded over that axis besides (:func:`make_sharded_solver`: row 6's
+    draw over the rank's rows, the rollout, row 9's partials, the two
+    gathers, ``combine_partials``), and every rank of the sample axis
+    returns its scenarios' whole results; a 1-D mesh, a sample axis of one
+    rank or ``sample_axis=None`` solves each scenario's K samples on its rank.
     """
     mesh, device, first, local = _scenario_shard(mesh, batch_size, scenario_axis)
-    return scenario_by_scenario(make_solver(config, dynamics, cost_fn, device=device), local,
-                                mesh, first)
+    if (mesh is not None and sample_axis in mesh.mesh_dim_names
+            and axis_of(mesh, sample_axis)[2] > 1):
+        base = make_sharded_solver(config, dynamics, cost_fn, mesh, sample_axis)
+    else:
+        base = make_solver(config, dynamics, cost_fn, device=device)
+    return scenario_by_scenario(base, local, mesh, first)
 
 
 @dataclasses.dataclass(frozen=True)

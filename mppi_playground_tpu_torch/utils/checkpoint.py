@@ -142,6 +142,30 @@ def _no_dist() -> bool:
     return not (dist.is_available() and dist.is_initialized())
 
 
+_CPU_GROUP: list = []  # [(default group, a gloo group of its ranks)] where it has no CPU backend
+
+
+def _process_group():
+    """The group the checkpoint's collectives run on; ``None`` means the default group.
+
+    The checkpoint's own collectives (its plan and metadata, host objects)
+    and the asynchronous save need a backend for CPU tensors.  A default
+    group without one (``"nccl"``, ``"cuda:gloo"``; ``initialize_distributed``
+    makes ``"cpu:gloo,cuda:nccl"``, which has one) gets a gloo group of the
+    same ranks, made once by every rank at its first checkpoint.
+    """
+    import torch.distributed as dist
+
+    if _no_dist():
+        return None
+    default = dist.distributed_c10d._get_default_group()
+    if torch.device("cpu") in default._device_types:
+        return None
+    if not _CPU_GROUP or _CPU_GROUP[0][0] is not default:
+        _CPU_GROUP[:] = [(default, dist.new_group(backend="gloo"))]
+    return _CPU_GROUP[0][1]
+
+
 def save_state_orbax(path: str, state, *, wait: bool = True) -> str:
     """Persist a solver-state tree as a directory checkpoint; returns its absolute path.
 
@@ -154,16 +178,19 @@ def save_state_orbax(path: str, state, *, wait: bool = True) -> str:
             the write goes on in the background
             (``torch.distributed.checkpoint.async_save``); call
             :func:`wait_until_saved` before reading it back.
+
+    Either way it works in any process group (:func:`_process_group`).
     """
     import torch.distributed.checkpoint as dcp
 
     path = os.path.abspath(path)
     writer = dcp.FileSystemWriter(path, overwrite=True)
     state_dict = _state_dict(state)
+    kw = dict(storage_writer=writer, process_group=_process_group(), no_dist=_no_dist())
     if wait:
-        dcp.save(state_dict, storage_writer=writer, no_dist=_no_dist())
+        dcp.save(state_dict, **kw)
     else:
-        _PENDING.append(dcp.async_save(state_dict, storage_writer=writer, no_dist=_no_dist()))
+        _PENDING.append(dcp.async_save(state_dict, **kw))
     return path
 
 
@@ -197,7 +224,8 @@ def load_state_orbax(path: str, template):
         if set(saved) != set(state_dict):
             raise ValueError(f"the checkpoint has {len(saved)} leaves; the template "
                              f"{len(state_dict)}")
-        dcp.load(state_dict, storage_reader=reader, no_dist=_no_dist())
+        dcp.load(state_dict, storage_reader=reader, process_group=_process_group(),
+                 no_dist=_no_dist())
     except (ValueError, RuntimeError, CheckpointException) as exc:
         raise ValueError(
             f"checkpoint at {path!r} does not match the template state "
