@@ -148,7 +148,21 @@ Phases, each of which fails the run if it fails:
     else their solvers a few ticks against their own dynamics; then the
     pendulum's ``--episode`` at its configuration ends upright
     (:data:`PENDULUM_EPISODE_THETA_BOUND`) and the pipelined-quality bounds
-    hold (:func:`pipelined_quality`).
+    hold (:func:`pipelined_quality`);
+16. a user's own model on the fused kernels (:func:`drive_plugs`): the
+    JAX package's user-defined tasks as ``ModelPlug`` s (:func:`every_plug`:
+    the linear task at n=3 and m=1-4, the toy with its target table, the
+    quad, the speed-tracking bicycle of ``benchmarks/scaling.py``), each
+    unit built from its source at once, each build's seconds printed; every
+    plug's rows 1, 3, 4 (ESSPS and LBPS), 5, 6 and 2 against their twins in
+    both noise modes at T=50, K=98,304 (:func:`check_task_kernels`), timed
+    beside their bounds, rows 1 and 3 per action slot; each plug's fused
+    routes, counted (:func:`plug_routes`); the bicycle through
+    ``MPPI(kernel_backend="auto", fused_task=...)`` at fixed λ, MPO and
+    ESSPS and on the λ epilogue, 5 replayed ticks bit for bit the eager ones,
+    ``get_top_samples(300)``, and a 50-tick ``make_closed_loop`` episode
+    bit for bit 50 eager ticks (:func:`bicycle_paths`); and a plug's tail and
+    re-roll past 48 KB of shared memory (:func:`wide_prepare_tails`).
 
 Every kernel is timed as the device time of launches replayed in a CUDA
 graph (:func:`graph_ms`; the event loop beside it).  It prints each TPU
@@ -161,7 +175,7 @@ exits non-zero and prints no result.
 Comparisons with another checkout (the parent of a change, unpacked from
 ``git archive``), each run by the command in its docstring:
 :func:`search_kernels_in_turns` (rows 7 and 8), :func:`fused_kernels_in_turns`
-(rows 1-6 of every family), :func:`top_samples_in_turns` (the fused
+(rows 1-6 of every bundled family), :func:`top_samples_in_turns` (the fused
 ``get_top_samples`` medians), :func:`flagship_ticks_in_turns` (the flagship
 tick on the host clock and its profile); :func:`chain_bounds` derives rows
 2 and 6's latency bounds from the SASS, and :func:`retimed_products` ranks
@@ -588,8 +602,9 @@ def mode_solvers(env, task, flagship_solver, flagship_tick) -> dict:
     return solvers
 
 
-def launch_counters() -> dict:
-    """Every kernel, by name: ``{name: (wrapper, key)}``.
+def launch_counters(plugs=()) -> dict:
+    """Every kernel, by name: ``{name: (wrapper, key)}``; the bundled models' and
+    those of ``plugs``, the ``ModelPlug`` objects given.
 
     The fused-solve wrappers count their launches in a Counter under each
     kernel's name (``key``); the search and weighted-update wrappers, one
@@ -599,7 +614,7 @@ def launch_counters() -> dict:
 
     counted = {}
     for wrapper in fused_solve.WRAPPERS:
-        for name in fused_solve.kernel_names(wrapper):
+        for name in fused_solve.kernel_names(wrapper, plugs):
             counted[name] = (wrapper, name)
     for search in (lambda_search.essps_lambda_fused, lambda_search.lbps_lambda_fused):
         counted[search.__name__] = (search, None)
@@ -629,9 +644,9 @@ def read_counters(counted: dict) -> dict:
     return {name: (fn.launches[key] if key else fn.launches) for name, (fn, key) in counted.items()}
 
 
-def zero_counters() -> dict:
-    """Set every launch count to 0; returns :func:`launch_counters`."""
-    counted = launch_counters()
+def zero_counters(plugs=()) -> dict:
+    """Set every launch count to 0; returns :func:`launch_counters` of ``plugs``."""
+    counted = launch_counters(plugs)
     for fn, key in counted.values():
         if key is None:
             fn.launches = 0
@@ -655,8 +670,11 @@ KERNEL_MODELS = (
 )
 
 
-def counter_of(kernel: str):
-    """The launch counter of a device kernel named in a profiler trace; None for torch's own."""
+def counter_of(kernel: str, plugs=()):
+    """The launch counter of a device kernel named in a profiler trace; None for torch's own.
+
+    A kernel of a user's model plug is named by its struct, one of ``plugs``.
+    """
     for function, counter in (("weighted_update_kernel<", "weighted_update_partials"),
                               ("weighted_kernel(", "fused_weighted"),
                               ("search_kernel<false>", "essps_lambda_fused"),
@@ -672,6 +690,10 @@ def counter_of(kernel: str):
             for prefix, model in KERNEL_MODELS:
                 if model_arg.startswith(prefix):
                     return f"{model}_{suffix}"
+            struct = model_arg.split(">")[0].strip()
+            for plug in plugs:
+                if struct == plug.struct.lstrip(":"):
+                    return f"{plug.name}_{suffix}"
             raise ValueError(f"kernel {kernel!r}: no launch counter for its model")
     return None
 
@@ -687,13 +709,13 @@ class Trace:
     skew_ms: float  # a marker kernel's start in the trace less its launch on the host clock
 
 
-def traced(torch, fn, no_sync: bool = False):
+def traced(torch, fn, no_sync: bool = False, plugs=()):
     """``fn()`` under ``torch.profiler``'s device trace -> ``(fn's result, Trace)``.
 
     The trace sees every kernel the device ran, eager launches and the
     replays of a CUDA graph alike (no wrapper counts a replay: the graph
-    launches its kernels itself); :func:`counter_of` names each of ours.
-    The priming and marker kernels before ``fn`` are left out of the
+    launches its kernels itself); :func:`counter_of` names each of ours
+    (and of ``plugs``, the user's model plugs ``fn`` drives).  The priming and marker kernels before ``fn`` are left out of the
     result.  With ``no_sync`` any host sync inside ``fn`` raises.
     """
     from torch.profiler import ProfilerActivity, profile
@@ -725,7 +747,7 @@ def traced(torch, fn, no_sync: bool = False):
         raise RuntimeError("the device trace lost its marker kernel: it may have lost others")
     skew_ms = marks[-1].time_range.start / 1e3 - 1e3 * t_mark
     events = [e for e in events if "spin_kernel" not in e.name]
-    sequence = [c for c in (counter_of(e.name) for e in events) if c is not None]
+    sequence = [c for c in (counter_of(e.name, plugs) for e in events) if c is not None]
     launches = {}
     for counter in sequence:
         launches[counter] = launches.get(counter, 0) + 1
@@ -1471,7 +1493,7 @@ def time_tails(torch, fs, task, x0, route, horizon: int) -> dict:
 
     costs, stats, numer, lam = route
     history = torch.zeros(horizon - 1, task.dim_control, device="cuda")
-    tail = cuda_build.function("reroll", f"{task.model}_tick_tail", fs._TAIL_ARGTYPES)
+    tail = cuda_build.function(*task.entry("tick_tail"), fs._TAIL_ARGTYPES)
     outs = [torch.empty(n, device="cuda") for n in
             (horizon * task.dim_control, (horizon + 1) * task.dim_state, 1,
              (horizon - 1) * task.dim_control)]
@@ -1551,19 +1573,37 @@ def lambda_vs_plain(search, costs, lam, want=None) -> tuple:
 def check_model_kernels(torch, np, name, card, num_samples=None):
     """Phase 9: one model's fused kernels against their twins at its configuration.
 
-    The fused solve, phase 1, phase 1 with the ESSPS epilogue, phase 2 at
-    lambda=1, regeneration of all K rows, 300 rows regenerated and rolled
-    out, and the re-roll, seeded and in noise mode.  Gates: costs bitwise
-    (the libm models: bitwise or the bar above, reported), the partials by
-    ``partials_errors``, the dump and the regenerated rows bitwise, phase 1 +
-    2 at lambda=1 bitwise the fixed solve, the epilogue's costs, dump and
+    :func:`check_task_kernels` on the model's workload (``model_inputs``).
+    """
+    w, prev, noise, bounds = model_inputs(torch, np, name, num_samples)
+    k = w.mppi_kwargs["num_samples"]
+    return check_task_kernels(torch, f"{name} (T={prev.shape[0]}, K={k})", w.task, w.x0, prev,
+                              noise, bounds, None, MODEL_OPS[name], card,
+                              libm=name in LIBM_MODELS)
+
+
+def check_task_kernels(torch, label, task, x0, prev, noise, bounds, ref, ops, card,
+                       libm=False, searches=("ESSPS",), source=None):
+    """One model's fused kernels against their twins at one configuration (phases 9 and 16).
+
+    The fused solve, phase 1, phase 1 with the epilogue of each search in
+    ``searches``, phase 2 at lambda=1, regeneration of all K rows (m = 1 or
+    2: the unfused route's draw), 300 rows regenerated and rolled out, and
+    the re-roll, seeded and in noise mode.  Gates: costs bitwise (``libm``:
+    bitwise or the bar above, reported), the partials by
+    ``partials_errors``, the dump and the regenerated rows bitwise, phase 1
+    + 2 at lambda=1 bitwise the fixed solve (whose numerator pass
+    regenerates the slots past its tile), the epilogue's costs, dump and
     lambda* bitwise the standalone route's, the rolled-out rows bitwise
-    their twin's (the libm models: states atol 5e-3).  Returns ``{kernel:
-    row}`` (``m{m}_regen`` for the regeneration of this model's m, and
-    ``weighted``, phase 2's time here) or None after a failure.  The
-    epilogue's lambda* is also held against the plain search on the twin's
-    costs (``lambda_vs_plain``); its row's error is the largest gap of its
-    costs, dump and lambda* to its twin's.
+    their twin's and the twin's roll-out of phase 1's dump at those rows
+    (``libm``: states atol 5e-3).  ``ref`` is the reference rows ``[T+1,
+    W]`` or None; ``source`` the file of the model's rollout kernels (None:
+    ``fused_<model>.cu``).  Returns ``{kernel: row}`` (``m{m}_regen`` for
+    the regeneration of this model's m, and ``weighted``, phase 2's time
+    here) or None after a failure.  The epilogue's lambda* is also held
+    against the plain search on the twin's costs (``lambda_vs_plain``); its
+    row's error is the largest gap of its costs, dump and lambda* to its
+    twin's.
     """
     from mppi_playground_tpu_torch.core.config import tick_seed
     from mppi_playground_tpu_torch.core.diagnostics import top_indices
@@ -1571,12 +1611,11 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
     from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
 
-    w, prev, noise, (sig, lo, hi) = model_inputs(torch, np, name, num_samples)
-    task, x0 = w.task, w.x0
+    sig, lo, hi = bounds
+    name = task.name
     horizon, m = prev.shape
-    k = w.mppi_kwargs["num_samples"]
-    ops = MODEL_OPS[name]
-    label = f"{name} (T={horizon}, K={k})"
+    k = noise.shape[0]
+    regen_kernel = m in fs.REGEN_WIDTHS
     threshold = int(0.8 * k)  # both sides of the inherit split
     seed = device_seed(torch, tick_seed(42, 1))
     lam = torch.ones(1, device="cuda")
@@ -1594,21 +1633,30 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
 
     bitwise = {}
     for mode, nz in (("noise", noise), ("seeded", None)):
-        args = (x0, prev, lam, seed, None, task, sig, lo, hi, k, threshold, nz)
+        args = (x0, prev, lam, seed, ref, task, sig, lo, hi, k, threshold, nz)
         got = fs.fused_solve(*args)
         want = fs.fused_solve_plain(*args)
         p1 = fs.fused_costs_dump(x0, prev, *args[3:])
         w_p1 = fs.fused_costs_dump_plain(x0, prev, *args[3:])
         p2 = fs.fused_weighted(*p1, lam)
-        epi = fs.fused_costs_dump_lambda(x0, prev, *args[3:], search, ticket)
-        lam_standalone = search.run(p1[0])
-        regen = fs.fused_regen(prev, seed, rows, sig, lo, hi, k, threshold, nz)
+        epis = {}
+        for mode_search in searches:
+            s = search if mode_search == "ESSPS" else LambdaSearch("LBPS", 0.01, 10.0, 0.01, 32)
+            epis[mode_search] = (s, fs.fused_costs_dump_lambda(x0, prev, *args[3:], s, ticket),
+                                 s.run(p1[0]))
+        epi = epis[searches[0]][1]
+        if regen_kernel:
+            regen = fs.fused_regen(prev, seed, rows, sig, lo, hi, k, threshold, nz)
         w_regen = fs.fused_regen_plain(prev, seed, rows, sig, lo, hi, k, threshold, nz)
         tops = fs.fused_top_rollouts(x0, prev, seed, picked, task, sig, lo, hi, k, threshold, nz)
         w_tops = fs.fused_top_rollouts_plain(x0, prev, seed, picked, task, sig, lo, hi, k,
                                              threshold, nz)
+        dump_tops = fs.rolled_out_plain(x0, p1[1].t().reshape(k, horizon, m)[picked], task)
         torch.cuda.synchronize()
-        lam_err, lam_ok = lambda_vs_plain(search, w_p1[0], epi[2])
+        lam_checks = {mode_search: lambda_vs_plain(s, w_p1[0], out[2])
+                      for mode_search, (s, out, _) in epis.items()}
+        lam_err = max(e for e, _ in lam_checks.values())
+        lam_ok = all(ok for _, ok in lam_checks.values())
         costs_bitwise = bool(torch.equal(got[0], want[0]))
         rel = ((got[0] - want[0]).abs() / (want[0].abs() + 1e-30)).max().item()
         g = combine_partials(*got, lam, horizon, m)
@@ -1622,15 +1670,17 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
             phase1_costs_equal_fixed=bool(torch.equal(p1[0], got[0])),
             phase1_dump_vs_twin_bitwise=bool(torch.equal(p1[1], w_p1[1])),
             phase2_at_1_equals_fixed=all(torch.equal(a, b) for a, b in zip(p2, got[1:])),
-            epilogue_equals_standalone=bool(torch.equal(epi[0], p1[0])
-                                            and torch.equal(epi[1], p1[1])
-                                            and epi[2].item() == lam_standalone.item()),
-            epilogue_lam=epi[2].item(),
+            epilogue_equals_standalone=all(
+                torch.equal(out[0], p1[0]) and torch.equal(out[1], p1[1])
+                and out[2].item() == standalone.item() for _, out, standalone in epis.values()),
+            epilogue_lam={mode_search: out[2].item() for mode_search, (_, out, _) in epis.items()},
             epilogue_lam_vs_plain_abs_err=lam_err,
             epilogue_lam_within_plain_bar=lam_ok,
-            regen_equals_dump=bool(torch.equal(regen, p1[1].t().reshape(k, horizon, m))),
+            regen_equals_dump=(bool(torch.equal(regen, p1[1].t().reshape(k, horizon, m)))
+                               if regen_kernel else None),
             top_rollouts_bitwise=bool(torch.equal(tops, w_tops)),
             top_rollouts_max_abs_err=(tops - w_tops).abs().max().item(),
+            top_rollouts_equal_dump_rolled_out=bool(torch.equal(tops, dump_tops)),
         )
         bitwise[mode] = costs_bitwise
         print(f"{label} kernels vs twins ({mode}): {json.dumps(res)}", flush=True)
@@ -1638,22 +1688,24 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
         err["dump"] = max(err["dump"], (p1[1] - w_p1[1]).abs().max().item())
         err["epilogue"] = max(err["epilogue"], (epi[0] - w_p1[0]).abs().max().item(),
                               (epi[1] - w_p1[1]).abs().max().item(), lam_err)
-        err["regen"] = max(err["regen"], (regen - w_regen).abs().max().item())
+        if regen_kernel:
+            err["regen"] = max(err["regen"], (regen - w_regen).abs().max().item())
         err["top_rollouts"] = max(err["top_rollouts"], res["top_rollouts_max_abs_err"])
-        tops_ok = res["top_rollouts_bitwise"] or (name in LIBM_MODELS
-                                                  and res["top_rollouts_max_abs_err"] <= 5e-3)
-        costs_ok = costs_bitwise or (name in LIBM_MODELS and within_bar(got[0], want[0]))
+        tops_ok = (res["top_rollouts_bitwise"] and res["top_rollouts_equal_dump_rolled_out"]) or (
+            libm and res["top_rollouts_max_abs_err"] <= 5e-3)
+        costs_ok = costs_bitwise or (libm and within_bar(got[0], want[0]))
         partials_ok = res["partials"]["ok"] or (
             not costs_bitwise and res["weights_max_abs_err"] <= 1e-5
             and res["update_max_abs_err"] <= 5e-3)
         if not (costs_ok and partials_ok and res["phase1_costs_equal_fixed"]
                 and res["phase1_dump_vs_twin_bitwise"] and res["phase2_at_1_equals_fixed"]
-                and res["epilogue_equals_standalone"] and lam_ok and res["regen_equals_dump"]
-                and tops_ok):
+                and res["epilogue_equals_standalone"] and lam_ok
+                and res["regen_equals_dump"] is not False and tops_ok):
             fail(f"{label} kernels ({mode}) off the bar: costs bitwise (libm: rtol 2e-5, atol "
                  f"1e-5), partials {PARTIALS_BAR}, dump, regeneration, phase 1 + 2 and the "
-                 "epilogue bitwise, the epilogue's lambda* within ESSPS rtol 1e-4 atol 1e-6 "
-                 "of the plain search, the top rows' roll-out bitwise (libm: atol 5e-3)")
+                 "epilogue bitwise, the epilogue's lambda* within the plain search's bar, the "
+                 "top rows' roll-out bitwise its twin and phase 1's dump rolled out (libm: "
+                 "atol 5e-3)")
             return None
     seq = g[0].contiguous()
     got_r = fs.fused_reroll(x0, seq, task)
@@ -1663,17 +1715,17 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
     reroll_bitwise = bool(torch.equal(got_r, want_r))
     print(f"{label} re-roll vs twin: max_abs_err={err['reroll']!r} bitwise={reroll_bitwise}",
           flush=True)
-    if not (reroll_bitwise or (name in LIBM_MODELS and err["reroll"] <= 5e-3)):
+    if not (reroll_bitwise or (libm and err["reroll"] <= 5e-3)):
         fail(f"{label} re-roll off the bar: bitwise (libm models: states atol 5e-3)")
         return None
-    routes = tail_routes(torch, fs, x0, prev, seed, None, task, (sig, lo, hi), k, None)
-    tails = check_tails(torch, fs, label, task, x0, routes, libm=name in LIBM_MODELS)
+    routes = tail_routes(torch, fs, x0, prev, seed, ref, task, (sig, lo, hi), k, None)
+    tails = check_tails(torch, fs, label, task, x0, routes, libm=libm)
     if tails is None:
         return None
     err["tick_tail"] = tails[0]
     tail_args = (x0, *routes["fixed"], task, torch.zeros(horizon - 1, m, device="cuda"))
 
-    args = (x0, prev, lam, seed, None, task, sig, lo, hi, k, threshold, None)
+    args = (x0, prev, lam, seed, ref, task, sig, lo, hi, k, threshold, None)
     p1_args = (x0, prev) + args[3:]
     top = top_indices(g[1], min(300, k))[1]  # the seeded solve's heaviest rows
     kernels = dict(
@@ -1681,13 +1733,14 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
         dump=(lambda: fs.fused_costs_dump(*p1_args), 20),
         epilogue=(lambda: fs.fused_costs_dump_lambda(*p1_args, search, ticket), 20),
         reroll=(lambda: fs.fused_reroll(x0, seq, task), 50),
-        # all K rows: the unfused route's draw at this configuration
-        regen=(lambda: fs.fused_regen(prev, seed, rows, sig, lo, hi, k, threshold), 50),
         weighted=(lambda: fs.fused_weighted(*p1, lam), 50),
         top_rollouts=(lambda: fs.fused_top_rollouts(x0, prev, seed, top, task, sig, lo, hi, k,
                                                     threshold), 50),
         tick_tail=(lambda: fs.fused_tick_tail(*tail_args), 50),
     )
+    if regen_kernel:  # all K rows: the unfused route's draw at this configuration
+        kernels["regen"] = (lambda: fs.fused_regen(prev, seed, rows, sig, lo, hi, k, threshold),
+                            50)
     t, loop = {}, {}
     for key, (fn, reps) in kernels.items():  # graph replay, and the event loop beside it
         t[key], loop[key] = device_ms(torch, fn, reps)
@@ -1697,8 +1750,6 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
         epilogue_plain=cuda_ms(torch, lambda: fs.fused_costs_dump_lambda_plain(*p1_args, search),
                                3, warmup=1),
         reroll_plain=cuda_ms(torch, lambda: fs.fused_reroll_plain(x0, seq, task), 5, warmup=1),
-        regen_plain=cuda_ms(torch, lambda: fs.fused_regen_plain(prev, seed, rows, sig, lo, hi, k,
-                                                                threshold), 3, warmup=1),
         top_rollouts_plain=cuda_ms(torch, lambda: fs.fused_top_rollouts_plain(
             x0, prev, seed, top, task, sig, lo, hi, k, threshold), 3, warmup=1),
         tick_tail_plain=cuda_ms(torch, lambda: fs.fused_tick_tail_plain(*tail_args), 3, warmup=1),
@@ -1720,9 +1771,13 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
           f" re-roll {b_reroll[0]:.8f}, regeneration of all {k} rows {b_regen[0]:.7f}, the top "
           f"{len(top)} rows' roll-out {b_tops[0]:.7f}, phase 2 {b_weighted[0]:.7f}, tick tail {b_tail[0]:.7f} ms",
           flush=True)
+    if regen_kernel:
+        t["regen_plain"] = cuda_ms(torch, lambda: fs.fused_regen_plain(
+            prev, seed, rows, sig, lo, hi, k, threshold), 3, warmup=1)
     shape = dict(horizon=horizon, num_samples=k, costs_bitwise_equal_to_twin=bitwise)
-    rollout = (f"fused_{name}.cu", f"{FUSED_SOLVE_PY}:783")
-    return {
+    rollout = (source or f"fused_{name}.cu", f"{FUSED_SOLVE_PY}:783")
+    tail_source = source or "reroll.cu"
+    out = {
         f"{name}_fused_solve": kernel_row(f"{name}_fused_solve", *rollout, err["solve"],
                                           t["solve"], t["solve_plain"], *b_solve,
                                           launch_loop_ms=loop["solve"], **shape),
@@ -1733,25 +1788,27 @@ def check_model_kernels(torch, np, name, card, num_samples=None):
             f"{name}_costs_dump_lambda", *rollout, err["epilogue"], t["epilogue"],
             t["epilogue_plain"], *b_epi, search="ESSPS", launch_loop_ms=loop["epilogue"],
             **shape),
-        f"{name}_reroll": kernel_row(f"{name}_reroll", "reroll.cu", f"{FUSED_SOLVE_PY}:272",
+        f"{name}_reroll": kernel_row(f"{name}_reroll", tail_source, f"{FUSED_SOLVE_PY}:272",
                                      err["reroll"], t["reroll"], t["reroll_plain"], *b_reroll,
                                      horizon=horizon, launch_loop_ms=loop["reroll"]),
-        f"m{m}_regen": kernel_row(f"fused_regen_m{m}", "fused_solve.cu", f"{FUSED_SOLVE_PY}:937",
-                                  err["regen"], t["regen"], t["regen_plain"], *b_regen,
-                                  rows=k, horizon=horizon, num_samples=k, model=name,
-                                  launch_loop_ms=loop["regen"]),
-        f"{name}_tick_tail": kernel_row(f"{name}_tick_tail", "reroll.cu", f"{FUSED_SOLVE_PY}:272",
+        f"{name}_tick_tail": kernel_row(f"{name}_tick_tail", tail_source, f"{FUSED_SOLVE_PY}:272",
                                         err["tick_tail"], t["tick_tail"], t["tick_tail_plain"],
                                         *b_tail, horizon=horizon, num_samples=k,
                                         launch_loop_ms=loop["tick_tail"]),
         f"{name}_top_rollouts": kernel_row(
-            f"{name}_top_rollouts", "reroll.cu", f"{FUSED_SOLVE_PY}:937", err["top_rollouts"],
+            f"{name}_top_rollouts", tail_source, f"{FUSED_SOLVE_PY}:937", err["top_rollouts"],
             t["top_rollouts"], t["top_rollouts_plain"], *b_tops, rows=len(top), horizon=horizon,
             num_samples=k, launch_loop_ms=loop["top_rollouts"]),
         # phase 2 at this family's configuration: the kernel's time on its paths
         "weighted": dict(ms=t["weighted"], launch_loop_ms=loop["weighted"],
                          bound_ms=b_weighted[0]),
     }
+    if regen_kernel:
+        out[f"m{m}_regen"] = kernel_row(
+            f"fused_regen_m{m}", "fused_solve.cu", f"{FUSED_SOLVE_PY}:937", err["regen"],
+            t["regen"], t["regen_plain"], *b_regen, rows=k, horizon=horizon, num_samples=k,
+            model=name, launch_loop_ms=loop["regen"])
+    return out
 
 
 def captured(torch, fn, reps: int):
@@ -3850,10 +3907,11 @@ def tpu_row(name: str) -> int:
     raise ValueError(f"no TPU kernel row for {name}")
 
 
-def path_model(path: str) -> str:
-    """The model family a path of this run drives (the flagship and both facades: racing)."""
+def path_model(path: str, plugs=()) -> str:
+    """The model family (or one of ``plugs``) a path of this run drives (the flagship and
+    both facades: racing)."""
     first = path.split()[0]
-    return first if first in MODEL_OPS else "racing"
+    return first if first in MODEL_OPS or first in {p.name for p in plugs} else "racing"
 
 
 def is_fleet_path(path: str) -> bool:
@@ -3861,7 +3919,7 @@ def is_fleet_path(path: str) -> bool:
     return " fleet" in path
 
 
-def row_products(kernels: list, shared: dict) -> dict:
+def row_products(kernels: list, shared: dict, plugs=()) -> dict:
     """``{row: ms}``: launches x (ms - bound_ms) summed over the kernels of each row.
 
     A kernel of one model takes its own row's time; a kernel every model
@@ -3876,7 +3934,7 @@ def row_products(kernels: list, shared: dict) -> dict:
         for path, n in k["launches_by_path"].items():
             if not n:
                 continue
-            ms, bound = shared.get((k["name"], path_model(path)), (k["ms"], k["bound_ms"]))
+            ms, bound = shared.get((k["name"], path_model(path, plugs)), (k["ms"], k["bound_ms"]))
             if is_fleet_path(path):
                 ms, bound = k["batched"]["ms"], k["batched"]["bound_ms"]
             total += n * (ms - bound)
@@ -4617,6 +4675,642 @@ def examples_alone() -> int:
     return 1 if drive_examples(torch, card) is None else 0
 
 
+# --- phase 16: a user's own model on the fused kernels ---------------------------
+#
+# The plugs below are the JAX package's own user-defined tasks (the linear task
+# of tests/test_fused_config_sweep.py, the toy and quad tasks of
+# tests/test_fused_solve.py, the speed-tracking bicycle of
+# benchmarks/scaling.py), each as the CUDA source of one plug struct and its
+# torch twins, operation for operation.  tests/test_torch_plugs.py and
+# tests/test_torch_fused_config_sweep.py import them from here.
+
+LINEAR_PLUG_SOURCE = """\
+namespace plugs {{
+// x_i' = x_i + 0.1 clamp(u_(i mod m), -1, 1) - 0.05 x_((i+1) mod n);
+// cost sum_i (x_i - 0.5 i)^2 + 0.01 sum_j (u_j - pu_j)^2.
+struct {struct} {{
+  static constexpr int kN = {n}, kM = {m}, kRefWidth = 0, kPre = {pre};
+  struct Args {{}};
+  static Args make_args(const float*, const int*, const uint8_t*, const uint8_t*) {{
+    return Args{{}};
+  }}
+  __device__ static __forceinline__ void prepare(const float (&u)[kM], float (&p)[kPre],
+                                                 const Args&) {{
+#pragma unroll
+    for (int j = 0; j < kM; ++j) p[j] = devmath::clampf(u[j], -1.0f, 1.0f);
+#pragma unroll
+    for (int j = kM; j < kPre; ++j) p[j] = 0.0f;  // unused terms (kPre > kM)
+  }}
+  __device__ static __forceinline__ void step_prepared(float (&x)[kN], const float (&p)[kPre],
+                                                       const Args&) {{
+    float nx[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) nx[i] = x[i] + 0.1f * p[i % kM] - 0.05f * x[(i + 1) % kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) x[i] = nx[i];
+  }}
+  __device__ static __forceinline__ float stage_cost(const float (&x)[kN], const float (&u)[kM],
+                                                     const float (&pu)[kM], const float*,
+                                                     const Args&) {{
+    float c = x[0] * x[0];
+#pragma unroll
+    for (int i = 1; i < kN; ++i) {{
+      const float d = x[i] - 0.5f * static_cast<float>(i);
+      c = c + d * d;
+    }}
+    float s = (u[0] - pu[0]) * (u[0] - pu[0]);
+#pragma unroll
+    for (int j = 1; j < kM; ++j) s = s + (u[j] - pu[j]) * (u[j] - pu[j]);
+    return c + 0.01f * s;
+  }}
+}};
+}}  // namespace plugs
+"""
+
+TOY_PLUG_SOURCE = """\
+namespace plugs {
+// A point mass with drag tracking a per-tick target (its reference row):
+// v' = 0.9 v + 0.1 clamp(a, -1, 1), p' = p + 0.1 v';
+// cost (p - target_t)^2 + 0.1 v^2 + 0.01 (a - pa)^2.
+struct Toy {
+  static constexpr int kN = 2, kM = 1, kRefWidth = 1, kPre = 1;
+  struct Args {};
+  static Args make_args(const float*, const int*, const uint8_t*, const uint8_t*) {
+    return Args{};
+  }
+  __device__ static __forceinline__ void prepare(const float (&u)[kM], float (&p)[kPre],
+                                                 const Args&) {
+    p[0] = 0.1f * devmath::clampf(u[0], -1.0f, 1.0f);
+  }
+  __device__ static __forceinline__ void step_prepared(float (&x)[kN], const float (&p)[kPre],
+                                                       const Args&) {
+    const float v = 0.9f * x[1] + p[0];
+    x[0] = x[0] + 0.1f * v;
+    x[1] = v;
+  }
+  __device__ static __forceinline__ float stage_cost(const float (&x)[kN], const float (&u)[kM],
+                                                     const float (&pu)[kM], const float* ref,
+                                                     const Args&) {
+    const float d = x[0] - ref[0];
+    const float e = u[0] - pu[0];
+    return d * d + 0.1f * x[1] * x[1] + 0.01f * (e * e);
+  }
+};
+}  // namespace plugs
+"""
+
+QUAD_PLUG_SOURCE = """\
+namespace plugs {
+// Three states, four controls: v' = 0.95 v + 0.05 (ax - brake),
+// x' = x + 0.1 (v' + ay), y' = y + 0.1 (v' + steer);
+// cost (x - 1)^2 + (y + 0.5)^2 + 0.1 v^2 + 0.01 |u|^2.
+struct Quad {
+  static constexpr int kN = 3, kM = 4, kRefWidth = 0, kPre = 4;
+  struct Args {};
+  static Args make_args(const float*, const int*, const uint8_t*, const uint8_t*) {
+    return Args{};
+  }
+  __device__ static __forceinline__ void prepare(const float (&u)[kM], float (&p)[kPre],
+                                                 const Args&) {
+#pragma unroll
+    for (int j = 0; j < kM; ++j) p[j] = u[j];
+  }
+  __device__ static __forceinline__ void step_prepared(float (&x)[kN], const float (&p)[kPre],
+                                                       const Args&) {
+    const float v = 0.95f * x[2] + 0.05f * (p[0] - p[2]);
+    x[0] = x[0] + 0.1f * (v + p[1]);
+    x[1] = x[1] + 0.1f * (v + p[3]);
+    x[2] = v;
+  }
+  __device__ static __forceinline__ float stage_cost(const float (&x)[kN], const float (&u)[kM],
+                                                     const float (&)[kM], const float*,
+                                                     const Args&) {
+    const float a = x[0] - 1.0f;
+    const float b = x[1] + 0.5f;
+    return a * a + b * b + 0.1f * x[2] * x[2] +
+           0.01f * (u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + u[3] * u[3]);
+  }
+};
+}  // namespace plugs
+"""
+
+BICYCLE_PLUG_SOURCE = """\
+#include "racing_model.cuh"
+
+namespace plugs {
+// The kinematic bicycle of racing_model.cuh (position clamped to the model
+// floats x_lo, x_hi, y_lo, y_hi) tracking a speed of 5:
+// cost (v - 5)^2 + 0.1 (a^2 + delta^2).
+struct SpeedBicycle {
+  static constexpr int kN = 4, kM = 2, kRefWidth = 0, kPre = 2;
+  struct Args {
+    devmath::Geometry geo;
+  };
+  static Args make_args(const float* f, const int*, const uint8_t*, const uint8_t*) {
+    return Args{devmath::Geometry{f[0], f[1], f[2], f[3], 0.0f, 0.0f, 1.0f, 0, 0, 1.0f}};
+  }
+  __device__ static __forceinline__ void prepare(const float (&u)[kM], float (&p)[kPre],
+                                                 const Args&) {
+    racing::bicycle_terms(u[0], u[1], p[0], p[1]);
+  }
+  __device__ static __forceinline__ void step_prepared(float (&x)[kN], const float (&p)[kPre],
+                                                       const Args& a) {
+    racing::bicycle_step(x[0], x[1], x[2], x[3], p[0], p[1], a.geo);
+  }
+  __device__ static __forceinline__ float stage_cost(const float (&x)[kN], const float (&u)[kM],
+                                                     const float (&)[kM], const float*,
+                                                     const Args&) {
+    const float dv = x[3] - 5.0f;
+    return dv * dv + 0.1f * (u[0] * u[0] + u[1] * u[1]);
+  }
+};
+}  // namespace plugs
+"""
+
+
+@dataclasses.dataclass(frozen=True)
+class Plug:
+    """A user's model on the fused kernels: its task (a ``ModelPlug`` and the torch twins),
+    the array-of-structs dynamics and cost of the same model for the unfused solver and
+    ``states_prediction``, its sampling bounds, and its operation count for the bounds."""
+
+    task: object
+    dynamics: object
+    cost: object
+    sigmas: tuple
+    u_min: tuple
+    u_max: tuple
+    ops: ModelOps
+
+
+def _plug(model_plug, dynamics_soa, cost_soa, sigmas, u_min, u_max, ops, floats=(),
+          reference=None) -> Plug:
+    """A :class:`Plug` of a ``ModelPlug`` and its SoA twins; the AoS forms wrap the twins."""
+    import torch
+
+    from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
+
+    task = FusedTask(model=model_plug, dynamics_soa=dynamics_soa, stage_cost_soa=cost_soa,
+                     floats=floats, reference=reference)
+
+    def dynamics(state, action):
+        return torch.stack(dynamics_soa(tuple(state.unbind(1)), tuple(action.unbind(1))), dim=1)
+
+    def cost(state, action, info):
+        ref = None if reference is None else torch.as_tensor(reference(info))
+        ctx = dict(t=info["t"], prev_us=tuple(info["prev_action"].unbind(1)), xref=ref)
+        return cost_soa(tuple(state.unbind(1)), tuple(action.unbind(1)), ctx)
+
+    return Plug(task, dynamics, cost, tuple(sigmas), tuple(u_min), tuple(u_max), ops)
+
+
+def linear_plug(n: int, m: int, pre: int | None = None) -> Plug:
+    """tests/test_fused_config_sweep.py's linear task at ``n`` states and ``m`` controls.
+
+    ``pre`` (default ``m``) is its struct's ``kPre``; the terms past ``m`` are unused.
+    """
+    import torch
+
+    from mppi_playground_tpu_torch.ops.fused_solve import ModelPlug
+
+    pre = m if pre is None else pre
+    struct = f"Linear_n{n}_m{m}" + (f"_pre{pre}" if pre != m else "")
+    plug = ModelPlug(name=struct.lower(), struct=f"plugs::{struct}",
+                     source=LINEAR_PLUG_SOURCE.format(struct=struct, n=n, m=m, pre=pre),
+                     dim_state=n, dim_control=m)
+
+    def dynamics_soa(xs, us):
+        return tuple(xs[i] + 0.1 * torch.clamp(us[i % m], -1.0, 1.0) - 0.05 * xs[(i + 1) % n]
+                     for i in range(n))
+
+    def cost_soa(xs, us, ctx):
+        prev = ctx["prev_us"]
+        c = xs[0] * xs[0]
+        for i in range(1, n):
+            d = xs[i] - 0.5 * i
+            c = c + d * d
+        s = (us[0] - prev[0]) * (us[0] - prev[0])
+        for j in range(1, m):
+            s = s + (us[j] - prev[j]) * (us[j] - prev[j])
+        return c + 0.01 * s
+
+    # prepare 2m (the clamps); step 4n; cost 3n + 3m - 2 + 2, and the accumulation
+    ops = ModelOps(n, m, 0, 2 * m + 4 * n, 3 * n + 3 * m + 1)
+    return _plug(plug, dynamics_soa, cost_soa, [0.5 + 0.1 * j for j in range(m)], [-1.0] * m,
+                 [1.0] * m, ops)
+
+
+def toy_target_rows(info):
+    """The toy plug's reference builder: ``info['target']`` ``[..., T, 1]`` (the JAX task's
+    table, read at step t) -> ``[..., T+1, 1]``, its last row repeated for the T+1 rows."""
+    import torch
+
+    target = torch.as_tensor(info["target"], dtype=torch.float32)
+    return torch.cat([target, target[..., -1:, :]], dim=-2)
+
+
+def toy_plug() -> Plug:
+    """tests/test_fused_solve.py's toy task: a point mass with drag and a per-tick target."""
+    import torch
+
+    from mppi_playground_tpu_torch.ops.fused_solve import ModelPlug
+
+    plug = ModelPlug(name="toy", struct="plugs::Toy", source=TOY_PLUG_SOURCE, dim_state=2,
+                     dim_control=1, reference_width=1)
+
+    def dynamics_soa(xs, us):
+        px, v = xs
+        new_v = 0.9 * v + 0.1 * torch.clamp(us[0], -1.0, 1.0)
+        return (px + 0.1 * new_v, new_v)
+
+    def cost_soa(xs, us, ctx):
+        px, v = xs
+        d = px - ctx["xref"][ctx["t"], 0]
+        e = us[0] - ctx["prev_us"][0]
+        return d * d + 0.1 * v * v + 0.01 * (e * e)
+
+    return _plug(plug, dynamics_soa, cost_soa, (0.7,), (-1.0,), (1.0,),
+                 ModelOps(2, 1, 1, 7, 10), reference=toy_target_rows)
+
+
+def quad_plug() -> Plug:
+    """tests/test_fused_solve.py's quad task: three states, four controls."""
+    from mppi_playground_tpu_torch.ops.fused_solve import ModelPlug
+
+    plug = ModelPlug(name="quad", struct="plugs::Quad", source=QUAD_PLUG_SOURCE, dim_state=3,
+                     dim_control=4)
+
+    def dynamics_soa(xs, us):
+        px, py, v = xs
+        ax, ay, brake, steer = us
+        new_v = 0.95 * v + 0.05 * (ax - brake)
+        return (px + 0.1 * (new_v + ay), py + 0.1 * (new_v + steer), new_v)
+
+    def cost_soa(xs, us, ctx):
+        px, py, v = xs
+        a, b = px - 1.0, py + 0.5
+        return a * a + b * b + 0.1 * v * v + 0.01 * (
+            us[0] * us[0] + us[1] * us[1] + us[2] * us[2] + us[3] * us[3])
+
+    return _plug(plug, dynamics_soa, cost_soa, (0.5, 0.5, 0.3, 0.3), (-1.0,) * 4, (1.0,) * 4,
+                 ModelOps(3, 4, 0, 10, 18))
+
+
+BICYCLE_LIMITS = (-40.0, 40.0)  # benchmarks/scaling.py's position limits
+
+
+def bicycle_plug() -> Plug:
+    """benchmarks/scaling.py's task: the kinematic bicycle tracking a speed of 5."""
+    from mppi_playground_tpu_torch.models import bicycle
+    from mppi_playground_tpu_torch.ops.fused_solve import ModelPlug
+
+    plug = ModelPlug(name="speed_bicycle", struct="plugs::SpeedBicycle",
+                     source=BICYCLE_PLUG_SOURCE, dim_state=4, dim_control=2)
+
+    def cost_soa(xs, us, ctx):
+        dv = xs[3] - 5.0
+        return dv * dv + 0.1 * (us[0] * us[0] + us[1] * us[1])
+
+    return _plug(plug, bicycle.make_dynamics_soa(x_lim=BICYCLE_LIMITS, y_lim=BICYCLE_LIMITS),
+                 cost_soa, (0.5, 0.1), bicycle.U_MIN, bicycle.U_MAX,
+                 ModelOps(4, 2, 0, OPS_BICYCLE, 8), floats=BICYCLE_LIMITS * 2)
+
+
+def every_plug() -> dict:
+    """Phase 16's plugs by name: the linear task at n=3 and m=1-4, the toy, quad and bicycle."""
+    plugs = [linear_plug(3, m) for m in (1, 2, 3, 4)] + [toy_plug(), quad_plug(), bicycle_plug()]
+    return {p.task.name: p for p in plugs}
+
+
+PLUG_T, PLUG_K = 50, 98_304  # benchmarks/scaling.py's bicycle task: T=50, K=96 tiles of 1,024
+PLUG_TICKS = 5  # the full-width path's ticks, eager against the replayed graph
+# the kernels of a plug's unit, by the function names ptxas reports
+PLUG_KERNEL_FUNCTIONS = ("fused_solve_kernel", "costs_dump_lambda_kernel", "costs_dump_kernel",
+                         "tick_tail_kernel", "reroll_kernel", "regen_rollout_kernel")
+PLUG_SOURCES = {"linear": "LINEAR_PLUG_SOURCE", "toy": "TOY_PLUG_SOURCE",
+                "quad": "QUAD_PLUG_SOURCE", "speed_bicycle": "BICYCLE_PLUG_SOURCE"}
+
+
+def plug_inputs(torch, np, plug, horizon=PLUG_T, num_samples=PLUG_K) -> tuple:
+    """``(x0, prev, noise, bounds, ref)`` of a plug at one configuration, from :data:`SEED`.
+
+    The toy plug's reference rows are its target table, 2.0 at every step.
+    """
+    n, m = plug.task.dim_state, plug.task.dim_control
+    rng = np.random.default_rng(SEED + 10 * n + m)
+    sig = np.asarray(plug.sigmas)
+    dev = torch.device("cuda")
+    x0 = torch.tensor(np.linspace(-0.5, 0.5, n), dtype=torch.float32, device=dev)
+    prev = torch.tensor(rng.standard_normal((horizon, m)) * sig, dtype=torch.float32, device=dev)
+    noise = torch.tensor(rng.standard_normal((num_samples, horizon, m)) * sig,
+                         dtype=torch.float32, device=dev)
+    ref = plug.task.reference_rows({"target": torch.full((horizon, 1), 2.0, device=dev)}, None,
+                                   dev)
+    return x0, prev, noise, (plug.sigmas, plug.u_min, plug.u_max), ref
+
+
+def plug_config(plug, lambda_, horizon=PLUG_T, num_samples=PLUG_K):
+    from mppi_playground_tpu_torch.core.config import MPPIConfig
+
+    return MPPIConfig(horizon=horizon, num_samples=num_samples, dim_state=plug.task.dim_state,
+                      dim_control=plug.task.dim_control, u_min=plug.u_min, u_max=plug.u_max,
+                      sigmas=plug.sigmas, lambda_=lambda_, store_rollouts=False)
+
+
+def plug_info(torch, plug, horizon=PLUG_T):
+    """The tick's ``info`` a plug's reference builder reads (the toy's target), else None."""
+    if not plug.task.reference_width:
+        return None
+    return {"target": torch.full((horizon, 1), 2.0, device="cuda")}
+
+
+def plug_routes(torch, plug, card):
+    """Each plug's fused routes, two eager ticks each and ``get_top_samples(300)``, counted.
+
+    Fixed λ (row 1), ESSPS standalone (rows 3, 7, 5) and LBPS on the
+    epilogue (rows 4, 5), each with the tail (row 2) and the top rows (row
+    6), through ``make_fused_solver`` at T=50, K=98,304.  Every counter is
+    set to 0 before a route and read after; each wrapper must have counted
+    each kernel of its route as the eager ticks launch it.  Returns ``{path:
+    {"launches": ...}}`` or None.
+    """
+    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
+
+    name = plug.task.name
+    out = {}
+    for route, lam, epilogue in (("fixed", 1.0, None), ("ESSPS standalone", "ESSPS", False),
+                                 ("LBPS epilogue", "LBPS", True)):
+        config = plug_config(plug, lam)
+        loop = SolverLoop(make_fused_solver(config, plug.task, plug.dynamics, device="cuda",
+                                            lambda_epilogue=epilogue))
+        counted = zero_counters([plug.task.plug])
+        x = torch.linspace(-0.5, 0.5, plug.task.dim_state, device="cuda")
+        info = plug_info(torch, plug)
+        for _ in range(2):
+            result = loop.solver.solve(loop.state, x, info=info)
+            loop.state, loop.aux = result.state, result.aux
+            x = plug.dynamics(x[None], result.action_seq[:1])[0]
+        states, weights = loop.get_top_samples(300)
+        torch.cuda.synchronize()
+        want = {kernel: 2 for kernel in fused_kernels(name, config, epilogue)}
+        want[f"{name}_top_rollouts"] = 1
+        got = read_counters(counted)
+        label = f"{name} fused {route}"
+        if ({k: v for k, v in got.items() if v} != want or not torch.isfinite(x).all()
+                or states.shape != (300, PLUG_T + 1, plug.task.dim_state)):
+            fail(f"{label}: launches {({k: v for k, v in got.items() if v})}, expected {want}; "
+                 f"state finite {bool(torch.isfinite(x).all())}, top rows {tuple(states.shape)}")
+            return None
+        out[label] = dict(launches=got, lam=loop.lambda_)
+    print(f"phase 16 {name}: fixed, ESSPS standalone and LBPS epilogue routes, 2 ticks and "
+          f"get_top_samples(300) each, every kernel counted: "
+          + json.dumps({label: run["lam"] for label, run in out.items()}), flush=True)
+    return out
+
+
+def bicycle_paths(torch, plug, card):
+    """Phase 16's full-width path: the speed-tracking bicycle plug through ``MPPI``.
+
+    ``benchmarks/scaling.py``'s task (T=50, K=98,304, σ=(0.5, 0.1), λ=1,
+    positions ±40) through ``MPPI(kernel_backend="auto", fused_task=...)``
+    at fixed λ, MPO and ESSPS (the standalone route at this K), and ESSPS on
+    the λ epilogue through ``make_fused_solver``: :data:`PLUG_TICKS` ticks
+    of ``forward`` and the plant (``MPPI``: the first eager with the capture,
+    then replays) and ``get_top_samples(300)`` under the device trace, every
+    counter set to 0 before, the actions bit for bit the solver's eager
+    ticks; then a 50-tick ``make_closed_loop`` episode, traced twice (the
+    second with any host sync an error), bit for bit 50 eager ticks, and
+    timed.  Returns ``{path: result}`` or None.
+    """
+    from mppi_playground_tpu_torch.core.closed_loop import make_closed_loop
+    from mppi_playground_tpu_torch.core.controller import MPPI
+    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
+
+    task, name = plug.task, plug.task.name
+    x_start = torch.zeros(task.dim_state, device="cuda")
+
+    def plant(x, u):
+        return plug.dynamics(x[None], u[None])[0]
+
+    out = {}
+    for mode, lam, epilogue in (("fixed", 1.0, None), ("MPO", "MPO", None),
+                                ("ESSPS", "ESSPS", None), ("ESSPS epilogue", "ESSPS", True)):
+        config = plug_config(plug, lam)
+        if epilogue:  # MPPI takes no λ route: the epilogue through make_fused_solver
+            ctrl = SolverLoop(make_fused_solver(config, task, plug.dynamics, device="cuda",
+                                                lambda_epilogue=True))
+            solver = ctrl.solver
+        else:
+            ctrl = MPPI(horizon=PLUG_T, num_samples=PLUG_K, dim_state=task.dim_state,
+                        dim_control=task.dim_control, dynamics=plug.dynamics,
+                        cost_func=plug.cost, u_min=plug.u_min, u_max=plug.u_max,
+                        sigmas=plug.sigmas, lambda_=lam, store_rollouts=False,
+                        kernel_backend="auto", fused_task=task, device="cuda")
+            solver = ctrl._solver
+        label = f"{name} fused {mode}"
+        if ctrl.solver_backend != "fused":
+            fail(f"{label}: MPPI took the {ctrl.solver_backend} route")
+            return None
+
+        def ticks():
+            x, seqs = x_start, []
+            for _ in range(PLUG_TICKS):
+                action_seq, _ = ctrl.forward(x)
+                seqs.append(action_seq)
+                x = plant(x, action_seq[0])
+            return torch.stack(seqs), ctrl.get_top_samples(300)
+
+        counted = zero_counters([task.plug])
+        (seqs, (top_states, top_w)), trace = traced(torch, ticks, plugs=[task.plug])
+        once = fused_kernels(name, config, epilogue) - {f"{name}_top_rollouts"}
+        want = {kernel: PLUG_TICKS for kernel in once}
+        want[f"{name}_top_rollouts"] = 1
+        launches = path_launches(label, counted, [trace], want)
+        if launches is None:
+            return None
+        state, x, eager = solver.init(), x_start, []
+        for _ in range(PLUG_TICKS):
+            r = solver.solve(state, x)
+            eager.append(r.action_seq)
+            state, x = r.state, plant(x, r.action_seq[0])
+        ticks_bitwise = bool(torch.equal(seqs, torch.stack(eager)))
+
+        run = make_closed_loop(solver, plant, EPISODE_TICKS)
+        state0 = solver.init()
+        counted = zero_counters([task.plug])
+        first, first_trace = traced(torch, lambda: run(state0, x_start), plugs=[task.plug])
+        try:
+            second, second_trace = traced(torch, lambda: run(state0, x_start), no_sync=True,
+                                          plugs=[task.plug])
+        except RuntimeError as err:
+            fail(f"{label} episode: the replays synchronized with the host: {err}")
+            return None
+        episode = path_launches(f"{label} episode", counted, [first_trace, second_trace],
+                                {kernel: 2 * EPISODE_TICKS for kernel in once})
+        if episode is None:
+            return None
+        eager_run = eager_episode(torch, solver, plant, EPISODE_TICKS, state0, x_start)
+        runs = [synced_ms(torch, lambda: run(state0, x_start)) for _ in range(3)]
+        ms = statistics.median(runs) / EPISODE_TICKS
+        res = dict(ticks_replayed_bitwise_eager=ticks_bitwise,
+                   episode_bitwise_eager=_bitwise(torch, first, eager_run),
+                   episode_replays_repeat=_bitwise(torch, second, first),
+                   lam=float(first[0].lam), speed=first[1][3].item(),
+                   top_weights_descending=bool((top_w[1:] <= top_w[:-1]).all()),
+                   top_states_finite=bool(torch.isfinite(top_states).all()),
+                   amortized_tick_ms=ms, ticks_per_s=1e3 / ms,
+                   capture_s=run.episode.graph.capture_s,
+                   episode_device_busy_us=second_trace.busy_us,
+                   busy_share_of_unprofiled_episode=second_trace.busy_us
+                   / (1e3 * ms * EPISODE_TICKS))
+        print(f"phase 16 {label} (T={PLUG_T}, K={PLUG_K}) on {card}: {json.dumps(res)}",
+              flush=True)
+        if not (ticks_bitwise and res["episode_bitwise_eager"] and res["episode_replays_repeat"]
+                and res["top_weights_descending"] and res["top_states_finite"]
+                and top_states.shape == (300, PLUG_T + 1, task.dim_state)
+                and torch.isfinite(first[1]).all()):
+            fail(f"{label}: replayed ticks bitwise the eager ones {ticks_bitwise}, episode "
+                 f"bitwise {res['episode_bitwise_eager']}, repeat "
+                 f"{res['episode_replays_repeat']}, top samples {tuple(top_states.shape)}")
+            return None
+        out[label] = dict(res, launches=launches)
+        out[f"{label} episode"] = dict(launches=episode)
+    return out
+
+
+# a plug whose tail and re-roll hold their prepared terms past the default 48 KB of
+# shared memory: the linear task at n=3, m=1 with kPre=48, at T=1024 (T*m at the
+# envelope's edge) and K=2,048
+WIDE_PRE, WIDE_PRE_T, WIDE_PRE_K = 48, 1024, 2048
+
+
+def wide_prepare_tails(torch, np, card):
+    """The tail and the re-roll of a plug whose ``kPre * T`` passes 48 KB, against their twins.
+
+    ``linear_plug(3, 1, pre=WIDE_PRE)`` at T=1024: the re-roll takes
+    ``4 kPre T`` bytes of shared memory and the tail that and ``4 (3T - 1 +
+    1024)`` more, past the default limit, so each launch raises its kernel's
+    limit first (``csrc/shared_memory.cuh``).  The re-roll bit for bit its
+    twin, and the tail on every route (:func:`check_tails`).  Returns the
+    result or None.
+    """
+    from mppi_playground_tpu_torch.core.config import tick_seed
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+
+    plug = linear_plug(3, 1, pre=WIDE_PRE)
+    task, horizon, k = plug.task, WIDE_PRE_T, WIDE_PRE_K
+    label = f"phase 16 {task.name} (kPre={WIDE_PRE}, T={horizon}, K={k})"
+    x0, prev, noise, bounds, ref = plug_inputs(torch, np, plug, horizon, k)
+    del noise
+    got = fs.fused_reroll(x0, prev, task)
+    reroll_bitwise = bool(torch.equal(got, fs.fused_reroll_plain(x0, prev, task)))
+    routes = tail_routes(torch, fs, x0, prev, device_seed(torch, tick_seed(42, 1)), ref, task,
+                         bounds, k, None)
+    tails = check_tails(torch, fs, label, task, x0, routes)
+    res = dict(reroll_shared_bytes=4 * WIDE_PRE * horizon,
+               tail_shared_bytes=4 * (3 * horizon - 1 + WIDE_PRE * horizon + 1024),
+               reroll_bitwise_twin=reroll_bitwise,
+               tail_max_abs_err=None if tails is None else tails[0])
+    print(f"{label} on {card}: {json.dumps(res)}", flush=True)
+    if tails is None or not reroll_bitwise:
+        fail(f"{label}: the re-roll and the tail bit for bit their twins past 48 KB of shared "
+             "memory")
+        return None
+    return res
+
+
+def drive_plugs(torch, np, card):
+    """Phase 16: a user's own model on the fused kernels (:func:`every_plug`).
+
+    Every plug's unit built at once (``nvcc`` in parallel, each build's
+    seconds printed); each plug's kernels against their twins at T=50,
+    K=98,304 (:func:`check_task_kernels`: rows 1, 3, 4 under ESSPS and LBPS,
+    5, 6 and 2, both noise modes; at m=3 the fixed solve's regenerated slots
+    and the top rows against phase 1's dump), timed by graph replay beside
+    their bounds; rows 1 and 3 per action slot at m=1-4; each plug's routes
+    (:func:`plug_routes`), the full-width bicycle path
+    (:func:`bicycle_paths`), and the tail past 48 KB of shared memory
+    (:func:`wide_prepare_tails`).  Returns ``{"plugs", "rows", "paths",
+    "shared", "per_slot", "wide_prepare", "seconds"}`` or None.
+    """
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    plugs = every_plug()
+    libraries = {name: plug.task.entry("fused_solve")[0] for name, plug in plugs.items()}
+    build_s = cuda_build.build(libraries.values())  # already built where phase 2 built them
+    print(f"phase 16: {len(libraries)} plug units on {card}, each build's seconds from the start "
+          "of the nvcc processes it was started with: " + json.dumps(
+              {name: cuda_build.build_seconds.get(lib) for name, lib in libraries.items()}),
+          flush=True)
+    registers = {}
+    for name in plugs:  # "lib:fn: Used N registers, ..." of each kernel of the plug's unit
+        for line in ptxas_report({name: cuda_build.build_logs.get(libraries[name], "")}, ""):
+            fn, report = line.split(":")[1], line.split(":", 2)[2]
+            kernel = next((k for k in PLUG_KERNEL_FUNCTIONS if k in fn), fn)
+            kernel += {"Lb0E": " ESSPS", "Lb1E": " LBPS"}.get(fn[fn.find("Lb"):][:4], "")
+            if "registers" in report:
+                registers.setdefault(name, {})[kernel] = int(report.split("Used ")[1].split()[0])
+    print(f"ptxas, registers of the plug units' kernels: {json.dumps(registers)}", flush=True)
+    rows, shared, per_slot = {}, {}, {}
+    for name, plug in plugs.items():
+        x0, prev, noise, bounds, ref = plug_inputs(torch, np, plug)
+        checked = check_task_kernels(
+            torch, f"plug {name} (T={PLUG_T}, K={PLUG_K})", plug.task, x0, prev, noise, bounds,
+            ref, plug.ops, card, searches=("ESSPS", "LBPS"), source="fused_solve.cuh")
+        del noise
+        if checked is None:
+            return None
+        source = PLUG_SOURCES[name.split("_n")[0]]
+        for key, row in checked.items():
+            if key == "weighted":
+                shared[("fused_weighted", name)] = (row["ms"], row["bound_ms"])
+            elif not key.endswith("_regen"):  # fused_regen_m1/_m2: listed by phase 9
+                rows[key] = dict(row, model_source=f"chip_smoke.py {source}")
+        slots = PLUG_T * plug.task.dim_control
+        per_slot[name] = {f"{kernel}_us_a_slot": 1e3 * checked[f"{name}_{kernel}"]["ms"] / slots
+                          for kernel in ("fused_solve", "costs_dump")}
+    print(f"phase 16 rows 1 and 3 per action slot at T={PLUG_T}, K={PLUG_K} on {card} (graph "
+          f"replay): {json.dumps(per_slot)}", flush=True)
+    paths = {}
+    for name, plug in plugs.items():
+        if name != "speed_bicycle":
+            routes = plug_routes(torch, plug, card)
+            if routes is None:
+                return None
+            paths.update(routes)
+    bicycle = bicycle_paths(torch, plugs["speed_bicycle"], card)
+    if bicycle is None:
+        return None
+    paths.update(bicycle)
+    wide = wide_prepare_tails(torch, np, card)
+    if wide is None:
+        return None
+    seconds = time.perf_counter() - t0
+    print(f"phase 16: {seconds:.1f} s", flush=True)
+    return dict(plugs=plugs, rows=rows, paths=paths, shared=shared, per_slot=per_slot,
+                wide_prepare=wide, seconds=seconds, build_s=build_s)
+
+
+def plugs_alone() -> int:
+    """Phase 16 alone, after a build of ``csrc/``::
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.plugs_alone())'
+    """
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"build: {cuda_build.build():.1f} s", flush=True)
+    return 0 if drive_plugs(torch, np, card) is not None else 1
+
+
 def flagship_inputs(torch, np) -> tuple:
     """``(env, task, x0, ref [T+1, 5], prev [T, 2], noise [K, T, 2])`` of the flagship, seeded."""
     from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
@@ -4669,16 +5363,19 @@ def main() -> int:
     print(card, flush=True)
 
     # --- phase 2: build --------------------------------------------------
-    build_s = cuda_build.build()
+    # csrc's sources and phase 16's plug units, one nvcc each, all started together
+    plug_units = tuple(plug.task.entry("fused_solve")[0] for plug in (
+        *every_plug().values(), linear_plug(3, 1, pre=WIDE_PRE)))
+    build_s = cuda_build.build(cuda_build.SOURCES + plug_units)
     regs = "; ".join(
         f"{name}: " + " | ".join(
             line.split(":", 1)[-1].strip()
             for line in log.splitlines() if "registers" in line or "spill" in line
         )
-        for name, log in sorted(cuda_build.build_logs.items())
-    )
-    print(f"build: {len(cuda_build.SOURCES)} sources in {build_s:.1f} s; ptxas: {regs}",
-          flush=True)
+        for name, log in sorted(cuda_build.build_logs.items()) if name in cuda_build.SOURCES
+    )  # the plug units' registers: phase 16
+    print(f"build: {len(cuda_build.SOURCES)} sources and {len(plug_units)} plug units in "
+          f"{build_s:.1f} s; ptxas: {regs}", flush=True)
     differ, inside = exact_sweep(torch, "angle_normalize_sweep", 2)
     print(f"angle_normalize against its fmodf form on all 2^32 float32 inputs: {differ} differ "
           f"({inside} with x + pi in (-4 pi, 4 pi), where fmodf is skipped)", flush=True)
@@ -4945,6 +5642,12 @@ def main() -> int:
     if examples is None:
         return 1
 
+    # --- phase 16: a user's own model on the fused kernels ----------------------
+    plugs = drive_plugs(torch, np, card)
+    if plugs is None:
+        return 1
+    shared.update(plugs["shared"])
+
     paths = {f"flagship {m}": run["launches"] for m, run in modes.items()}
     paths.update({f"flagship episode {m}": run["launches"]
                   for m, run in loops["flagship"].items()})
@@ -4960,9 +5663,13 @@ def main() -> int:
                   for m, run in sharding["facade"].items()})
     paths.update({label: {name: run["launches"].get(name, 0) for name in launch_counters()}
                   for label, run in examples["runs"].items()})
+    plug_models = [plug.task.plug for plug in plugs["plugs"].values()]
+    paths.update({label: {name: run["launches"].get(name, 0)
+                          for name in launch_counters(plug_models)}
+                  for label, run in plugs["paths"].items()})
 
     def launches_of(name):
-        by_path = {p: counts[name] for p, counts in paths.items()}
+        by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
         return sum(by_path.values()), by_path
 
     kernels = [
@@ -5011,7 +5718,7 @@ def main() -> int:
             "checks": tail_checks,
         },
     ] + auto["kernels"] + row6 + [row9, racing_epilogue_row] + list(model_rows.values()) + [
-        regen_rows["m1_regen"]]
+        regen_rows["m1_regen"]] + list(plugs["rows"].values())
     sharded_rows = {"racing_fused_solve": "row1", "racing_costs_dump": "row3",
                     "fused_weighted": "row5"}
     for k in kernels:
@@ -5024,15 +5731,16 @@ def main() -> int:
             k["batched"] = dict(fleet["rows"][k["name"]], launches=sum(
                 n for path, n in k["launches_by_path"].items() if is_fleet_path(path)))
     listed = [k["name"] for k in kernels]
-    missing = sorted(set(launch_counters()) - set(listed))
-    idle = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in OFF_PATHS]
+    missing = sorted(set(launch_counters(plug_models)) - set(listed))
+    off_paths = OFF_PATHS + tuple(f"{name}_reroll" for name in plugs["per_slot"])
+    idle = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in off_paths]
     for k in kernels:
-        if k["name"] in OFF_PATHS:
+        if k["name"] in off_paths:
             k["on_paths"] = False
     if missing or idle or len(set(listed)) != len(listed):
         return fail(f"kernels line: not listed {missing}; never launched on a path {idle}")
     print(f"launches x (ms - bound_ms) over this run's paths, by TPU kernel row, on {card}: "
-          + json.dumps(row_products(kernels, shared)), flush=True)
+          + json.dumps(row_products(kernels, shared, plug_models)), flush=True)
     print(json.dumps({"kernels": kernels, "card": card,
                       "median_tick_ms": modes["fixed"]["median_ms"],
                       "median_tick_ms_in_turns": turns,
@@ -5061,7 +5769,12 @@ def main() -> int:
                                             for label, run in examples["runs"].items()},
                                    "pendulum_episode": examples["pendulum"],
                                    "pipelined_quality": examples["pipelined"],
-                                   "seconds": examples["seconds"]}}),
+                                   "seconds": examples["seconds"]},
+                      "plugs": {"paths": {label: {k: v for k, v in run.items()
+                                                  if k != "launches"}
+                                          for label, run in plugs["paths"].items()},
+                                "per_slot": plugs["per_slot"], "build_s": plugs["build_s"],
+                                "seconds": plugs["seconds"]}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

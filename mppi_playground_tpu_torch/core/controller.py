@@ -15,7 +15,8 @@ Routes, chosen once at construction from the config:
   rollouts for ``get_top_samples``; its softmin tail is the weighted-update
   kernel on the card.
 * ``"fused"``: with ``fused_task`` (a model's :class:`FusedTask`, e.g.
-  ``models.pendulum.fused_task()`` or ``Navigation2DEnv.fused_task()``) and
+  ``models.pendulum.fused_task()`` or ``Navigation2DEnv.fused_task()``, or
+  a user's own model as ``FusedTask(model=ModelPlug(...), ...)``) and
   ``store_rollouts=False``, when the config fits the fused kernels'
   envelope: the model's fused kernels run each solve (under LBPS/ESSPS the
   solver picks the lambda route by K, as ``make_fused_solver`` does by
@@ -100,7 +101,8 @@ class MPPI:
     ) -> None:
         """
         Args:
-            fused_task: optional :class:`FusedTask` of the model; with
+            fused_task: optional :class:`FusedTask` of the model (a bundled
+                model's, or a user's ``ModelPlug``); with
                 ``store_rollouts=False`` and a config inside the fused
                 envelope, each solve runs the model's fused kernels.
             device: where the solver runs; ``None`` means ``cuda``, and
@@ -138,8 +140,9 @@ class MPPI:
                 )
             if not isinstance(fused_task, FusedTask):
                 raise TypeError(
-                    "fused_task must be a FusedTask (a model's fused_task(), or "
-                    f"RacingFusedTask(...) for racing), got {type(fused_task).__name__}"
+                    "fused_task must be a FusedTask (a model's fused_task(), "
+                    "RacingFusedTask(...) for racing, or FusedTask(model=ModelPlug(...), ...) "
+                    f"for your own model), got {type(fused_task).__name__}"
                 )
             fused = fused_envelope(self.config)
         self.solver_backend = "fused" if fused else "xla"

@@ -27,11 +27,12 @@ A tick reads its kernel seed from the state's device key (``key[2:]``,
 tick's key: nothing in it waits on the device or on the host, so that a
 CUDA graph of the tick draws a new stream at every replay (the λ
 epilogue's ticket is zero again after every launch, which the kernel
-sees to).  Only the racing task reads the
-tick's ``info`` (``info['reference_path']``).  The port's envelope: float32,
-no stored rollouts, ``horizon * dim_control <= 1024``, ``dim_state <= 128``
-and the config's dimensions those of the task's model; ``ValueError``
-outside it.
+sees to).  The tick's ``info`` reaches the kernels only through the task's
+reference builder (``FusedTask.reference``: racing's reads
+``info['reference_path']``).  The envelope is the JAX package's, for a
+bundled model and a user's ``ModelPlug`` alike: float32, no stored
+rollouts, ``horizon * dim_control <= 1024``, ``dim_state <= 128`` and the
+config's dimensions those of the task's model; ``ValueError`` outside it.
 
 The solve core (``make_fused_solver(..., solve_core=)``, the JAX package's
 ``solve_core`` seam) is what runs a tick's samples: the fused solve, phase 1
@@ -69,7 +70,6 @@ from mppi_playground_tpu_torch.core.solver import (
     make_states_prediction,
     state_key,
 )
-from mppi_playground_tpu_torch.models.racing_mpcc import extend_reference_path
 from mppi_playground_tpu_torch.ops.fused_solve import (
     EPILOGUE_MAX_SAMPLES,
     MAX_SLOTS,
@@ -194,9 +194,10 @@ def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device,
     a kernel.
 
     Every tensor leaf of the batched ``states`` and ``x0s [B, n]`` has a
-    leading ``[B]`` axis (the device keys ``[B, 3]``); the racing task's
-    ``info['reference_path']`` is ``[B, T+1, 4]``, or one ``[T+1, 4]`` for
-    every scenario; ``noise`` is ``[B, K, T, m]``.  Fixed lambda and MPO
+    leading ``[B]`` axis (the device keys ``[B, 3]``); the task's reference
+    builder gives ``[B, T+1, W]`` from ``info``, or one ``[T+1, W]`` for
+    every scenario (racing's from ``info['reference_path']``, ``[B, T+1,
+    4]`` or ``[T+1, 4]``); ``noise`` is ``[B, K, T, m]``.  Fixed lambda and MPO
     launch the fused solve at each scenario's lambda; LBPS and ESSPS take the
     standalone route (phase 1, one search cluster a scenario, phase 2); then
     one launch of the tail, which writes each scenario's next key.  The state
@@ -224,12 +225,7 @@ def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device,
         if noise is not None:
             noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
         seeds = keys[:, 2]  # each scenario's seed word, read by the drawing kernels
-        refs = None
-        if task.reference_width:
-            ref = info["reference_path"]
-            if ref.dim() == 2:
-                ref = ref.expand(batch, *ref.shape)
-            refs = extend_reference_path(ref).contiguous()
+        refs = task.reference_rows(info, batch, device)
         prevs = states.previous_action_seq.contiguous()
         if search is not None:
             local_costs, dump = core.costs_dump(x0s, prevs, seeds, refs, noise)
@@ -280,7 +276,8 @@ def make_fused_solver(
 
     Args:
         config: solver config, fixed lambda or ``"MPO"``/``"LBPS"``/``"ESSPS"``.
-        task: the model's :class:`FusedTask` (its grids on ``device``).
+        task: the model's :class:`FusedTask` (its grids on ``device``): a
+            bundled model's, or a user's ``ModelPlug`` with its twins.
         dynamics: array-of-structs dynamics for ``states_prediction``.
         device: ``None`` means ``cuda``; ``"cpu"`` runs the kernels' twins.
         lambda_epilogue: ``True`` runs the LBPS/ESSPS search inside the
@@ -298,7 +295,7 @@ def make_fused_solver(
     check_fused_envelope(config)
     if (config.dim_state, config.dim_control) != (task.dim_state, task.dim_control):
         raise ValueError(
-            f"the {task.model} task has dim_state={task.dim_state}, "
+            f"the {task.name} task has dim_state={task.dim_state}, "
             f"dim_control={task.dim_control}; the config {config.dim_state}, "
             f"{config.dim_control}"
         )
@@ -331,7 +328,8 @@ def make_fused_solver(
         info: Optional[Dict[str, Any]] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> SolveResult:
-        """One fused solve; the racing task needs ``info['reference_path']`` ``[T+1, 4]``."""
+        """One fused solve; a task with a reference builder reads ``info`` (racing:
+        ``info['reference_path']`` ``[T+1, 4]``)."""
         x0 = torch.as_tensor(x0, dtype=dtype, device=device)
         key = state_key(state, device)
         if noise is not None:
@@ -342,9 +340,7 @@ def make_fused_solver(
                 one, x0[None], info=info, noise=None if noise is None else noise[None]))
         x0, noise = x0.contiguous(), None if noise is None else noise.contiguous()
         seed = key[2:]  # the tick's seed word, read by the drawing kernel
-        ref = None
-        if task.reference_width:
-            ref = extend_reference_path(info["reference_path"]).contiguous()
+        ref = task.reference_rows(info, None, device)
         prev = state.previous_action_seq
         costs, dump, lam = fused_costs_dump_lambda(x0, prev, seed, ref, task, sigmas, u_min,
                                                    u_max, num_samples, threshold, noise,

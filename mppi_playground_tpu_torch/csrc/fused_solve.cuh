@@ -33,22 +33,39 @@
 //
 // The re-roll (make_fused_reroll) and the tick's tail after these kernels are
 // in tick_tail.cuh.
-// A model plug (racing_model.cuh, unicycle_model.cuh, danger_zone_model.cuh,
-// classic_models.cuh) gives kN, kM, kRefWidth (floats of its per-tick
-// reference row in shared memory, racing only), its per-launch Args built on
-// the host from the model floats, ints and grids the wrapper passes, a step
-// as prepare() (its kPre action-only terms) then step_prepared() (model_step
-// below), and stage_cost().  Each model's source (fused_<model>.cu) instantiates the
-// rollout kernels with FUSED_MODEL_ENTRY_POINTS; fused_solve.cu holds phase 2
-// and regeneration alone; reroll.cu the re-roll and the top rows' roll-out of
-// every model.
+// A model plug is one struct with static members:
+//   kN, kM, kRefWidth, kPre   state and action widths, the floats of its
+//                             per-tick reference row (0: none), and the
+//                             action-only terms a step prepares;
+//   Args, make_args(floats, ints, grid0, grid1)
+//                             its per-launch arguments, built on the host
+//                             from the model floats and ints and the two
+//                             uint8 grids (or null) the wrapper passes;
+//   prepare(u, p, args), step_prepared(x, p, args)
+//                             a step (model_step below): the action-only
+//                             terms p[kPre] of u[kM], then x[kN] in place;
+//   stage_cost(x, u, pu, ref, args)
+//                             the stage cost at state x, action u, previous
+//                             action pu, ref the step's reference row in
+//                             shared memory (kRefWidth floats).
+// The bundled plugs are in racing_model.cuh, unicycle_model.cuh,
+// danger_zone_model.cuh and classic_models.cuh; each model's source
+// (fused_<model>.cu) instantiates the rollout kernels with
+// FUSED_MODEL_ENTRY_POINTS; fused_solve.cu holds phase 2 and regeneration
+// alone; reroll.cu the re-roll and the top rows' roll-out of every model
+// (tail_entry_points.cuh).  A user's plug (ops/fused_solve.py ModelPlug) is
+// a generated unit that includes this header and tail_entry_points.cuh, then
+// the plug's source, then both macros on it (ops/cuda_build.py).  Any kM
+// runs, within T*kM <= 1024.
 //
 // The noise.  With injected noise ([T*m, K], already scaled by sigma) every
 // mode reads it.  Seeded, action slot f = t*m + j of sample k takes normal
 // f mod 4 of Philox4x32-10 with counter (f div 4, 0, 0, 0) and key (seed, k),
 // Box–Muller on 24 bits of words (x, y) for normals 0 and 1 and (z, w) for 2
 // and 3, so the draws depend neither on the launch geometry nor on the mode:
-// the regenerated rows equal phase 1's dump bit for bit.
+// the regenerated rows equal phase 1's dump bit for bit.  Where kM divides 4
+// a step's slots lie in one Philox block; otherwise (m = 3, or m > 4) a step
+// may straddle two, and the slot that opens a block draws it (Perturbation).
 //
 // What bounds them on the H100, at the flagship (racing, T=50, m=2,
 // K=100,000): the fixed solve must move about 1.84 MB (the two 800x800 uint8
@@ -108,6 +125,7 @@
 
 #include "device_math.cuh"
 #include "lambda_search.cuh"
+#include "shared_memory.cuh"
 #include "softmin_partials.cuh"
 
 namespace fused {
@@ -222,9 +240,10 @@ __device__ __forceinline__ float pick(float z0, float z1, float z2, float z3, in
 }
 
 // The clamped perturbed actions of one sample, step by step: every caller
-// walks t = 0, 1, 2, ... in order, so a step whose first slot opens a Philox
-// block draws it and the next steps of that block reuse its normals.  next()
-// walks them for block_partials, kM slots a step.
+// walks t = 0, 1, 2, ... in order (or starts on a step that opens a Philox
+// block: TiledPerturbation), so the slot that opens a block draws it and the
+// later slots of that block, in this step or the next, reuse its normals.
+// next() walks them for block_partials, kM slots a step.
 template <int kM>
 struct Perturbation {
   static constexpr int kWidth = kM;
@@ -244,35 +263,50 @@ struct Perturbation {
 
   __device__ __forceinline__ void next(float* v) { at(step++, v); }
 
+  // The four normals of Philox block q into z0..z3.
+  __device__ __forceinline__ void draw(int q) {
+    const uint4 w =
+        devmath::philox4x32_10(make_uint4(static_cast<uint32_t>(q), 0u, 0u, 0u), seed, gk);
+    devmath::normal_pair_from_bits(w.x, w.y, &z0, &z1);
+    devmath::normal_pair_from_bits(w.z, w.w, &z2, &z3);
+  }
+
   // One branch on the noise mode a step, so that the compiler does not
   // predicate the noise loads into the seeded path; then the draw on a bit
   // test of the step's first slot (no stored counter, so z0 and z1 of m=2
-  // live only in the even step that draws them).
+  // live only in the even step that draws them).  Where kM does not divide
+  // 4, the test is on each slot: slot f draws block f / 4 where f mod 4 == 0,
+  // and z0..z3 carry into the next step.
   __device__ __forceinline__ void at(int t, float* u) {
-    static_assert(4 % kM == 0, "a step's slots must lie in one Philox block");
-    const int f0 = t * kM;  // this step's first slot; all kM lie in block f0 / 4
+    const int f0 = t * kM;  // this step's first slot
     float z[kM];
     if (s.noise != nullptr) {
 #pragma unroll
       for (int j = 0; j < kM; ++j) z[j] = s.noise[static_cast<size_t>(f0 + j) * s.num_samples + k];
     } else {
       float n[kM];
-      if ((f0 & 3) == 0) {
-        const uint4 w = devmath::philox4x32_10(
-            make_uint4(static_cast<uint32_t>(f0 >> 2), 0u, 0u, 0u), seed, gk);
-        devmath::normal_pair_from_bits(w.x, w.y, &z0, &z1);
-        devmath::normal_pair_from_bits(w.z, w.w, &z2, &z3);
-        if constexpr (kM == 2) {  // an even step: the first pair
-          n[0] = z0;
-          n[1] = z1;
+      if constexpr (4 % kM == 0) {  // all kM slots lie in block f0 / 4
+        if ((f0 & 3) == 0) {
+          draw(f0 >> 2);
+          if constexpr (kM == 2) {  // an even step: the first pair
+            n[0] = z0;
+            n[1] = z1;
+          }
+        } else if constexpr (kM == 2) {  // an odd step: the pair drawn before
+          n[0] = z2;
+          n[1] = z3;
         }
-      } else if constexpr (kM == 2) {  // an odd step: the pair drawn before
-        n[0] = z2;
-        n[1] = z3;
-      }
-      if constexpr (kM != 2) {
+        if constexpr (kM != 2) {
 #pragma unroll
-        for (int j = 0; j < kM; ++j) n[j] = pick(z0, z1, z2, z3, (f0 + j) & 3);
+          for (int j = 0; j < kM; ++j) n[j] = pick(z0, z1, z2, z3, (f0 + j) & 3);
+        }
+      } else {  // a step may straddle two blocks
+#pragma unroll
+        for (int j = 0; j < kM; ++j) {
+          const int f = f0 + j;
+          if ((f & 3) == 0) draw(f >> 2);
+          n[j] = pick(z0, z1, z2, z3, f & 3);
+        }
       }
 #pragma unroll
       for (int j = 0; j < kM; ++j) z[j] = n[j] * s.sigma[j];
@@ -327,11 +361,16 @@ size_t reference_shared_bytes(int horizon) {
                           static_cast<size_t>(Model::kM) * horizon);
 }
 
+// Slots the fused solve's numerator tile holds a multiple of: lcm(4, kM),
+// so that each step lies wholly in the tile or wholly past it, and
+// regeneration past the tile starts on a Philox block.
+constexpr int tile_unit(int m) { return m % 4 == 0 ? m : (m % 2 == 0 ? 2 * m : 4 * m); }
+
 // The clamped perturbations of one sample for the fixed solve's numerator
 // pass, kM slots a step: slots below tile_slots from the tile the rollout
 // stored them in ([tile_slots, kBlock] in shared memory, this thread's
 // column), the rest regenerated.  tile_slots is all the slots or a multiple
-// of 4, so that regeneration starts on a Philox block.
+// of tile_unit(kM).
 template <int kM>
 struct TiledPerturbation {
   static constexpr int kWidth = kM;
@@ -407,8 +446,9 @@ __global__ void __launch_bounds__(kBlock) fused_solve_kernel(Params<Model> batch
   float* s_ref = smem;                                 // (T+1) * kRefWidth
   float* s_prev = s_ref + (T + 1) * Model::kRefWidth;  // T * m
   float* s_red = s_prev + slots;                       // kWarps
+  constexpr int kChunk = softmin::chunk_for(Model::kM);
   float* s_numer = s_red + softmin::kWarps;            // kWarps * min(T*m, kChunk)
-  float* s_tile = s_numer + softmin::kWarps * min(slots, softmin::kChunk);  // tile_slots * kBlock
+  float* s_tile = s_numer + softmin::kWarps * min(slots, kChunk);  // tile_slots * kBlock
   const uint32_t seed = load_reference(p, s_ref, s_prev);
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
@@ -560,14 +600,6 @@ __global__ void __launch_bounds__(kTopBlock)
   }
 }
 
-// Raise a kernel's dynamic shared-memory limit where it needs more than 48 KB.
-template <class Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 inline int blocks_for(int num_samples) { return (num_samples + kBlock - 1) / kBlock; }
 
 template <class Model>
@@ -604,10 +636,12 @@ Params<Model> make_params(const float* x0, const float* prev, const float* lam, 
 // scenarios' of a batched launch) whose shared memory is `base` bytes without it: as many of a sample's `slots`
 // clamped actions as fit while an SM still holds as many CTAs at once as the
 // launch gives it (no more than the registers allow, no more than
-// ceil(grid / SMs)); all of them, or a multiple of 4 (whole Philox blocks).
-// Asked of the occupancy calculator once per (base, slots, grid).
+// ceil(grid / SMs)); all of them, or a multiple of `unit` (tile_unit: whole
+// steps and whole Philox blocks).  Asked of the occupancy calculator once per
+// (base, slots, grid).
 template <class Kernel>
-cudaError_t tile_slots_for(Kernel kernel, size_t base, int slots, int grid, int* tile_slots) {
+cudaError_t tile_slots_for(Kernel kernel, size_t base, int slots, int grid, int unit,
+                           int* tile_slots) {
   static size_t cached_base = 0;
   static int cached_slots = -1, cached_grid = -1, cached_tile = 0;
   if (base == cached_base && slots == cached_slots && grid == cached_grid) {
@@ -633,9 +667,9 @@ cudaError_t tile_slots_for(Kernel kernel, size_t base, int slots, int grid, int*
   const long budget = (room < per_block ? room : per_block) - static_cast<long>(base);
   const int column = static_cast<int>(sizeof(float)) * kBlock;
   int tile = budget > 0 ? static_cast<int>(budget / column) : 0;
-  tile = tile >= slots ? slots : tile / 4 * 4;
+  tile = tile >= slots ? slots : tile / unit * unit;
   // the calculator has the last word: shrink until `wanted` CTAs fit
-  for (; tile > 0; tile = (tile == slots ? (slots - 1) / 4 * 4 : tile - 4)) {
+  for (; tile > 0; tile = (tile == slots ? (slots - 1) / unit * unit : tile - unit)) {
     const size_t bytes = base + static_cast<size_t>(column) * tile;
     int fit = 0;
     err = allow_shared(kernel, bytes);
@@ -663,10 +697,11 @@ int launch_solve(Params<Model> p, int batch, float* costs, float* stats, float* 
   const int horizon = p.s.horizon;
   const int slots = Model::kM * horizon;
   const int blocks = blocks_for(p.s.num_samples);
-  const size_t base = reference_shared_bytes<Model>(horizon) + softmin::shared_bytes(slots);
+  const size_t base =
+      reference_shared_bytes<Model>(horizon) + softmin::shared_bytes(slots, Model::kM);
   int tile_slots = 0;
-  cudaError_t err =
-      tile_slots_for(fused_solve_kernel<Model>, base, slots, blocks * batch, &tile_slots);
+  cudaError_t err = tile_slots_for(fused_solve_kernel<Model>, base, slots, blocks * batch,
+                                   tile_unit(Model::kM), &tile_slots);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t shmem = base + sizeof(float) * kBlock * static_cast<size_t>(tile_slots);
   err = allow_shared(fused_solve_kernel<Model>, shmem);

@@ -45,6 +45,7 @@
 #include <algorithm>
 
 #include "lambda_search.cuh"
+#include "shared_memory.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -75,12 +76,8 @@ int launch_search(const float* costs, int num_samples, int batch, float lam_min,
                   float param, int iters, float* out, void* stream) {
   const int chunk = (num_samples + kCluster - 1) / kCluster;
   const size_t shmem = sizeof(float) * static_cast<size_t>(std::min(chunk, kMaxResident));
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        search_kernel<kLbps>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = fused::allow_shared(search_kernel<kLbps>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   search_kernel<kLbps><<<dim3(kCluster, batch), kThreads, shmem,
                          static_cast<cudaStream_t>(stream)>>>(costs, num_samples, lam_min,
                                                               lam_max, param, iters, out);

@@ -26,55 +26,13 @@
 // noise, rows, bounds, model_f, model_i, seed, horizon, num_samples,
 // threshold, num_rows, out, stream), the model floats and ints as the rollout
 // kernels take them.
+// The entry points of one model are TAIL_ENTRY_POINTS (tail_entry_points.cuh),
+// which a user's model plug instantiates in its own generated unit.
 #include "classic_models.cuh"
 #include "danger_zone_model.cuh"
-#include "fused_solve.cuh"
 #include "racing_model.cuh"
-#include "tick_tail.cuh"
+#include "tail_entry_points.cuh"
 #include "unicycle_model.cuh"
-
-#define TAIL_ENTRY_POINTS(prefix, Model)                                                       \
-  extern "C" int prefix##_reroll(const float* x0, const float* seq, const float* model_f,     \
-                                 const int* model_i, int horizon, float* out, void* stream) {   \
-    return fused::launch_reroll<Model>(x0, seq, horizon,                                       \
-                                       Model::make_args(model_f, model_i, nullptr, nullptr),   \
-                                       out, static_cast<cudaStream_t>(stream));                \
-  }                                                                                            \
-  extern "C" int prefix##_tick_tail_batch(                                                     \
-      const float* x0, const float* costs, const float* stats, const float* numer,             \
-      const float* lam, const float* history, const float* coeffs, const float* model_f,       \
-      const int* model_i, int blocks, int horizon, int num_samples, int window, int batch,     \
-      float* actions, float* states, float* ess, float* weights, float* history_out,           \
-      const uint32_t* key, uint32_t* key_out, void* stream) {                                  \
-    const fused::Tail q{x0,      costs,       stats,   numer,   lam,     history,    coeffs,   \
-                        blocks,  horizon,     num_samples, window, actions, states, ess,       \
-                        weights, history_out, key,  key_out};                                  \
-    return fused::launch_tick_tail<Model>(q, batch,                                            \
-                                          Model::make_args(model_f, model_i, nullptr, nullptr), \
-                                          static_cast<cudaStream_t>(stream));                  \
-  }                                                                                            \
-  extern "C" int prefix##_tick_tail(                                                           \
-      const float* x0, const float* costs, const float* stats, const float* numer,             \
-      const float* lam, const float* history, const float* coeffs, const float* model_f,       \
-      const int* model_i, int blocks, int horizon, int num_samples, int window, float* actions, \
-      float* states, float* ess, float* weights, float* history_out, const uint32_t* key,      \
-      uint32_t* key_out, void* stream) {                                                       \
-    return prefix##_tick_tail_batch(x0, costs, stats, numer, lam, history, coeffs, model_f,    \
-                                    model_i, blocks, horizon, num_samples, window, 1, actions,  \
-                                    states, ess, weights, history_out, key, key_out, stream);  \
-  }                                                                                            \
-  extern "C" int prefix##_top_rollouts(const float* x0, const float* prev, const float* noise, \
-                                       const int64_t* rows, const float* bounds,              \
-                                       const float* model_f, const int* model_i,              \
-                                       const uint32_t* seed, int horizon, int num_samples,    \
-                                       int threshold, int num_rows, float* out,               \
-                                       void* stream) {                                        \
-    return fused::launch_regen_rollout<Model>(                                                 \
-        fused::make_sampling<Model::kM>(prev, noise, bounds, seed, horizon, num_samples,       \
-                                        threshold),                                            \
-        rows, num_rows, x0, Model::make_args(model_f, model_i, nullptr, nullptr), nullptr,     \
-        out, nullptr, nullptr, static_cast<cudaStream_t>(stream));                             \
-  }
 
 TAIL_ENTRY_POINTS(racing, racing::Model)
 TAIL_ENTRY_POINTS(navigation, unicycle::NavigationModel)

@@ -18,8 +18,13 @@ namespace softmin {
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
 // Numerator slots staged in shared memory at a time (kWarps x kChunk floats,
-// 8 KB), so that any D runs; a multiple of every Source::kWidth.
+// 8 KB), so that any D runs.
 constexpr int kChunk = 256;
+
+// The chunk of a source of `width` slots a next(): the most whole widths in
+// kChunk (256 at widths 1, 2 and 4; 255 at 3), so that no next() writes past
+// the chunk.
+__host__ __device__ constexpr int chunk_for(int width) { return kChunk / width * width; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -46,10 +51,10 @@ __device__ float block_reduce(float v, float* scratch) {
   return r;
 }
 
-// Shared memory block_partials needs for D = slots: the reduction scratch
-// and one chunk of the numerator.
-inline size_t shared_bytes(int slots) {
-  const int chunk = slots < kChunk ? slots : kChunk;
+// Shared memory block_partials needs for D = slots from a source of `width`
+// slots a next(): the reduction scratch and one chunk of the numerator.
+inline size_t shared_bytes(int slots, int width = 1) {
+  const int chunk = slots < chunk_for(width) ? slots : chunk_for(width);
   return sizeof(float) * (kWarps + static_cast<size_t>(kWarps) * chunk);
 }
 
@@ -74,7 +79,8 @@ __device__ __forceinline__ float block_stats(float cost, float lam, float* s_red
 // cost 1e30 and weigh 0.  src.next(v) gives a valid sample's next
 // Source::kWidth slots, in ascending order (slots is a multiple of kWidth).
 // Each slot is reduced within each warp, then across the warps in warp
-// order, one chunk of slots at a time: the sources here (the fused solve's
+// order, one chunk of chunk_for(kWidth) slots at a time (the chunks do not
+// change any slot's order of summation): the sources here (the fused solve's
 // regenerated perturbations, phase 2's slot-major dump) give each thread its
 // own sample.
 template <class Source>
@@ -82,10 +88,11 @@ __device__ __forceinline__ void block_partials(float cost, float lam, bool valid
                                                int slots, float* s_red, float* s_numer,
                                                float* stats, float* numer) {
   const float e = block_stats(cost, lam, s_red, stats);
+  constexpr int kSourceChunk = chunk_for(Source::kWidth);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int stride = slots < kChunk ? slots : kChunk;  // a warp's row of s_numer
-  for (int c0 = 0; c0 < slots; c0 += kChunk) {
-    const int n = slots - c0 < kChunk ? slots - c0 : kChunk;
+  const int stride = slots < kSourceChunk ? slots : kSourceChunk;  // a warp's row of s_numer
+  for (int c0 = 0; c0 < slots; c0 += kSourceChunk) {
+    const int n = slots - c0 < kSourceChunk ? slots - c0 : kSourceChunk;
     for (int f = 0; f < n; f += Source::kWidth) {
       float v[Source::kWidth];
 #pragma unroll

@@ -49,6 +49,7 @@
 #include <cstdint>
 
 #include "device_math.cuh"
+#include "shared_memory.cuh"
 #include "softmin_partials.cuh"
 
 namespace fused {
@@ -283,6 +284,8 @@ template <class Model>
 int launch_reroll(const float* x0, const float* seq, int horizon, typename Model::Args args,
                   float* out, cudaStream_t stream) {
   const size_t shmem = sizeof(float) * Model::kPre * static_cast<size_t>(horizon);
+  const cudaError_t err = allow_shared(reroll_kernel<Model>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   reroll_kernel<Model><<<1, kRerollBlock, shmem, stream>>>(x0, seq, horizon, args, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -300,6 +303,8 @@ int launch_tick_tail(const Tail& q, int batch, typename Model::Args args, cudaSt
     weight_ctas = (q.num_samples + per - 1) / per;
     if (weight_ctas > kTailMaxWeightCtas) weight_ctas = kTailMaxWeightCtas;
   }
+  const cudaError_t err = allow_shared(tick_tail_kernel<Model>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   tick_tail_kernel<Model><<<dim3(1 + weight_ctas, batch), kTailBlock, shmem, stream>>>(q, args);
   return static_cast<int>(cudaGetLastError());
 }

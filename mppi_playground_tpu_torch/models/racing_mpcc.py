@@ -178,6 +178,12 @@ def extend_reference_path(xref: torch.Tensor) -> torch.Tensor:
     )
 
 
+def racing_reference(info) -> torch.Tensor:
+    """The racing task's reference builder: ``info['reference_path']`` ``[..., T+1, 4]`` ->
+    the kernels' rows ``[..., T+1, 5]`` (:func:`extend_reference_path`)."""
+    return extend_reference_path(info["reference_path"])
+
+
 @functools.lru_cache(maxsize=16)
 def _lookahead_offsets(
     horizon: int,

@@ -3,9 +3,13 @@
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
 root of the checkout, at first use.  The hash covers the sources and the
 flags, so an edited kernel is rebuilt and an unchanged one is loaded as it
-is.  The flags target Hopper (``sm_90a``), keep IEEE float arithmetic (no
-``--use_fast_math``) and turn off FMA contraction (``-fmad=false``), so a
-kernel rounds as its plain PyTorch twin does.  Nothing here runs at import.
+is.  A generated unit (:func:`define_unit`: a user's model plug,
+``ops/fused_solve.ModelPlug``) is written to
+``build/kernels/<name>-<hash>.cu`` and built the same way with ``-I
+csrc``; its name stands for its text.  The flags target Hopper
+(``sm_90a``), keep IEEE float arithmetic (no ``--use_fast_math``) and turn
+off FMA contraction (``-fmad=false``), so a kernel rounds as its plain
+PyTorch twin does.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -35,8 +39,12 @@ SOURCES = tuple(sorted(path.stem for path in CSRC.glob("*.cu")))
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], object] = {}
+# library name -> the text of its generated unit (define_unit)
+_units: Dict[str, str] = {}
 # ptxas reports (registers, spills) of the builds this process ran
 build_logs: Dict[str, str] = {}
+# seconds from the start of its build() call to each build's end, read in turn
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -48,6 +56,20 @@ def nvcc() -> str:
     if default.exists():
         return str(default)
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def define_unit(name: str, text: str) -> None:
+    """Make library ``name`` the build of the generated CUDA unit ``text``.
+
+    The unit includes headers of ``csrc/`` by name.  ``name`` stands for
+    its text (``ModelPlug.library`` carries the text's digest): defining it
+    again with the same text does nothing, with another text raises.
+    """
+    if (CSRC / f"{name}.cu").exists():
+        raise ValueError(f"{name} is a source of csrc/, not a generated unit")
+    with _lock:
+        if _units.setdefault(name, text) != text:
+            raise ValueError(f"the generated unit {name} is already defined with another text")
 
 
 def _target(name: str) -> Path:
@@ -63,13 +85,20 @@ def _start(name: str) -> Tuple[subprocess.Popen, Path, Path]:
     target = _target(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    if name in _units:  # the generated unit beside its library, headers from csrc/
+        source = target.with_suffix(".cu")
+        unit_tmp = target.with_suffix(f".{os.getpid()}.cu.tmp")
+        unit_tmp.write_text(_units[name])
+        os.replace(unit_tmp, source)
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)]
+    else:
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
 
 
 def build(names: Iterable[str] = SOURCES) -> float:
-    """Compile the named sources that are not built yet, all at once.
+    """Compile the named sources (or generated units) that are not built yet, all at once.
 
     One ``nvcc`` per source, started together.  Returns the wall seconds;
     raises with the compiler's output if any build fails.
@@ -83,8 +112,10 @@ def build(names: Iterable[str] = SOURCES) -> float:
         for name, proc, tmp, target in procs:
             out, _ = proc.communicate()
             build_logs[name] = out
+            build_seconds[name] = time.perf_counter() - t0
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+                source = target.with_suffix(".cu") if name in _units else f"{name}.cu"
+                raise RuntimeError(f"nvcc failed for {source}:\n{out}")
             os.replace(tmp, target)
     finally:
         for _, proc, tmp, _ in procs:
@@ -96,7 +127,8 @@ def build(names: Iterable[str] = SOURCES) -> float:
 
 
 def function(name: str, symbol: str, argtypes: list):
-    """C function ``symbol`` of ``csrc/<name>.cu``, built and loaded on first use.
+    """C function ``symbol`` of ``csrc/<name>.cu`` (or of a generated unit), built and loaded
+    on first use.
 
     Every pointer and the stream are ``c_void_p``; the function returns a
     ``cudaError_t`` as ``int``.
@@ -117,7 +149,7 @@ def function(name: str, symbol: str, argtypes: list):
 
 
 def launch(name: str, symbol: str, argtypes: list, device, *args) -> None:
-    """Call ``symbol`` of ``csrc/<name>.cu`` with ``args`` and ``device``'s current stream.
+    """Call ``symbol`` of library ``name`` with ``args`` and ``device``'s current stream.
 
     The C function enqueues its kernel and returns ``cudaGetLastError()``;
     a refused launch raises here.

@@ -3,8 +3,11 @@
 Counterpart of ``mppi_playground_tpu/ops/fused_solve.py``.  Every model
 plugs into the same kernels, written by hand for Hopper in ``csrc/``, through
 a :class:`FusedTask`; the kernels are templated on a model plug
-(``csrc/fused_solve.cuh``) and each model is one explicit instantiation
-(``csrc/fused_<model>.cu``):
+(``csrc/fused_solve.cuh``) and each bundled model is one explicit
+instantiation (``csrc/fused_<model>.cu``).  A user's own model is a
+:class:`ModelPlug`: the CUDA C++ source of one plug struct, which
+``ops/cuda_build.py`` builds into a unit of its own at first use
+(:meth:`FusedTask.entry` names every kernel's library and symbol):
 
 * :func:`fused_solve` (``<model>_fused_solve``) — per sample: the perturbed,
   clamped warm start, T model steps with the stage and terminal cost; per
@@ -93,8 +96,11 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
+import hashlib
 import math
-from typing import Callable, Optional, Sequence, Tuple
+import re
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -120,6 +126,10 @@ MODELS = {
     "integrator": (2, 2, 0),
 }
 REGEN_WIDTHS = (1, 2)  # fused_regen_m1, fused_regen_m2
+# the kernels of the tail's library (csrc/reroll.cu for the bundled models)
+TAIL_KERNELS = ("tick_tail", "tick_tail_batch", "reroll", "top_rollouts")
+_C_IDENTIFIER = re.compile(r"[A-Za-z_][A-Za-z0-9_]*\Z")
+_CPP_NAME = re.compile(r"(::)?[A-Za-z_][A-Za-z0-9_]*(::[A-Za-z_][A-Za-z0-9_]*)*\Z")
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -127,44 +137,161 @@ _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 
 
 @dataclasses.dataclass(frozen=True)
+class ModelPlug:
+    """A user's model for the fused kernels: one CUDA C++ plug struct, built at first use.
+
+    ``source`` defines the struct ``struct`` in the contract of
+    ``csrc/fused_solve.cuh`` (``kN``, ``kM``, ``kRefWidth``, ``kPre``;
+    ``Args`` and ``make_args(floats, ints, grid0, grid1)``; ``prepare`` and
+    ``step_prepared``; ``stage_cost(x, u, pu, ref, args)``), as the bundled
+    plugs of ``csrc/classic_models.cuh`` do; it may include the headers of
+    ``csrc/`` (``device_math.cuh``'s ``devmath::clampf`` and the like).  The
+    step runs with null grids in the tail and the re-roll, so only the cost
+    may read them.  ``dim_state``, ``dim_control`` and ``reference_width``
+    are the struct's ``kN``, ``kM`` and ``kRefWidth``: the unit checks them
+    at compile time.  ``name`` (a C identifier, not a bundled model's) names
+    the kernels (``<name>_fused_solve``, ...) and their launch counters.  On
+    the card the first launch builds the unit with ``nvcc``
+    (``ops/cuda_build.define_unit``, ``-fmad=false`` and no fast math, as
+    every kernel), and a compile error raises with the compiler's output.
+    The kernels keep the prepared terms of every step (``kPre * T`` floats)
+    and the reference rows (``kRefWidth * (T + 1)``) in shared memory, 227
+    KB a block on Hopper: each fits up to about 50,000 floats, and past that
+    the launch raises.
+    """
+
+    name: str
+    source: str
+    struct: str
+    dim_state: int
+    dim_control: int
+    reference_width: int = 0
+
+    def __post_init__(self):
+        if not isinstance(self.name, str) or not _C_IDENTIFIER.match(self.name):
+            raise ValueError(f"a plug's name must be a C identifier, got {self.name!r}")
+        if self.name in MODELS:
+            raise ValueError(f"{self.name!r} is a bundled model's name; give the plug its own")
+        if not isinstance(self.struct, str) or not _CPP_NAME.match(self.struct):
+            raise ValueError(f"a plug's struct must be a C++ name, got {self.struct!r}")
+        for field, low, high in (("dim_state", 1, MAX_STATE), ("dim_control", 1, MAX_SLOTS),
+                                 ("reference_width", 0, None)):
+            value = getattr(self, field)
+            if (not isinstance(value, int) or value < low
+                    or (high is not None and value > high)):
+                raise ValueError(f"a plug's {field} must be an int in [{low}, "
+                                 f"{'any' if high is None else high}], got {value!r}")
+
+    @functools.cached_property
+    def library(self) -> str:
+        """The name of the plug's library (``ops/cuda_build.py``), its unit's digest in it."""
+        digest = hashlib.sha256(self.unit.encode()).hexdigest()[:12]
+        return f"plug_{self.name}_{digest}"
+
+    @functools.cached_property
+    def unit(self) -> str:
+        """The generated CUDA unit: the kernels' headers, the plug, its entry points."""
+        name, struct = self.name, self.struct
+        return (
+            f"// The fused kernels on the model plug {struct} ({name}), generated by\n"
+            "// mppi_playground_tpu_torch/ops/fused_solve.py ModelPlug.unit.\n"
+            '#include "fused_solve.cuh"\n#include "tail_entry_points.cuh"\n\n'
+            f"{self.source}\n\n"
+            f"static_assert({struct}::kN == {self.dim_state} && {struct}::kM == "
+            f"{self.dim_control} && {struct}::kRefWidth == {self.reference_width},\n"
+            f'              "the plug {name} declares kN={self.dim_state}, '
+            f'kM={self.dim_control}, kRefWidth={self.reference_width}");\n'
+            f"FUSED_MODEL_ENTRY_POINTS({name}, {struct})\n"
+            f"TAIL_ENTRY_POINTS({name}, {struct})\n"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class FusedTask:
     """A model's plug for the fused kernels.
 
     Attributes:
-        model: one of :data:`MODELS`; names the model's kernels.
+        model: one of :data:`MODELS`, or a user's :class:`ModelPlug`; names
+            the model's kernels.
         dynamics_soa: ``(xs, us) -> xs`` on tuples of same-shape tensors,
             the twins' step (the kernels' ``Model::step``).
         stage_cost_soa: ``(xs, us, ctx) -> cost``, the twins' stage cost;
-            ``ctx`` carries ``t``, ``prev_us`` and, for racing, ``xref``.
+            ``ctx`` carries ``t``, ``prev_us`` and ``xref``, the reference
+            rows ``[T+1, W]`` of :attr:`reference` (None where it has none).
         floats / ints: the model's per-launch constants, in the order its
-            header (``csrc/*_model.cuh``) reads them.
+            header (``csrc/*_model.cuh``, or the plug's ``make_args``) reads
+            them.
         grids: its ``[W, H]`` uint8 occupancy grids on the solver's device
-            (racing: obstacle and lane; navigation: obstacle; else none).
+            (racing: obstacle and lane; navigation: obstacle; at most two).
+        reference: ``info -> [T+1, W]`` float32 per-tick rows (``[B, T+1,
+            W]`` for a fleet's ``info``), row t read at step t, for a model
+            with a reference width W > 0: the JAX package's ``smem_builder``.
     """
 
-    model: str
+    model: Union[str, ModelPlug]
     dynamics_soa: Callable
     stage_cost_soa: Callable
     floats: Tuple[float, ...] = ()
     ints: Tuple[int, ...] = ()
     grids: Tuple[torch.Tensor, ...] = ()
+    reference: Optional[Callable] = None
 
     def __post_init__(self):
-        if self.model not in MODELS:
-            raise ValueError(f"no fused kernels for model {self.model!r}; have {sorted(MODELS)}")
+        if isinstance(self.model, ModelPlug):
+            cuda_build.define_unit(self.model.library, self.model.unit)
+        elif self.model not in MODELS:
+            raise ValueError(f"no fused kernels for model {self.model!r}; have {sorted(MODELS)} "
+                             "or a ModelPlug")
+        if len(self.grids) > 2:
+            raise ValueError(f"the fused kernels take at most two grids, got {len(self.grids)}")
+        if self.reference_width and self.reference is None:
+            raise ValueError(f"the {self.name} model reads {self.reference_width} reference "
+                             "floats a step: give the task its reference builder")
+
+    @property
+    def plug(self) -> Optional[ModelPlug]:
+        """The user's :class:`ModelPlug`, or None for a bundled model."""
+        return self.model if isinstance(self.model, ModelPlug) else None
+
+    @property
+    def name(self) -> str:
+        """The model's name: its kernels' prefix and launch counters'."""
+        return self.model.name if self.plug is not None else self.model
 
     @property
     def dim_state(self) -> int:
-        return MODELS[self.model][0]
+        return self.plug.dim_state if self.plug is not None else MODELS[self.model][0]
 
     @property
     def dim_control(self) -> int:
-        return MODELS[self.model][1]
+        return self.plug.dim_control if self.plug is not None else MODELS[self.model][1]
 
     @property
     def reference_width(self) -> int:
         """Floats of the per-tick reference row a solve reads (racing: 5), else 0."""
-        return MODELS[self.model][2]
+        return self.plug.reference_width if self.plug is not None else MODELS[self.model][2]
+
+    def entry(self, kernel: str) -> Tuple[str, str]:
+        """``(library, symbol)`` of the task's ``kernel`` (``"fused_solve_batch"``,
+        ``"tick_tail"``, ...): the bundled model's ``csrc/`` source, or the
+        plug's generated unit (built at its first launch)."""
+        if self.plug is not None:
+            library = self.plug.library
+        elif kernel in TAIL_KERNELS:
+            library = "reroll"
+        else:
+            library = f"fused_{self.model}"
+        return library, f"{self.name}_{kernel}"
+
+    def reference_rows(self, info, batch: Optional[int], device) -> Optional[torch.Tensor]:
+        """The kernels' reference rows of ``info``: ``[T+1, W]``, or ``[B, T+1, W]`` for
+        ``batch`` (a single table broadcast to every scenario); None at width 0."""
+        if not self.reference_width:
+            return None
+        rows = torch.as_tensor(self.reference(info), dtype=torch.float32, device=device)
+        if batch is not None and rows.dim() == 2:
+            rows = rows.expand(batch, *rows.shape)
+        return rows.contiguous()
 
 
 def RacingFusedTask(obstacle_grid, lane_grid, origin, cell_size, x_lim, y_lim) -> FusedTask:
@@ -175,7 +302,7 @@ def RacingFusedTask(obstacle_grid, lane_grid, origin, cell_size, x_lim, y_lim) -
     of the bicycle dynamics.
     """
     from mppi_playground_tpu_torch.models.bicycle import make_dynamics_soa
-    from mppi_playground_tpu_torch.models.racing_mpcc import make_mpcc_cost_soa
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_mpcc_cost_soa, racing_reference
 
     origin = (float(origin[0]), float(origin[1]))
     x_lim = (float(x_lim[0]), float(x_lim[1]))
@@ -193,6 +320,7 @@ def RacingFusedTask(obstacle_grid, lane_grid, origin, cell_size, x_lim, y_lim) -
         floats=(*x_lim, *y_lim, *origin, float(cell_size)),
         ints=tuple(int(v) for v in obstacle_grid.shape),
         grids=(obstacle_grid, lane_grid),
+        reference=racing_reference,
     )
 
 
@@ -404,12 +532,18 @@ def fused_top_rollouts_plain(x0, prev, seed, rows, task: FusedTask, sigmas, u_mi
     """
     pert = fused_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples, threshold,
                              noise)
-    xs = tuple(x0[c].expand(rows.shape[0]) for c in range(task.dim_state))
+    return _nan_rows(rolled_out_plain(x0, pert, task), rows, num_samples)
+
+
+def rolled_out_plain(x0, pert, task: FusedTask):
+    """States ``[n, T+1, n_x]`` of perturbations ``pert [n, T, m]`` rolled from ``x0`` through
+    the task's ``dynamics_soa``."""
+    xs = tuple(x0[c].expand(pert.shape[0]) for c in range(task.dim_state))
     states = [torch.stack(xs, dim=-1)]
-    for t in range(prev.shape[0]):
+    for t in range(pert.shape[1]):
         xs = task.dynamics_soa(xs, tuple(pert[:, t, j] for j in range(task.dim_control)))
         states.append(torch.stack(xs, dim=-1))
-    return _nan_rows(torch.stack(states, dim=1), rows, num_samples)
+    return torch.stack(states, dim=1)
 
 
 TAIL_BLOCK = 1024  # threads of the tail kernel's CTAs (csrc/tick_tail.cuh kTailBlock)
@@ -587,11 +721,17 @@ def _advance_plain(key, key_out) -> None:
         key_out.copy_(advance_key_plain(key))
 
 
-def _check_sampling(prev, num_samples, sigmas, u_min, u_max):
+def _check_sampling(prev, num_samples, sigmas, u_min, u_max, widths=None):
+    """Check a drawing kernel's warm start and bounds -> the bounds array.
+
+    ``widths``: the action widths the kernel is built for (None: any m).
+    """
     horizon, m = prev.shape if prev.dim() == 2 else (0, 0)
-    if prev.dim() != 2 or not 1 <= horizon or horizon * m > MAX_SLOTS or m not in REGEN_WIDTHS:
-        raise ValueError(f"prev must be [horizon, m] with m in {REGEN_WIDTHS} and 1 <= "
-                         f"horizon * m <= {MAX_SLOTS}, got {tuple(prev.shape)}")
+    if (prev.dim() != 2 or not 1 <= m or not 1 <= horizon or horizon * m > MAX_SLOTS
+            or (widths is not None and m not in widths)):
+        within = "" if widths is None else f"m in {widths} and "
+        raise ValueError(f"prev must be [horizon, m] with {within}1 <= horizon * m <= "
+                         f"{MAX_SLOTS}, got {tuple(prev.shape)}")
     if not 1 <= num_samples < 2**31 - BLOCK:
         raise ValueError(f"num_samples out of range: {num_samples}")
     if not len(sigmas) == len(u_min) == len(u_max) == m:
@@ -661,7 +801,7 @@ def _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max, num
     dev = x0s.device
     n, m = task.dim_state, task.dim_control
     if prevs.dim() != 3 or prevs.shape[-1] != m or prevs.shape[0] < 1:
-        raise ValueError(f"the {task.model} model takes prev [B, T, {m}], got "
+        raise ValueError(f"the {task.name} model takes prev [B, T, {m}], got "
                          f"{tuple(prevs.shape)}")
     batch, horizon = prevs.shape[:2]
     bounds = _check_sampling(prevs[0], num_samples, sigmas, u_min, u_max)
@@ -675,7 +815,7 @@ def _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max, num
     width = task.reference_width
     if width:
         if refs is None:
-            raise ValueError(f"the {task.model} model needs its reference rows [T+1, {width}]")
+            raise ValueError(f"the {task.name} model needs its reference rows [T+1, {width}]")
         _check("ref", refs, (batch, horizon + 1, width), f32, dev)
     grids = list(task.grids)
     for i, grid in enumerate(grids):
@@ -818,14 +958,14 @@ def fused_costs_dump_lambda(
     costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
     dump = torch.empty(prev.numel(), num_samples, dtype=torch.float32, device=dev)
     lam = torch.empty(1, dtype=torch.float32, device=dev)
-    name = f"{task.model}_costs_dump_lambda"
+    library, symbol = task.entry("costs_dump_lambda")
     cuda_build.launch(
-        f"fused_{task.model}", name, _DUMP_LAMBDA_ARGTYPES, dev, *args,
+        library, symbol, _DUMP_LAMBDA_ARGTYPES, dev, *args,
         int(search.mode == "LBPS"), ctypes.c_float(search.lambda_min),
         ctypes.c_float(search.lambda_max), ctypes.c_float(search.kernel_param),
         int(search.iters), ticket.data_ptr(), costs.data_ptr(), dump.data_ptr(), lam.data_ptr(),
     )
-    fused_costs_dump_lambda.launches[name] += cuda_build.launched()
+    fused_costs_dump_lambda.launches[symbol] += cuda_build.launched()
     return costs, dump, lam
 
 
@@ -887,7 +1027,7 @@ def fused_regen(
         return fused_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples,
                                  threshold, noise)
     dev = prev.device
-    bounds = _check_sampling(prev, num_samples, sigmas, u_min, u_max)
+    bounds = _check_sampling(prev, num_samples, sigmas, u_min, u_max, REGEN_WIDTHS)
     horizon, m = prev.shape
     num_rows = rows.shape[0]
     _check("rows", rows, (num_rows,), torch.int64, dev)
@@ -945,7 +1085,7 @@ def fused_top_rollouts(
     dev = x0.device
     n, m = task.dim_state, task.dim_control
     if prev.dim() != 2 or prev.shape[1] != m:
-        raise ValueError(f"the {task.model} model takes prev [T, {m}], got {tuple(prev.shape)}")
+        raise ValueError(f"the {task.name} model takes prev [T, {m}], got {tuple(prev.shape)}")
     bounds = _check_sampling(prev, num_samples, sigmas, u_min, u_max)
     horizon = prev.shape[0]
     _check("x0", x0, (n,), torch.float32, dev)
@@ -961,13 +1101,13 @@ def fused_top_rollouts(
         noise_ptr = noise.data_ptr()
     model_f, model_i = _floats(task.floats), _ints(task.ints)
     seed = _seed_tensor(seed, dev)
-    name = f"{task.model}_top_rollouts"
+    library, symbol = task.entry("top_rollouts")
     cuda_build.launch(
-        "reroll", name, _TOP_ROLLOUTS_ARGTYPES, dev, x0.data_ptr(), prev.data_ptr(), noise_ptr,
+        library, symbol, _TOP_ROLLOUTS_ARGTYPES, dev, x0.data_ptr(), prev.data_ptr(), noise_ptr,
         rows.data_ptr(), bounds, model_f, model_i, seed.data_ptr(), horizon, num_samples,
         max(0, min(threshold, num_samples)), num_rows, out.data_ptr(),
     )
-    fused_top_rollouts.launches[name] += cuda_build.launched()
+    fused_top_rollouts.launches[symbol] += cuda_build.launched()
     return out
 
 
@@ -987,10 +1127,10 @@ def fused_reroll(x0: torch.Tensor, action_seq: torch.Tensor, task: FusedTask) ->
     _check("action_seq", action_seq, (horizon, m), torch.float32, dev)
     out = torch.empty(horizon + 1, n, dtype=torch.float32, device=dev)
     model_f, model_i = _floats(task.floats), _ints(task.ints)
-    name = f"{task.model}_reroll"
-    cuda_build.launch("reroll", name, _REROLL_ARGTYPES, dev, x0.data_ptr(),
+    library, symbol = task.entry("reroll")
+    cuda_build.launch(library, symbol, _REROLL_ARGTYPES, dev, x0.data_ptr(),
                       action_seq.data_ptr(), model_f, model_i, horizon, out.data_ptr())
-    fused_reroll.launches[name] += cuda_build.launched()
+    fused_reroll.launches[symbol] += cuda_build.launched()
     return out
 
 
@@ -1098,10 +1238,9 @@ def fused_solve_batch(
     costs = torch.empty(batch, num_samples, dtype=torch.float32, device=dev)
     stats = torch.empty(batch, blocks, 3, dtype=torch.float32, device=dev)
     numer = torch.empty(batch, blocks, prevs[0].numel(), dtype=torch.float32, device=dev)
-    cuda_build.launch(f"fused_{task.model}", f"{task.model}_fused_solve_batch",
-                      _SOLVE_BATCH_ARGTYPES, dev, *args, costs.data_ptr(), stats.data_ptr(),
-                      numer.data_ptr())
-    fused_solve.launches[f"{task.model}_fused_solve"] += cuda_build.launched()
+    cuda_build.launch(*task.entry("fused_solve_batch"), _SOLVE_BATCH_ARGTYPES, dev, *args,
+                      costs.data_ptr(), stats.data_ptr(), numer.data_ptr())
+    fused_solve.launches[f"{task.name}_fused_solve"] += cuda_build.launched()
     return costs, stats, numer
 
 
@@ -1145,9 +1284,9 @@ def fused_costs_dump_batch(
     batch, dev = prevs.shape[0], x0s.device
     costs = torch.empty(batch, num_samples, dtype=torch.float32, device=dev)
     dump = torch.empty(batch, prevs[0].numel(), num_samples, dtype=torch.float32, device=dev)
-    cuda_build.launch(f"fused_{task.model}", f"{task.model}_costs_dump_batch",
-                      _DUMP_BATCH_ARGTYPES, dev, *args, costs.data_ptr(), dump.data_ptr())
-    fused_costs_dump.launches[f"{task.model}_costs_dump"] += cuda_build.launched()
+    cuda_build.launch(*task.entry("costs_dump_batch"), _DUMP_BATCH_ARGTYPES, dev, *args,
+                      costs.data_ptr(), dump.data_ptr())
+    fused_costs_dump.launches[f"{task.name}_costs_dump"] += cuda_build.launched()
     return costs, dump
 
 
@@ -1282,13 +1421,13 @@ def fused_tick_tail_batch(
     history = torch.empty(batch, horizon - 1, m, dtype=f32, device=dev)
     model_f, model_i = _floats(task.floats), _ints(task.ints)
     cuda_build.launch(
-        "reroll", f"{task.model}_tick_tail_batch", _TAIL_BATCH_ARGTYPES, dev, x0s.data_ptr(), costs.data_ptr(),
+        *task.entry("tick_tail_batch"), _TAIL_BATCH_ARGTYPES, dev, x0s.data_ptr(), costs.data_ptr(),
         stats.data_ptr(), numer.data_ptr(), lam.data_ptr(), sg_history.data_ptr(),
         None if sg_coeffs is None else sg_coeffs.data_ptr(), model_f, model_i, blocks, horizon,
         num_samples, window, batch, action_seq.data_ptr(), states.data_ptr(), ess.data_ptr(),
         w.data_ptr(), history.data_ptr(), key_ptr, key_out_ptr,
     )
-    fused_tick_tail.launches[f"{task.model}_tick_tail"] += cuda_build.launched()
+    fused_tick_tail.launches[f"{task.name}_tick_tail"] += cuda_build.launched()
     return action_seq, states, w, ess, history
 
 # every wrapper, and the kernel names each counts launches under
@@ -1296,8 +1435,9 @@ WRAPPERS = (fused_solve, fused_costs_dump, fused_costs_dump_lambda, fused_weight
             fused_top_rollouts, fused_reroll, fused_tick_tail)
 
 
-def kernel_names(wrapper) -> Tuple[str, ...]:
-    """The kernels ``wrapper`` launches, by the names its ``launches`` counts."""
+def kernel_names(wrapper, plugs: Sequence[ModelPlug] = ()) -> Tuple[str, ...]:
+    """The kernels ``wrapper`` launches, by the names its ``launches`` counts: every bundled
+    model's, and each of ``plugs``'."""
     if wrapper is fused_weighted:
         return ("fused_weighted",)
     if wrapper is fused_regen:
@@ -1305,4 +1445,4 @@ def kernel_names(wrapper) -> Tuple[str, ...]:
     suffix = {fused_solve: "fused_solve", fused_costs_dump: "costs_dump",
               fused_costs_dump_lambda: "costs_dump_lambda", fused_top_rollouts: "top_rollouts",
               fused_reroll: "reroll", fused_tick_tail: "tick_tail"}[wrapper]
-    return tuple(f"{model}_{suffix}" for model in MODELS)
+    return tuple(f"{model}_{suffix}" for model in (*MODELS, *(plug.name for plug in plugs)))

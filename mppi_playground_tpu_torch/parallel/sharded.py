@@ -470,10 +470,13 @@ def make_batched_fused_solver(
     ``solve_batch(states, x0s, *, info=None, noise=None, batched_info=None)``
     takes a batched state (``init_batch``), ``x0s [B, n]``, optional shared
     ``info``, optional noise ``[B, K, T, m]`` and optional ``batched_info``
-    (``[B, ...]`` entries merged over ``info``).  The fused kernels read only
-    racing's ``reference_path``: ``[B, T+1, 4]`` in ``batched_info``, or one
-    ``[T+1, 4]`` for every scenario in ``info``.  Every output has a leading
-    ``[B]`` axis (``aux.lam`` and ``aux.ess`` ``[B]``).
+    (``[B, ...]`` entries merged over ``info``).  The fused kernels read
+    ``info`` only through the task's reference builder (``FusedTask.reference``,
+    a bundled model's or a user's ``ModelPlug`` task): its ``[B, T+1, W]``
+    rows, or one ``[T+1, W]`` table for every scenario (racing's
+    ``reference_path`` ``[B, T+1, 4]`` in ``batched_info``, or one ``[T+1,
+    4]`` in ``info``).  Every output has a leading ``[B]`` axis (``aux.lam``
+    and ``aux.ess`` ``[B]``).
 
     ESSPS and LBPS take the standalone search (phase 1, one search cluster a
     scenario, phase 2): the λ epilogue's ticket counts the clusters of one
