@@ -341,12 +341,12 @@ def phase1_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: in
     dump written.
 
     ``search_ops`` adds a lambda search's operations (and its one output
-    float) for the lambda epilogue, which takes one scenario.
+    float) for the lambda epilogue, once a scenario.
     """
     in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes, batch)
-    out_bytes = 4 * batch * num_samples * (1 + ops.m * horizon) + (4 if search_ops else 0)
+    out_bytes = 4 * batch * (num_samples * (1 + ops.m * horizon) + (1 if search_ops else 0))
     rollout = batch * num_samples * (horizon * _per_step(ops, seeded) + ops.cost)
-    return _bound(in_bytes, out_bytes, rollout + search_ops)
+    return _bound(in_bytes, out_bytes, rollout + batch * search_ops)
 
 
 def phase2_bound_ms(num_samples: int, horizon: int, m: int = 2) -> tuple:
@@ -3325,15 +3325,49 @@ FLEET_MODES_B = 32  # the MPO, ESSPS and LBPS fleets
 MODEL_FLEET_B, MODEL_FLEET_TICKS = 8, 10  # every other family's fleets
 KERNELS_B = 128  # the batched launches held against their twins and timed
 FLEET_DEVICE = "cuda"
+UNFUSED_FLEET_BATCHES = (8, 32)  # the unfused racing fleets, in turns with B single solves
+UNFUSED_FLEET_TICKS = 10  # their episodes (a single unfused racing tick is ~8 ms)
+UNFUSED_FLEET_KERNELS = frozenset({"fused_regen_m2", "weighted_update_partials"})
+# the searches rows 4, 7 and 8 are held with over a fleet: a bracket to λ = 1,000, so that
+# the racing costs' λ* lies inside it
+FLEET_SEARCHES = (("ESSPS", 1000.0, None, 40), ("LBPS", 1000.0, 0.01, 32))
+
+
+def fleet_searches(k: int) -> list:
+    """The :data:`FLEET_SEARCHES` at K samples (ESSPS targets an ESS of K / 10)."""
+    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+
+    return [LambdaSearch(mode, 0.01, lam_max, k / 10.0 if param is None else param, iters)
+            for mode, lam_max, param, iters in FLEET_SEARCHES]
 
 
 def fleet_kernels(model: str, config) -> set:
-    """The kernels one fused fleet tick of ``config`` launches once each, for all B scenarios."""
+    """The kernels one fused fleet tick of ``config`` launches once each, for all B scenarios:
+    ESSPS and LBPS by the single solver's route (the λ epilogue up to K=10,000)."""
+    from mppi_playground_tpu_torch.core.fused_solver import takes_lambda_epilogue
+
     lam = config.auto_lambda
     if lam in ("ESSPS", "LBPS"):
+        if takes_lambda_epilogue(config):
+            return {f"{model}_costs_dump_lambda", "fused_weighted", f"{model}_tick_tail"}
         return {f"{model}_costs_dump", f"{lam.lower()}_lambda_fused", "fused_weighted",
                 f"{model}_tick_tail"}
     return {f"{model}_fused_solve", f"{model}_tick_tail"}
+
+
+def standalone_fleet(batched, task):
+    """``batched`` (a fused fleet) with its ESSPS/LBPS tick on the standalone route: phase 1,
+    one search cluster a scenario, phase 2 (``core.fused_solver.make_solve_batch`` with the
+    route forced; the fleet itself takes no route option)."""
+    from mppi_playground_tpu_torch.core.fused_solver import make_solve_batch
+
+    solve = make_solve_batch(batched.config, task, batched.device, lambda_epilogue=False)
+
+    def solve_batch(states, x0s, *, info=None, noise=None, batched_info=None):
+        merged = dict(info or {}, **(batched_info or {}))
+        return solve(states, x0s, info=merged or None, noise=noise)
+
+    return dataclasses.replace(batched, solve_batch=solve_batch)
 
 
 def fleet_config(lam, horizon=FLEET_T, num_samples=FLEET_K):
@@ -3404,7 +3438,7 @@ def fleet_vs_episodes(torch, solver, plant_one, num_ticks, states, x0s, carry0, 
 
 
 def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one, info_one,
-                num_ticks, card, turns: bool = False):
+                num_ticks, card, turns: bool = False, once=None, trace_looped: bool = True):
     """One fleet path: traced twice, every kernel counted, bit for bit its episodes; timed.
 
     Every counter is set to 0 first.  The first run (tick 0 eager, the
@@ -3416,9 +3450,15 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
     (host clock ending in a synchronize) give the fleet's solves/s and
     amortized tick, the second run's trace its device-busy share.  With
     ``turns``, the same B scenarios as B single solves a tick in one captured
-    graph (``parallel.sharded.scenario_by_scenario`` of the single fused
-    solver: the JAX package's ``lax.map`` form) run in turns with it (fleet, looped,
-    looped, fleet, ...), bit for bit the fleet.  Returns the results or None.
+    graph (``parallel.sharded.scenario_by_scenario`` of the single solver: the
+    JAX package's ``lax.map`` form of a fused fleet, and the port's earlier
+    form of the unfused one) run in turns with it (fleet, looped, looped,
+    fleet, ...), bit for bit the fleet; with ``trace_looped`` one looped run
+    is traced for its busy share (an unfused looped form's ~750 torch kernels
+    a solve make a trace of ~240,000 kernels at B=32, which the profiler takes
+    minutes to read).  ``once``: the kernels of the fleet's tick
+    (:func:`fleet_kernels` of the fused fleet's config where None).  Returns
+    the results or None.
     """
     from mppi_playground_tpu_torch.core.closed_loop import make_fleet_closed_loop
     from mppi_playground_tpu_torch.parallel.sharded import scenario_by_scenario
@@ -3426,21 +3466,29 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
     batch = x0s.shape[0]
     run = make_fleet_closed_loop(batched, plant, num_ticks, info_fn=info_batch)
     states = batched.init_batch()
+    t0, seconds = time.perf_counter(), {}
+
+    def mark(step):
+        seconds[step] = round(time.perf_counter() - t0 - sum(seconds.values()), 2)
+
     counted = zero_counters()
     first, first_trace = traced(torch, lambda: run(states, x0s, carry0))
+    mark("first traced run")
     try:
         second, second_trace = traced(torch, lambda: run(states, x0s, carry0), no_sync=True)
     except RuntimeError as err:
         fail(f"{label}: the replays synchronized with the host: {err}")
         return None
-    once = fleet_kernels(label.split()[0], batched.config)
+    once = fleet_kernels(label.split()[0], batched.config) if once is None else once
     launches = path_launches(label, counted, [first_trace, second_trace],
                              {name: 2 * num_ticks for name in once})
     if launches is None:
         return None
     eager_once = read_counters(counted) == {name: int(name in once) for name in counted}
+    mark("second traced run")
     differ = fleet_vs_episodes(torch, batched.solver, plant_one, num_ticks, states, x0s, carry0,
                                info_one, first)
+    mark("single episodes")
     runs = [synced_ms(torch, lambda: run(states, x0s, carry0)) for _ in range(3)]
     ms = statistics.median(runs)
     res = dict(batch=batch, ticks=num_ticks, bitwise_episodes=not differ,
@@ -3454,8 +3502,13 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
     if turns:
         looped = make_fleet_closed_loop(scenario_by_scenario(batched.solver, batch), plant,
                                         num_ticks, info_fn=info_batch)
+        mark("timed runs")
         looped_out = looped(states, x0s, carry0)
-        _, looped_trace = traced(torch, lambda: looped(states, x0s, carry0))
+        mark("looped first run")
+        looped_trace = None
+        if trace_looped:
+            _, looped_trace = traced(torch, lambda: looped(states, x0s, carry0))
+            mark("looped traced run")
         fns = {"fleet": lambda: run(states, x0s, carry0),
                "looped": lambda: looped(states, x0s, carry0)}
         times = {name: [] for name in fns}
@@ -3465,13 +3518,16 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
                 times[name].append(synced_ms(torch, fns[name]))
             order.reverse()
         fleet_ms, looped_ms = (statistics.median(times[n]) for n in ("fleet", "looped"))
+        mark("in turns")
         res.update(looped_bitwise=_bitwise(torch, looped_out, first),
                    looped_capture_s=getattr(looped.episode.graph, "capture_s", None),
                    in_turns_fleet_episode_ms=fleet_ms, in_turns_looped_episode_ms=looped_ms,
                    in_turns_fleet_solves_per_s=batch * num_ticks / (fleet_ms / 1e3),
-                   in_turns_looped_solves_per_s=batch * num_ticks / (looped_ms / 1e3),
-                   looped_busy_share=looped_trace.busy_us / (1e3 * looped_ms),
-                   looped_device_busy_us=looped_trace.busy_us)
+                   in_turns_looped_solves_per_s=batch * num_ticks / (looped_ms / 1e3))
+        if looped_trace is not None:
+            res.update(looped_busy_share=looped_trace.busy_us / (1e3 * looped_ms),
+                       looped_device_busy_us=looped_trace.busy_us)
+    res["seconds"] = seconds
     shown = dict(res, launches={k: v for k, v in launches.items() if v})
     print(f"phase 13 {label}: {num_ticks} ticks of {batch} scenarios replayed from one CUDA "
           f"graph on {card}: {json.dumps(shown)}", flush=True)
@@ -3486,25 +3542,93 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
 
 def racing_fleets(torch, env, card):
     """Phase 13a: the racing fleet at B=8, 32 and 128 (fixed λ, in turns with the looped
-    form), and under MPO, ESSPS and LBPS at B=32.  Returns ``{label: result}`` or None."""
-    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
-    from mppi_playground_tpu_torch.parallel import make_batched_fused_solver
+    form), under MPO, ESSPS and LBPS at B=32 (ESSPS and LBPS on the batched λ epilogue), and
+    the unfused racing fleet at B=8 and 32 (in turns with B single unfused solves a tick).
+    Returns ``{label: result}`` or None."""
+    from mppi_playground_tpu_torch.models.racing_mpcc import (
+        make_mpcc_cost,
+        make_racing_fused_task_from_env,
+    )
+    from mppi_playground_tpu_torch.parallel import make_batched_fused_solver, make_batched_solver
 
     task = make_racing_fused_task_from_env(env)
     info_batch, info_one, plant_one = racing_fleet_fns(env)
     cases = [(f"racing fleet B={b}", 1.0, b, True) for b in FLEET_BATCHES]
     cases += [(f"racing fleet {m} B={FLEET_MODES_B}", m, FLEET_MODES_B, False)
               for m in ("MPO", "ESSPS", "LBPS")]
+    cases += [(f"racing unfused fleet B={b}", 1.0, b, True) for b in UNFUSED_FLEET_BATCHES]
+    cost = make_mpcc_cost(env.obstacle_cost_map, env.lane_cost_map)
     out = {}
     for label, lam, batch, turns in cases:
-        batched = make_batched_fused_solver(fleet_config(lam), task, env.dynamics, FLEET_DEVICE,
-                                            batch)
+        unfused = " unfused " in label
+        if unfused:  # the user's dynamics and cost under vmap; rows 6 and 9 a launch each
+            batched = make_batched_solver(fleet_config(lam), env.dynamics, cost, FLEET_DEVICE,
+                                          batch)
+        else:
+            batched = make_batched_fused_solver(fleet_config(lam), task, env.dynamics,
+                                                FLEET_DEVICE, batch)
         x0s, cinds = racing_fleet_starts(torch, env, batch)
         res = drive_fleet(torch, label, batched, env.dynamics, x0s, cinds, info_batch,
-                          plant_one, info_one, FLEET_TICKS, card, turns=turns)
+                          plant_one, info_one, UNFUSED_FLEET_TICKS if unfused else FLEET_TICKS,
+                          card, turns=turns, once=UNFUSED_FLEET_KERNELS if unfused else None,
+                          trace_looped=not unfused)
         if res is None:
             return None
         out[label] = res
+    return out
+
+
+def epilogue_fleets_in_turns(torch, env, card):
+    """Phase 13a: the ESSPS and LBPS racing fleets at B=8, 32 and 128 on the batched λ
+    epilogue against the standalone route (:func:`standalone_fleet`).
+
+    Each fleet's episode of 50 replayed ticks runs twice; both runs must
+    equal the standalone fleet's episode bit for bit (every tick's actions
+    and states, and the final states, λ included).  Then the two run in
+    turns (epilogue, standalone, standalone, epilogue, ...), three of each,
+    host clock ending in a synchronize.  Returns ``{label: result}`` or None.
+    """
+    from mppi_playground_tpu_torch.core.closed_loop import make_fleet_closed_loop
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
+    from mppi_playground_tpu_torch.parallel import make_batched_fused_solver
+
+    task = make_racing_fused_task_from_env(env)
+    info_batch = racing_fleet_fns(env)[0]
+    out = {}
+    for mode in ("ESSPS", "LBPS"):
+        for batch in FLEET_BATCHES:
+            label = f"racing fleet {mode} B={batch} epilogue against standalone"
+            batched = make_batched_fused_solver(fleet_config(mode), task, env.dynamics,
+                                                FLEET_DEVICE, batch)
+            runs = {route: make_fleet_closed_loop(fleet, env.dynamics, FLEET_TICKS,
+                                                  info_fn=info_batch)
+                    for route, fleet in (("epilogue", batched),
+                                         ("standalone", standalone_fleet(batched, task)))}
+            x0s, cinds = racing_fleet_starts(torch, env, batch)
+            states = batched.init_batch()
+            first = runs["epilogue"](states, x0s, cinds)
+            second = runs["epilogue"](states, x0s, cinds)  # every tick replayed
+            alone = runs["standalone"](states, x0s, cinds)
+            times = {route: [] for route in runs}
+            order = list(runs)
+            for _ in range(3):
+                for route in order:
+                    times[route].append(synced_ms(torch, lambda r=runs[route]: r(states, x0s,
+                                                                                  cinds)))
+                order.reverse()
+            ep_ms, st_ms = (statistics.median(times[r]) for r in ("epilogue", "standalone"))
+            res = dict(batch=batch, ticks=FLEET_TICKS,
+                       replays_bitwise_standalone=_bitwise(torch, first, alone)
+                       and _bitwise(torch, second, alone),
+                       final_lam_range=(first[0].lam.min().item(), first[0].lam.max().item()),
+                       in_turns_epilogue_episode_ms=ep_ms, in_turns_standalone_episode_ms=st_ms,
+                       epilogue_tick_ms=ep_ms / FLEET_TICKS, standalone_tick_ms=st_ms / FLEET_TICKS,
+                       epilogue_vs_standalone=(ep_ms - st_ms) / st_ms)
+            print(f"phase 13 {label} on {card}: {json.dumps(res)}", flush=True)
+            if not res["replays_bitwise_standalone"]:
+                fail(f"{label}: the epilogue fleet's replays differ from the standalone fleet")
+                return None
+            out[label] = res
     return out
 
 
@@ -3549,6 +3673,64 @@ def model_starts(torch, x0, batch: int):
     return (x0[None] + 0.05 * torch.arange(batch, device=x0.device)[:, None]).contiguous()
 
 
+class BatchedRows:
+    """The kernels line's rows of one batch's launches (phase 13c).
+
+    Each batched launch is timed by graph replay in turns with its B single
+    launches (:meth:`timed`), beside its batch symbol, its twin's time (one
+    call, CUDA events, where ``time_twins``) and the batched work's bound.
+    """
+
+    def __init__(self, torch, model: str, batch: int, horizon: int, num_samples: int,
+                 time_twins: bool = True):
+        self.torch, self.model, self.batch = torch, model, batch
+        self.horizon, self.num_samples, self.time_twins = horizon, num_samples, time_twins
+        self.rows, self.plain_ms = {}, {}
+
+    def twin(self, name: str, fn):
+        """The twin's output; its time kept for ``name``'s row."""
+        torch = self.torch
+        if not self.time_twins:
+            return fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        self.plain_ms[name] = start.elapsed_time(end)
+        return out
+
+    def singles(self, fn):
+        """The B single launches, ``fn(b)`` for each scenario b."""
+        return lambda: [fn(b) for b in range(self.batch)]
+
+    def times_b(self, bound: tuple) -> tuple:
+        """B times a single launch's bound: no input of these is shared by the scenarios."""
+        return self.batch * bound[0], bound[1]
+
+    def timed(self, name: str, symbol: str, batched_fn, single_fn, bound: tuple, err) -> None:
+        """``name``'s row: ``bound`` is the batched launch's (``batch=`` of the bound
+        functions, or :meth:`times_b`)."""
+        turns = in_turns(self.torch, {"batched": batched_fn, "singles": single_fn}, windows=4,
+                         per_window=5)
+        source, replaces = SOURCES_OF[name.replace(f"{self.model}_", "<model>_")]
+        self.rows[name] = kernel_row(
+            name, source.replace("<model>", self.model), replaces, err, turns["batched"],
+            self.plain_ms.get(name), *bound, batch=self.batch, horizon=self.horizon,
+            num_samples=self.num_samples, symbol=symbol, single_launches_ms=turns["singles"])
+
+    def report(self, label: str, card: str) -> dict:
+        """Print the rows' times; returns ``{kernel: row}``."""
+        print(f"phase 13 {label}: batched launches on {card} (graph replay, in turns with B "
+              "single launches; bound of the batched launch's work): " + "; ".join(
+                  f"{r['symbol']} {r['ms']:.4f} ms against {r['single_launches_ms']:.4f} ms of "
+                  f"{self.batch} single launches (bound {r['bound_ms']:.5f} ms, {r['bound_by']};"
+                  f" twin {r['plain_ms'] or 0.0:.1f} ms)" for r in self.rows.values()),
+              flush=True)
+        return self.rows
+
+
 def batched_kernel_rows(torch, label, task, ops, x0s, prevs, refs, noise, bounds, k, card,
                         grid_bytes, searches: bool):
     """Phase 13c: the batched launches against the single launches and their twins; timed.
@@ -3578,7 +3760,7 @@ def batched_kernel_rows(torch, label, task, ops, x0s, prevs, refs, noise, bounds
     model = task.model
     ref = (lambda b: refs[b]) if refs is not None else (lambda b: None)
     args = (task, *bounds, k, k)
-    checks, rows = {}, {}
+    checks = {}
 
     def slices(batched_out, singles) -> bool:
         return all(torch.equal(t[b], s) for b, one in enumerate(singles)
@@ -3597,34 +3779,8 @@ def batched_kernel_rows(torch, label, task, ops, x0s, prevs, refs, noise, bounds
             u_err = max(u_err, (g[0] - v[0]).abs().max().item())
         return w_err, u_err
 
-    plain_ms = {}
-
-    def twin(name, fn):
-        """The twin's output; its time (one call, CUDA events) kept for ``name``'s row."""
-        if dev.type != "cuda":
-            return fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms[name] = start.elapsed_time(end)
-        return out
-
-    def timed(name, batched_fn, single_fn, bound, err):
-        """``bound``: the batched launch's (``batch=`` of the bound functions)."""
-        turns = in_turns(torch, {"batched": batched_fn, "singles": single_fn}, windows=4,
-                         per_window=5)
-        source, replaces = SOURCES_OF[name.replace(f"{model}_", "<model>_")]
-        rows[name] = kernel_row(
-            name, source.replace("<model>", model), replaces, err, turns["batched"],
-            plain_ms.get(name), *bound, batch=batch, horizon=horizon, num_samples=k,
-            single_launches_ms=turns["singles"])
-
-    def times_b(bound):
-        """B times a single launch's bound: no input of these is shared by the scenarios."""
-        return batch * bound[0], bound[1]
+    out = BatchedRows(torch, model, batch, horizon, k)
+    twin = out.twin
 
     solved = {}
     for mode, nz in (("seeded", None), ("noise", noise)):
@@ -3714,43 +3870,226 @@ def batched_kernel_rows(torch, label, task, ops, x0s, prevs, refs, noise, bounds
         return None
 
     # timings: graph replay of the batched launch in turns with its B single launches
-    def singles_of(fn):
-        return lambda: [fn(b) for b in range(batch)]
-
-    timed(f"{model}_fused_solve",
-          lambda: fs.fused_solve_batch(x0s, prevs, lams, seeds, refs, *args),
-          singles_of(lambda b: fs.fused_solve(x0s[b], prevs[b], lams[b:b + 1], keys[b, 2:],
-                                              ref(b), *args)),
-          solve_bound_ms(k, horizon, True, grid_bytes, ops, batch=batch),
-          max(checks["row 1 seeded"]["cost_max_rel_err"], checks["row 1 noise"]["cost_max_rel_err"]))
-    timed(f"{model}_costs_dump",
-          lambda: fs.fused_costs_dump_batch(x0s, prevs, seeds, refs, *args),
-          singles_of(lambda b: fs.fused_costs_dump(x0s[b], prevs[b], keys[b, 2:], ref(b),
-                                                   *args)),
-          phase1_bound_ms(k, horizon, True, grid_bytes, ops, batch=batch),
-          max(checks["row 3 seeded"]["cost_max_rel_err"], checks["row 3 noise"]["cost_max_rel_err"]))
-    timed(f"{model}_tick_tail",
-          lambda: fs.fused_tick_tail_batch(x0s, costs, stats, numer, lam_star, task, history,
-                                           keys=keys, keys_out=keys_out),
-          singles_of(lambda b: fs.fused_tick_tail(x0s[b], costs[b], stats[b], numer[b],
-                                                  lam_star[b:b + 1], task, history[b])),
-          times_b(tail_bound_ms(k, horizon, ops)), checks["row 2"]["weights_max_abs_err"])
+    out.timed(f"{model}_fused_solve", f"{model}_fused_solve_batch",
+              lambda: fs.fused_solve_batch(x0s, prevs, lams, seeds, refs, *args),
+              out.singles(lambda b: fs.fused_solve(x0s[b], prevs[b], lams[b:b + 1], keys[b, 2:],
+                                                   ref(b), *args)),
+              solve_bound_ms(k, horizon, True, grid_bytes, ops, batch=batch),
+              max(checks["row 1 seeded"]["cost_max_rel_err"],
+                  checks["row 1 noise"]["cost_max_rel_err"]))
+    out.timed(f"{model}_costs_dump", f"{model}_costs_dump_batch",
+              lambda: fs.fused_costs_dump_batch(x0s, prevs, seeds, refs, *args),
+              out.singles(lambda b: fs.fused_costs_dump(x0s[b], prevs[b], keys[b, 2:], ref(b),
+                                                        *args)),
+              phase1_bound_ms(k, horizon, True, grid_bytes, ops, batch=batch),
+              max(checks["row 3 seeded"]["cost_max_rel_err"],
+                  checks["row 3 noise"]["cost_max_rel_err"]))
+    out.timed(f"{model}_tick_tail", f"{model}_tick_tail_batch",
+              lambda: fs.fused_tick_tail_batch(x0s, costs, stats, numer, lam_star, task, history,
+                                               keys=keys, keys_out=keys_out),
+              out.singles(lambda b: fs.fused_tick_tail(x0s[b], costs[b], stats[b], numer[b],
+                                                       lam_star[b:b + 1], task, history[b])),
+              out.times_b(tail_bound_ms(k, horizon, ops)), checks["row 2"]["weights_max_abs_err"])
     if searches:
-        timed("fused_weighted", lambda: fs.fused_weighted_batch(costs, dump, lam_star),
-              singles_of(lambda b: fs.fused_weighted(costs[b], dump[b], lam_star[b:b + 1])),
-              times_b(phase2_bound_ms(k, horizon, m)), checks["row 5"]["weights_max_abs_err"])
+        out.timed("fused_weighted", "fused_weighted_batch",
+                  lambda: fs.fused_weighted_batch(costs, dump, lam_star),
+                  out.singles(lambda b: fs.fused_weighted(costs[b], dump[b], lam_star[b:b + 1])),
+                  out.times_b(phase2_bound_ms(k, horizon, m)),
+                  checks["row 5"]["weights_max_abs_err"])
         for mode, search, per_eval, per_cost in (
                 ("essps", LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40), OPS_ESSPS_EVAL, 2),
                 ("lbps", LambdaSearch("LBPS", 0.01, 10.0, 0.01, 32), OPS_LBPS_EVAL, 2)):
-            timed(f"{mode}_lambda_fused", lambda s=search: s.run_batch(spread),
-                  singles_of(lambda b, s=search: s.run(spread[b])),
-                  times_b(search_bound_ms(k, search.iters, per_eval, per_cost)),
-                  checks[f"row {7 if mode == 'essps' else 8} spread"]["max_abs_err"])
-    print(f"phase 13 {label}: batched launches on {card} (graph replay, in turns with B single "
-          "launches; bound of the batched launch's work): " + "; ".join(
-              f"{name} {r['ms']:.4f} ms against {r['single_launches_ms']:.4f} ms of "
-              f"{batch} single launches (bound {r['bound_ms']:.5f} ms, {r['bound_by']}; twin "
-              f"{r['plain_ms'] or 0.0:.1f} ms)" for name, r in rows.items()), flush=True)
+            out.timed(f"{mode}_lambda_fused", f"{mode}_search_batch",
+                      lambda s=search: s.run_batch(spread),
+                      out.singles(lambda b, s=search: s.run(spread[b])),
+                      out.times_b(search_bound_ms(k, search.iters, per_eval, per_cost)),
+                      checks[f"row {7 if mode == 'essps' else 8} spread"]["max_abs_err"])
+    return out.report(label, card)
+
+
+def epilogue_draw_weigh_rows(torch, label, task, ops, x0s, prevs, refs, noise, bounds, k, card,
+                             grid_bytes, unfused: bool):
+    """Phase 13c: rows 4 (the λ epilogue, a ticket a scenario), 6 (the draw) and 9 (the
+    weighted update) over a fleet; rows 6 and 9 where ``unfused`` (the racing fleet's widths).
+
+    Row 4, ESSPS and LBPS (:func:`fleet_searches`), seeded and in noise
+    mode: each scenario's costs, dump and λ* bit for bit its single launch's
+    and the standalone route's (row 3, then one search cluster a scenario),
+    eagerly and from a CUDA graph replayed twice, every ticket 0 after each;
+    λ* at the search twins' bar (:func:`lambda_vs_plain`, every B/4-th
+    scenario).  Row 6, both modes, m = 2 (and m = 1 at B <= 8): each
+    scenario's rows and next key bit for bit its single launch's and the
+    twin's.  Row 9: each scenario's partials its single launch's, and at
+    :data:`PARTIALS_BAR` against the twin.  Each is timed by graph replay in
+    turns with its B single launches (row 4 under ESSPS, row 6 seeded),
+    beside the batched launch's bound: row 4's shared grids read once,
+    everything else B times the single launch's; the twins are timed at B
+    <= 8 (one call each; ``plain_ms`` None above).  Returns ``{kernel:
+    row}`` or None.
+    """
+    from mppi_playground_tpu_torch.core.config import make_batch_key
+    from mppi_playground_tpu_torch.ops import fused_solve as fs
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    batch, horizon, m = prevs.shape
+    dev = x0s.device
+    keys = make_batch_key(SEED, 0, batch, dev)
+    seeds = keys[:, 2]
+    model = task.model
+    ref = (lambda b: refs[b]) if refs is not None else (lambda b: None)
+    bar_rows = range(0, batch, max(1, batch // 4))
+    small = batch <= MODEL_FLEET_B
+    checks = {}
+    out = BatchedRows(torch, model, batch, horizon, k, time_twins=small)
+    twin = out.twin
+
+    def one_ticket():
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+
+    # row 4: ESSPS and LBPS, seeded and in noise mode
+    searches = fleet_searches(k)
+    lam_errs = []
+    for mode, nz in (("seeded", None), ("noise", noise)):
+        phase1 = fs.fused_costs_dump_batch(x0s, prevs, seeds, refs, task, *bounds, k, k, nz)
+        for search in searches:
+            tickets = torch.zeros(batch, dtype=torch.int32, device=dev)
+            args = (x0s, prevs, seeds, refs, task, *bounds, k, k, nz, search, tickets)
+            got = fs.fused_costs_dump_lambda_batch(*args)
+            standalone = (*phase1, search.run_batch(phase1[0]))
+            singles = [fs.fused_costs_dump_lambda(x0s[b], prevs[b], keys[b, 2:], ref(b), task,
+                                                  *bounds, k, k, None if nz is None else nz[b],
+                                                  search, one_ticket())
+                       for b in range(batch)]
+            graph, replayed = captured(
+                torch, lambda a=args: fs.fused_costs_dump_lambda_batch(*a), 1)
+            replays = []
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                replays.append(_bitwise(torch, replayed, got) and bool((tickets == 0).all()))
+            bars = [lambda_vs_plain(search, got[0][b], got[2][b]) for b in bar_rows]
+            lam_errs += [e for e, _ in bars]
+            checks[f"row 4 {search.mode} {mode}"] = dict(
+                singles_bitwise=all(
+                    torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1])
+                    and torch.equal(got[2][b:b + 1], one[2]) for b, one in enumerate(singles)),
+                standalone_bitwise=_bitwise(torch, got, standalone),
+                replays_bitwise_tickets_zero=replays,
+                lam_range=(got[2].min().item(), got[2].max().item()),
+                lam_max_abs_err=max(e for e, _ in bars),
+                ok=all(ok for _, ok in bars) and all(replays)
+                and _bitwise(torch, got, standalone))
+    essps = searches[0]
+    tickets = torch.zeros(batch, dtype=torch.int32, device=dev)
+    if small:
+        twin(f"{model}_costs_dump_lambda", lambda: fs.fused_costs_dump_lambda_batch_plain(
+            x0s, prevs, seeds, refs, task, *bounds, k, k, None, essps))
+    if unfused:
+        # row 6, m = 2 and m = 1 (the first action of each step); half the samples inherit
+        all_rows = torch.arange(k, device=dev)
+        for width in (m, 1) if small else (m,):
+            p_w = prevs[..., :width].contiguous()
+            b_w = tuple(b[:width] for b in bounds)
+            for mode, nz in (("seeded", None), ("noise", noise)):
+                nz_w = None if nz is None else nz[..., :width].contiguous()
+                keys_out, twin_out = torch.empty_like(keys), torch.empty_like(keys)
+                got = fs.fused_regen_batch(p_w, seeds, all_rows, *b_w, k, k // 2, nz_w,
+                                           keys=keys, keys_out=keys_out)
+                want = fs.fused_regen_batch_plain(p_w, seeds, all_rows, *b_w, k, k // 2, nz_w,
+                                                  keys, twin_out)
+                same = True
+                for b in range(batch):
+                    key_out = torch.empty(3, dtype=torch.int32, device=dev)
+                    one = fs.fused_regen(p_w[b], keys[b, 2:], all_rows, *b_w, k, k // 2,
+                                         None if nz_w is None else nz_w[b],
+                                         key=keys[b].contiguous(), key_out=key_out)
+                    same = same and torch.equal(got[b], one) and torch.equal(keys_out[b], key_out)
+                checks[f"row 6 m={width} {mode}"] = dict(
+                    singles_bitwise=same, twin_bitwise=bool(torch.equal(got, want)),
+                    keys_bitwise=bool(torch.equal(keys_out, twin_out)),
+                    distinct_streams=len(set(got[:, -1, 0, 0].tolist())) == batch,
+                    ok=bool(torch.equal(got, want) and torch.equal(keys_out, twin_out)))
+                if width == m and mode == "seeded":
+                    drawn = got
+        keys_out = torch.empty_like(keys)
+        regen_args = (prevs, seeds, all_rows, *bounds, k, k // 2)
+        if small:
+            twin(f"fused_regen_m{m}", lambda: fs.fused_regen_batch_plain(
+                *regen_args, None, keys, torch.empty_like(keys)))
+        # row 9 on the drawn samples at the epilogue's λ*
+        costs = phase1[0]
+        lams = fs.fused_costs_dump_lambda_batch(x0s, prevs, seeds, refs, task, *bounds, k, k,
+                                                None, essps, tickets)[2]
+        samples = drawn.reshape(batch, k, -1)
+        stats, numer = wu.weighted_update_partials_batch(costs, samples, lams)
+        want = twin("weighted_update_partials",
+                    lambda: wu.weighted_update_partials_batch_plain(costs, samples, lams))
+        same = all(_bitwise(torch, (stats[b], numer[b]), wu.weighted_update_partials(
+            costs[b], samples[b], lams[b:b + 1])) for b in range(batch))
+        errs = [partials_errors(torch, (stats[b], numer[b]), (want[0][b], want[1][b]), costs[b],
+                                samples[b], lams[b:b + 1]) for b in bar_rows]
+        checks["row 9"] = dict(singles_bitwise=same, partials=errs[0],
+                               lam_range=(lams.min().item(), lams.max().item()),
+                               ok=all(e["ok"] for e in errs))
+    torch.cuda.synchronize()
+    rows_of = "4, 6 and 9" if unfused else "4"
+    print(f"phase 13 {label}: rows {rows_of} over a fleet against the single launches, the "
+          f"standalone route and their twins on {card}: {json.dumps(checks)}", flush=True)
+    if not all(c["ok"] and c["singles_bitwise"] for c in checks.values()):
+        fail(f"{label}: a batched launch of rows {rows_of} differs from its single launches or "
+             "its standalone route, or misses its twin's bar")
+        return None
+
+    single_ticket = one_ticket()
+    out.timed(f"{model}_costs_dump_lambda", f"{model}_costs_dump_lambda_batch",
+              lambda: fs.fused_costs_dump_lambda_batch(x0s, prevs, seeds, refs, task, *bounds, k,
+                                                       k, None, essps, tickets),
+              out.singles(lambda b: fs.fused_costs_dump_lambda(
+                  x0s[b], prevs[b], keys[b, 2:], ref(b), task, *bounds, k, k, None, essps,
+                  single_ticket)),
+              phase1_bound_ms(k, horizon, True, grid_bytes, ops,
+                              search_ops(k, essps.iters, OPS_ESSPS_EVAL, 2), batch=batch),
+              max(lam_errs))
+    if unfused:
+        out.timed(f"fused_regen_m{m}", f"fused_regen_m{m}_batch",
+                  lambda: fs.fused_regen_batch(*regen_args, keys=keys, keys_out=keys_out),
+                  out.singles(lambda b: fs.fused_regen(prevs[b], keys[b, 2:], all_rows, *bounds,
+                                                       k, k // 2, key=keys[b],
+                                                       key_out=keys_out[b])),
+                  out.times_b(regen_bound_ms(k, horizon, True, m)), 0.0)
+        out.timed("weighted_update_partials", "weighted_update_batch",
+                  lambda: wu.weighted_update_partials_batch(costs, samples, lams),
+                  out.singles(lambda b: wu.weighted_update_partials(costs[b], samples[b],
+                                                                    lams[b:b + 1])),
+                  out.times_b(weighted_update_bound_ms(k, horizon * m)),
+                  max((stats - want[0]).abs().max().item(),
+                      (numer - want[1]).abs().max().item()))
+    return out.report(f"{label} (rows {rows_of})", card)
+
+
+def fleet_rows_4_6_9(torch, np, env, card):
+    """Rows 4, 6 and 9 over the racing fleet at B=8, 32 and 128
+    (:func:`epilogue_draw_weigh_rows`): ``{kernel: row at B=128}``, each row's ``by_batch``
+    holding its time, its B single launches' and its bound at every B.  None after a
+    failure."""
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
+
+    task = make_racing_fused_task_from_env(env)
+    grid_bytes = sum(g.numel() for g in task.grids)
+    by_batch = {}
+    for batch in FLEET_BATCHES:
+        got = epilogue_draw_weigh_rows(
+            torch, f"racing T={FLEET_T} K={FLEET_K} B={batch}", task, RACING,
+            *fleet_kernel_inputs(torch, np, env, batch), FLEET_BOUNDS, FLEET_K, card,
+            grid_bytes, unfused=True)
+        if got is None:
+            return None
+        by_batch[batch] = got
+    rows = by_batch[max(FLEET_BATCHES)]
+    for name, row in rows.items():
+        row["by_batch"] = {b: {f: r[name][f] for f in ("ms", "single_launches_ms", "bound_ms",
+                                                      "bound_by", "plain_ms")}
+                           for b, r in by_batch.items()}
     return rows
 
 
@@ -3759,6 +4098,10 @@ def batched_kernel_rows(torch, label, task, ops, x0s, prevs, refs, noise, bounds
 SOURCES_OF = {
     "<model>_fused_solve": ("fused_<model>.cu", f"{FUSED_SOLVE_PY}:783"),
     "<model>_costs_dump": ("fused_<model>.cu", f"{FUSED_SOLVE_PY}:783"),
+    "<model>_costs_dump_lambda": ("fused_<model>.cu", f"{FUSED_SOLVE_PY}:783"),
+    "fused_regen_m2": ("fused_solve.cu", f"{FUSED_SOLVE_PY}:937"),
+    "weighted_update_partials": ("weighted_update.cu",
+                                 "mppi_playground_tpu/ops/pallas_kernels.py:142"),
     "<model>_tick_tail": ("reroll.cu", f"{FUSED_SOLVE_PY}:272"),
     "fused_weighted": ("fused_solve.cu", f"{FUSED_SOLVE_PY}:887"),
     "essps_lambda_fused": ("lambda_search.cu", f"{LAMBDA_SEARCH_PY}:354"),
@@ -3864,35 +4207,77 @@ def drive_fleets(torch, np, env, card):
     from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
 
     t0 = time.perf_counter()
+
+    def took(part):
+        print(f"phase 13 {part} took {time.perf_counter() - t0:.1f} s since its start", flush=True)
+
     racing = racing_fleets(torch, env, card)
     if racing is None:
         return None
+    took("13a racing fleets")
     models = model_fleets(torch, card)
     if models is None:
         return None
+    took("13b model fleets")
     task = make_racing_fused_task_from_env(env)
+    epilogue = epilogue_fleets_in_turns(torch, env, card)
+    if epilogue is None:
+        return None
+    took("13a epilogue against standalone")
     rows = batched_kernel_rows(
         torch, f"racing T={FLEET_T} K={FLEET_K} B={KERNELS_B}", task, RACING,
         *fleet_kernel_inputs(torch, np, env, KERNELS_B), FLEET_BOUNDS, FLEET_K, card,
         sum(g.numel() for g in task.grids), searches=True)
     if rows is None:
         return None
+    took("13c racing batched launches")
+    got = fleet_rows_4_6_9(torch, np, env, card)
+    if got is None:
+        return None
+    rows.update(got)
+    took("13c racing rows 4, 6, 9")
     for name in NEW_MODELS:
         w, x0s, prevs, noises, bounds = model_kernel_inputs(torch, np, name, MODEL_FLEET_B)
         k = w.mppi_kwargs["num_samples"]
-        got = batched_kernel_rows(
-            torch, f"{name} T={prevs.shape[1]} K={k} B={MODEL_FLEET_B}", w.task,
-            MODEL_OPS[name], x0s, prevs, None, noises, bounds, k, card,
-            sum(g.numel() for g in w.task.grids), searches=False)
-        if got is None:
+        label = f"{name} T={prevs.shape[1]} K={k} B={MODEL_FLEET_B}"
+        grid_bytes = sum(g.numel() for g in w.task.grids)
+        got = batched_kernel_rows(torch, label, w.task, MODEL_OPS[name], x0s, prevs, None,
+                                  noises, bounds, k, card, grid_bytes, searches=False)
+        row4 = epilogue_draw_weigh_rows(torch, label, w.task, MODEL_OPS[name], x0s, prevs,
+                                        None, noises, bounds, k, card, grid_bytes,
+                                        unfused=False)
+        if got is None or row4 is None:
             return None
         rows.update(got)
+        rows.update(row4)
+    took("13c the families' batched launches")
     utils = utils_on_card(torch, env, card)
     if utils is None:
         return None
     seconds = time.perf_counter() - t0
     print(f"phase 13 took {seconds:.1f} s on {card}", flush=True)
-    return dict(racing=racing, models=models, rows=rows, utils=utils, seconds=seconds)
+    return dict(racing=racing, models=models, rows=rows, utils=utils, epilogue=epilogue,
+                seconds=seconds)
+
+
+def fleets_alone() -> int:
+    """Phase 13 alone, after a build of ``csrc/``::
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.fleets_alone())'
+    """
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.envs import RacingEnv
+    from mppi_playground_tpu_torch.ops import cuda_build
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"build: {cuda_build.build():.1f} s", flush=True)
+    return 0 if drive_fleets(torch, np, RacingEnv(device="cuda"), card) is not None else 1
 
 
 def tpu_row(name: str) -> int:
@@ -5760,6 +6145,7 @@ def main() -> int:
                                                      if k != "launches"}
                                              for label, run in {**fleet["racing"],
                                                                 **fleet["models"]}.items()},
+                                "epilogue_against_standalone": fleet["epilogue"],
                                 "utils": fleet["utils"], "seconds": fleet["seconds"]},
                       "sharding": {"facade": {m: {k: v for k, v in run.items() if k != "launches"}
                                               for m, run in sharding["facade"].items()},

@@ -76,12 +76,10 @@ from mppi_playground_tpu_torch.ops.fused_solve import (
     MAX_STATE,
     FusedTask,
     fused_costs_dump_batch,
-    fused_costs_dump_lambda,
+    fused_costs_dump_lambda_batch,
     fused_solve_batch,
-    fused_tick_tail,
     fused_tick_tail_batch,
     fused_top_rollouts,
-    fused_weighted,
     fused_weighted_batch,
 )
 from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
@@ -189,7 +187,8 @@ class SolveCore:
 
 
 def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device,
-                     core: Optional[SolveCore] = None):
+                     core: Optional[SolveCore] = None,
+                     lambda_epilogue: Optional[bool] = None):
     """``solve_batch(states, x0s, info=None, noise=None)``: B scenarios' fused solves, a launch
     a kernel.
 
@@ -198,20 +197,26 @@ def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device,
     builder gives ``[B, T+1, W]`` from ``info``, or one ``[T+1, W]`` for
     every scenario (racing's from ``info['reference_path']``, ``[B, T+1,
     4]`` or ``[T+1, 4]``); ``noise`` is ``[B, K, T, m]``.  Fixed lambda and MPO
-    launch the fused solve at each scenario's lambda; LBPS and ESSPS take the
-    standalone route (phase 1, one search cluster a scenario, phase 2); then
-    one launch of the tail, which writes each scenario's next key.  The state
-    advance, MPO's Adam step included, runs as torch operations over
-    ``[B]``.  Scenario b's outputs are bit for bit its solve alone: the
-    kernels give each scenario its own view of the launch.  ``core`` runs
-    the samples (:class:`SolveCore`, the default, all of them on
-    ``device``).  ``config`` is checked by the caller
+    launch the fused solve at each scenario's lambda.  LBPS and ESSPS take
+    the route of :func:`takes_lambda_epilogue` (``lambda_epilogue`` forces
+    one; None picks by K): the λ epilogue (phase 1 and the search in one
+    launch, a ticket a scenario, then phase 2) or the standalone route
+    (phase 1, one search cluster a scenario, phase 2).  Then one launch of
+    the tail, which writes each scenario's next key.  The state advance,
+    MPO's Adam step included, runs as torch operations over ``[B]``.
+    Scenario b's outputs are bit for bit its solve alone: the kernels give
+    each scenario its own view of the launch.  ``core`` runs the samples
+    (:class:`SolveCore`, the default, all of them on ``device``); a supplied
+    core takes the standalone search.  ``config`` is checked by the caller
     (:func:`make_fused_solver`).
     """
     dtype = config.dtype
+    use_epilogue = core is None and takes_lambda_epilogue(config, lambda_epilogue)
     core = SolveCore(config, task) if core is None else core
     sg_coeffs = config_sg_coeffs(config, dtype, device)
     search = _search(config)
+    # the epilogue's counts of finished clusters, one a scenario, zero between launches
+    tickets: Dict[int, torch.Tensor] = {}
 
     def solve_batch(
         states: MPPIState,
@@ -227,7 +232,14 @@ def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device,
         seeds = keys[:, 2]  # each scenario's seed word, read by the drawing kernels
         refs = task.reference_rows(info, batch, device)
         prevs = states.previous_action_seq.contiguous()
-        if search is not None:
+        if use_epilogue:
+            if batch not in tickets:
+                tickets[batch] = torch.zeros(batch, dtype=torch.int32, device=device)
+            costs, dump, lam = fused_costs_dump_lambda_batch(
+                x0s, prevs, seeds, refs, task, *core.bounds, core.num_samples, core.threshold,
+                noise, search, tickets[batch])
+            stats, numer = core.weighted(costs, dump, lam)
+        elif search is not None:
             local_costs, dump = core.costs_dump(x0s, prevs, seeds, refs, noise)
             costs = core.gather_costs(local_costs)
             lam = search.run_batch(costs)
@@ -289,8 +301,7 @@ def make_fused_solver(
             sample-sharded solve) takes the standalone search, as the JAX
             package keeps the epilogue off a sharded core.
 
-    Every route but the λ epilogue is :func:`make_solve_batch`'s on a batch
-    of one scenario.
+    Every route is :func:`make_solve_batch`'s on a batch of one scenario.
     """
     check_fused_envelope(config)
     if (config.dim_state, config.dim_control) != (task.dim_state, task.dim_control):
@@ -309,15 +320,10 @@ def make_fused_solver(
     u_max = tuple(float(v) for v in config.u_max)
     threshold = config.inherited_samples
     num_samples = config.num_samples
-    sg_coeffs = config_sg_coeffs(config, dtype, device)
-    search = _search(config)
     if solve_core is not None and lambda_epilogue:
         raise ValueError("a supplied solve_core takes the standalone lambda search: the epilogue "
                          "searches one launch's costs")
-    use_epilogue = solve_core is None and takes_lambda_epilogue(config, lambda_epilogue)
-    # the epilogue's count of finished clusters, zero between launches
-    ticket = torch.zeros(1, dtype=torch.int32, device=device) if use_epilogue else None
-    solve_batch = make_solve_batch(config, task, device, solve_core)
+    solve_batch = make_solve_batch(config, task, device, solve_core, lambda_epilogue)
 
     init = make_init(config, device)
     states_prediction = make_states_prediction(config, dynamics)
@@ -334,32 +340,9 @@ def make_fused_solver(
         key = state_key(state, device)
         if noise is not None:
             noise = torch.as_tensor(noise, dtype=dtype, device=device)
-        if not use_epilogue:
-            one = dataclasses.replace(_map(lambda t: t[None], state), key=key[None])
-            return _map(lambda t: t[0], solve_batch(
-                one, x0[None], info=info, noise=None if noise is None else noise[None]))
-        x0, noise = x0.contiguous(), None if noise is None else noise.contiguous()
-        seed = key[2:]  # the tick's seed word, read by the drawing kernel
-        ref = task.reference_rows(info, None, device)
-        prev = state.previous_action_seq
-        costs, dump, lam = fused_costs_dump_lambda(x0, prev, seed, ref, task, sigmas, u_min,
-                                                   u_max, num_samples, threshold, noise,
-                                                   search, ticket)
-        lam = lam.reshape(())
-        stats, numer = fused_weighted(costs, dump, lam.reshape(1))
-        key_out = torch.empty_like(key)
-        action_seq, state_seq, weights, ess, new_sg_history = fused_tick_tail(
-            x0, costs, stats, numer, lam.reshape(1), task, state.sg_history.contiguous(),
-            sg_coeffs, key=key, key_out=key_out,
-        )
-        new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history,
-                                  key_out)
-        aux = SolveAux(
-            costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=None,
-            # replay handles for top_samples
-            seed=seed, x0=x0, prev_action_seq=prev, noise_injected=noise is not None,
-        )
-        return SolveResult(action_seq, state_seq, new_state, aux)
+        one = dataclasses.replace(_map(lambda t: t[None], state), key=key[None])
+        return _map(lambda t: t[0], solve_batch(
+            one, x0[None], info=info, noise=None if noise is None else noise[None]))
 
     def top_samples(
         aux: SolveAux, n: int, noise: Optional[torch.Tensor] = None

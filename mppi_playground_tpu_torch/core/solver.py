@@ -28,6 +28,13 @@ update kernel (``ops/weighted_update.py``; its twin for CPU tensors),
 card a float64 config must ask for ``"xla"``, and ``make_solver`` raises
 otherwise.  ``store_rollouts=True`` keeps the
 ``[K, T+1, n]`` rollouts for ``core/diagnostics.top_samples``.
+
+:func:`make_solve_batch` solves B scenarios as one program, the counterpart
+of the JAX unfused fleet's ``vmap`` of the solve: one launch of the
+regeneration kernel draws every scenario's samples, the rollout and costs
+run once for the fleet under ``torch.func.vmap``, one launch of the weighted
+update kernel weighs every scenario; scenario b's outputs are bit for bit
+the single solve's.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from mppi_playground_tpu_torch.core.config import (
     MPPIConfig,
     MPPIState,
     advance_key_plain,
+    batch_key,
     make_key,
 )
 from mppi_playground_tpu_torch.core.sg_filter import apply_sg_filter, config_sg_coeffs
@@ -49,9 +57,14 @@ from mppi_playground_tpu_torch.ops.fused_solve import (
     MAX_SLOTS,
     REGEN_WIDTHS,
     fused_regen,
+    fused_regen_batch,
     seeded_normals,
 )
-from mppi_playground_tpu_torch.ops.weighted_update import weighted_update
+from mppi_playground_tpu_torch.ops.weighted_update import (
+    own_row,
+    weighted_update,
+    weighted_update_batch,
+)
 from mppi_playground_tpu_torch.utils.device import resolve_device
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -273,6 +286,12 @@ def smooth_predict_advance(
     return optimal_action_seq, optimal_state_seq, new_sg_history
 
 
+def _draws_by_kernel(config: MPPIConfig) -> bool:
+    """Whether the regeneration kernel draws ``config``'s samples (its envelope)."""
+    return (config.dtype == torch.float32 and config.dim_control in REGEN_WIDTHS
+            and config.horizon * config.dim_control <= MAX_SLOTS)
+
+
 def make_perturbations(config: MPPIConfig, device: torch.device):
     """``perturbations(key, mean, noise, first=0, count=K)``: the unfused draw of rows
     ``[first, first + count)``.
@@ -296,8 +315,7 @@ def make_perturbations(config: MPPIConfig, device: torch.device):
     sigmas = torch.tensor(config.sigmas, dtype=dtype, device=device)
     threshold = config.inherited_samples
     # the regeneration kernel draws and clamps the rows in one launch
-    regen = (dtype == torch.float32 and dim_control in REGEN_WIDTHS
-             and horizon * dim_control <= MAX_SLOTS)
+    regen = _draws_by_kernel(config)
     all_rows = torch.arange(num_samples, device=device) if regen else None
 
     def perturbations(key: torch.Tensor, mean_action_seq: torch.Tensor,
@@ -331,6 +349,116 @@ def make_perturbations(config: MPPIConfig, device: torch.device):
         return torch.clamp(perturbed, u_min, u_max), advance_key_plain(key)
 
     return perturbations
+
+
+def make_perturbations_batch(config: MPPIConfig, device: torch.device):
+    """``perturbations_batch(keys [B, 3], means [B, T, m], noise)``: a fleet's draw.
+
+    Returns the clamped perturbed sequences ``[B, K, T, m]`` of every
+    scenario (scenario b's at its key's seed word around ``means[b]``, or
+    from ``noise [B, K, T, m]``) and the next keys ``[B, 3]``.  In the
+    regeneration kernel's envelope one launch draws, clamps and moves the
+    keys on for the whole fleet (:func:`ops.fused_solve.fused_regen_batch`:
+    row b bit for bit :func:`make_perturbations`' draw of scenario b); any
+    other config runs :func:`make_perturbations` scenario by scenario.
+    """
+    perturbations = make_perturbations(config, device)
+    all_rows = torch.arange(config.num_samples, device=device)
+    dtype = config.dtype
+
+    def perturbations_batch(keys: torch.Tensor, means: torch.Tensor,
+                            noise: Optional[torch.Tensor]):
+        if noise is not None:
+            noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
+        if not _draws_by_kernel(config):
+            parts = [perturbations(keys[b], means[b], None if noise is None else noise[b])
+                     for b in range(keys.shape[0])]
+            return (torch.stack([p for p, _ in parts]), torch.stack([k for _, k in parts]))
+        keys_out = torch.empty_like(keys)
+        perturbed = fused_regen_batch(
+            means.contiguous(), keys[:, 2], all_rows, config.sigmas, config.u_min, config.u_max,
+            config.num_samples, config.inherited_samples, noise, keys=keys, keys_out=keys_out)
+        return perturbed, keys_out
+
+    return perturbations_batch
+
+
+def make_solve_batch(config: MPPIConfig, dynamics: Dynamics, cost_fn: CostFn,
+                     device: torch.device):
+    """``solve_batch(states, x0s, *, info=None, noise=None, batched_info=None)``: B scenarios'
+    unfused solves as one program, the JAX fleet's ``vmap`` of the solve.
+
+    Every tensor leaf of the batched ``states`` and ``x0s [B, n]`` has a
+    leading ``[B]`` axis (the device keys ``[B, 3]``); ``noise`` is ``[B, K,
+    T, m]``; ``info`` is shared and ``batched_info`` a dict of ``[B, ...]``
+    tensors whose row b is merged into scenario b's ``info``.  A tick is one
+    drawing launch for the fleet (:func:`make_perturbations_batch`); the
+    rollout and costs once for the fleet under ``torch.func.vmap``, so that
+    the user's dynamics and cost see one scenario at a time, ``[K, ...]``
+    tensors and that scenario's ``info``, as under ``jax.vmap`` (a function
+    that cannot be vmapped raises); the LBPS or ESSPS search scenario by
+    scenario on its own costs ``[K]`` (the single solve's reductions, whose
+    order depends on the shape); one launch of the weighted-update kernel for
+    the fleet, each scenario's partials merged as the single solve merges
+    them (``ops/weighted_update.weighted_update_batch``); then the SG filter
+    scenario by scenario, the nominal re-roll under ``vmap`` and the state
+    advance over ``[B]`` (MPO's sums by ``core/autolambda.fold_sum``).
+    Scenario b's outputs are :func:`make_solver`'s solve on b's state and
+    inputs, bit for bit.  ``config`` is checked by the caller.
+    """
+    dtype = config.dtype
+    num_samples, dim_state = config.num_samples, config.dim_state
+    sg_coeffs = config_sg_coeffs(config, dtype, device)
+    perturbations_batch = make_perturbations_batch(config, device)
+    states_prediction = make_states_prediction(config, dynamics)
+
+    def rollout(x0, perturbed, row_info, shared_info):
+        user_info = dict(shared_info)
+        user_info.update(row_info)
+        costs, states = _rollout_and_costs(dynamics, cost_fn, x0.expand(num_samples, dim_state),
+                                           perturbed, user_info, config.store_rollouts)
+        return (costs,) if states is None else (costs, states)
+
+    def predict(x0, action_seq):
+        return states_prediction(x0, action_seq[None])[0]
+
+    def solve_batch(
+        states: MPPIState,
+        x0s: torch.Tensor,
+        *,
+        info: Optional[Dict[str, Any]] = None,
+        noise: Optional[torch.Tensor] = None,
+        batched_info: Optional[Dict[str, Any]] = None,
+    ) -> SolveResult:
+        x0s = torch.as_tensor(x0s, dtype=dtype, device=device)
+        batch = x0s.shape[0]
+        perturbed, keys_out = perturbations_batch(batch_key(states, batch, device),
+                                                  states.previous_action_seq, noise)
+        shared = {} if info is None else dict(info)
+        rows = {} if batched_info is None else dict(batched_info)
+        out = torch.func.vmap(lambda x0, p, row: rollout(x0, p, row, shared))(
+            x0s, perturbed, rows)
+        costs, rollouts = out[0], (out[1] if len(out) > 1 else None)
+        # LBPS and ESSPS pick each scenario's temperature from its costs alone
+        if config.auto_lambda in ("LBPS", "ESSPS"):
+            lam = torch.stack([search_lambda(config, own_row(costs, b)) for b in range(batch)])
+        else:
+            lam = states.lam
+        update, weights, ess = weighted_update_batch(costs, perturbed, lam,
+                                                     backend=config.kernel_backend)
+        if config.use_sg_filter:
+            update = torch.stack([apply_sg_filter(update[b], states.sg_history[b], sg_coeffs)
+                                  for b in range(batch)])
+        state_seq = torch.func.vmap(predict)(x0s, update)
+        if config.horizon > 1:
+            sg_history = torch.cat([states.sg_history[:, 1:], update[:, :1]], dim=1)
+        else:
+            sg_history = states.sg_history
+        new_states = advance_state(config, states, costs, lam, update, sg_history, keys_out)
+        aux = SolveAux(costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=rollouts)
+        return SolveResult(update, state_seq, new_states, aux)
+
+    return solve_batch
 
 
 def make_solver(

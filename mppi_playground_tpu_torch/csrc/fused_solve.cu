@@ -1,7 +1,10 @@
 // The model-independent kernels of the fused solve (fused_solve.cuh):
 // auto-lambda phase 2 (fused_weighted) and seed regeneration alone for one and
 // two action dimensions (fused_regen_m1, fused_regen_m2: regen_rollout_kernel
-// on its actions-only plug; reroll.cu rolls the rows out as well).
+// on its actions-only plug; reroll.cu rolls the rows out as well).  The
+// unfused fleet draws every scenario's rows in one launch
+// (fused_regen_m1_batch, fused_regen_m2_batch: the scenarios on gridDim.y,
+// each with its warm start, noise, seed word and key; the rows shared).
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel
 // in its weighted_only + pert_in mode (run_weighted) and its regen_dump_only
@@ -49,11 +52,13 @@ __global__ void __launch_bounds__(kBlock) weighted_kernel(const float* costs, co
 template <int kM>
 int launch_regen(const float* prev, const float* noise, const int64_t* rows,
                  const float* bounds, const uint32_t* seed, int horizon, int num_samples,
-                 int threshold, int num_rows, float* out, const uint32_t* key, uint32_t* key_out,
-                 void* stream) {
+                 int threshold, int num_rows, int batch, int seed_stride, float* out,
+                 const uint32_t* key, uint32_t* key_out, void* stream) {
   return fused::launch_regen_rollout<fused::ActionsOnly<kM>>(
-      fused::make_sampling<kM>(prev, noise, bounds, seed, horizon, num_samples, threshold), rows,
-      num_rows, nullptr, {}, out, nullptr, key, key_out, static_cast<cudaStream_t>(stream));
+      fused::make_sampling<kM>(prev, noise, bounds, seed, horizon, num_samples, threshold,
+                               seed_stride),
+      rows, num_rows, nullptr, {}, out, nullptr, key, key_out, static_cast<cudaStream_t>(stream),
+      batch);
 }
 
 }  // namespace
@@ -81,13 +86,24 @@ extern "C" int fused_weighted(const float* costs, const float* dump, const float
                               numer, stream);
 }
 
+// fused_regen_m<m>_batch: batch scenarios, prev [B, T, m], noise [B, T*m, K] or
+// null, the seed words seed_stride words apart (3 for a batch of keys [B, 3]),
+// out [B, n, T, m], key and key_out [B, 3] or null; rows [n] shared.
 #define FUSED_REGEN_ENTRY_POINT(m)                                                            \
+  extern "C" int fused_regen_m##m##_batch(                                                    \
+      const float* prev, const float* noise, const int64_t* rows, const float* bounds,        \
+      const uint32_t* seed, int horizon, int num_samples, int threshold, int num_rows,        \
+      int batch, int seed_stride, float* out, const uint32_t* key, uint32_t* key_out,         \
+      void* stream) {                                                                         \
+    return launch_regen<m>(prev, noise, rows, bounds, seed, horizon, num_samples, threshold,  \
+                           num_rows, batch, seed_stride, out, key, key_out, stream);          \
+  }                                                                                           \
   extern "C" int fused_regen_m##m(const float* prev, const float* noise, const int64_t* rows, \
                                   const float* bounds, const uint32_t* seed, int horizon,     \
                                   int num_samples, int threshold, int num_rows, float* out,   \
                                   const uint32_t* key, uint32_t* key_out, void* stream) {     \
     return launch_regen<m>(prev, noise, rows, bounds, seed, horizon, num_samples, threshold,  \
-                           num_rows, out, key, key_out, stream);                              \
+                           num_rows, 1, 0, out, key, key_out, stream);                        \
   }
 
 FUSED_REGEN_ENTRY_POINT(1)

@@ -112,7 +112,9 @@
 // standalone search kernels' own body (lambda_search.cuh cluster_search, four
 // virtual threads a thread), each CTA on its slice of the costs, copied into
 // the shared memory every CTA of the launch reserves for it (up to 200 KB),
-// then resets the ticket for the next launch or graph replay.  So the search
+// then resets the ticket for the next launch or graph replay.  A fleet's
+// launch holds a ticket a scenario (int [B], scenario b on blockIdx.y): the
+// last cluster of scenario b searches b's costs alone.  So the search
 // costs one cluster's evaluations, as on the standalone route, and saves that
 // route's launch and cost reload; but a cluster launch slows the rollouts
 // themselves by a quarter to a third at K=100,000 (PERF.md), so the
@@ -162,6 +164,19 @@ struct Sampling {
   // Whether local sample k is one of the solve's samples.
   __device__ __forceinline__ bool valid(int k) const {
     return k < num_samples && sample_offset + k < total_samples;
+  }
+
+  // Scenario b of a batched launch (gridDim.y scenarios): the warm start
+  // [B, T, kM], the noise [B, T*kM, K] and the seed words moved on by b of
+  // their own sizes; the bounds and the counts are shared.
+  __device__ __forceinline__ Sampling scenario(int b) const {
+    Sampling q = *this;
+    if (b == 0) return q;
+    const size_t n = static_cast<size_t>(b), slots = static_cast<size_t>(kM) * horizon;
+    q.prev += n * slots;
+    if (noise != nullptr) q.noise += n * slots * num_samples;
+    if (seed != nullptr) q.seed += n * seed_stride;
+    return q;
   }
 };
 
@@ -221,9 +236,7 @@ struct Params {
     if (b == 0) return q;
     const size_t n = static_cast<size_t>(b), T = s.horizon, K = s.num_samples;
     const size_t slots = Model::kM * T, blocks = (K + softmin::kBlock - 1) / softmin::kBlock;
-    q.s.prev += n * slots;
-    if (s.noise != nullptr) q.s.noise += n * slots * K;
-    if (s.seed != nullptr) q.s.seed += n * s.seed_stride;
+    q.s = s.scenario(b);
     q.x0 += n * Model::kN;
     if (lam != nullptr) q.lam += n;
     if (ref != nullptr) q.ref += n * (T + 1) * Model::kRefWidth;
@@ -486,9 +499,15 @@ struct Search {
   int iters;
 };
 
+// Scenario blockIdx.y of a batched launch (one scenario: blockIdx.y = 0) takes
+// its own ticket, ticket[blockIdx.y], and writes its lambda* to
+// lam_out[blockIdx.y]: the last of its clusters searches its costs alone.
 template <class Model, bool kLbps>
 __global__ void __cluster_dims__(lsearch::kCluster, 1, 1) __launch_bounds__(kBlock)
-    costs_dump_lambda_kernel(Params<Model> p, Search q, int* ticket, float* lam_out) {
+    costs_dump_lambda_kernel(Params<Model> batch, Search q, int* tickets, float* lams_out) {
+  const Params<Model> p = batch.scenario(blockIdx.y);
+  int* ticket = tickets + blockIdx.y;
+  float* lam_out = lams_out + blockIdx.y;
   extern __shared__ float smem[];
   __shared__ lsearch::Exchange ex;
   __shared__ int s_last;
@@ -505,7 +524,8 @@ __global__ void __cluster_dims__(lsearch::kCluster, 1, 1) __launch_bounds__(kBlo
     p.costs[k] = rollout_cost<Model, true>(p, s_ref, s_prev, k, seed);
   }
 
-  // last cluster done: the cluster's costs are visible before its ticket is
+  // last cluster of the scenario done: the cluster's costs are visible
+  // (device scope) before its ticket is
   __threadfence();
   cluster.sync();
   if (cluster.block_rank() == 0 && threadIdx.x == 0) {
@@ -521,7 +541,7 @@ __global__ void __cluster_dims__(lsearch::kCluster, 1, 1) __launch_bounds__(kBlo
       q.iters, ex, cluster);
   if (cluster.block_rank() == 0 && threadIdx.x == 0) {
     *lam_out = lam;
-    atomicExch(ticket, 0);  // ready for the next launch (or graph replay)
+    atomicExch(ticket, 0);  // the scenario's ticket ready for the next launch (or graph replay)
   }
   cluster.sync();  // no CTA leaves while another may still read its shared memory
 }
@@ -550,18 +570,31 @@ constexpr int kTopBlock = 32;
 // model_step, every state written to states [n, T+1, kN] where that is not
 // null.  A row past [0, K) is all NaN.  Where key_out is not null, CTA 0
 // also moves the solver's key on by one tick into it (the unfused solver's
-// draw of all K rows is the tick's one drawing launch).
+// draw of all K rows is the tick's one drawing launch).  A batched launch
+// (an unfused fleet's draw) puts scenario b on blockIdx.y: its warm start,
+// noise and seed word (Sampling::scenario), x0 [B, kN], actions [B, n, T, m],
+// states [B, n, T+1, kN] and keys [B, 3] at b of their own sizes; the rows
+// are shared, and CTA 0 of each scenario moves that scenario's key on.
 template <class Model>
 __global__ void __launch_bounds__(kTopBlock)
-    regen_rollout_kernel(Sampling<Model::kM> s, const int64_t* rows, int num_rows,
+    regen_rollout_kernel(Sampling<Model::kM> batch, const int64_t* rows, int num_rows,
                          const float* x0, typename Model::Args args, float* actions,
                          float* states, const uint32_t* key, uint32_t* key_out) {
   constexpr int kN = Model::kN, kM = Model::kM;
   extern __shared__ float smem[];
   __shared__ uint32_t s_seed;
   float* s_prev = smem;  // T * m
+  const Sampling<kM> s = batch.scenario(blockIdx.y);
   const int T = s.horizon;
   const int slots = kM * T;
+  if (blockIdx.y > 0) {
+    const size_t b = blockIdx.y, n = static_cast<size_t>(num_rows);
+    if (x0 != nullptr) x0 += b * kN;
+    if (actions != nullptr) actions += b * n * slots;
+    if (states != nullptr) states += b * n * (T + 1) * kN;
+    if (key != nullptr) key += 3 * b;
+    if (key_out != nullptr) key_out += 3 * b;
+  }
   load_seed(s, &s_seed);
   for (int i = threadIdx.x; i < slots; i += kTopBlock) s_prev[i] = s.prev[i];
   if (key_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0) devmath::advance_key(key, key_out);
@@ -602,16 +635,19 @@ __global__ void __launch_bounds__(kTopBlock)
 
 inline int blocks_for(int num_samples) { return (num_samples + kBlock - 1) / kBlock; }
 
+// batch scenarios on gridDim.y (1: one scenario); at least one CTA a
+// scenario, so that a draw of no rows still moves the key on.
 template <class Model>
 int launch_regen_rollout(const Sampling<Model::kM>& s, const int64_t* rows, int num_rows,
                          const float* x0, typename Model::Args args, float* actions,
                          float* states, const uint32_t* key, uint32_t* key_out,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int batch = 1) {
   const size_t shmem = sizeof(float) * Model::kM * static_cast<size_t>(s.horizon);
-  const int blocks = (num_rows + kTopBlock - 1) / kTopBlock;
-  regen_rollout_kernel<Model><<<blocks, kTopBlock, shmem, stream>>>(s, rows, num_rows, x0, args,
-                                                                    actions, states, key,
-                                                                    key_out);
+  const int blocks = num_rows > 0 ? (num_rows + kTopBlock - 1) / kTopBlock : 1;
+  cudaError_t err = allow_shared(regen_rollout_kernel<Model>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  regen_rollout_kernel<Model><<<dim3(blocks, batch), kTopBlock, shmem, stream>>>(
+      s, rows, num_rows, x0, args, actions, states, key, key_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -733,8 +769,8 @@ inline int epilogue_resident(int num_samples) {
 }
 
 template <class Model, bool kLbps>
-int launch_costs_dump_lambda_as(Params<Model> p, Search q, int* ticket, float* lam_out,
-                                cudaStream_t stream) {
+int launch_costs_dump_lambda_as(Params<Model> p, int batch, Search q, int* ticket,
+                                float* lam_out, cudaStream_t stream) {
   const size_t shmem = reference_shared_bytes<Model>(p.s.horizon) +
                        sizeof(float) * static_cast<size_t>(epilogue_resident(p.s.num_samples));
   const auto kernel = costs_dump_lambda_kernel<Model, kLbps>;
@@ -748,7 +784,10 @@ int launch_costs_dump_lambda_as(Params<Model> p, Search q, int* ticket, float* l
   // size), and at least a warp's samples a CTA: every CTA is resident in one
   // wave and takes an equal share of the samples, so that no SM carries more
   // CTAs than another (a grid of ceil(K / 256) CTAs in clusters of 8 cannot
-  // be spread evenly over the GPCs).
+  // be spread evenly over the GPCs).  A batch of scenarios (gridDim.y) shares
+  // them: each scenario takes 1 / B of the resident clusters, at least one,
+  // so that a fleet's CTAs hold as many samples as a single launch's CTAs
+  // hold at B times K.  Which CTA rolls a sample out changes no bit.
   static size_t cached_shmem = 0;
   static int resident_clusters = 0;
   if (resident_clusters == 0 || cached_shmem != shmem) {
@@ -760,19 +799,22 @@ int launch_costs_dump_lambda_as(Params<Model> p, Search q, int* ticket, float* l
   }
   constexpr int kPerCluster = lsearch::kCluster * 32;
   const int wanted = (p.s.num_samples + kPerCluster - 1) / kPerCluster;
-  config.gridDim = dim3(lsearch::kCluster * (wanted < resident_clusters ? wanted : resident_clusters));
+  const int share = resident_clusters / batch > 1 ? resident_clusters / batch : 1;
+  config.gridDim = dim3(lsearch::kCluster * (wanted < share ? wanted : share), batch);
   err = cudaLaunchKernelEx(&config, kernel, p, q, ticket, lam_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// batch scenarios on gridDim.y (1: one scenario), each with its ticket
+// ticket[b] (int [B], zero between launches) and its lambda* lam_out[b].
 template <class Model>
-int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, float* costs,
-                             float* dump, float* lam_out, cudaStream_t stream) {
+int launch_costs_dump_lambda(Params<Model> p, int batch, int lbps, Search q, int* ticket,
+                             float* costs, float* dump, float* lam_out, cudaStream_t stream) {
   p.costs = costs;
   p.dump = dump;
-  return lbps ? launch_costs_dump_lambda_as<Model, true>(p, q, ticket, lam_out, stream)
-              : launch_costs_dump_lambda_as<Model, false>(p, q, ticket, lam_out, stream);
+  return lbps ? launch_costs_dump_lambda_as<Model, true>(p, batch, q, ticket, lam_out, stream)
+              : launch_costs_dump_lambda_as<Model, false>(p, batch, q, ticket, lam_out, stream);
 }
 
 }  // namespace fused
@@ -792,12 +834,14 @@ int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, f
       num_samples, threshold
 
 // The rollout entry points of one model: <prefix>_fused_solve,
-// <prefix>_costs_dump and <prefix>_costs_dump_lambda; and the first two over a
-// batch of scenarios, <prefix>_fused_solve_batch and <prefix>_costs_dump_batch
-// (every array of FUSED_ROLLOUT_ARGS but the bounds, the model's constants and
-// grids [B, ...]; seed_stride words between the scenarios' seed words), which
-// also take a shard's sample_offset and the solve's total_samples (Sampling;
-// 0 and num_samples for the whole launch), shared by every scenario.
+// <prefix>_costs_dump and <prefix>_costs_dump_lambda; and each over a batch of
+// scenarios, <prefix>_fused_solve_batch, <prefix>_costs_dump_batch and
+// <prefix>_costs_dump_lambda_batch (every array of FUSED_ROLLOUT_ARGS but the
+// bounds, the model's constants and grids [B, ...]; seed_stride words between
+// the scenarios' seed words; the epilogue's tickets and lambda* [B]).  The
+// first two also take a shard's sample_offset and the solve's total_samples
+// (Sampling; 0 and num_samples for the whole launch), shared by every
+// scenario; the epilogue searches one launch's costs and takes none.
 #define FUSED_MODEL_ENTRY_POINTS(prefix, Model)                                               \
   extern "C" int prefix##_fused_solve(FUSED_ROLLOUT_ARGS, float* costs, float* stats,         \
                                       float* numer, void* stream) {                           \
@@ -825,12 +869,20 @@ int launch_costs_dump_lambda(Params<Model> p, int lbps, Search q, int* ticket, f
                                   total_samples),                                             \
         batch, costs, dump, static_cast<cudaStream_t>(stream));                               \
   }                                                                                           \
+  extern "C" int prefix##_costs_dump_lambda_batch(                                            \
+      FUSED_ROLLOUT_ARGS, int batch, int seed_stride, int lbps, float lam_min, float lam_max,   \
+      float param, int iters, int* ticket, float* costs, float* dump, float* lam_out,          \
+      void* stream) {                                                                         \
+    return fused::launch_costs_dump_lambda(                                                   \
+        fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride), batch, lbps,             \
+        fused::Search{lam_min, lam_max, param, iters}, ticket, costs, dump, lam_out,          \
+        static_cast<cudaStream_t>(stream));                                                   \
+  }                                                                                           \
   extern "C" int prefix##_costs_dump_lambda(FUSED_ROLLOUT_ARGS, int lbps, float lam_min,      \
                                             float lam_max, float param, int iters,            \
                                             int* ticket, float* costs, float* dump,           \
                                             float* lam_out, void* stream) {                   \
-    return fused::launch_costs_dump_lambda(fused::make_params<Model>(FUSED_ROLLOUT_NAMES),    \
-                                           lbps, fused::Search{lam_min, lam_max, param, iters}, \
-                                           ticket, costs, dump, lam_out,                      \
-                                           static_cast<cudaStream_t>(stream));                \
+    return prefix##_costs_dump_lambda_batch(FUSED_ROLLOUT_NAMES, 1, 0, lbps, lam_min,        \
+                                            lam_max, param, iters, ticket, costs, dump,       \
+                                            lam_out, stream);                                 \
   }

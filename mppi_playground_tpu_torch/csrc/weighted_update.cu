@@ -12,7 +12,11 @@
 // the host), per block of 256 samples: max of -c/lambda, sum e, sum e^2 and
 // the numerator sum e * sample per slot.  combine_partials
 // (ops/weighted_update.py) merges the blocks into (update [T, m], weights
-// [K], ess) in torch, as the JAX wrapper does around its pallas_call.
+// [K], ess) in torch, as the JAX wrapper does around its pallas_call.  An
+// unfused fleet's launch (weighted_update_batch) puts scenario b on
+// blockIdx.y: costs [B, K], samples [B, K, D], lambda [B], stats [B, blocks,
+// 3] and numer [B, blocks, D], each at b of its own size, so that scenario
+// b's partials are bit for bit its own launch's.
 //
 // What bounds it on the H100.  The function reads each sample once and the
 // costs once, 4 K (D + 1) bytes, and writes the partials, 4 B (D + 3) bytes
@@ -91,6 +95,14 @@ template <int kW>
 __global__ void __launch_bounds__(kBlock) weighted_update_kernel(
     const float* costs, const float* samples, const float* lam, int slots, int num_samples,
     float* stats, float* numer) {
+  {  // scenario blockIdx.y of a batched launch
+    const size_t b = blockIdx.y, n = static_cast<size_t>(num_samples), blocks = gridDim.x;
+    costs += b * n;
+    samples += b * n * slots;
+    lam += b;
+    stats += b * blocks * 3;
+    numer += b * blocks * slots;
+  }
   __shared__ float s_red[softmin::kWarps];
   __shared__ float s_e[kBlock];
   __shared__ float s_part[kBlock * kW];  // the row groups' partials, [G, D] with G * D <= this
@@ -131,17 +143,26 @@ __global__ void __launch_bounds__(kBlock) weighted_update_kernel(
 
 }  // namespace
 
+// batch scenarios: costs [B, K], samples [B, K, D], lam [B], stats [B, blocks, 3],
+// numer [B, blocks, D].  Every scenario's rows start 16-byte aligned where the
+// first's do and D is a multiple of 4 (K * D floats apart).
+extern "C" int weighted_update_batch(const float* costs, const float* samples, const float* lam,
+                                     int slots, int num_samples, int batch, float* stats,
+                                     float* numer, void* stream) {
+  const dim3 grid((num_samples + kBlock - 1) / kBlock, batch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (slots % 4 == 0 && reinterpret_cast<uintptr_t>(samples) % 16 == 0) {
+    weighted_update_kernel<4><<<grid, kBlock, 0, s>>>(costs, samples, lam, slots, num_samples,
+                                                      stats, numer);
+  } else {
+    weighted_update_kernel<1><<<grid, kBlock, 0, s>>>(costs, samples, lam, slots, num_samples,
+                                                      stats, numer);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int weighted_update(const float* costs, const float* samples, const float* lam,
                                int slots, int num_samples, float* stats, float* numer,
                                void* stream) {
-  const int blocks = (num_samples + kBlock - 1) / kBlock;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (slots % 4 == 0 && reinterpret_cast<uintptr_t>(samples) % 16 == 0) {
-    weighted_update_kernel<4><<<blocks, kBlock, 0, s>>>(costs, samples, lam, slots, num_samples,
-                                                        stats, numer);
-  } else {
-    weighted_update_kernel<1><<<blocks, kBlock, 0, s>>>(costs, samples, lam, slots, num_samples,
-                                                        stats, numer);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return weighted_update_batch(costs, samples, lam, slots, num_samples, 1, stats, numer, stream);
 }

@@ -42,17 +42,22 @@ instantiation (``csrc/fused_<model>.cu``).  A user's own model is a
 
 A fleet of B scenarios launches each kernel of its tick once, the scenarios
 on the grid's second axis (``blockIdx.y``): :func:`fused_solve_batch`,
-:func:`fused_costs_dump_batch`, :func:`fused_weighted_batch` and
-:func:`fused_tick_tail_batch` (``<model>_fused_solve_batch``,
-``<model>_costs_dump_batch``, ``fused_weighted_batch``,
-``<model>_tick_tail_batch``; the searches' in ``ops/lambda_search.py``).
-Every per-scenario array gains a leading ``[B]`` axis; the bounds, the
-model's constants and grids and the SG window are shared.  Scenario b's
-outputs are bit for bit the single launch's on scenario b's inputs, and its
-draws are the single solve's stream, keyed on (its seed word, k).  Their
-twins run the single twins scenario by scenario.  :func:`fused_solve`,
-:func:`fused_costs_dump`, :func:`fused_weighted` and :func:`fused_tick_tail`
-are these wrappers on a batch of one.
+:func:`fused_costs_dump_batch`, :func:`fused_costs_dump_lambda_batch`,
+:func:`fused_weighted_batch`, :func:`fused_tick_tail_batch` and
+:func:`fused_regen_batch` (``<model>_fused_solve_batch``,
+``<model>_costs_dump_batch``, ``<model>_costs_dump_lambda_batch``,
+``fused_weighted_batch``, ``<model>_tick_tail_batch``,
+``fused_regen_m<m>_batch``; the searches' in ``ops/lambda_search.py``, the
+weighted update's in ``ops/weighted_update.py``).  Every per-scenario array
+gains a leading ``[B]`` axis; the bounds, the model's constants and grids,
+the SG window and the regenerated rows are shared.  The λ epilogue takes a
+ticket a scenario (int32 ``[B]``).  Scenario b's outputs are bit for bit the
+single launch's on scenario b's inputs, and its draws are the single
+solve's stream, keyed on (its seed word, k).  Their twins run the single
+twins scenario by scenario.  :func:`fused_solve`, :func:`fused_costs_dump`,
+:func:`fused_costs_dump_lambda`, :func:`fused_weighted`,
+:func:`fused_tick_tail` and :func:`fused_regen` are these wrappers on a
+batch of one.
 
 A shard of a sample-sharded solve (``parallel/sharded.py``) passes the rollout
 wrappers and phase 2 (rows 1, 3 and 5) its ``sample_offset``, the global index
@@ -698,19 +703,6 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return seed.reshape(1)
 
 
-def _key_pair(key, key_out, device):
-    """Check a solver key ``[3]`` and the ``key_out`` the kernel writes -> their pointers."""
-    if (key is None) != (key_out is None):
-        raise ValueError("key and key_out come together")
-    if key is None:
-        return None, None
-    _check("key", key, (3,), torch.int32, device)
-    _check("key_out", key_out, (3,), torch.int32, device)
-    if key_out.data_ptr() == key.data_ptr():
-        raise ValueError("key_out must not alias key: other CTAs read the key's seed word")
-    return key.data_ptr(), key_out.data_ptr()
-
-
 def _advance_plain(key, key_out) -> None:
     """The kernels' key advance on the twins' side: ``key_out`` <- the next tick's key."""
     if (key is None) != (key_out is None):
@@ -841,13 +833,17 @@ def _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max, num
 
 
 _ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-# _SOLVE_ARGTYPES, _DUMP_ARGTYPES, _WEIGHTED_ARGTYPES and _TAIL_ARGTYPES are the
-# single-scenario entry points', which csrc/ keeps as the batch of one for callers of
-# its C interface; the wrappers launch the fleet forms
+# _SOLVE_ARGTYPES, _DUMP_ARGTYPES, _DUMP_LAMBDA_ARGTYPES, _WEIGHTED_ARGTYPES,
+# _REGEN_ARGTYPES and _TAIL_ARGTYPES are the single-scenario entry points', which
+# csrc/ keeps as the batch of one for callers of its C interface; the wrappers
+# launch the fleet forms
 _SOLVE_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 4
 _DUMP_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 3
 _DUMP_LAMBDA_ARGTYPES = (_ROLLOUT_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3
                          + [ctypes.c_int] + [ctypes.c_void_p] * 5)
+# the epilogue over a fleet: the batch and the seed words' stride, then the single form's
+_DUMP_LAMBDA_BATCH_ARGTYPES = (_ROLLOUT_ARGTYPES + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+                               + [ctypes.c_int] + [ctypes.c_void_p] * 5)
 # the fleet forms: the batch, the seed words' stride, the shard's sample offset and the
 # solve's total samples after the shared arguments
 _SOLVE_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
@@ -943,30 +939,14 @@ def fused_costs_dump_lambda(
     K costs, bit for bit the search kernel's on the same costs.  ``ticket``
     is the kernel's ``[1]`` int32 count of finished clusters, zero between
     launches (the kernel resets it): a solver allocates one and passes it
-    every tick.  CPU tensors take :func:`fused_costs_dump_lambda_plain`.
+    every tick.  :func:`fused_costs_dump_lambda_batch` of a batch of one,
+    which counts the launch here; CPU tensors take
+    :func:`fused_costs_dump_lambda_plain`.
     """
-    if not _on_card("fused_costs_dump_lambda", x0):
-        return fused_costs_dump_lambda_plain(x0, prev, seed, ref, task, sigmas, u_min, u_max,
-                                             num_samples, threshold, noise, search)
-    dev = x0.device
-    args, keep = _rollout_args(x0[None], prev[None], None, _one_seed(seed), _one(ref), task,
-                               sigmas, u_min, u_max, num_samples, threshold, _one(noise))
-    args = args[:-4]  # one scenario: no batch, seed stride, sample offset or total
-    _check("ticket", ticket, (1,), torch.int32, dev)
-    if search.iters < 0:
-        raise ValueError(f"iters must be >= 0, got {search.iters}")
-    costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
-    dump = torch.empty(prev.numel(), num_samples, dtype=torch.float32, device=dev)
-    lam = torch.empty(1, dtype=torch.float32, device=dev)
-    library, symbol = task.entry("costs_dump_lambda")
-    cuda_build.launch(
-        library, symbol, _DUMP_LAMBDA_ARGTYPES, dev, *args,
-        int(search.mode == "LBPS"), ctypes.c_float(search.lambda_min),
-        ctypes.c_float(search.lambda_max), ctypes.c_float(search.kernel_param),
-        int(search.iters), ticket.data_ptr(), costs.data_ptr(), dump.data_ptr(), lam.data_ptr(),
-    )
-    fused_costs_dump_lambda.launches[symbol] += cuda_build.launched()
-    return costs, dump, lam
+    costs, dump, lam = fused_costs_dump_lambda_batch(
+        x0[None], prev[None], _one_seed(seed), _one(ref), task, sigmas, u_min, u_max,
+        num_samples, threshold, _one(noise), search, ticket)
+    return costs[0], dump[0], lam
 
 
 fused_costs_dump_lambda.launches = collections.Counter()
@@ -994,6 +974,7 @@ def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor,
 fused_weighted.launches = collections.Counter()
 
 _REGEN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+_REGEN_BATCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
 
 
 def fused_regen(
@@ -1019,35 +1000,14 @@ def fused_regen(
     solve drew (and phase 1 dumped).  The kernel depends on the model only
     through m.  With a solver's ``key`` ``[3]`` and ``key_out`` (int32, not
     aliased), the launch also writes the next tick's key to ``key_out``: the
-    unfused solver draws all K rows so, one launch a tick.  CPU tensors take
-    :func:`fused_regen_plain` (and the key's twin).
+    unfused solver draws all K rows so, one launch a tick.
+    :func:`fused_regen_batch` of a batch of one, which counts the launch
+    here; CPU tensors take :func:`fused_regen_plain` (and the key's twin).
     """
-    if not _on_card("fused_regen", prev):
-        _advance_plain(key, key_out)
-        return fused_regen_plain(prev, seed, rows, sigmas, u_min, u_max, num_samples,
-                                 threshold, noise)
-    dev = prev.device
-    bounds = _check_sampling(prev, num_samples, sigmas, u_min, u_max, REGEN_WIDTHS)
-    horizon, m = prev.shape
-    num_rows = rows.shape[0]
-    _check("rows", rows, (num_rows,), torch.int64, dev)
-    key_ptr, key_out_ptr = _key_pair(key, key_out, dev)
-    out = torch.empty(num_rows, horizon, m, dtype=torch.float32, device=dev)
-    if num_rows == 0 and key is None:
-        return out
-    noise_ptr = None
-    if noise is not None:
-        noise = _slot_major(noise, num_samples, horizon, m)
-        noise_ptr = noise.data_ptr()
-    seed = _seed_tensor(seed, dev)
-    name = f"fused_regen_m{m}"
-    cuda_build.launch(
-        "fused_solve", name, _REGEN_ARGTYPES, dev, prev.data_ptr(), noise_ptr,
-        rows.data_ptr(), bounds, seed.data_ptr(), horizon, num_samples,
-        max(0, min(threshold, num_samples)), num_rows, out.data_ptr(), key_ptr, key_out_ptr,
-    )
-    fused_regen.launches[name] += cuda_build.launched()
-    return out
+    if (key is None) != (key_out is None):
+        raise ValueError("key and key_out come together")
+    return fused_regen_batch(prev[None], _one_seed(seed), rows, sigmas, u_min, u_max,
+                             num_samples, threshold, _one(noise), _one(key), _one(key_out))[0]
 
 
 fused_regen.launches = collections.Counter()
@@ -1429,6 +1389,148 @@ def fused_tick_tail_batch(
     )
     fused_tick_tail.launches[f"{task.name}_tick_tail"] += cuda_build.launched()
     return action_seq, states, w, ess, history
+
+def fused_costs_dump_lambda_batch_plain(x0s, prevs, seeds, refs, task: FusedTask, sigmas,
+                                        u_min, u_max, num_samples: int, threshold: int,
+                                        noise, search: LambdaSearch):
+    """:func:`fused_costs_dump_lambda_batch`'s twin: :func:`fused_costs_dump_lambda_plain`
+    scenario by scenario -> ``(costs [B, K], dump [B, T*m, K], lam [B])``."""
+    costs, dump, lam = _stack(fused_costs_dump_lambda_plain(
+        x0s[b], prevs[b], _scenario_seed(seeds, b), None if refs is None else refs[b], task,
+        sigmas, u_min, u_max, num_samples, threshold, None if noise is None else noise[b],
+        search)
+        for b in range(x0s.shape[0]))
+    return costs, dump, lam.reshape(-1)
+
+
+def fused_costs_dump_lambda_batch(
+    x0s: torch.Tensor,
+    prevs: torch.Tensor,
+    seeds,
+    refs: Optional[torch.Tensor],
+    task: FusedTask,
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
+    num_samples: int,
+    threshold: int,
+    noise: Optional[torch.Tensor],
+    search: LambdaSearch,
+    tickets: torch.Tensor,
+):
+    """:func:`fused_costs_dump_lambda` for B scenarios in one launch -> ``(costs [B, K], dump
+    [B, T*m, K], lam [B])``.
+
+    The arguments of :func:`fused_costs_dump_batch` (no shard: the epilogue
+    searches one launch's costs), the search, and ``tickets``, the kernel's
+    int32 ``[B]`` counts of finished clusters, one a scenario, zero between
+    launches (the kernel resets each): the last cluster of scenario b
+    searches b's costs and writes ``lam[b]``, bit for bit the search
+    kernel's on them.  CPU tensors take
+    :func:`fused_costs_dump_lambda_batch_plain`.
+    """
+    if not _on_card("fused_costs_dump_lambda_batch", x0s):
+        return fused_costs_dump_lambda_batch_plain(x0s, prevs, seeds, refs, task, sigmas, u_min,
+                                                   u_max, num_samples, threshold, noise, search)
+    args, keep = _rollout_args(x0s, prevs, None, seeds, refs, task, sigmas, u_min, u_max,
+                               num_samples, threshold, noise)
+    args = args[:-2]  # the batch and the seed words' stride; no shard
+    batch, dev = prevs.shape[0], x0s.device
+    _check("tickets", tickets, (batch,), torch.int32, dev)
+    if search.iters < 0:
+        raise ValueError(f"iters must be >= 0, got {search.iters}")
+    costs = torch.empty(batch, num_samples, dtype=torch.float32, device=dev)
+    dump = torch.empty(batch, prevs[0].numel(), num_samples, dtype=torch.float32, device=dev)
+    lam = torch.empty(batch, dtype=torch.float32, device=dev)
+    cuda_build.launch(
+        *task.entry("costs_dump_lambda_batch"), _DUMP_LAMBDA_BATCH_ARGTYPES, dev, *args,
+        int(search.mode == "LBPS"), ctypes.c_float(search.lambda_min),
+        ctypes.c_float(search.lambda_max), ctypes.c_float(search.kernel_param),
+        int(search.iters), tickets.data_ptr(), costs.data_ptr(), dump.data_ptr(), lam.data_ptr(),
+    )
+    fused_costs_dump_lambda.launches[f"{task.name}_costs_dump_lambda"] += cuda_build.launched()
+    return costs, dump, lam
+
+
+def fused_regen_batch_plain(prevs, seeds, rows, sigmas, u_min, u_max, num_samples: int,
+                            threshold: int, noise=None, keys=None, keys_out=None):
+    """:func:`fused_regen_batch`'s twin: :func:`fused_regen_plain` (and the key's twin)
+    scenario by scenario -> ``[B, n, T, m]``."""
+    if (keys is None) != (keys_out is None):
+        raise ValueError("keys and keys_out come together")
+    parts = []
+    for b in range(prevs.shape[0]):
+        if keys is not None:
+            _advance_plain(keys[b], keys_out[b])
+        parts.append(fused_regen_plain(prevs[b], _scenario_seed(seeds, b), rows, sigmas, u_min,
+                                       u_max, num_samples, threshold,
+                                       None if noise is None else noise[b]))
+    return torch.stack(parts)
+
+
+def fused_regen_batch(
+    prevs: torch.Tensor,
+    seeds,
+    rows: torch.Tensor,
+    sigmas: Sequence[float],
+    u_min: Sequence[float],
+    u_max: Sequence[float],
+    num_samples: int,
+    threshold: int,
+    noise: Optional[torch.Tensor] = None,
+    keys: Optional[torch.Tensor] = None,
+    keys_out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`fused_regen` for B scenarios in one launch -> ``[B, n, T, m]``.
+
+    ``prevs [B, T, m]``, ``seeds`` the B seed words (an int32 ``[B]``
+    tensor at any stride, a batch of keys' ``keys[:, 2]``, or host
+    integers), ``noise [B, K, T, m]`` or None; ``rows [n]`` shared.  With
+    ``keys`` and ``keys_out`` (int32 ``[B, 3]``, not aliased) CTA 0 of each
+    scenario writes that scenario's next key: an unfused fleet's draw of all
+    K rows is its tick's one drawing launch.  Scenario b is bit for bit
+    :func:`fused_regen` on b's inputs.  CPU tensors take
+    :func:`fused_regen_batch_plain`.
+    """
+    if not _on_card("fused_regen_batch", prevs):
+        return fused_regen_batch_plain(prevs, seeds, rows, sigmas, u_min, u_max, num_samples,
+                                       threshold, noise, keys, keys_out)
+    dev = prevs.device
+    if prevs.dim() != 3 or prevs.shape[0] < 1:
+        raise ValueError(f"prevs must be [B, T, m], got {tuple(prevs.shape)}")
+    batch, horizon, m = prevs.shape
+    bounds = _check_sampling(prevs[0], num_samples, sigmas, u_min, u_max, REGEN_WIDTHS)
+    _check("prevs", prevs, (batch, horizon, m), torch.float32, dev)
+    num_rows = rows.shape[0]
+    _check("rows", rows, (num_rows,), torch.int64, dev)
+    if (keys is None) != (keys_out is None):
+        raise ValueError("keys and keys_out come together")
+    key_ptr = key_out_ptr = None
+    if keys is not None:
+        _check("keys", keys, (batch, 3), torch.int32, dev)
+        _check("keys_out", keys_out, (batch, 3), torch.int32, dev)
+        if keys_out.data_ptr() == keys.data_ptr():
+            raise ValueError("keys_out must not alias keys: other CTAs read the seed words")
+        key_ptr, key_out_ptr = keys.data_ptr(), keys_out.data_ptr()
+    out = torch.empty(batch, num_rows, horizon, m, dtype=torch.float32, device=dev)
+    if num_rows == 0 and keys is None:
+        return out
+    noise_ptr = None
+    if noise is not None:
+        _check("noise", noise, (batch, num_samples, horizon, m), torch.float32, noise.device)
+        noise = noise.reshape(batch, num_samples, horizon * m).transpose(1, 2).contiguous()
+        noise_ptr = noise.data_ptr()
+    seeds, stride = _seed_words(seeds, batch, dev)
+    name = f"fused_regen_m{m}"
+    cuda_build.launch(
+        "fused_solve", f"{name}_batch", _REGEN_BATCH_ARGTYPES, dev, prevs.data_ptr(), noise_ptr,
+        rows.data_ptr(), bounds, seeds.data_ptr(), horizon, num_samples,
+        max(0, min(threshold, num_samples)), num_rows, batch, stride, out.data_ptr(), key_ptr,
+        key_out_ptr,
+    )
+    fused_regen.launches[name] += cuda_build.launched()
+    return out
+
 
 # every wrapper, and the kernel names each counts launches under
 WRAPPERS = (fused_solve, fused_costs_dump, fused_costs_dump_lambda, fused_weighted, fused_regen,

@@ -16,11 +16,17 @@ weights[k] * samples[k]`` and the effective sample size ``1 / sum(w^2)``.
   CUDA graph captures it), and raises on
   what the kernel does not take; CPU tensors take
   :func:`block_partials_plain`, the twin of every kernel's block partials.
+* :func:`weighted_update_partials_batch` (``weighted_update_batch``) — the
+  same kernel over an unfused fleet's B scenarios in one launch, the
+  scenario on ``blockIdx.y``: scenario b's partials are bit for bit its own
+  launch's.  :func:`weighted_update_partials` is it on a batch of one.
 * :func:`combine_partials` merges block partials into ``(update, weights,
   ess)`` in torch, for this kernel and the fused ones.
 * :func:`weighted_update` dispatches on the JAX package's backend names:
   ``"auto"`` and ``"pallas"`` take the kernel (its twin on the CPU),
   ``"xla"`` the plain softmax and einsum (:func:`xla_weighted_update`).
+  :func:`weighted_update_batch` is its fleet form: one launch of the kernel,
+  then each scenario's partials merged as its own solve merges them.
   Unlike the JAX package there is no gate on ``D = T * m``: that gate is a
   TPU VMEM limit, and the kernel takes any ``D``.
 """
@@ -91,6 +97,7 @@ def xla_weighted_update(
 
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
 
 
 def weighted_update_partials(costs: torch.Tensor, samples: torch.Tensor, lam: torch.Tensor):
@@ -98,19 +105,54 @@ def weighted_update_partials(costs: torch.Tensor, samples: torch.Tensor, lam: to
 
     ``costs [K]``, ``samples [K, D]`` (contiguous) and ``lam`` (one element,
     read by the kernel, never by the host), all float32 on one device;
-    ``B = ceil(K / 256)``.  CPU tensors take :func:`block_partials_plain`.
+    ``B = ceil(K / 256)``.  :func:`weighted_update_partials_batch` of a batch
+    of one, which counts the launch here; CPU tensors take
+    :func:`block_partials_plain`.
     """
-    if costs.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"weighted_update_partials runs on cuda or cpu, not {costs.device}")
-    if costs.device.type == "cpu":
-        return block_partials_plain(costs, samples, lam)
-    dev = costs.device
     if costs.dim() != 1 or samples.dim() != 2 or samples.shape[0] != costs.shape[0]:
         raise ValueError(
             f"costs must be [K] and samples [K, D], got {tuple(costs.shape)} and "
             f"{tuple(samples.shape)}"
         )
-    num_samples, slots = samples.shape
+    if lam.numel() != 1:
+        raise ValueError("lam must hold one element")
+    stats, numer = weighted_update_partials_batch(costs[None], samples[None], lam.reshape(1))
+    return stats[0], numer[0]
+
+
+weighted_update_partials.launches = 0
+
+
+def weighted_update_partials_batch_plain(costs, samples, lam):
+    """:func:`weighted_update_partials_batch`'s twin: :func:`block_partials_plain` scenario by
+    scenario."""
+    parts = [block_partials_plain(costs[b], samples[b], lam[b]) for b in range(costs.shape[0])]
+    return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+
+
+def weighted_update_partials_batch(costs: torch.Tensor, samples: torch.Tensor,
+                                   lam: torch.Tensor):
+    """Block partials of B scenarios in one launch -> ``(stats [B, blocks, 3], numer [B,
+    blocks, D])``.
+
+    ``costs [B, K]``, ``samples [B, K, D]`` (contiguous) and ``lam [B]``
+    (read by the kernel), all float32 on one device.  Scenario b's partials
+    are bit for bit :func:`weighted_update_partials` on b's inputs; the
+    launch counts in that wrapper's ``launches``.  CPU tensors take
+    :func:`weighted_update_partials_batch_plain`.
+    """
+    if costs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"weighted_update_partials runs on cuda or cpu, not {costs.device}")
+    if costs.device.type == "cpu":
+        return weighted_update_partials_batch_plain(costs, samples, lam)
+    dev = costs.device
+    if (costs.dim() != 2 or samples.dim() != 3 or samples.shape[:2] != costs.shape
+            or costs.shape[0] < 1):
+        raise ValueError(
+            f"costs must be [B, K] and samples [B, K, D], got {tuple(costs.shape)} and "
+            f"{tuple(samples.shape)}"
+        )
+    batch, num_samples, slots = samples.shape
     if not 1 <= num_samples < 2**31 - BLOCK or not 1 <= slots < 2**31:
         raise ValueError(f"K and D out of range: K={num_samples}, D={slots}")
     for name, t in (("costs", costs), ("samples", samples), ("lam", lam)):
@@ -118,19 +160,16 @@ def weighted_update_partials(costs: torch.Tensor, samples: torch.Tensor, lam: to
             raise ValueError(f"{name} must be float32 on {dev}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if lam.numel() != 1:
-        raise ValueError("lam must hold one element")
+    if tuple(lam.shape) != (batch,):
+        raise ValueError(f"lam must be [{batch}], one a scenario, got {tuple(lam.shape)}")
     blocks = -(-num_samples // BLOCK)
-    stats = torch.empty(blocks, 3, dtype=torch.float32, device=dev)
-    numer = torch.empty(blocks, slots, dtype=torch.float32, device=dev)
-    cuda_build.launch("weighted_update", "weighted_update", _ARGTYPES, dev,
+    stats = torch.empty(batch, blocks, 3, dtype=torch.float32, device=dev)
+    numer = torch.empty(batch, blocks, slots, dtype=torch.float32, device=dev)
+    cuda_build.launch("weighted_update", "weighted_update_batch", _BATCH_ARGTYPES, dev,
                       costs.data_ptr(), samples.data_ptr(), lam.data_ptr(), slots, num_samples,
-                      stats.data_ptr(), numer.data_ptr())
+                      batch, stats.data_ptr(), numer.data_ptr())
     weighted_update_partials.launches += cuda_build.launched()
     return stats, numer
-
-
-weighted_update_partials.launches = 0
 
 
 def weighted_update(
@@ -150,3 +189,43 @@ def weighted_update(
         costs, samples.reshape(num_samples, horizon * dim_control).contiguous(), lam.reshape(1)
     )
     return combine_partials(costs, stats, numer, lam, horizon, dim_control)
+
+
+def own_row(t: torch.Tensor, b: int) -> torch.Tensor:
+    """Row ``b`` of ``t``, copied where it does not start 16-byte aligned.
+
+    A torch reduction or product of a row reads it as the single solve reads
+    its own tensor (a fresh allocation), whose order of operations may
+    depend on the start's alignment on the card; a row of a ``[B, K]``
+    tensor starts ``b * K`` floats on.
+    """
+    row = t[b]
+    return row if row.data_ptr() % 16 == 0 else row.clone()
+
+
+def weighted_update_batch(
+    costs: torch.Tensor, samples: torch.Tensor, lam: torch.Tensor, backend: str = "auto"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`weighted_update` of B scenarios -> ``(update [B, T, m], weights [B, K], ess [B])``.
+
+    ``costs [B, K]``, ``samples [B, K, T, m]``, ``lam [B]``.  ``"auto"`` and
+    ``"pallas"`` launch the kernel once for every scenario
+    (:func:`weighted_update_partials_batch`) and merge each scenario's
+    partials by :func:`combine_partials`, the single solve's merge, whose
+    sums take their order from the shape; ``"xla"`` runs the plain route
+    scenario by scenario.  Scenario b's results are bit for bit
+    :func:`weighted_update` on b's inputs.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    batch, num_samples, horizon, dim_control = samples.shape
+    if backend == "xla":
+        parts = [xla_weighted_update(own_row(costs, b), own_row(samples, b), lam[b])
+                 for b in range(batch)]
+    else:
+        stats, numer = weighted_update_partials_batch(
+            costs.contiguous(), samples.reshape(batch, num_samples, -1).contiguous(),
+            lam.reshape(batch).contiguous())
+        parts = [combine_partials(own_row(costs, b), stats[b], numer[b], lam[b], horizon,
+                                  dim_control) for b in range(batch)]
+    return tuple(torch.stack(column) for column in zip(*parts))

@@ -42,20 +42,26 @@ takes one out).
 of its tick once for all its scenarios, the scenarios on the grid's second
 axis (``core/fused_solver.make_solve_batch``, whose batch of one is the
 single fused solver; ``ops/fused_solve.*_batch``): fixed λ and MPO run the
-fused solve, then the tick's tail; ESSPS and LBPS phase 1, one search
-cluster a scenario and phase 2, then the tail.  The state advance, MPO's
-Adam step included, runs as torch operations over the ``[B]`` axis.
-Scenario b's outputs are bit for bit the single fused solver's on scenario
-b's state and inputs, in both noise modes.  The JAX package runs the
-scenarios of a shard one after another under ``lax.map``, one kernel launch
-each.
+fused solve, then the tick's tail; ESSPS and LBPS take the single solver's
+λ route (``core/fused_solver.takes_lambda_epilogue``): up to K=10,000 phase 1
+with the λ epilogue, a ticket a scenario, and phase 2; above that phase 1,
+one search cluster a scenario and phase 2; then the tail.  The state
+advance, MPO's Adam step included, runs as torch operations over the
+``[B]`` axis.  Scenario b's outputs are bit for bit the single fused
+solver's on scenario b's state and inputs, in both noise modes.  The JAX
+package runs the scenarios of a shard one after another under ``lax.map``,
+each by its single solver's route.
 
-**The unfused fleet** (:func:`make_batched_solver`) runs the unfused solve of
-``core/solver.py`` scenario by scenario, each with its own ``info``: the
-counterpart of the JAX ``vmap``, since the user's dynamics and cost are not
-kernels.  Its kernels (the draw, the weighted update) launch B times a tick.
-On a sample axis each scenario runs :func:`make_sharded_solver`'s shard.
-The route is fixed when the solver is built.
+**The unfused fleet** (:func:`make_batched_solver`) is one program for all
+its scenarios, the counterpart of the JAX ``vmap`` of the unfused solve
+(``core/solver.make_solve_batch``): one launch of row 6 draws every
+scenario's samples and next key, the user's dynamics and cost run once for
+the fleet under ``torch.func.vmap`` (each scenario's ``info`` merged with
+its row of ``batched_info``), the LBPS or ESSPS search runs scenario by
+scenario on its own costs, and one launch of row 9 weighs them all.  On a
+sample axis of more than one rank each scenario runs
+:func:`make_sharded_solver`'s shard, scenario by scenario
+(:func:`scenario_by_scenario`).  The route is fixed when the solver is built.
 """
 
 from __future__ import annotations
@@ -85,6 +91,7 @@ from mppi_playground_tpu_torch.core.solver import (
     advance_state,
     make_init,
     make_perturbations,
+    make_solve_batch as make_unfused_solve_batch,
     make_solver,
     make_states_prediction,
     search_lambda,
@@ -349,10 +356,11 @@ def _scenario_shard(mesh_or_device, batch_size: int, scenario_axis: str):
 
 @dataclasses.dataclass(frozen=True)
 class BatchedMPPISolver:
-    """Scenario-batched solver whose ``solve_batch`` runs one solve a scenario.
+    """Scenario-batched unfused solver: ``solve_batch`` solves the rank's scenarios a tick.
 
     ``batch_size`` is the scenarios this rank holds: on a mesh, the fleet's
-    scenarios ``first, first + 1, ...``.
+    scenarios ``first, first + 1, ...``.  ``solver`` is the single solver
+    whose solve each scenario's outputs equal.
     """
 
     config: MPPIConfig
@@ -369,8 +377,9 @@ def scenario_by_scenario(base: MPPISolver, batch_size: int, mesh=None,
                          first: int = 0) -> BatchedMPPISolver:
     """``base.solve`` once a scenario, each with its own state, start, ``info`` and noise.
 
-    The batched surface over any single solver: :func:`make_batched_solver`'s
-    route, and the JAX package's ``lax.map`` form of a fused fleet.  Its
+    The batched surface over any single solver: the 2-D unfused fleet's route
+    (:func:`make_batched_solver` on a sample axis), and the JAX package's
+    ``lax.map`` form of a fused fleet.  Its
     scenarios are the fleet's ``first, ..., first + batch_size - 1``.
     """
     if batch_size < 1:
@@ -412,7 +421,7 @@ def make_batched_solver(
     scenario_axis: str = SCENARIO_AXIS,
     sample_axis: Optional[str] = SAMPLE_AXIS,
 ) -> BatchedMPPISolver:
-    """Solve ``batch_size`` independent control problems a tick, scenario by scenario.
+    """Solve ``batch_size`` independent control problems a tick.
 
     ``solve_batch(states, x0s, *, info=None, noise=None, batched_info=None)``
     takes a batched state (``init_batch``), ``x0s [B, n]``, optional shared
@@ -421,21 +430,28 @@ def make_batched_solver(
     ``info`` (e.g. each scenario's goal).  Every output has a leading
     ``[B]`` axis.  ``mesh`` is a mesh, whose ``scenario_axis`` splits the
     fleet (each rank's B is then its ``batch_size / S`` scenarios), or a
-    device, one rank (``None`` means ``cuda``).  On a mesh whose
-    ``sample_axis`` has more than one rank, each scenario's K samples are
-    sharded over that axis besides (:func:`make_sharded_solver`: row 6's
-    draw over the rank's rows, the rollout, row 9's partials, the two
-    gathers, ``combine_partials``), and every rank of the sample axis
-    returns its scenarios' whole results; a 1-D mesh, a sample axis of one
-    rank or ``sample_axis=None`` solves each scenario's K samples on its rank.
+    device, one rank (``None`` means ``cuda``).  A 1-D mesh, a sample axis
+    of one rank or ``sample_axis=None`` solves the rank's scenarios as one
+    program (``core/solver.make_solve_batch``: one launch of row 6 and one of
+    row 9 a tick, the dynamics and cost under ``torch.func.vmap``).  On a
+    mesh whose ``sample_axis`` has more than one rank, each scenario's K
+    samples are sharded over that axis besides (:func:`make_sharded_solver`:
+    row 6's draw over the rank's rows, the rollout, row 9's partials, the two
+    gathers, ``combine_partials``), scenario by scenario, and every rank of
+    the sample axis returns its scenarios' whole results.
     """
     mesh, device, first, local = _scenario_shard(mesh, batch_size, scenario_axis)
     if (mesh is not None and sample_axis in mesh.mesh_dim_names
             and axis_of(mesh, sample_axis)[2] > 1):
         base = make_sharded_solver(config, dynamics, cost_fn, mesh, sample_axis)
-    else:
-        base = make_solver(config, dynamics, cost_fn, device=device)
-    return scenario_by_scenario(base, local, mesh, first)
+        return scenario_by_scenario(base, local, mesh, first)
+    base = make_solver(config, dynamics, cost_fn, device=device)
+    return BatchedMPPISolver(
+        config=config, device=base.device, batch_size=local,
+        init_batch=_make_init_batch(config, base.init, local, first),
+        solve_batch=make_unfused_solve_batch(config, dynamics, cost_fn, base.device),
+        solver=base, mesh=mesh, first=first,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -478,10 +494,13 @@ def make_batched_fused_solver(
     4]`` in ``info``).  Every output has a leading ``[B]`` axis (``aux.lam``
     and ``aux.ess`` ``[B]``).
 
-    ESSPS and LBPS take the standalone search (phase 1, one search cluster a
-    scenario, phase 2): the λ epilogue's ticket counts the clusters of one
-    launch.  ``solver`` is the single fused solver (its default λ route),
-    whose solve each scenario's outputs equal bit for bit.
+    ESSPS and LBPS take the single solver's λ route
+    (``core/fused_solver.takes_lambda_epilogue``, by K): up to K=10,000 the
+    λ epilogue with a ticket a scenario, above that the standalone search
+    (phase 1, one search cluster a scenario, phase 2); with ``sample_axis``
+    always the standalone search.  No option picks the route, as the JAX
+    fleet has none.  ``solver`` is the single fused solver (its default λ
+    route), whose solve each scenario's outputs equal bit for bit.
 
     ``mesh`` is a mesh or a device (one rank; ``None`` means ``cuda``).  On
     a mesh each rank of ``scenario_axis`` holds its ``batch_size / S``

@@ -8,6 +8,8 @@
     (1, 1): costs at the single solver's bar (rtol 2e-5, atol 1e-5: each
     side extends the reference rows with its own sin and cos), and bitwise
     from the JAX rows; weights atol 1e-5, actions and states atol 5e-3;
+  - the same under ESSPS (the batched λ epilogue), λ* and the next λ at the
+    JAX package's fused auto-λ bar (rtol 1e-2);
   - ``make_batched_solver`` with ``batched_info`` (each scenario's goal)
     against the JAX per-scenario base solve on the same noise, at the bar
     (costs rtol 1e-5, weights atol 1e-5, actions and states atol 5e-3);
@@ -16,7 +18,11 @@
     ``calc_ref_trajectory`` against ``jax.vmap(calc_ref_trajectory)``.
 * Against the port itself, bit for bit: ``solve_batch`` against B single
   solves (fixed λ, MPO, ESSPS, LBPS; seeded and in noise mode; a full and a
-  ragged last block), ``init_batch`` against ``init(scenario_seed(seed, b))``,
+  ragged last block); the λ route a fleet takes (the batched epilogue up to
+  K=10,000, the standalone route above, as its single solver); the batched
+  twins of rows 4, 6 and 9 against their single wrappers (m = 1 and 2, both
+  noise modes); the unfused fleet's one call of rows 6 and 9 a tick, any B;
+  ``init_batch`` against ``init(scenario_seed(seed, b))``,
   the fleet loop against B ``make_closed_loop`` episodes, ``done_fn``
   freezing episodes one by one (their keys too) and the ``carry_freeze``
   spec, as ``tests/test_sharding.py`` holds the JAX fleet.
@@ -72,6 +78,7 @@ JAX_K = 1500
 FLEET_K, FLEET_TICKS = 256, 3
 GOAL_K, GOAL_B = 256, 4
 GOALS = ((5.0, 5.0), (-5.0, -5.0), (5.0, -5.0), (-5.0, 5.0))
+ESSPS_LAMBDA_MAX = 100.0  # the ESSPS fleet's bracket against JAX: each λ* inside it
 STARTS = (0, 400, 900)  # rows of the racing path the scenarios start on
 
 
@@ -130,7 +137,7 @@ def _jax_racing():
     return jax, JaxConfig, env, jax_ref, jax_task(env), mesh
 
 
-def jax_fused_batch_reference(out_path: str) -> None:
+def jax_fused_batch_reference(out_path: str, lam=1.0, lambda_max=10.0) -> None:
     """The JAX batched fused solve on injected noise, one tick, B scenarios."""
     jax, JaxConfig, env, jax_ref, task, mesh = _jax_racing()
     import jax.numpy as jnp
@@ -139,7 +146,8 @@ def jax_fused_batch_reference(out_path: str) -> None:
     from mppi_playground_tpu.parallel.sharded import make_batched_fused_solver as jax_batched
 
     config = JaxConfig(horizon=T, num_samples=JAX_K, dim_state=4, dim_control=2, u_min=U_MIN,
-                       u_max=U_MAX, sigmas=SIGMAS, lambda_=1.0, store_rollouts=False)
+                       u_max=U_MAX, sigmas=SIGMAS, lambda_=lam, lambda_max=lambda_max,
+                       store_rollouts=False)
     solver = jax_batched(config, task, env.dynamics, mesh, batch_size=B, donate_state=False,
                          interpret=True)
     path = env.racing_center_path
@@ -153,7 +161,15 @@ def jax_fused_batch_reference(out_path: str) -> None:
     np.savez(out_path, x0s=np.asarray(x0s), xrefs=np.asarray(xrefs), cinds=np.asarray(cinds),
              xref5s=np.asarray(jax.vmap(jax_extend)(xrefs)),
              costs=np.asarray(r.aux.costs), weights=np.asarray(r.aux.weights),
-             action_seq=np.asarray(r.action_seq), state_seq=np.asarray(r.state_seq))
+             action_seq=np.asarray(r.action_seq), state_seq=np.asarray(r.state_seq),
+             lam=np.asarray(r.aux.lam), next_lam=np.asarray(r.state.lam))
+
+
+def jax_fused_batch_essps_reference(out_path: str) -> None:
+    """The JAX batched fused solve under ESSPS: each scenario's single solver takes its λ
+    epilogue (the ``lambda_mode`` kernel, interpreted) under ``vmap``.  The bracket reaches
+    λ=100, so that every scenario's λ* lies inside it (15-20 here), not at a clamp."""
+    jax_fused_batch_reference(out_path, lam="ESSPS", lambda_max=ESSPS_LAMBDA_MAX)
 
 
 class JaxNoiseFromInfo:
@@ -236,7 +252,8 @@ def jax_goal_reference(out_path: str) -> None:
 def jax_ref(tmp_path_factory):
     return run_jax_references(
         "tests.test_torch_fleet",
-        ["jax_fused_batch_reference", "jax_fleet_reference", "jax_goal_reference"],
+        ["jax_fused_batch_reference", "jax_fused_batch_essps_reference", "jax_fleet_reference",
+         "jax_goal_reference"],
         tmp_path_factory.mktemp("jax_fleet"))
 
 
@@ -267,6 +284,30 @@ def test_batched_fused_solve_meets_jax(jax_ref, env):
     np.testing.assert_allclose(r.aux.weights.numpy(), want["weights"], atol=1e-5)
     np.testing.assert_allclose(r.action_seq.numpy(), want["action_seq"], atol=5e-3)
     np.testing.assert_allclose(r.state_seq.numpy(), want["state_seq"], atol=5e-3)
+
+
+def test_batched_fused_essps_solve_meets_jax(jax_ref, env):
+    """The ESSPS fleet (the batched λ epilogue at K=1,500) against the JAX fleet: costs and
+    the update at the fixed-λ test's bars, λ* and the next state's λ at the JAX package's bar
+    for fused auto-λ (rtol 1e-2, ``tests/test_fused_solve.py``)."""
+    want = jax_ref["jax_fused_batch_essps_reference"]
+    config = dataclasses.replace(_racing_config("ESSPS"), lambda_max=ESSPS_LAMBDA_MAX)
+    batched = make_batched_fused_solver(config, make_racing_fused_task_from_env(env),
+                                        env.dynamics, "cpu", B)
+    assert fused_solver.takes_lambda_epilogue(batched.config)
+    noise = torch.from_numpy(_noise("fused", (B, JAX_K, T, 2)))
+    r = batched.solve_batch(batched.init_batch(seed=0), torch.from_numpy(want["x0s"]),
+                            noise=noise,
+                            batched_info={"reference_path": torch.from_numpy(want["xrefs"])})
+    np.testing.assert_allclose(r.aux.costs.numpy(), want["costs"], rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(r.aux.lam.numpy(), want["lam"], rtol=1e-2)
+    np.testing.assert_allclose(r.state.lam.numpy(), want["next_lam"], rtol=1e-2)
+    np.testing.assert_allclose(r.aux.weights.numpy(), want["weights"], atol=1e-5)
+    np.testing.assert_allclose(r.action_seq.numpy(), want["action_seq"], atol=5e-3)
+    np.testing.assert_allclose(r.state_seq.numpy(), want["state_seq"], atol=5e-3)
+    lam = r.aux.lam
+    assert lam.shape == (B,) and len(set(lam.tolist())) == B
+    assert bool(((lam > 1.0) & (lam < ESSPS_LAMBDA_MAX / 2)).all()), lam  # not at a clamp
 
 
 def test_batched_unfused_solve_meets_jax_per_scenario(jax_ref):
@@ -408,33 +449,158 @@ def test_init_batch_is_init_of_the_scenario_seeds(env):
     assert len({tick_seed(s, 0) for s in seeds}) == 4096
 
 
+# K on each side of the single solver's measured crossover (K=10,000), ragged last blocks
+ROUTE_KS = (1500, fused_solver.EPILOGUE_DEFAULT_MAX_SAMPLES + 241)
+
+
 @pytest.mark.parametrize("batch", [1, B])
 def test_a_fleet_searches_on_the_standalone_route(env, batch, monkeypatch):
-    """The λ epilogue's ticket counts one launch's clusters: a fleet takes no λ route option
-    and never runs the epilogue, and its standalone route meets the single solver's epilogue
-    route bit for bit."""
+    """A fleet takes its single solver's λ route and no option for it: the batched epilogue
+    (a ticket a scenario) up to K=10,000, the standalone route above; on either route, under
+    ESSPS and LBPS, scenario b is its single solve bit for bit, and its λ* the single solver's
+    on the other route too."""
     task = make_racing_fused_task_from_env(env)
     with pytest.raises(TypeError, match="lambda_epilogue"):
         make_batched_fused_solver(_racing_config("ESSPS"), task, env.dynamics, "cpu", batch,
                                   lambda_epilogue=True)
-    fleet = make_batched_fused_solver(_racing_config("ESSPS"), task, env.dynamics, "cpu", batch)
-    single = make_fused_solver(_racing_config("ESSPS"), task, env.dynamics, device="cpu",
-                               lambda_epilogue=True)
+    calls = {}
+    for name in ("fused_costs_dump_lambda_batch", "fused_costs_dump_batch"):
+        def spy(*args, wrapped=getattr(fused_solver, name), name=name, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return wrapped(*args, **kwargs)
+
+        monkeypatch.setattr(fused_solver, name, spy)
     xs = _racing_starts(env.reset(), env.racing_center_path)[:batch]
     xrefs, _ = calc_ref_trajectory_batch(xs, env.racing_center_path,
                                          torch.zeros(batch, dtype=torch.int64), T)
-    states = fleet.init_batch(seed=1)
-    wants = [single.solve(scenario(states, b), xs[b], info={"reference_path": xrefs[b]})
-             for b in range(batch)]
+    for mode in ("ESSPS", "LBPS"):
+        for k in ROUTE_KS:
+            config = _racing_config(mode, k)
+            fleet = make_batched_fused_solver(config, task, env.dynamics, "cpu", batch)
+            other = make_fused_solver(config, task, env.dynamics, device="cpu",
+                                      lambda_epilogue=k > ROUTE_KS[0])
+            states = fleet.init_batch(seed=1)
+            calls.clear()
+            out = fleet.solve_batch(states, xs, batched_info={"reference_path": xrefs})
+            epilogue = k <= fused_solver.EPILOGUE_DEFAULT_MAX_SAMPLES
+            assert calls == {"fused_costs_dump_lambda_batch" if epilogue
+                             else "fused_costs_dump_batch": 1}, (mode, k)
+            for b in range(batch):
+                info = {"reference_path": xrefs[b]}
+                want = fleet.solver.solve(scenario(states, b), xs[b], info=info)
+                assert _same((out.action_seq[b], out.aux.costs[b], out.aux.weights[b],
+                              out.aux.lam[b], out.state.key[b]),
+                             (want.action_seq, want.aux.costs, want.aux.weights, want.aux.lam,
+                              want.state.key)), (mode, k, b)
+                assert _same(scenario(out.state, b), want.state), (mode, k, b)
+                assert _same(other.solve(scenario(states, b), xs[b], info=info).aux.lam,
+                             out.aux.lam[b]), (mode, k, b)
 
-    def epilogue(*args, **kwargs):
-        raise AssertionError("a fleet ran the lambda epilogue")
 
-    monkeypatch.setattr(fused_solver, "fused_costs_dump_lambda", epilogue)
-    out = fleet.solve_batch(states, xs, batched_info={"reference_path": xrefs})
-    for b, want in enumerate(wants):
-        assert _same((out.action_seq[b], out.aux.costs[b], out.aux.lam[b], out.state.key[b]),
-                     (want.action_seq, want.aux.costs, want.aux.lam, want.state.key))
+def _row_inputs(m, k, noise_mode, seed=0):
+    """``(task, x0s, prevs, noise, bounds)`` of B scenarios at width m for the batched twins."""
+    rng = np.random.default_rng(seed)
+    module = pendulum if m == 1 else integrator
+    sig = (0.5,) * m
+    bounds = (sig, tuple(module.U_MIN), tuple(module.U_MAX))
+    x0s = torch.from_numpy(rng.standard_normal((B, module.DIM_STATE)).astype(np.float32))
+    prevs = torch.from_numpy((rng.standard_normal((B, T, m)) * 0.5).astype(np.float32))
+    noise = None
+    if noise_mode == "noise":
+        noise = torch.from_numpy((rng.standard_normal((B, k, T, m)) * 0.5).astype(np.float32))
+    return module.fused_task(), x0s, prevs, noise, bounds
+
+
+@pytest.mark.parametrize("mode", ["seeded", "noise"])
+@pytest.mark.parametrize("m", [1, 2])
+def test_batched_twins_of_rows_4_6_and_9_are_the_single_twins(m, mode):
+    """Rows 4 (the λ epilogue), 6 (the draw) and 9 (the weighted update) over B scenarios:
+    each scenario's outputs are its single wrapper's bit for bit, and each scenario's key
+    moves on alone, at a K with a ragged last block."""
+    from mppi_playground_tpu_torch.ops import lambda_search as ls
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    k = 300
+    task, x0s, prevs, noise, bounds = _row_inputs(m, k, mode)
+    keys = make_batch_key(7, 2, B, "cpu")
+    seeds, threshold = keys[:, 2], 200
+    one_noise = (lambda b: None) if noise is None else (lambda b: noise[b])
+    for search in (ls.LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40),
+                   ls.LambdaSearch("LBPS", 0.01, 10.0, 0.01, 32)):
+        tickets = torch.zeros(B, dtype=torch.int32)
+        got = fs.fused_costs_dump_lambda_batch(x0s, prevs, seeds, None, task, *bounds, k,
+                                               threshold, noise, search, tickets)
+        assert got[0].shape == (B, k) and got[1].shape == (B, T * m, k) and got[2].shape == (B,)
+        for b in range(B):
+            one = fs.fused_costs_dump_lambda(x0s[b], prevs[b], keys[b, 2:], None, task, *bounds,
+                                             k, threshold, one_noise(b), search,
+                                             torch.zeros(1, dtype=torch.int32))
+            assert _same((got[0][b], got[1][b], got[2][b:b + 1]), one), (search.mode, b)
+            phase1 = fs.fused_costs_dump(x0s[b], prevs[b], keys[b, 2:], None, task, *bounds, k,
+                                         threshold, one_noise(b))
+            assert _same((got[0][b], got[1][b]), phase1)
+            assert _same(got[2][b], search.plain(phase1[0]))
+    rows = torch.arange(k)
+    keys_out = torch.empty_like(keys)
+    drawn = fs.fused_regen_batch(prevs, seeds, rows, *bounds, k, threshold, noise, keys=keys,
+                                 keys_out=keys_out)
+    assert drawn.shape == (B, k, T, m)
+    for b in range(B):
+        key_out = torch.empty(3, dtype=torch.int32)
+        one = fs.fused_regen(prevs[b], keys[b, 2:], rows, *bounds, k, threshold, one_noise(b),
+                             key=keys[b], key_out=key_out)
+        assert _same(drawn[b], one) and _same(keys_out[b], key_out), b
+        assert _same(keys_out[b], make_key(scenario_seed(7, 0), 3, "cpu")) or b > 0
+    assert len({tuple(keys_out[b].tolist()) for b in range(B)}) == B
+    costs = torch.from_numpy(np.random.default_rng(1).random((B, k)).astype(np.float32) * 10)
+    lams = torch.tensor([1.0, 0.5, 2.0])
+    samples = drawn.reshape(B, k, T * m)
+    stats, numer = wu.weighted_update_partials_batch(costs, samples, lams)
+    for b in range(B):
+        one = wu.weighted_update_partials(costs[b], samples[b].contiguous(), lams[b:b + 1])
+        assert _same((stats[b], numer[b]), one), b
+    update, weights, ess = wu.weighted_update_batch(costs, drawn, lams)
+    for b in range(B):
+        assert _same((update[b], weights[b], ess[b]),
+                     wu.weighted_update(costs[b], drawn[b], lams[b])), b
+
+
+@pytest.mark.parametrize("batch", [1, B, 5])
+def test_an_unfused_fleet_tick_draws_and_weighs_in_one_call_each(monkeypatch, batch):
+    """Whatever B is, a tick of the unfused fleet calls row 6's batched draw once and row 9's
+    batched weighted update once, and never their single wrappers."""
+    from mppi_playground_tpu_torch.core import solver as solver_module
+    from mppi_playground_tpu_torch.ops import weighted_update as wu
+
+    calls = {"row 6": 0, "row 9": 0}
+
+    def counting(row, wrapped):
+        def spy(*args, **kwargs):
+            calls[row] += 1
+            return wrapped(*args, **kwargs)
+        return spy
+
+    def single(*args, **kwargs):
+        raise AssertionError("the fleet called a single scenario's kernel wrapper")
+
+    monkeypatch.setattr(solver_module, "fused_regen_batch",
+                        counting("row 6", solver_module.fused_regen_batch))
+    monkeypatch.setattr(wu, "weighted_update_partials_batch",
+                        counting("row 9", wu.weighted_update_partials_batch))
+    monkeypatch.setattr(solver_module, "fused_regen", single)
+    monkeypatch.setattr(wu, "weighted_update_partials", single)
+    config = MPPIConfig(horizon=T, num_samples=300, dim_state=2, dim_control=1,
+                        u_min=pendulum.U_MIN, u_max=pendulum.U_MAX, sigmas=(1.0,),
+                        lambda_="ESSPS")
+    batched = make_batched_solver(config, pendulum.dynamics, pendulum.cost, "cpu", batch)
+    states = batched.init_batch(seed=4)
+    xs = torch.tensor([[math.pi, 0.0], [2.0, 0.5], [-1.0, 0.0], [0.5, 0.1], [1.0, -1.0]])[:batch]
+    for tick in range(3):
+        out = batched.solve_batch(states, xs)
+        assert calls == {"row 6": tick + 1, "row 9": tick + 1}, (batch, tick)
+        states = out.state
+        xs = pendulum.dynamics(xs, out.action_seq[:, 0])
+    assert torch.equal(states.key, make_batch_key(4, 3, batch, "cpu"))
 
 
 def test_calc_ref_trajectory_batch_rows_are_the_single_calls(env):

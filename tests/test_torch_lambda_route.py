@@ -32,10 +32,10 @@ def _config(num_samples, lam="ESSPS"):
 
 
 def _route_of_one_solve(monkeypatch, config, lambda_epilogue):
-    """``"epilogue"`` or ``"standalone"``: the phase-1 wrapper one solve called (the
-    standalone route is the batch of one's)."""
+    """``"epilogue"`` or ``"standalone"``: the phase-1 wrapper one solve called (either
+    route is the batch of one's)."""
     calls = {"epilogue": 0, "standalone": 0}
-    for name, route in (("fused_costs_dump_lambda", "epilogue"),
+    for name, route in (("fused_costs_dump_lambda_batch", "epilogue"),
                         ("fused_costs_dump_batch", "standalone")):
         wrapped = getattr(fused_solver, name)
 

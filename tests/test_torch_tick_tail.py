@@ -229,13 +229,12 @@ def test_fused_solver_runs_the_tail_and_matches_jax(jax_ref, monkeypatch, route)
     from mppi_playground_tpu_torch.envs.navigation_2d import Navigation2DEnv
 
     calls = []
-    # the epilogue route's tail, and every other route's as the batch of one's
-    for name in ("fused_tick_tail", "fused_tick_tail_batch"):
-        def spy(*args, real=getattr(port_fused_solver, name), **kwargs):
-            calls.append(args[7] is not None)
-            return real(*args, **kwargs)
+    # every route's tail, as the batch of one's
+    def spy(*args, real=port_fused_solver.fused_tick_tail_batch, **kwargs):
+        calls.append(args[7] is not None)
+        return real(*args, **kwargs)
 
-        monkeypatch.setattr(port_fused_solver, name, spy)
+    monkeypatch.setattr(port_fused_solver, "fused_tick_tail_batch", spy)
     mode, epilogue = ROUTES[route]
     env = Navigation2DEnv(device="cpu")
     solver = port_fused_solver.make_fused_solver(MPPIConfig(**_nav_config(mode)), env.fused_task(),
