@@ -53,7 +53,11 @@ Phases, each of which fails the run if it fails:
    kernel never, lambda in bounds, actions in bounds, progress, and one
    solve per mode with no host sync
    (``torch.cuda.set_sync_debug_mode("error")``); then a profile and the
-   modes' ticks timed in turns;
+   modes' ticks timed in turns; 6b, the graft entry
+   (:func:`drive_entry`): ``graft_entry_torch.entry()`` with no arguments,
+   its first tick bit for bit the fixed-lambda flagship tick on the same
+   state, seed and ``cind``, then five chained ticks of its ``fn`` under
+   the device trace, rows 1 and 2 once a tick;
 7. drive ``RacingController(env)`` on its unfused route (the default) and
    its fused route (``store_rollouts=False``) at T=25, K=4,000 and at T=50,
    K=100,000: 50 ticks each of ``update``, ``env.step`` and
@@ -170,7 +174,9 @@ kernel row's launches x (time - bound) over the run's paths, a ``kernels``
 JSON line before the last (every kernel, each launched on some path but
 :data:`OFF_PATHS`, or the run fails), and as its last line ``{"ok": true,
 "device": {...}}``.  Without a card, or without the package beside it, it
-exits non-zero and prints no result.
+exits non-zero and prints no result.  It fails if jax or the JAX package
+was imported (:func:`foreign_modules`), checked after the port and
+``graft_entry_torch`` are imported and again after the last phase.
 
 Comparisons with another checkout (the parent of a change, unpacked from
 ``git archive``), each run by the command in its docstring:
@@ -250,6 +256,11 @@ def device_seed(torch, word: int):
     from mppi_playground_tpu_torch.ops.fused_solve import _seed_tensor
 
     return _seed_tensor(word, torch.device("cuda"))
+
+
+def foreign_modules(names) -> list:
+    """The modules among ``names`` that the port must not import: jax and the JAX package."""
+    return sorted(m for m in names if m.split(".")[0] in ("jax", "jaxlib", "mppi_playground_tpu"))
 
 
 def fail(msg: str) -> int:
@@ -886,6 +897,79 @@ def ticks_in_turns(torch, env, runners, windows: int = 10, per_window: int = 10)
                 x = env.dynamics(x[None], action_seq[:1])[0]
             runs[mode] = [state, cind, x]
     return {m: statistics.median(t) for m, t in times.items()}
+
+
+ENTRY_TICKS = 5  # the graft entry's chained ticks, traced
+ENTRY_KERNELS = ("racing_fused_solve", "racing_tick_tail")  # rows 1 and 2, once a tick
+
+
+def drive_entry(torch, flagship_tick, card):
+    """Phase 6b: the graft entry, ``graft_entry_torch.entry()`` with no arguments.
+
+    Its first tick is held bit for bit against ``flagship_tick`` (phase 6's
+    fixed-lambda tick, K=100,000, T=50) on the same state, seed, ``cind``
+    and start; then ``fn`` runs :data:`ENTRY_TICKS` chained ticks under the
+    device trace, every counter set to 0 just before: each tick launches
+    rows 1 and 2 (:data:`ENTRY_KERNELS`) once and no other kernel of ours.
+    Returns ``{"launches", "build_s", "seconds"}``, or None after a failure.
+    """
+    import graft_entry_torch
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry_torch.entry()
+    build_s = time.perf_counter() - t0
+    state, cind, x = args
+    if not (x.is_cuda and cind.is_cuda and state.previous_action_seq.is_cuda):
+        fail("entry(): its example arguments are not on the card")
+        return None
+    want = flagship_tick(state, cind, x)
+
+    def ticks():
+        out, s, c = [], state, cind
+        for _ in range(ENTRY_TICKS):
+            action_seq, state_seq, s, c = fn(s, c, x)
+            out.append((action_seq, state_seq, s, c))
+        torch.cuda.synchronize()
+        return out
+
+    counted = zero_counters()
+    outs, trace = traced(torch, ticks)
+    launches = path_launches("entry()", counted, [trace],
+                             {name: ENTRY_TICKS for name in ENTRY_KERNELS})
+    if launches is None:
+        return None
+    if not _bitwise(outs[0], want):
+        fail("entry(): its first tick is not the flagship phase's tick bit for bit")
+        return None
+    for action_seq, state_seq, _, c in outs:
+        if not (action_seq.shape == (T, 2) and state_seq.shape == (T + 1, 4)
+                and torch.isfinite(action_seq).all() and torch.isfinite(state_seq).all()
+                and int(c) >= 0):
+            fail(f"entry(): a tick gave shapes {tuple(action_seq.shape)}, "
+                 f"{tuple(state_seq.shape)} or non-finite values")
+            return None
+    print(f"graft entry on {card}: graft_entry_torch.entry() built in {build_s:.2f} s; its "
+          f"first tick bit for bit the flagship's; {ENTRY_TICKS} ticks traced, "
+          f"{json.dumps({name: n for name, n in launches.items() if n})}", flush=True)
+    return dict(launches=launches, build_s=build_s, seconds=time.perf_counter() - t0)
+
+
+def entry_alone() -> int:
+    """Phase 6b alone, after the build: ``python3 -c 'import sys, chip_smoke;
+    sys.exit(chip_smoke.entry_alone())'``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mppi_playground_tpu_torch.ops import cuda_build
+    from mppi_playground_tpu_torch.workloads import build_flagship
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"build: {cuda_build.build():.1f} s", flush=True)
+    _, _, tick = build_flagship(horizon=T, num_samples=K, device="cuda")
+    return 1 if drive_entry(torch, tick, card) is None else 0
 
 
 def weighted_update_bound_ms(num_samples: int, slots: int) -> tuple:
@@ -2891,13 +2975,11 @@ def drive_model_paths(torch, card):
 EPISODE_TICKS = 50  # phase 12's flagship and facade episodes
 
 
-def _bitwise(torch, a, b) -> bool:
-    """Two trees of tensors equal bit for bit, leaf by leaf."""
-    from mppi_playground_tpu_torch.core.closed_loop import _tensors
+def _bitwise(a, b) -> bool:
+    """Two trees of tensors equal bit for bit, leaf by leaf (``closed_loop.bitwise_equal``)."""
+    from mppi_playground_tpu_torch.core.closed_loop import bitwise_equal
 
-    ta, tb = _tensors(a), _tensors(b)
-    return len(ta) == len(tb) and all(
-        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ta, tb))
+    return bitwise_equal(a, b)
 
 
 def eager_episode(torch, solver, plant, num_ticks, state, x, carry=None, info_fn=None):
@@ -2984,13 +3066,13 @@ def flagship_episodes(torch, env, card):
         # the wrappers counted tick 0 of the first run, the one eager tick, and nothing else
         eager_once = read_counters(counted) == {name: int(name in once) for name in counted}
         eager = eager_episode(torch, solver, plant, EPISODE_TICKS, state0, x0, c0, info_fn)
-        exact = _bitwise(torch, first, eager)
+        exact = _bitwise(first, eager)
         key_ok = bool(torch.equal(first[0].key, make_key(solver.config.seed, EPISODE_TICKS,
                                                           "cuda")))
         runs = [synced_ms(torch, lambda: run(state0, x0, c0)) for _ in range(3)]
         ms = statistics.median(runs) / EPISODE_TICKS
         busy_us, activities = second_trace.busy_us, second_trace.activities
-        res = dict(bitwise_eager=exact, replays_repeat=_bitwise(torch, second, first),
+        res = dict(bitwise_eager=exact, replays_repeat=_bitwise(second, first),
                    key_after=key_ok, progress=int(first[4]), launches=launches,
                    wrappers_counted_the_eager_tick_only=eager_once,
                    capture_s=run.episode.graph.capture_s, amortized_tick_ms=ms,
@@ -3059,8 +3141,8 @@ def facade_graphs(torch, env, card):
                 x = env.dynamics(x[None], a[:1])[0]
             tops = ctrl.get_top_samples(300)
             want_tops = diagnostics.top_samples_from_last(ref._solver, r.aux, 300)
-            exact = (exact and _bitwise(torch, tops, want_tops)
-                     and _bitwise(torch, ctrl.solver_state, st)
+            exact = (exact and _bitwise(tops, want_tops)
+                     and _bitwise(ctrl.solver_state, st)
                      and torch.equal(ctrl.current_path_index, cind))
             streams = None
             if fused:
@@ -3200,7 +3282,7 @@ def facade_episodes(torch, env, card):
             return env.dynamics(x[None], a[:1])[0], a[0]
 
         ok, n, done = against_ticks(label, xs, us, ep, step, racing_done, EPISODE_TICKS)
-        ok = ok and (done or (_bitwise(torch, after_first[0], ref.solver_state)
+        ok = ok and (done or (_bitwise(after_first[0], ref.solver_state)
                               and torch.equal(after_first[1], ref.current_path_index)))
         try:
             ctrl.get_top_samples(10)
@@ -3430,7 +3512,7 @@ def fleet_vs_episodes(torch, solver, plant_one, num_ticks, states, x0s, carry0, 
         st_b, xf_b, xs_b, us_b, c_b = loop(scenario(states, b), x0s[b],
                                            None if carry0 is None else carry0[b])
         same = (torch.equal(xs[:, b], xs_b) and torch.equal(us[:, b], us_b)
-                and torch.equal(xf[b], xf_b) and _bitwise(torch, scenario(st, b), st_b)
+                and torch.equal(xf[b], xf_b) and _bitwise(scenario(st, b), st_b)
                 and (c is None or torch.equal(c[b], c_b)))
         if not same:
             differ.append(b)
@@ -3492,7 +3574,7 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
     runs = [synced_ms(torch, lambda: run(states, x0s, carry0)) for _ in range(3)]
     ms = statistics.median(runs)
     res = dict(batch=batch, ticks=num_ticks, bitwise_episodes=not differ,
-               replays_repeat=_bitwise(torch, first, second),
+               replays_repeat=_bitwise(first, second),
                wrappers_counted_the_eager_tick_only=eager_once, launches=launches,
                capture_s=getattr(run.episode.graph, "capture_s", None), episode_ms=ms,
                amortized_tick_ms=ms / num_ticks, solves_per_s=batch * num_ticks / (ms / 1e3),
@@ -3519,7 +3601,7 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
             order.reverse()
         fleet_ms, looped_ms = (statistics.median(times[n]) for n in ("fleet", "looped"))
         mark("in turns")
-        res.update(looped_bitwise=_bitwise(torch, looped_out, first),
+        res.update(looped_bitwise=_bitwise(looped_out, first),
                    looped_capture_s=getattr(looped.episode.graph, "capture_s", None),
                    in_turns_fleet_episode_ms=fleet_ms, in_turns_looped_episode_ms=looped_ms,
                    in_turns_fleet_solves_per_s=batch * num_ticks / (fleet_ms / 1e3),
@@ -3618,8 +3700,8 @@ def epilogue_fleets_in_turns(torch, env, card):
                 order.reverse()
             ep_ms, st_ms = (statistics.median(times[r]) for r in ("epilogue", "standalone"))
             res = dict(batch=batch, ticks=FLEET_TICKS,
-                       replays_bitwise_standalone=_bitwise(torch, first, alone)
-                       and _bitwise(torch, second, alone),
+                       replays_bitwise_standalone=_bitwise(first, alone)
+                       and _bitwise(second, alone),
                        final_lam_range=(first[0].lam.min().item(), first[0].lam.max().item()),
                        in_turns_epilogue_episode_ms=ep_ms, in_turns_standalone_episode_ms=st_ms,
                        epilogue_tick_ms=ep_ms / FLEET_TICKS, standalone_tick_ms=st_ms / FLEET_TICKS,
@@ -3966,19 +4048,19 @@ def epilogue_draw_weigh_rows(torch, label, task, ops, x0s, prevs, refs, noise, b
             for _ in range(2):
                 graph.replay()
                 torch.cuda.synchronize()
-                replays.append(_bitwise(torch, replayed, got) and bool((tickets == 0).all()))
+                replays.append(_bitwise(replayed, got) and bool((tickets == 0).all()))
             bars = [lambda_vs_plain(search, got[0][b], got[2][b]) for b in bar_rows]
             lam_errs += [e for e, _ in bars]
             checks[f"row 4 {search.mode} {mode}"] = dict(
                 singles_bitwise=all(
                     torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1])
                     and torch.equal(got[2][b:b + 1], one[2]) for b, one in enumerate(singles)),
-                standalone_bitwise=_bitwise(torch, got, standalone),
+                standalone_bitwise=_bitwise(got, standalone),
                 replays_bitwise_tickets_zero=replays,
                 lam_range=(got[2].min().item(), got[2].max().item()),
                 lam_max_abs_err=max(e for e, _ in bars),
                 ok=all(ok for _, ok in bars) and all(replays)
-                and _bitwise(torch, got, standalone))
+                and _bitwise(got, standalone))
     essps = searches[0]
     tickets = torch.zeros(batch, dtype=torch.int32, device=dev)
     if small:
@@ -4024,7 +4106,7 @@ def epilogue_draw_weigh_rows(torch, label, task, ops, x0s, prevs, refs, noise, b
         stats, numer = wu.weighted_update_partials_batch(costs, samples, lams)
         want = twin("weighted_update_partials",
                     lambda: wu.weighted_update_partials_batch_plain(costs, samples, lams))
-        same = all(_bitwise(torch, (stats[b], numer[b]), wu.weighted_update_partials(
+        same = all(_bitwise((stats[b], numer[b]), wu.weighted_update_partials(
             costs[b], samples[b], lams[b:b + 1])) for b in range(batch))
         errs = [partials_errors(torch, (stats[b], numer[b]), (want[0][b], want[1][b]), costs[b],
                                 samples[b], lams[b:b + 1]) for b in bar_rows]
@@ -4192,7 +4274,7 @@ def utils_on_card(torch, env, card):
                checked_first_solve_finite=bool(torch.isfinite(r.action_seq).all()),
                time_fn_ms={k[:-2] + "_ms": 1e3 * v for k, v in stats.items() if k != "per_s"},
                time_fn_per_s=stats["per_s"], tick_graph_ms=tick_graph_ms,
-               resume_bitwise=_bitwise(torch, resumed, want) and st.tick == want[0].tick)
+               resume_bitwise=_bitwise(resumed, want) and st.tick == want[0].tick)
     print(f"phase 13 utils on the flagship (T={T}, K={K}) on {card}: {json.dumps(res)}",
           flush=True)
     if not (nan_raised and res["checked_first_solve_finite"] and res["resume_bitwise"]):
@@ -4529,7 +4611,7 @@ def checkpoint_round_trips(torch, state, template) -> dict:
                 path = save_state_orbax(str(Path(d) / f"wait_{wait}"), state, wait=wait)
                 wait_until_saved()
                 restored = load_state_orbax(path, template)
-                out[f"wait={wait}"] = (_bitwise(torch, restored, state)
+                out[f"wait={wait}"] = (_bitwise(restored, state)
                                        and (restored.seed, restored.tick)
                                        == (state.seed, state.tick))
             except Exception as err:  # recorded, and the phase fails on it
@@ -4593,7 +4675,7 @@ def sharded_facade(torch, env, card):
             launches = read_counters(counted)
             want = eager_episode(torch, single, plant, SHARDED_TICKS, single.init(), x0, c0,
                                  info_fn)
-            exact = _bitwise(torch, got, want)
+            exact = _bitwise(got, want)
             runners = {"single": single, "sharded": sharded}
             states = {name: solver.init() for name, solver in runners.items()}
             carry = {name: (x0, c0) for name in runners}
@@ -4617,7 +4699,7 @@ def sharded_facade(torch, env, card):
                 run = make_closed_loop(sharded, plant, SHARDED_TICKS, info_fn=info_fn)
                 episode = run(sharded.init(), x0, c0)
                 res["captured"] = True
-                res["replayed_bitwise_eager"] = _bitwise(torch, episode, got)
+                res["replayed_bitwise_eager"] = _bitwise(episode, got)
                 single_run = make_closed_loop(single, plant, SHARDED_TICKS, info_fn=info_fn)
                 single_run(single.init(), x0, c0)
                 runs = {"single": [], "sharded": []}
@@ -4683,7 +4765,7 @@ def _gloo_rank(rank: int, port: int, out_dir: str) -> None:
         torch.cuda.synchronize()
         tick_ms = 1e3 * (time.perf_counter() - t0) / GLOO_TICKS
         want = eager_episode(torch, single, plant, GLOO_TICKS, single.init(), x0, c0, info_fn)
-        res = dict(rank=rank, bitwise_single=_bitwise(torch, got, want), tick_ms=tick_ms)
+        res = dict(rank=rank, bitwise_single=_bitwise(got, want), tick_ms=tick_ms)
         try:
             make_closed_loop(sharded, plant, 3, info_fn=info_fn)(sharded.init(), x0, c0)
             res["capture"] = "captured"
@@ -5538,8 +5620,8 @@ def bicycle_paths(torch, plug, card):
         runs = [synced_ms(torch, lambda: run(state0, x_start)) for _ in range(3)]
         ms = statistics.median(runs) / EPISODE_TICKS
         res = dict(ticks_replayed_bitwise_eager=ticks_bitwise,
-                   episode_bitwise_eager=_bitwise(torch, first, eager_run),
-                   episode_replays_repeat=_bitwise(torch, second, first),
+                   episode_bitwise_eager=_bitwise(first, eager_run),
+                   episode_replays_repeat=_bitwise(second, first),
                    lam=float(first[0].lam), speed=first[1][3].item(),
                    top_weights_descending=bool((top_w[1:] <= top_w[:-1]).all()),
                    top_states_finite=bool(torch.isfinite(top_states).all()),
@@ -5738,8 +5820,10 @@ def main() -> int:
     from mppi_playground_tpu_torch.ops.weighted_update import combine_partials
     from mppi_playground_tpu_torch.workloads import build_flagship
 
-    if any(m == "jax" or m.startswith(("jax.", "mppi_playground_tpu.")) for m in sys.modules):
-        return fail("the port imported jax or the JAX package")
+    import graft_entry_torch  # noqa: F401  (the graft entry: its imports checked here)
+
+    if foreign_modules(sys.modules):
+        return fail(f"the port imported jax or the JAX package: {foreign_modules(sys.modules)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5917,6 +6001,11 @@ def main() -> int:
               f"({100.0 * (turns[m] - turns['fixed']) / turns['fixed']:+.1f}%)"
               for m in AUTO_MODES + tuple(ROUTE_MODES)), flush=True)
 
+    # --- phase 6b: the graft entry, graft_entry_torch.entry() -----------------
+    entry_run = drive_entry(torch, tick, card)
+    if entry_run is None:
+        return 1
+
     # --- phase 7: the RacingController facade on both routes, counted -------
     facades = drive_facades(torch, env, card)
     if facades is None:
@@ -6034,6 +6123,7 @@ def main() -> int:
     shared.update(plugs["shared"])
 
     paths = {f"flagship {m}": run["launches"] for m, run in modes.items()}
+    paths["graft entry"] = entry_run["launches"]
     paths.update({f"flagship episode {m}": run["launches"]
                   for m, run in loops["flagship"].items()})
     paths.update({label: run["launches"] for label, run in loops["episodes"].items()
@@ -6124,11 +6214,14 @@ def main() -> int:
             k["on_paths"] = False
     if missing or idle or len(set(listed)) != len(listed):
         return fail(f"kernels line: not listed {missing}; never launched on a path {idle}")
+    if foreign_modules(sys.modules):  # a phase's import, after the check at the start
+        return fail(f"a phase imported jax or the JAX package: {foreign_modules(sys.modules)}")
     print(f"launches x (ms - bound_ms) over this run's paths, by TPU kernel row, on {card}: "
           + json.dumps(row_products(kernels, shared, plug_models)), flush=True)
     print(json.dumps({"kernels": kernels, "card": card,
                       "median_tick_ms": modes["fixed"]["median_ms"],
                       "median_tick_ms_in_turns": turns,
+                      "graft_entry": {k: v for k, v in entry_run.items() if k != "launches"},
                       "facade_median_ms": {r: {"update": run["tick_ms"],
                                                "get_top_samples": run["top_ms"]}
                                            for r, run in facades.items()},

@@ -81,6 +81,21 @@ def _tensors(tree) -> list:
     return leaves
 
 
+def bitwise_equal(a, b) -> bool:
+    """Two trees of tensors equal leaf by leaf: the same shapes, types and values."""
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def result_leaves(result) -> list:
+    """What two solves must share to be the same solve: the sequences, the costs, weights,
+    λ and ESS, and the next solver state."""
+    aux = result.aux
+    return _tensors((result.action_seq, result.state_seq, aux.costs, aux.weights, aux.lam,
+                     aux.ess, result.state))
+
+
 def _structure(tree):
     """What a captured body depends on: the containers, each tensor's shape and type, the
     fixed leaves' values; a dataclass's host numbers (a state's seed and tick) excepted."""

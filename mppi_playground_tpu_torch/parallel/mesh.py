@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -89,6 +89,58 @@ def initialize_distributed(
     if process_id is not None:
         kwargs["rank"] = int(process_id)
     dist.init_process_group(backend, init_method=init_method, **kwargs)
+
+
+def device_of_ranks(device, world: int) -> torch.device:
+    """The device type of ``world`` ranks, one device each: ``None`` means ``cuda``, which
+    raises unless the host has ``world`` cards (NCCL takes one card a rank)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < world:
+        raise ValueError(f"{world} ranks on cuda need {world} cards, "
+                         f"this host has {torch.cuda.device_count()}")
+    return dev
+
+
+def _rank_main(rank: int, fn: Callable, world: int, init_file: str, out_dir: str, device: str,
+               args: tuple) -> None:
+    """One spawned rank of :func:`run_on_ranks`: join the group, run ``fn``, save its result."""
+    if device == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    else:
+        device = f"cuda:{rank}"
+    initialize_distributed(f"file://{init_file}", world, rank, device=device)
+    try:
+        result = fn(rank, world, *args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_on_ranks(fn: Callable, world: int, args: tuple = (), device=None) -> list:
+    """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks of one process group.
+
+    Each rank is a process of ``torch.multiprocessing.spawn`` that joins the
+    default group through a ``file://`` rendezvous in a temporary directory
+    with :func:`initialize_distributed`:
+    ``device="cpu"`` makes a gloo group, each rank on one intra-op thread;
+    ``"cuda"`` (``None``) the ``cpu:gloo,cuda:nccl`` group, rank r on card r,
+    which needs ``world`` cards.  ``fn`` is a module-level function (the
+    ranks import it) and returns what :func:`torch.save` can write.
+
+    Returns each rank's return value, in rank order.  A rank that raises
+    makes this call raise (``torch.multiprocessing.ProcessRaisedException``,
+    with the rank's traceback), the other ranks ended.
+    """
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    dev = device_of_ranks(device, world)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main, args=(fn, world, os.path.join(tmp, "init"), tmp, dev.type, args),
+                 nprocs=world, join=True)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
 
 
 def cuda_backend(group=None, backend: Optional[str] = None) -> Optional[str]:

@@ -34,9 +34,10 @@ def build_flagship(
 ):
     """Build the flagship racing tick -> ``(env, solver, tick)``.
 
-    ``tick(solver_state, cind, x) -> (action_seq, state_seq, new_state,
-    new_cind)``; ``cind`` is a 0-dim int64 tensor (or int) and stays on the
-    device.  Pass ``env`` to reuse a built :class:`RacingEnv` on the same
+    ``tick(solver_state, cind, x, noise=None) -> (action_seq, state_seq,
+    new_state, new_cind)``; ``cind`` is a 0-dim int64 tensor (or int) and
+    stays on the device; ``noise`` ``[K, T, 2]`` is the solver's injected
+    noise (its ``noise=`` seam), else the tick draws from the state's key.  Pass ``env`` to reuse a built :class:`RacingEnv` on the same
     device (map rasterization takes about a second on the host).
     """
     from mppi_playground_tpu_torch.core.config import MPPIConfig
@@ -68,9 +69,9 @@ def build_flagship(
     solver = make_fused_solver(config, task, env.dynamics, device=device)
     path = env.racing_center_path
 
-    def tick(solver_state, cind, x):
+    def tick(solver_state, cind, x, noise=None):
         xref, new_cind = calc_ref_trajectory(x, path, cind, horizon)
-        result = solver.solve(solver_state, x, info={"reference_path": xref})
+        result = solver.solve(solver_state, x, info={"reference_path": xref}, noise=noise)
         return result.action_seq, result.state_seq, result.state, new_cind
 
     return env, solver, tick

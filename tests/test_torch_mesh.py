@@ -20,7 +20,6 @@
 
 import math
 import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,7 +37,7 @@ from mppi_playground_tpu_torch.parallel import (
     make_batched_solver,
     make_mesh,
 )
-from mppi_playground_tpu_torch.parallel.mesh import mesh_device
+from mppi_playground_tpu_torch.parallel.mesh import mesh_device, run_on_ranks
 from mppi_playground_tpu_torch.utils.checkpoint import (
     load_state_orbax,
     save_state_orbax,
@@ -215,38 +214,30 @@ def _single_run(lam, batch, mode) -> dict:
     return out
 
 
-def _rank_main(rank: int, world: int, init_file: str, out_dir: str) -> None:
+def _rank_main(rank: int, world: int) -> dict:
+    """Every case of ``world`` ranks on one spawned gloo rank (``parallel/mesh.run_on_ranks``)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    torch.set_num_threads(1)
-    initialize_distributed(f"file://{init_file}", world, rank, device="cpu")
-    try:
-        results = {}
-        for name, shape in MESHES[world].items():
-            mesh = (DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("scenario",))
-                    if shape is None else make_mesh(mesh_shape=shape))
-            for lam in (1.0, "ESSPS"):
-                batched = make_batched_solver(_config(lam), pendulum.dynamics, pendulum.cost,
-                                              mesh, BATCH, sample_axis=SAMPLE_AXIS)
-                for mode in ("seeded", "noise"):
-                    results[f"{world} {name} {lam} {mode}"] = (
-                        type(batched.solver).__name__, _fleet_run(batched, BATCH, mode))
-        torch.save(results, Path(out_dir) / f"rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+    results = {}
+    for name, shape in MESHES[world].items():
+        mesh = (DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("scenario",))
+                if shape is None else make_mesh(mesh_shape=shape))
+        for lam in (1.0, "ESSPS"):
+            batched = make_batched_solver(_config(lam), pendulum.dynamics, pendulum.cost,
+                                          mesh, BATCH, sample_axis=SAMPLE_AXIS)
+            for mode in ("seeded", "noise"):
+                results[f"{world} {name} {lam} {mode}"] = (
+                    type(batched.solver).__name__, _fleet_run(batched, BATCH, mode))
+    return results
 
 
 @pytest.fixture(scope="module")
-def spawned(tmp_path_factory):
+def spawned():
     """``{case: [each rank's (solver type, {scenario: tick leaves})]}``."""
-    import torch.multiprocessing as mp
-
     out = {}
     for world in MESHES:
-        d = tmp_path_factory.mktemp(f"fleet{world}")
-        mp.spawn(_rank_main, args=(world, str(d / "init"), str(d)), nprocs=world, join=True)
-        for rank in range(world):
-            for case, res in torch.load(d / f"rank{rank}.pt", weights_only=False).items():
+        for results in run_on_ranks(_rank_main, world, device="cpu"):
+            for case, res in results.items():
                 out.setdefault(case, []).append(res)
     return out
 

@@ -6,8 +6,8 @@
   the whole twin bit for bit: K a multiple of 256·8 and the ragged
   K = 1,500 (whose last shards straddle K or are all padding), the
   inheritance threshold inside a later shard, seeded and on injected noise.
-* **Spawned gloo ranks.**  One ``torch.multiprocessing.spawn`` of 2 ranks and
-  one of 4 (``file://`` init in a temporary directory), each running every
+* **Spawned gloo ranks.**  One spawn of 2 ranks and one of 4
+  (``parallel/mesh.run_on_ranks``), each running every
   case once; each test asserts its own case on every rank:
   - ``make_sharded_fused_solver`` against ``make_fused_solver`` for three
     warm-started ticks, racing at T=6 and the ragged K=1,500, fixed λ, MPO,
@@ -32,8 +32,6 @@ Every comparison here held bit for bit on this CPU: no case is held at the
 JAX bar in place of bitwise equality.
 """
 
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -55,6 +53,7 @@ from mppi_playground_tpu_torch.parallel import (
     replicated,
     sample_sharding,
 )
+from mppi_playground_tpu_torch.parallel.mesh import run_on_ranks
 from mppi_playground_tpu_torch.parallel.sharded import shard_size
 
 T = 6
@@ -217,48 +216,44 @@ def _jax_fleet_case(grid) -> tuple:
     return batched.first, _leaves(r)
 
 
-def _rank_main(rank: int, world: int, init_file: str, out_dir: str, jax_noise: str) -> None:
-    torch.set_num_threads(1)
-    initialize_distributed(f"file://{init_file}", world, rank, device="cpu")
-    try:
-        from mppi_playground_tpu_torch.models import pendulum
+def _rank_main(rank: int, world: int, jax_noise: str) -> dict:
+    """Every case on one spawned gloo rank (``parallel/mesh.run_on_ranks``)."""
+    from mppi_playground_tpu_torch.models import pendulum
 
-        env, task, _, _ = _racing()
-        mesh = make_mesh()
-        results = {"mesh shape": tuple(mesh.shape)}
-        for lam in MODES:
-            solver = make_sharded_fused_solver(_racing_config(lam), task, env.dynamics, mesh)
-            for mode in ("seeded", "noise"):
-                results[f"fused {lam} {mode}"] = _fused_run(solver, mode)
+    env, task, _, _ = _racing()
+    mesh = make_mesh()
+    results = {"mesh shape": tuple(mesh.shape)}
+    for lam in MODES:
+        solver = make_sharded_fused_solver(_racing_config(lam), task, env.dynamics, mesh)
+        for mode in ("seeded", "noise"):
+            results[f"fused {lam} {mode}"] = _fused_run(solver, mode)
+    for lam in (1.0, "ESSPS"):
+        solver = make_sharded_solver(_pendulum_config(lam), pendulum.dynamics,
+                                     pendulum.cost, mesh)
+        results[f"unfused {lam}"] = _unfused_run(solver)
+    if world == 4:
+        grid = make_mesh(mesh_shape=(2, 2))
+        results["grid shape"] = tuple(grid.shape)
+        for lam in (1.0, "ESSPS"):
+            batched = make_batched_fused_solver(_racing_config(lam), task, env.dynamics,
+                                                grid, FLEET_B, sample_axis=SAMPLE_AXIS)
+            results[f"fleet {lam}"] = (batched.first, _fleet_run(batched, env))
+        try:
+            make_batched_fused_solver(_racing_config(1.0), task, env.dynamics, grid, 3)
+        except ValueError as err:
+            results["odd batch"] = str(err)
+        results["jax fleet"] = _jax_fleet_case(grid)
+    if world == 2:
+        results.update(_jax_cases(mesh))
+        with np.load(jax_noise) as data:
+            noise = {k: torch.from_numpy(data[k]) for k in data.files if k.startswith("noise")}
         for lam in (1.0, "ESSPS"):
             solver = make_sharded_solver(_pendulum_config(lam), pendulum.dynamics,
                                          pendulum.cost, mesh)
-            results[f"unfused {lam}"] = _unfused_run(solver)
-        if world == 4:
-            grid = make_mesh(mesh_shape=(2, 2))
-            results["grid shape"] = tuple(grid.shape)
-            for lam in (1.0, "ESSPS"):
-                batched = make_batched_fused_solver(_racing_config(lam), task, env.dynamics,
-                                                    grid, FLEET_B, sample_axis=SAMPLE_AXIS)
-                results[f"fleet {lam}"] = (batched.first, _fleet_run(batched, env))
-            try:
-                make_batched_fused_solver(_racing_config(1.0), task, env.dynamics, grid, 3)
-            except ValueError as err:
-                results["odd batch"] = str(err)
-            results["jax fleet"] = _jax_fleet_case(grid)
-        if world == 2:
-            results.update(_jax_cases(mesh))
-            with np.load(jax_noise) as data:
-                noise = {k: torch.from_numpy(data[k]) for k in data.files if k.startswith("noise")}
-            for lam in (1.0, "ESSPS"):
-                solver = make_sharded_solver(_pendulum_config(lam), pendulum.dynamics,
-                                             pendulum.cost, mesh)
-                r = solver.solve(solver.init(), torch.tensor([np.pi, 0.0]),
-                                 noise=noise[f"noise_{lam}"])
-                results[f"jax unfused {lam}"] = _leaves(r)
-        torch.save(results, Path(out_dir) / f"rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+            r = solver.solve(solver.init(), torch.tensor([np.pi, 0.0]),
+                             noise=noise[f"noise_{lam}"])
+            results[f"jax unfused {lam}"] = _leaves(r)
+    return results
 
 
 def jax_sharded_reference(out_path: str) -> None:
@@ -332,17 +327,10 @@ def jax_ref(tmp_path_factory):
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory, jax_ref):
     """``{world: [rank results]}`` of one spawn of 2 gloo ranks and one of 4."""
-    import torch.multiprocessing as mp
-
     jax_noise = tmp_path_factory.mktemp("jax_noise") / "noise.npz"
     np.savez(jax_noise, **{k: v for k, v in jax_ref.items() if k.startswith("noise")})
-    out = {}
-    for world in (2, 4):
-        d = tmp_path_factory.mktemp(f"gloo{world}")
-        mp.spawn(_rank_main, args=(world, str(d / "init"), str(d), str(jax_noise)),
-                 nprocs=world, join=True)
-        out[world] = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(world)]
-    return out
+    return {world: run_on_ranks(_rank_main, world, (str(jax_noise),), device="cpu")
+            for world in (2, 4)}
 
 
 @pytest.fixture(scope="module")
