@@ -22,9 +22,15 @@ must be capturable as well (:data:`CAPTURABLE`); a capture that fails
 raises with that requirement named, and nothing falls back to eager ticks.
 The carry's tensors ride the loop; anything else in it is fixed at capture.
 
-Each kernel wrapper counts the launches that run where it makes them; a
-capture runs nothing and is not counted, and a replay's launches are seen
-only on the device (``chip_smoke.py`` counts them in a profiler's trace).
+The tick runner's boundaries are spans of ``utils/timing``: ``tick.copy_in``
+(the inputs into the buffers), ``tick.eager`` (a body run outside a graph),
+``tick.capture``, ``tick.replay`` and ``tick.copy_out`` (the copies a
+replayed tick returns), inside the facade's ``facade.episode`` of a closed
+loop.  A capture also maps the graph's nodes to the spans its body opened
+(``TickGraph.span_map``), so that a device trace of the replays can be read
+by span, and the counters ``tick.captures``, ``tick.eager`` and
+``tick.replays`` move with each.  A launch a capture records counts in
+``kernel.launches`` once for every replay of its graph.
 
 :class:`PipelinedRunner` is the real-time serving loop with ``depth``
 solves in flight, their plans copied to pinned host memory behind CUDA
@@ -47,6 +53,16 @@ import torch
 
 from mppi_playground_tpu_torch.core.config import MPPIState, batch_key
 from mppi_playground_tpu_torch.core.solver import state_key
+from mppi_playground_tpu_torch.utils import timing
+
+_COPY_IN = timing.Span("tick.copy_in")
+_REPLAY = timing.Span("tick.replay")
+_COPY_OUT = timing.Span("tick.copy_out")
+# the replayed tick's leaf spans, stamped at their boundaries and written after the launch
+_COPY_IN_CODE, _REPLAY_CODE, _COPY_OUT_CODE = _COPY_IN.code, _REPLAY.code, _COPY_OUT.code
+_EAGER = timing.Span("tick.eager")
+_CAPTURE = timing.Span("tick.capture")
+_EPISODE = timing.Span("facade.episode")
 
 # ---------------------------------------------------------------------------
 # Trees of tensors: the loop's state, a solver state, an info_fn carry
@@ -264,13 +280,18 @@ class TickGraph:
     ``body`` must read and write only tensors that outlive the graph, and
     must have run eagerly once before (kernels built, first-call tables
     made).  ``out`` is what the capture returned: tensors the next replay
-    overwrites.  ``capture_s`` is the capture's wall time.  The kernel
-    wrappers do not count what a capture records (``ops/cuda_build.launched``),
-    and nothing counts a replay's launches on the host.
+    overwrites.  ``capture_s`` is the capture's wall time.  ``span_map``
+    (``utils/timing.SpanMap``) lists the graph's nodes in the order a replay
+    runs them, each with the span it was captured under, and counts the
+    replays; the graph stays readable as ``graph.raw_cuda_graph()``.  The
+    capture is the span ``tick.capture``, each replay the span
+    ``tick.replay``; a replay adds the launches the capture recorded to
+    ``kernel.launches`` and a replay to ``tick.replays``.
     """
 
     def __init__(self, body: Callable[[], Any], device: torch.device):
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        libcuda = timing.libcuda()  # outside the capture: a driver that lacks a call fails here
         # A graph the collector frees while this one captures (one left in a
         # reference cycle) is destroyed mid-capture, which invalidates the
         # capture: collect first, and hold the collector off until it ends.
@@ -279,19 +300,37 @@ class TickGraph:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.device(device), torch.cuda.graph(self.graph):
-                self.out = body()
-        except RuntimeError as err:
+            with _CAPTURE, torch.cuda.device(device), torch.cuda.graph(self.graph):
+                stream = torch.cuda.current_stream().cuda_stream
+                with timing.mapping(stream, libcuda) as span_map:
+                    self.out = body()
+        except Exception as err:
             _end_generator_capture(device)
+            if not isinstance(err, RuntimeError):
+                raise
             raise RuntimeError(f"capturing the control tick in a CUDA graph failed; "
                                f"{CAPTURABLE}. The capture raised: {err}") from err
         finally:
             if collecting:
                 gc.enable()
+        self.graph.instantiate()
         self.capture_s = time.perf_counter() - t0
+        self.span_map = span_map
+        timing.count("tick.captures")
 
     def replay(self) -> None:
+        start = timing.begin(_REPLAY_CODE)
         self.graph.replay()
+        timing.write(_REPLAY_CODE, start, timing.end())
+        self.span_map.replays += 1
+
+
+def _eager(body: Callable[..., Any], *args, **kw):
+    """``body(*args, **kw)`` run outside a graph: the span ``tick.eager``."""
+    with _EAGER:
+        out = body(*args, **kw)
+    timing.count("tick.eager")
+    return out
 
 
 class _Captured:
@@ -317,7 +356,7 @@ class _Captured:
         if self.graph is not None:
             self.graph.replay()
             return self.graph.out
-        out = body()
+        out = _eager(body)
         self.graph = TickGraph(body, device)
         return out
 
@@ -344,20 +383,22 @@ class _Episode(_Captured):
         if dev.type != "cuda":
             xs, us = [], []
             for t in range(n):
-                loop, x, u = self.tick(loop, torch.tensor(t, device=dev))
+                loop, x, u = _eager(self.tick, loop, torch.tensor(t, device=dev))
                 xs.append(x)
                 us.append(u)
             return loop, torch.stack(xs), torch.stack(us)
-        self._hold(loop)
-        if self.graph is None:
-            self.t = torch.zeros((), dtype=torch.int64, device=dev)
-            self.xs = x_like.new_empty((n, *x_like.shape))
-            self.us = u_like.new_empty((n, *u_like.shape))
-        self.t.zero_()
+        with _COPY_IN:
+            self._hold(loop)
+            if self.graph is None:
+                self.t = torch.zeros((), dtype=torch.int64, device=dev)
+                self.xs = x_like.new_empty((n, *x_like.shape))
+                self.us = u_like.new_empty((n, *u_like.shape))
+            self.t.zero_()
         self._run(self._body, dev)  # tick 0
         for _ in range(n - 1):
             self.graph.replay()
-        return _clone(self.loop), self.xs.clone(), self.us.clone()
+        with _COPY_OUT:
+            return _clone(self.loop), self.xs.clone(), self.us.clone()
 
     def _body(self) -> None:
         loop_next, x, u = self.tick(self.loop, self.t)
@@ -437,13 +478,14 @@ def make_closed_loop(
                          device=solver.device)
 
     def run(state: MPPIState, x0, carry: Any = None):
-        x0 = _x0(solver, x0)
-        flags = (None, None)
-        if done_fn is not None:
-            flags = (torch.zeros((), dtype=torch.bool, device=x0.device),
-                     torch.zeros((), dtype=torch.int32, device=x0.device))
-        loop = (_with_key(state, solver.device), x0, carry, *flags)
-        (st, xf, c, done, ticks), xs, us = episode(loop, x0, u_like)
+        with _EPISODE(state.tick):
+            x0 = _x0(solver, x0)
+            flags = (None, None)
+            if done_fn is not None:
+                flags = (torch.zeros((), dtype=torch.bool, device=x0.device),
+                         torch.zeros((), dtype=torch.int32, device=x0.device))
+            loop = (_with_key(state, solver.device), x0, carry, *flags)
+            (st, xf, c, done, ticks), xs, us = episode(loop, x0, u_like)
         st = dataclasses.replace(st, tick=state.tick + num_ticks)
         if done_fn is None:
             return st, xf, xs, us, c
@@ -498,11 +540,12 @@ def make_pipelined_closed_loop(
     u_like = torch.empty(dim_control, dtype=solver.config.dtype, device=solver.device)
 
     def run(state: MPPIState, x0, carry: Any = None):
-        x0 = _x0(solver, x0)
-        queue = torch.zeros(max(depth, 1), horizon, dim_control, dtype=solver.config.dtype,
-                            device=x0.device)
-        (st, xf, c, _), xs, us = episode((_with_key(state, solver.device), x0, carry, queue),
-                                         x0, u_like)
+        with _EPISODE(state.tick):
+            x0 = _x0(solver, x0)
+            queue = torch.zeros(max(depth, 1), horizon, dim_control, dtype=solver.config.dtype,
+                                device=x0.device)
+            (st, xf, c, _), xs, us = episode((_with_key(state, solver.device), x0, carry,
+                                              queue), x0, u_like)
         return dataclasses.replace(st, tick=state.tick + num_ticks), xf, xs, us, c
 
     run.episode = episode
@@ -582,15 +625,17 @@ def make_fleet_closed_loop(
     episode = _Episode(tick, num_ticks)
 
     def run(states: MPPIState, x0s, carry: Any = None):
-        x0s = torch.as_tensor(x0s, dtype=config.dtype, device=batched_solver.device)
-        batch = x0s.shape[0]
-        u_like = x0s.new_empty(batch, config.dim_control)
-        flags = (None, None)
-        if done_fn is not None:
-            flags = (torch.zeros(batch, dtype=torch.bool, device=x0s.device),
-                     torch.zeros(batch, dtype=torch.int32, device=x0s.device))
-        states = dataclasses.replace(states, key=batch_key(states, batch, x0s.device))
-        (st, xf, c, done, ticks), xs, us = episode((states, x0s, carry, *flags), x0s, u_like)
+        with _EPISODE(states.tick):
+            x0s = torch.as_tensor(x0s, dtype=config.dtype, device=batched_solver.device)
+            batch = x0s.shape[0]
+            u_like = x0s.new_empty(batch, config.dim_control)
+            flags = (None, None)
+            if done_fn is not None:
+                flags = (torch.zeros(batch, dtype=torch.bool, device=x0s.device),
+                         torch.zeros(batch, dtype=torch.int32, device=x0s.device))
+            states = dataclasses.replace(states, key=batch_key(states, batch, x0s.device))
+            (st, xf, c, done, ticks), xs, us = episode((states, x0s, carry, *flags), x0s,
+                                                       u_like)
         st = dataclasses.replace(st, tick=states.tick + num_ticks)
         if done_fn is None:
             return st, xf, xs, us, c
@@ -714,6 +759,11 @@ class ReplayedTick(_Captured):
         self._release()
         self._carry = value
 
+    @property
+    def ticks_run(self) -> int:
+        """The state's host ``tick``, whether or not the graph's buffers hold the state."""
+        return self._state.tick
+
     def _release(self) -> None:
         """Take the state and the carry out of the graph's buffers."""
         if self._held:
@@ -729,18 +779,25 @@ class ReplayedTick(_Captured):
         """
         if not graph or x.device.type != "cuda":
             self._release()
-            result, self._carry, extra = self.tick(self._state, x, self._carry, **kw)
+            result, self._carry, extra = _eager(self.tick, self._state, x, self._carry, **kw)
             self._state = result.state
             return result.action_seq, result.state_seq, result.aux, extra
         tick = self._state.tick
+        t0 = timing.begin(_COPY_IN_CODE)
         if self._held:
             self.loop[2].copy_(x)
         else:
             self._hold((_with_key(self._state, x.device), self._carry, x))
+        t1 = timing.end()
         action_seq, state_seq, aux, extra = self._run(self._body, x.device)
         state, self._carry, _ = self.loop
         self._state, self._held = dataclasses.replace(state, tick=tick + 1), True
-        return action_seq.clone(), state_seq.clone(), aux, _clone(extra)
+        t2 = timing.begin(_COPY_OUT_CODE)
+        out = action_seq.clone(), state_seq.clone(), aux, _clone(extra)
+        t3 = timing.end()
+        timing.write(_COPY_IN_CODE, t0, t1)
+        timing.write(_COPY_OUT_CODE, t2, t3)
+        return out
 
     def _body(self):
         state, carry, x = self.loop

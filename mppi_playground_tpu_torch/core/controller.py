@@ -32,7 +32,8 @@ ticks): the first such call runs eagerly and captures, every later one
 replays; :attr:`solver_state` reads a copy of the state.  ``forward`` with
 ``info`` or ``noise``, and every tick on the CPU, runs eagerly.
 ``run_episode`` runs N ticks through ``core/closed_loop.make_closed_loop``:
-one replayed graph of the tick body on the card.
+one replayed graph of the tick body on the card.  Each ``forward`` is the
+span ``facade.forward`` of ``utils/timing`` at the tick it starts.
 
 So ``dynamics`` and ``cost_func`` must be capturable on the card: torch
 operations on the tensors they are given, no reads of device values on the
@@ -58,7 +59,10 @@ from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState
 from mppi_playground_tpu_torch.core.fused_solver import fused_envelope, make_fused_solver
 from mppi_playground_tpu_torch.core.solver import CostFn, Dynamics, SolveAux, make_solver, warm_reset
 from mppi_playground_tpu_torch.ops.fused_solve import FusedTask
+from mppi_playground_tpu_torch.utils import timing
 from mppi_playground_tpu_torch.utils.device import resolve_device
+
+_FORWARD = timing.Span("facade.forward")
 
 
 def _floats(values) -> Tuple[float, ...]:
@@ -187,20 +191,24 @@ class MPPI:
         noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One solve -> ``(action_seq [T, m], state_seq [T+1, n])``."""
-        state = torch.as_tensor(state, dtype=self.config.dtype, device=self.device)
-        if tuple(state.shape) != (self.config.dim_state,):
-            raise ValueError(
-                f"state must have shape ({self.config.dim_state},) (= dim_state), "
-                f"got {tuple(state.shape)}"
-            )
-        if info is None and noise is None:
-            action_seq, state_seq, aux, _ = self._ticks.step(state)
-        else:
-            action_seq, state_seq, aux, _ = self._ticks.step(state, graph=False, info=info,
-                                                             noise=noise)
-        self._last_aux = aux
-        self._last_noise = noise  # the fused top-k replay must reuse it
-        return action_seq, state_seq
+        timing.open_span(_FORWARD.code, self._ticks.ticks_run)
+        try:
+            state = torch.as_tensor(state, dtype=self.config.dtype, device=self.device)
+            if tuple(state.shape) != (self.config.dim_state,):
+                raise ValueError(
+                    f"state must have shape ({self.config.dim_state},) (= dim_state), "
+                    f"got {tuple(state.shape)}"
+                )
+            if info is None and noise is None:
+                action_seq, state_seq, aux, _ = self._ticks.step(state)
+            else:
+                action_seq, state_seq, aux, _ = self._ticks.step(state, graph=False, info=info,
+                                                                 noise=noise)
+            self._last_aux = aux
+            self._last_noise = noise  # the fused top-k replay must reuse it
+            return action_seq, state_seq
+        finally:
+            timing.close_span()
 
     __call__ = forward
 

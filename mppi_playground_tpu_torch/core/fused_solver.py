@@ -61,6 +61,9 @@ from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, batch_k
 from mppi_playground_tpu_torch.core.diagnostics import top_indices
 from mppi_playground_tpu_torch.core.sg_filter import config_sg_coeffs
 from mppi_playground_tpu_torch.core.solver import (
+    LAMBDA,
+    SOLVE,
+    TAIL,
     Dynamics,
     MPPISolver,
     SolveAux,
@@ -224,43 +227,48 @@ def make_solve_batch(config: MPPIConfig, task: FusedTask, device: torch.device,
         info: Optional[Dict[str, Any]] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> SolveResult:
-        x0s = torch.as_tensor(x0s, dtype=dtype, device=device).contiguous()
-        batch = x0s.shape[0]
-        keys = batch_key(states, batch, device)
-        if noise is not None:
-            noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
-        seeds = keys[:, 2]  # each scenario's seed word, read by the drawing kernels
-        refs = task.reference_rows(info, batch, device)
-        prevs = states.previous_action_seq.contiguous()
-        if use_epilogue:
-            if batch not in tickets:
-                tickets[batch] = torch.zeros(batch, dtype=torch.int32, device=device)
-            costs, dump, lam = fused_costs_dump_lambda_batch(
-                x0s, prevs, seeds, refs, task, *core.bounds, core.num_samples, core.threshold,
-                noise, search, tickets[batch])
-            stats, numer = core.weighted(costs, dump, lam)
-        elif search is not None:
-            local_costs, dump = core.costs_dump(x0s, prevs, seeds, refs, noise)
-            costs = core.gather_costs(local_costs)
-            lam = search.run_batch(costs)
-            stats, numer = core.gather_partials(*core.weighted(local_costs, dump, lam))
-        else:  # fixed and MPO weight at each scenario's lambda
-            lam = states.lam.contiguous()
-            local_costs, stats, numer = core.fused_solve(x0s, prevs, lam, seeds, refs, noise)
-            costs = core.gather_costs(local_costs)
-            stats, numer = core.gather_partials(stats, numer)
-        keys_out = torch.empty_like(keys)
-        action_seq, state_seq, weights, ess, new_sg_history = fused_tick_tail_batch(
-            x0s, costs, stats, numer, lam, task, states.sg_history.contiguous(), sg_coeffs,
-            keys=keys, keys_out=keys_out,
-        )
-        new_states = advance_state(config, states, costs, lam, action_seq, new_sg_history,
-                                   keys_out)
-        aux = SolveAux(costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=None,
-                       # replay handles for top_samples: a scenario's seed word [1]
-                       seed=keys[:, 2:], x0=x0s, prev_action_seq=prevs,
-                       noise_injected=noise is not None)
-        return SolveResult(action_seq, state_seq, new_states, aux)
+        with SOLVE:
+            x0s = torch.as_tensor(x0s, dtype=dtype, device=device).contiguous()
+            batch = x0s.shape[0]
+            keys = batch_key(states, batch, device)
+            if noise is not None:
+                noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
+            seeds = keys[:, 2]  # each scenario's seed word, read by the drawing kernels
+            refs = task.reference_rows(info, batch, device)
+            prevs = states.previous_action_seq.contiguous()
+            if use_epilogue:
+                if batch not in tickets:
+                    tickets[batch] = torch.zeros(batch, dtype=torch.int32, device=device)
+                with LAMBDA:
+                    costs, dump, lam = fused_costs_dump_lambda_batch(
+                        x0s, prevs, seeds, refs, task, *core.bounds, core.num_samples,
+                        core.threshold, noise, search, tickets[batch])
+                    stats, numer = core.weighted(costs, dump, lam)
+            elif search is not None:
+                with LAMBDA:
+                    local_costs, dump = core.costs_dump(x0s, prevs, seeds, refs, noise)
+                    costs = core.gather_costs(local_costs)
+                    lam = search.run_batch(costs)
+                    stats, numer = core.gather_partials(*core.weighted(local_costs, dump, lam))
+            else:  # fixed and MPO weight at each scenario's lambda
+                lam = states.lam.contiguous()
+                local_costs, stats, numer = core.fused_solve(x0s, prevs, lam, seeds, refs,
+                                                             noise)
+                costs = core.gather_costs(local_costs)
+                stats, numer = core.gather_partials(stats, numer)
+            with TAIL:
+                keys_out = torch.empty_like(keys)
+                action_seq, state_seq, weights, ess, new_sg_history = fused_tick_tail_batch(
+                    x0s, costs, stats, numer, lam, task, states.sg_history.contiguous(),
+                    sg_coeffs, keys=keys, keys_out=keys_out,
+                )
+                new_states = advance_state(config, states, costs, lam, action_seq,
+                                           new_sg_history, keys_out)
+            aux = SolveAux(costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=None,
+                           # replay handles for top_samples: a scenario's seed word [1]
+                           seed=keys[:, 2:], x0=x0s, prev_action_seq=prevs,
+                           noise_injected=noise is not None)
+            return SolveResult(action_seq, state_seq, new_states, aux)
 
     return solve_batch
 

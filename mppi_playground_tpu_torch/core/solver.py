@@ -65,7 +65,13 @@ from mppi_playground_tpu_torch.ops.weighted_update import (
     weighted_update,
     weighted_update_batch,
 )
+from mppi_playground_tpu_torch.utils import timing
 from mppi_playground_tpu_torch.utils.device import resolve_device
+
+SOLVE = timing.Span("solver.solve")
+ROLLOUT = timing.Span("solver.rollout")
+LAMBDA = timing.Span("solver.lambda")
+TAIL = timing.Span("solver.tail")
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 CostFn = Callable[[torch.Tensor, torch.Tensor, Dict[str, Any]], torch.Tensor]
@@ -251,7 +257,8 @@ def advance_state(
     if config.auto_lambda == "MPO":
         if opt_state is None:
             raise ValueError("an MPO solve needs the state's mpo_opt_state: start from init()")
-        lam, log_t, opt_state = autolambda.mpo_step(costs, log_t, opt_state)
+        with LAMBDA:
+            lam, log_t, opt_state = autolambda.mpo_step(costs, log_t, opt_state)
     return MPPIState(
         previous_action_seq=action_seq,
         sg_history=sg_history,
@@ -430,33 +437,40 @@ def make_solve_batch(config: MPPIConfig, dynamics: Dynamics, cost_fn: CostFn,
         noise: Optional[torch.Tensor] = None,
         batched_info: Optional[Dict[str, Any]] = None,
     ) -> SolveResult:
-        x0s = torch.as_tensor(x0s, dtype=dtype, device=device)
-        batch = x0s.shape[0]
-        perturbed, keys_out = perturbations_batch(batch_key(states, batch, device),
-                                                  states.previous_action_seq, noise)
-        shared = {} if info is None else dict(info)
-        rows = {} if batched_info is None else dict(batched_info)
-        out = torch.func.vmap(lambda x0, p, row: rollout(x0, p, row, shared))(
-            x0s, perturbed, rows)
-        costs, rollouts = out[0], (out[1] if len(out) > 1 else None)
-        # LBPS and ESSPS pick each scenario's temperature from its costs alone
-        if config.auto_lambda in ("LBPS", "ESSPS"):
-            lam = torch.stack([search_lambda(config, own_row(costs, b)) for b in range(batch)])
-        else:
-            lam = states.lam
-        update, weights, ess = weighted_update_batch(costs, perturbed, lam,
-                                                     backend=config.kernel_backend)
-        if config.use_sg_filter:
-            update = torch.stack([apply_sg_filter(update[b], states.sg_history[b], sg_coeffs)
-                                  for b in range(batch)])
-        state_seq = torch.func.vmap(predict)(x0s, update)
-        if config.horizon > 1:
-            sg_history = torch.cat([states.sg_history[:, 1:], update[:, :1]], dim=1)
-        else:
-            sg_history = states.sg_history
-        new_states = advance_state(config, states, costs, lam, update, sg_history, keys_out)
-        aux = SolveAux(costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=rollouts)
-        return SolveResult(update, state_seq, new_states, aux)
+        with SOLVE:
+            x0s = torch.as_tensor(x0s, dtype=dtype, device=device)
+            batch = x0s.shape[0]
+            perturbed, keys_out = perturbations_batch(batch_key(states, batch, device),
+                                                      states.previous_action_seq, noise)
+            shared = {} if info is None else dict(info)
+            rows = {} if batched_info is None else dict(batched_info)
+            with ROLLOUT:
+                out = torch.func.vmap(lambda x0, p, row: rollout(x0, p, row, shared))(
+                    x0s, perturbed, rows)
+            costs, rollouts = out[0], (out[1] if len(out) > 1 else None)
+            # LBPS and ESSPS pick each scenario's temperature from its costs alone
+            if config.auto_lambda in ("LBPS", "ESSPS"):
+                with LAMBDA:
+                    lam = torch.stack([search_lambda(config, own_row(costs, b))
+                                       for b in range(batch)])
+            else:
+                lam = states.lam
+            update, weights, ess = weighted_update_batch(costs, perturbed, lam,
+                                                         backend=config.kernel_backend)
+            with TAIL:
+                if config.use_sg_filter:
+                    update = torch.stack([apply_sg_filter(update[b], states.sg_history[b],
+                                                          sg_coeffs) for b in range(batch)])
+                state_seq = torch.func.vmap(predict)(x0s, update)
+                if config.horizon > 1:
+                    sg_history = torch.cat([states.sg_history[:, 1:], update[:, :1]], dim=1)
+                else:
+                    sg_history = states.sg_history
+                new_states = advance_state(config, states, costs, lam, update, sg_history,
+                                           keys_out)
+            aux = SolveAux(costs=costs, weights=weights, lam=lam, ess=ess,
+                           state_seq_batch=rollouts)
+            return SolveResult(update, state_seq, new_states, aux)
 
     return solve_batch
 
@@ -490,32 +504,37 @@ def make_solver(
         noise: Optional[torch.Tensor] = None,
     ) -> SolveResult:
         """One MPPI solve; ``noise`` optional ``[K, T, m]``, already scaled."""
-        user_info = {} if info is None else dict(info)
-        x0 = torch.as_tensor(x0, dtype=dtype, device=device)
-        perturbed, key = perturbations(state_key(state, device), state.previous_action_seq,
-                                       noise)
+        with SOLVE:
+            user_info = {} if info is None else dict(info)
+            x0 = torch.as_tensor(x0, dtype=dtype, device=device)
+            perturbed, key = perturbations(state_key(state, device), state.previous_action_seq,
+                                           noise)
 
-        x0_batch = x0.expand(num_samples, dim_state)
-        costs, state_seq_batch = _rollout_and_costs(
-            dynamics, cost_fn, x0_batch, perturbed, user_info, config.store_rollouts
-        )
-        # LBPS and ESSPS pick the temperature before weighting; fixed and MPO
-        # weight at the state's (MPO steps it afterwards, in advance_state)
-        if config.auto_lambda in ("LBPS", "ESSPS"):
-            lam = search_lambda(config, costs)
-        else:
-            lam = state.lam
-        update, weights, ess = weighted_update(
-            costs, perturbed, lam, backend=config.kernel_backend
-        )
-        action_seq, state_seq, new_sg_history = smooth_predict_advance(
-            config, sg_coeffs, states_prediction, state, x0, update
-        )
-        new_state = advance_state(config, state, costs, lam, action_seq, new_sg_history, key)
-        aux = SolveAux(
-            costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=state_seq_batch
-        )
-        return SolveResult(action_seq, state_seq, new_state, aux)
+            x0_batch = x0.expand(num_samples, dim_state)
+            with ROLLOUT:
+                costs, state_seq_batch = _rollout_and_costs(
+                    dynamics, cost_fn, x0_batch, perturbed, user_info, config.store_rollouts
+                )
+            # LBPS and ESSPS pick the temperature before weighting; fixed and MPO
+            # weight at the state's (MPO steps it afterwards, in advance_state)
+            if config.auto_lambda in ("LBPS", "ESSPS"):
+                with LAMBDA:
+                    lam = search_lambda(config, costs)
+            else:
+                lam = state.lam
+            update, weights, ess = weighted_update(
+                costs, perturbed, lam, backend=config.kernel_backend
+            )
+            with TAIL:
+                action_seq, state_seq, new_sg_history = smooth_predict_advance(
+                    config, sg_coeffs, states_prediction, state, x0, update
+                )
+                new_state = advance_state(config, state, costs, lam, action_seq,
+                                          new_sg_history, key)
+            aux = SolveAux(
+                costs=costs, weights=weights, lam=lam, ess=ess, state_seq_batch=state_seq_batch
+            )
+            return SolveResult(action_seq, state_seq, new_state, aux)
 
     return MPPISolver(
         config=config,

@@ -30,6 +30,10 @@ copies.  ``update`` with ``noise``, and every tick on the CPU, runs
 eagerly.  ``run_episode`` runs N ticks
 through ``core/closed_loop.make_closed_loop``: one replayed graph of the
 tick body on the card.
+
+Each ``update`` is the span ``facade.update`` of ``utils/timing`` at the
+tick it starts, and a rebuild after a map change the span
+``facade.rebuild``; a rebuild counts in ``solver.rebuilds``.
 """
 
 from __future__ import annotations
@@ -52,8 +56,11 @@ from mppi_playground_tpu_torch.models.racing_mpcc import (
     make_mpcc_cost,
     make_racing_fused_task_from_env,
 )
+from mppi_playground_tpu_torch.utils import timing
 
 SOLVER_BACKENDS = ("auto", "fused", "xla")
+_UPDATE = timing.Span("facade.update")
+_REBUILD = timing.Span("facade.rebuild")
 
 
 class RacingController:
@@ -127,7 +134,9 @@ class RacingController:
 
     def _refresh_if_maps_changed(self) -> None:
         if self.env.obstacle_map.version != self._map_version:
-            self._build_solver()
+            with _REBUILD:
+                self._build_solver()
+            timing.count("solver.rebuilds")
 
     @property
     def solver_state(self) -> MPPIState:
@@ -172,12 +181,16 @@ class RacingController:
         self, state: torch.Tensor, noise: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One control tick -> ``(action_seq [T, 2], state_seq [T+1, 4])``."""
-        self._refresh_if_maps_changed()
-        x = torch.as_tensor(state, dtype=self.config.dtype, device=self.device)
-        action_seq, state_seq, self._last_aux, self._xref = self._ticks.step(
-            x, graph=noise is None, noise=noise)
-        self._last_noise = noise
-        return action_seq, state_seq
+        timing.open_span(_UPDATE.code, self._ticks.ticks_run)
+        try:
+            self._refresh_if_maps_changed()
+            x = torch.as_tensor(state, dtype=self.config.dtype, device=self.device)
+            action_seq, state_seq, self._last_aux, self._xref = self._ticks.step(
+                x, graph=noise is None, noise=noise)
+            self._last_noise = noise
+            return action_seq, state_seq
+        finally:
+            timing.close_span()
 
     def run_episode(self, state: torch.Tensor, num_ticks: int, done_fn=None):
         """``num_ticks`` control ticks as one closed loop (``core/closed_loop``).

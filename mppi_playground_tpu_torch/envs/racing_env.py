@@ -3,9 +3,10 @@
 Counterpart of ``mppi_playground_tpu/envs/racing_env.py``: 80x80 m maps at 0.1 m cells, a lane corridor of width ``6.5 * 0.8`` around
 the circuit centerline, 50 random circle obstacles with r in [0.9, 1.2]
 inside +-35 m (seed 42), start and goal at the path ends, and the bicycle
-dynamics.  The maps are built on the host with numpy and uploaded once.
-``render`` draws the scene with matplotlib (``envs/rendering.py``) and
-``close`` writes the captured frames as a GIF.
+dynamics (each step the span ``env.dynamics`` of ``utils/timing``).  The
+maps are built on the host with numpy and uploaded once.  ``render``
+draws the scene with matplotlib (``envs/rendering.py``) and ``close``
+writes the captured frames as a GIF.
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ from mppi_playground_tpu_torch.maps.lane_map import LaneMap
 from mppi_playground_tpu_torch.maps.obstacle_map import ObstacleMap, generate_random_obstacles
 from mppi_playground_tpu_torch.models import bicycle
 from mppi_playground_tpu_torch.utils.angles import angle_normalize
+from mppi_playground_tpu_torch.utils import timing
 from mppi_playground_tpu_torch.utils.device import resolve_device
+
+_DYNAMICS = timing.Span("env.dynamics")
 
 
 class RacingEnv:
@@ -86,10 +90,16 @@ class RacingEnv:
 
         self._start_pos = self.racing_center_path[0, :2]
         self._goal_pos = self.racing_center_path[-1, :2]
-        self.dynamics = bicycle.make_dynamics(
+        step = bicycle.make_dynamics(
             x_lim=tuple(self._obstacle_map.x_lim),
             y_lim=tuple(self._obstacle_map.y_lim),
         )
+
+        def dynamics(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+            with _DYNAMICS:
+                return step(x, u)
+
+        self.dynamics = dynamics
         self._robot_state = self._initial_state()
         self._fig = None
         self._ax = None

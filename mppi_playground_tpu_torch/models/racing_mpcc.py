@@ -28,6 +28,9 @@ from mppi_playground_tpu_torch.maps.grid_cost import (
     map_query,
 )
 from mppi_playground_tpu_torch.models.bicycle import V_MAX
+from mppi_playground_tpu_torch.utils import timing
+
+_REFERENCE_ROWS = timing.Span("solver.reference_rows")
 
 QC = 2.0
 QL = 3.0
@@ -227,29 +230,31 @@ def calc_ref_trajectory(
     Returns:
         (xref ``[horizon+1, 4]``, new_cind 0-dim int64 tensor).
     """
-    ncourse = path.shape[0]
-    dx = path[:, 0] - state[0]
-    dy = path[:, 1] - state[1]
-    d = torch.sqrt(dx * dx + dy * dy)
-    nearest = torch.argmin(d)  # first minimum
-    ind = torch.maximum(torch.as_tensor(cind, dtype=torch.int64, device=path.device), nearest)
+    with _REFERENCE_ROWS:
+        ncourse = path.shape[0]
+        dx = path[:, 0] - state[0]
+        dy = path[:, 1] - state[1]
+        d = torch.sqrt(dx * dx + dy * dy)
+        nearest = torch.argmin(d)  # first minimum
+        ind = torch.maximum(torch.as_tensor(cind, dtype=torch.int64, device=path.device),
+                            nearest)
 
-    dinds = _lookahead_offsets(
-        int(horizon), float(DL), float(lookahead_distance),
-        float(reference_path_interval), path.device,
-    )
-    rows = ind + dinds
-    valid = rows < ncourse
-    rows = torch.clamp(rows, max=ncourse - 1)
-    xref_pose = path[rows]
+        dinds = _lookahead_offsets(
+            int(horizon), float(DL), float(lookahead_distance),
+            float(reference_path_interval), path.device,
+        )
+        rows = ind + dinds
+        valid = rows < ncourse
+        rows = torch.clamp(rows, max=ncourse - 1)
+        xref_pose = path[rows]
 
-    v_column = torch.where(
-        torch.all(valid),
-        torch.full((horizon + 1,), v_max, dtype=path.dtype, device=path.device),
-        torch.zeros((horizon + 1,), dtype=path.dtype, device=path.device),
-    )
-    xref = torch.cat([xref_pose, v_column[:, None]], dim=1)
-    return xref.to(state.dtype), ind
+        v_column = torch.where(
+            torch.all(valid),
+            torch.full((horizon + 1,), v_max, dtype=path.dtype, device=path.device),
+            torch.zeros((horizon + 1,), dtype=path.dtype, device=path.device),
+        )
+        xref = torch.cat([xref_pose, v_column[:, None]], dim=1)
+        return xref.to(state.dtype), ind
 
 
 def calc_ref_trajectory_batch(
@@ -277,26 +282,28 @@ def calc_ref_trajectory_batch(
     Returns:
         (xrefs ``[B, horizon+1, 4]``, new_cinds ``[B]`` int64).
     """
-    ncourse = path.shape[0]
-    dx = path[:, 0] - states[:, 0:1]
-    dy = path[:, 1] - states[:, 1:2]
-    d = torch.sqrt(dx * dx + dy * dy)
-    nearest = torch.argmin(d, dim=1)  # first minimum
-    ind = torch.maximum(torch.as_tensor(cinds, dtype=torch.int64, device=path.device), nearest)
+    with _REFERENCE_ROWS:
+        ncourse = path.shape[0]
+        dx = path[:, 0] - states[:, 0:1]
+        dy = path[:, 1] - states[:, 1:2]
+        d = torch.sqrt(dx * dx + dy * dy)
+        nearest = torch.argmin(d, dim=1)  # first minimum
+        ind = torch.maximum(torch.as_tensor(cinds, dtype=torch.int64, device=path.device),
+                            nearest)
 
-    dinds = _lookahead_offsets(
-        int(horizon), float(DL), float(lookahead_distance),
-        float(reference_path_interval), path.device,
-    )
-    rows = ind[:, None] + dinds
-    valid = rows < ncourse
-    rows = torch.clamp(rows, max=ncourse - 1)
-    xref_pose = path[rows]
+        dinds = _lookahead_offsets(
+            int(horizon), float(DL), float(lookahead_distance),
+            float(reference_path_interval), path.device,
+        )
+        rows = ind[:, None] + dinds
+        valid = rows < ncourse
+        rows = torch.clamp(rows, max=ncourse - 1)
+        xref_pose = path[rows]
 
-    v_column = torch.where(
-        torch.all(valid, dim=1, keepdim=True),
-        torch.full((1, horizon + 1), v_max, dtype=path.dtype, device=path.device),
-        torch.zeros((1, horizon + 1), dtype=path.dtype, device=path.device),
-    )
-    xrefs = torch.cat([xref_pose, v_column[..., None]], dim=-1)
-    return xrefs.to(states.dtype), ind
+        v_column = torch.where(
+            torch.all(valid, dim=1, keepdim=True),
+            torch.full((1, horizon + 1), v_max, dtype=path.dtype, device=path.device),
+            torch.zeros((1, horizon + 1), dtype=path.dtype, device=path.device),
+        )
+        xrefs = torch.cat([xref_pose, v_column[..., None]], dim=-1)
+        return xrefs.to(states.dtype), ind

@@ -10,6 +10,11 @@ csrc``; its name stands for its text.  The flags target Hopper
 (``sm_90a``), keep IEEE float arithmetic (no ``--use_fast_math``) and turn
 off FMA contraction (``-fmad=false``), so a kernel rounds as its plain
 PyTorch twin does.  Nothing here runs at import.
+
+Every launch opens the span ``kernel.<symbol>`` and counts in the registry
+of ``utils/timing`` (``kernel.launches``); each ``nvcc`` run counts in
+``kernels.built``, each library loaded that an earlier process built in
+``kernels.loaded``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
 import torch
+
+from mppi_playground_tpu_torch.utils import timing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -117,6 +124,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
                 source = target.with_suffix(".cu") if name in _units else f"{name}.cu"
                 raise RuntimeError(f"nvcc failed for {source}:\n{out}")
             os.replace(tmp, target)
+            timing.count("kernels.built")
     finally:
         for _, proc, tmp, _ in procs:
             if proc.poll() is None:
@@ -141,6 +149,8 @@ def function(name: str, symbol: str, argtypes: list):
                 build([name])
                 lib = ctypes.CDLL(str(_target(name)))
                 _loaded[name] = lib
+                if name not in build_seconds:  # found built by an earlier process
+                    timing.count("kernels.loaded")
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -152,22 +162,25 @@ def launch(name: str, symbol: str, argtypes: list, device, *args) -> None:
     """Call ``symbol`` of library ``name`` with ``args`` and ``device``'s current stream.
 
     The C function enqueues its kernel and returns ``cudaGetLastError()``;
-    a refused launch raises here.
+    a refused launch raises here.  The call is the span ``kernel.<symbol>``,
+    and the launch counts in ``kernel.launches`` (:func:`launched`).
     """
     fn = function(name, symbol, argtypes)
     stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
+    with timing.kernel_span(symbol), torch.cuda.device(device):
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    timing.count_launch(symbol, launched())
 
 
 def launched() -> int:
-    """What a launch just made on the current stream adds to its wrapper's count.
+    """Whether a launch just made on the current stream ran (1) or was recorded by a CUDA
+    graph's capture (0).
 
-    1 where the kernel runs; 0 while a CUDA graph is being captured, which
-    records the launch and runs nothing.  A graph's replays run its kernels
-    without any wrapper: their launches are seen on the device (a profiler's
-    kernel trace), not in the counts.
+    It is what the launch adds to the registry's eager count of its kernel
+    (``utils/timing``), which the wrappers' ``launches`` read; a captured
+    launch counts in ``kernel.launches`` once for every replay of its graph,
+    from the graph's capture map.
     """
     return 0 if torch.cuda.is_current_stream_capturing() else 1

@@ -70,11 +70,11 @@ actions, and weigh 0 in its partials; so the shards' outputs concatenated and
 sliced to the solve's K samples and ``ceil(K / 256)`` blocks are the whole
 launch's.  The defaults (0 and ``num_samples``) are the whole launch.
 
-Each wrapper launches its kernel for CUDA tensors, counts the launch in the
-``launches`` counter of the kernel's single-scenario wrapper under the
-kernel's name, whichever form launched it (a launch a CUDA graph captures is
-not counted: ``cuda_build.launched``), and raises on what the kernel does
-not take.  For CPU tensors it runs the plain PyTorch twin beside it
+Each wrapper launches its kernel for CUDA tensors and raises on what the
+kernel does not take.  The ``launches`` of the kernel's single-scenario
+wrapper reads its eager launches under the kernel's name, whichever form
+launched it: a view of ``utils/timing``'s registry, in which a launch a CUDA
+graph captures counts once for every replay instead (``cuda_build.launched``).  For CPU tensors it runs the plain PyTorch twin beside it
 (``*_plain``), which does the kernel's arithmetic operation for operation
 through the task's own ``dynamics_soa`` and ``stage_cost_soa``.  The twins
 also run on CUDA tensors when called directly, which is how the kernels are
@@ -98,7 +98,6 @@ next tick's key there.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
@@ -112,6 +111,7 @@ import torch
 from mppi_playground_tpu_torch.ops import cuda_build
 from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
 from mppi_playground_tpu_torch.ops.weighted_update import BLOCK, block_partials_plain
+from mppi_playground_tpu_torch.utils import timing
 from mppi_playground_tpu_torch.utils.fastmath import sincos_2pi
 
 MAX_SLOTS = 1024  # the port's envelope: horizon * dim_control
@@ -884,7 +884,7 @@ def fused_solve(
     return costs[0], stats[0], numer[0]
 
 
-fused_solve.launches = collections.Counter()
+fused_solve.launches = timing.LaunchCounts(lambda name: name.endswith("_fused_solve"))
 
 
 def fused_costs_dump(
@@ -915,7 +915,7 @@ def fused_costs_dump(
     return costs[0], dump[0]
 
 
-fused_costs_dump.launches = collections.Counter()
+fused_costs_dump.launches = timing.LaunchCounts(lambda name: name.endswith("_costs_dump"))
 
 
 def fused_costs_dump_lambda(
@@ -949,7 +949,7 @@ def fused_costs_dump_lambda(
     return costs[0], dump[0], lam
 
 
-fused_costs_dump_lambda.launches = collections.Counter()
+fused_costs_dump_lambda.launches = timing.LaunchCounts(lambda name: name.endswith("_costs_dump_lambda"))
 
 _WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 
@@ -971,7 +971,7 @@ def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor,
     return stats[0], numer[0]
 
 
-fused_weighted.launches = collections.Counter()
+fused_weighted.launches = timing.LaunchCounts(lambda name: name == "fused_weighted")
 
 _REGEN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
 _REGEN_BATCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
@@ -1010,7 +1010,7 @@ def fused_regen(
                              num_samples, threshold, _one(noise), _one(key), _one(key_out))[0]
 
 
-fused_regen.launches = collections.Counter()
+fused_regen.launches = timing.LaunchCounts(lambda name: name.startswith("fused_regen_m"))
 
 _TOP_ROLLOUTS_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
 
@@ -1067,11 +1067,10 @@ def fused_top_rollouts(
         rows.data_ptr(), bounds, model_f, model_i, seed.data_ptr(), horizon, num_samples,
         max(0, min(threshold, num_samples)), num_rows, out.data_ptr(),
     )
-    fused_top_rollouts.launches[symbol] += cuda_build.launched()
     return out
 
 
-fused_top_rollouts.launches = collections.Counter()
+fused_top_rollouts.launches = timing.LaunchCounts(lambda name: name.endswith("_top_rollouts"))
 
 _REROLL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
 
@@ -1090,11 +1089,10 @@ def fused_reroll(x0: torch.Tensor, action_seq: torch.Tensor, task: FusedTask) ->
     library, symbol = task.entry("reroll")
     cuda_build.launch(library, symbol, _REROLL_ARGTYPES, dev, x0.data_ptr(),
                       action_seq.data_ptr(), model_f, model_i, horizon, out.data_ptr())
-    fused_reroll.launches[symbol] += cuda_build.launched()
     return out
 
 
-fused_reroll.launches = collections.Counter()
+fused_reroll.launches = timing.LaunchCounts(lambda name: name.endswith("_reroll"))
 
 _TAIL_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
 
@@ -1134,7 +1132,7 @@ def fused_tick_tail(
     return action_seq[0], states[0], w[0], ess[0], history[0]
 
 
-fused_tick_tail.launches = collections.Counter()
+fused_tick_tail.launches = timing.LaunchCounts(lambda name: name.endswith("_tick_tail"))
 
 # ---------------------------------------------------------------------------
 # A fleet of scenarios, one launch a kernel: the wrappers and their twins
@@ -1200,7 +1198,6 @@ def fused_solve_batch(
     numer = torch.empty(batch, blocks, prevs[0].numel(), dtype=torch.float32, device=dev)
     cuda_build.launch(*task.entry("fused_solve_batch"), _SOLVE_BATCH_ARGTYPES, dev, *args,
                       costs.data_ptr(), stats.data_ptr(), numer.data_ptr())
-    fused_solve.launches[f"{task.name}_fused_solve"] += cuda_build.launched()
     return costs, stats, numer
 
 
@@ -1246,7 +1243,6 @@ def fused_costs_dump_batch(
     dump = torch.empty(batch, prevs[0].numel(), num_samples, dtype=torch.float32, device=dev)
     cuda_build.launch(*task.entry("costs_dump_batch"), _DUMP_BATCH_ARGTYPES, dev, *args,
                       costs.data_ptr(), dump.data_ptr())
-    fused_costs_dump.launches[f"{task.name}_costs_dump"] += cuda_build.launched()
     return costs, dump
 
 
@@ -1292,7 +1288,6 @@ def fused_weighted_batch(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Ten
     cuda_build.launch("fused_solve", "fused_weighted_batch", _WEIGHTED_BATCH_ARGTYPES, dev,
                       costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots, num_samples,
                       batch, sample_offset, total, stats.data_ptr(), numer.data_ptr())
-    fused_weighted.launches["fused_weighted"] += cuda_build.launched()
     return stats, numer
 
 
@@ -1387,7 +1382,6 @@ def fused_tick_tail_batch(
         num_samples, window, batch, action_seq.data_ptr(), states.data_ptr(), ess.data_ptr(),
         w.data_ptr(), history.data_ptr(), key_ptr, key_out_ptr,
     )
-    fused_tick_tail.launches[f"{task.name}_tick_tail"] += cuda_build.launched()
     return action_seq, states, w, ess, history
 
 def fused_costs_dump_lambda_batch_plain(x0s, prevs, seeds, refs, task: FusedTask, sigmas,
@@ -1448,7 +1442,6 @@ def fused_costs_dump_lambda_batch(
         ctypes.c_float(search.lambda_max), ctypes.c_float(search.kernel_param),
         int(search.iters), tickets.data_ptr(), costs.data_ptr(), dump.data_ptr(), lam.data_ptr(),
     )
-    fused_costs_dump_lambda.launches[f"{task.name}_costs_dump_lambda"] += cuda_build.launched()
     return costs, dump, lam
 
 
@@ -1528,7 +1521,6 @@ def fused_regen_batch(
         max(0, min(threshold, num_samples)), num_rows, batch, stride, out.data_ptr(), key_ptr,
         key_out_ptr,
     )
-    fused_regen.launches[name] += cuda_build.launched()
     return out
 
 

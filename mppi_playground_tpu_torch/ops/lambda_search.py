@@ -23,9 +23,10 @@ is :meth:`LambdaSearch.plain`.
 
 These differ from the loops of ``core/autolambda.py`` only in rounding: the
 same searches on another form of the same sums.  Each wrapper launches its
-kernel for CUDA tensors, counts the launch in its ``launches`` attribute
-(not while a CUDA graph captures it: ``cuda_build.launched``), and raises
-on what the kernel does not take.  For CPU tensors it runs the plain twin
+kernel for CUDA tensors, and raises on what the kernel does not take; its
+``launches`` reads the eager launches in ``utils/timing``'s registry (a
+launch a CUDA graph captures counts there once a replay:
+``cuda_build.launched``).  For CPU tensors it runs the plain twin
 beside it (``*_plain``), which does the kernel's arithmetic operation for
 operation, its sums included (:func:`kernel_order_sum`): the
 LBPS objective is so flat near its minimum that two summation orders can
@@ -42,6 +43,7 @@ import math
 import torch
 
 from mppi_playground_tpu_torch.ops import cuda_build
+from mppi_playground_tpu_torch.utils import timing
 
 _INVPHI = (math.sqrt(5.0) - 1.0) / 2.0
 # the kernels' launch geometry (csrc/lambda_search.cu kCluster, kThreads)
@@ -233,6 +235,7 @@ def _one_row(name: str, costs: torch.Tensor) -> torch.Tensor:
     return costs[None]
 
 
+@timing.counted_launches("essps_search_batch")
 def essps_lambda_fused(
     costs: torch.Tensor, target_ess: float, lambda_min: float, lambda_max: float,
     iters: int = 40,
@@ -246,9 +249,8 @@ def essps_lambda_fused(
                                     lambda_min, lambda_max, iters)[0]
 
 
-essps_lambda_fused.launches = 0
 
-
+@timing.counted_launches("lbps_search_batch")
 def lbps_lambda_fused(
     costs: torch.Tensor, delta: float, lambda_min: float, lambda_max: float, iters: int = 32,
 ) -> torch.Tensor:
@@ -260,8 +262,6 @@ def lbps_lambda_fused(
     return lbps_lambda_fused_batch(_one_row("lbps_lambda_fused", costs), delta, lambda_min,
                                    lambda_max, iters)[0]
 
-
-lbps_lambda_fused.launches = 0
 
 
 _SEARCH_BATCH_ARGTYPES = (
@@ -293,7 +293,6 @@ def essps_lambda_fused_batch(
         return torch.stack([essps_lambda_plain(c, target_ess, lambda_min, lambda_max, iters)
                             for c in costs])
     lam = _launch_batch("essps_search_batch", costs, lambda_min, lambda_max, target_ess, iters)
-    essps_lambda_fused.launches += cuda_build.launched()
     return lam
 
 
@@ -310,5 +309,4 @@ def lbps_lambda_fused_batch(
                             for c in costs])
     lam = _launch_batch("lbps_search_batch", costs, lambda_min, lambda_max,
                         (1.0 - delta) / delta, iters)
-    lbps_lambda_fused.launches += cuda_build.launched()
     return lam

@@ -12,9 +12,9 @@ weights[k] * samples[k]`` and the effective sample size ``1 / sum(w^2)``.
   sample``, streamed with neighbouring threads on neighbouring columns.  Its
   statistics are the code the fused solve and auto-lambda phase 2 share
   (``csrc/softmin_partials.cuh``).  It launches its kernel for CUDA
-  tensors, counts the launch in its ``launches`` attribute (not while a
-  CUDA graph captures it), and raises on
-  what the kernel does not take; CPU tensors take
+  tensors and raises on what the kernel does not take; its ``launches``
+  reads the eager launches in ``utils/timing``'s registry (a launch a CUDA
+  graph captures counts there once a replay); CPU tensors take
   :func:`block_partials_plain`, the twin of every kernel's block partials.
 * :func:`weighted_update_partials_batch` (``weighted_update_batch``) — the
   same kernel over an unfused fleet's B scenarios in one launch, the
@@ -39,6 +39,7 @@ from typing import Tuple
 import torch
 
 from mppi_playground_tpu_torch.ops import cuda_build
+from mppi_playground_tpu_torch.utils import timing
 
 BLOCK = 256  # samples per block of partials, the kernels' block size
 BACKENDS = ("auto", "xla", "pallas")
@@ -100,6 +101,7 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 _BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
 
 
+@timing.counted_launches("weighted_update_batch")
 def weighted_update_partials(costs: torch.Tensor, samples: torch.Tensor, lam: torch.Tensor):
     """Block partials ``(stats [B, 3], numer [B, D])`` of ``samples [K, D]`` at ``lam``.
 
@@ -119,8 +121,6 @@ def weighted_update_partials(costs: torch.Tensor, samples: torch.Tensor, lam: to
     stats, numer = weighted_update_partials_batch(costs[None], samples[None], lam.reshape(1))
     return stats[0], numer[0]
 
-
-weighted_update_partials.launches = 0
 
 
 def weighted_update_partials_batch_plain(costs, samples, lam):
@@ -168,7 +168,6 @@ def weighted_update_partials_batch(costs: torch.Tensor, samples: torch.Tensor,
     cuda_build.launch("weighted_update", "weighted_update_batch", _BATCH_ARGTYPES, dev,
                       costs.data_ptr(), samples.data_ptr(), lam.data_ptr(), slots, num_samples,
                       batch, stats.data_ptr(), numer.data_ptr())
-    weighted_update_partials.launches += cuda_build.launched()
     return stats, numer
 
 
