@@ -43,7 +43,13 @@ Phases, each of which fails the run if it fails:
    and rolled out against their twin (bitwise); each timed, the weighted
    update at
    each width and shape beside its bound and ``torch.softmax`` then
-   ``torch.mv``, at D=100 also with a cold L2;
+   ``torch.mv``, at D=100 also with a cold L2; 5b, the racing reference
+   rows' kernel (:func:`check_reference_rows`): ``calc_ref_trajectory`` (the
+   kernel at B=1) and ``calc_ref_trajectory_batch`` at B=32 against their
+   torch ops on the same card tensors at T=25 and 50, rows and indices bit
+   for bit, one launch a call, timed by graph replay beside the torch ops
+   and the bound; every racing path of phases 6-15 counts the kernel once
+   a tick;
 6. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
    lambda and under ESSPS, LBPS and MPO (the solver's default lambda route),
    and ESSPS and LBPS forced onto the lambda epilogue and onto the
@@ -618,10 +624,15 @@ def launch_counters(plugs=()) -> dict:
     those of ``plugs``, the ``ModelPlug`` objects given.
 
     The fused-solve wrappers count their launches in a Counter under each
-    kernel's name (``key``); the search and weighted-update wrappers, one
-    kernel each, in an int (``key`` None).
+    kernel's name (``key``); the search, weighted-update and reference-rows
+    wrappers, one kernel each, in an int (``key`` None).
     """
-    from mppi_playground_tpu_torch.ops import fused_solve, lambda_search, weighted_update
+    from mppi_playground_tpu_torch.ops import (
+        fused_solve,
+        lambda_search,
+        reference_rows,
+        weighted_update,
+    )
 
     counted = {}
     for wrapper in fused_solve.WRAPPERS:
@@ -630,7 +641,13 @@ def launch_counters(plugs=()) -> dict:
     for search in (lambda_search.essps_lambda_fused, lambda_search.lbps_lambda_fused):
         counted[search.__name__] = (search, None)
     counted["weighted_update_partials"] = (weighted_update.weighted_update_partials, None)
+    counted["reference_rows"] = (reference_rows.reference_rows, None)
     return counted
+
+
+# the racing reference rows' kernel: once a tick on every racing path, which computes the
+# tick's rows through models/racing_mpcc.calc_ref_trajectory(_batch)
+REFERENCE_ROWS = frozenset({"reference_rows"})
 
 
 def fused_kernels(name, config, lambda_epilogue=None) -> set:
@@ -689,7 +706,8 @@ def counter_of(kernel: str, plugs=()):
     for function, counter in (("weighted_update_kernel<", "weighted_update_partials"),
                               ("weighted_kernel(", "fused_weighted"),
                               ("search_kernel<false>", "essps_lambda_fused"),
-                              ("search_kernel<true>", "lbps_lambda_fused")):
+                              ("search_kernel<true>", "lbps_lambda_fused"),
+                              ("reference_rows_kernel(", "reference_rows")):
         if function in kernel:
             return counter
     for function, suffix in KERNEL_FUNCTIONS:
@@ -799,8 +817,8 @@ def path_launches(label: str, counted: dict, traces: list, want: dict):
 def drive_modes(torch, fused_solve, env, solvers, card):
     """Phase 6: 50 closed-loop flagship ticks under each mode, every kernel counted.
 
-    ``solvers`` is :func:`mode_solvers`'s.  Before each mode all eight launch
-    counters are set to 0, and they are read after its last tick.  Returns
+    ``solvers`` is :func:`mode_solvers`'s.  Before each mode every launch
+    counter is set to 0, and they are read after its last tick.  Returns
     ``{mode: {"launches", "median_ms", "tick", "init", "state", "cind", "x"}}``
     or None after a failure.
     """
@@ -854,7 +872,8 @@ def drive_modes(torch, fused_solve, env, solvers, card):
                 return None
             x, _ = env.step(action_seq[0])
         launches = read_counters(counted)
-        once = fused_kernels("racing", cfg, ROUTE_MODES.get(mode)) - {"racing_top_rollouts"}
+        once = (fused_kernels("racing", cfg, ROUTE_MODES.get(mode)) - {"racing_top_rollouts"}
+                | REFERENCE_ROWS)
         want = {name: (TICKS if name in once else 0) for name in counted}
         if launches != want:
             fail(f"{mode}: launches {launches}, expected {want}")
@@ -900,7 +919,8 @@ def ticks_in_turns(torch, env, runners, windows: int = 10, per_window: int = 10)
 
 
 ENTRY_TICKS = 5  # the graft entry's chained ticks, traced
-ENTRY_KERNELS = ("racing_fused_solve", "racing_tick_tail")  # rows 1 and 2, once a tick
+# rows 1 and 2 and the reference rows, once a tick
+ENTRY_KERNELS = ("racing_fused_solve", "racing_tick_tail", "reference_rows")
 
 
 def drive_entry(torch, flagship_tick, card):
@@ -910,7 +930,8 @@ def drive_entry(torch, flagship_tick, card):
     fixed-lambda tick, K=100,000, T=50) on the same state, seed, ``cind``
     and start; then ``fn`` runs :data:`ENTRY_TICKS` chained ticks under the
     device trace, every counter set to 0 just before: each tick launches
-    rows 1 and 2 (:data:`ENTRY_KERNELS`) once and no other kernel of ours.
+    rows 1 and 2 and the reference rows (:data:`ENTRY_KERNELS`) once and no
+    other kernel of ours.
     Returns ``{"launches", "build_s", "seconds"}``, or None after a failure.
     """
     import graft_entry_torch
@@ -1228,6 +1249,110 @@ def check_weighted_update(torch, fused_solve, pert, costs, dump_costs, dump, car
                    for key, value in t.items()})
 
 
+def reference_rows_bound_ms(batch: int, points: int, rows: int) -> tuple:
+    """Least time of the reference rows of ``batch`` states on a path of ``points`` points.
+
+    Bytes: the path once (12 bytes a point), each state (16) and progress
+    index (8), the ``rows`` lookahead offsets (8 each); each scenario's
+    ``rows`` rows of 16 bytes and its index written.  Operations per state
+    and point: two subtractions, two products, a sum and the root.
+    """
+    in_bytes = 12 * points + batch * (16 + 8) + 8 * rows
+    out_bytes = batch * (16 * rows + 8)
+    return _bound(in_bytes, out_bytes, 6 * batch * points)
+
+
+REF_ROWS_FLEET_B = 32  # the fleet's batch (FLEET_T); the single call is the flagship's (T)
+
+
+def reference_rows_inputs(torch, path, batch: int, seed: int) -> tuple:
+    """``(states [batch, 4], cinds [batch])`` on ``path``'s device: states scattered about
+    random points of the path, a third of the progress indices within 30 points of its end
+    (rows clamped, the velocity column zeroed), the rest 0 or ahead of the state."""
+    g = torch.Generator().manual_seed(seed)
+    n = path.shape[0]
+    near = path.cpu()[torch.randint(0, n, (batch,), generator=g)]
+    xs = torch.empty(batch, 4)
+    xs[:, :2] = near[:, :2] + 1.5 * torch.randn(batch, 2, generator=g)
+    xs[:, 2] = near[:, 2] + 0.3 * torch.randn(batch, generator=g)
+    xs[:, 3] = 5.0 * torch.rand(batch, generator=g)
+    cinds = torch.randint(0, n, (batch,), generator=g)
+    cinds[::2] = 0
+    cinds[::3] = n - 1 - torch.randint(0, 30, (cinds[::3].shape[0],), generator=g)
+    return xs.to(path.device), cinds.to(path.device)
+
+
+def check_reference_rows(torch, env, card):
+    """Phase 5b: the racing reference rows' kernel against its torch ops on the scene's circuit.
+
+    ``calc_ref_trajectory`` (the kernel at B=1) on 16 states one at a time,
+    and ``calc_ref_trajectory_batch`` on B=32 states, each at T=25 and 50,
+    against ``calc_ref_trajectory_plain`` and ``calc_ref_trajectory_batch_plain``
+    on the same card tensors (:func:`reference_rows_inputs`): rows and
+    indices bit for bit, and one launch a call.  Then each timed by graph
+    replay, as the torch ops are (their 17 kernels' device time), beside
+    :func:`reference_rows_bound_ms`: the single call at the flagship's T
+    (``ms``), the batch at the fleet's B and T (``batched``).  Returns the
+    kernels-line row, or None after a failure.
+    """
+    from mppi_playground_tpu_torch.models.racing_mpcc import (
+        calc_ref_trajectory,
+        calc_ref_trajectory_batch,
+        calc_ref_trajectory_batch_plain,
+        calc_ref_trajectory_plain,
+    )
+    from mppi_playground_tpu_torch.ops.reference_rows import reference_rows
+
+    path = env.racing_center_path
+    checked = 0
+    for horizon in (FLEET_T, T):
+        xs, cinds = reference_rows_inputs(torch, path, 16, SEED + horizon)
+        for x, c in zip(xs, cinds):
+            reference_rows.launches = 0
+            got = calc_ref_trajectory(x, path, c, horizon)
+            launches = reference_rows.launches
+            want = calc_ref_trajectory_plain(x, path, c, horizon)
+            if launches != 1 or not _bitwise(got, want):
+                fail(f"reference rows, single call at T={horizon}: {launches} launches, or "
+                     "rows or index not bit for bit the torch ops")
+                return None
+            checked += 1
+        xs, cinds = reference_rows_inputs(torch, path, REF_ROWS_FLEET_B, SEED + 1 + horizon)
+        reference_rows.launches = 0
+        got = calc_ref_trajectory_batch(xs, path, cinds, horizon)
+        launches = reference_rows.launches
+        want = calc_ref_trajectory_batch_plain(xs, path, cinds, horizon)
+        zeroed = int((got[0][:, 0, 3] == 0).sum())
+        if launches != 1 or not _bitwise(got, want) or not 0 < zeroed < REF_ROWS_FLEET_B:
+            fail(f"reference rows, B={REF_ROWS_FLEET_B} at T={horizon}: {launches} launches, "
+                 f"rows or indices not bit for bit the torch ops, or {zeroed} velocity "
+                 "columns zeroed (some and not all expected)")
+            return None
+        checked += REF_ROWS_FLEET_B
+    n = path.shape[0]
+    x, c = xs[0], cinds[0]
+    ms = graph_ms(torch, lambda: calc_ref_trajectory(x, path, c, T), 200)
+    plain_ms = graph_ms(torch, lambda: calc_ref_trajectory_plain(x, path, c, T), 50)
+    bound, by = reference_rows_bound_ms(1, n, T + 1)
+    xs, cinds = reference_rows_inputs(torch, path, REF_ROWS_FLEET_B, SEED)
+    batched = dict(
+        batch=REF_ROWS_FLEET_B, horizon=FLEET_T,
+        ms=graph_ms(torch, lambda: calc_ref_trajectory_batch(xs, path, cinds, FLEET_T), 200),
+        plain_ms=graph_ms(torch, lambda: calc_ref_trajectory_batch_plain(xs, path, cinds,
+                                                                         FLEET_T), 50),
+        bound_ms=reference_rows_bound_ms(REF_ROWS_FLEET_B, n, FLEET_T + 1)[0])
+    print(f"reference rows on {card}, N={n}: {checked} states bit for bit the torch ops "
+          f"(single calls and B={REF_ROWS_FLEET_B}, T={FLEET_T} and {T}; {zeroed} of the last "
+          f"batch's velocity columns zeroed), one launch a call; graph replay: B=1 T={T} "
+          f"{1e3 * ms:.3f} us (torch ops {1e3 * plain_ms:.3f} us, bound {1e3 * bound:.5f} us); "
+          f"B={REF_ROWS_FLEET_B} T={FLEET_T} {1e3 * batched['ms']:.3f} us (torch ops "
+          f"{1e3 * batched['plain_ms']:.3f} us, bound {1e3 * batched['bound_ms']:.5f} us)",
+          flush=True)
+    return kernel_row("reference_rows", "reference_rows.cu",
+                      "mppi_playground_tpu/models/racing_mpcc.py calc_ref_trajectory (XLA ops)",
+                      0.0, ms, plain_ms, bound, by, batched=batched, states_checked=checked)
+
+
 def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min, u_max,
                 weights, card):
     """Row 6 at T=50, K=100,000, seeded and in noise mode, against the twins.
@@ -1374,7 +1499,7 @@ def drive_facades(torch, env, card):
             fail(f"{route}: {err}")
             return None
         once = ({"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} if fused
-                else {"fused_regen_m2", "weighted_update_partials"})
+                else {"fused_regen_m2", "weighted_update_partials"}) | REFERENCE_ROWS
         launches = path_launches(f"RacingController {route}", counted, [trace],
                                  {name: TICKS + 2 for name in once})
         if launches is None:
@@ -1458,6 +1583,7 @@ def drive_mppi(torch, env, task, card):
             else:  # one top-samples call after the ticks
                 want_once = {name: calls for name in fused_kernels("racing", c.config)}
                 want_once["racing_top_rollouts"] = 1
+            want_once["reference_rows"] = calls
             want = {name: want_once.get(name, 0) for name in counted}
             lam = c.lambda_
             ok = (torch.isfinite(action_seq).all() and torch.isfinite(seqs).all()
@@ -3057,7 +3183,8 @@ def flagship_episodes(torch, env, card):
         except RuntimeError as err:
             fail(f"flagship {mode} episode: the replays synchronized with the host: {err}")
             return None
-        once = fused_kernels("racing", solver.config, epilogue) - {"racing_top_rollouts"}
+        once = (fused_kernels("racing", solver.config, epilogue) - {"racing_top_rollouts"}
+                | REFERENCE_ROWS)
         launches = path_launches(f"flagship episode {mode}", counted,
                                  [first_trace, second_trace],
                                  {name: 2 * EPISODE_TICKS for name in once})
@@ -3271,7 +3398,7 @@ def facade_episodes(torch, env, card):
         _, second = traced(
             torch, lambda: ctrl.run_episode(xs[-1], EPISODE_TICKS, done_fn=racing_done))
         once = ({"racing_fused_solve", "racing_tick_tail"} if fused
-                else {"fused_regen_m2", "weighted_update_partials"})
+                else {"fused_regen_m2", "weighted_update_partials"}) | REFERENCE_ROWS
         launches = path_launches(label, counted, [first, second],
                                  {name: 2 * EPISODE_TICKS for name in once})
         if launches is None:
@@ -3650,10 +3777,11 @@ def racing_fleets(torch, env, card):
             batched = make_batched_fused_solver(fleet_config(lam), task, env.dynamics,
                                                 FLEET_DEVICE, batch)
         x0s, cinds = racing_fleet_starts(torch, env, batch)
+        once = (UNFUSED_FLEET_KERNELS if unfused
+                else fleet_kernels("racing", batched.config)) | REFERENCE_ROWS
         res = drive_fleet(torch, label, batched, env.dynamics, x0s, cinds, info_batch,
                           plant_one, info_one, UNFUSED_FLEET_TICKS if unfused else FLEET_TICKS,
-                          card, turns=turns, once=UNFUSED_FLEET_KERNELS if unfused else None,
-                          trace_looped=not unfused)
+                          card, turns=turns, once=once, trace_looped=not unfused)
         if res is None:
             return None
         out[label] = res
@@ -4362,8 +4490,11 @@ def fleets_alone() -> int:
     return 0 if drive_fleets(torch, np, RacingEnv(device="cuda"), card) is not None else 1
 
 
-def tpu_row(name: str) -> int:
-    """The row of PERF.md's table of TPU kernels that kernel ``name`` ports."""
+def tpu_row(name: str):
+    """The row of PERF.md's table of TPU kernels that kernel ``name`` ports; None for the
+    reference rows, which port XLA's ops (the JAX package has no kernel for them)."""
+    if name == "reference_rows":
+        return None
     for part, row in (("_fused_solve", 1), ("_reroll", 2), ("_tick_tail", 2),
                       ("_costs_dump_lambda", 4),
                       ("_costs_dump", 3), ("fused_weighted", 5), ("fused_regen_m", 6),
@@ -4397,6 +4528,8 @@ def row_products(kernels: list, shared: dict, plugs=()) -> dict:
     """
     out = {}
     for k in kernels:
+        if k["row"] is None:  # ports no TPU kernel
+            continue
         total = 0.0
         for path, n in k["launches_by_path"].items():
             if not n:
@@ -4718,7 +4851,8 @@ def sharded_facade(torch, env, card):
             res["checkpoint_bitwise"] = checkpoint_round_trips(torch, got[0], sharded.init())
             print(f"phase 14 sharded facade, {mode}, one-rank cpu:gloo,cuda:nccl group, T={T}, "
                   f"K={K}, {SHARDED_TICKS} ticks on {card}: {json.dumps(res)}", flush=True)
-            want_kernels = fused_kernels("racing", config) - {"racing_top_rollouts"}
+            want_kernels = (fused_kernels("racing", config) - {"racing_top_rollouts"}
+                            | REFERENCE_ROWS)
             if not (exact and set(res["launches"]) == want_kernels
                     and all(v == SHARDED_TICKS for v in res["launches"].values())
                     and res["captured"] and res["replayed_bitwise_eager"]
@@ -4879,7 +5013,8 @@ UNFUSED_M2 = frozenset({"fused_regen_m2", "weighted_update_partials"})
 # traced run; the kernels the device must run, no more and no fewer).  The fused routes:
 # the pendulum and Navigation2D at K <= 10,000 take ESSPS's epilogue (row 4, then row 5),
 # racing's fixed lambda the fused solve (row 1); each fused tick ends in its tail (row 2)
-# and the scripts that draw the top samples regenerate them (row 6).
+# and the scripts that draw the top samples regenerate them (row 6); every racing tick
+# computes its reference rows (REFERENCE_ROWS).
 EXAMPLE_RUNS = (
     ("pendulum example", "pendulum", dict(steps=10, use_gym=False), UNFUSED_M1),
     ("pendulum example --fused", "pendulum", dict(steps=10, use_gym=False, fused=True),
@@ -4898,13 +5033,13 @@ EXAMPLE_RUNS = (
     ("danger_zone example", "goal_in_danger_zone", dict(max_steps=10, render=False), UNFUSED_M2),
     ("danger_zone example --episode", "goal_in_danger_zone",
      dict(max_steps=10, render=False, episode=True), UNFUSED_M2),
-    ("racing example", "racing", dict(max_steps=10, render=False), UNFUSED_M2),
+    ("racing example", "racing", dict(max_steps=10, render=False), UNFUSED_M2 | REFERENCE_ROWS),
     ("racing example --fused", "racing", dict(max_steps=10, render=False, fused=True),
-     {"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"}),
+     {"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} | REFERENCE_ROWS),
     ("racing example --episode", "racing", dict(max_steps=10, render=False, episode=True),
-     UNFUSED_M2),
+     UNFUSED_M2 | REFERENCE_ROWS),
     ("racing example --pipelined 2", "racing", dict(max_steps=10, render=False, pipelined=2),
-     UNFUSED_M2),
+     UNFUSED_M2 | REFERENCE_ROWS),
     ("mujoco example", "mujoco_cartpole", dict(steps=10, render=False), UNFUSED_M1),
     ("make_media example --fast", "make_media", dict(argv=["--fast", "--out", None]), UNFUSED_M1),
 )
@@ -5978,6 +6113,9 @@ def main() -> int:
     if row6 is None:
         return 1
     del pert, dump
+    ref_rows_row = check_reference_rows(torch, env, card)
+    if ref_rows_row is None:
+        return 1
 
     # --- phase 6: the flagship under each mode, counted ----------------------
     env, solver, tick = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
@@ -6193,7 +6331,7 @@ def main() -> int:
             "checks": tail_checks,
         },
     ] + auto["kernels"] + row6 + [row9, racing_epilogue_row] + list(model_rows.values()) + [
-        regen_rows["m1_regen"]] + list(plugs["rows"].values())
+        regen_rows["m1_regen"]] + list(plugs["rows"].values()) + [ref_rows_row]
     sharded_rows = {"racing_fused_solve": "row1", "racing_costs_dump": "row3",
                     "fused_weighted": "row5"}
     for k in kernels:

@@ -13,6 +13,9 @@ Counterpart of ``mppi_playground_tpu/models/racing_mpcc.py``:
   with monotone progress ``max(cind, ind)``, a lookahead of 3 m at 0.85 m
   intervals accumulated in float64 on the host, and a target velocity that
   zeroes for the whole horizon once the lookahead overruns the path end.
+  A path on a CUDA device takes one launch of ``ops/reference_rows``
+  (``csrc/reference_rows.cu``), which raises on what it does not take; a
+  path on the CPU takes the torch ops of :func:`calc_ref_trajectory_plain`.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from mppi_playground_tpu_torch.maps.grid_cost import (
     map_query,
 )
 from mppi_playground_tpu_torch.models.bicycle import V_MAX
+from mppi_playground_tpu_torch.ops.reference_rows import reference_rows
 from mppi_playground_tpu_torch.utils import timing
 
 _REFERENCE_ROWS = timing.Span("solver.reference_rows")
@@ -209,6 +213,19 @@ def _lookahead_offsets(
     return torch.tensor(dind_list, dtype=torch.int64, device=device)
 
 
+def _kernel_rows(states, path, cinds, horizon, DL, lookahead_distance, reference_path_interval,
+                 v_max):
+    """``ops/reference_rows`` on ``states [B, 4]`` and ``cinds [B]``, with the cached float64
+    lookahead table."""
+    dinds = _lookahead_offsets(
+        int(horizon), float(DL), float(lookahead_distance),
+        float(reference_path_interval), path.device,
+    )
+    cinds = torch.as_tensor(cinds, dtype=torch.int64, device=path.device)
+    return reference_rows(states.contiguous(), path.contiguous(), cinds.contiguous(), dinds,
+                          v_max)
+
+
 def calc_ref_trajectory(
     state: torch.Tensor,
     path: torch.Tensor,
@@ -221,6 +238,9 @@ def calc_ref_trajectory(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference trajectory for the current tick, all on the path's device.
 
+    A path on a CUDA device: the kernel at a batch of one; on the CPU
+    :func:`calc_ref_trajectory_plain`.  The same rows and index either way.
+
     Args:
         state: ``[4]`` current vehicle state.
         path: ``[N, 3]`` resampled center path (x, y, yaw).
@@ -231,30 +251,50 @@ def calc_ref_trajectory(
         (xref ``[horizon+1, 4]``, new_cind 0-dim int64 tensor).
     """
     with _REFERENCE_ROWS:
-        ncourse = path.shape[0]
-        dx = path[:, 0] - state[0]
-        dy = path[:, 1] - state[1]
-        d = torch.sqrt(dx * dx + dy * dy)
-        nearest = torch.argmin(d)  # first minimum
-        ind = torch.maximum(torch.as_tensor(cind, dtype=torch.int64, device=path.device),
-                            nearest)
+        if path.is_cuda:
+            cinds = torch.as_tensor(cind, dtype=torch.int64, device=path.device).reshape(1)
+            xrefs, inds = _kernel_rows(state[None], path, cinds, horizon, DL,
+                                       lookahead_distance, reference_path_interval, v_max)
+            return xrefs[0], inds[0]
+        return calc_ref_trajectory_plain(state, path, cind, horizon, DL, lookahead_distance,
+                                         reference_path_interval, v_max)
 
-        dinds = _lookahead_offsets(
-            int(horizon), float(DL), float(lookahead_distance),
-            float(reference_path_interval), path.device,
-        )
-        rows = ind + dinds
-        valid = rows < ncourse
-        rows = torch.clamp(rows, max=ncourse - 1)
-        xref_pose = path[rows]
 
-        v_column = torch.where(
-            torch.all(valid),
-            torch.full((horizon + 1,), v_max, dtype=path.dtype, device=path.device),
-            torch.zeros((horizon + 1,), dtype=path.dtype, device=path.device),
-        )
-        xref = torch.cat([xref_pose, v_column[:, None]], dim=1)
-        return xref.to(state.dtype), ind
+def calc_ref_trajectory_plain(
+    state: torch.Tensor,
+    path: torch.Tensor,
+    cind: torch.Tensor,
+    horizon: int,
+    DL: float = 0.1,
+    lookahead_distance: float = 3.0,
+    reference_path_interval: float = 0.85,
+    v_max: float = V_MAX,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`calc_ref_trajectory` in torch ops, on any device and dtype: the CPU's route, and
+    what the kernel is held against on the card."""
+    ncourse = path.shape[0]
+    dx = path[:, 0] - state[0]
+    dy = path[:, 1] - state[1]
+    d = torch.sqrt(dx * dx + dy * dy)
+    nearest = torch.argmin(d)  # first minimum
+    ind = torch.maximum(torch.as_tensor(cind, dtype=torch.int64, device=path.device), nearest)
+
+    dinds = _lookahead_offsets(
+        int(horizon), float(DL), float(lookahead_distance),
+        float(reference_path_interval), path.device,
+    )
+    rows = ind + dinds
+    valid = rows < ncourse
+    rows = torch.clamp(rows, max=ncourse - 1)
+    xref_pose = path[rows]
+
+    v_column = torch.where(
+        torch.all(valid),
+        torch.full((horizon + 1,), v_max, dtype=path.dtype, device=path.device),
+        torch.zeros((horizon + 1,), dtype=path.dtype, device=path.device),
+    )
+    xref = torch.cat([xref_pose, v_column[:, None]], dim=1)
+    return xref.to(state.dtype), ind
 
 
 def calc_ref_trajectory_batch(
@@ -269,10 +309,8 @@ def calc_ref_trajectory_batch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`calc_ref_trajectory` for a fleet: row b is the single call on ``states[b]``, bit for bit.
 
-    The JAX fleet's ``jax.vmap(calc_ref_trajectory)``, written out over the
-    leading axis: the same operations elementwise (the nearest path point by
-    the first minimum, the float64 lookahead table, the zeroed velocity
-    column of a row whose lookahead overruns the path end).
+    A path on a CUDA device: one launch of the kernel for the B states; on
+    the CPU :func:`calc_ref_trajectory_batch_plain`.
 
     Args:
         states: ``[B, 4]`` vehicle states.
@@ -283,27 +321,50 @@ def calc_ref_trajectory_batch(
         (xrefs ``[B, horizon+1, 4]``, new_cinds ``[B]`` int64).
     """
     with _REFERENCE_ROWS:
-        ncourse = path.shape[0]
-        dx = path[:, 0] - states[:, 0:1]
-        dy = path[:, 1] - states[:, 1:2]
-        d = torch.sqrt(dx * dx + dy * dy)
-        nearest = torch.argmin(d, dim=1)  # first minimum
-        ind = torch.maximum(torch.as_tensor(cinds, dtype=torch.int64, device=path.device),
-                            nearest)
+        if path.is_cuda:
+            return _kernel_rows(states, path, cinds, horizon, DL, lookahead_distance,
+                                reference_path_interval, v_max)
+        return calc_ref_trajectory_batch_plain(states, path, cinds, horizon, DL,
+                                               lookahead_distance, reference_path_interval, v_max)
 
-        dinds = _lookahead_offsets(
-            int(horizon), float(DL), float(lookahead_distance),
-            float(reference_path_interval), path.device,
-        )
-        rows = ind[:, None] + dinds
-        valid = rows < ncourse
-        rows = torch.clamp(rows, max=ncourse - 1)
-        xref_pose = path[rows]
 
-        v_column = torch.where(
-            torch.all(valid, dim=1, keepdim=True),
-            torch.full((1, horizon + 1), v_max, dtype=path.dtype, device=path.device),
-            torch.zeros((1, horizon + 1), dtype=path.dtype, device=path.device),
-        )
-        xrefs = torch.cat([xref_pose, v_column[..., None]], dim=-1)
-        return xrefs.to(states.dtype), ind
+def calc_ref_trajectory_batch_plain(
+    states: torch.Tensor,
+    path: torch.Tensor,
+    cinds: torch.Tensor,
+    horizon: int,
+    DL: float = 0.1,
+    lookahead_distance: float = 3.0,
+    reference_path_interval: float = 0.85,
+    v_max: float = V_MAX,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`calc_ref_trajectory_batch` in torch ops, on any device and dtype.
+
+    The JAX fleet's ``jax.vmap(calc_ref_trajectory)``, written out over the
+    leading axis: the same operations elementwise (the nearest path point by
+    the first minimum, the float64 lookahead table, the zeroed velocity
+    column of a row whose lookahead overruns the path end).
+    """
+    ncourse = path.shape[0]
+    dx = path[:, 0] - states[:, 0:1]
+    dy = path[:, 1] - states[:, 1:2]
+    d = torch.sqrt(dx * dx + dy * dy)
+    nearest = torch.argmin(d, dim=1)  # first minimum
+    ind = torch.maximum(torch.as_tensor(cinds, dtype=torch.int64, device=path.device), nearest)
+
+    dinds = _lookahead_offsets(
+        int(horizon), float(DL), float(lookahead_distance),
+        float(reference_path_interval), path.device,
+    )
+    rows = ind[:, None] + dinds
+    valid = rows < ncourse
+    rows = torch.clamp(rows, max=ncourse - 1)
+    xref_pose = path[rows]
+
+    v_column = torch.where(
+        torch.all(valid, dim=1, keepdim=True),
+        torch.full((1, horizon + 1), v_max, dtype=path.dtype, device=path.device),
+        torch.zeros((1, horizon + 1), dtype=path.dtype, device=path.device),
+    )
+    xrefs = torch.cat([xref_pose, v_column[..., None]], dim=-1)
+    return xrefs.to(states.dtype), ind

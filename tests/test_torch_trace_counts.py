@@ -32,6 +32,8 @@ SEEN_ON_THE_CARD = {
     "void fused::regen_rollout_kernel<unicycle::NavigationModel>(fused::Sampling<2>, long "
     "const*, int, float const*, unicycle::NavigationModel::Args, float*, float*, unsigned int "
     "const*, unsigned int*)": "navigation_top_rollouts",
+    "(anonymous namespace)::reference_rows_kernel(float const*, float const*, long const*, "
+    "long const*, float, int, int, float*, long*)": "reference_rows",
     "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>, "
     "std::array<char*, 3ul> >(int, at::native::CUDAFunctor_add<float>, std::array<char*, 3ul>)":
         None,
@@ -57,7 +59,7 @@ def test_every_counter_is_reached_by_one_kernel_name():
     mapped = {chip_smoke.counter_of(n): want for n, want in names.items()}
     assert all(got == want for got, want in mapped.items())
     reached = set(mapped) | {"fused_weighted", "essps_lambda_fused", "lbps_lambda_fused",
-                             "weighted_update_partials"}
+                             "weighted_update_partials", "reference_rows"}
     assert reached == set(chip_smoke.launch_counters())
 
 

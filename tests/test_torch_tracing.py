@@ -516,8 +516,9 @@ def test_the_flagship_ticks_capture_map_is_the_graph_on_the_card():
     assert all(all(part in timing._codes for part in path.split("/")) for path in leaves)
     assert any("solver.reference_rows" in p.split("/") for p in leaves)
     assert "solver.solve/kernel.racing_fused_solve_batch" in leaves
-    assert dict(span_map.launches) == {"racing_fused_solve_batch": 1,
+    assert dict(span_map.launches) == {"reference_rows": 1, "racing_fused_solve_batch": 1,
                                        "racing_tick_tail_batch": 1}
+    assert "solver.reference_rows/kernel.reference_rows" in leaves
     before = timing.launches()
     replays = 5
     for _ in range(replays):
