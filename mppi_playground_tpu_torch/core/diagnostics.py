@@ -8,6 +8,12 @@ otherwise (and its CPU and CUDA versions need not agree), which matters
 here: at racing costs of about 1e5 with lambda=1 nearly every weight
 underflows to exactly 0, so the top 300 of thousands of samples are mostly
 ties.  :func:`top_indices` therefore takes a stable descending sort.
+
+Spans (``utils/timing``): a ``get_top_samples`` call is ``solver.top_samples``
+on either route (here around the stored rollouts' read, in
+``core/fused_solver`` around the fused route's regeneration), with the
+selection ``solver.top_indices`` inside it; the counter
+``solver.top_samples`` counts the calls.
 """
 
 from __future__ import annotations
@@ -16,11 +22,17 @@ from typing import Tuple
 
 import torch
 
+from mppi_playground_tpu_torch.utils import timing
+
+TOP_SAMPLES = timing.Span("solver.top_samples")
+TOP_INDICES = timing.Span("solver.top_indices")
+
 
 def top_indices(weights: torch.Tensor, num_samples: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(top weights [n], their indices [n])`` in ``jax.lax.top_k``'s order."""
-    order = torch.sort(weights, descending=True, stable=True)
-    return order.values[:num_samples], order.indices[:num_samples]
+    with TOP_INDICES:
+        order = torch.sort(weights, descending=True, stable=True)
+        return order.values[:num_samples], order.indices[:num_samples]
 
 
 def top_samples(
@@ -45,7 +57,9 @@ def top_samples_from_last(solver, aux, num_samples, noise=None, what="forward()"
     if aux is None:
         raise RuntimeError(f"get_top_samples requires a prior {what}.")
     if aux.state_seq_batch is not None:
-        return top_samples(aux.state_seq_batch, aux.weights, num_samples)
+        with TOP_SAMPLES:
+            timing.count("solver.top_samples")
+            return top_samples(aux.state_seq_batch, aux.weights, num_samples)
     if solver.top_samples is not None:
         return solver.top_samples(aux, num_samples, noise=noise)
     raise RuntimeError(

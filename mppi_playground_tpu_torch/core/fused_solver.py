@@ -58,7 +58,7 @@ import torch
 
 from mppi_playground_tpu_torch.core.closed_loop import _map
 from mppi_playground_tpu_torch.core.config import MPPIConfig, MPPIState, batch_key
-from mppi_playground_tpu_torch.core.diagnostics import top_indices
+from mppi_playground_tpu_torch.core.diagnostics import TOP_SAMPLES, top_indices
 from mppi_playground_tpu_torch.core.sg_filter import config_sg_coeffs
 from mppi_playground_tpu_torch.core.solver import (
     LAMBDA,
@@ -86,7 +86,10 @@ from mppi_playground_tpu_torch.ops.fused_solve import (
     fused_weighted_batch,
 )
 from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
+from mppi_playground_tpu_torch.utils import timing
 from mppi_playground_tpu_torch.utils.device import resolve_device
+
+TOP_ROLLOUTS = timing.Span("solver.top_rollouts")
 
 # The default lambda route (lambda_epilogue=None) takes the epilogue up to
 # this K, the crossover measured on an NVIDIA H100 80GB HBM3 at 700 W by
@@ -357,27 +360,31 @@ def make_fused_solver(
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(state_seqs [n, T+1, n_x], weights [n])`` of the top n samples, weight-descending.
 
-        Pass the solve's ``noise`` back when it ran on injected noise.
+        Pass the solve's ``noise`` back when it ran on injected noise.  The call is the span
+        ``solver.top_samples``, the selection and the roll-out its children.
         """
-        if aux.seed is None:
-            raise ValueError("aux must come from a fused solve (aux.seed is unset)")
-        if n > num_samples:
-            raise ValueError(
-                f"requested top {n} samples, but the solver was built with "
-                f"num_samples={num_samples}"
-            )
-        if noise is None and aux.noise_injected:
-            # the seeds would regenerate a stream unrelated to the solve's
-            raise ValueError(
-                "this solve ran with injected noise; pass the same noise array to "
-                "top_samples (seed regeneration cannot replay it)"
-            )
-        if noise is not None:
-            noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
-        top_w, rows = top_indices(aux.weights, n)
-        states = fused_top_rollouts(aux.x0, aux.prev_action_seq, aux.seed, rows, task, sigmas,
-                                    u_min, u_max, num_samples, threshold, noise)
-        return states, top_w
+        with TOP_SAMPLES:
+            timing.count("solver.top_samples")
+            if aux.seed is None:
+                raise ValueError("aux must come from a fused solve (aux.seed is unset)")
+            if n > num_samples:
+                raise ValueError(
+                    f"requested top {n} samples, but the solver was built with "
+                    f"num_samples={num_samples}"
+                )
+            if noise is None and aux.noise_injected:
+                # the seeds would regenerate a stream unrelated to the solve's
+                raise ValueError(
+                    "this solve ran with injected noise; pass the same noise array to "
+                    "top_samples (seed regeneration cannot replay it)"
+                )
+            if noise is not None:
+                noise = torch.as_tensor(noise, dtype=dtype, device=device).contiguous()
+            top_w, rows = top_indices(aux.weights, n)
+            with TOP_ROLLOUTS:
+                states = fused_top_rollouts(aux.x0, aux.prev_action_seq, aux.seed, rows, task,
+                                            sigmas, u_min, u_max, num_samples, threshold, noise)
+            return states, top_w
 
     return MPPISolver(
         config=config,

@@ -45,6 +45,11 @@ solver    ``solver.solve``             a solve (one scenario or a fleet)
 solver    ``solver.rollout``           the unfused torch rollout and its costs
 solver    ``solver.lambda``            the λ search (rows 3, 4, 7, 5) or MPO's step
 solver    ``solver.tail``              the tail and the state advance (the key moves on)
+solver    ``solver.top_samples``       ``get_top_samples``: the fused route's top rows, or
+                                       the stored rollouts read
+solver    ``solver.top_indices``       the top n samples by weight (a stable sort)
+solver    ``solver.top_rollouts``      the fused route's top rows regenerated and rolled
+                                       out (row 6)
 kernels   ``kernel.<symbol>``          every hand kernel's launch (``ops/cuda_build``)
 plant     ``env.dynamics``             ``RacingEnv.dynamics``
 ========  ===========================  ==============================================
@@ -64,8 +69,9 @@ their spans.
 **Counters** (:func:`counter`, :func:`counters`): ``tick.replays``,
 ``tick.eager``, ``tick.captures``, ``solver.rebuilds``, ``kernels.built``
 (``nvcc`` ran for a library), ``kernels.loaded`` (a library was found built
-and loaded), and ``kernel.launches`` by kernel symbol (:func:`launches`):
-the eager launches, and for each replay what its graph captured.  The kernel
+and loaded), ``solver.top_samples`` (the calls of ``get_top_samples``), and
+``kernel.launches`` by kernel symbol (:func:`launches`): the eager launches,
+and for each replay what its graph captured.  The kernel
 wrappers' ``launches`` are views of the eager counts (:class:`LaunchCounts`,
 :class:`CountedLaunches`).
 """
@@ -445,7 +451,7 @@ def dump_spans(path: str, since: int = 0) -> None:
 # ---------------------------------------------------------------------------
 
 COUNTERS = ("tick.replays", "tick.eager", "tick.captures", "solver.rebuilds", "kernels.built",
-            "kernels.loaded")
+            "kernels.loaded", "solver.top_samples")
 _counts: Dict[str, int] = dict.fromkeys(COUNTERS[1:], 0)  # tick.replays: the maps count them
 _eager_launches: Dict[str, int] = collections.defaultdict(int)
 
