@@ -49,7 +49,19 @@ Phases, each of which fails the run if it fails:
    torch ops on the same card tensors at T=25 and 50, rows and indices bit
    for bit, one launch a call, timed by graph replay beside the torch ops
    and the bound; every racing path of phases 6-15 counts the kernel once
-   a tick;
+   a tick; 5c, the racing plant's kernel (:func:`check_racing_plant`):
+   ``RacingEnv.dynamics`` against ``models/bicycle.make_dynamics``'s torch
+   ops on the same card tensors (:func:`racing_plant_inputs`: rows at and
+   beyond the map's edges, headings at and beyond +-pi, speeds at and beyond
+   +-V_MAX, actions beyond their clamps, NaN and infinite entries) at R = 1,
+   32 and 4,000, from an expanded state and the columns of a sequence of
+   actions, under ``torch.func.vmap`` at B=8 x K=4,096 and from a CUDA graph
+   replayed with new inputs, bit for bit and NaN where they give NaN, one
+   launch a call; timed by graph replay at each R beside the torch ops and
+   the bound; every racing path of phases 6-15 counts its launches: one a
+   plant step (eager, or in the fleet's and the episodes' graphs), 2T a
+   solve on the unfused route (the rollout, the nominal re-roll), T a
+   posterior of ``get_samples_from_posterior``;
 6. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
    lambda and under ESSPS, LBPS and MPO (the solver's default lambda route),
    and ESSPS and LBPS forced onto the lambda epilogue and onto the
@@ -624,12 +636,13 @@ def launch_counters(plugs=()) -> dict:
     those of ``plugs``, the ``ModelPlug`` objects given.
 
     The fused-solve wrappers count their launches in a Counter under each
-    kernel's name (``key``); the search, weighted-update and reference-rows
-    wrappers, one kernel each, in an int (``key`` None).
+    kernel's name (``key``); the search, weighted-update, reference-rows and
+    racing-plant wrappers, one kernel each, in an int (``key`` None).
     """
     from mppi_playground_tpu_torch.ops import (
         fused_solve,
         lambda_search,
+        racing_plant,
         reference_rows,
         weighted_update,
     )
@@ -642,12 +655,23 @@ def launch_counters(plugs=()) -> dict:
         counted[search.__name__] = (search, None)
     counted["weighted_update_partials"] = (weighted_update.weighted_update_partials, None)
     counted["reference_rows"] = (reference_rows.reference_rows, None)
+    counted["racing_plant"] = (racing_plant.racing_plant, None)
     return counted
 
 
 # the racing reference rows' kernel: once a tick on every racing path, which computes the
 # tick's rows through models/racing_mpcc.calc_ref_trajectory(_batch)
 REFERENCE_ROWS = frozenset({"reference_rows"})
+# the racing plant's kernel: once a step of RacingEnv.dynamics (env.step, a closed loop's
+# plant, each step of the unfused route's rollout and nominal re-roll)
+RACING_PLANT = frozenset({"racing_plant"})
+
+
+def racing_plant_launches(ticks: int, horizon: int, unfused: bool, steps: int) -> int:
+    """The racing plant's launches over ``ticks`` solves and ``steps`` plant steps: 2T a
+    solve on the unfused route (its rollout and its nominal re-roll), none on the fused one
+    (its kernels roll out the model themselves), one a step."""
+    return ticks * 2 * horizon * unfused + steps
 
 
 def fused_kernels(name, config, lambda_epilogue=None) -> set:
@@ -707,7 +731,8 @@ def counter_of(kernel: str, plugs=()):
                               ("weighted_kernel(", "fused_weighted"),
                               ("search_kernel<false>", "essps_lambda_fused"),
                               ("search_kernel<true>", "lbps_lambda_fused"),
-                              ("reference_rows_kernel(", "reference_rows")):
+                              ("reference_rows_kernel(", "reference_rows"),
+                              ("racing_plant_kernel(", "racing_plant")):
         if function in kernel:
             return counter
     for function, suffix in KERNEL_FUNCTIONS:
@@ -873,7 +898,7 @@ def drive_modes(torch, fused_solve, env, solvers, card):
             x, _ = env.step(action_seq[0])
         launches = read_counters(counted)
         once = (fused_kernels("racing", cfg, ROUTE_MODES.get(mode)) - {"racing_top_rollouts"}
-                | REFERENCE_ROWS)
+                | REFERENCE_ROWS | RACING_PLANT)  # the plant: env.step
         want = {name: (TICKS if name in once else 0) for name in counted}
         if launches != want:
             fail(f"{mode}: launches {launches}, expected {want}")
@@ -1353,6 +1378,173 @@ def check_reference_rows(torch, env, card):
                       0.0, ms, plain_ms, bound, by, batched=batched, states_checked=checked)
 
 
+def racing_plant_bound_ms(rows: int) -> tuple:
+    """Least time of the racing plant's step on ``rows`` rows: each state (16 bytes) and action
+    (8) read once and each next state (16) written; the bicycle step's operations a row."""
+    return _bound(24 * rows, 16 * rows, OPS_BICYCLE * rows)
+
+
+PLANT_ROWS = (1, REF_ROWS_FLEET_B, 4000)  # an eager plant step, the fleet's, the unfused K
+PLANT_VMAP = (8, 4096)  # B x K of a vmapped call: an unfused racing fleet (FLEET_K)
+
+
+def racing_plant_edges(x_lim, y_lim) -> list:
+    """The plant's edge rows ``(x, y, theta, v, accel, steer)``: a position at each edge of
+    the map, moving out, and one beyond two edges; headings at +-pi (float32's pi lies beyond
+    pi) and beyond them; speeds at +-V_MAX, accelerating out, and beyond; accelerations and
+    steers at and beyond their clamps; a NaN row and a NaN in each entry alone; an infinite
+    position, heading and speed and infinite actions (an infinite speed at a heading whose
+    cosine is 0: inf * 0 is NaN)."""
+    import math
+
+    from mppi_playground_tpu_torch.models import bicycle
+
+    pi, v_max = math.pi, bicycle.V_MAX
+    nan, inf = float("nan"), float("inf")
+    (x_lo, x_hi), (y_lo, y_hi) = x_lim, y_lim
+    return [
+        (x_hi, 0.0, 0.0, 5.0, 0.0, 0.0), (x_lo, 0.0, pi, 5.0, 0.0, 0.0),
+        (0.0, y_hi, pi / 2, 5.0, 0.0, 0.0), (0.0, y_lo, -pi / 2, 5.0, 0.0, 0.0),
+        (x_hi + 3.0, y_lo - 3.0, 1.0, 2.0, 0.5, 0.1),
+        (1.0, 2.0, -pi, 3.0, 0.0, 0.2), (1.0, 2.0, 3 * pi + 0.5, 3.0, 0.0, -0.2),
+        (1.0, 2.0, -7.0, 3.0, 1.0, 0.1), (1.0, 2.0, pi - 1e-7, 6.0, 0.0, 0.25),
+        (0.0, 0.0, 0.3, v_max, 2.0, 0.0), (0.0, 0.0, 0.3, -v_max, -2.0, 0.0),
+        (0.0, 0.0, 0.3, v_max + 1.5, 0.0, 0.0), (0.0, 0.0, 0.3, -v_max - 1.5, 0.5, 0.0),
+        (0.0, 0.0, 0.3, 1.0, 5.0, 0.25), (0.0, 0.0, 0.3, 1.0, -5.0, -0.9),
+        (0.0, 0.0, 0.3, 1.0, -2.0, 0.9),
+        (nan, nan, nan, nan, nan, nan),
+        (nan, 1.0, 0.2, 2.0, 0.1, 0.1), (1.0, nan, 0.2, 2.0, 0.1, 0.1),
+        (1.0, 1.0, nan, 2.0, 0.1, 0.1), (1.0, 1.0, 0.2, nan, 0.1, 0.1),
+        (1.0, 1.0, 0.2, 2.0, nan, 0.1), (1.0, 1.0, 0.2, 2.0, 0.1, nan),
+        (inf, -inf, 0.2, 2.0, 0.1, 0.1), (1.0, 1.0, inf, 2.0, 0.1, 0.1),
+        (1.0, 1.0, pi / 2, inf, 0.1, 0.1), (1.0, 1.0, 0.2, -inf, inf, -inf),
+    ]
+
+
+def racing_plant_inputs(torch, rows: int, seed: int, x_lim, y_lim) -> tuple:
+    """``(states [rows, 4], actions [rows, 2])`` on the CPU: the edge rows first
+    (:func:`racing_plant_edges`), then rows drawn from the seed over and beyond the map and
+    every clamp."""
+    from mppi_playground_tpu_torch.models import bicycle
+
+    v_max = bicycle.V_MAX
+    (x_lo, x_hi), (y_lo, y_hi) = x_lim, y_lim
+    edges = racing_plant_edges(x_lim, y_lim)
+    g = torch.Generator().manual_seed(seed)
+    drawn = torch.rand(max(rows - len(edges), 0), 6, generator=g)
+    lo = torch.tensor([x_lo - 5.0, y_lo - 5.0, -4.0, -v_max - 1.0, -3.0, -0.4])
+    hi = torch.tensor([x_hi + 5.0, y_hi + 5.0, 4.0, v_max + 1.0, 3.0, 0.4])
+    table = torch.cat([torch.tensor(edges, dtype=torch.float32), lo + drawn * (hi - lo)])[:rows]
+    return table[:, :4].contiguous(), table[:, 4:].contiguous()
+
+
+def same_steps(torch, got, want) -> bool:
+    """Next states equal bit for bit where ``want`` is a number, and NaN where it is NaN."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)))
+
+
+def check_racing_plant(torch, env, card):
+    """Phase 5c: the racing plant's kernel against the torch ops of its step on the card.
+
+    ``env.dynamics`` (the kernel) against ``models/bicycle.make_dynamics`` at the
+    map's limits on the same card tensors (:func:`racing_plant_inputs`), next
+    states bit for bit and NaN where they give NaN (:func:`same_steps`), one
+    launch a call: at each R of :data:`PLANT_ROWS`; from ``x0.expand(K, 4)`` (row
+    stride 0) and each column ``action_seqs[:, t]`` (row stride T m) of a
+    sequence at T=25, K=4,000, as the unfused rollout steps; under
+    ``torch.func.vmap`` at B x K = :data:`PLANT_VMAP`, on whole groups and from
+    each scenario's expanded state and action columns (one launch for the B
+    groups); and captured in a CUDA graph, replayed with new inputs.  Then each R
+    timed by graph replay beside the torch ops (their kernels' device time) and
+    :func:`racing_plant_bound_ms`.  Returns the kernels-line row, or None after a
+    failure.
+    """
+    from mppi_playground_tpu_torch.models import bicycle
+    from mppi_playground_tpu_torch.ops.racing_plant import racing_plant
+
+    x_lim, y_lim = tuple(env.obstacle_map.x_lim), tuple(env.obstacle_map.y_lim)
+    plain = bicycle.make_dynamics(x_lim, y_lim)
+
+    def held(label, call, want, launches):
+        racing_plant.launches = 0
+        got = call()
+        if racing_plant.launches != launches or not same_steps(torch, got, want):
+            fail(f"racing plant, {label}: {racing_plant.launches} launches (want {launches}), "
+                 "or the next states not bit for bit the torch ops")
+            return False
+        return True
+
+    checked = 0
+    for rows in PLANT_ROWS:
+        xs, us = (t.cuda() for t in racing_plant_inputs(torch, rows, SEED + rows, x_lim, y_lim))
+        if not held(f"R={rows}", lambda: env.dynamics(xs, us), plain(xs, us), 1):
+            return None
+        checked += rows
+    horizon, rows = FLEET_T, PLANT_ROWS[-1]
+    xs, _ = racing_plant_inputs(torch, rows, SEED, x_lim, y_lim)
+    _, seqs = racing_plant_inputs(torch, rows * horizon, SEED + 1, x_lim, y_lim)
+    x0, seqs = xs[-1].cuda(), seqs.reshape(rows, horizon, 2).cuda()
+    for t in range(horizon):
+        x = x0.expand(rows, 4)
+        if not held(f"expanded state, column {t} of the actions", lambda: env.dynamics(
+                x, seqs[:, t]), plain(x, seqs[:, t]), 1):
+            return None
+    checked += rows * horizon
+    batch, per = PLANT_VMAP
+    xs, us = (t.reshape(batch, per, -1).cuda() for t in racing_plant_inputs(
+        torch, batch * per, SEED + 2, x_lim, y_lim))
+    if not held(f"vmapped, B={batch} x K={per}", lambda: torch.func.vmap(env.dynamics)(xs, us),
+                plain(xs.reshape(-1, 4), us.reshape(-1, 2)).reshape(batch, per, 4), 1):
+        return None
+    _, seqs = racing_plant_inputs(torch, batch * per * horizon, SEED + 3, x_lim, y_lim)
+    seqs = seqs.reshape(batch, per, horizon, 2).cuda()
+    for t in (0, horizon - 1):
+        def vmapped(t=t):
+            return torch.func.vmap(lambda x0, seq: env.dynamics(x0.expand(per, 4), seq[:, t]))(
+                xs[:, 0], seqs)
+
+        want = torch.stack([plain(xs[b, 0].expand(per, 4), seqs[b, :, t]) for b in range(batch)])
+        if not held(f"vmapped from expanded states, column {t}", vmapped, want, 1):
+            return None
+    checked += 3 * batch * per
+    static_x = torch.zeros(REF_ROWS_FLEET_B, 4, device="cuda")
+    static_u = torch.zeros(REF_ROWS_FLEET_B, horizon, 2, device="cuda")
+    graph, out = captured(torch, lambda: env.dynamics(static_x, static_u[:, 3]), 1)
+    for seed in range(3):
+        xs, us = racing_plant_inputs(torch, REF_ROWS_FLEET_B * (horizon + 1), SEED + 10 + seed,
+                                     x_lim, y_lim)
+        static_x.copy_(xs[:REF_ROWS_FLEET_B])
+        static_u.copy_(us[:REF_ROWS_FLEET_B * horizon].reshape(REF_ROWS_FLEET_B, horizon, 2))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not same_steps(torch, out, plain(static_x, static_u[:, 3])):
+            fail(f"racing plant: replay {seed} of a captured call not bit for bit the torch ops")
+            return None
+        checked += REF_ROWS_FLEET_B
+    timed = {}
+    for rows in PLANT_ROWS:
+        xs, us = (t.cuda() for t in racing_plant_inputs(torch, rows, SEED + rows, x_lim, y_lim))
+        bound, by = racing_plant_bound_ms(rows)
+        timed[rows] = dict(ms=graph_ms(torch, lambda: env.dynamics(xs, us), 200),
+                           plain_ms=graph_ms(torch, lambda: plain(xs, us), 50), bound_ms=bound,
+                           bound_by=by)
+    print(f"racing plant on {card}: {checked} rows bit for bit the torch ops (NaN where they "
+          "give NaN; R = " + ", ".join(str(r) for r in PLANT_ROWS) + f", an expanded state and "
+          f"{horizon} action columns at K={PLANT_ROWS[-1]}, vmapped at B={batch} x K={per}, a "
+          "graph replayed), one launch a call; graph replay: " + "; ".join(
+              f"R={r} {1e3 * t['ms']:.3f} us (torch ops {1e3 * t['plain_ms']:.3f} us, bound "
+              f"{1e3 * t['bound_ms']:.5f} us, {t['bound_by']})" for r, t in timed.items()),
+          flush=True)
+    main = timed[PLANT_ROWS[-1]]
+    return kernel_row("racing_plant", "racing_plant.cu",
+                      "mppi_playground_tpu/models/bicycle.py make_dynamics (XLA ops)", 0.0,
+                      main["ms"], main["plain_ms"], main["bound_ms"], main["bound_by"],
+                      rows=PLANT_ROWS[-1], by_rows=timed, rows_checked=checked)
+
+
 def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min, u_max,
                 weights, card):
     """Row 6 at T=50, K=100,000, seeded and in noise mode, against the twins.
@@ -1500,8 +1692,10 @@ def drive_facades(torch, env, card):
             return None
         once = ({"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} if fused
                 else {"fused_regen_m2", "weighted_update_partials"}) | REFERENCE_ROWS
-        launches = path_launches(f"RacingController {route}", counted, [trace],
-                                 {name: TICKS + 2 for name in once})
+        want = {name: TICKS + 2 for name in once}
+        want["racing_plant"] = racing_plant_launches(TICKS + 2, ctrl.config.horizon, not fused,
+                                                     TICKS)
+        launches = path_launches(f"RacingController {route}", counted, [trace], want)
         if launches is None:
             return None
         progress = int(ctrl.current_path_index)
@@ -1584,6 +1778,9 @@ def drive_mppi(torch, env, task, card):
                 want_once = {name: calls for name in fused_kernels("racing", c.config)}
                 want_once["racing_top_rollouts"] = 1
             want_once["reference_rows"] = calls
+            # the plant a call, and the posterior's states predicted from its 100 samples
+            want_once["racing_plant"] = racing_plant_launches(calls, horizon, route == "xla",
+                                                              calls) + horizon
             want = {name: want_once.get(name, 0) for name in counted}
             lam = c.lambda_
             ok = (torch.isfinite(action_seq).all() and torch.isfinite(seqs).all()
@@ -3184,7 +3381,7 @@ def flagship_episodes(torch, env, card):
             fail(f"flagship {mode} episode: the replays synchronized with the host: {err}")
             return None
         once = (fused_kernels("racing", solver.config, epilogue) - {"racing_top_rollouts"}
-                | REFERENCE_ROWS)
+                | REFERENCE_ROWS | RACING_PLANT)
         launches = path_launches(f"flagship episode {mode}", counted,
                                  [first_trace, second_trace],
                                  {name: 2 * EPISODE_TICKS for name in once})
@@ -3399,8 +3596,10 @@ def facade_episodes(torch, env, card):
             torch, lambda: ctrl.run_episode(xs[-1], EPISODE_TICKS, done_fn=racing_done))
         once = ({"racing_fused_solve", "racing_tick_tail"} if fused
                 else {"fused_regen_m2", "weighted_update_partials"}) | REFERENCE_ROWS
-        launches = path_launches(label, counted, [first, second],
-                                 {name: 2 * EPISODE_TICKS for name in once})
+        want = {name: 2 * EPISODE_TICKS for name in once}
+        want["racing_plant"] = racing_plant_launches(2 * EPISODE_TICKS, ctrl.config.horizon,
+                                                     not fused, 2 * EPISODE_TICKS)
+        launches = path_launches(label, counted, [first, second], want)
         if launches is None:
             return None
 
@@ -3665,9 +3864,10 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
     fleet, ...), bit for bit the fleet; with ``trace_looped`` one looped run
     is traced for its busy share (an unfused looped form's ~750 torch kernels
     a solve make a trace of ~240,000 kernels at B=32, which the profiler takes
-    minutes to read).  ``once``: the kernels of the fleet's tick
-    (:func:`fleet_kernels` of the fused fleet's config where None).  Returns
-    the results or None.
+    minutes to read).  ``once``: the kernels of the fleet's tick, each launched
+    once a tick (:func:`fleet_kernels` of the fused fleet's config where
+    None), or a dict of each one's launches a tick.  Returns the results or
+    None.
     """
     from mppi_playground_tpu_torch.core.closed_loop import make_fleet_closed_loop
     from mppi_playground_tpu_torch.parallel.sharded import scenario_by_scenario
@@ -3689,11 +3889,12 @@ def drive_fleet(torch, label, batched, plant, x0s, carry0, info_batch, plant_one
         fail(f"{label}: the replays synchronized with the host: {err}")
         return None
     once = fleet_kernels(label.split()[0], batched.config) if once is None else once
+    per_tick = once if isinstance(once, dict) else dict.fromkeys(once, 1)
     launches = path_launches(label, counted, [first_trace, second_trace],
-                             {name: 2 * num_ticks for name in once})
+                             {name: 2 * num_ticks * n for name, n in per_tick.items()})
     if launches is None:
         return None
-    eager_once = read_counters(counted) == {name: int(name in once) for name in counted}
+    eager_once = read_counters(counted) == {name: per_tick.get(name, 0) for name in counted}
     mark("second traced run")
     differ = fleet_vs_episodes(torch, batched.solver, plant_one, num_ticks, states, x0s, carry0,
                                info_one, first)
@@ -3777,8 +3978,10 @@ def racing_fleets(torch, env, card):
             batched = make_batched_fused_solver(fleet_config(lam), task, env.dynamics,
                                                 FLEET_DEVICE, batch)
         x0s, cinds = racing_fleet_starts(torch, env, batch)
-        once = (UNFUSED_FLEET_KERNELS if unfused
-                else fleet_kernels("racing", batched.config)) | REFERENCE_ROWS
+        once = dict.fromkeys((UNFUSED_FLEET_KERNELS if unfused
+                              else fleet_kernels("racing", batched.config)) | REFERENCE_ROWS, 1)
+        # the plant a tick; under vmap the rollout and the re-roll a launch a step for all B
+        once["racing_plant"] = racing_plant_launches(1, FLEET_T, unfused, 1)
         res = drive_fleet(torch, label, batched, env.dynamics, x0s, cinds, info_batch,
                           plant_one, info_one, UNFUSED_FLEET_TICKS if unfused else FLEET_TICKS,
                           card, turns=turns, once=once, trace_looped=not unfused)
@@ -4492,8 +4695,9 @@ def fleets_alone() -> int:
 
 def tpu_row(name: str):
     """The row of PERF.md's table of TPU kernels that kernel ``name`` ports; None for the
-    reference rows, which port XLA's ops (the JAX package has no kernel for them)."""
-    if name == "reference_rows":
+    reference rows and the racing plant, which port XLA's ops (the JAX package has no kernel
+    for them)."""
+    if name in ("reference_rows", "racing_plant"):
         return None
     for part, row in (("_fused_solve", 1), ("_reroll", 2), ("_tick_tail", 2),
                       ("_costs_dump_lambda", 4),
@@ -4852,7 +5056,7 @@ def sharded_facade(torch, env, card):
             print(f"phase 14 sharded facade, {mode}, one-rank cpu:gloo,cuda:nccl group, T={T}, "
                   f"K={K}, {SHARDED_TICKS} ticks on {card}: {json.dumps(res)}", flush=True)
             want_kernels = (fused_kernels("racing", config) - {"racing_top_rollouts"}
-                            | REFERENCE_ROWS)
+                            | REFERENCE_ROWS | RACING_PLANT)
             if not (exact and set(res["launches"]) == want_kernels
                     and all(v == SHARDED_TICKS for v in res["launches"].values())
                     and res["captured"] and res["replayed_bitwise_eager"]
@@ -5014,7 +5218,7 @@ UNFUSED_M2 = frozenset({"fused_regen_m2", "weighted_update_partials"})
 # the pendulum and Navigation2D at K <= 10,000 take ESSPS's epilogue (row 4, then row 5),
 # racing's fixed lambda the fused solve (row 1); each fused tick ends in its tail (row 2)
 # and the scripts that draw the top samples regenerate them (row 6); every racing tick
-# computes its reference rows (REFERENCE_ROWS).
+# computes its reference rows (REFERENCE_ROWS) and steps the plant (RACING_PLANT).
 EXAMPLE_RUNS = (
     ("pendulum example", "pendulum", dict(steps=10, use_gym=False), UNFUSED_M1),
     ("pendulum example --fused", "pendulum", dict(steps=10, use_gym=False, fused=True),
@@ -5033,13 +5237,15 @@ EXAMPLE_RUNS = (
     ("danger_zone example", "goal_in_danger_zone", dict(max_steps=10, render=False), UNFUSED_M2),
     ("danger_zone example --episode", "goal_in_danger_zone",
      dict(max_steps=10, render=False, episode=True), UNFUSED_M2),
-    ("racing example", "racing", dict(max_steps=10, render=False), UNFUSED_M2 | REFERENCE_ROWS),
+    ("racing example", "racing", dict(max_steps=10, render=False),
+     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT),
     ("racing example --fused", "racing", dict(max_steps=10, render=False, fused=True),
-     {"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} | REFERENCE_ROWS),
+     {"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} | REFERENCE_ROWS
+     | RACING_PLANT),
     ("racing example --episode", "racing", dict(max_steps=10, render=False, episode=True),
-     UNFUSED_M2 | REFERENCE_ROWS),
+     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT),
     ("racing example --pipelined 2", "racing", dict(max_steps=10, render=False, pipelined=2),
-     UNFUSED_M2 | REFERENCE_ROWS),
+     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT),
     ("mujoco example", "mujoco_cartpole", dict(steps=10, render=False), UNFUSED_M1),
     ("make_media example --fast", "make_media", dict(argv=["--fast", "--out", None]), UNFUSED_M1),
 )
@@ -6116,6 +6322,9 @@ def main() -> int:
     ref_rows_row = check_reference_rows(torch, env, card)
     if ref_rows_row is None:
         return 1
+    plant_row = check_racing_plant(torch, env, card)
+    if plant_row is None:
+        return 1
 
     # --- phase 6: the flagship under each mode, counted ----------------------
     env, solver, tick = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
@@ -6331,7 +6540,7 @@ def main() -> int:
             "checks": tail_checks,
         },
     ] + auto["kernels"] + row6 + [row9, racing_epilogue_row] + list(model_rows.values()) + [
-        regen_rows["m1_regen"]] + list(plugs["rows"].values()) + [ref_rows_row]
+        regen_rows["m1_regen"]] + list(plugs["rows"].values()) + [ref_rows_row, plant_row]
     sharded_rows = {"racing_fused_solve": "row1", "racing_costs_dump": "row3",
                     "fused_weighted": "row5"}
     for k in kernels:

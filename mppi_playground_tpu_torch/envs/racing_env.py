@@ -3,7 +3,10 @@
 Counterpart of ``mppi_playground_tpu/envs/racing_env.py``: 80x80 m maps at 0.1 m cells, a lane corridor of width ``6.5 * 0.8`` around
 the circuit centerline, 50 random circle obstacles with r in [0.9, 1.2]
 inside +-35 m (seed 42), start and goal at the path ends, and the bicycle
-dynamics (each step the span ``env.dynamics`` of ``utils/timing``).  The
+dynamics (each step the span ``env.dynamics`` of ``utils/timing``): on a CUDA
+device one launch of ``ops/racing_plant`` (``csrc/racing_plant.cu``), which
+raises on what it does not take, under ``torch.func.vmap`` too; elsewhere the
+torch ops of ``models/bicycle.make_dynamics``.  The
 maps are built on the host with numpy and uploaded once.  ``render``
 draws the scene with matplotlib (``envs/rendering.py``) and ``close``
 writes the captured frames as a GIF.
@@ -25,6 +28,7 @@ from mppi_playground_tpu_torch.maps.circuit import (
 from mppi_playground_tpu_torch.maps.lane_map import LaneMap
 from mppi_playground_tpu_torch.maps.obstacle_map import ObstacleMap, generate_random_obstacles
 from mppi_playground_tpu_torch.models import bicycle
+from mppi_playground_tpu_torch.ops import racing_plant
 from mppi_playground_tpu_torch.utils.angles import angle_normalize
 from mppi_playground_tpu_torch.utils import timing
 from mppi_playground_tpu_torch.utils.device import resolve_device
@@ -90,14 +94,13 @@ class RacingEnv:
 
         self._start_pos = self.racing_center_path[0, :2]
         self._goal_pos = self.racing_center_path[-1, :2]
-        step = bicycle.make_dynamics(
-            x_lim=tuple(self._obstacle_map.x_lim),
-            y_lim=tuple(self._obstacle_map.y_lim),
-        )
+        x_lim = tuple(self._obstacle_map.x_lim)
+        y_lim = tuple(self._obstacle_map.y_lim)
+        plain = bicycle.make_dynamics(x_lim=x_lim, y_lim=y_lim)
 
         def dynamics(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
             with _DYNAMICS:
-                return step(x, u)
+                return racing_plant.bicycle_step(x, u, plain, x_lim, y_lim)
 
         self.dynamics = dynamics
         self._robot_state = self._initial_state()

@@ -5,7 +5,9 @@ Counterpart of ``mppi_playground_tpu/models/bicycle.py``: state
 dt=0.1 of ``xdot = v cos(theta)``, ``ydot = v sin(theta)``,
 ``thetadot = v tan(steer) / L``, ``vdot = accel``; position clamped to the
 map, speed to +-V_MAX.  The operation order is the JAX package's, op for op,
-and ``csrc/racing_model.cuh`` repeats it in CUDA.
+and ``csrc/racing_model.cuh`` repeats it in CUDA; ``RacingEnv.dynamics`` steps
+the plant on a card with one launch of it (``ops/racing_plant``), on the CPU
+with :func:`make_dynamics`, the kernel's twin.
 """
 
 from __future__ import annotations
@@ -86,14 +88,14 @@ def make_dynamics(
     v_max: float = V_MAX,
     delta_t: float = DELTA_T,
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """Kinematic bicycle Euler step on ``state [K, 4]``, ``action [K, 2]``."""
+    """Kinematic bicycle Euler step on ``state [..., K, 4]``, ``action [..., K, 2]``."""
     soa = make_dynamics_soa(x_lim, y_lim, u_min, u_max, wheelbase, v_max, delta_t)
 
     def dynamics(state: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
         xs = soa(
-            (state[:, 0], state[:, 1], state[:, 2], state[:, 3]),
-            (action[:, 0], action[:, 1]),
+            (state[..., 0], state[..., 1], state[..., 2], state[..., 3]),
+            (action[..., 0], action[..., 1]),
         )
-        return torch.stack(xs, dim=1)
+        return torch.stack(xs, dim=-1)
 
     return dynamics
