@@ -196,14 +196,9 @@ exits non-zero and prints no result.  It fails if jax or the JAX package
 was imported (:func:`foreign_modules`), checked after the port and
 ``graft_entry_torch`` are imported and again after the last phase.
 
-Comparisons with another checkout (the parent of a change, unpacked from
-``git archive``), each run by the command in its docstring:
-:func:`search_kernels_in_turns` (rows 7 and 8), :func:`fused_kernels_in_turns`
-(rows 1-6 of every bundled family), :func:`top_samples_in_turns` (the fused
-``get_top_samples`` medians), :func:`flagship_ticks_in_turns` (the flagship
-tick on the host clock and its profile); :func:`chain_bounds` derives rows
-2 and 6's latency bounds from the SASS, and :func:`retimed_products` ranks
-the rows from two runs' logs.
+To compare two trees, run ``python3 chip_smoke.py`` in each, in turns, and
+compare the two ``kernels`` lines.  :func:`chain_bounds` derives rows 2 and
+6's latency bounds from this tree's SASS.
 """
 
 from __future__ import annotations
@@ -216,6 +211,26 @@ import sys
 import time
 from pathlib import Path
 
+# The peaks, the racing model's operation counts and the bounds of rows 1, 3, 4, 7, 8
+# and 9; the bounds of the other kernels are below.
+from portbench.bounds import (
+    OPS_BICYCLE,
+    OPS_ESSPS_EVAL,
+    OPS_LBPS_EVAL,
+    OPS_NORMAL_PAIR,
+    OPS_PERTURB,
+    OPS_SCALE,
+    PEAK_BYTES_PER_S,  # noqa: F401  (the tests' bounds read it here)
+    RACING,
+    ModelOps,
+    _bound,
+    phase1_bound_ms,
+    search_bound_ms,
+    search_ops,
+    solve_bound_ms,
+    weighted_update_bound_ms,
+)
+
 T, K = 50, 100_000
 TICKS = 50
 # A trace lost the first device activities after its start (even 1 s after it),
@@ -225,26 +240,6 @@ PRIMING_KERNELS = 200
 TRACE_MARGIN_S = 0.2
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 non-tensor FLOP/s.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-
-# Float operations per call of each device function in csrc/racing_model.cuh,
-# counted from the source (+, -, *, /, min, max, fmod, rint, sqrt, log; sign
-# flips, compares and selects not counted; Philox's integer work not counted).
-OPS_ANGLE_NORMALIZE = 4
-OPS_SINCOS = 20
-OPS_TAN = 8
-OPS_BICYCLE = 2 * OPS_ANGLE_NORMALIZE + 4 + OPS_SINCOS + 5 + 5 + OPS_TAN + 4 + 4
-OPS_MAP_PAIR = 11
-OPS_STAGE_COST = 33 + OPS_MAP_PAIR + 1  # + the accumulation
-OPS_NORMAL_PAIR = 10 + OPS_SINCOS
-OPS_PERTURB = 6  # mean + z and the clamp, per step (2 slots)
-OPS_SCALE = 2  # z * sigma, per step, seeded mode only
-# Per cost and evaluation of csrc/lambda_search.cu: ESSPS d * inv, exp, two
-# adds, e * e; LBPS c * a, - shift, exp, three adds, e * e, e * c.  Plus the
-# min (and max) pass and, for ESSPS, d = min - c once.
-OPS_ESSPS_EVAL, OPS_LBPS_EVAL = 5, 8
 AUTO_MODES = ("ESSPS", "LBPS", "MPO")  # the solver's default lambda route
 # mode -> lambda_epilogue: a lambda route forced on make_fused_solver
 ROUTE_MODES = {"ESSPS epilogue": True, "LBPS epilogue": True, "ESSPS standalone": False,
@@ -262,7 +257,6 @@ def kernel_row(name, source, replaces, err, ms, plain, bound, by, **extra) -> di
     return {**dict(name=name, route="cuda", source=f"mppi_playground_tpu_torch/csrc/{source}",
                    replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                    bound_by=by, library_ms=None), **extra}
-
 
 
 def device_seed(torch, word: int):
@@ -294,27 +288,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-@dataclasses.dataclass(frozen=True)
-class ModelOps:
-    """A model's shapes and float operations for the bounds.
-
-    ``step`` and ``cost`` count one call of its device ``step`` and of its
-    stage cost with the accumulation, from its csrc/*_model.cuh as above;
-    ``ref`` the floats of its per-tick reference row.
-    """
-
-    n: int
-    m: int
-    ref: int
-    step: int
-    cost: int
-
-
 # Counted from csrc/unicycle_model.cuh, danger_zone_model.cuh and
 # classic_models.cuh as racing's from racing_model.cuh (libm sinf, cosf and
 # sqrtf one operation each).
 MODEL_OPS = {
-    "racing": ModelOps(4, 2, 5, OPS_BICYCLE, OPS_STAGE_COST),
+    "racing": RACING,
     "navigation": ModelOps(3, 2, 0, 44, 19),
     "danger_zone": ModelOps(7, 2, 0, 26, 11),
     "pendulum": ModelOps(2, 1, 0, 13, 9),
@@ -322,60 +300,6 @@ MODEL_OPS = {
     "mountain_car": ModelOps(2, 1, 0, 13, 3),
     "integrator": ModelOps(2, 2, 0, 2, 6),
 }
-RACING = MODEL_OPS["racing"]
-
-
-def _per_step(ops: ModelOps, seeded: bool) -> int:
-    """Float operations of one rollout step: perturb and clamp, stage cost, step, draws."""
-    per_slot = OPS_PERTURB // 2 + ((OPS_NORMAL_PAIR + OPS_SCALE) // 2 if seeded else 0)
-    return ops.m * per_slot + ops.cost + ops.step
-
-
-def _rollout_in_bytes(ops: ModelOps, num_samples, horizon, seeded, grid_bytes,
-                      batch: int = 1) -> int:
-    """Bytes a rollout launch of ``batch`` scenarios reads: each scenario's start, warm start,
-    reference rows (and noise), and the grids once, which all scenarios share."""
-    per_scenario = 4 * (ops.n + ops.m * horizon + ops.ref * (horizon + 1))
-    per_scenario += 0 if seeded else 4 * num_samples * horizon * ops.m
-    return batch * per_scenario + grid_bytes
-
-
-def solve_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int,
-                   ops: ModelOps = RACING, batch: int = 1) -> tuple:
-    """Least time of one fused solve of ``batch`` scenarios: (ms, 'bytes' | 'operations').
-
-    Bytes: each input read once (the shared grids once for all scenarios),
-    each output written once.  Operations: the rollout with its costs, the
-    draws, and e * pert summed into the numerator, once per sample (the
-    kernel regenerates the perturbations a second time; that is its design,
-    not the function's work).
-    """
-    blocks = -(-num_samples // 256)
-    slots = ops.m * horizon
-    in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes, batch) + 4 * batch
-    out_bytes = 4 * batch * (num_samples + 3 * blocks + slots * blocks)
-    per_sample = horizon * _per_step(ops, seeded) + ops.cost + 4 + 2 * slots
-    return _bound(in_bytes, out_bytes, batch * num_samples * per_sample)
-
-
-def _bound(in_bytes: float, out_bytes: float, ops: float) -> tuple:
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_F32_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def phase1_bound_ms(num_samples: int, horizon: int, seeded: bool, grid_bytes: int,
-                    ops: ModelOps = RACING, search_ops: float = 0.0, batch: int = 1) -> tuple:
-    """Least time of auto-lambda phase 1 of ``batch`` scenarios: the rollout and costs, and the
-    dump written.
-
-    ``search_ops`` adds a lambda search's operations (and its one output
-    float) for the lambda epilogue, once a scenario.
-    """
-    in_bytes = _rollout_in_bytes(ops, num_samples, horizon, seeded, grid_bytes, batch)
-    out_bytes = 4 * batch * (num_samples * (1 + ops.m * horizon) + (1 if search_ops else 0))
-    rollout = batch * num_samples * (horizon * _per_step(ops, seeded) + ops.cost)
-    return _bound(in_bytes, out_bytes, rollout + batch * search_ops)
 
 
 def phase2_bound_ms(num_samples: int, horizon: int, m: int = 2) -> tuple:
@@ -388,16 +312,6 @@ def phase2_bound_ms(num_samples: int, horizon: int, m: int = 2) -> tuple:
     in_bytes = 4 * (num_samples * (1 + m * horizon) + 1)
     out_bytes = 4 * blocks * (3 + m * horizon)
     return _bound(in_bytes, out_bytes, num_samples * (7 + 2 * m * horizon))
-
-
-def search_ops(num_samples: int, iters: int, per_eval: int, per_cost: int) -> float:
-    """Float operations of one lambda search: per-cost hoists and 2 + iters evaluations."""
-    return num_samples * (per_cost + per_eval * (2 + iters))
-
-
-def search_bound_ms(num_samples: int, iters: int, per_eval: int, per_cost: int) -> tuple:
-    """Least time of one lambda search: the costs read once, 2 + iters evaluations."""
-    return _bound(4 * num_samples, 4, search_ops(num_samples, iters, per_eval, per_cost))
 
 
 def reroll_bound_ms(horizon: int, ops: ModelOps = RACING) -> tuple:
@@ -1016,18 +930,6 @@ def entry_alone() -> int:
     print(f"build: {cuda_build.build():.1f} s", flush=True)
     _, _, tick = build_flagship(horizon=T, num_samples=K, device="cuda")
     return 1 if drive_entry(torch, tick, card) is None else 0
-
-
-def weighted_update_bound_ms(num_samples: int, slots: int) -> tuple:
-    """Least time of the weighted update: costs and samples read, partials written.
-
-    Operations per sample: -c / lambda, the max, the shift, exp, e * e and
-    two sums, and e * sample summed into each of the D slots.
-    """
-    blocks = -(-num_samples // 256)
-    in_bytes = 4 * (num_samples * (slots + 1) + 1)
-    out_bytes = 4 * blocks * (3 + slots)
-    return _bound(in_bytes, out_bytes, num_samples * (7 + 2 * slots))
 
 
 def regen_bound_ms(rows: int, horizon: int, seeded: bool, m: int = 2) -> tuple:
@@ -1900,16 +1802,19 @@ def time_tails(torch, fs, task, x0, route, horizon: int) -> dict:
 
     costs, stats, numer, lam = route
     history = torch.zeros(horizon - 1, task.dim_control, device="cuda")
-    tail = cuda_build.function(*task.entry("tick_tail"), fs._TAIL_ARGTYPES)
+    tail = cuda_build.function(*task.entry("tick_tail_batch"), fs._TAIL_BATCH_ARGTYPES)
     outs = [torch.empty(n, device="cuda") for n in
             (horizon * task.dim_control, (horizon + 1) * task.dim_state, 1,
              (horizon - 1) * task.dim_control)]
 
-    def torch_weights():  # the launch with a null weights pointer: one CTA, no weights
-        _call(torch, tail, x0.data_ptr(), costs.data_ptr(), stats.data_ptr(), numer.data_ptr(),
-              lam.data_ptr(), history.data_ptr(), None, fs._floats(task.floats),
-              fs._ints(task.ints), stats.shape[0], horizon, costs.shape[0], 0,
-              *(t.data_ptr() for t in outs[:3]), None, outs[3].data_ptr(), None, None)
+    def torch_weights():  # a batch of one with a null weights pointer: one CTA, no weights
+        err = tail(x0.data_ptr(), costs.data_ptr(), stats.data_ptr(), numer.data_ptr(),
+                   lam.data_ptr(), history.data_ptr(), None, fs._floats(task.floats),
+                   fs._ints(task.ints), stats.shape[0], horizon, costs.shape[0], 0, 1,
+                   *(t.data_ptr() for t in outs[:3]), None, outs[3].data_ptr(), None, None,
+                   torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the tail without weights failed: cudaError_t {err}")
         mx = stats[:, 0].max()
         z = torch.sum(torch.exp(stats[:, 0] - mx) * stats[:, 1])
         return torch.exp(-costs / lam - mx) / z
@@ -2436,579 +2341,6 @@ def chain_bounds() -> int:
                    bound_ms=horizon * chain * DEPENDENT_CYCLES / (clock_mhz * 1e3))
         print(json.dumps(out), flush=True)
     return 0
-
-
-def rollout_sass(other: str) -> int:
-    """The SASS instruction counts of the rollout kernels of this checkout and another's.
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.rollout_sass("DIR"))'
-
-    Builds every ``fused_<model>.cu`` of both checkouts with this checkout's
-    flags and prints, a JSON line a model and kernel (row 1's
-    ``fused_solve_kernel``, row 3's ``costs_dump_kernel``), each build's
-    instruction count and the opcodes whose counts differ.
-    """
-    import collections
-
-    import torch
-
-    if not torch.cuda.is_available():
-        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from mppi_playground_tpu_torch.ops import cuda_build
-    from mppi_playground_tpu_torch.ops.fused_solve import MODELS
-
-    card = card_line()
-    print(card, flush=True)
-    sources = [f"fused_{name}" for name in MODELS]
-    csrc = Path(__file__).resolve().parent / "mppi_playground_tpu_torch" / "csrc"
-    libs = build_copies({"this": (csrc, []), "other": (
-        Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc", [])}, sources)
-    tool = Path(cuda_build.nvcc()).parent / "cuobjdump"
-    for name in MODELS:
-        dumps = {side: subprocess.run([str(tool), "-sass", str(libs[side][f"fused_{name}"][0])],
-                                      capture_output=True, text=True, check=True,
-                                      timeout=300).stdout for side in libs}
-        for kernel in ("18fused_solve_kernel", "17costs_dump_kernel"):
-            ops = {side: collections.Counter(op for _, _, op, _ in _sass_program(dump, kernel))
-                   for side, dump in dumps.items()}
-            diff = {op: ops["this"][op] - ops["other"][op]
-                    for op in set(ops["this"]) | set(ops["other"])
-                    if ops["this"][op] != ops["other"][op]}
-            print(json.dumps({"model": name, "kernel": kernel[2:], "card": card,
-                              "this": sum(ops["this"].values()),
-                              "other": sum(ops["other"].values()), "differ": diff}),
-                  flush=True)
-    return 0
-
-
-def search_kernels_in_turns(other: str, samples=(3000, K, 524_288)) -> int:
-    """Rows 7 and 8 of this checkout against another checkout's, in turns on one card.
-
-    Compares a change to the search kernels with its parent::
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.search_kernels_in_turns("DIR"))'
-
-    ``DIR`` is the other checkout's root: its ``csrc/lambda_search.cu`` is
-    built with this checkout's flags (:func:`build_copies`) and called
-    through the same C functions (``essps_search``, ``lbps_search``).  At
-    each K, on seeded costs uniform in [0, 20) (each search takes its fixed
-    number of steps on any costs), both kernels must give lambda* bit for
-    bit; :func:`in_turns` then times them (device time of graph replays, the
-    order flipped every window).
-    Prints the card's line, then one JSON line a search and K; returns the
-    exit code.
-    """
-    import ctypes
-
-    import torch
-
-    if not torch.cuda.is_available():
-        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
-
-    card = card_line()
-    print(card, flush=True)
-    csrc = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc"
-    lib = build_copies({"other": (csrc, [])}, ["lambda_search"])["other"]["lambda_search"][0]
-    argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 3
-                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    rng = torch.Generator(device="cuda").manual_seed(SEED)
-    for k in samples:
-        costs = torch.rand(k, generator=rng, device="cuda") * 20.0
-        for search in (LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40),
-                       LambdaSearch("LBPS", 0.01, 10.0, 0.01, 32)):
-            fn = _ctypes_fn(lib, f"{search.mode.lower()}_search", argtypes)
-
-            def theirs(search=search, fn=fn, costs=costs):
-                out = torch.empty(1, device="cuda")
-                err = fn(costs.data_ptr(), costs.shape[0], ctypes.c_float(search.lambda_min),
-                         ctypes.c_float(search.lambda_max), ctypes.c_float(search.kernel_param),
-                         search.iters, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"the other checkout's search failed: cudaError_t {err}")
-                return out
-
-            def ours(search=search, costs=costs):
-                return search.run(costs)
-
-            lam_other, lam_this = theirs().item(), ours().item()
-            turns = in_turns(torch, {"other": theirs, "this": ours})
-            print(json.dumps({"search": search.mode, "num_samples": k, "card": card,
-                              "lam_other": lam_other, "lam_this": lam_this,
-                              "other_ms": turns["other"], "this_ms": turns["this"]}), flush=True)
-            if lam_other != lam_this:
-                return fail(f"{search.mode} at K={k}: lambda* {lam_this!r} here, {lam_other!r} "
-                            "in the other checkout")
-    return 0
-
-
-def retimed_products(smoke_log: str, turns_log: str) -> int:
-    """:func:`row_products` before and after, from two runs' logs.
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.retimed_products("S", "F"))'
-
-    ``S`` holds this script's output (its kernels line gives each kernel's
-    launches on each path, its bound, and the times of rows 7-9), ``F`` the
-    output of :func:`fused_kernels_in_turns` (each side's graph-replay times
-    of rows 1-6 at every family's example configuration, racing's at the
-    flagship's).  On each side a row-1-to-5 kernel takes that side's time,
-    phase 2 (shared by every model) its path's model's with the bound of
-    racing's flagship or 0; row 6 takes the other side's regeneration time
-    (which then re-rolled in torch) and this side's ``<model>_top_rollouts``
-    from the kernels line.  Prints ``{"other": {row: ms}, "this": {row:
-    ms}}``.
-    """
-    kernels = next(json.loads(line)["kernels"] for line in Path(smoke_log).read_text().splitlines()
-                   if line.startswith('{"kernels"'))
-    turns = {}
-    for line in Path(turns_log).read_text().splitlines():
-        if line.startswith("{"):  # the first case of a kernel is at its example's configuration
-            entry = json.loads(line)
-            turns.setdefault(entry["kernel"], entry)
-    out = {}
-    for side in ("other", "this"):
-        rows, shared = [], {}
-        for k in kernels:
-            row = dict(k)
-            model = k["name"].split("_top_rollouts")[0]
-            key = f"{model}_regen" if k["row"] == 6 and side == "other" else k["name"]
-            if key in turns and (k["row"] != 6 or side == "other"):
-                row["ms"] = turns[key][f"{side}_ms"]
-            rows.append(row)
-        for name, entry in turns.items():
-            if name.endswith("_weighted"):
-                model = name[:-len("_weighted")]
-                bound = next(k["bound_ms"] for k in kernels if k["name"] == "fused_weighted")
-                shared[("fused_weighted", model)] = (entry[f"{side}_ms"],
-                                                     bound if model == "racing" else 0.0)
-        out[side] = row_products(rows, shared)
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-def build_copies(copies: dict, sources) -> dict:
-    """Build patched copies of ``csrc`` directories with this checkout's nvcc flags, at once.
-
-    ``copies`` maps a label to ``(csrc dir, [(file, old, new), ...])``; each
-    ``old`` must occur once in its file.  Each copy goes to
-    ``build/variants/<n>/``, each of ``sources`` (``<name>.cu``) to a library
-    beside it.  Returns ``{label: {source: (library path, nvcc log)}}``.
-    """
-    import shutil
-
-    from mppi_playground_tpu_torch.ops import cuda_build
-
-    root = cuda_build.BUILD_DIR.parent / "variants"
-    procs = []
-    try:
-        for i, (label, (csrc, subs)) in enumerate(copies.items()):
-            copy = root / f"v{i}"
-            shutil.rmtree(copy, ignore_errors=True)
-            shutil.copytree(csrc, copy)
-            for name, old, new in subs:
-                text = (copy / name).read_text()
-                if text.count(old) != 1:
-                    raise ValueError(f"{label}: {name} holds {old!r} {text.count(old)} times")
-                (copy / name).write_text(text.replace(old, new))
-            for src in sources:
-                lib = copy / f"{src}.so"
-                cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-                       str(copy / f"{src}.cu")]
-                procs.append((label, src, lib, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        out = {}
-        for label, src, lib, proc in procs:
-            log, _ = proc.communicate(timeout=900)
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed for {label}, {src}.cu:\n{log[-4000:]}")
-            out.setdefault(label, {})[src] = (lib, log)
-        return out
-    finally:
-        for *_, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-
-
-def _ctypes_fn(lib: Path, symbol: str, argtypes: list):
-    """C function ``symbol`` of library ``lib``; ``argtypes`` end with the stream."""
-    import ctypes
-
-    fn = getattr(ctypes.CDLL(str(lib)), symbol)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
-
-
-def _call(torch, fn, *args) -> None:
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")
-
-
-def fused_kernels_in_turns(other: str) -> int:
-    """Rows 1-6 of this checkout against another checkout's, bit for bit and in turns.
-
-    Compares a change to the rollout kernels with its parent::
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.fused_kernels_in_turns("DIR"))'
-
-    ``DIR``'s ``fused_<model>.cu``, ``fused_solve.cu`` and ``reroll.cu`` are
-    built with this checkout's flags and called through the same C
-    functions, with the seed by value where its kernels take it so (before
-    the seed moved to device memory, 890f23a and older).  For the flagship (racing, T=50, K=100,000), every other
-    family at its example's configuration and Navigation2D at K=100,000:
-    the fused solve (row 1), the re-roll (row 2), phase 1 (row 3), phase 1
-    with the ESSPS epilogue (row 4), phase 2 at lambda=1 on this checkout's
-    phase 1 (row 5) and the regeneration of the 300 cheapest rows (row 6)
-    must give the other build's outputs bit for bit, in both noise modes;
-    :func:`in_turns` then times each pair on the seeded stream (phase 1 in
-    noise mode too).  Prints the card, then one JSON line a model and kernel;
-    returns the exit code.
-    """
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from mppi_playground_tpu_torch.core.config import tick_seed
-    from mppi_playground_tpu_torch.ops import fused_solve as fs
-    from mppi_playground_tpu_torch.ops.lambda_search import LambdaSearch
-
-    card = card_line()
-    print(card, flush=True)
-    csrc = Path(other).resolve() / "mppi_playground_tpu_torch" / "csrc"
-    libs = build_copies({"other": (csrc, [])},
-                        [f"fused_{name}" for name in fs.MODELS] + ["reroll", "fused_solve"])
-    libs = libs["other"]
-    import ctypes
-
-    word = tick_seed(42, 0)
-    seed = device_seed(torch, word)
-    by_pointer = "const uint32_t* seed;" in (csrc / "fused_solve.cuh").read_text()
-    their_seed = seed.data_ptr() if by_pointer else word
-
-    def their_types(types, at=10):
-        return types if by_pointer else types[:at] + [ctypes.c_uint32] + types[at + 1:]
-
-    their_regen_types = (fs._REGEN_ARGTYPES if by_pointer else
-                         [ctypes.c_void_p] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 4
-                         + [ctypes.c_void_p] * 2)
-    cases = []
-    _, task, x0, xref5, prev, noise = flagship_inputs(torch, np)
-    cases.append((f"racing T={T} K={K}", task, x0, xref5, prev, noise, FLAGSHIP_BOUNDS))
-    for name, k in [(name, None) for name in NEW_MODELS] + [("navigation", 100_000)]:
-        w, m_prev, m_noise, bounds = model_inputs(torch, np, name, k)
-        cases.append((f"{name} T={m_prev.shape[0]} K={w.mppi_kwargs['num_samples']}", w.task,
-                      w.x0, None, m_prev, m_noise, bounds))
-    failed = False
-    for label, task, x0, ref, prev, noise, (sig, lo, hi) in cases:
-        model, k = task.model, noise.shape[0]
-        lam = torch.ones(1, device="cuda")
-        search = LambdaSearch("ESSPS", 0.01, 10.0, k / 10.0, 40)
-        tickets = {side: torch.zeros(1, dtype=torch.int32, device="cuda")
-                   for side in ("this", "other")}
-        blocks, slots = -(-k // 256), prev.numel()
-        lib = libs[f"fused_{model}"][0]
-        shared = libs["fused_solve"][0]
-        theirs_fn = {
-            "fused_solve": _ctypes_fn(lib, f"{model}_fused_solve",
-                                      their_types(fs._SOLVE_ARGTYPES)),
-            "costs_dump": _ctypes_fn(lib, f"{model}_costs_dump", their_types(fs._DUMP_ARGTYPES)),
-            "costs_dump_lambda": _ctypes_fn(lib, f"{model}_costs_dump_lambda",
-                                            their_types(fs._DUMP_LAMBDA_ARGTYPES)),
-            "reroll": _ctypes_fn(libs["reroll"][0], f"{model}_reroll", fs._REROLL_ARGTYPES),
-            "weighted": _ctypes_fn(shared, "fused_weighted", fs._WEIGHTED_ARGTYPES),
-            "regen": _ctypes_fn(shared, f"fused_regen_m{task.dim_control}", their_regen_types),
-        }
-        # phase 1's outputs that phase 2 reads, and the rows regenerated, by noise mode
-        phase1 = {id(nz): fs.fused_costs_dump(x0, prev, seed, ref, task, sig, lo, hi, k, k, nz)
-                  for nz in (noise, None)}
-        rows = torch.sort(phase1[id(None)][0], stable=True).indices[:300].contiguous()
-
-        def sampling(nz):
-            return (seed, ref, task, sig, lo, hi, k, k, nz)
-
-        def ours(kernel, nz):
-            if kernel == "fused_solve":
-                return fs.fused_solve(x0, prev, lam, *sampling(nz))
-            if kernel == "costs_dump":
-                return fs.fused_costs_dump(x0, prev, *sampling(nz))
-            if kernel == "costs_dump_lambda":
-                return fs.fused_costs_dump_lambda(x0, prev, *sampling(nz), search, tickets["this"])
-            if kernel == "weighted":
-                return fs.fused_weighted(*phase1[id(nz)], lam)
-            if kernel == "regen":
-                return (fs.fused_regen(prev, seed, rows, sig, lo, hi, k, k, nz),)
-            return (fs.fused_reroll(x0, prev, task),)
-
-        def theirs(kernel, nz):
-            fn = theirs_fn[kernel]
-            if kernel == "reroll":
-                out = torch.empty(prev.shape[0] + 1, task.dim_state, device="cuda")
-                _call(torch, fn, x0.data_ptr(), prev.data_ptr(), fs._floats(task.floats),
-                      fs._ints(task.ints), prev.shape[0], out.data_ptr())
-                return (out,)
-            if kernel == "weighted":
-                costs, dump = phase1[id(nz)]
-                out = (torch.empty(blocks, 3, device="cuda"),
-                       torch.empty(blocks, slots, device="cuda"))
-                _call(torch, fn, costs.data_ptr(), dump.data_ptr(), lam.data_ptr(), slots, k,
-                      *(t.data_ptr() for t in out))
-                return out
-            if kernel == "regen":
-                out = torch.empty(rows.shape[0], *prev.shape, device="cuda")
-                nz_km = None if nz is None else fs._slot_major(nz, k, *prev.shape)
-                keys = (None, None) if by_pointer else ()
-                _call(torch, fn, prev.data_ptr(), None if nz is None else nz_km.data_ptr(),
-                      rows.data_ptr(), fs._floats((*sig, *lo, *hi)), their_seed, prev.shape[0],
-                      k, k, rows.shape[0], out.data_ptr(), *keys)
-                return (out,)
-            args, keep = fs._rollout_args(x0[None], prev[None],
-                                          lam if kernel == "fused_solve" else None,
-                                          fs._one_seed(seed), fs._one(ref), task, sig, lo, hi, k,
-                                          k, fs._one(nz))
-            # their single-scenario entry points take no batch and no seed stride
-            args = args[:10] + (their_seed,) + args[11:-4]
-            costs = torch.empty(k, device="cuda")
-            if kernel == "fused_solve":
-                out = (costs, torch.empty(blocks, 3, device="cuda"),
-                       torch.empty(blocks, slots, device="cuda"))
-                _call(torch, fn, *args, *(t.data_ptr() for t in out))
-            elif kernel == "costs_dump":
-                out = (costs, torch.empty(slots, k, device="cuda"))
-                _call(torch, fn, *args, *(t.data_ptr() for t in out))
-            else:
-                out = (costs, torch.empty(slots, k, device="cuda"), torch.empty(1, device="cuda"))
-                _call(torch, fn, *args, 0, search.lambda_min, search.lambda_max,
-                      search.kernel_param, search.iters, tickets["other"].data_ptr(),
-                      *(t.data_ptr() for t in out))
-            return out
-
-        for kernel in theirs_fn:
-            same = all(torch.equal(a, b) for nz in (noise, None)
-                       for a, b in zip(ours(kernel, nz), theirs(kernel, nz)))
-            entry = {"case": label, "kernel": f"{model}_{kernel}", "card": card, "bitwise": same}
-            # phase 1 (row 3) in both noise modes, every other kernel seeded
-            for mode, nz in (("", None),) + ((("noise_", noise),) if kernel == "costs_dump"
-                                              else ()):
-                turns = in_turns(torch, {"other": lambda kernel=kernel, nz=nz: theirs(kernel, nz),
-                                         "this": lambda kernel=kernel, nz=nz: ours(kernel, nz)})
-                entry.update({f"other_{mode}ms": turns["other"], f"this_{mode}ms": turns["this"]})
-            print(json.dumps(entry), flush=True)
-            failed = failed or not same
-    return fail("a kernel's outputs differ from the other checkout's") if failed else 0
-
-
-def facade_top_samples(root: str) -> int:
-    """Median fused ``get_top_samples(300)`` of the checkout at ``root``: one JSON line.
-
-    ``RacingController`` on its fused route at T=25, K=4,000 and at T=50,
-    K=100,000, and Navigation2D's example configuration through ``MPPI``'s
-    fused route: 31 ticks each of the solve, then ``get_top_samples(300)``
-    timed on the host clock to a synchronize, then the plant's step; the
-    median of the last 30.
-    """
-    sys.path.insert(0, str(Path(root).resolve()))
-    import torch
-
-    import mppi_playground_tpu_torch
-    from mppi_playground_tpu_torch import MPPI
-    from mppi_playground_tpu_torch.envs import RacingController
-    from mppi_playground_tpu_torch.envs.racing_env import RacingEnv
-    from mppi_playground_tpu_torch.workloads import build_model_workload
-
-    if not Path(mppi_playground_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
-        return fail(f"imported {mppi_playground_tpu_torch.__file__}, not the package under {root}")
-
-    def median_top(solve, top, step, x):
-        times = []
-        for i in range(31):
-            action_seq = solve(x)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            seqs, _ = top(300)
-            torch.cuda.synchronize()
-            if i:
-                times.append(1e3 * (time.perf_counter() - t0))
-            if not torch.isfinite(seqs).all():
-                raise RuntimeError("non-finite top samples")
-            x = step(action_seq[0])
-        return statistics.median(times)
-
-    env = RacingEnv(device="cuda")
-    out = {"root": str(root)}
-    for label, kw in (("racing T=25 K=4000", {}),
-                      ("racing T=50 K=100000", dict(horizon=50, num_samples=100_000))):
-        ctrl = RacingController(env, store_rollouts=False, **kw)
-        out[label] = median_top(lambda x: ctrl.update(x)[0], ctrl.get_top_samples,
-                                lambda a: env.step(a)[0], env.reset())
-    nav = build_model_workload("navigation", device="cuda")
-    c = MPPI(**dict(nav.mppi_kwargs, store_rollouts=False, fused_task=nav.task))
-    out["navigation T=30 K=3000"] = median_top(lambda x: c.forward(x)[0], c.get_top_samples,
-                                               lambda a: nav.env.step(a)[0], nav.env.reset())
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-def top_samples_in_turns(other: str) -> int:
-    """:func:`facade_top_samples` of another checkout and of this one, in turns.
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.top_samples_in_turns("DIR"))'
-
-    Four processes (:func:`processes_in_turns`).  Prints the card, each
-    process's JSON line, and the two medians of each side as one JSON line.
-    """
-    card = card_line()
-    print(card, flush=True)
-    runs = processes_in_turns(other, "facade_top_samples", card)
-    if runs is None:
-        return 1
-    print(json.dumps({"card": card, **{f"{side} {key}": [r[key] for r in lines]
-                                       for side, lines in runs.items()
-                                       for key in lines[0] if key != "root"}}), flush=True)
-    return 0
-
-
-def processes_in_turns(other: str, function: str, card: str):
-    """``function(root)`` of another checkout and of this one, each in a process, in turns.
-
-    Four processes, one after another: ``other``, this checkout, this
-    checkout, ``other`` (each builds or loads its own kernels before it
-    times).  Prints each process's JSON line (its last) with its side and the
-    card; returns ``{"other": [line, line], "this": [line, line]}``, or None
-    after a failure.
-    """
-    here = Path(__file__).resolve().parent
-    runs = {"other": [], "this": []}
-    for side in ("other", "this", "this", "other"):
-        root = Path(other).resolve() if side == "other" else here
-        code = f"import sys, chip_smoke; sys.exit(chip_smoke.{function}({str(root)!r}))"
-        proc = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
-                              text=True, timeout=900)
-        if proc.returncode:
-            fail(f"{function}({root}) failed:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
-            return None
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(json.dumps(dict(line, side=side, card=card)), flush=True)
-        runs[side].append(line)
-    return runs
-
-
-def flagship_ticks(root: str) -> int:
-    """The flagship's tick on the host clock, and its profile, for the checkout at ``root``.
-
-    ``build_flagship(device="cuda")`` (racing, T=50, K=100,000) at its fixed
-    lambda and under ESSPS: 20 warm-up ticks, then 100 closed-loop ticks
-    (``tick``, ``env.step``) each timed to a synchronize, and a profile of 10
-    more (:func:`profile_ticks`: device activities a tick, busy share).
-    Prints one JSON line; returns the exit code.
-    """
-    sys.path.insert(0, str(Path(root).resolve()))
-    import torch
-
-    import mppi_playground_tpu_torch
-    from mppi_playground_tpu_torch.models.racing_mpcc import make_racing_fused_task_from_env
-    from mppi_playground_tpu_torch.workloads import build_flagship
-
-    if not Path(mppi_playground_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
-        return fail(f"imported {mppi_playground_tpu_torch.__file__}, not the package under {root}")
-    env, solver, tick = build_flagship(horizon=T, num_samples=K, device="cuda")
-    solvers = mode_solvers(env, make_racing_fused_task_from_env(env), solver, tick)
-    out = {"root": str(root)}
-    for mode in ("fixed", "ESSPS"):
-        solver, tick = solvers[mode]
-        run = {"state": solver.init(), "cind": torch.tensor(0, device="cuda"), "x": env.reset()}
-
-        def one(run=run, tick=tick):
-            action_seq, _, run["state"], run["cind"] = tick(run["state"], run["cind"], run["x"])
-            run["x"], _ = env.step(action_seq[0])
-
-        times = []
-        for i in range(120):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            one()
-            torch.cuda.synchronize()
-            if i >= 20:
-                times.append(1e3 * (time.perf_counter() - t0))
-        out[mode] = {"median_tick_ms": statistics.median(times),
-                     "profile": profile_ticks(torch, one, 10)}
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-def flagship_ticks_in_turns(other: str) -> int:
-    """:func:`flagship_ticks` of another checkout and of this one, in turns.
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.flagship_ticks_in_turns("DIR"))'
-
-    Four processes (:func:`processes_in_turns`).  Prints the card and each
-    process's JSON line.
-    """
-    card = card_line()
-    print(card, flush=True)
-    return 0 if processes_in_turns(other, "flagship_ticks", card) is not None else 1
-
-
-def flagship_episodes_at(root: str) -> int:
-    """The flagship's replayed episodes for the checkout at ``root``: fixed λ and MPO.
-
-    50 ticks (``make_closed_loop``, the plant ``RacingEnv.dynamics``, the
-    reference rows through ``info_fn``) run once (tick 0 and the capture),
-    then seven runs each timed on the host clock to a synchronize; the median
-    over 50 ticks.  Prints one JSON line; returns the exit code.
-    """
-    sys.path.insert(0, str(Path(root).resolve()))
-    import torch
-
-    import mppi_playground_tpu_torch
-    from mppi_playground_tpu_torch.core.closed_loop import make_closed_loop
-    from mppi_playground_tpu_torch.core.fused_solver import make_fused_solver
-    from mppi_playground_tpu_torch.models.racing_mpcc import (
-        calc_ref_trajectory,
-        make_racing_fused_task_from_env,
-    )
-    from mppi_playground_tpu_torch.workloads import build_flagship
-
-    if not Path(mppi_playground_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
-        return fail(f"imported {mppi_playground_tpu_torch.__file__}, not the package under {root}")
-    env, fixed, _ = build_flagship(horizon=T, num_samples=K, device="cuda")
-    mpo = make_fused_solver(dataclasses.replace(fixed.config, lambda_="MPO"),
-                            make_racing_fused_task_from_env(env), env.dynamics, device="cuda")
-    path = env.racing_center_path
-
-    def info_fn(cind, x):
-        xref, new_cind = calc_ref_trajectory(x, path, cind, T)
-        return {"reference_path": xref}, new_cind
-
-    out = {"root": str(root)}
-    for mode, solver in (("fixed", fixed), ("MPO", mpo)):
-        run = make_closed_loop(solver, lambda x, u: env.dynamics(x[None], u[None])[0],
-                               EPISODE_TICKS, info_fn=info_fn)
-        state0, x0 = solver.init(), env.reset()
-        c0 = torch.zeros((), dtype=torch.int64, device="cuda")
-        run(state0, x0, c0)
-        runs = [synced_ms(torch, lambda: run(state0, x0, c0)) for _ in range(7)]
-        out[mode] = {"amortized_tick_ms": statistics.median(runs) / EPISODE_TICKS,
-                     "episode_ms": runs}
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-def flagship_episodes_in_turns(other: str) -> int:
-    """:func:`flagship_episodes_at` of another checkout and of this one, in turns.
-
-        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.flagship_episodes_in_turns("DIR"))'
-
-    Four processes (:func:`processes_in_turns`).  Prints the card and each
-    process's JSON line.
-    """
-    card = card_line()
-    print(card, flush=True)
-    return 0 if processes_in_turns(other, "flagship_episodes_at", card) is not None else 1
 
 
 def check_epilogue(torch, fused_solve, cases, card):
@@ -4760,7 +4092,7 @@ def exact_sweep(torch, symbol: str, counts: int, *args) -> tuple:
     from mppi_playground_tpu_torch.ops import cuda_build
 
     out = torch.zeros(counts, dtype=torch.int64, device="cuda")
-    cuda_build.launch("exact_checks", symbol, [ctypes.c_void_p] * (len(args) + 2), out.device,
+    cuda_build.launch("exact_checks", symbol, [ctypes.c_void_p] * (len(args) + 1), out.device,
                       *args, out.data_ptr())
     return tuple(out.tolist())
 
@@ -4783,9 +4115,9 @@ def key_sweep(torch, np) -> dict:
     pairs += [(2**64 - 1, 2**32 - 1), (2**63 + 1, 2**32), (0, 0), (7, 2**32 + 5)]
     keys = torch.stack([make_key(s, t, "cpu") for s, t in pairs]).cuda()
     out = torch.empty_like(keys)
-    cuda_build.launch("exact_checks", "key_sweep", [ctypes.c_void_p, ctypes.c_int] +
-                      [ctypes.c_void_p] * 2, keys.device, keys.data_ptr(), len(pairs),
-                      out.data_ptr())
+    cuda_build.launch("exact_checks", "key_sweep",
+                      [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], keys.device,
+                      keys.data_ptr(), len(pairs), out.data_ptr())
     want = torch.stack([make_key(s, t + 1, "cpu") for s, t in pairs])
     differ = int((out.cpu() != want).any(dim=1).sum())
     return dict(keys=len(pairs), differ=differ,
@@ -6045,7 +5377,7 @@ def drive_plugs(torch, np, card):
 
     t0 = time.perf_counter()
     plugs = every_plug()
-    libraries = {name: plug.task.entry("fused_solve")[0] for name, plug in plugs.items()}
+    libraries = {name: plug.task.entry("fused_solve_batch")[0] for name, plug in plugs.items()}
     build_s = cuda_build.build(libraries.values())  # already built where phase 2 built them
     print(f"phase 16: {len(libraries)} plug units on {card}, each build's seconds from the start "
           "of the nvcc processes it was started with: " + json.dumps(
@@ -6174,7 +5506,7 @@ def main() -> int:
 
     # --- phase 2: build --------------------------------------------------
     # csrc's sources and phase 16's plug units, one nvcc each, all started together
-    plug_units = tuple(plug.task.entry("fused_solve")[0] for plug in (
+    plug_units = tuple(plug.task.entry("fused_solve_batch")[0] for plug in (
         *every_plug().values(), linear_plug(3, 1, pre=WIDE_PRE)))
     build_s = cuda_build.build(cuda_build.SOURCES + plug_units)
     regs = "; ".join(

@@ -1,6 +1,6 @@
 // The goal-in-danger-zone observation model (n=7) on the fused kernels of
-// fused_solve.cuh: danger_zone_fused_solve (fixed lambda and MPO),
-// danger_zone_costs_dump (auto-lambda phase 1) and danger_zone_costs_dump_lambda
+// fused_solve.cuh: danger_zone_fused_solve_batch (fixed lambda and MPO),
+// danger_zone_costs_dump_batch (auto-lambda phase 1) and danger_zone_costs_dump_lambda_batch
 // (phase 1 with the ESSPS or LBPS search in the same launch).
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel

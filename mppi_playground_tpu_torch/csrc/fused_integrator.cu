@@ -1,6 +1,6 @@
 // The README quick-start integrator on the fused kernels of
-// fused_solve.cuh: integrator_fused_solve (fixed lambda and MPO),
-// integrator_costs_dump (auto-lambda phase 1) and integrator_costs_dump_lambda
+// fused_solve.cuh: integrator_fused_solve_batch (fixed lambda and MPO),
+// integrator_costs_dump_batch (auto-lambda phase 1) and integrator_costs_dump_lambda_batch
 // (phase 1 with the ESSPS or LBPS search in the same launch).
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel

@@ -1,6 +1,6 @@
 // The Navigation2D unicycle (goal distance plus 1e4 times occupancy) on the fused kernels of
-// fused_solve.cuh: navigation_fused_solve (fixed lambda and MPO),
-// navigation_costs_dump (auto-lambda phase 1) and navigation_costs_dump_lambda
+// fused_solve.cuh: navigation_fused_solve_batch (fixed lambda and MPO),
+// navigation_costs_dump_batch (auto-lambda phase 1) and navigation_costs_dump_lambda_batch
 // (phase 1 with the ESSPS or LBPS search in the same launch).
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel

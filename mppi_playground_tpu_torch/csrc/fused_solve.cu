@@ -1,10 +1,10 @@
 // The model-independent kernels of the fused solve (fused_solve.cuh):
-// auto-lambda phase 2 (fused_weighted) and seed regeneration alone for one and
-// two action dimensions (fused_regen_m1, fused_regen_m2: regen_rollout_kernel
-// on its actions-only plug; reroll.cu rolls the rows out as well).  The
-// unfused fleet draws every scenario's rows in one launch
-// (fused_regen_m1_batch, fused_regen_m2_batch: the scenarios on gridDim.y,
-// each with its warm start, noise, seed word and key; the rows shared).
+// auto-lambda phase 2 (fused_weighted_batch) and seed regeneration alone for
+// one and two action dimensions (fused_regen_m1_batch, fused_regen_m2_batch:
+// regen_rollout_kernel on its actions-only plug; reroll.cu rolls the rows out
+// as well), each over a batch of scenarios on gridDim.y (a single solve is a
+// batch of one).  The unfused fleet draws every scenario's rows in one launch,
+// each scenario with its warm start, noise, seed word and key; the rows shared.
 //
 // Replaces: mppi_playground_tpu/ops/fused_solve.py make_fused_solve.kernel
 // in its weighted_only + pert_in mode (run_weighted) and its regen_dump_only
@@ -14,7 +14,7 @@
 // requested row; at get_top_samples' 300 rows a launch costs more than the
 // work.  The model's rollout kernels are in fused_<model>.cu.
 //
-// Phase 2 over a fleet (fused_weighted_batch): the scenarios on gridDim.y,
+// Phase 2 over a batch (fused_weighted_batch): the scenarios on gridDim.y,
 // scenario b's costs, dump, lambda and partials at b of their own sizes, so
 // that each scenario's partials are bit for bit its own launch's.  On a shard
 // of a sample-sharded solve it masks by the global index as the rollout
@@ -80,12 +80,6 @@ extern "C" int fused_weighted_batch(const float* costs, const float* dump, const
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fused_weighted(const float* costs, const float* dump, const float* lam, int slots,
-                              int num_samples, float* stats, float* numer, void* stream) {
-  return fused_weighted_batch(costs, dump, lam, slots, num_samples, 1, 0, num_samples, stats,
-                              numer, stream);
-}
-
 // fused_regen_m<m>_batch: batch scenarios, prev [B, T, m], noise [B, T*m, K] or
 // null, the seed words seed_stride words apart (3 for a batch of keys [B, 3]),
 // out [B, n, T, m], key and key_out [B, 3] or null; rows [n] shared.
@@ -97,13 +91,6 @@ extern "C" int fused_weighted(const float* costs, const float* dump, const float
       void* stream) {                                                                         \
     return launch_regen<m>(prev, noise, rows, bounds, seed, horizon, num_samples, threshold,  \
                            num_rows, batch, seed_stride, out, key, key_out, stream);          \
-  }                                                                                           \
-  extern "C" int fused_regen_m##m(const float* prev, const float* noise, const int64_t* rows, \
-                                  const float* bounds, const uint32_t* seed, int horizon,     \
-                                  int num_samples, int threshold, int num_rows, float* out,   \
-                                  const uint32_t* key, uint32_t* key_out, void* stream) {     \
-    return launch_regen<m>(prev, noise, rows, bounds, seed, horizon, num_samples, threshold,  \
-                           num_rows, 1, 0, out, key, key_out, stream);                        \
   }
 
 FUSED_REGEN_ENTRY_POINT(1)

@@ -546,7 +546,7 @@ __global__ void __cluster_dims__(lsearch::kCluster, 1, 1) __launch_bounds__(kBlo
   cluster.sync();  // no CTA leaves while another may still read its shared memory
 }
 
-// The model plug of regeneration alone (fused_regen_m1, fused_regen_m2): no
+// The model plug of regeneration alone (fused_regen_m1_batch, _m2_batch): no
 // state, no step; the actions are all it writes.
 template <int kM_>
 struct ActionsOnly {
@@ -833,9 +833,8 @@ int launch_costs_dump_lambda(Params<Model> p, int batch, int lbps, Search q, int
   x0, prev, lam, ref, grid_a, grid_b, noise, bounds, model_f, model_i, seed, horizon,       \
       num_samples, threshold
 
-// The rollout entry points of one model: <prefix>_fused_solve,
-// <prefix>_costs_dump and <prefix>_costs_dump_lambda; and each over a batch of
-// scenarios, <prefix>_fused_solve_batch, <prefix>_costs_dump_batch and
+// The rollout entry points of one model, each over a batch of scenarios:
+// <prefix>_fused_solve_batch, <prefix>_costs_dump_batch and
 // <prefix>_costs_dump_lambda_batch (every array of FUSED_ROLLOUT_ARGS but the
 // bounds, the model's constants and grids [B, ...]; seed_stride words between
 // the scenarios' seed words; the epilogue's tickets and lambda* [B]).  The
@@ -843,11 +842,6 @@ int launch_costs_dump_lambda(Params<Model> p, int batch, int lbps, Search q, int
 // (Sampling; 0 and num_samples for the whole launch), shared by every
 // scenario; the epilogue searches one launch's costs and takes none.
 #define FUSED_MODEL_ENTRY_POINTS(prefix, Model)                                               \
-  extern "C" int prefix##_fused_solve(FUSED_ROLLOUT_ARGS, float* costs, float* stats,         \
-                                      float* numer, void* stream) {                           \
-    return fused::launch_solve(fused::make_params<Model>(FUSED_ROLLOUT_NAMES), 1, costs,      \
-                               stats, numer, static_cast<cudaStream_t>(stream));              \
-  }                                                                                           \
   extern "C" int prefix##_fused_solve_batch(FUSED_ROLLOUT_ARGS, int batch, int seed_stride,   \
                                             int sample_offset, int total_samples,             \
                                             float* costs, float* stats, float* numer,         \
@@ -855,11 +849,6 @@ int launch_costs_dump_lambda(Params<Model> p, int batch, int lbps, Search q, int
     return fused::launch_solve(fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride,    \
                                                          sample_offset, total_samples),       \
                                batch, costs, stats, numer, static_cast<cudaStream_t>(stream)); \
-  }                                                                                           \
-  extern "C" int prefix##_costs_dump(FUSED_ROLLOUT_ARGS, float* costs, float* dump,           \
-                                     void* stream) {                                          \
-    return fused::launch_costs_dump(fused::make_params<Model>(FUSED_ROLLOUT_NAMES), 1, costs, \
-                                    dump, static_cast<cudaStream_t>(stream));                 \
   }                                                                                           \
   extern "C" int prefix##_costs_dump_batch(FUSED_ROLLOUT_ARGS, int batch, int seed_stride,    \
                                            int sample_offset, int total_samples,              \
@@ -877,12 +866,4 @@ int launch_costs_dump_lambda(Params<Model> p, int batch, int lbps, Search q, int
         fused::make_params<Model>(FUSED_ROLLOUT_NAMES, seed_stride), batch, lbps,             \
         fused::Search{lam_min, lam_max, param, iters}, ticket, costs, dump, lam_out,          \
         static_cast<cudaStream_t>(stream));                                                   \
-  }                                                                                           \
-  extern "C" int prefix##_costs_dump_lambda(FUSED_ROLLOUT_ARGS, int lbps, float lam_min,      \
-                                            float lam_max, float param, int iters,            \
-                                            int* ticket, float* costs, float* dump,           \
-                                            float* lam_out, void* stream) {                   \
-    return prefix##_costs_dump_lambda_batch(FUSED_ROLLOUT_NAMES, 1, 0, lbps, lam_min,        \
-                                            lam_max, param, iters, ticket, costs, dump,       \
-                                            lam_out, stream);                                 \
   }

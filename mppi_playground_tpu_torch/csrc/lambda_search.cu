@@ -5,20 +5,21 @@
 // lbps_golden): Pallas TPU kernels that load the padded cost vector into VMEM
 // once and run every iteration of the search on it.
 //
-// * essps_search: 2 + iters evaluations of ESS(lambda) = (sum e)^2 / sum e^2
+// * essps_search_batch: 2 + iters evaluations of ESS(lambda) = (sum e)^2 / sum e^2
 //   with e = exp(d * (1 / lambda)), d = min(c) - c hoisted out of the loop;
 //   bisection towards the target ESS, then the reference's bracket clamps.
-// * lbps_search: 2 + iters evaluations of the LBPS objective
+// * lbps_search_batch: 2 + iters evaluations of the LBPS objective
 //   (sum e*c + range_pen * sqrt(sum e^2)) / sum e with a = -1/lambda and
 //   e = exp(c * a - min(c) * a), the exact hoist (a 1-ulp different shift
 //   moves golden section to another plateau); range_pen = (max - min) *
 //   sqrt(ratio) over the costs.  Golden section carries the surviving value.
 //
 // The search itself is lambda_search.cuh's cluster_search, which the lambda
-// epilogue of auto-lambda phase 1 (fused_solve.cuh) runs too.  Over a fleet
-// (essps_search_batch, lbps_search_batch) each scenario is one cluster, on
-// gridDim.y (__cluster_dims__ keeps a cluster inside one scenario): scenario
-// b searches costs [b, 0:K) into out[b], bit for bit its own launch.
+// epilogue of auto-lambda phase 1 (fused_solve.cuh) runs too.  Each launch
+// searches a batch of scenarios (a single solve's is a batch of one), one
+// cluster a scenario on gridDim.y (__cluster_dims__ keeps a cluster inside one
+// scenario): scenario b searches costs [b, 0:K) into out[b], bit for bit its
+// own launch.
 //
 // Each evaluation is a reduction over all K costs on which the next step
 // depends.  What bounds it on the H100: the function reads 4K bytes once
@@ -85,17 +86,6 @@ int launch_search(const float* costs, int num_samples, int batch, float lam_min,
 }
 
 }  // namespace
-
-extern "C" int essps_search(const float* costs, int num_samples, float lam_min, float lam_max,
-                            float target, int iters, float* out, void* stream) {
-  return launch_search<false>(costs, num_samples, 1, lam_min, lam_max, target, iters, out,
-                              stream);
-}
-
-extern "C" int lbps_search(const float* costs, int num_samples, float lam_min, float lam_max,
-                           float ratio, int iters, float* out, void* stream) {
-  return launch_search<true>(costs, num_samples, 1, lam_min, lam_max, ratio, iters, out, stream);
-}
 
 // batch scenarios: costs [B, K] -> out [B].
 extern "C" int essps_search_batch(const float* costs, int num_samples, int batch, float lam_min,

@@ -1,5 +1,5 @@
 // The tick's tail, the nominal re-roll and the top rows' roll-out of every
-// model: <model>_tick_tail (the block partials merged into the update, ESS
+// model: <model>_tick_tail_batch (the block partials merged into the update, ESS
 // and weights, the SG filter, the history shift, the re-roll: tick_tail.cuh);
 // <model>_reroll, x0 [n], seq [T, m] -> [T+1, n]; <model>_top_rollouts, the
 // states [rows, T+1, n] of chosen samples regenerated and rolled out.
@@ -17,14 +17,14 @@
 // dependent operations, so the time is that chain's latency on one thread
 // plus the launch.  One thread a row (fused_solve.cuh regen_rollout_kernel)
 // through the model's step, small CTAs so that the chains run on several
-// SMs.  Entry points <model>_tick_tail(x0, costs, stats, numer, lam, history,
-// coeffs, model_f, model_i, blocks, horizon, num_samples, window, actions,
-// states, ess, weights, history_out, key, key_out, stream) and its fleet form
-// <model>_tick_tail_batch (the same with int batch after window: every array
-// [B, ...] but the SG window, the keys [B, 3]), <model>_reroll(x0, seq,
-// model_f, model_i, horizon, out, stream) and <model>_top_rollouts(x0, prev,
-// noise, rows, bounds, model_f, model_i, seed, horizon, num_samples,
-// threshold, num_rows, out, stream), the model floats and ints as the rollout
+// SMs.  Entry points <model>_tick_tail_batch(x0, costs, stats, numer, lam,
+// history, coeffs, model_f, model_i, blocks, horizon, num_samples, window,
+// batch, actions, states, ess, weights, history_out, key, key_out, stream)
+// (every array [B, ...] but the SG window, the keys [B, 3]; a single solve's
+// tail is a batch of one), <model>_reroll(x0, seq, model_f, model_i, horizon,
+// out, stream) and <model>_top_rollouts(x0, prev, noise, rows, bounds,
+// model_f, model_i, seed, horizon, num_samples, threshold, num_rows, out,
+// stream), the model floats and ints as the rollout
 // kernels take them.
 // The entry points of one model are TAIL_ENTRY_POINTS (tail_entry_points.cuh),
 // which a user's model plug instantiates in its own generated unit.

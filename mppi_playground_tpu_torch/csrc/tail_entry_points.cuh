@@ -1,6 +1,6 @@
 // The tick tail, re-roll and top-rows entry points of one model plug:
 // TAIL_ENTRY_POINTS(prefix, Model) defines <prefix>_reroll,
-// <prefix>_tick_tail, <prefix>_tick_tail_batch and <prefix>_top_rollouts
+// <prefix>_tick_tail_batch and <prefix>_top_rollouts
 // (their arguments: reroll.cu).  reroll.cu instantiates it for every bundled
 // model; a user's model plug, in the unit ops/cuda_build.py generates for it.
 #pragma once
@@ -29,16 +29,6 @@
     return fused::launch_tick_tail<Model>(q, batch,                                            \
                                           Model::make_args(model_f, model_i, nullptr, nullptr), \
                                           static_cast<cudaStream_t>(stream));                  \
-  }                                                                                            \
-  extern "C" int prefix##_tick_tail(                                                           \
-      const float* x0, const float* costs, const float* stats, const float* numer,             \
-      const float* lam, const float* history, const float* coeffs, const float* model_f,       \
-      const int* model_i, int blocks, int horizon, int num_samples, int window, float* actions, \
-      float* states, float* ess, float* weights, float* history_out, const uint32_t* key,      \
-      uint32_t* key_out, void* stream) {                                                       \
-    return prefix##_tick_tail_batch(x0, costs, stats, numer, lam, history, coeffs, model_f,    \
-                                    model_i, blocks, horizon, num_samples, window, 1, actions,  \
-                                    states, ess, weights, history_out, key, key_out, stream);  \
   }                                                                                            \
   extern "C" int prefix##_top_rollouts(const float* x0, const float* prev, const float* noise, \
                                        const int64_t* rows, const float* bounds,              \

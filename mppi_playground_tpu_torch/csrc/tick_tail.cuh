@@ -7,7 +7,7 @@
 // the shift of its history (core/solver.py smooth_predict_advance).
 //
 // * reroll_kernel (<model>_reroll): x0 [n], actions [T, m] -> [T+1, n].
-// * tick_tail_kernel (<model>_tick_tail): one launch after the fused solve or
+// * tick_tail_kernel (<model>_tick_tail_batch): one launch after the fused solve or
 //   phase 2.  CTA 0 merges the block partials [B, 3] and [B, T*m] into the
 //   update and the ESS, applies the SG filter where the config has it,
 //   shifts the filter's history, and re-rolls the nominal sequence; every

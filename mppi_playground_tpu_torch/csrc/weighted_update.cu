@@ -160,9 +160,3 @@ extern "C" int weighted_update_batch(const float* costs, const float* samples, c
   }
   return static_cast<int>(cudaGetLastError());
 }
-
-extern "C" int weighted_update(const float* costs, const float* samples, const float* lam,
-                               int slots, int num_samples, float* stats, float* numer,
-                               void* stream) {
-  return weighted_update_batch(costs, samples, lam, slots, num_samples, 1, stats, numer, stream);
-}

@@ -138,8 +138,9 @@ def function(name: str, symbol: str, argtypes: list):
     """C function ``symbol`` of ``csrc/<name>.cu`` (or of a generated unit), built and loaded
     on first use.
 
-    Every pointer and the stream are ``c_void_p``; the function returns a
-    ``cudaError_t`` as ``int``.
+    ``argtypes`` are the arguments before the stream, every pointer a
+    ``c_void_p``; the stream, which every entry point takes last, is added
+    here.  The function returns a ``cudaError_t`` as ``int``.
     """
     with _lock:
         fn = _functions.get((name, symbol))
@@ -152,7 +153,7 @@ def function(name: str, symbol: str, argtypes: list):
                 if name not in build_seconds:  # found built by an earlier process
                     timing.count("kernels.loaded")
             fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _functions[(name, symbol)] = fn
         return fn

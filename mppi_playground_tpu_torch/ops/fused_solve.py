@@ -9,19 +9,19 @@ instantiation (``csrc/fused_<model>.cu``).  A user's own model is a
 ``ops/cuda_build.py`` builds into a unit of its own at first use
 (:meth:`FusedTask.entry` names every kernel's library and symbol):
 
-* :func:`fused_solve` (``<model>_fused_solve``) — per sample: the perturbed,
+* :func:`fused_solve` (``<model>_fused_solve_batch``) — per sample: the perturbed,
   clamped warm start, T model steps with the stage and terminal cost; per
   block of 256 samples the softmin partials.
-* :func:`fused_costs_dump` (``<model>_costs_dump``) — auto-lambda phase 1:
+* :func:`fused_costs_dump` (``<model>_costs_dump_batch``) — auto-lambda phase 1:
   the same rollout and costs, and the clamped perturbations dumped as
   ``[T*m, K]`` (slot-major, sample fastest); no partials.
-* :func:`fused_costs_dump_lambda` (``<model>_costs_dump_lambda``) — phase 1
+* :func:`fused_costs_dump_lambda` (``<model>_costs_dump_lambda_batch``) — phase 1
   with the ESSPS or LBPS search in the same launch: phase 1 runs as
   clusters of 8 blocks, and the cluster that finishes last searches the K
   costs with the search kernels' own body and writes lambda* to the device,
   bit for bit the search kernels' (``ops/lambda_search.py``) on the same
   costs.
-* :func:`fused_weighted` (``fused_weighted``, ``csrc/fused_solve.cu``) —
+* :func:`fused_weighted` (``fused_weighted_batch``, ``csrc/fused_solve.cu``) —
   auto-lambda phase 2: the block partials of the fixed solve, from the
   costs and the dump at a lambda searched in between, without a rollout.
 * :func:`fused_top_rollouts` (``<model>_top_rollouts``, ``csrc/reroll.cu``)
@@ -29,9 +29,9 @@ instantiation (``csrc/fused_<model>.cu``).  A user's own model is a
   perturbations replayed from a solve's seed and warm start (or its
   injected noise) and rolled out through the model, in one launch: the
   fused route's ``get_top_samples``.
-* :func:`fused_regen` (``fused_regen_m1`` / ``fused_regen_m2``) — the
+* :func:`fused_regen` (``fused_regen_m1_batch`` / ``_m2_batch``) — the
   same kernel on its actions-only plug: the clamped perturbations alone.
-* :func:`fused_tick_tail` (``<model>_tick_tail``, ``csrc/reroll.cu``,
+* :func:`fused_tick_tail` (``<model>_tick_tail_batch``, ``csrc/reroll.cu``,
   ``csrc/tick_tail.cuh``) — the tick's tail in one launch after the fused
   solve or phase 2: the block partials merged into the update, the weights
   and the ESS (``ops/weighted_update.combine_partials``' function, summed in
@@ -44,11 +44,9 @@ A fleet of B scenarios launches each kernel of its tick once, the scenarios
 on the grid's second axis (``blockIdx.y``): :func:`fused_solve_batch`,
 :func:`fused_costs_dump_batch`, :func:`fused_costs_dump_lambda_batch`,
 :func:`fused_weighted_batch`, :func:`fused_tick_tail_batch` and
-:func:`fused_regen_batch` (``<model>_fused_solve_batch``,
-``<model>_costs_dump_batch``, ``<model>_costs_dump_lambda_batch``,
-``fused_weighted_batch``, ``<model>_tick_tail_batch``,
-``fused_regen_m<m>_batch``; the searches' in ``ops/lambda_search.py``, the
-weighted update's in ``ops/weighted_update.py``).  Every per-scenario array
+:func:`fused_regen_batch` (the symbols above, each kernel's one C entry
+point; the searches' in ``ops/lambda_search.py``, the weighted update's in
+``ops/weighted_update.py``).  Every per-scenario array
 gains a leading ``[B]`` axis; the bounds, the model's constants and grids,
 the SG window and the regenerated rows are shared.  The λ epilogue takes a
 ticket a scenario (int32 ``[B]``).  Scenario b's outputs are bit for bit the
@@ -132,7 +130,7 @@ MODELS = {
 }
 REGEN_WIDTHS = (1, 2)  # fused_regen_m1, fused_regen_m2
 # the kernels of the tail's library (csrc/reroll.cu for the bundled models)
-TAIL_KERNELS = ("tick_tail", "tick_tail_batch", "reroll", "top_rollouts")
+TAIL_KERNELS = ("tick_tail_batch", "reroll", "top_rollouts")
 _C_IDENTIFIER = re.compile(r"[A-Za-z_][A-Za-z0-9_]*\Z")
 _CPP_NAME = re.compile(r"(::)?[A-Za-z_][A-Za-z0-9_]*(::[A-Za-z_][A-Za-z0-9_]*)*\Z")
 
@@ -278,7 +276,7 @@ class FusedTask:
 
     def entry(self, kernel: str) -> Tuple[str, str]:
         """``(library, symbol)`` of the task's ``kernel`` (``"fused_solve_batch"``,
-        ``"tick_tail"``, ...): the bundled model's ``csrc/`` source, or the
+        ``"tick_tail_batch"``, ...): the bundled model's ``csrc/`` source, or the
         plug's generated unit (built at its first launch)."""
         if self.plug is not None:
             library = self.plug.library
@@ -833,21 +831,14 @@ def _rollout_args(x0s, prevs, lams, seeds, refs, task, sigmas, u_min, u_max, num
 
 
 _ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-# _SOLVE_ARGTYPES, _DUMP_ARGTYPES, _DUMP_LAMBDA_ARGTYPES, _WEIGHTED_ARGTYPES,
-# _REGEN_ARGTYPES and _TAIL_ARGTYPES are the single-scenario entry points', which
-# csrc/ keeps as the batch of one for callers of its C interface; the wrappers
-# launch the fleet forms
-_SOLVE_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 4
-_DUMP_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_void_p] * 3
-_DUMP_LAMBDA_ARGTYPES = (_ROLLOUT_ARGTYPES + [ctypes.c_int] + [ctypes.c_float] * 3
-                         + [ctypes.c_int] + [ctypes.c_void_p] * 5)
-# the epilogue over a fleet: the batch and the seed words' stride, then the single form's
+# after the shared arguments, the epilogue takes the batch, the seed words' stride, the
+# search's mode, bracket, parameter and steps, the tickets and its outputs
 _DUMP_LAMBDA_BATCH_ARGTYPES = (_ROLLOUT_ARGTYPES + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
-                               + [ctypes.c_int] + [ctypes.c_void_p] * 5)
-# the fleet forms: the batch, the seed words' stride, the shard's sample offset and the
-# solve's total samples after the shared arguments
-_SOLVE_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-_DUMP_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+                               + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+# and the solve and phase 1 the batch, the seed words' stride, the shard's sample offset
+# and the solve's total samples, then their outputs
+_SOLVE_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+_DUMP_BATCH_ARGTYPES = _ROLLOUT_ARGTYPES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
 
 
 def fused_solve(
@@ -951,8 +942,6 @@ def fused_costs_dump_lambda(
 
 fused_costs_dump_lambda.launches = timing.LaunchCounts(lambda name: name.endswith("_costs_dump_lambda"))
 
-_WEIGHTED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-
 
 def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor,
                    sample_offset: int = 0, total_samples: Optional[int] = None):
@@ -973,8 +962,7 @@ def fused_weighted(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor,
 
 fused_weighted.launches = timing.LaunchCounts(lambda name: name == "fused_weighted")
 
-_REGEN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-_REGEN_BATCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+_REGEN_BATCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
 
 
 def fused_regen(
@@ -1012,7 +1000,7 @@ def fused_regen(
 
 fused_regen.launches = timing.LaunchCounts(lambda name: name.startswith("fused_regen_m"))
 
-_TOP_ROLLOUTS_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+_TOP_ROLLOUTS_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def fused_top_rollouts(
@@ -1072,7 +1060,7 @@ def fused_top_rollouts(
 
 fused_top_rollouts.launches = timing.LaunchCounts(lambda name: name.endswith("_top_rollouts"))
 
-_REROLL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+_REROLL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p]
 
 
 def fused_reroll(x0: torch.Tensor, action_seq: torch.Tensor, task: FusedTask) -> torch.Tensor:
@@ -1093,8 +1081,6 @@ def fused_reroll(x0: torch.Tensor, action_seq: torch.Tensor, task: FusedTask) ->
 
 
 fused_reroll.launches = timing.LaunchCounts(lambda name: name.endswith("_reroll"))
-
-_TAIL_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
 
 
 def fused_tick_tail(
@@ -1253,7 +1239,7 @@ def fused_weighted_batch_plain(costs, dump, lam, sample_offset: int = 0,
                   for b in range(costs.shape[0]))
 
 
-_WEIGHTED_BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+_WEIGHTED_BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 
 def fused_weighted_batch(costs: torch.Tensor, dump: torch.Tensor, lam: torch.Tensor,
@@ -1306,7 +1292,7 @@ def fused_tick_tail_batch_plain(x0s, costs, stats, numer, lam, task: FusedTask, 
     return _stack(parts)
 
 
-_TAIL_BATCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+_TAIL_BATCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
 
 
 def fused_tick_tail_batch(

@@ -266,7 +266,7 @@ def lbps_lambda_fused(
 
 _SEARCH_BATCH_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3
-    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_void_p]
 )
 
 

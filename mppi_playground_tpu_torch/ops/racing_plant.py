@@ -27,9 +27,9 @@ from mppi_playground_tpu_torch.ops import cuda_build
 from mppi_playground_tpu_torch.utils import timing
 
 # states, batch stride, row stride, actions, batch stride, row stride, K, R,
-# x_lo, x_hi, y_lo, y_hi, out, stream
+# x_lo, x_hi, y_lo, y_hi, out
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int64] * 2) * 2 + [ctypes.c_int] * 2 + [
-    ctypes.c_float] * 4 + [ctypes.c_void_p] * 2
+    ctypes.c_float] * 4 + [ctypes.c_void_p]
 
 Limits = Tuple[float, float]
 

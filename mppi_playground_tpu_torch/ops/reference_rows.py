@@ -26,8 +26,8 @@ import torch
 from mppi_playground_tpu_torch.ops import cuda_build
 from mppi_playground_tpu_torch.utils import timing
 
-# states, path, cinds, dinds, v_max, N, R, B, xrefs, inds, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+# states, path, cinds, dinds, v_max, N, R, B, xrefs, inds
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
 
 @timing.counted_launches("reference_rows")

@@ -97,8 +97,7 @@ def xla_weighted_update(
     return update, weights, ess
 
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-_BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+_BATCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
 
 @timing.counted_launches("weighted_update_batch")

@@ -646,7 +646,7 @@ def _sweep(symbol, counts, *args):
     from mppi_playground_tpu_torch.ops import cuda_build
 
     out = torch.zeros(counts, dtype=torch.int64, device="cuda")
-    cuda_build.launch("exact_checks", symbol, [ctypes.c_void_p] * (len(args) + 2), out.device,
+    cuda_build.launch("exact_checks", symbol, [ctypes.c_void_p] * (len(args) + 1), out.device,
                       *args, out.data_ptr())
     return out.tolist()
 
