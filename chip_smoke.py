@@ -61,7 +61,18 @@ Phases, each of which fails the run if it fails:
    the bound; every racing path of phases 6-15 counts its launches: one a
    plant step (eager, or in the fleet's and the episodes' graphs), 2T a
    solve on the unfused route (the rollout, the nominal re-roll), T a
-   posterior of ``get_samples_from_posterior``;
+   posterior of ``get_samples_from_posterior``; 5d, the MPCC stage cost's
+   kernel (:func:`check_mpcc_cost`): ``make_mpcc_cost`` against
+   ``make_mpcc_cost_plain``'s torch ops on the same card tensors
+   (:func:`mpcc_cost_inputs`: each map's first and last cells, half-cell
+   boundaries, positions far off the maps, NaN and infinite entries) at R =
+   1, 32 and 4,000 on the racing maps and on two maps of other rasters, from
+   an expanded state and every column of a sequence of actions, under
+   ``torch.func.vmap`` at B=8 x K=4,096 (each scenario its own reference) and
+   from a CUDA graph replayed with new inputs, bit for bit and NaN where they
+   give NaN, one launch a call; timed by graph replay at each R beside the
+   torch ops and the bound; every racing path of phases 6-15 counts its
+   launches: T+1 a solve on the unfused route, none on the fused one;
 6. drive the flagship, ``build_flagship(device="cuda")``, at its fixed
    lambda and under ESSPS, LBPS and MPO (the solver's default lambda route),
    and ESSPS and LBPS forced onto the lambda epilogue and onto the
@@ -220,6 +231,7 @@ from portbench.bounds import (
     OPS_NORMAL_PAIR,
     OPS_PERTURB,
     OPS_SCALE,
+    OPS_SINCOS,
     PEAK_BYTES_PER_S,  # noqa: F401  (the tests' bounds read it here)
     RACING,
     ModelOps,
@@ -550,12 +562,14 @@ def launch_counters(plugs=()) -> dict:
     those of ``plugs``, the ``ModelPlug`` objects given.
 
     The fused-solve wrappers count their launches in a Counter under each
-    kernel's name (``key``); the search, weighted-update, reference-rows and
-    racing-plant wrappers, one kernel each, in an int (``key`` None).
+    kernel's name (``key``); the search, weighted-update, reference-rows,
+    racing-plant and MPCC-cost wrappers, one kernel each, in an int (``key``
+    None).
     """
     from mppi_playground_tpu_torch.ops import (
         fused_solve,
         lambda_search,
+        mpcc_cost,
         racing_plant,
         reference_rows,
         weighted_update,
@@ -570,6 +584,7 @@ def launch_counters(plugs=()) -> dict:
     counted["weighted_update_partials"] = (weighted_update.weighted_update_partials, None)
     counted["reference_rows"] = (reference_rows.reference_rows, None)
     counted["racing_plant"] = (racing_plant.racing_plant, None)
+    counted["mpcc_cost"] = (mpcc_cost.mpcc_cost, None)
     return counted
 
 
@@ -579,6 +594,9 @@ REFERENCE_ROWS = frozenset({"reference_rows"})
 # the racing plant's kernel: once a step of RacingEnv.dynamics (env.step, a closed loop's
 # plant, each step of the unfused route's rollout and nominal re-roll)
 RACING_PLANT = frozenset({"racing_plant"})
+# the unfused route's MPCC cost: T+1 launches a solve (models/racing_mpcc.make_mpcc_cost on the
+# card), none on the fused route
+MPCC_COST = frozenset({"mpcc_cost"})
 
 
 def racing_plant_launches(ticks: int, horizon: int, unfused: bool, steps: int) -> int:
@@ -646,7 +664,8 @@ def counter_of(kernel: str, plugs=()):
                               ("search_kernel<false>", "essps_lambda_fused"),
                               ("search_kernel<true>", "lbps_lambda_fused"),
                               ("reference_rows_kernel(", "reference_rows"),
-                              ("racing_plant_kernel(", "racing_plant")):
+                              ("racing_plant_kernel(", "racing_plant"),
+                              ("mpcc_cost_kernel(", "mpcc_cost")):
         if function in kernel:
             return counter
     for function, suffix in KERNEL_FUNCTIONS:
@@ -1447,6 +1466,242 @@ def check_racing_plant(torch, env, card):
                       rows=PLANT_ROWS[-1], by_rows=timed, rows_checked=checked)
 
 
+# Float operations a row of the MPCC stage cost (csrc/mpcc_cost.cu; counted as portbench/bounds.py
+# counts): the path, velocity and input terms and the sums 31, each map's cell 6 and their sum and
+# weight 2, and the reference yaw's sine and cosine
+OPS_MPCC_COST = 31 + 2 * 6 + 2 + OPS_SINCOS
+COST_ROWS = PLANT_ROWS  # a single row, the fleet's batch, the unfused K
+COST_VMAP = PLANT_VMAP  # B x K of a vmapped call: an unfused racing fleet
+
+
+def mpcc_cost_bound_ms(rows: int, groups: int = 1) -> tuple:
+    """Least time of the MPCC stage cost on ``rows`` rows in ``groups`` groups: each state
+    (16 bytes), action (8), previous action (8) and two grid cells (8) read once, each group's
+    reference row (16) once, each cost (4) written; :data:`OPS_MPCC_COST` a row."""
+    return _bound(40 * rows + 16 * groups, 4 * rows, OPS_MPCC_COST * rows)
+
+
+def mpcc_cost_launches(ticks: int, horizon: int, unfused: bool) -> int:
+    """The MPCC cost's launches over ``ticks`` solves: T+1 a solve on the unfused route (T
+    stage costs and the terminal one), none on the fused one (its kernels cost in the
+    rollout)."""
+    return ticks * (horizon + 1) * unfused
+
+
+def mpcc_cost_edges(x_lim, y_lim, cell: float) -> list:
+    """The cost's edge rows ``(x, y, theta, v, u0, u1, p0, p1)`` on a map of ``cell`` whose
+    cell 0 lies at the lower limits: the first and last cells of each axis, positions on the
+    half-cell boundaries at and beyond both edges and at the centre, positions far off the map
+    (past int64, at float32's largest), a NaN row and a NaN in each entry alone, infinite
+    positions, speeds and actions (an infinite action less its infinite previous action is
+    NaN)."""
+    nan, inf, big = float("nan"), float("inf"), 3.0e38
+    (x_lo, x_hi), (y_lo, y_hi) = x_lim, y_lim
+    rows = [(x_lo, y_lo), (x_hi - cell, y_hi - cell), (x_lo, y_hi - cell), (x_hi - cell, y_lo),
+            (x_lo + 0.5 * cell, 0.0), (x_lo - 0.5 * cell, 1.0), (x_lo - 1.5 * cell, 2.0),
+            (x_hi - 0.5 * cell, 0.0), (x_hi + 0.5 * cell, -1.0), (0.0, y_lo + 0.5 * cell),
+            (1.0, y_lo - 0.5 * cell), (2.0, y_hi - 0.5 * cell), (-3.0, y_hi - 1.5 * cell),
+            (0.5 * cell, -0.5 * cell), (1.5 * cell, 2.5 * cell), (-2.5 * cell, 3.5 * cell),
+            (x_lo - 0.4 * cell, y_lo - 0.6 * cell), (x_hi - 0.6 * cell, y_hi - 0.4 * cell),
+            (1e10, 0.0), (0.0, -1e20), (big, -big), (x_hi + 1.0, y_lo - 1.0)]
+    out = [(x, y, 0.3, 4.0, 0.5, -0.1, 0.2, 0.05) for x, y in rows]
+    out += [
+        (nan, nan, nan, nan, nan, nan, nan, nan),
+        (nan, 1.0, 0.2, 2.0, 0.1, 0.1, 0.0, 0.0), (1.0, nan, 0.2, 2.0, 0.1, 0.1, 0.0, 0.0),
+        (1.0, 1.0, nan, 2.0, 0.1, 0.1, 0.0, 0.0), (1.0, 1.0, 0.2, nan, 0.1, 0.1, 0.0, 0.0),
+        (1.0, 1.0, 0.2, 2.0, nan, 0.1, 0.0, 0.0), (1.0, 1.0, 0.2, 2.0, 0.1, nan, 0.0, 0.0),
+        (1.0, 1.0, 0.2, 2.0, 0.1, 0.1, nan, 0.0), (1.0, 1.0, 0.2, 2.0, 0.1, 0.1, 0.0, nan),
+        (inf, 1.0, 0.2, 2.0, 0.1, 0.1, 0.0, 0.0), (1.0, -inf, 0.2, 2.0, 0.1, 0.1, 0.0, 0.0),
+        (1.0, 1.0, inf, 2.0, 0.1, 0.1, 0.0, 0.0), (1.0, 1.0, 0.2, inf, 0.1, 0.1, 0.0, 0.0),
+        (1.0, 1.0, 0.2, 2.0, inf, 0.1, 0.0, 0.0), (1.0, 1.0, 0.2, 2.0, 0.1, -inf, 0.0, inf),
+        (1.0, 1.0, 0.2, 2.0, inf, 0.1, inf, 0.0),
+    ]
+    return out
+
+
+def mpcc_cost_inputs(torch, rows: int, seed: int, x_lim, y_lim, cell: float) -> tuple:
+    """``(states [rows, 4], actions [rows, 2], prev_actions [rows, 2])`` on the CPU: the edge
+    rows first (:func:`mpcc_cost_edges`), then rows drawn from the seed over and beyond the map,
+    the speed and the actions' clamps."""
+    (x_lo, x_hi), (y_lo, y_hi) = x_lim, y_lim
+    edges = mpcc_cost_edges(x_lim, y_lim, cell)
+    g = torch.Generator().manual_seed(seed)
+    drawn = torch.rand(max(rows - len(edges), 0), 8, generator=g)
+    lo = torch.tensor([x_lo - 5.0, y_lo - 5.0, -4.0, -9.0, -3.0, -0.4, -3.0, -0.4])
+    hi = torch.tensor([x_hi + 5.0, y_hi + 5.0, 4.0, 9.0, 3.0, 0.4, 3.0, 0.4])
+    table = torch.cat([torch.tensor(edges, dtype=torch.float32), lo + drawn * (hi - lo)])[:rows]
+    return table[:, :4].contiguous(), table[:, 4:6].contiguous(), table[:, 6:].contiguous()
+
+
+def mpcc_reference_path(torch, rows: int, seed: int, x_lim, y_lim):
+    """A reference path ``[rows, 4]`` (x, y, yaw, v) on the CPU: positions on the map, yaws
+    at and beyond +-pi, the velocity column 0 or the speed limit, as the reference rows give
+    it."""
+    import math
+
+    from mppi_playground_tpu_torch.models import bicycle
+
+    (x_lo, x_hi), (y_lo, y_hi) = x_lim, y_lim
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand(rows, 4, generator=g)
+    path = torch.stack([x_lo + u[:, 0] * (x_hi - x_lo), y_lo + u[:, 1] * (y_hi - y_lo),
+                        -4.0 + 8.0 * u[:, 2], (u[:, 3] < 0.8).float() * bicycle.V_MAX], dim=1)
+    path[0, 2], path[-1, 2] = math.pi, -math.pi
+    return path
+
+
+def other_rasters(torch, seed: int, device):
+    """Two grid maps on rasters of their own, unlike the racing maps and unlike each other:
+    ``(obstacle, lane)`` of 300 x 200 cells of 0.25 m at origin (150, 60.5), and of a 500 x
+    700 grid's transpose (strides (1, 700)) of 0.15 m cells at origin (350, 250); their cells
+    0, 0.5 or 1."""
+    from mppi_playground_tpu_torch.maps.grid_cost import GridMapData
+
+    g = torch.Generator().manual_seed(seed)
+    values = torch.tensor([0.0, 0.5, 1.0])
+    first = values[torch.randint(0, 3, (300, 200), generator=g)]
+    second = values[torch.randint(0, 3, (500, 700), generator=g)].to(device).t()
+    return (GridMapData(first.to(device), torch.tensor([150.0, 60.5], device=device), 0.25),
+            GridMapData(second, torch.tensor([350.0, 250.0], device=device), 0.15))
+
+
+def check_mpcc_cost(torch, env, card):
+    """Phase 5d: the MPCC stage cost's kernel against the torch ops of ``make_mpcc_cost`` on
+    the card.
+
+    ``make_mpcc_cost`` (the kernel) against ``make_mpcc_cost_plain`` on the
+    same card tensors (:func:`mpcc_cost_inputs`: the maps' first and last
+    cells, half-cell boundaries, far off-map positions, NaN and infinite
+    entries), costs bit for bit and NaN where they give NaN
+    (:func:`same_steps`), one launch a call: at each R of :data:`COST_ROWS`
+    on the racing maps and on two maps of other rasters
+    (:func:`other_rasters`); from ``x0.expand(K, 4)`` and each column of a
+    sequence of actions at T=25, K=4,000, as the unfused rollout costs
+    (the terminal cost on zeros); under ``torch.func.vmap`` at B x K =
+    :data:`COST_VMAP`, each scenario against its own reference path (one
+    launch for the B groups); and captured in a CUDA graph, replayed with
+    new inputs.  Then each R timed by graph replay beside the torch ops and
+    :func:`mpcc_cost_bound_ms`.  Returns the kernels-line row, or None after
+    a failure.
+    """
+    from mppi_playground_tpu_torch.models.racing_mpcc import make_mpcc_cost, make_mpcc_cost_plain
+    from mppi_playground_tpu_torch.ops.mpcc_cost import mpcc_cost
+
+    x_lim, y_lim = tuple(env.obstacle_map.x_lim), tuple(env.obstacle_map.y_lim)
+    cell = float(env.obstacle_cost_map.cell_size)
+    horizon = FLEET_T
+    path = mpcc_reference_path(torch, horizon + 1, SEED, x_lim, y_lim).cuda()
+    rasters = {"racing maps": (env.obstacle_cost_map, env.lane_cost_map),
+               "other rasters": other_rasters(torch, SEED, "cuda")}
+
+    def inputs(rows, seed):
+        return (t.cuda() for t in mpcc_cost_inputs(torch, rows, seed, x_lim, y_lim, cell))
+
+    def held(label, call, want, launches):
+        mpcc_cost.launches = 0
+        got = call()
+        if mpcc_cost.launches != launches or not same_steps(torch, got, want):
+            fail(f"MPCC cost, {label}: {mpcc_cost.launches} launches (want {launches}), or the "
+                 "costs not bit for bit the torch ops")
+            return False
+        return True
+
+    checked = 0
+    for name, maps in rasters.items():
+        cost, plain = make_mpcc_cost(*maps), make_mpcc_cost_plain(*maps)
+        for rows in COST_ROWS:
+            xs, us, ps = inputs(rows, SEED + rows)
+            for t in (0, 7, horizon):
+                info = {"reference_path": path, "t": t, "prev_action": ps}
+                if not held(f"{name}, R={rows}, t={t}", lambda: cost(xs, us, info),
+                            plain(xs, us, ps, path[t]), 1):
+                    return None
+                checked += rows
+    cost, plain = make_mpcc_cost(*rasters["racing maps"]), make_mpcc_cost_plain(
+        *rasters["racing maps"])
+    rows = COST_ROWS[-1]
+    xs, _, _ = inputs(rows, SEED)
+    _, seqs, _ = inputs(rows * horizon, SEED + 1)
+    x0, seqs = xs[-1], seqs.reshape(rows, horizon, 2)
+    for t in range(horizon + 1):
+        u = seqs[:, t] if t < horizon else torch.zeros_like(seqs[:, 0])
+        prev = seqs[:, max(t - 1, 0)] if t < horizon else seqs[:, max(horizon - 2, 0)]
+        info = {"reference_path": path, "t": min(t, horizon - 1), "prev_action": prev}
+        x = x0.expand(rows, 4)
+        if not held(f"expanded state, column {t} of the actions", lambda: cost(x, u, info),
+                    plain(x, u, prev, path[info["t"]]), 1):
+            return None
+    checked += rows * (horizon + 1)
+    batch, per = COST_VMAP
+    paths = torch.stack([mpcc_reference_path(torch, horizon + 1, SEED + 2 + b, x_lim, y_lim)
+                         for b in range(batch)]).cuda()
+    xs, us, ps = (t.reshape(batch, per, -1) for t in inputs(batch * per, SEED + 2))
+
+    def on_groups(x, u, p, ref_path, t):
+        return cost(x, u, {"reference_path": ref_path, "t": t, "prev_action": p})
+
+    if not held(f"vmapped, B={batch} x K={per}",
+                lambda: torch.func.vmap(lambda x, u, p, r: on_groups(x, u, p, r, 3))(
+                    xs, us, ps, paths),
+                torch.stack([plain(xs[b], us[b], ps[b], paths[b, 3]) for b in range(batch)]), 1):
+        return None
+    _, seqs, _ = inputs(batch * per * horizon, SEED + 3)
+    seqs = seqs.reshape(batch, per, horizon, 2)
+    for t in (0, horizon - 1):
+        def vmapped(t=t):
+            return torch.func.vmap(lambda x0, seq, r: on_groups(
+                x0.expand(per, 4), seq[:, t], seq[:, max(t - 1, 0)], r, t))(xs[:, 0], seqs, paths)
+
+        want = torch.stack([plain(xs[b, 0].expand(per, 4), seqs[b, :, t],
+                                  seqs[b, :, max(t - 1, 0)], paths[b, t]) for b in range(batch)])
+        if not held(f"vmapped from expanded states, column {t}", vmapped, want, 1):
+            return None
+    checked += 3 * batch * per
+    static = [torch.zeros(REF_ROWS_FLEET_B, 4, device="cuda"),
+              torch.zeros(REF_ROWS_FLEET_B, horizon, 2, device="cuda"),
+              torch.zeros(horizon + 1, 4, device="cuda")]
+
+    def static_call():
+        return cost(static[0], static[1][:, 3], {"reference_path": static[2], "t": 3,
+                                                 "prev_action": static[1][:, 2]})
+
+    graph, out = captured(torch, static_call, 1)
+    for seed in range(3):
+        xs, us, _ = mpcc_cost_inputs(torch, REF_ROWS_FLEET_B * (horizon + 1), SEED + 10 + seed,
+                                     x_lim, y_lim, cell)
+        static[0].copy_(xs[:REF_ROWS_FLEET_B])
+        static[1].copy_(us[:REF_ROWS_FLEET_B * horizon].reshape(REF_ROWS_FLEET_B, horizon, 2))
+        static[2].copy_(mpcc_reference_path(torch, horizon + 1, SEED + 20 + seed, x_lim, y_lim))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not same_steps(torch, out, plain(static[0], static[1][:, 3], static[1][:, 2],
+                                            static[2][3])):
+            fail(f"MPCC cost: replay {seed} of a captured call not bit for bit the torch ops")
+            return None
+        checked += REF_ROWS_FLEET_B
+    timed = {}
+    for rows in COST_ROWS:
+        xs, us, ps = inputs(rows, SEED + rows)
+        info = {"reference_path": path, "t": 3, "prev_action": ps}
+        bound, by = mpcc_cost_bound_ms(rows)
+        timed[rows] = dict(ms=graph_ms(torch, lambda: cost(xs, us, info), 200),
+                           plain_ms=graph_ms(torch, lambda: plain(xs, us, ps, path[3]), 50),
+                           bound_ms=bound, bound_by=by)
+    print(f"MPCC cost on {card}: {checked} rows bit for bit the torch ops (NaN where they give "
+          "NaN; R = " + ", ".join(str(r) for r in COST_ROWS) + f" on the racing maps and on "
+          f"other rasters, an expanded state and {horizon + 1} action columns at "
+          f"K={COST_ROWS[-1]}, vmapped at B={batch} x K={per}, a graph replayed), one launch a "
+          "call; graph replay: " + "; ".join(
+              f"R={r} {1e3 * t['ms']:.3f} us (torch ops {1e3 * t['plain_ms']:.3f} us, bound "
+              f"{1e3 * t['bound_ms']:.5f} us, {t['bound_by']})" for r, t in timed.items()),
+          flush=True)
+    main = timed[COST_ROWS[-1]]
+    return kernel_row("mpcc_cost", "mpcc_cost.cu",
+                      "mppi_playground_tpu/models/racing_mpcc.py make_mpcc_cost (XLA ops)", 0.0,
+                      main["ms"], main["plain_ms"], main["bound_ms"], main["bound_by"],
+                      rows=COST_ROWS[-1], by_rows=timed, rows_checked=checked)
+
+
 def check_regen(torch, fused_solve, x0, prev, noise, xref5, task, seed, sig, u_min, u_max,
                 weights, card):
     """Row 6 at T=50, K=100,000, seeded and in noise mode, against the twins.
@@ -1597,6 +1852,7 @@ def drive_facades(torch, env, card):
         want = {name: TICKS + 2 for name in once}
         want["racing_plant"] = racing_plant_launches(TICKS + 2, ctrl.config.horizon, not fused,
                                                      TICKS)
+        want["mpcc_cost"] = mpcc_cost_launches(TICKS + 2, ctrl.config.horizon, not fused)
         launches = path_launches(f"RacingController {route}", counted, [trace], want)
         if launches is None:
             return None
@@ -1683,6 +1939,7 @@ def drive_mppi(torch, env, task, card):
             # the plant a call, and the posterior's states predicted from its 100 samples
             want_once["racing_plant"] = racing_plant_launches(calls, horizon, route == "xla",
                                                               calls) + horizon
+            want_once["mpcc_cost"] = mpcc_cost_launches(calls, horizon, route == "xla")
             want = {name: want_once.get(name, 0) for name in counted}
             lam = c.lambda_
             ok = (torch.isfinite(action_seq).all() and torch.isfinite(seqs).all()
@@ -2931,6 +3188,7 @@ def facade_episodes(torch, env, card):
         want = {name: 2 * EPISODE_TICKS for name in once}
         want["racing_plant"] = racing_plant_launches(2 * EPISODE_TICKS, ctrl.config.horizon,
                                                      not fused, 2 * EPISODE_TICKS)
+        want["mpcc_cost"] = mpcc_cost_launches(2 * EPISODE_TICKS, ctrl.config.horizon, not fused)
         launches = path_launches(label, counted, [first, second], want)
         if launches is None:
             return None
@@ -3314,6 +3572,7 @@ def racing_fleets(torch, env, card):
                               else fleet_kernels("racing", batched.config)) | REFERENCE_ROWS, 1)
         # the plant a tick; under vmap the rollout and the re-roll a launch a step for all B
         once["racing_plant"] = racing_plant_launches(1, FLEET_T, unfused, 1)
+        once["mpcc_cost"] = mpcc_cost_launches(1, FLEET_T, unfused)  # under vmap, for all B
         res = drive_fleet(torch, label, batched, env.dynamics, x0s, cinds, info_batch,
                           plant_one, info_one, UNFUSED_FLEET_TICKS if unfused else FLEET_TICKS,
                           card, turns=turns, once=once, trace_looped=not unfused)
@@ -4027,9 +4286,9 @@ def fleets_alone() -> int:
 
 def tpu_row(name: str):
     """The row of PERF.md's table of TPU kernels that kernel ``name`` ports; None for the
-    reference rows and the racing plant, which port XLA's ops (the JAX package has no kernel
-    for them)."""
-    if name in ("reference_rows", "racing_plant"):
+    reference rows, the racing plant and the MPCC cost, which port XLA's ops (the JAX package
+    has no kernel for them)."""
+    if name in ("reference_rows", "racing_plant", "mpcc_cost"):
         return None
     for part, row in (("_fused_solve", 1), ("_reroll", 2), ("_tick_tail", 2),
                       ("_costs_dump_lambda", 4),
@@ -4570,14 +4829,14 @@ EXAMPLE_RUNS = (
     ("danger_zone example --episode", "goal_in_danger_zone",
      dict(max_steps=10, render=False, episode=True), UNFUSED_M2),
     ("racing example", "racing", dict(max_steps=10, render=False),
-     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT),
+     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT | MPCC_COST),
     ("racing example --fused", "racing", dict(max_steps=10, render=False, fused=True),
      {"racing_fused_solve", "racing_tick_tail", "racing_top_rollouts"} | REFERENCE_ROWS
      | RACING_PLANT),
     ("racing example --episode", "racing", dict(max_steps=10, render=False, episode=True),
-     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT),
+     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT | MPCC_COST),
     ("racing example --pipelined 2", "racing", dict(max_steps=10, render=False, pipelined=2),
-     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT),
+     UNFUSED_M2 | REFERENCE_ROWS | RACING_PLANT | MPCC_COST),
     ("mujoco example", "mujoco_cartpole", dict(steps=10, render=False), UNFUSED_M1),
     ("make_media example --fast", "make_media", dict(argv=["--fast", "--out", None]), UNFUSED_M1),
 )
@@ -5657,6 +5916,9 @@ def main() -> int:
     plant_row = check_racing_plant(torch, env, card)
     if plant_row is None:
         return 1
+    cost_row = check_mpcc_cost(torch, env, card)
+    if cost_row is None:
+        return 1
 
     # --- phase 6: the flagship under each mode, counted ----------------------
     env, solver, tick = build_flagship(horizon=T, num_samples=K, env=env, device="cuda")
@@ -5872,7 +6134,8 @@ def main() -> int:
             "checks": tail_checks,
         },
     ] + auto["kernels"] + row6 + [row9, racing_epilogue_row] + list(model_rows.values()) + [
-        regen_rows["m1_regen"]] + list(plugs["rows"].values()) + [ref_rows_row, plant_row]
+        regen_rows["m1_regen"]] + list(plugs["rows"].values()) + [ref_rows_row, plant_row,
+                                                                     cost_row]
     sharded_rows = {"racing_fused_solve": "row1", "racing_costs_dump": "row3",
                     "fused_weighted": "row5"}
     for k in kernels:

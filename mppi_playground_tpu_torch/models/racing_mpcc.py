@@ -5,7 +5,10 @@ Counterpart of ``mppi_playground_tpu/models/racing_mpcc.py``:
 * :func:`make_mpcc_cost` — contouring/lag error against the per-step
   reference pose, velocity tracking, the obstacle and lane map penalty,
   input and delta-input costs (Qc=2, Ql=3, Qv=2, Qo=1e4, Qin=0.01,
-  Qdin=0.5), on ``[K, 4]`` states for the unfused solver.
+  Qdin=0.5), on ``[K, 4]`` states for the unfused solver.  States on a
+  CUDA device with two grid maps take one launch of ``ops/mpcc_cost``
+  (``csrc/mpcc_cost.cu``), which raises on what it does not take; elsewhere
+  the torch ops of :func:`make_mpcc_cost_plain`.
 * :func:`make_mpcc_cost_soa` — the same cost on component tensors, in the
   operation order of the fused CUDA kernel (``csrc/racing_model.cuh``); the
   kernel's plain twin traces it.
@@ -31,6 +34,7 @@ from mppi_playground_tpu_torch.maps.grid_cost import (
     map_query,
 )
 from mppi_playground_tpu_torch.models.bicycle import V_MAX
+from mppi_playground_tpu_torch.ops.mpcc_cost import stage_cost
 from mppi_playground_tpu_torch.ops.reference_rows import reference_rows
 from mppi_playground_tpu_torch.utils import timing
 
@@ -59,13 +63,42 @@ def make_mpcc_cost(
     Expects ``info['reference_path']`` ``[horizon+1, 4]`` (x, y, yaw,
     v_target) and the solver's ``info['t']`` / ``info['prev_action']``.  The
     maps are either form, :class:`GridMapData` or a feature map
-    (``maps/grid_cost.map_query``).
+    (``maps/grid_cost.map_query``).  With two :class:`GridMapData` maps the
+    cost takes ``ops/mpcc_cost.stage_cost``: one launch of
+    ``csrc/mpcc_cost.cu`` for states on a CUDA device (float32; anything else
+    there raises), the torch ops of :func:`make_mpcc_cost_plain` elsewhere.
+    A feature map takes the torch ops on any device.
     """
+    weights = (qc, ql, qv, qo, qin, qdin)
+    plain = make_mpcc_cost_plain(obstacle_map, lane_map, *weights)
+    grids = isinstance(obstacle_map, GridMapData) and isinstance(lane_map, GridMapData)
 
     def cost(state: torch.Tensor, action: torch.Tensor, info: dict) -> torch.Tensor:
         ref = info["reference_path"][info["t"]]
         prev_action = info["prev_action"]
+        if grids:
+            return stage_cost(state, action, prev_action, ref, plain, obstacle_map, lane_map,
+                              weights)
+        return plain(state, action, prev_action, ref)
 
+    return cost
+
+
+def make_mpcc_cost_plain(
+    obstacle_map: GridMapData,
+    lane_map: GridMapData,
+    qc: float = QC,
+    ql: float = QL,
+    qv: float = QV,
+    qo: float = QO,
+    qin: float = QIN,
+    qdin: float = QDIN,
+) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """:func:`make_mpcc_cost` in torch ops, on any device and dtype: ``plain(state [K, 4],
+    action [K, 2], prev_action [K, 2], ref [4])``, ``ref`` the tick's reference row (x, y,
+    yaw, v_target).  The CPU's route, and what the kernel is held against on the card."""
+
+    def plain(state, action, prev_action, ref):
         dx = state[:, 0] - ref[0]
         dy = state[:, 1] - ref[1]
         sin_yaw = torch.sin(ref[2])
@@ -85,7 +118,7 @@ def make_mpcc_cost(
 
         return path_cost + velocity_cost + obstacle_cost + input_cost
 
-    return cost
+    return plain
 
 
 def make_mpcc_cost_soa(

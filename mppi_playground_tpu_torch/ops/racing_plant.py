@@ -84,9 +84,10 @@ def _batch_first(t: torch.Tensor, dim, batch: int) -> torch.Tensor:
     return t.expand(batch, *t.shape) if dim is None else t.movedim(dim, 0)
 
 
-def _groups(t: torch.Tensor) -> torch.Tensor:
-    """``t [B, ..., K, n]`` as ``[B', K, n]``: the batch dimensions of nested vmaps folded."""
-    return t.flatten(0, -3) if t.dim() > 3 else t
+def _groups(t: torch.Tensor, dims: int = 2) -> torch.Tensor:
+    """``t [B, ..., *shape]``, ``shape`` its own ``dims`` dimensions (``[K, n]`` by default),
+    as ``[B', *shape]``: the batch dimensions of nested vmaps folded."""
+    return t.flatten(0, -dims - 1) if t.dim() > dims + 1 else t
 
 
 class _BicycleStep(torch.autograd.Function):

@@ -36,6 +36,9 @@ SEEN_ON_THE_CARD = {
     "long const*, float, int, int, float*, long*)": "reference_rows",
     "(anonymous namespace)::racing_plant_kernel(float const*, long, long, float const*, long, "
     "long, int, int, float, float, float, float, float*)": "racing_plant",
+    "(anonymous namespace)::mpcc_cost_kernel(float const*, long, long, float const*, long, long, "
+    "float const*, long, long, float const*, long, (anonymous namespace)::Map, (anonymous "
+    "namespace)::Map, (anonymous namespace)::Weights, int, int, float*)": "mpcc_cost",
     "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>, "
     "std::array<char*, 3ul> >(int, at::native::CUDAFunctor_add<float>, std::array<char*, 3ul>)":
         None,
@@ -61,7 +64,8 @@ def test_every_counter_is_reached_by_one_kernel_name():
     mapped = {chip_smoke.counter_of(n): want for n, want in names.items()}
     assert all(got == want for got, want in mapped.items())
     reached = set(mapped) | {"fused_weighted", "essps_lambda_fused", "lbps_lambda_fused",
-                             "weighted_update_partials", "reference_rows", "racing_plant"}
+                             "weighted_update_partials", "reference_rows", "racing_plant",
+                             "mpcc_cost"}
     assert reached == set(chip_smoke.launch_counters())
 
 
