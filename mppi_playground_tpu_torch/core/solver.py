@@ -72,6 +72,8 @@ SOLVE = timing.Span("solver.solve")
 ROLLOUT = timing.Span("solver.rollout")
 LAMBDA = timing.Span("solver.lambda")
 TAIL = timing.Span("solver.tail")
+DYNAMICS = timing.Span("solver.dynamics")
+COST = timing.Span("solver.cost")
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 CostFn = Callable[[torch.Tensor, torch.Tensor, Dict[str, Any]], torch.Tensor]
@@ -156,7 +158,11 @@ def _rollout_and_costs(
     user_info: Dict[str, Any],
     store_rollouts: bool,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Rollout with stage and terminal cost -> (costs [K], states [K, T+1, n] or None)."""
+    """Rollout with stage and terminal cost -> (costs [K], states [K, T+1, n] or None).
+
+    Each call of ``dynamics`` is the span ``solver.dynamics`` and each call of
+    ``cost_fn`` the span ``solver.cost``; the sums and the stack are outside them.
+    """
     horizon = action_seqs.shape[1]
     x = x0_batch
     x_prev = x0_batch
@@ -170,9 +176,12 @@ def _rollout_and_costs(
             initial_state=x0_batch,
             t=t,
         )
-        total = total + cost_fn(x, action_seqs[:, t], info)
+        with COST:
+            stage = cost_fn(x, action_seqs[:, t], info)
+        total = total + stage
         x_prev = x
-        x = dynamics(x, action_seqs[:, t])
+        with DYNAMICS:
+            x = dynamics(x, action_seqs[:, t])
         if store_rollouts:
             states.append(x)
 
@@ -183,7 +192,10 @@ def _rollout_and_costs(
         initial_state=x0_batch,
         t=horizon - 1,
     )
-    total = total + cost_fn(x, torch.zeros_like(action_seqs[:, 0]), terminal_info)
+    zero_action = torch.zeros_like(action_seqs[:, 0])
+    with COST:
+        terminal = cost_fn(x, zero_action, terminal_info)
+    total = total + terminal
     return total, (torch.stack(states, dim=1) if store_rollouts else None)
 
 
@@ -217,13 +229,15 @@ def make_init(config: MPPIConfig, device: torch.device):
 
 
 def make_states_prediction(config: MPPIConfig, dynamics: Dynamics):
-    """Nominal-trajectory re-roll of ``action_seqs [B, T, m]`` from ``x0 [n]``."""
+    """Nominal-trajectory re-roll of ``action_seqs [B, T, m]`` from ``x0 [n]``; each call of
+    ``dynamics`` is the span ``solver.dynamics``."""
 
     def states_prediction(x0: torch.Tensor, action_seqs: torch.Tensor) -> torch.Tensor:
         x = x0.to(config.dtype).expand(action_seqs.shape[0], config.dim_state)
         states = [x]
         for t in range(action_seqs.shape[1]):
-            x = dynamics(x, action_seqs[:, t])
+            with DYNAMICS:
+                x = dynamics(x, action_seqs[:, t])
             states.append(x)
         return torch.stack(states, dim=1)
 

@@ -43,6 +43,10 @@ tick      ``tick.capture``             a tick body captured in a graph
 solver    ``solver.reference_rows``    the racing reference rows
 solver    ``solver.solve``             a solve (one scenario or a fleet)
 solver    ``solver.rollout``           the unfused torch rollout and its costs
+solver    ``solver.dynamics``          a call of the user's ``dynamics`` in the unfused
+                                       rollout or the nominal re-roll
+solver    ``solver.cost``              a call of the user's ``cost_func`` in the unfused
+                                       rollout, the terminal call included
 solver    ``solver.lambda``            the λ search (rows 3, 4, 7, 5) or MPO's step
 solver    ``solver.tail``              the tail and the state advance (the key moves on)
 solver    ``solver.top_samples``       ``get_top_samples``: the fused route's top rows, or
@@ -51,7 +55,8 @@ solver    ``solver.top_indices``       the top n samples by weight (a stable sor
 solver    ``solver.top_rollouts``      the fused route's top rows regenerated and rolled
                                        out (row 6)
 kernels   ``kernel.<symbol>``          every hand kernel's launch (``ops/cuda_build``)
-plant     ``env.dynamics``             ``RacingEnv.dynamics``
+plant     ``env.dynamics``             ``RacingEnv.dynamics`` (inside ``solver.dynamics``
+                                       on the unfused route)
 ========  ===========================  ==============================================
 
 **The capture map.**  A replayed CUDA graph runs its kernels with no host
