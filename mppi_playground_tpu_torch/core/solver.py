@@ -40,7 +40,7 @@ the single solve's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -150,6 +150,29 @@ def state_key(state: MPPIState, device: torch.device) -> torch.Tensor:
     return make_key(state.seed, state.tick, device)
 
 
+def _ordered_sum(stages: List[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    """``zeros + stages[0] + stages[1] + ...`` added left to right, the zeros one per row of
+    ``like`` in its dtype: the serial adds, bit for bit.
+
+    On the card one launch: ``torch.cumsum`` of the stacked stages over their
+    first dimension, whose CUDA kernel for a dimension other than the
+    innermost keeps one accumulator a column, from 0, left to right, in the
+    sum's dtype; a single column is scanned as two, since CUDA scans a vector
+    by blocks from its first element.  On the CPU the serial adds (its
+    cumsum accumulates float in double).
+    """
+    if stages[0].is_cuda:
+        stacked = torch.stack(stages)
+        dtype = torch.promote_types(stacked.dtype, like.dtype)
+        if stacked.numel() == stacked.shape[0]:
+            return torch.cumsum(stacked.expand(-1, 2), 0, dtype=dtype)[-1, :1]
+        return torch.cumsum(stacked, 0, dtype=dtype)[-1]
+    total = torch.zeros(like.shape[0], dtype=like.dtype, device=like.device)
+    for stage in stages:
+        total = total + stage
+    return total
+
+
 def _rollout_and_costs(
     dynamics: Dynamics,
     cost_fn: CostFn,
@@ -161,12 +184,15 @@ def _rollout_and_costs(
     """Rollout with stage and terminal cost -> (costs [K], states [K, T+1, n] or None).
 
     Each call of ``dynamics`` is the span ``solver.dynamics`` and each call of
-    ``cost_fn`` the span ``solver.cost``; the sums and the stack are outside them.
+    ``cost_fn`` the span ``solver.cost``; the sum and the stack are outside them.
+    The costs are ``zeros + stage_0 + ... + stage_{T-1} + terminal``, added in
+    that order after the loop (:func:`_ordered_sum`: on the card one launch,
+    so that no add waits between one step's state and the next).
     """
     horizon = action_seqs.shape[1]
     x = x0_batch
     x_prev = x0_batch
-    total = torch.zeros(x0_batch.shape[0], dtype=x0_batch.dtype, device=x0_batch.device)
+    stages = []
     states = [x0_batch] if store_rollouts else None
     for t in range(horizon):
         info = dict(user_info)
@@ -177,8 +203,7 @@ def _rollout_and_costs(
             t=t,
         )
         with COST:
-            stage = cost_fn(x, action_seqs[:, t], info)
-        total = total + stage
+            stages.append(cost_fn(x, action_seqs[:, t], info))
         x_prev = x
         with DYNAMICS:
             x = dynamics(x, action_seqs[:, t])
@@ -194,9 +219,9 @@ def _rollout_and_costs(
     )
     zero_action = torch.zeros_like(action_seqs[:, 0])
     with COST:
-        terminal = cost_fn(x, zero_action, terminal_info)
-    total = total + terminal
-    return total, (torch.stack(states, dim=1) if store_rollouts else None)
+        stages.append(cost_fn(x, zero_action, terminal_info))
+    return (_ordered_sum(stages, x0_batch),
+            torch.stack(states, dim=1) if store_rollouts else None)
 
 
 def make_init(config: MPPIConfig, device: torch.device):
